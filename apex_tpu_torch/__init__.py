@@ -8,14 +8,23 @@ the code around the kernels is plain PyTorch.  Entry points run on the
 card unless the caller passes ``device="cpu"``, where each kernel's plain
 PyTorch version runs instead.
 
-Ported so far — the serving path:
+Ported so far — the serving path and the GPT training step:
 
-* :mod:`apex_tpu_torch.ops` — ``flash_attention`` (prefill) and
-  ``flash_decode`` (paged decode);
+* :mod:`apex_tpu_torch.ops` — ``flash_attention`` (prefill),
+  ``flash_decode`` (paged decode), ``flash_attention_qkv`` (packed
+  self-attention with its backward), ``layer_norm``, and the fused LM-head
+  cross-entropy;
 * :mod:`apex_tpu_torch.serving` — the paged KV pool, the decoder model,
-  the continuous-batching scheduler and ``ServingEngine``.
+  the continuous-batching scheduler and ``ServingEngine``;
+* :mod:`apex_tpu_torch.transformer` — the tensor-parallel layers at tp=1
+  and the standalone GPT (``transformer.testing``);
+* :mod:`apex_tpu_torch.optimizers`, :mod:`apex_tpu_torch.multi_tensor` —
+  ``FusedAdam``, global-norm clipping and the multi-tensor ops;
+* :mod:`apex_tpu_torch.examples.gpt.pretrain_gpt` — GPT pretraining on
+  one card.
 
 What is still to port, in order, is in ROADMAP.md.
 """
 
-__all__ = ["kernels", "ops", "serving"]
+__all__ = ["examples", "kernels", "multi_tensor", "ops", "optimizers",
+           "serving", "transformer"]

@@ -141,8 +141,4 @@ int flash_decode(int dtype, int d, int device, const void* q, const void* k_page
   return cudaErrorInvalidValue;
 }
 
-const char* flash_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
-}
-
 }  // extern "C"

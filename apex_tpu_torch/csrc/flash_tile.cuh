@@ -1,4 +1,5 @@
-// Shared tile machinery of flash_fwd.cu (prefill) and flash_decode.cu
+// Shared tile machinery of the attention forwards: flash_fwd.cu (prefill),
+// flash_qkv_fwd.cu (packed self-attention, training) and flash_decode.cu
 // (paged decode).
 //
 // One thread block of 128 threads owns BQ = 16 * RM query rows and walks
@@ -18,36 +19,24 @@
 
 #pragma once
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "common.cuh"
 
 namespace flash {
+
+using apex::load16;
+using apex::store;
+using apex::to_float;
 
 constexpr float kNegInf = -1e30f;
 constexpr int kThreads = 128;
 constexpr int kBK = 64;  // key/value columns per tile
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
-
-// 16 bytes of T from global memory, widened to fp32.
-__device__ __forceinline__ void load16(const float* src, float* dst) {
-  const float4 x = *reinterpret_cast<const float4*>(src);
-  dst[0] = x.x; dst[1] = x.y; dst[2] = x.z; dst[3] = x.w;
-}
-__device__ __forceinline__ void load16(const __nv_bfloat16* src, float* dst) {
-  const uint4 x = *reinterpret_cast<const uint4*>(src);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&x);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    dst[2 * i] = f.x;
-    dst[2 * i + 1] = f.y;
-  }
-}
+// The value of p that multiplies V: p itself, or p with attention dropout
+// applied (flash_fwd_kernel.cuh).  The running sum l always takes the
+// undropped p, so lse counts every visible column.
+struct NoDrop {
+  __device__ __forceinline__ float operator()(int, int, float p) const { return p; }
+};
 
 template <int D, int RM>
 struct Tile {
@@ -128,10 +117,12 @@ __device__ __forceinline__ void load_kv(float* Ks, float* Vs, const T* k, const 
 }
 
 // Fold one loaded tile into the running state.  live(i, j) says whether
-// this thread's row i may see tile column j.
-template <int D, int RM, typename Live>
+// this thread's row i may see tile column j; drop(i, j, p) gives the value
+// of p that multiplies V.
+template <int D, int RM, typename Live, typename Drop = NoDrop>
 __device__ __forceinline__ void attend_tile(Acc<D, RM>& a, const float* Qs, float* KPs,
-                                            const float* Vs, float scale, Live live) {
+                                            const float* Vs, float scale, Live live,
+                                            Drop drop = Drop()) {
   using TL = Tile<D, RM>;
   const int ty = threadIdx.x >> 3, tx = threadIdx.x & 7;
   float s[RM][8];
@@ -170,7 +161,7 @@ __device__ __forceinline__ void attend_tile(Acc<D, RM>& a, const float* Qs, floa
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const float p = (m_new <= kNegInf / 2) ? 0.f : expf(s[i][j] - m_new);
-      KPs[(ty * RM + i) * TL::PS + tx + 8 * j] = p;
+      KPs[(ty * RM + i) * TL::PS + tx + 8 * j] = drop(i, tx + 8 * j, p);
       sum += p;
     }
     sum += __shfl_xor_sync(0xffffffffu, sum, 1);
@@ -214,33 +205,7 @@ __device__ __forceinline__ void finish(const Acc<D, RM>& a, T* o, int64_t o_row_
   }
 }
 
-// Host side: raise the dynamic shared memory cap of one kernel instance on
-// the current device.  The cap is a per-device attribute, so it is set on
-// every launch (a cheap host call) rather than once per process.
-template <typename K>
-inline cudaError_t allow_smem(K kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes));
-}
-
-// Host side: make `device` current for the launch and give the caller's
-// current device back on every return path.
-class DeviceGuard {
- public:
-  explicit DeviceGuard(int device) {
-    err_ = cudaGetDevice(&prev_);
-    if (err_ == cudaSuccess && prev_ != device) err_ = cudaSetDevice(device);
-    else prev_ = -1;  // nothing to restore
-  }
-  ~DeviceGuard() {
-    if (prev_ >= 0) cudaSetDevice(prev_);
-  }
-  cudaError_t error() const { return err_; }
-
- private:
-  int prev_ = -1;
-  cudaError_t err_ = cudaSuccess;
-};
+using apex::allow_smem;
+using apex::DeviceGuard;
 
 }  // namespace flash

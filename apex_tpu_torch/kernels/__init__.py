@@ -4,15 +4,21 @@ Each :class:`~apex_tpu_torch.kernels._build.Kernel` wraps one C entry
 point of one ``csrc/*.cu`` source (built with ``nvcc`` at first use) and
 counts its launches.  The tensor-level wrappers that check arguments and
 fall back to the plain PyTorch versions for CPU tensors live beside those
-versions in :mod:`apex_tpu_torch.ops.attention`.
+versions in :mod:`apex_tpu_torch.ops.attention` and
+:mod:`apex_tpu_torch.ops.fused_layer_norm`.
 """
 
 import ctypes
 
+import torch
+
 from apex_tpu_torch.kernels._build import NvccError, Kernel, build_all, build_log
 
-_p, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_p, _i, _f, _u = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint32
 _strides = ctypes.POINTER(ctypes.c_int64)
+
+#: the element types every kernel is built for, as its ``dtype`` argument
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 #: flash_fwd.cu — flash attention forward (the prefill's attention)
 FLASH_FWD = Kernel("flash_fwd.cu", "flash_fwd", [
@@ -35,7 +41,46 @@ FLASH_DECODE = Kernel("flash_decode.cu", "flash_decode", [
     _f, _p,                     # scale, stream
 ])
 
-KERNELS = (FLASH_FWD, FLASH_DECODE)
+#: flash_qkv_fwd.cu — packed-QKV self-attention forward (training)
+FLASH_QKV_FWD = Kernel("flash_qkv_fwd.cu", "flash_qkv_fwd", [
+    _i, _i, _i,                 # dtype, d, device
+    _p, _p, _p,                 # qkv, ctx, lse
+    _p, _p, _i,                 # seg_q, seg_k, seg_div
+    _i, _i, _i,                 # B, H, s
+    _f, _i,                     # scale, causal
+    _u, _u, _f,                 # dropout seed, threshold, keep prob
+    _p,                         # stream
+])
+
+#: flash_qkv_bwd.cu — its backward: dqkv in the packed layout
+FLASH_QKV_BWD = Kernel("flash_qkv_bwd.cu", "flash_qkv_bwd", [
+    _i, _i, _i,                 # dtype, d, device
+    _p, _p, _p, _p, _p, _p,     # qkv, dctx, ctx, lse, delta (scratch), dqkv
+    _p, _p, _i,                 # seg_q, seg_k, seg_div
+    _i, _i, _i,                 # B, H, s
+    _f, _i,                     # scale, causal
+    _u, _u, _f,                 # dropout seed, threshold, 1 / keep prob
+    _p,                         # stream
+])
+
+#: layer_norm.cu — row LayerNorm forward (y, mean, invvar)
+LAYER_NORM_FWD = Kernel("layer_norm.cu", "layer_norm_fwd", [
+    _i, _i,                     # dtype, device
+    _p, _p, _p,                 # x, weight, bias
+    _p, _p, _p,                 # y, mean, invvar
+    _i, _i, _f, _p,             # rows, cols, eps, stream
+])
+
+#: layer_norm.cu — its backward (dx; dweight, dbias by ordered partials)
+LAYER_NORM_BWD = Kernel("layer_norm.cu", "layer_norm_bwd", [
+    _i, _i,                     # dtype, device
+    _p, _p, _p, _p, _p,         # x, dy, mean, invvar, weight
+    _p, _p, _p, _p,             # dx, dweight, dbias, partials (scratch)
+    _i, _i, _p,                 # rows, cols, stream
+])
+
+KERNELS = (FLASH_FWD, FLASH_DECODE, FLASH_QKV_FWD, FLASH_QKV_BWD,
+           LAYER_NORM_FWD, LAYER_NORM_BWD)
 
 
 def reset_launch_counts() -> None:
@@ -43,5 +88,7 @@ def reset_launch_counts() -> None:
         k.launches = 0
 
 
-__all__ = ["NvccError", "Kernel", "build_all", "build_log", "FLASH_FWD",
-           "FLASH_DECODE", "KERNELS", "reset_launch_counts"]
+__all__ = ["NvccError", "Kernel", "build_all", "build_log", "DTYPE_CODES",
+           "FLASH_FWD", "FLASH_DECODE", "FLASH_QKV_FWD", "FLASH_QKV_BWD",
+           "LAYER_NORM_FWD", "LAYER_NORM_BWD", "KERNELS",
+           "reset_launch_counts"]

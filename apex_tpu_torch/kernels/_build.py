@@ -7,7 +7,10 @@ seconds, not minutes::
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
          -Xcompiler -fPIC -Xptxas -v -o <lib>.so csrc/<name>.cu
 
-All sources build at once, one ``nvcc`` process each.  Libraries land in
+All sources build at once, one ``nvcc`` process each.  Every source
+includes ``csrc/common.cuh``, so every library exports the one symbol
+``kernel_error_string`` that names a launcher's CUDA error code.
+Libraries land in
 ``apex_tpu_torch/_build/`` (git-ignored) under a name keyed by a hash of
 the sources and flags, so a stale library is never loaded.  Only the
 package's own sources are compiled; nothing is fetched.
@@ -135,7 +138,7 @@ class Kernel:
         fn = getattr(lib, self.symbol)
         fn.argtypes = self.argtypes
         fn.restype = ctypes.c_int
-        err = lib.flash_error_string
+        err = lib.kernel_error_string  # every source exports it (common.cuh)
         err.argtypes = [ctypes.c_int]
         err.restype = ctypes.c_char_p
         self._fn, self._errstr = fn, err

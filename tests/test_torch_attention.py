@@ -130,9 +130,15 @@ def test_flash_attention_mask_bias_on_cpu_matches_jax():
 
 
 def test_flash_attention_dropout_is_not_ported():
-    q = torch.zeros(1, 8, 8)
-    with pytest.raises(NotImplementedError):
+    # dropout is ported on the plain path only (csrc/flash_fwd.cu refuses
+    # it on the card, ROADMAP.md); there, as in the JAX package, it needs a
+    # seed, and a seeded call drops (test_torch_attention_qkv.py holds the
+    # masks against JAX bit for bit)
+    q = torch.randn(1, 8, 8)
+    with pytest.raises(ValueError):
         flash_attention(q, q, q, dropout_rate=0.1)
+    dropped = flash_attention(q, q, q, dropout_rate=0.5, dropout_seed=3)
+    assert not torch.equal(dropped, flash_attention(q, q, q))
 
 
 @pytest.mark.slow  # interpret-mode Pallas kernel, as the JAX suite marks it
