@@ -8,12 +8,16 @@ the code around the kernels is plain PyTorch.  Entry points run on the
 card unless the caller passes ``device="cpu"``, where each kernel's plain
 PyTorch version runs instead.
 
-Ported so far — the serving path and the GPT training step:
+Ported so far — the serving path, the GPT training step and the contrib
+multi-head attention training path:
 
-* :mod:`apex_tpu_torch.ops` — ``flash_attention`` (prefill),
+* :mod:`apex_tpu_torch.ops` — ``flash_attention`` with its backward
+  (prefill, the attention modules) and ``flash_attention_varlen``,
   ``flash_decode`` (paged decode), ``flash_attention_qkv`` (packed
   self-attention with its backward), ``layer_norm``, and the fused LM-head
   cross-entropy;
+* :mod:`apex_tpu_torch.contrib.multihead_attn` — ``SelfMultiheadAttn``
+  and ``EncdecMultiheadAttn``;
 * :mod:`apex_tpu_torch.serving` — the paged KV pool, the decoder model,
   the continuous-batching scheduler and ``ServingEngine``;
 * :mod:`apex_tpu_torch.transformer` — the tensor-parallel layers at tp=1
@@ -26,5 +30,5 @@ Ported so far — the serving path and the GPT training step:
 What is still to port, in order, is in ROADMAP.md.
 """
 
-__all__ = ["examples", "kernels", "multi_tensor", "ops", "optimizers",
-           "serving", "transformer"]
+__all__ = ["contrib", "examples", "kernels", "multi_tensor", "ops",
+           "optimizers", "serving", "transformer"]

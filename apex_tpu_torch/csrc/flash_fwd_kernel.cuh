@@ -1,7 +1,8 @@
-// The flash-attention forward block, shared by flash_fwd.cu (the serving
-// prefill, K1) and flash_qkv_fwd.cu (packed self-attention for training,
-// K3): softmax(q k^T * scale + masks) v and the fp32 log-sum-exp of every
-// row, with optional attention dropout.
+// The flash-attention forward block, shared by flash_fwd.cu (generic
+// attention, K1: the serving prefill and the multi-head attention modules)
+// and flash_qkv_fwd.cu (packed self-attention for training, K3):
+// softmax(q k^T * scale + mask_bias + masks) v and the fp32 log-sum-exp of
+// every row, with optional attention dropout.
 //
 // One block of 128 threads per (64-row q-block, batch*head) walks 64-column
 // k-tiles in order with an fp32 online softmax (flash_tile.cuh).  q, k, v,
@@ -14,12 +15,21 @@
 // array; the TPU kernels' 8-row lse slab is a Mosaic layout and is not
 // copied.
 //
+// Additive mask (MASK): fp32, read as a [B, H, sq, sk] view through four
+// strides that may be 0, so a [b, 1, 1, sk] key-padding mask or a
+// [1, 1, sq, sk] attention mask is never materialised per head.  It is
+// added to the scaled score before the segment and causal masks, as the
+// JAX package's _apply_masks orders them.
+//
 // Dropout (DROP): the keep bit of score (row, col) of batch-head bh comes
 // from the JAX package's counter hash at GLOBAL coordinates
 // (common.cuh::dropout_keep), so the backward redraws the same bits.  As on
 // the TPU (_make_fwd_kernel_qkv), p enters the running sum l before it is
 // dropped, so lse counts every visible column, and a kept p is divided by
 // keep_prob = 1 - rate before it multiplies V.
+//
+// MASK and DROP are template flags: the instance without either (the
+// serving prefill's) carries no code for them.
 
 #pragma once
 
@@ -32,14 +42,16 @@ namespace {
 using flash::kBK;
 using flash::kThreads;
 
-template <typename T, int D, bool DROP>
+template <typename T, int D, bool DROP, bool MASK>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                     T* __restrict__ o, float* __restrict__ lse, const int* __restrict__ seg_q,
+                     T* __restrict__ o, float* __restrict__ lse,
+                     const float* __restrict__ mask, const int* __restrict__ seg_q,
                      const int* __restrict__ seg_k, int seg_div, int H, int sq, int sk,
                      int64_t qsb, int64_t qsh, int64_t qss, int64_t ksb, int64_t ksh,
-                     int64_t kss, int64_t osb, int64_t osh, int64_t oss, float scale,
-                     int causal, uint32_t seed, uint32_t thresh, float keep_prob) {
+                     int64_t kss, int64_t osb, int64_t osh, int64_t oss, int64_t msb,
+                     int64_t msh, int64_t msq, int64_t msk, float scale, int causal,
+                     uint32_t seed, uint32_t thresh, float keep_prob) {
   constexpr int RM = 4;
   using TL = flash::Tile<D, RM>;
   extern __shared__ float smem[];
@@ -116,6 +128,7 @@ __global__ void __launch_bounds__(kThreads)
   acc.init();
   const T* kbase = k + b * ksb + h * ksh;
   const T* vbase = v + b * ksb + h * ksh;
+  const float* mbase = MASK ? mask + b * msb + h * msh : nullptr;
   for (int kb = lo; kb < hi; ++kb) {
     const int k0 = kb * kBK;
     const int ncols = min(kBK, sk - k0);
@@ -131,11 +144,22 @@ __global__ void __launch_bounds__(kThreads)
       return j < ncols && (!has_seg || my_seg[i] == seg_tile[j]) &&
              (!causal || row + (sk - sq) >= col);
     };
-    if constexpr (DROP) {
-      flash::attend_tile<D, RM>(acc, Qs, KPs, Vs, scale, live, [&](int i, int j, float p) {
-        const bool keep = apex::dropout_keep(seed, bh, q0 + ty * RM + i, k0 + j, thresh);
-        return keep ? p / keep_prob : 0.f;
-      });
+    // the additive mask of a visible pair (row < sq: a padding row of the
+    // last q-block reads nothing)
+    const auto bias = [&](int i, int j, float x) {
+      const int row = q0 + ty * RM + i;
+      return row < sq ? x + mbase[row * msq + (k0 + j) * msk] : x;
+    };
+    const auto drop = [&](int i, int j, float p) {
+      const bool keep = apex::dropout_keep(seed, bh, q0 + ty * RM + i, k0 + j, thresh);
+      return keep ? p / keep_prob : 0.f;
+    };
+    if constexpr (DROP && MASK) {
+      flash::attend_tile<D, RM>(acc, Qs, KPs, Vs, scale, live, drop, bias);
+    } else if constexpr (DROP) {
+      flash::attend_tile<D, RM>(acc, Qs, KPs, Vs, scale, live, drop);
+    } else if constexpr (MASK) {
+      flash::attend_tile<D, RM>(acc, Qs, KPs, Vs, scale, live, flash::NoDrop(), bias);
     } else {
       flash::attend_tile<D, RM>(acc, Qs, KPs, Vs, scale, live);
     }
@@ -144,21 +168,41 @@ __global__ void __launch_bounds__(kThreads)
                        lse + static_cast<int64_t>(bh) * sq + q0);
 }
 
-// Launch one instance on `stream`; st holds the q, k/v and o strides of
-// (b, h, s) in elements.  Returns cudaGetLastError() after the launch.
-template <typename T, int D, bool DROP>
-cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o, float* lse,
-                       const int* seg_q, const int* seg_k, int seg_div, int B, int H, int sq,
-                       int sk, const int64_t* st, float scale, int causal, uint32_t seed,
-                       uint32_t thresh, float keep_prob, cudaStream_t stream) {
+// What a launch of the forward block needs; pointers are untyped, the
+// instance casts them.
+struct FwdArgs {
+  const void* q;
+  const void* k;
+  const void* v;
+  void* o;
+  float* lse;
+  const float* mask;  // null: no additive mask
+  const int* seg_q;   // null: no segments
+  const int* seg_k;
+  int seg_div;
+  int B, H, sq, sk;
+  // strides in elements: q, k/v and o of (b, h, s); mask of (b, h, row, col)
+  int64_t q_st[3], kv_st[3], o_st[3], m_st[4];
+  float scale;
+  int causal;
+  uint32_t seed, thresh;  // dropout; thresh 0 with keep_prob 1: none
+  float keep_prob;
+};
+
+// Launch one instance on `stream`.  Returns cudaGetLastError() after the
+// launch.
+template <typename T, int D, bool DROP, bool MASK>
+cudaError_t launch_fwd(const FwdArgs& a, cudaStream_t stream) {
   using TL = flash::Tile<D, 4>;
-  const cudaError_t attr = flash::allow_smem(flash_fwd_kernel<T, D, DROP>, TL::kSmemBytes);
+  const cudaError_t attr = flash::allow_smem(flash_fwd_kernel<T, D, DROP, MASK>, TL::kSmemBytes);
   if (attr != cudaSuccess) return attr;
-  const dim3 grid((sq + TL::BQ - 1) / TL::BQ, B * H);
-  flash_fwd_kernel<T, D, DROP><<<grid, kThreads, TL::kSmemBytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), lse, seg_q, seg_k, seg_div, H, sq, sk, st[0], st[1], st[2], st[3],
-      st[4], st[5], st[6], st[7], st[8], scale, causal, seed, thresh, keep_prob);
+  const dim3 grid((a.sq + TL::BQ - 1) / TL::BQ, a.B * a.H);
+  flash_fwd_kernel<T, D, DROP, MASK><<<grid, kThreads, TL::kSmemBytes, stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+      static_cast<T*>(a.o), a.lse, a.mask, a.seg_q, a.seg_k, a.seg_div, a.H, a.sq, a.sk,
+      a.q_st[0], a.q_st[1], a.q_st[2], a.kv_st[0], a.kv_st[1], a.kv_st[2], a.o_st[0],
+      a.o_st[1], a.o_st[2], a.m_st[0], a.m_st[1], a.m_st[2], a.m_st[3], a.scale, a.causal,
+      a.seed, a.thresh, a.keep_prob);
   return cudaGetLastError();
 }
 

@@ -38,14 +38,13 @@ cudaError_t launch_qkv(const void* qkv, void* ctx, float* lse, const int* seg_q,
                        cudaStream_t stream) {
   const int64_t row = static_cast<int64_t>(H) * 3 * D;  // one token's qkv row
   const int64_t crow = static_cast<int64_t>(H) * D;     // one token's ctx row
-  // (b, h, s) strides of the q, k/v and ctx views
-  const int64_t st[9] = {s * row, 3 * D, row, s * row, 3 * D, row, s * crow, D, crow};
   const T* q = static_cast<const T*>(qkv);
-  if (thresh == 0 && keep_prob == 1.f)
-    return launch_fwd<T, D, false>(q, q + D, q + 2 * D, ctx, lse, seg_q, seg_k, seg_div, B, H,
-                                   s, s, st, scale, causal, 0u, 0u, 1.f, stream);
-  return launch_fwd<T, D, true>(q, q + D, q + 2 * D, ctx, lse, seg_q, seg_k, seg_div, B, H, s,
-                                s, st, scale, causal, seed, thresh, keep_prob, stream);
+  FwdArgs a{q, q + D, q + 2 * D, ctx, lse, nullptr, seg_q, seg_k, seg_div, B, H, s, s,
+            // (b, h, s) strides of the q, k/v and ctx views; no mask
+            {s * row, 3 * D, row}, {s * row, 3 * D, row}, {s * crow, D, crow}, {0, 0, 0, 0},
+            scale, causal, seed, thresh, keep_prob};
+  if (thresh == 0 && keep_prob == 1.f) return launch_fwd<T, D, false, false>(a, stream);
+  return launch_fwd<T, D, true, false>(a, stream);
 }
 
 }  // namespace

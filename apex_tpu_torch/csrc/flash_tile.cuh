@@ -38,6 +38,12 @@ struct NoDrop {
   __device__ __forceinline__ float operator()(int, int, float p) const { return p; }
 };
 
+// The scaled score of a visible pair before the masks: the score itself,
+// or the score plus an additive mask (flash_fwd_kernel.cuh).
+struct NoBias {
+  __device__ __forceinline__ float operator()(int, int, float s) const { return s; }
+};
+
 template <int D, int RM>
 struct Tile {
   static constexpr int BQ = 16 * RM;
@@ -117,12 +123,13 @@ __device__ __forceinline__ void load_kv(float* Ks, float* Vs, const T* k, const 
 }
 
 // Fold one loaded tile into the running state.  live(i, j) says whether
-// this thread's row i may see tile column j; drop(i, j, p) gives the value
+// this thread's row i may see tile column j; bias(i, j, s) gives a visible
+// pair's scaled score with its additive mask; drop(i, j, p) gives the value
 // of p that multiplies V.
-template <int D, int RM, typename Live, typename Drop = NoDrop>
+template <int D, int RM, typename Live, typename Drop = NoDrop, typename Bias = NoBias>
 __device__ __forceinline__ void attend_tile(Acc<D, RM>& a, const float* Qs, float* KPs,
                                             const float* Vs, float scale, Live live,
-                                            Drop drop = Drop()) {
+                                            Drop drop = Drop(), Bias bias = Bias()) {
   using TL = Tile<D, RM>;
   const int ty = threadIdx.x >> 3, tx = threadIdx.x & 7;
   float s[RM][8];
@@ -149,7 +156,7 @@ __device__ __forceinline__ void attend_tile(Acc<D, RM>& a, const float* Qs, floa
     float mx = kNegInf;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      s[i][j] = live(i, tx + 8 * j) ? s[i][j] * scale : kNegInf;
+      s[i][j] = live(i, tx + 8 * j) ? bias(i, tx + 8 * j, s[i][j] * scale) : kNegInf;
       mx = fmaxf(mx, s[i][j]);
     }
     mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));

@@ -20,14 +20,36 @@ _strides = ctypes.POINTER(ctypes.c_int64)
 #: the element types every kernel is built for, as its ``dtype`` argument
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-#: flash_fwd.cu — flash attention forward (the prefill's attention)
+#: flash_fwd.cu — flash attention forward (the prefill's attention and the
+#: generic ``flash_attention``)
 FLASH_FWD = Kernel("flash_fwd.cu", "flash_fwd", [
     _i, _i, _i,                 # dtype, d, device
     _p, _p, _p, _p, _p,         # q, k, v, o, lse
+    _p,                         # mask (fp32, or null)
     _p, _p, _i,                 # seg_q, seg_k, seg_div
     _i, _i, _i, _i,             # B, H, sq, sk
-    _strides,                   # int64[9]: q, k/v, o strides of (b, h, s)
-    _f, _i, _p,                 # scale, causal, stream
+    _strides,                   # int64[13]: q, k/v, o strides of (b, h, s),
+                                # mask strides of (b, h, row, col)
+    _f, _i,                     # scale, causal
+    _u, _u, _f,                 # dropout seed, threshold, keep prob
+    _p,                         # stream
+])
+
+#: flash_bwd.cu — its backward: dq, dk, dv
+FLASH_BWD = Kernel("flash_bwd.cu", "flash_bwd", [
+    _i, _i, _i,                 # dtype, d, device
+    _p, _p, _p, _p, _p,         # q, k, v, o, do
+    _p, _p,                     # lse, delta (scratch)
+    _p, _p, _p,                 # dq, dk, dv
+    _p,                         # mask (fp32, or null)
+    _p, _p, _i,                 # seg_q, seg_k, seg_div
+    _p,                         # visits (int32 tiles walked per block, or null)
+    _i, _i, _i, _i,             # B, H, sq, sk
+    _strides,                   # int64[22]: (b, h, s) of q, k/v, o, do, dq,
+                                # dk/dv; mask (b, h, row, col)
+    _f, _i,                     # scale, causal
+    _u, _u, _f,                 # dropout seed, threshold, 1 / keep prob
+    _p,                         # stream
 ])
 
 #: flash_decode.cu — attention over the paged KV pool (the decode step)
@@ -79,7 +101,7 @@ LAYER_NORM_BWD = Kernel("layer_norm.cu", "layer_norm_bwd", [
     _i, _i, _p,                 # rows, cols, stream
 ])
 
-KERNELS = (FLASH_FWD, FLASH_DECODE, FLASH_QKV_FWD, FLASH_QKV_BWD,
+KERNELS = (FLASH_FWD, FLASH_BWD, FLASH_DECODE, FLASH_QKV_FWD, FLASH_QKV_BWD,
            LAYER_NORM_FWD, LAYER_NORM_BWD)
 
 
@@ -89,6 +111,6 @@ def reset_launch_counts() -> None:
 
 
 __all__ = ["NvccError", "Kernel", "build_all", "build_log", "DTYPE_CODES",
-           "FLASH_FWD", "FLASH_DECODE", "FLASH_QKV_FWD", "FLASH_QKV_BWD",
+           "FLASH_FWD", "FLASH_BWD", "FLASH_DECODE", "FLASH_QKV_FWD", "FLASH_QKV_BWD",
            "LAYER_NORM_FWD", "LAYER_NORM_BWD", "KERNELS",
            "reset_launch_counts"]

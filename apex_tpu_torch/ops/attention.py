@@ -1,11 +1,14 @@
-"""Attention: the serving path's prefill and paged decode, and the
-training path's packed-QKV self-attention with its backward.
+"""Attention: the serving path's prefill and paged decode, the generic
+flash attention with its backward (the multi-head attention modules,
+varlen), and the training path's packed-QKV self-attention with its
+backward.
 
 PyTorch port of the JAX package's ``apex_tpu/ops/attention.py``.  Each
 public function has two implementations of one contract:
 
 * a kernel written by hand for Hopper, which runs for CUDA tensors:
-  ``csrc/flash_fwd.cu`` in place of the TPU kernel ``_flash_fwd_pallas``,
+  ``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu`` in place of the TPU
+  kernels ``_flash_fwd_pallas`` and ``_flash_bwd_pallas``,
   ``csrc/flash_decode.cu`` in place of ``_flash_decode_pallas``,
   ``csrc/flash_qkv_fwd.cu`` and ``csrc/flash_qkv_bwd.cu`` in place of
   ``_flash_qkv_fwd_pallas`` and ``_flash_qkv_bwd_pallas``;
@@ -18,17 +21,19 @@ public function has two implementations of one contract:
 Where the tensors lie picks the implementation, and nothing else does:
 a CUDA tensor goes through the kernel or the call raises.  A failed
 build or launch is an error, never a quiet switch to the plain version.
+The one plain path on the card is the JAX package's own: a trainable
+additive mask (``mask_is_constant=False``) runs the differentiable plain
+version, as JAX runs its XLA path there.
 
 Attention dropout is the JAX package's counter hash of (seed,
 batch-head, row, col) (:func:`_keep_from_coords`), bit for bit, so the
 forward, the backward and the plain versions draw the same mask with
-nothing stored.  :func:`flash_attention_qkv` is differentiable (a
-``torch.library`` custom op, so a selective checkpoint can keep its
-outputs); :func:`flash_attention` is inference only.  ``mask_bias`` and
-dropout on :func:`flash_attention` run on the plain path only, and the
-quantized pool is not ported yet (ROADMAP.md).  The JAX package's TPU
-tiling knobs (``block``, ``block_q``, ``block_k``) have no meaning here
-and are not taken.
+nothing stored.  :func:`flash_attention` and :func:`flash_attention_qkv`
+are differentiable, each a ``torch.library`` custom op pair, so a
+selective checkpoint can keep their outputs.  The quantized pool is not
+ported yet (ROADMAP.md).  The JAX package's TPU tiling knobs
+(``block``, ``block_q``, ``block_k``) have no meaning here and are not
+taken.
 """
 
 from __future__ import annotations
@@ -39,8 +44,8 @@ from typing import Optional, Tuple, Union
 
 import torch
 
-from apex_tpu_torch.kernels import (DTYPE_CODES, FLASH_DECODE, FLASH_FWD,
-                                    FLASH_QKV_BWD, FLASH_QKV_FWD)
+from apex_tpu_torch.kernels import (DTYPE_CODES, FLASH_BWD, FLASH_DECODE,
+                                    FLASH_FWD, FLASH_QKV_BWD, FLASH_QKV_FWD)
 
 _NEG_INF = -1e30
 
@@ -139,23 +144,33 @@ def _dropout_keep_full(seed, bh, sq, sk, rate, device=None):
     return _keep_from_coords(rows, cols, b, seed, rate)
 
 
+def _dropout_keep_like(p, seed, rate):
+    """The keep-mask of a score tensor [..., sq, sk] whose leading dims,
+    flattened row-major, are the batch-head index bh = b*h + head."""
+    sq, sk = p.shape[-2:]
+    n = p.numel() // max(1, sq * sk)
+    return _dropout_keep_full(seed, n, sq, sk, rate,
+                              device=p.device).view(p.shape)
+
+
 def _blockwise_fwd(q, k, v, scale, causal, mask_bias, seg_q, seg_k,
                    dropout_seed=None, dropout_rate=0.0):
-    """The plain version of the flash forward: q [bh, sq, d], k/v
-    [bh, sk, d] -> (o [bh, sq, d] in q's dtype, lse [bh, sq] fp32), the
-    whole score matrix in fp32 (the JAX package's ``_blockwise_fwd_xla``).
-    Dropout drops p after the row sum l has taken it, so lse counts every
-    visible column."""
-    s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * scale
+    """The plain version of the flash forward: q [..., sq, d], k/v
+    [..., sk, d] -> (o [..., sq, d] in q's dtype, lse [..., sq] fp32),
+    the whole score matrix in fp32 (the JAX package's
+    ``_blockwise_fwd_xla``).  The leading dims are [bh] or [b, h];
+    ``mask_bias`` and the segment ids broadcast against the scores
+    [..., sq, sk] and [..., sq] / [..., sk].  Dropout drops p after the
+    row sum l has taken it, so lse counts every visible column."""
+    s = torch.einsum("...qd,...kd->...qk", q.float(), k.float()) * scale
     s = _apply_masks(s, mask_bias, seg_q, seg_k, causal)
     m = s.amax(-1)
     p = _masked_exp(s, m[..., None])
     l = p.sum(-1)
     if dropout_rate > 0:
-        keep = _dropout_keep_full(dropout_seed, *p.shape, dropout_rate,
-                                  device=p.device)
+        keep = _dropout_keep_like(p, dropout_seed, dropout_rate)
         p = torch.where(keep, p, 0.0) / (1.0 - dropout_rate)
-    o = torch.einsum("bqk,bkd->bqd", p, v.float())
+    o = torch.einsum("...qk,...kd->...qd", p, v.float())
     l_safe = torch.where(l == 0, 1.0, l)
     o = o / l_safe[..., None]
     lse = torch.where(l == 0, _NEG_INF, m + torch.log(l_safe))
@@ -163,49 +178,53 @@ def _blockwise_fwd(q, k, v, scale, causal, mask_bias, seg_q, seg_k,
 
 
 def _blockwise_bwd(q, k, v, seg_q, seg_k, o, lse, do, scale, causal,
-                   dropout_seed=None, dropout_rate=0.0):
+                   dropout_seed=None, dropout_rate=0.0, mask_bias=None):
     """The plain version of the flash backward, (dq, dk, dv) in the
     inputs' dtypes: the delta trick on the whole fp32 score matrix
     (``_blockwise_bwd_xla`` without its k-blocking): p is rebuilt from
-    lse, ds = p (dp - rowsum(do o)) scale with p undropped and dp
-    dropped."""
+    lse with the forward's masks, ds = p (dp - rowsum(do o)) scale with p
+    undropped and dp dropped.  Leading dims as :func:`_blockwise_fwd`."""
     q32, k32, v32, do32 = (t.float() for t in (q, k, v, do))
     delta = (do32 * o.float()).sum(-1)
-    s = torch.einsum("bqd,bkd->bqk", q32, k32) * scale
-    s = _apply_masks(s, None, seg_q, seg_k, causal)
+    s = torch.einsum("...qd,...kd->...qk", q32, k32) * scale
+    s = _apply_masks(s, mask_bias, seg_q, seg_k, causal)
     p = _masked_exp(s, lse[..., None])
-    dp = torch.einsum("bqd,bkd->bqk", do32, v32)
+    dp = torch.einsum("...qd,...kd->...qk", do32, v32)
     p_drop = p
     if dropout_rate > 0:
-        keep = _dropout_keep_full(dropout_seed, *p.shape, dropout_rate,
-                                  device=p.device)
+        keep = _dropout_keep_like(p, dropout_seed, dropout_rate)
         inv = 1.0 / (1.0 - dropout_rate)
         p_drop = torch.where(keep, p, 0.0) * inv
         dp = torch.where(keep, dp, 0.0) * inv
-    dv = torch.einsum("bqk,bqd->bkd", p_drop, do32)
+    dv = torch.einsum("...qk,...qd->...kd", p_drop, do32)
     ds = p * (dp - delta[..., None]) * scale
-    dk = torch.einsum("bqk,bqd->bkd", ds, q32)
-    dq = torch.einsum("bqk,bkd->bqd", ds, k32)
+    dk = torch.einsum("...qk,...qd->...kd", ds, q32)
+    dq = torch.einsum("...qk,...kd->...qd", ds, k32)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 # -- kernel wrappers -------------------------------------------------------
 
 _KERNEL_DTYPES = DTYPE_CODES
-_KERNEL_HEAD_DIMS = (8, 128)   # the toy config's and GPT-1.3B's
+# the toy configs', Transformer-big's (and BERT's) and GPT-1.3B's
+_KERNEL_HEAD_DIMS = (8, 64, 128)
+
+
+def _kernel_loadable(t: torch.Tensor) -> bool:
+    """The 16-byte vector loads the kernels read with: unit last stride,
+    every other stride and the base address a multiple of 16 bytes."""
+    unit = 16 // t.element_size()
+    return (t.stride(-1) == 1 and not any(s % unit for s in t.stride()[:-1])
+            and t.data_ptr() % 16 == 0)
 
 
 def _check_kernel_operand(name: str, t: torch.Tensor, like: torch.Tensor):
-    """Device, dtype, and the 16-byte vector-load alignment the kernels
-    read with: unit last stride, every other stride and the base address
-    a multiple of 16 bytes."""
+    """Device, dtype, and the kernels' 16-byte vector-load alignment."""
     if t.device != like.device:
         raise ValueError(f"{name} is on {t.device}, expected {like.device}")
     if t.dtype != like.dtype:
         raise TypeError(f"{name} is {t.dtype}, expected {like.dtype}")
-    unit = 16 // t.element_size()
-    if (t.stride(-1) != 1 or any(s % unit for s in t.stride()[:-1])
-            or t.data_ptr() % 16):
+    if not _kernel_loadable(t):
         raise ValueError(
             f"{name} (strides {t.stride()}) must have a unit last stride "
             "and 16-byte aligned rows for the CUDA kernel; pass "
@@ -227,11 +246,9 @@ def _int32_on(t: torch.Tensor, device: torch.device) -> torch.Tensor:
     return t.to(torch.int32).contiguous()
 
 
-def _flash_fwd_cuda(q, k, v, seg_q, seg_k, scale, causal):
-    """Launch ``flash_fwd.cu``: q [B, H, sq, d], k/v [B, H, sk, d], any
-    strides the kernel can vector-load; seg ids [rows, s] with rows in
-    {1, B, B*H} or None.  Returns (o [B, H, sq, d] laid out as
-    [B, sq, H, d], lse [B*H, sq] fp32)."""
+def _check_qkv(q, k, v):
+    """Shapes, dtype, head dim and alignment of [B, H, s, d] q, k, v for
+    the two generic kernels; returns (B, H, sq, sk, d)."""
     B, H, sq, d = q.shape
     sk = k.shape[2]
     if tuple(k.shape) != (B, H, sk, d) or v.shape != k.shape:
@@ -242,28 +259,152 @@ def _flash_fwd_cuda(q, k, v, seg_q, seg_k, scale, causal):
         _check_kernel_operand(name, t, q)
     if k.stride() != v.stride():
         raise ValueError("k and v must share their strides")
-    seg_div, seg_ptrs = 1, (None, None)
-    if seg_q is not None:
-        seg_q, seg_k = _int32_on(seg_q, q.device), _int32_on(seg_k, q.device)
-        rows = seg_q.shape[0]
-        if (rows not in (1, B, B * H) or tuple(seg_q.shape) != (rows, sq)
-                or tuple(seg_k.shape) != (rows, sk)):
-            raise ValueError(
-                f"segment ids {tuple(seg_q.shape)}/{tuple(seg_k.shape)} do "
-                f"not fit q {tuple(q.shape)} and k {tuple(k.shape)}")
-        seg_div = (B * H) // rows
-        seg_ptrs = (seg_q.data_ptr(), seg_k.data_ptr())
-    o = torch.empty((B, sq, H, d), dtype=q.dtype,
-                    device=q.device).permute(0, 2, 1, 3)
+    return B, H, sq, sk, d
+
+
+def _kernel_segments(seg_q, seg_k, B, H, sq, sk, device):
+    """Segment ids as the kernels read them: (int32 [rows, sq], int32
+    [rows, sk], seg_div) with rows in {1, B, B*H} and row = bh / seg_div;
+    (None, None, 1) without segments."""
+    if seg_q is None:
+        return None, None, 1
+    seg_q, seg_k = _int32_on(seg_q, device), _int32_on(seg_k, device)
+    rows = max(seg_q.shape[0], seg_k.shape[0])
+
+    def to_rows(t, n):
+        if t.shape[0] == 1 and rows > 1:
+            return t.expand(rows, n).contiguous()
+        if t.shape[0] == B and rows == B * H and H > 1:
+            return t.repeat_interleave(H, 0)
+        return t
+
+    seg_q, seg_k = to_rows(seg_q, sq), to_rows(seg_k, sk)
+    if (rows not in (1, B, B * H) or tuple(seg_q.shape) != (rows, sq)
+            or tuple(seg_k.shape) != (rows, sk)):
+        raise ValueError(
+            f"segment ids {tuple(seg_q.shape)}/{tuple(seg_k.shape)} do not "
+            f"fit q [{B}, {H}, {sq}, d] and k [{B}, {H}, {sk}, d]")
+    return seg_q, seg_k, (B * H) // rows
+
+
+def _kernel_mask(mask, B, H, sq, sk, device):
+    """(pointer, (b, h, row, col) strides) of the fp32 mask as a
+    [B, H, sq, sk] view, broadcast dims at stride 0; (None, zeros)
+    without one."""
+    if mask is None:
+        return None, (0, 0, 0, 0)
+    if mask.device != device:
+        raise ValueError(f"mask_bias is on {mask.device}, expected {device}")
+    if mask.dtype != torch.float32:
+        raise TypeError(f"the CUDA kernels take an fp32 mask_bias, got "
+                        f"{mask.dtype}")
+    m = mask.broadcast_to(B, H, sq, sk)
+    return m.data_ptr(), m.stride()
+
+
+def _stream(device):
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _flash_fwd_cuda(q, k, v, mask, seg_q, seg_k, scale, causal,
+                    dropout_rate, dropout_seed):
+    """Launch ``flash_fwd.cu``: q [B, H, sq, d], k/v [B, H, sk, d] with
+    any strides the kernel can vector-load; ``mask`` fp32 broadcastable
+    to [B, H, sq, sk] or None; seg ids [rows, s] with rows in {1, B, B*H}
+    or None.  Returns (o [B, H, sq, d] laid out in q's dimension order,
+    lse [B*H, sq] fp32)."""
+    B, H, sq, sk, d = _check_qkv(q, k, v)
+    seg_q, seg_k, seg_div = _kernel_segments(seg_q, seg_k, B, H, sq, sk,
+                                             q.device)
+    mptr, mst = _kernel_mask(mask, B, H, sq, sk, q.device)
+    seed, thresh, keep, _ = _dropout_launch_args(dropout_rate, dropout_seed)
+    o = torch.empty_like(q)
     lse = torch.empty((B * H, sq), dtype=torch.float32, device=q.device)
-    strides = (ctypes.c_int64 * 9)(*q.stride()[:3], *k.stride()[:3],
-                                   *o.stride()[:3])
+    strides = (ctypes.c_int64 * 13)(*q.stride()[:3], *k.stride()[:3],
+                                    *o.stride()[:3], *mst)
     FLASH_FWD(_KERNEL_DTYPES[q.dtype], d, q.device.index,
               q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-              lse.data_ptr(), *seg_ptrs, seg_div, B, H, sq, sk, strides,
-              scale, int(causal),
-              torch.cuda.current_stream(q.device).cuda_stream)
+              lse.data_ptr(), mptr,
+              *(None if t is None else t.data_ptr() for t in (seg_q, seg_k)),
+              seg_div, B, H, sq, sk, strides, scale, int(causal), seed,
+              thresh, keep, _stream(q.device))
     return o, lse
+
+
+def _flash_bwd_cuda(q, k, v, o, lse, do, mask, seg_q, seg_k, scale, causal,
+                    dropout_rate, dropout_seed, visits=None):
+    """Launch ``flash_bwd.cu``: (dq, dk, dv) laid out in q's, k's and v's
+    dimension orders.  ``visits``: None, or an int32 tensor of
+    B*H*(n_kb + n_qb) that receives the tiles each dk/dv block and then
+    each dq block walked."""
+    B, H, sq, sk, d = _check_qkv(q, k, v)
+    if do.dtype != q.dtype or not _kernel_loadable(do):
+        do = do.to(q.dtype).contiguous()
+    for name, t in (("o", o), ("do", do)):
+        _check_kernel_operand(name, t, q)
+    if tuple(o.shape) != tuple(q.shape) or tuple(do.shape) != tuple(q.shape):
+        raise ValueError(f"o {tuple(o.shape)} / do {tuple(do.shape)} do not "
+                         f"match q {tuple(q.shape)}")
+    lse = lse.contiguous()
+    if lse.device != q.device or tuple(lse.shape) != (B * H, sq):
+        raise ValueError(f"lse {tuple(lse.shape)} on {lse.device} does not "
+                         f"fit q {tuple(q.shape)}")
+    seg_q, seg_k, seg_div = _kernel_segments(seg_q, seg_k, B, H, sq, sk,
+                                             q.device)
+    mptr, mst = _kernel_mask(mask, B, H, sq, sk, q.device)
+    seed, thresh, _, inv = _dropout_launch_args(dropout_rate, dropout_seed)
+    if visits is not None and (visits.dtype != torch.int32
+                               or visits.device != q.device
+                               or visits.numel() != B * H * (
+                                   -(-sk // 64) + -(-sq // 64))):
+        raise ValueError("visits must be int32 [B*H*(n_kb + n_qb)] on "
+                         "q's device")
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    delta = torch.empty_like(lse)
+    strides = (ctypes.c_int64 * 22)(
+        *(st for t in (q, k, o, do, dq, dk) for st in t.stride()[:3]), *mst)
+    FLASH_BWD(_KERNEL_DTYPES[q.dtype], d, q.device.index,
+              q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+              do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+              dk.data_ptr(), dv.data_ptr(), mptr,
+              *(None if t is None else t.data_ptr() for t in (seg_q, seg_k)),
+              seg_div, None if visits is None else visits.data_ptr(),
+              B, H, sq, sk, strides, scale, int(causal), seed, thresh, inv,
+              _stream(q.device))
+    return dq, dk, dv
+
+
+def _plain_segments(seg_q, seg_k, B, H):
+    """[rows, s] ids (rows in {1, B, B*H}) as [B|1, H|1, s], to broadcast
+    against [B, H, sq, sk] scores."""
+    if seg_q is None:
+        return None, None
+
+    def view(t):
+        rows = t.shape[0]
+        return t.view(B, H, -1) if rows == B * H else t.view(rows, 1, -1)
+
+    return view(seg_q), view(seg_k)
+
+
+def _flash_fwd_plain(q, k, v, mask, seg_q, seg_k, scale, causal,
+                     dropout_rate, dropout_seed):
+    """The plain version of :func:`_flash_fwd_cuda`, same contract."""
+    B, H, sq, _ = q.shape
+    seg_q, seg_k = _plain_segments(seg_q, seg_k, B, H)
+    o, lse = _blockwise_fwd(q, k, v, scale, causal, mask, seg_q, seg_k,
+                            dropout_seed, dropout_rate)
+    return o, lse.reshape(B * H, sq)
+
+
+def _flash_bwd_plain(q, k, v, o, lse, do, mask, seg_q, seg_k, scale, causal,
+                     dropout_rate, dropout_seed):
+    """The plain version of :func:`_flash_bwd_cuda`, same contract."""
+    B, H, sq, _ = q.shape
+    seg_q, seg_k = _plain_segments(seg_q, seg_k, B, H)
+    return _blockwise_bwd(q, k, v, seg_q, seg_k, o, lse.view(B, H, sq), do,
+                          scale, causal, dropout_seed, dropout_rate,
+                          mask_bias=mask)
 
 
 def _check_dropout(rate: float, seed: Optional[int]) -> None:
@@ -288,6 +429,89 @@ def _segments(segment_ids: Optional[SegmentIds]):
     return seg_q, seg_k
 
 
+def _dropout_launch_args(rate, seed):
+    """(seed as uint32, threshold, 1 - rate, 1 / (1 - rate)), the last
+    two rounded to fp32 by ctypes as the JAX package's weak-typed
+    constants are."""
+    if rate <= 0:
+        return 0, 0, 1.0, 1.0
+    return (int(seed) & _U32, _dropout_threshold(rate), 1.0 - rate,
+            1.0 / (1.0 - rate))
+
+
+# A torch.library custom op pair, as the packed flash_attention_qkv is, so
+# that a selective checkpoint or a compiler sees one forward op with its
+# backward rather than the kernels' internals.
+@torch.library.custom_op("apex_tpu_torch::flash_fwd", mutates_args=())
+def _flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  mask: Optional[torch.Tensor], seg_q: Optional[torch.Tensor],
+                  seg_k: Optional[torch.Tensor], scale: float, causal: bool,
+                  dropout_rate: float,
+                  dropout_seed: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    fn = _flash_fwd_cuda if q.is_cuda else _flash_fwd_plain
+    return fn(q, k, v, mask, seg_q, seg_k, scale, causal, dropout_rate,
+              dropout_seed)
+
+
+@_flash_fwd_op.register_fake
+def _(q, k, v, mask, seg_q, seg_k, scale, causal, dropout_rate,
+      dropout_seed):
+    B, H, sq, _ = q.shape
+    return (torch.empty_like(q),
+            q.new_empty(B * H, sq, dtype=torch.float32))
+
+
+@torch.library.custom_op("apex_tpu_torch::flash_bwd", mutates_args=())
+def _flash_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                  mask: Optional[torch.Tensor], seg_q: Optional[torch.Tensor],
+                  seg_k: Optional[torch.Tensor], scale: float, causal: bool,
+                  dropout_rate: float, dropout_seed: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    fn = _flash_bwd_cuda if q.is_cuda else _flash_bwd_plain
+    return fn(q, k, v, o, lse, do, mask, seg_q, seg_k, scale, causal,
+              dropout_rate, dropout_seed)
+
+
+@_flash_bwd_op.register_fake
+def _(q, k, v, o, lse, do, mask, seg_q, seg_k, scale, causal, dropout_rate,
+      dropout_seed):
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+
+def _flash_setup(ctx, inputs, output):
+    q, k, v, mask, seg_q, seg_k, scale, causal, rate, seed = inputs
+    o, lse = output
+    ctx.save_for_backward(q, k, v, o, lse, mask, seg_q, seg_k)
+    ctx.args = (scale, causal, rate, seed)
+    ctx.mark_non_differentiable(lse)
+
+
+def _flash_backward(ctx, do, _dlse):
+    q, k, v, o, lse, mask, seg_q, seg_k = ctx.saved_tensors
+    dq, dk, dv = _flash_bwd_op(q, k, v, o, lse, do, mask, seg_q, seg_k,
+                               *ctx.args)
+    # the mask and the segment ids are constants: no gradient
+    return dq, dk, dv, None, None, None, None, None, None, None
+
+
+_flash_fwd_op.register_autograd(_flash_backward, setup_context=_flash_setup)
+
+
+def _mask_4d(mask_bias, B, H):
+    """An additive mask [mbh, sq, sk] (mbh in {B*H, 1}) or
+    [B|1, H|1, sq, sk] as a 4-D tensor that broadcasts against the
+    [B, H, sq, sk] scores, without copying it."""
+    if mask_bias.ndim == 3:
+        if mask_bias.shape[0] == 1:
+            return mask_bias[None]
+        return mask_bias.view(B, H, *mask_bias.shape[1:])
+    if mask_bias.ndim != 4:
+        raise ValueError(f"mask_bias must be [mbh, sq, sk] or "
+                         f"[b|1, h|1, sq, sk], got {tuple(mask_bias.shape)}")
+    return mask_bias
+
+
 def flash_attention_fwd(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     *,
@@ -295,12 +519,14 @@ def flash_attention_fwd(
     mask_bias: Optional[torch.Tensor] = None,
     segment_ids: Optional[SegmentIds] = None,
     scale: Optional[float] = None,
+    mask_is_constant: bool = True,
     dropout_rate: float = 0.0,
     dropout_seed: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """:func:`flash_attention` that also returns the fp32 log-sum-exp of
     every score row, ``lse`` [b*h, sq] (-1e30 for a row that sees no
-    column, whose output is exact zeros)."""
+    column, whose output is exact zeros).  ``lse`` carries no
+    gradient."""
     _check_dropout(dropout_rate, dropout_seed)
     seg_q, seg_k = _segments(segment_ids)
     three_d = q.ndim == 3
@@ -310,30 +536,24 @@ def flash_attention_fwd(
         raise ValueError(f"q must be [b, h, s, d] or [bh, s, d], got "
                          f"{tuple(q.shape)}")
     B, H, sq, d = q.shape
-    sk = k.shape[2]
     if scale is None:
         scale = 1.0 / math.sqrt(d)
-    if q.is_cuda:
-        if mask_bias is not None or dropout_rate:
-            raise NotImplementedError(
-                "mask_bias and dropout have no CUDA kernel in flash_fwd.cu "
-                "yet (ROADMAP.md, queue B); they run on CPU tensors only")
-        o, lse = _flash_fwd_cuda(q, k, v, seg_q, seg_k, float(scale),
-                                 bool(causal))
+    seed = 0 if dropout_seed is None else int(dropout_seed)
+    if mask_bias is not None:
+        mask_bias = _mask_4d(mask_bias, B, H)
+    if mask_bias is not None and not mask_is_constant:
+        # a trainable bias: the plain differentiable version, so autograd
+        # gives the bias its gradient (the kernels take constant masks),
+        # as the JAX package takes its XLA path here
+        pq, pk = _plain_segments(seg_q, seg_k, B, H)
+        o, lse = _blockwise_fwd(q, k, v, float(scale), bool(causal),
+                                mask_bias, pq, pk, seed, float(dropout_rate))
+        lse = lse.reshape(B * H, sq)
     else:
-        if mask_bias is not None and mask_bias.ndim == 4:
-            mask_bias = mask_bias.broadcast_to(B, H, sq, sk).reshape(
-                B * H, sq, sk)
-        if seg_q is not None and seg_q.shape[0] == B and B > 1:
-            # per-batch segments replicate across heads
-            seg_q = seg_q.repeat_interleave(H, 0)
-            seg_k = seg_k.repeat_interleave(H, 0)
-        o, lse = _blockwise_fwd(q.reshape(B * H, sq, d),
-                                k.reshape(B * H, sk, d),
-                                v.reshape(B * H, sk, d), float(scale),
-                                bool(causal), mask_bias, seg_q, seg_k,
-                                dropout_seed, float(dropout_rate))
-        o = o.reshape(B, H, sq, d)
+        if mask_bias is not None:
+            mask_bias = mask_bias.detach().to(torch.float32)
+        o, lse = _flash_fwd_op(q, k, v, mask_bias, seg_q, seg_k, float(scale),
+                               bool(causal), float(dropout_rate), seed)
     return (o[:, 0] if three_d else o), lse
 
 
@@ -344,26 +564,70 @@ def flash_attention(
     mask_bias: Optional[torch.Tensor] = None,
     segment_ids: Optional[SegmentIds] = None,
     scale: Optional[float] = None,
+    mask_is_constant: bool = True,
     dropout_rate: float = 0.0,
     dropout_seed: Optional[int] = None,
 ) -> torch.Tensor:
-    """Fused attention over [b, h, s, d] (or [bh, s, d]) tensors.
+    """Fused attention over [b, h, s, d] (or [bh, s, d]) tensors,
+    differentiable in q, k and v.
 
     ``causal`` aligns the mask to the END of the keys: row i sees columns
     ``<= i + sk - sq``.  ``segment_ids`` masks attention across segment
     boundaries (varlen packing): an int tensor [s] or [b, s] (or [bh, s]
-    for the 3-D layout) for self-attention, or a ``(seg_q, seg_k)`` pair.
-    ``mask_bias`` is an additive [mbh, sq, sk] or [b|1, h|1, sq, sk] mask
-    (CPU only for now).  ``dropout_rate`` > 0 drops attention
-    probabilities with the counter hash of ``dropout_seed`` (CPU only for
-    now).  Scores are fp32 whatever the input dtype; the output has q's
-    dtype.  CUDA tensors run ``csrc/flash_fwd.cu``; CPU tensors run
-    :func:`_blockwise_fwd`."""
+    for the 3-D layout) for self-attention, or a ``(seg_q, seg_k)`` pair
+    for cross-length cases.  ``mask_bias`` is an additive mask [mbh, sq,
+    sk] (mbh in {bh, 1}) or [b|1, h|1, sq, sk], added to the
+    scaled scores before the segment and causal masks; a broadcast mask is
+    never expanded in memory.  It is a constant under differentiation
+    unless ``mask_is_constant=False``, which runs the plain differentiable
+    version (whole score matrix) so the bias gets its gradient.
+    ``dropout_rate`` > 0 drops attention probabilities with the counter
+    hash of ``dropout_seed`` (an int) at batch-head ``b*h + head`` and
+    global (row, col), replayed bit for bit by the backward.  Scores are
+    fp32 whatever the input dtype; the output has q's dtype.  CUDA tensors
+    run ``csrc/flash_fwd.cu`` and, for the gradients, ``csrc/flash_bwd.cu``
+    (head dims 8, 64, 128); CPU tensors run :func:`_blockwise_fwd` and
+    :func:`_blockwise_bwd`."""
     o, _ = flash_attention_fwd(q, k, v, causal=causal, mask_bias=mask_bias,
                                segment_ids=segment_ids, scale=scale,
+                               mask_is_constant=mask_is_constant,
                                dropout_rate=dropout_rate,
                                dropout_seed=dropout_seed)
     return o
+
+
+def flash_attention_varlen(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+    cu_seqlens_q: torch.Tensor,
+    cu_seqlens_k: Optional[torch.Tensor] = None,
+    *,
+    causal: bool = False,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Packed variable-length attention, the reference FMHA's interface:
+    sequences concatenated along one token axis, delimited by
+    ``cu_seqlens`` prefix sums.
+
+    q/k/v: [total_tokens, h, d]; cu_seqlens_q/k: int [batch+1] with
+    cu[0] == 0 and cu[batch] <= total_tokens.  Token i belongs to
+    sequence j iff cu[j] <= i < cu[j+1]; tokens past cu[-1] land in one
+    padding bucket and attend only among themselves.  Runs as
+    :func:`flash_attention` with segment ids, heads as a strided view
+    (no copy); differentiable in q, k and v."""
+    if cu_seqlens_k is None:
+        cu_seqlens_k = cu_seqlens_q
+
+    def seg(cu, total):
+        cu = cu.to(torch.int64)
+        return torch.searchsorted(
+            cu, torch.arange(total, device=cu.device), right=True) - 1
+
+    seg_q = seg(cu_seqlens_q, q.shape[0]).to(q.device)
+    seg_k = seg(cu_seqlens_k, k.shape[0]).to(q.device)
+    o = flash_attention(q.movedim(1, 0), k.movedim(1, 0), v.movedim(1, 0),
+                        causal=causal, segment_ids=(seg_q, seg_k),
+                        scale=scale)
+    return o.movedim(0, 1)
 
 
 def _paged_attention(q, k_pages, v_pages, page_table, kv_len, scale):
@@ -561,16 +825,6 @@ def _qkv_kernel_args(qkv, seg_q, seg_k, num_heads):
         # the kernels read one id row per (batch, head) for both sides
         seg_q, seg_k = (t.expand(b, s).contiguous() for t in (seg_q, seg_k))
     return hn, (seg_q, seg_k), (b * num_heads) // seg_q.shape[0]
-
-
-def _dropout_launch_args(rate, seed):
-    """(seed as uint32, threshold, 1 - rate, 1 / (1 - rate)), the last
-    two rounded to fp32 by ctypes as the JAX package's weak-typed
-    constants are."""
-    if rate <= 0:
-        return 0, 0, 1.0, 1.0
-    return (int(seed) & _U32, _dropout_threshold(rate), 1.0 - rate,
-            1.0 / (1.0 - rate))
 
 
 def _flash_qkv_fwd_cuda(qkv, seg_q, seg_k, num_heads, scale, causal,

@@ -4,9 +4,10 @@
     python3 chip_smoke.py          # from the repository root, one card
 
 Drives the port only (it imports neither ``jax`` nor ``apex_tpu``).
-It covers both ported paths: the serving engine (phases 4-5) and the GPT
-training step of ``pretrain_gpt`` (phases 6-7).  Phases, each of which
-fails the run (non-zero exit) on error:
+It covers the three ported paths: the serving engine (phases 4-5), the GPT
+training step of ``pretrain_gpt`` (phases 6-7) and the contrib multi-head
+attention training path (phases 8-9).  Phases, each of which fails the
+run (non-zero exit) on error:
 
 1. device — a CUDA card is required; its name and power limit are read
    from ``nvidia-smi``;
@@ -16,7 +17,14 @@ fails the run (non-zero exit) on error:
    at its main path's shapes (bf16; the training kernels with and without
    dropout) and in fp32, with the tolerance stated; then timed (operands
    cold in L2) beside its plain version, one PyTorch library call
-   computing the same function, and its bound;
+   computing the same function, and its bound.  The generic attention
+   kernels (K1 with its additive mask, dropout and head dim 64; K2) are
+   checked at the multi-head attention path's three shapes, with each
+   feature alone and combined at head dims 8, 64 and 128 in both dtypes,
+   a zero-stride mask against the same mask materialised, K2 run twice
+   (bitwise), the tiles K2 walks against the plain statement of its skip
+   rule, and ``flash_attention_varlen`` on a BERT-large-shaped packed
+   batch;
 4. toy engine — the same weights served at toy width in fp32 on the card
    (kernels) and on the CPU (plain versions) give identical greedy
    streams;
@@ -41,7 +49,19 @@ fails the run (non-zero exit) on error:
    through the plain versions, and one step run twice from the same state
    gives bitwise-equal loss and weights; step time, tokens/s, model
    TFLOP/s, peak memory and a step's host-enqueue vs device-done time are
-   reported.
+   reported;
+8. toy multi-head attention — the encoder-decoder stack of
+   ``SelfMultiheadAttn`` / ``EncdecMultiheadAttn`` at toy width (4 heads
+   of 8), fp32, five ``FusedAdam`` steps from the same weights on the card
+   and on the CPU: losses and final weights agree, and the weights moved;
+9. full-width multi-head attention — the same stack at Transformer-big
+   width (d_model 1024, 16 heads of 64, 6 encoder and 6 decoder layers,
+   dropout 0.1, bias, pre-norm), 32 sentence pairs padded to 256 / 192,
+   bf16 with fp32 masters, MSE against a fixed target, ``FusedAdam``:
+   exact launch counts (K1 = K2 = K6 = K7 = 18 a step), the loss falls
+   over 5 steps, a dropout-free step through the kernels agrees with the
+   plain path, a step run twice is bitwise equal; step time, tokens/s,
+   peak memory and a step's device time by part are reported.
 
 The last three lines of standard output are the kernels' JSON record,
 the ``nvidia-smi`` name/power line, and ``{"ok": true, "device": ...}``.
@@ -67,10 +87,13 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from apex_tpu_torch import kernels  # noqa: E402
+from apex_tpu_torch.contrib.multihead_attn import (  # noqa: E402
+    EncdecMultiheadAttn, SelfMultiheadAttn)
 from apex_tpu_torch.examples.gpt import pretrain_gpt  # noqa: E402
 from apex_tpu_torch.multi_tensor import multi_tensor_l2norm  # noqa: E402
 from apex_tpu_torch.ops import attention as att  # noqa: E402
 from apex_tpu_torch.ops import fused_layer_norm as ln  # noqa: E402
+from apex_tpu_torch.optimizers import FusedAdam  # noqa: E402
 from apex_tpu_torch.transformer.testing import gpt_param_count  # noqa: E402
 from apex_tpu_torch.serving import model as model_mod  # noqa: E402
 from apex_tpu_torch.serving import (ServingEngine, ServingModelConfig,  # noqa: E402
@@ -474,6 +497,341 @@ def phase_training_kernels() -> dict:
             "layer_norm_fwd": lfwd, "layer_norm_bwd": lbwd}
 
 
+# -- phase 3, slice 3: the generic attention kernels K1 (mask, dropout,
+# d = 64) and K2 ------------------------------------------------------------
+
+# the multi-head attention main path (phase 9): Transformer-big, the "big"
+# row of Table 3 of Vaswani et al. 2017 (d_model 1024, 16 heads of 64)
+MHA = dict(hidden=1024, heads=16, layers=6, batch=32, src=256, tgt=192,
+           dropout=0.1)
+MASK_FILL = -10000.0         # the modules' fill for a boolean mask
+
+
+def bert_lengths(n, seq=512, seed=7):
+    """bench.py::bert_lengths: ~25 % at the full window, the rest uniform
+    in [seq/8, seq) rounded to 8 (copied: the port imports no JAX)."""
+    rng = np.random.RandomState(seed)
+    lens = np.where(rng.rand(n) < 0.25, seq,
+                    (rng.randint(seq // 8, seq, size=n) // 8) * 8)
+    return np.maximum(lens, 8).astype(np.int64)
+
+
+def mha_lengths(seed, b, lo, hi):
+    return torch.from_numpy(np.random.RandomState(seed).randint(
+        lo, hi + 1, size=b)).cuda()
+
+
+def mha_operands(gen, dtype, sq, sk, b, d, h=16):
+    """q, k, v as the attention modules hand them to the kernels: strided
+    [b, h, s, d] views of a [s, b, 3*h*d] projection (sq == sk) or of
+    [sq, b, h*d] and [sk, b, 2*h*d] ones; do in the [s, b, h, d] order
+    autograd hands it back."""
+    def heads(t, s):
+        return t.view(s, b, h, d).permute(1, 2, 0, 3)
+
+    if sq == sk:
+        qkv = torch.randn(sq, b, 3 * h * d, generator=gen,
+                          device="cuda").to(dtype)
+        q, k, v = (heads(t, sq) for t in qkv.split(h * d, -1))
+    else:
+        q = heads(torch.randn(sq, b, h * d, generator=gen,
+                              device="cuda").to(dtype), sq)
+        kv = torch.randn(sk, b, 2 * h * d, generator=gen,
+                         device="cuda").to(dtype)
+        k, v = (heads(t, sk) for t in kv.split(h * d, -1))
+    do = heads(torch.randn(sq, b, h * d, generator=gen,
+                           device="cuda").to(dtype), sq)
+    return q, k, v, do
+
+
+def key_padding(lengths, sk):
+    """[b, sk] bool, True = padded (the modules' key_padding_mask)."""
+    return torch.arange(sk, device="cuda")[None] >= lengths[:, None]
+
+
+def segments_of(pad, sq):
+    """The modules' segment route: all-ones query ids, key ids 1 = real."""
+    keep = (~pad).to(torch.int32)
+    return torch.ones(pad.shape[0], sq, dtype=torch.int32,
+                      device="cuda"), keep
+
+
+def causal_fill(sq, sk):
+    """[1, 1, sq, sk] additive causal mask, as the decoder's bool
+    attn_mask becomes on the module's mask_bias route."""
+    tri = torch.ones(sq, sk, dtype=torch.bool, device="cuda").triu(
+        1 + sk - sq)
+    return torch.where(tri, MASK_FILL, 0.0)[None, None]
+
+
+def check_bitwise(name, a, b):
+    same = all(torch.equal(x, y) for x, y in zip(a, b))
+    log(f"  {name}: bitwise equal {same}")
+    if not same:
+        raise AssertionError(f"{name}: not bitwise equal")
+
+
+def flash_bwd_tiles(seg_q, seg_k, sq, sk, causal, block=64):
+    """The tiles ``csrc/flash_bwd_kernel.cuh`` walks (K2's backward, which
+    K4 runs on packed strides), as [lo, hi) ranges: ([rows, n_kb, 2]
+    q-tiles of each k-tile's dk/dv block, [rows, n_qb, 2] k-tiles of each
+    q-tile's dq block), rows being the segment-id rows (one without
+    segments); an empty range has lo == hi.  The dk/dv pass takes the
+    transposed segment rule (``_segment_block_bounds``' second output)
+    and, under the causal mask, starts at the tile of row k0 - (sk - sq),
+    the first row that sees its first column; the dq pass takes the
+    forward's rule and stops at the causal limit.  Tiles of ``block``; a
+    ragged last tile counts its valid ids only.  The kernel's own count
+    (``visits``) is held against this in phase 3, and this against the
+    JAX package's rule in the tests."""
+    n_qb, n_kb = -(-sq // block), -(-sk // block)
+    if seg_q is None:
+        q_lo, q_hi = torch.zeros(1, n_kb, dtype=torch.int64), torch.full(
+            (1, n_kb), n_qb)
+        k_lo, k_hi = torch.zeros(1, n_qb, dtype=torch.int64), torch.full(
+            (1, n_qb), n_kb)
+    else:
+        def pad(ids, n):  # repeat the last id: min and max stay the same
+            ids = ids.to(torch.int64).cpu()
+            return torch.cat([ids, ids[:, -1:].expand(-1, n * block
+                                                      - ids.shape[1])], 1)
+
+        lohi_q, lohi_k = att._segment_block_bounds(
+            pad(seg_q, n_qb), pad(seg_k, n_kb), block, block)
+        k_lo, k_hi = lohi_q[..., 0].long(), lohi_q[..., 1].long()
+        q_lo, q_hi = lohi_k[..., 0].long(), lohi_k[..., 1].long()
+    if causal:
+        first = torch.arange(n_kb) * block - (sk - sq)
+        q_lo = torch.maximum(q_lo, torch.where(
+            first <= 0, 0, (first // block).clamp(max=n_qb)))
+        q0 = torch.arange(n_qb) * block
+        last = q0 + (sq - q0).clamp(max=block) - 1 + (sk - sq)
+        k_hi = torch.minimum(k_hi, torch.where(last >= 0, last // block + 1,
+                                               0))
+    return (torch.stack([q_lo, torch.maximum(q_hi, q_lo)], -1),
+            torch.stack([k_lo, torch.maximum(k_hi, k_lo)], -1))
+
+
+def generic_case(gen, name, dtype, sq, sk, *, b, d, h=16, causal=False,
+                 mask=None, seg=None, rate=0.0, repeat=False):
+    """K1 and K2 against their plain versions on the same inputs (K2 gets
+    K1's o and lse), and K2's tiles walked against the plain statement
+    of its skip rule (:func:`flash_bwd_tiles`).  Returns (K1 error, K2
+    error, operands)."""
+    q, k, v, do = mha_operands(gen, dtype, sq, sk, b, d, h)
+    seg_q, seg_k = seg if seg is not None else (None, None)
+    args = (mask, seg_q, seg_k, d ** -0.5, causal, rate, RATE_SEED)
+    o, lse = att._flash_fwd_cuda(q, k, v, *args)
+    ro, rlse = att._flash_fwd_plain(q, k, v, *args)
+    torch.cuda.synchronize()
+    e1 = check(f"flash_fwd {name} o", o, ro)
+    check_lse(f"flash_fwd {name} lse", lse, rlse)
+    n_kb, n_qb = -(-sk // 64), -(-sq // 64)
+    visits = torch.full((b * h * (n_kb + n_qb),), -1, dtype=torch.int32,
+                        device="cuda")
+    grads = att._flash_bwd_cuda(q, k, v, o, lse, do, *args, visits=visits)
+    ref = att._flash_bwd_plain(q, k, v, o, lse, do, *args)
+    torch.cuda.synchronize()
+    e2 = max(check(f"flash_bwd {name} {n}", g, r)
+             for n, g, r in zip(("dq", "dk", "dv"), grads, ref))
+    want_kv, want_q = (r[..., 1] - r[..., 0] for r in flash_bwd_tiles(
+        seg_q, seg_k, sq, sk, causal))
+    rows = want_kv.shape[0]
+    want = torch.cat([want_kv.repeat_interleave(b * h // rows, 0).flatten(),
+                      want_q.repeat_interleave(b * h // rows, 0).flatten()])
+    got = visits.cpu().long()
+    full = b * h * (2 * n_kb * n_qb)
+    log(f"  flash_bwd {name} tiles walked: {int(got.sum())} of {full} "
+        f"(dk/dv {int(got[:b * h * n_kb].sum())}, dq "
+        f"{int(got[b * h * n_kb:].sum())}); the plain rule's "
+        f"{int(want.sum())}: {'ok' if torch.equal(got, want) else 'FAIL'}")
+    if not torch.equal(got, want):
+        raise AssertionError(f"flash_bwd {name}: tiles walked differ from "
+                             "flash_bwd_tiles")
+    if repeat:
+        again = att._flash_bwd_cuda(q, k, v, o, lse, do, *args)
+        check_bitwise(f"flash_bwd {name} run twice", grads, again)
+    del ro, rlse, ref
+    return e1, e2, (q, k, v, do, o, lse, args)
+
+
+def phase_generic_kernels() -> dict:
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    bf16, fp32 = torch.bfloat16, torch.float32
+    B, S, T = MHA["batch"], MHA["src"], MHA["tgt"]
+    src_pad = key_padding(mha_lengths(5, B, 32, S), S)
+    tgt_pad = key_padding(mha_lengths(6, B, 32, T), T)
+    # the main path's three attention calls, at their shapes
+    e1, e2, enc = generic_case(
+        gen, "encoder self [32,16,256,64] bf16 key-padding segments", bf16,
+        S, S, b=B, d=64, seg=segments_of(src_pad, S))
+    dec_mask = (torch.where(tgt_pad, MASK_FILL, 0.0)[:, None, None, :]
+                + causal_fill(T, T))                    # [b, 1, sq, sk]
+    _, _, dec = generic_case(
+        gen, "decoder self [32,16,192,64] bf16 pad + causal mask", bf16, T,
+        T, b=B, d=64, mask=dec_mask, repeat=True)
+    generic_case(gen, "cross [32,16,192x256,64] bf16 segments", bf16, T, S,
+                 b=B, d=64, seg=segments_of(src_pad, T))
+    # the mask read through its strides equals the mask materialised
+    q, k, v, do, o, lse, args = dec
+    full = dec_mask.expand(B, 16, T, T).contiguous()
+    o_full, lse_full = att._flash_fwd_cuda(q, k, v, full, *args[1:])
+    check_bitwise("flash_fwd zero-stride [b,1,sq,sk] mask vs materialised "
+                  "[b,h,sq,sk]", (o, lse), (o_full, lse_full))
+    check_bitwise("flash_bwd zero-stride mask vs materialised",
+                  att._flash_bwd_cuda(q, k, v, o, lse, do, *args),
+                  att._flash_bwd_cuda(q, k, v, o, lse, do, full, *args[1:]))
+    del full, o_full, lse_full
+    pad8 = src_pad[:8]
+    generic_case(gen, "key padding [8,1,1,256] + attn mask [1,1,256,256], "
+                 "zero strides", bf16, S, S, b=8, d=64,
+                 mask=torch.where(pad8, MASK_FILL, 0.0)[:, None, None, :]
+                 + causal_fill(S, S))
+    generic_case(gen, "full [b,h,sq,sk] random mask, fp32", fp32, 128, 128,
+                 b=2, d=64, mask=torch.randn(2, 16, 128, 128, generator=gen,
+                                              device="cuda"))
+    # each feature alone and combined, at other shapes, both dtypes
+    generic_case(gen, "causal sq < sk (192 x 256) bf16", bf16, 192, 256, b=4,
+                 d=64, causal=True)
+    generic_case(gen, "causal sq > sk (256 x 192) + segments fp32", fp32, 256,
+                 192, b=4, d=64, causal=True,
+                 seg=segments_of(key_padding(mha_lengths(7, 4, 1, 192), 192),
+                                 256))
+    generic_case(gen, f"dropout {MHA['dropout']} + segments bf16", bf16, S, S,
+                 b=8, d=64, rate=MHA["dropout"],
+                 seg=segments_of(src_pad[:8], S))
+    lens = mha_lengths(8, 4, 1, 200)
+    lens[1] = 0   # every key of batch row 1 padded: its rows see nothing
+    e_pad = generic_case(gen, "all-padded rows (segment route) fp32", fp32,
+                         200, 200, b=4, d=64,
+                         seg=segments_of(key_padding(lens, 200), 200))[2]
+    q, k, v, do, o, lse, args = e_pad
+    dq = att._flash_bwd_cuda(q, k, v, o, lse, do, *args)[0]
+    zero = bool((o[1] == 0).all()) and bool((dq[1] == 0).all()) and bool(
+        (lse.view(4, 16, 200)[1] == -1e30).all())
+    log(f"  all-padded batch row: o, dq exactly 0 and lse -1e30: {zero}")
+    if not zero:
+        raise AssertionError("all-padded rows are not exact zeros")
+    varied = segments_of(key_padding(mha_lengths(9, 4, 1, 200), 200), 200)
+    for dtype in (fp32, bf16):
+        for d in (8, 64, 128):
+            generic_case(gen, f"combined mask + segments + causal + dropout "
+                         f"d={d} {dtype}", dtype, 200, 200, b=4, d=d, h=4,
+                         causal=True, mask=torch.randn(
+                             4, 1, 200, 200, generator=gen, device="cuda"),
+                         seg=varied, rate=MHA["dropout"], repeat=d == 64)
+    varlen_case(gen)
+    timing = time_generic(enc, dec, gen)
+    timing["flash_fwd_mha"]["max_abs_err"] = e1
+    timing["flash_bwd"]["max_abs_err"] = e2
+    return timing
+
+
+def varlen_case(gen) -> None:
+    """flash_attention_varlen forward and backward on a BERT-large-shaped
+    packed batch: [total, 16, 64] bf16, bench.py's 16 sequence lengths
+    concatenated and padded to whole rows of 512, kernels vs plain."""
+    lens = bert_lengths(16)
+    cu = torch.tensor(np.concatenate([[0], np.cumsum(lens)]),
+                      device="cuda")
+    total = -(-int(lens.sum()) // 512) * 512
+    qkv = torch.randn(total, 3, 16, 64, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    dout = torch.randn(total, 16, 64, generator=gen, device="cuda").to(
+        torch.bfloat16)
+
+    def run():
+        q, k, v = (t.detach().requires_grad_() for t in qkv.unbind(1))
+        o = att.flash_attention_varlen(q, k, v, cu)
+        return (o, *torch.autograd.grad(o, (q, k, v), dout))
+
+    got = run()
+    with plain_kernels()[0]:
+        ref = run()
+    torch.cuda.synchronize()
+    for n, g, r in zip(("o", "dq", "dk", "dv"), got, ref):
+        check(f"flash_attention_varlen [{total},16,64] bf16 {n}", g, r)
+
+
+def mha_bound(q, k, mask, fwd, live_q, live_k, visible) -> tuple:
+    """(bound ms, what bounds it) of one K1 (fwd) or K2 call.  Bytes: the
+    rows of q (and for K2 o, do and lse) that see some key, and the rows
+    of k and v that some query sees, read once (``live_q``, ``live_k``:
+    counts over all batch*heads; a padded key is never read); o and lse
+    (K2: dq, dk and dv) written once in full; the mask's own elements.
+    Operations: 4 d (K1) or 10 d (K2) flops per ``visible`` pair."""
+    B, H, sq, d = q.shape
+    q_rows, k_rows = B * H * sq, B * H * k.shape[2]
+    item = q.element_size()
+    m = 0 if mask is None else mask.untyped_storage().nbytes()
+    if fwd:
+        nbytes = (live_q + 2 * live_k + q_rows) * d * item + q_rows * 4 + m
+        flops = 4 * d * visible
+    else:
+        nbytes = ((3 * live_q + 2 * live_k + q_rows + 2 * k_rows) * d * item
+                  + live_q * 4 + m)
+        flops = 10 * d * visible
+    return bound(nbytes, flops, q.dtype)
+
+
+def time_generic(enc, dec, gen) -> dict:
+    """K1 and K2 at the main path's encoder shape (segments) and K1's
+    mask, dropout and K2 at the decoder's (pad + causal mask): kernel,
+    plain, SDPA with the same float mask (forward; backward through
+    autograd) and the bound."""
+    out = {}
+    for name, ops in (("encoder", enc), ("decoder", dec)):
+        q, k, v, do, o, lse, args = ops
+        mask, seg_q, seg_k, scale = args[:4]
+        B, H, sq, d = q.shape
+        sk = k.shape[2]
+        if seg_q is not None:   # key padding: -inf at padded keys
+            fmask = torch.where(seg_k.bool(), 0.0, float("-inf"))[
+                :, None, None, :].to(q.dtype)
+            pairs = seg_q[:, :, None] == seg_k[:, None, :]  # [rows, sq, sk]
+            per_row = B * H // seg_q.shape[0]
+            visible = per_row * int(pairs.sum())
+            live_q = per_row * int(pairs.any(2).sum())
+            live_k = per_row * int(pairs.any(1).sum())
+        else:
+            fmask = mask.to(q.dtype)
+            visible, live_q, live_k = B * H * sq * sk, B * H * sq, B * H * sk
+        fwd_ms = cuda_ms(lambda: att._flash_fwd_cuda(q, k, v, *args), 20)
+        drop_ms = cuda_ms(lambda: att._flash_fwd_cuda(
+            q, k, v, *args[:5], MHA["dropout"], RATE_SEED), 20)
+        fwd_plain = cuda_ms(lambda: att._flash_fwd_plain(q, k, v, *args), 5, 1)
+        ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
+        fwd_lib = cuda_ms(lambda: F.scaled_dot_product_attention(
+            ql, kl, vl, attn_mask=fmask), 20)
+        bwd_ms = cuda_ms(lambda: att._flash_bwd_cuda(q, k, v, o, lse, do,
+                                                     *args), 20)
+        bwd_plain = cuda_ms(lambda: att._flash_bwd_plain(
+            q, k, v, o, lse, do, *args), 5, 1)
+        ol = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=fmask)
+        bwd_lib = cuda_ms(lambda: torch.autograd.grad(
+            ol, (ql, kl, vl), do, retain_graph=True), 20)
+        fb, fby = mha_bound(q, k, mask, True, live_q, live_k, visible)
+        bb, bby = mha_bound(q, k, mask, False, live_q, live_k, visible)
+        log(f"  generic attention timing, {name} [{B},{H},{sq}x{sk},{d}] "
+            f"{q.dtype} ({'segments' if seg_q is not None else 'mask'}): "
+            f"fwd kernel {fwd_ms:.4f} ms (dropout {MHA['dropout']}: "
+            f"{drop_ms:.4f}), plain {fwd_plain:.4f}, sdpa {fwd_lib:.4f}, "
+            f"bound {fb:.4f} ({fby}); bwd kernel {bwd_ms:.4f} ms, plain "
+            f"{bwd_plain:.4f}, sdpa backward {bwd_lib:.4f}, bound {bb:.4f} "
+            f"({bby})")
+        out[name] = dict(fwd=dict(ms=fwd_ms, ms_dropout=drop_ms,
+                                  plain_ms=fwd_plain, library_ms=fwd_lib,
+                                  bound_ms=fb, bound_by=fby),
+                         bwd=dict(ms=bwd_ms, plain_ms=bwd_plain,
+                                  library_ms=bwd_lib, bound_ms=bb,
+                                  bound_by=bby))
+        del ql, kl, vl, ol
+    return {"flash_fwd_mha": out["encoder"]["fwd"],
+            "flash_fwd_mha_mask": out["decoder"]["fwd"],
+            "flash_bwd": out["encoder"]["bwd"],
+            "flash_bwd_mask": out["decoder"]["bwd"]}
+
+
 def phase_kernels() -> dict:
     gen = torch.Generator(device="cuda").manual_seed(0)
     bf16, fp32 = torch.bfloat16, torch.float32
@@ -493,7 +851,8 @@ def phase_kernels() -> dict:
     # a full decode batch as the main path sees it mid-trace
     time_flash_decode(bf16, *decode_operands(gen, bf16, 1, [300] * BATCH))
     fwd["max_abs_err"], dec["max_abs_err"] = err_fwd, err_dec
-    return {"flash_fwd": fwd, "flash_decode": dec, **phase_training_kernels()}
+    return {"flash_fwd": fwd, "flash_decode": dec, **phase_training_kernels(),
+            **phase_generic_kernels()}
 
 
 # -- phase 4: toy width, cuda vs cpu ---------------------------------------
@@ -770,9 +1129,7 @@ PLAIN_LEAF_TOL = 5e-2
 
 # kernel-name fragments -> the part of the step they belong to
 STEP_KINDS = (("flash_fwd_kernel", "K3 flash_qkv_fwd"),
-              ("dkdv_kernel", "K4 flash_qkv_bwd"),
-              ("dq_kernel", "K4 flash_qkv_bwd"),
-              ("delta_kernel", "K4 flash_qkv_bwd"),
+              ("attn_bwd", "K4 flash_qkv_bwd"),   # K2's kernels, packed strides
               ("ln_fwd_kernel", "K6 layer_norm_fwd"),
               ("ln_bwd", "K7 layer_norm_bwd"),
               ("gemm", "GEMMs (cuBLAS)"), ("xmma", "GEMMs (cuBLAS)"),
@@ -782,15 +1139,17 @@ STEP_KINDS = (("flash_fwd_kernel", "K3 flash_qkv_fwd"),
 
 
 def plain_kernels():
-    """The training step with its four kernels swapped for their plain
-    versions, on the card (the reference of the kernel-vs-plain check)."""
+    """A training step with its kernels swapped for their plain versions,
+    on the card (the reference of the kernel-vs-plain checks)."""
     return mock.patch.multiple(
         att, _flash_qkv_fwd_cuda=att._flash_qkv_fwd_plain,
-        _flash_qkv_bwd_cuda=att._flash_qkv_bwd_plain), mock.patch.multiple(
+        _flash_qkv_bwd_cuda=att._flash_qkv_bwd_plain,
+        _flash_fwd_cuda=att._flash_fwd_plain,
+        _flash_bwd_cuda=att._flash_bwd_plain), mock.patch.multiple(
         ln, _ln_fwd_cuda=ln._ln_fwd_plain, _ln_bwd_cuda=ln._ln_bwd_plain)
 
 
-def step_profile(step) -> dict:
+def step_profile(step, parts=STEP_KINDS) -> dict:
     """Device time of one call of ``step`` by part, from a
     ``torch.profiler`` trace (CUPTI): kernel durations summed by kind and
     the ten longest kernels by name; the device's busy time is the union
@@ -813,7 +1172,7 @@ def step_profile(step) -> dict:
             continue
         ms = e.time_range.elapsed_us() / 1e3
         spans.append((e.time_range.start, e.time_range.end))
-        kind = next((k for frag, k in STEP_KINDS if frag in e.name.lower()),
+        kind = next((k for frag, k in parts if frag in e.name.lower()),
                     "other elementwise, copies, reductions")
         kinds[kind] = kinds.get(kind, 0.0) + ms
         n, t = names.get(e.name[:60], (0, 0.0))
@@ -976,6 +1335,278 @@ def phase_full_training(smi: str) -> dict:
     return metrics
 
 
+# -- phases 8-9: the multi-head attention training path ---------------------
+
+
+class MHAStack(torch.nn.Module):
+    """An attention-only encoder-decoder of the contrib modules, stacked as
+    the reference's multi-head attention perf script stacks them: ``layers``
+    pre-norm self-attention layers over the source (boolean source key
+    padding: the segment route), then ``layers`` decoder layers of
+    self-attention (target key padding plus a boolean causal attn_mask:
+    the mask_bias route) and encoder-decoder attention over the encoder's
+    output (source key padding, sq != sk: the cross-length segment
+    route)."""
+
+    def __init__(self, hidden, heads, layers, dropout, device, seed=0):
+        super().__init__()
+        kw = dict(dropout=dropout, bias=True, include_norm_add=True,
+                  device=device)
+        self.enc = torch.nn.ModuleList(
+            SelfMultiheadAttn(hidden, heads, seed=seed + i, **kw)
+            for i in range(layers))
+        self.dec_self = torch.nn.ModuleList(
+            SelfMultiheadAttn(hidden, heads, seed=seed + 100 + i, **kw)
+            for i in range(layers))
+        self.dec_cross = torch.nn.ModuleList(
+            EncdecMultiheadAttn(hidden, heads, seed=seed + 200 + i, **kw)
+            for i in range(layers))
+
+    def forward(self, src, tgt, src_pad, tgt_pad, causal, generator=None):
+        x = src
+        for m in self.enc:
+            x = m(x, key_padding_mask=src_pad, generator=generator)
+        y = tgt
+        for s, c in zip(self.dec_self, self.dec_cross):
+            y = s(y, key_padding_mask=tgt_pad, attn_mask=causal,
+                  generator=generator)
+            y = c(y, x, key_padding_mask=src_pad, generator=generator)
+        return y
+
+
+def mha_batch(device, dtype, hidden, b, s_src, s_tgt, lo, seed):
+    """Source and target activations [s, b, hidden] (the embeddings'
+    output), a fixed random regression target, key-padding masks from
+    lengths uniform in [lo, s], and the decoder's causal mask."""
+    rng = np.random.RandomState(seed)
+    src_len = rng.randint(lo, s_src + 1, size=b)
+    tgt_len = rng.randint(lo, s_tgt + 1, size=b)
+
+    def t(*shape):
+        return torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(
+            device)
+
+    src, tgt = t(s_src, b, hidden).to(dtype), t(s_tgt, b, hidden).to(dtype)
+    target = t(s_tgt, b, hidden)
+    src_pad = (torch.arange(s_src)[None] >= torch.from_numpy(src_len)[:, None])
+    tgt_pad = (torch.arange(s_tgt)[None] >= torch.from_numpy(tgt_len)[:, None])
+    causal = torch.ones(s_tgt, s_tgt, dtype=torch.bool).triu(1)
+    return dict(src=src, tgt=tgt, target=target, src_pad=src_pad.to(device),
+                tgt_pad=tgt_pad.to(device), causal=causal.to(device),
+                real_tokens=int(src_len.sum() + tgt_len.sum()))
+
+
+def mha_loss(model, batch, generator=None):
+    y = model(batch["src"], batch["tgt"], batch["src_pad"], batch["tgt_pad"],
+              batch["causal"], generator=generator)
+    return ((y.float() - batch["target"]) ** 2).mean()
+
+
+def mha_step(model, opt, batch, generator=None):
+    loss = mha_loss(model, batch, generator)
+    loss.backward()
+    opt.step()
+    opt.zero_grad(set_to_none=True)
+    return loss.detach()
+
+
+TOY_MHA = dict(hidden=32, heads=4, layers=2, batch=4, src=40, tgt=24)
+TOY_MHA_LOSS_TOL = 1e-5      # x |loss|: fp32 throughout, sums in another order
+# final weights card vs CPU, absolute: ten times the largest gap read on
+# an H100 (1.23e-5, and 9.83e-5 on the key biases); five Adam steps at lr
+# 1e-3 move a weight by up to 5e-3, so a skipped update would fail it
+TOY_MHA_WEIGHT_TOL = 1.3e-4
+# the key part of a packed projection bias: softmax ignores a constant
+# added to a row's scores, so its exact gradient is 0 and Adam steps on
+# rounding noise (up to lr a step) on either device
+TOY_MHA_KEY_BIAS_TOL = 1e-3
+MHA_LR = 5e-4
+
+
+def key_bias_part(name: str, hidden: int):
+    """The slice of the key projection's bias in a packed bias, or None."""
+    if name.endswith("in_proj_bias"):
+        return slice(hidden, 2 * hidden)
+    if name.endswith("kv_bias"):
+        return slice(0, hidden)
+    return None
+
+
+def phase_toy_mha() -> dict:
+    """The toy-width stack (4 heads of 8), fp32, five FusedAdam steps on a
+    fixed batch from the same weights on the card (kernels) and on the
+    CPU (plain versions)."""
+    c = TOY_MHA
+    cpu = MHAStack(c["hidden"], c["heads"], c["layers"], 0.0, "cpu", seed=1)
+    state = {k: v.clone() for k, v in cpu.state_dict().items()}
+    card = MHAStack(c["hidden"], c["heads"], c["layers"], 0.0, "cpu", seed=1)
+    card.load_state_dict(state)
+    card.cuda()
+
+    def run(model, device):
+        batch = mha_batch(device, torch.float32, c["hidden"], c["batch"],
+                          c["src"], c["tgt"], 8, seed=2)
+        opt = FusedAdam(model.parameters(), lr=1e-3)
+        losses = [float(mha_step(model, opt, batch)) for _ in range(5)]
+        return losses, {k: v.detach().cpu() for k, v in
+                        model.state_dict().items()}
+
+    on_card, w_card = run(card, "cuda")
+    on_cpu, w_cpu = run(cpu, "cpu")
+    log(f"  toy fp32 losses, cuda (kernels): {on_card}")
+    log(f"  toy fp32 losses, cpu (plain):    {on_cpu}")
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(on_card, on_cpu))
+    diff = {k: (w_card[k] - w_cpu[k]).abs() for k in w_cpu}
+    kb_err = 0.0
+    for k, d in diff.items():
+        part = key_bias_part(k, c["hidden"])
+        if part is not None:
+            kb_err = max(kb_err, d[part].max().item())
+            d[part] = 0.0
+    worst = max(diff, key=lambda k: diff[k].max().item())
+    w_err = diff[worst].max().item()
+    moved = max((w_cpu[k] - state[k]).abs().max().item() for k in w_cpu)
+    log(f"  toy MHA training: loss rel diff {loss_err:.3e} (tol "
+        f"{TOY_MHA_LOSS_TOL:.0e}); final weights max diff {w_err:.3e} on "
+        f"{worst} (tol {TOY_MHA_WEIGHT_TOL:.1e}), key biases {kb_err:.3e} "
+        f"(tol {TOY_MHA_KEY_BIAS_TOL:.0e}); the largest update on the CPU "
+        f"{moved:.3e}")
+    if not (loss_err <= TOY_MHA_LOSS_TOL and w_err <= TOY_MHA_WEIGHT_TOL
+            and kb_err <= TOY_MHA_KEY_BIAS_TOL
+            and moved > 2 * TOY_MHA_KEY_BIAS_TOL):
+        raise AssertionError("toy MHA training: card and CPU disagree")
+    return {"toy_mha_loss_rel_diff": loss_err,
+            "toy_mha_weight_max_diff": w_err,
+            "toy_mha_key_bias_max_diff": kb_err}
+
+
+# kernel vs plain, one dropout-free full-width step: bf16 activations
+# through 12 layers, so a one-ulp difference in a K1 output or a LayerNorm
+# moves every later gradient a little; each bar is ten times the largest
+# gap read on an H100
+MHA_PLAIN_LOSS_TOL = 7e-7    # relative, on the loss (read 6.2e-8)
+MHA_PLAIN_NORM_TOL = 8e-4    # relative, global grad norm (read 7.3e-5)
+# relative, |g - g_plain| / |g_plain| on the worst leaf (read 1.05e-2, on
+# encoder layer 5's in_proj_weight; the median leaf reads 8.7e-3)
+MHA_PLAIN_LEAF_TOL = 1.1e-1
+MHA_KINDS = (("flash_fwd_kernel", "K1 flash_fwd"),
+             ("attn_bwd", "K2 flash_bwd"),
+             ("ln_fwd_kernel", "K6 layer_norm_fwd"),
+             ("ln_bwd", "K7 layer_norm_bwd"),
+             ("gemm", "GEMMs (cuBLAS)"), ("xmma", "GEMMs (cuBLAS)"),
+             ("nvjet", "GEMMs (cuBLAS)"), ("cutlass", "GEMMs (cuBLAS)"),
+             ("foreach", "optimizer (foreach)"),
+             ("multi_tensor", "optimizer (foreach)"))
+
+
+def mha_grads(model, batch):
+    loss = mha_loss(model, batch)
+    loss.backward()
+    grads = {n: p.grad for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    return loss.item(), grads
+
+
+def phase_mha(smi: str) -> dict:
+    c = MHA
+    L, steps = c["layers"], 5
+    per_step = {"flash_fwd": 3 * L, "flash_bwd": 3 * L,
+                "layer_norm_fwd": 3 * L, "layer_norm_bwd": 3 * L}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    batch = mha_batch("cuda", torch.bfloat16, c["hidden"], c["batch"],
+                      c["src"], c["tgt"], 32, seed=3)
+    model = MHAStack(c["hidden"], c["heads"], L, c["dropout"], "cuda")
+    opt = FusedAdam(model.parameters(), lr=MHA_LR)
+    gen = torch.Generator(device="cuda")
+    losses, times = [], []
+    kernels.reset_launch_counts()
+    for it in range(steps):
+        gen.manual_seed(1000 + it)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(mha_step(model, opt, batch, gen)))
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = {k.symbol: k.launches for k in kernels.KERNELS if k.launches}
+    want = {k: v * steps for k, v in per_step.items()}
+    log(f"  fixed-batch losses {losses}")
+    log(f"  launches over {steps} steps {launches}, expected {want} (per "
+        f"step K1 = K2 = K6 = K7 = {3 * L}: {L} encoder, {L} decoder self, "
+        f"{L} cross)")
+    if launches != want:
+        raise AssertionError("MHA launch counts do not match the main path")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError("MHA stack: the loss is not finite or does not "
+                             "fall on a fixed batch")
+    step_ms = statistics.median(times[1:])
+    padded = c["batch"] * (c["src"] + c["tgt"])
+    metrics = {"mha_step_ms_p50": step_ms,
+               "mha_tok_per_s": padded / step_ms * 1e3,
+               "mha_real_tok_per_s": batch["real_tokens"] / step_ms * 1e3,
+               "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+               "params": sum(p.numel() for p in model.parameters()),
+               "card": smi}
+    log("  mha " + json.dumps(metrics))
+    prof = step_profile(lambda: mha_step(model, opt, batch, gen), MHA_KINDS)
+    metrics["step_profile"] = prof
+    if prof["device_busy_ms"] > 0:
+        log("  one step under torch.profiler: " + ", ".join(
+            f"{k} {v:.2f} ms ({v / prof['wall_ms']:.1%})"
+            for k, v in prof["by_kind_ms"].items())
+            + f"; wall {prof['wall_ms']:.2f} ms, device busy "
+              f"{prof['device_busy_ms']:.2f} ms, idle {prof['idle_share']:.1%}")
+        for name, n, t in prof["top_kernels"]:
+            log(f"    {t:8.2f} ms  x{n:<5d} {name}")
+    else:
+        log("  one step under torch.profiler: no device time recorded "
+            "(breakdown not measured)")
+
+    # kernels vs plain versions, one dropout-free step from the same weights
+    loss, grads = mha_grads(model, batch)
+    patches = plain_kernels()
+    with patches[0], patches[1]:
+        ref_loss, ref_grads = mha_grads(model, batch)
+    norm = multi_tensor_l2norm(list(grads.values())).item()
+    ref_norm = multi_tensor_l2norm(list(ref_grads.values())).item()
+    dl, dn = abs(loss - ref_loss) / abs(ref_loss), abs(norm - ref_norm) / ref_norm
+    leaf = {n: ((grads[n] - g).norm() / g.norm()).item()
+            for n, g in ref_grads.items()}
+    worst = max(leaf, key=leaf.get)
+    log(f"  dropout-free step, kernels vs plain: loss {loss:.6f} vs "
+        f"{ref_loss:.6f} (rel diff {dl:.3e}, tol {MHA_PLAIN_LOSS_TOL:.1e}); "
+        f"grad norm {norm:.6f} vs {ref_norm:.6f} (rel diff {dn:.3e}, tol "
+        f"{MHA_PLAIN_NORM_TOL:.1e}); worst leaf {worst} |g - g_plain| / "
+        f"|g_plain| {leaf[worst]:.3e} (tol {MHA_PLAIN_LEAF_TOL:.1e}), median "
+        f"over {len(leaf)} leaves {statistics.median(leaf.values()):.3e}")
+    if not (dl <= MHA_PLAIN_LOSS_TOL and dn <= MHA_PLAIN_NORM_TOL
+            and leaf[worst] <= MHA_PLAIN_LEAF_TOL):
+        raise AssertionError("MHA step: kernel path disagrees with the plain "
+                             "path")
+    del model, opt, grads, ref_grads
+    torch.cuda.empty_cache()
+
+    # determinism: the same step (dropout on) twice from the same state
+    def one_step():
+        m = MHAStack(c["hidden"], c["heads"], L, c["dropout"], "cuda")
+        o = FusedAdam(m.parameters(), lr=MHA_LR)
+        g = torch.Generator(device="cuda").manual_seed(1000)
+        loss = float(mha_step(m, o, batch, g))
+        return loss, [p.detach().clone() for p in m.parameters()]
+
+    loss1, w1 = one_step()
+    loss2, w2 = one_step()
+    same = loss1 == loss2 and all(torch.equal(x, y) for x, y in zip(w1, w2))
+    log(f"  same step twice from the same state (dropout on): losses "
+        f"{loss1!r} / {loss2!r}, weights bitwise equal: {same}")
+    if not same:
+        raise AssertionError("MHA step is not deterministic")
+    metrics.update(launches=launches, kernel_vs_plain_loss_rel_diff=dl,
+                   kernel_vs_plain_grad_norm_rel_diff=dn,
+                   kernel_vs_plain_worst_leaf_rel_diff=leaf[worst],
+                   deterministic=same)
+    return metrics
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1020,6 +1651,14 @@ def main() -> int:
     log("phase 7 full-width training (GPT-1.3B, 24 layers, bf16, batch 4 "
         "x 2048)")
     train = phase_full_training(smi)
+    torch.cuda.empty_cache()
+
+    log("phase 8 toy multi-head attention stack, cuda vs cpu")
+    phase_toy_mha()
+
+    log("phase 9 full-width multi-head attention stack (Transformer-big, 6 + "
+        "6 layers, bf16, batch 32 x 256 / 192)")
+    mha = phase_mha(smi)
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
 
     record = {"kernels": [
@@ -1027,7 +1666,13 @@ def main() -> int:
              source="apex_tpu_torch/csrc/flash_fwd.cu",
              replaces="apex_tpu/ops/attention.py:738",
              launches=metrics["launches"]["flash_fwd"],
+             launches_mha=mha["launches"]["flash_fwd"],
              **timings["flash_fwd"]),
+        dict(name="flash_bwd", route="cuda",
+             source="apex_tpu_torch/csrc/flash_bwd.cu",
+             replaces="apex_tpu/ops/attention.py:1139",
+             launches=mha["launches"]["flash_bwd"],
+             **timings["flash_bwd"]),
         dict(name="flash_decode", route="cuda",
              source="apex_tpu_torch/csrc/flash_decode.cu",
              replaces="apex_tpu/ops/attention.py:2239",

@@ -130,10 +130,10 @@ def test_flash_attention_mask_bias_on_cpu_matches_jax():
 
 
 def test_flash_attention_dropout_is_not_ported():
-    # dropout is ported on the plain path only (csrc/flash_fwd.cu refuses
-    # it on the card, ROADMAP.md); there, as in the JAX package, it needs a
-    # seed, and a seeded call drops (test_torch_attention_qkv.py holds the
-    # masks against JAX bit for bit)
+    # as in the JAX package, dropout needs a seed, and a seeded call drops
+    # (test_torch_attention_qkv.py holds the masks against JAX bit for bit;
+    # chip_smoke.py holds csrc/flash_fwd.cu's dropout against this plain
+    # path on the card)
     q = torch.randn(1, 8, 8)
     with pytest.raises(ValueError):
         flash_attention(q, q, q, dropout_rate=0.1)
