@@ -8,8 +8,8 @@ the code around the kernels is plain PyTorch.  Entry points run on the
 card unless the caller passes ``device="cpu"``, where each kernel's plain
 PyTorch version runs instead.
 
-Ported so far — the serving path, the GPT training step and the contrib
-multi-head attention training path:
+Ported so far — the serving path, the GPT training step, the contrib
+multi-head attention training path and the flat superblock optimizer:
 
 * :mod:`apex_tpu_torch.ops` — ``flash_attention`` with its backward
   (prefill, the attention modules) and ``flash_attention_varlen``,
@@ -23,7 +23,9 @@ multi-head attention training path:
 * :mod:`apex_tpu_torch.transformer` — the tensor-parallel layers at tp=1
   and the standalone GPT (``transformer.testing``);
 * :mod:`apex_tpu_torch.optimizers`, :mod:`apex_tpu_torch.multi_tensor` —
-  ``FusedAdam``, global-norm clipping and the multi-tensor ops;
+  ``FusedAdam``, ``FlatFusedAdam`` over one flat superblock, the
+  superblock's pack/unpack and bucket planner, global-norm clipping and
+  the multi-tensor ops;
 * :mod:`apex_tpu_torch.examples.gpt.pretrain_gpt` — GPT pretraining on
   one card.
 

@@ -150,18 +150,28 @@ def step_seed(args, it: int) -> Optional[int]:
     return fold_in(args.seed + 2, it)
 
 
-def train_step(args, model: GPTModel, opt: FusedAdam, tokens: torch.Tensor,
-               labels: torch.Tensor, it: int) -> torch.Tensor:
-    """One step: forward, backward, global-norm clip, optimizer step.
-    Returns the loss (a device scalar; nothing here synchronises)."""
+def forward_backward(args, model: GPTModel, tokens: torch.Tensor,
+                     labels: torch.Tensor, it: int) -> torch.Tensor:
+    """Forward, backward (accumulating into each parameter's ``.grad``)
+    and the global-norm clip of step ``it`` (in place, over every
+    ``.grad``), before any optimizer.  Returns the loss (a device scalar;
+    nothing here synchronises)."""
     loss = model(tokens, labels=labels, dropout_seed=step_seed(args, it)
                  ).mean()
     loss.backward()
     if args.clip_grad and args.clip_grad > 0:
         clip_grad_norm([p.grad for p in model.parameters()], args.clip_grad)
+    return loss.detach()
+
+
+def train_step(args, model: GPTModel, opt: FusedAdam, tokens: torch.Tensor,
+               labels: torch.Tensor, it: int) -> torch.Tensor:
+    """One step: :func:`forward_backward`, then the optimizer step, then
+    the gradients dropped.  Returns the loss (a device scalar)."""
+    loss = forward_backward(args, model, tokens, labels, it)
     opt.step()
     opt.zero_grad(set_to_none=True)
-    return loss.detach()
+    return loss
 
 
 def main(argv=None, device=None, *,
@@ -207,7 +217,7 @@ def main(argv=None, device=None, *,
 
 
 __all__ = ["build_config", "synthetic_batches", "setup", "step_seed",
-           "train_step", "main"]
+           "forward_backward", "train_step", "main"]
 
 if __name__ == "__main__":
     main(sys.argv[1:])

@@ -3,9 +3,10 @@
 Each :class:`~apex_tpu_torch.kernels._build.Kernel` wraps one C entry
 point of one ``csrc/*.cu`` source (built with ``nvcc`` at first use) and
 counts its launches.  The tensor-level wrappers that check arguments and
-fall back to the plain PyTorch versions for CPU tensors live beside those
-versions in :mod:`apex_tpu_torch.ops.attention` and
-:mod:`apex_tpu_torch.ops.fused_layer_norm`.
+take the plain PyTorch versions for CPU tensors live beside those
+versions in :mod:`apex_tpu_torch.ops.attention`,
+:mod:`apex_tpu_torch.ops.fused_layer_norm` and
+:mod:`apex_tpu_torch.optimizers.flat`.
 """
 
 import ctypes
@@ -15,6 +16,7 @@ import torch
 from apex_tpu_torch.kernels._build import NvccError, Kernel, build_all, build_log
 
 _p, _i, _f, _u = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint32
+_i64 = ctypes.c_int64
 _strides = ctypes.POINTER(ctypes.c_int64)
 
 #: the element types every kernel is built for, as its ``dtype`` argument
@@ -101,8 +103,17 @@ LAYER_NORM_BWD = Kernel("layer_norm.cu", "layer_norm_bwd", [
     _i, _i, _p,                 # rows, cols, stream
 ])
 
+#: flat_adam.cu — Adam / AdamW over one span of a flat fp32 superblock
+FLAT_ADAM = Kernel("flat_adam.cu", "flat_adam", [
+    _i,                         # device
+    _p, _p, _p, _p,             # p, g, m, v (p, m, v updated in place)
+    _p, _i64,                   # scal (fp32 [3]: lr, c1, c2), n
+    _f, _f, _f, _f, _f, _f,     # b1, 1 - b1, b2, 1 - b2, eps, wd
+    _i, _p,                     # decay (0 none, 1 L2, 2 AdamW), stream
+])
+
 KERNELS = (FLASH_FWD, FLASH_BWD, FLASH_DECODE, FLASH_QKV_FWD, FLASH_QKV_BWD,
-           LAYER_NORM_FWD, LAYER_NORM_BWD)
+           LAYER_NORM_FWD, LAYER_NORM_BWD, FLAT_ADAM)
 
 
 def reset_launch_counts() -> None:
@@ -112,5 +123,5 @@ def reset_launch_counts() -> None:
 
 __all__ = ["NvccError", "Kernel", "build_all", "build_log", "DTYPE_CODES",
            "FLASH_FWD", "FLASH_BWD", "FLASH_DECODE", "FLASH_QKV_FWD", "FLASH_QKV_BWD",
-           "LAYER_NORM_FWD", "LAYER_NORM_BWD", "KERNELS",
+           "LAYER_NORM_FWD", "LAYER_NORM_BWD", "FLAT_ADAM", "KERNELS",
            "reset_launch_counts"]

@@ -1,10 +1,11 @@
 """The amp_C multi-tensor op suite over lists of tensors.
 
-PyTorch port of the JAX package's ``apex_tpu/multi_tensor/ops.py``
-(pytree path only; the superblock path belongs to the flat optimizers,
-not ported yet).  Each op takes any iterable of tensors (a model's
-gradients, say) and uses ``torch._foreach_*`` where one exists; the
-inf/nan poll is an all-finite flag returned beside the result.
+PyTorch port of the JAX package's ``apex_tpu/multi_tensor/ops.py``.
+Each op takes any iterable of tensors (a model's gradients, or the one
+superblock of :mod:`apex_tpu_torch.multi_tensor.flat`) and uses
+``torch._foreach_*`` where one exists; the inf/nan poll is an all-finite
+flag returned beside the result.  :func:`segment_l2norms` takes a
+superblock and its schema.
 """
 
 from __future__ import annotations
@@ -12,6 +13,8 @@ from __future__ import annotations
 from typing import Iterable, List, Optional, Tuple
 
 import torch
+
+from apex_tpu_torch.multi_tensor.flat import FlatSchema
 
 
 def _finite(tensors: List[torch.Tensor]) -> torch.Tensor:
@@ -49,6 +52,19 @@ def multi_tensor_l2norm(tensors: Iterable[torch.Tensor], *,
     norms = torch.stack(torch._foreach_norm(tensors))
     total = torch.linalg.vector_norm(norms)
     return (total, norms) if per_tensor else total
+
+
+def segment_l2norms(flat: torch.Tensor, schema: FlatSchema) -> torch.Tensor:
+    """Per-leaf l2 norms [num_tensors] (fp32) over a superblock: the
+    per-tensor option of multi_tensor_l2norm over the schema's offsets.
+    The JAX package takes them as one segment sum; here each leaf's norm
+    is taken over its view, with no atomics, so two runs on the card give
+    the same bits."""
+    views = [flat[schema.leaf_slice(i)].float()
+             for i in range(schema.num_tensors)]
+    if not views:
+        return torch.zeros(0, device=flat.device)
+    return torch.stack(torch._foreach_norm(views))
 
 
 def clip_grad_norm(tensors: Iterable[torch.Tensor], max_norm: float, *,

@@ -4,10 +4,11 @@
     python3 chip_smoke.py          # from the repository root, one card
 
 Drives the port only (it imports neither ``jax`` nor ``apex_tpu``).
-It covers the three ported paths: the serving engine (phases 4-5), the GPT
-training step of ``pretrain_gpt`` (phases 6-7) and the contrib multi-head
-attention training path (phases 8-9).  Phases, each of which fails the
-run (non-zero exit) on error:
+It covers the four ported paths: the serving engine (phases 4-5), the GPT
+training step of ``pretrain_gpt`` (phases 6-7), the contrib multi-head
+attention training path (phases 8-9) and GPT training on the flat
+superblock with ``FlatFusedAdam`` (phases 10-11).  Phases, each of which
+fails the run (non-zero exit) on error:
 
 1. device — a CUDA card is required; its name and power limit are read
    from ``nvidia-smi``;
@@ -24,7 +25,13 @@ run (non-zero exit) on error:
    a zero-stride mask against the same mask materialised, K2 run twice
    (bitwise), the tiles K2 walks against the plain statement of its skip
    rule, and ``flash_attention_varlen`` on a BERT-large-shaped packed
-   batch;
+   batch.  K8 (``flat_adam``) runs over the GPT-1.3B superblock (its init
+   weights) and must give its plain version's bits for p, m and v over 3
+   steps in four variants (AdamW decay 0.01, L2 decay 0.05, decay 0, no
+   bias correction); a ``plan_buckets`` walk and a hand-built 3-span walk
+   must give the single launch's bits; a step must run under
+   ``set_sync_debug_mode("error")``; padding of a ragged superblock stays
+   exactly 0; it is timed beside ``torch._fused_adamw_``;
 4. toy engine — the same weights served at toy width in fp32 on the card
    (kernels) and on the CPU (plain versions) give identical greedy
    streams;
@@ -61,7 +68,20 @@ run (non-zero exit) on error:
    exact launch counts (K1 = K2 = K6 = K7 = 18 a step), the loss falls
    over 5 steps, a dropout-free step through the kernels agrees with the
    plain path, a step run twice is bitwise equal; step time, tokens/s,
-   peak memory and a step's device time by part are reported.
+   peak memory and a step's device time by part are reported;
+10. toy flat training — phase 6's toy GPT on the superblock
+    (``SuperblockTrainer``: weights and grads are views of two flat fp32
+    buffers, the step is ``FlatFusedAdam``), five steps from the same
+    weights and batches on the card (K8) and on the CPU (plain): losses
+    and final weights within phase 6's bars, and the weights moved;
+11. full-width flat training — phase 7's GPT-1.3B on the superblock: five
+    finite steps on a fixed batch with a falling loss, exact launch counts
+    (K3/K4/K6/K7 as in phase 7, K8 once a step), every weight and grad
+    still a view of the flat buffers; from one shared state a step run
+    twice is bitwise equal, the ``plan_buckets`` walk gives the single
+    launch's bits, and the tree ``FusedAdam`` step agrees within
+    ``FLAT_TREE_TOL``; step time, tokens/s, peak memory and the
+    optimizer's device time (K8 + clip) are reported beside phase 7's.
 
 The last three lines of standard output are the kernels' JSON record,
 the ``nvidia-smi`` name/power line, and ``{"ok": true, "device": ...}``.
@@ -90,10 +110,14 @@ from apex_tpu_torch import kernels  # noqa: E402
 from apex_tpu_torch.contrib.multihead_attn import (  # noqa: E402
     EncdecMultiheadAttn, SelfMultiheadAttn)
 from apex_tpu_torch.examples.gpt import pretrain_gpt  # noqa: E402
-from apex_tpu_torch.multi_tensor import multi_tensor_l2norm  # noqa: E402
+from apex_tpu_torch.multi_tensor import (BucketPlan, flatten,  # noqa: E402
+                                         multi_tensor_l2norm, plan_buckets,
+                                         unflatten)
 from apex_tpu_torch.ops import attention as att  # noqa: E402
 from apex_tpu_torch.ops import fused_layer_norm as ln  # noqa: E402
-from apex_tpu_torch.optimizers import FusedAdam  # noqa: E402
+from apex_tpu_torch.optimizers import (FlatAdamState,  # noqa: E402
+                                       FlatFusedAdam, FusedAdam)
+from apex_tpu_torch.optimizers import flat as flat_opt  # noqa: E402
 from apex_tpu_torch.transformer.testing import gpt_param_count  # noqa: E402
 from apex_tpu_torch.serving import model as model_mod  # noqa: E402
 from apex_tpu_torch.serving import (ServingEngine, ServingModelConfig,  # noqa: E402
@@ -832,6 +856,170 @@ def time_generic(enc, dec, gen) -> dict:
             "flash_bwd_mask": out["decoder"]["bwd"]}
 
 
+# -- phase 3, slice 4: K8, Adam over the GPT-1.3B superblock ---------------
+
+FLAT_LR = 1.5e-4     # pretrain_gpt's default, the main path's
+FLAT_STEPS = 3
+FLAT_GRAD_SCALE = 3e-5   # x randn: a global norm near 1 over 1.3e9 elements
+FLAT_VARIANTS = (("AdamW, decay 0.01", dict(weight_decay=0.01)),
+                 ("L2, decay 0.05", dict(weight_decay=0.05,
+                                         adam_w_mode=False)),
+                 ("decay 0", dict(weight_decay=0.0)),
+                 ("bias correction off", dict(weight_decay=0.01,
+                                              bias_correction=False)))
+
+
+def plain_flat_adam():
+    """K8 swapped for its plain version, on the card."""
+    return mock.patch.object(flat_opt, "_flat_adam_cuda",
+                             flat_opt._flat_adam_plain)
+
+
+def gpt_superblock():
+    """The GPT-1.3B main path's superblock (its seeded init weights, the
+    model's unique parameters by name) and its schema."""
+    _, model, _ = pretrain_gpt.setup(FULL_TRAIN, "cuda")
+    with torch.no_grad():
+        return flatten(dict(model.named_parameters()), dtype=torch.float32,
+                       total_multiple_of=1024)
+
+
+def flat_grad(gen, n):
+    return torch.randn(n, generator=gen, device="cuda").mul_(FLAT_GRAD_SCALE)
+
+
+def flat_adam_walk(opt, p0, seed, plan=None):
+    """FLAT_STEPS in-place steps from ``p0`` and fresh moments, gradients
+    drawn from ``seed``; returns (p, state)."""
+    p = p0.clone()
+    state = opt.init(p)
+    run = opt.jit_step(plan=plan)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    for _ in range(FLAT_STEPS):
+        _, state = run(flat_grad(gen, p.numel()), state, p)
+    return p, state
+
+
+def pmv(p, state):
+    return p, state.exp_avg, state.exp_avg_sq
+
+
+def flat_padding_case() -> None:
+    """Leaves of ragged sizes, so the superblock has gaps and a tail: after
+    three steps in either decay mode every padding element of p, m and v
+    is still exactly 0."""
+    rng = np.random.RandomState(4)
+    shapes = [(1000,), (3, 7), (5,), (64, 65), (4096 + 7,)]
+
+    def tree():
+        return {f"w{i}": torch.from_numpy(rng.randn(*s).astype(np.float32)
+                                          ).cuda() for i, s in enumerate(shapes)}
+
+    p, schema = flatten(tree(), total_multiple_of=1024)
+    pad = schema.segment_ids().cuda() == schema.num_tensors
+    for name, kw in FLAT_VARIANTS[:2]:
+        opt = FlatFusedAdam(lr=1e-2, **kw)
+        q, state = p.clone(), opt.init(p)
+        for _ in range(FLAT_STEPS):
+            _, state = opt.jit_step()(flatten(tree(), schema)[0], state, q)
+        zero = all(bool((t[pad] == 0).all()) for t in pmv(q, state))
+        tail = schema.total - schema.offsets[-1] - schema.sizes[-1]
+        log(f"  flat_adam {name}: {int(pad.sum())} padding elements of "
+            f"{schema.total} (tail {tail}) exactly 0 in p, m, v after "
+            f"{FLAT_STEPS} steps: {zero}")
+        if not zero:
+            raise AssertionError("flat_adam wrote into the padding")
+
+
+def phase_flat_adam() -> dict:
+    """K8 at the GPT-1.3B superblock's length: bitwise against its plain
+    version over FLAT_STEPS steps in every decay variant; bucketed walks
+    bitwise against the single launch; no host sync in a step; padding
+    stays 0; then timed beside its plain version, ``torch._fused_adamw_``
+    on the same one-tensor lists, and its bound."""
+    p0, schema = gpt_superblock()
+    n = p0.numel()
+    log(f"  superblock: {schema.num_tensors} leaves, {n} elements")
+    timing, err = None, 0.0
+    for name, kw in FLAT_VARIANTS:
+        opt = FlatFusedAdam(lr=FLAT_LR, **kw)
+        got = flat_adam_walk(opt, p0, 21)
+        with plain_flat_adam():
+            ref = flat_adam_walk(opt, p0, 21)
+        check_bitwise(f"flat_adam [{n}] {name}, {FLAT_STEPS} steps: p, m, v "
+                      "vs plain", pmv(*got), pmv(*ref))
+        err = max([err] + [(a - b).abs().max().item()
+                           for a, b in zip(pmv(*got), pmv(*ref))])
+        del ref
+        if timing is None:   # the main path's variant
+            timing = flat_adam_plans(opt, p0, schema, got)
+        del got
+        torch.cuda.empty_cache()
+    del p0
+    torch.cuda.empty_cache()
+    flat_padding_case()
+    timing["max_abs_err"] = err   # over p, m, v in every variant
+    return timing
+
+
+def flat_adam_plans(opt, p0, schema, got) -> dict:
+    """Bucketed walks against the single launch ``got``, the sync check,
+    and the timings (``got`` is consumed)."""
+    n = p0.numel()
+    third = n // 3 // 1024 * 1024
+    plans = (plan_buckets(schema, 1, span_align=1024),
+             BucketPlan(spans=((0, third), (third, 2 * third), (2 * third, n)),
+                        shard=n, world=1, bucket_bytes=None))
+    for plan, what in zip(plans, ("plan_buckets(span_align=1024)",
+                                  "hand-built")):
+        bucketed = flat_adam_walk(opt, p0, 21, plan)
+        check_bitwise(f"flat_adam {what} plan, {plan.num_buckets} spans, vs "
+                      "one launch", pmv(*got), pmv(*bucketed))
+        del bucketed
+    p, state = got
+    g = flat_grad(torch.Generator(device="cuda").manual_seed(22), n)
+    run = opt.jit_step()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        run(g, state, p)
+        opt.jit_step(plan=plans[0])(g, state, p)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    log("  flat_adam step, one launch and bucketed, under "
+        "set_sync_debug_mode('error'): no host sync")
+    ms = cuda_ms(lambda: run(g, state, p), 20)
+    with plain_flat_adam():
+        plain_ms = cuda_ms(lambda: run(g, state, p), 5, 1)
+    # the library yardstick: PyTorch's fused AdamW on the same one-tensor
+    # lists (the same function, its arithmetic in another order); its
+    # state_steps hold the step after the increment, as K8's c1, c2 do
+    t = (state.step + 1).float()
+
+    def library(p, m, v):
+        torch._fused_adamw_([p], [g], [m], [v], [], [t], lr=opt.lr,
+                            beta1=opt.beta1, beta2=opt.beta2,
+                            weight_decay=opt.weight_decay, eps=opt.eps,
+                            amsgrad=False, maximize=False)
+
+    lib_ms = cuda_ms(lambda: library(*pmv(p, state)), 20)
+    # its gap to K8: one step of each from the same state
+    twin = [x.clone() for x in pmv(p, state)]
+    run(g, state, p)
+    library(*twin)
+    lib_diff = (p - twin[0]).abs().max().item()
+    del twin
+    # p, g, m, v read, p, m, v written; 16 fp32 operations an element
+    bound_ms, bound_by = bound(28 * n, 16 * n, torch.float32)
+    log(f"  flat_adam timing [{n}] fp32 AdamW: kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, torch._fused_adamw_ {lib_ms:.4f} ms (max |p - "
+        f"p_lib| after one step from the same state {lib_diff:.3e}), bound "
+        f"{bound_ms:.4f} ms ({bound_by}); {28 * n / ms / 1e9:.3f} TB/s")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=bound_ms, bound_by=bound_by,
+                library_max_abs_diff=lib_diff)
+
+
 def phase_kernels() -> dict:
     gen = torch.Generator(device="cuda").manual_seed(0)
     bf16, fp32 = torch.bfloat16, torch.float32
@@ -851,8 +1039,13 @@ def phase_kernels() -> dict:
     # a full decode batch as the main path sees it mid-trace
     time_flash_decode(bf16, *decode_operands(gen, bf16, 1, [300] * BATCH))
     fwd["max_abs_err"], dec["max_abs_err"] = err_fwd, err_dec
-    return {"flash_fwd": fwd, "flash_decode": dec, **phase_training_kernels(),
-            **phase_generic_kernels()}
+    del fwd_ops, dec_ops
+    out = {"flash_fwd": fwd, "flash_decode": dec, **phase_training_kernels(),
+           **phase_generic_kernels()}
+    torch.cuda.empty_cache()
+    out["flat_adam"] = phase_flat_adam()
+    torch.cuda.empty_cache()
+    return out
 
 
 # -- phase 4: toy width, cuda vs cpu ---------------------------------------
@@ -977,6 +1170,8 @@ def decode_step_split(eng: ServingEngine, steps: int = 20) -> dict:
 
 
 def phase_full(smi: str) -> dict:
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     cfg = ServingModelConfig(**FULL, dtype=torch.bfloat16)
     params = init_params(cfg, seed=0, device="cuda")
     eng = full_engine(params, cfg)
@@ -1135,7 +1330,8 @@ STEP_KINDS = (("flash_fwd_kernel", "K3 flash_qkv_fwd"),
               ("gemm", "GEMMs (cuBLAS)"), ("xmma", "GEMMs (cuBLAS)"),
               ("nvjet", "GEMMs (cuBLAS)"), ("cutlass", "GEMMs (cuBLAS)"),
               ("foreach", "optimizer + clip (foreach)"),
-              ("multi_tensor", "optimizer + clip (foreach)"))
+              ("multi_tensor", "optimizer + clip (foreach)"),
+              ("lpnorm", "optimizer + clip (foreach)"))
 
 
 def plain_kernels():
@@ -1607,6 +1803,235 @@ def phase_mha(smi: str) -> dict:
     return metrics
 
 
+# -- phases 10-11: GPT training on the flat superblock (K8) -----------------
+
+
+class SuperblockTrainer:
+    """GPT training with the model's weights in one fp32 superblock: the
+    PyTorch form of the JAX package's flatten -> ``FlatFusedAdam.step``
+    -> unflatten.  The model's unique parameters (the tied embedding
+    once), packed by name with ``total_multiple_of=1024``, are rebound to
+    their ``unflatten`` views, so the weights ARE the superblock, and each
+    ``.grad`` is a view of one flat grad buffer of the same layout.  A
+    step zeroes that buffer (dropping the grads would cut the views), runs
+    ``pretrain_gpt.forward_backward``, whose clip scales the grad views
+    and so the flat buffer, then the in-place ``FlatFusedAdam`` step: K8,
+    one launch."""
+
+    def __init__(self, args, model):
+        params = dict(model.named_parameters())
+        with torch.no_grad():
+            self.flat_p, self.schema = flatten(
+                params, dtype=torch.float32, total_multiple_of=1024)
+        self.flat_g = torch.zeros_like(self.flat_p)
+        weights = unflatten(self.flat_p, self.schema)
+        grads = unflatten(self.flat_g, self.schema)
+        for name, p in params.items():
+            p.data = weights[name]
+            p.grad = grads[name]
+        self.args, self.model = args, model
+        self.opt = FlatFusedAdam(lr=args.lr,
+                                 betas=(args.adam_beta1, args.adam_beta2),
+                                 eps=args.adam_eps,
+                                 weight_decay=args.weight_decay)
+        self.state = self.opt.init(self.flat_p)
+        self.run = self.opt.jit_step()
+
+    def step(self, tokens, labels, it: int):
+        self.flat_g.zero_()
+        loss = pretrain_gpt.forward_backward(self.args, self.model, tokens,
+                                             labels, it)
+        _, self.state = self.run(self.flat_g, self.state, self.flat_p)
+        return loss
+
+
+def flat_toy_run(device, state, batches):
+    args, model, _ = pretrain_gpt.setup(TOY_TRAIN, device)
+    model.load_state_dict(state)
+    trainer = SuperblockTrainer(args, model)
+    losses = [float(trainer.step(*(t.to(device) for t in b), it))
+              for it, b in enumerate(batches)]
+    return losses, {k: v.detach().cpu().clone()
+                    for k, v in model.state_dict().items()}
+
+
+def phase_flat_toy() -> dict:
+    """Phase 6's toy GPT (fp32) trained on the superblock from the same
+    weights and batches on the card (kernels, K8) and on the CPU (plain
+    versions), held to phase 6's bars."""
+    args, model, _ = pretrain_gpt.setup(TOY_TRAIN, "cpu")
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    gen = torch.Generator().manual_seed(7)
+    batches = [b for b, _ in zip(pretrain_gpt.synthetic_batches(args, gen),
+                                 range(5))]
+    kernels.FLAT_ADAM.launches = 0
+    on_card, w_card = flat_toy_run("cuda", state, batches)
+    k8 = kernels.FLAT_ADAM.launches
+    on_cpu, w_cpu = flat_toy_run("cpu", state, batches)
+    log(f"  toy fp32 flat losses, cuda (kernels, {k8} K8 launches): {on_card}")
+    log(f"  toy fp32 flat losses, cpu (plain):                 {on_cpu}")
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(on_card, on_cpu))
+    w_err = max((w_card[k] - w_cpu[k]).abs().max().item() for k in w_cpu)
+    moved = max((w_cpu[k] - state[k]).abs().max().item() for k in w_cpu)
+    log(f"  toy flat training: loss rel diff {loss_err:.3e} (tol "
+        f"{TOY_LOSS_TOL:.0e}); final weights max diff {w_err:.3e} (tol "
+        f"{TOY_WEIGHT_TOL:.0e}); the largest update on the CPU {moved:.3e}")
+    if not (k8 == len(batches) and loss_err <= TOY_LOSS_TOL
+            and w_err <= TOY_WEIGHT_TOL and moved > 2 * TOY_WEIGHT_TOL):
+        raise AssertionError("toy flat training: card and CPU disagree")
+    return {"toy_flat_loss_rel_diff": loss_err,
+            "toy_flat_weight_max_diff": w_err}
+
+
+# the superblock step against the tree FusedAdam step from one state and
+# one gradient: the same fp32 Adam in another order of operations (and c1,
+# c2 from the host there); absolute.  Read on an H100: 1.19e-7, one fp32
+# ulp at 1.0 (the LayerNorm gains); ten times that is looser than 1e-6,
+# so the bar stays 1e-6.  One step moves a weight by up to ~1.5e-4
+FLAT_TREE_TOL = 1e-6
+FLAT_KINDS = (("flat_adam", "K8 flat_adam"),) + tuple(
+    (frag, "clip (foreach)" if kind.startswith("optimizer") else kind)
+    for frag, kind in STEP_KINDS)
+
+
+def optimizer_ms(prof, kinds) -> float:
+    return sum(prof["by_kind_ms"].get(k, 0.0) for k in kinds)
+
+
+def phase_flat_training(smi: str, train: dict) -> dict:
+    L, steps = 24, 5
+    per_step = {"flash_qkv_fwd": L, "flash_qkv_bwd": L,
+                "layer_norm_fwd": 4 * L + 1, "layer_norm_bwd": 2 * L + 1,
+                "flat_adam": 1}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    args, model, _ = pretrain_gpt.setup(FULL_TRAIN, "cuda")
+    tr = SuperblockTrainer(args, model)
+    if tr.schema.total != -(-gpt_param_count(model.cfg) // 1024) * 1024:
+        raise AssertionError("superblock length is not phase 3's")
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    tokens, labels = next(pretrain_gpt.synthetic_batches(args, gen))
+    losses, times = [], []
+    kernels.reset_launch_counts()
+    for it in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(tr.step(tokens, labels, it)))
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = {k.symbol: k.launches for k in kernels.KERNELS if k.launches}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    want = {k: v * steps for k, v in per_step.items()}
+    log(f"  superblock: {tr.schema.num_tensors} leaves, {tr.schema.total} "
+        f"elements; fixed-batch losses {losses}")
+    log(f"  launches over {steps} steps {launches}, expected {want} (K8 one "
+        "launch a step)")
+    if launches != want:
+        raise AssertionError("flat training launch counts do not match the "
+                             "main path")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError("flat training: the loss is not finite or does "
+                             "not fall on a fixed batch")
+    lo_p, lo_g = tr.flat_p.data_ptr(), tr.flat_g.data_ptr()
+    nbytes = tr.flat_p.numel() * 4
+    alias = all(lo_p <= p.data_ptr() < lo_p + nbytes
+                and lo_g <= p.grad.data_ptr() < lo_g + nbytes
+                for p in model.parameters())
+    log(f"  after backward every weight and .grad is a view of the "
+        f"superblock / flat grad buffer: {alias}")
+    if not alias:
+        raise AssertionError("a parameter or its grad left the superblock")
+    step_ms = statistics.median(times[1:])
+    tokens_per_step = args.global_batch_size * args.seq_length
+    prof = step_profile(lambda: tr.step(tokens, labels, steps), FLAT_KINDS)
+    opt_ms = optimizer_ms(prof, ("K8 flat_adam", "clip (foreach)"))
+    tree_ms = optimizer_ms(train["step_profile"],
+                           ("optimizer + clip (foreach)",))
+    metrics = {"flat_step_ms_p50": step_ms,
+               "flat_tok_per_s": tokens_per_step / step_ms * 1e3,
+               "peak_mem_gib": peak, "superblock_elements": tr.schema.total,
+               "optimizer_clip_device_ms": opt_ms,
+               "tree_optimizer_clip_device_ms": tree_ms,
+               "tree_step_ms_p50": train["train_step_ms_p50"],
+               "tree_peak_mem_gib": train["peak_mem_gib"],
+               "step_profile": prof, "card": smi}
+    log(f"  flat step {step_ms:.1f} ms ({metrics['flat_tok_per_s']:,.0f} "
+        f"tok/s), peak {peak:.2f} GiB; phase 7 (tree FusedAdam, this run): "
+        f"{train['train_step_ms_p50']:.1f} ms, peak "
+        f"{train['peak_mem_gib']:.2f} GiB")
+    log("  one flat step under torch.profiler: " + ", ".join(
+        f"{k} {v:.1f} ms" for k, v in prof["by_kind_ms"].items())
+        + f"; wall {prof['wall_ms']:.1f} ms, device busy "
+          f"{prof['device_busy_ms']:.1f} ms, idle {prof['idle_share']:.1%}")
+    log(f"  optimizer + clip device time: K8 + clip {opt_ms:.2f} ms; phase 7's"
+        f" FusedAdam + clip {tree_ms:.2f} ms")
+    for name, n, t in prof["top_kernels"]:
+        log(f"    {t:8.1f} ms  x{n:<5d} {name}")
+    metrics.update(flat_checks(tr, steps + 1))
+    metrics["launches"] = launches
+    return metrics
+
+
+def flat_checks(tr: SuperblockTrainer, it: int) -> dict:
+    """From one shared state S: a whole step run twice is bitwise equal;
+    the bucketed plan gives the single launch's bits; and the tree
+    ``FusedAdam`` step over the same weights, moments and gradient agrees
+    within FLAT_TREE_TOL."""
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    tokens, labels = next(pretrain_gpt.synthetic_batches(tr.args, gen))
+    saved = [x.clone() for x in pmv(tr.flat_p, tr.state)]
+    step0 = tr.state.step.clone()
+
+    def restore():
+        for dst, src in zip(pmv(tr.flat_p, tr.state), saved):
+            dst.copy_(src)
+        tr.state = tr.state._replace(step=step0.clone())
+
+    loss1 = float(tr.step(tokens, labels, it))
+    # the bucketed walk from S with the same (clipped) gradient
+    plan = plan_buckets(tr.schema, 1, span_align=1024)
+    bucketed = [x.clone() for x in saved]
+    before = kernels.FLAT_ADAM.launches
+    tr.opt.jit_step(plan=plan)(tr.flat_g, FlatAdamState(step0.clone(),
+                                                        *bucketed[1:]),
+                               bucketed[0])
+    spans = kernels.FLAT_ADAM.launches - before
+    check_bitwise(f"flat step, plan_buckets ({plan.num_buckets} spans, "
+                  f"{spans} launches) vs one launch: p, m, v",
+                  pmv(tr.flat_p, tr.state), bucketed)
+    if spans != plan.num_buckets:
+        raise AssertionError("the bucketed walk's launches are not its spans")
+    restore()
+    loss2 = float(tr.step(tokens, labels, it))
+    same = loss1 == loss2 and all(torch.equal(a, b) for a, b in zip(
+        pmv(tr.flat_p, tr.state), bucketed))
+    log(f"  same flat step twice from the same state (dropout on): losses "
+        f"{loss1!r} / {loss2!r}, p, m, v bitwise equal: {same}")
+    if not same:
+        raise AssertionError("the flat step is not deterministic")
+    del bucketed
+    torch.cuda.empty_cache()
+    # the tree FusedAdam over views of S, with the flat step's gradient
+    p_s, m_s, v_s = saved
+    leaves = [torch.nn.Parameter(w) for w in unflatten(p_s, tr.schema).values()]
+    tree = FusedAdam(leaves, lr=tr.opt.lr, betas=(tr.opt.beta1, tr.opt.beta2),
+                     eps=tr.opt.eps, weight_decay=tr.opt.weight_decay)
+    t0 = int(step0)
+    for leaf, g, m, v in zip(leaves, *(unflatten(x, tr.schema).values()
+                                       for x in (tr.flat_g, m_s, v_s))):
+        leaf.grad = g
+        tree.state[leaf] = {"step": t0, "exp_avg": m, "exp_avg_sq": v}
+    moved = (p_s - tr.flat_p).abs().max().item()
+    tree.step()
+    gap = (p_s - tr.flat_p).abs().max().item()
+    log(f"  one step, superblock (K8) vs tree FusedAdam from the same state: "
+        f"max |dw| {gap:.3e} (tol {FLAT_TREE_TOL:.0e}); the step moved a "
+        f"weight by up to {moved:.3e}")
+    if not (gap <= FLAT_TREE_TOL and moved > 10 * FLAT_TREE_TOL):
+        raise AssertionError("the superblock step disagrees with FusedAdam")
+    return {"flat_vs_tree_max_abs_dw": gap, "flat_deterministic": same,
+            "flat_bucketed_spans": plan.num_buckets}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1659,6 +2084,14 @@ def main() -> int:
     log("phase 9 full-width multi-head attention stack (Transformer-big, 6 + "
         "6 layers, bf16, batch 32 x 256 / 192)")
     mha = phase_mha(smi)
+    torch.cuda.empty_cache()
+
+    log("phase 10 toy training on the flat superblock, cuda vs cpu")
+    phase_flat_toy()
+
+    log("phase 11 full-width training on the flat superblock (GPT-1.3B, "
+        "FlatFusedAdam)")
+    flat = phase_flat_training(smi, train)
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
 
     record = {"kernels": [
@@ -1691,6 +2124,12 @@ def main() -> int:
              "apex_tpu/ops/fused_layer_norm.py:75"),
             ("layer_norm_bwd", "layer_norm.cu",
              "apex_tpu/ops/fused_layer_norm.py:150"))
+    ] + [
+        dict(name="flat_adam", route="cuda",
+             source="apex_tpu_torch/csrc/flat_adam.cu",
+             replaces="apex_tpu/optimizers/flat.py:161",
+             launches=flat["launches"]["flat_adam"],
+             **timings["flat_adam"]),
     ]}
     print(json.dumps(record))
     print(smi)
