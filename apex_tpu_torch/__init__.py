@@ -9,7 +9,8 @@ card unless the caller passes ``device="cpu"``, where each kernel's plain
 PyTorch version runs instead.
 
 Ported so far — the serving path, the GPT training step, the contrib
-multi-head attention training path and the flat superblock optimizer:
+multi-head attention training path, the flat superblock optimizer and the
+bench's roofs, floor and kernel microbenches:
 
 * :mod:`apex_tpu_torch.ops` — ``flash_attention`` with its backward
   (prefill, the attention modules) and ``flash_attention_varlen``,
@@ -27,10 +28,13 @@ multi-head attention training path and the flat superblock optimizer:
   superblock's pack/unpack and bucket planner, global-norm clipping and
   the multi-tensor ops;
 * :mod:`apex_tpu_torch.examples.gpt.pretrain_gpt` — GPT pretraining on
-  one card.
+  one card;
+* :mod:`apex_tpu_torch.profiling` — CUDA-event timers, the HBM roof
+  (``hbm_copy``), the matmul roof, the attention dot floor
+  (``attention_dots``) and the kernel microbenches, on the card only.
 
 What is still to port, in order, is in ROADMAP.md.
 """
 
 __all__ = ["contrib", "examples", "kernels", "multi_tensor", "ops",
-           "optimizers", "serving", "transformer"]
+           "optimizers", "profiling", "serving", "transformer"]

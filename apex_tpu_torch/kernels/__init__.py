@@ -5,8 +5,9 @@ point of one ``csrc/*.cu`` source (built with ``nvcc`` at first use) and
 counts its launches.  The tensor-level wrappers that check arguments and
 take the plain PyTorch versions for CPU tensors live beside those
 versions in :mod:`apex_tpu_torch.ops.attention`,
-:mod:`apex_tpu_torch.ops.fused_layer_norm` and
-:mod:`apex_tpu_torch.optimizers.flat`.
+:mod:`apex_tpu_torch.ops.fused_layer_norm`,
+:mod:`apex_tpu_torch.optimizers.flat` and
+:mod:`apex_tpu_torch.profiling.roofs`.
 """
 
 import ctypes
@@ -112,8 +113,24 @@ FLAT_ADAM = Kernel("flat_adam.cu", "flat_adam", [
     _i, _p,                     # decay (0 none, 1 L2, 2 AdamW), stream
 ])
 
+#: hbm_copy.cu — a byte copy, the HBM roof probe
+HBM_COPY = Kernel("hbm_copy.cu", "hbm_copy", [
+    _i,                         # device
+    _p, _p, _i64,               # src, dst, bytes
+    _p,                         # stream
+])
+
+#: attention_dots.cu — the two attention products with the bench's causal
+#: tile skip, the attention dot floor
+ATTENTION_DOTS = Kernel("attention_dots.cu", "attention_dots", [
+    _i,                         # device
+    _p, _p, _p, _p,             # q, k, v, o (bf16 [bh, s, d])
+    _i, _i, _i,                 # bh, s, d
+    _i, _i, _p,                 # block_q, block_k, stream
+])
+
 KERNELS = (FLASH_FWD, FLASH_BWD, FLASH_DECODE, FLASH_QKV_FWD, FLASH_QKV_BWD,
-           LAYER_NORM_FWD, LAYER_NORM_BWD, FLAT_ADAM)
+           LAYER_NORM_FWD, LAYER_NORM_BWD, FLAT_ADAM, HBM_COPY, ATTENTION_DOTS)
 
 
 def reset_launch_counts() -> None:
@@ -123,5 +140,6 @@ def reset_launch_counts() -> None:
 
 __all__ = ["NvccError", "Kernel", "build_all", "build_log", "DTYPE_CODES",
            "FLASH_FWD", "FLASH_BWD", "FLASH_DECODE", "FLASH_QKV_FWD", "FLASH_QKV_BWD",
-           "LAYER_NORM_FWD", "LAYER_NORM_BWD", "FLAT_ADAM", "KERNELS",
+           "LAYER_NORM_FWD", "LAYER_NORM_BWD", "FLAT_ADAM", "HBM_COPY",
+           "ATTENTION_DOTS", "KERNELS",
            "reset_launch_counts"]

@@ -15,8 +15,9 @@ Libraries land in
 the sources and flags, so a stale library is never loaded.  Only the
 package's own sources are compiled; nothing is fetched.
 
-``nvcc`` is looked up as ``$CUDA_HOME/bin/nvcc``, then on ``PATH``, then
-at the toolkit's default ``/usr/local/cuda/bin/nvcc``.
+``nvcc`` (and any toolkit program, :func:`cuda_tool`) is looked up as
+``$CUDA_HOME/bin/nvcc``, then on ``PATH``, then at the toolkit's default
+``/usr/local/cuda/bin/nvcc``.
 """
 
 from __future__ import annotations
@@ -48,19 +49,21 @@ class NvccError(RuntimeError):
     """nvcc is missing or refused a source."""
 
 
-def _nvcc() -> str:
+def cuda_tool(name: str = "nvcc") -> str:
+    """The path of a CUDA toolkit program (``nvcc``, ``cuobjdump``)."""
     candidates: List[Path] = []
     if os.environ.get("CUDA_HOME"):
-        candidates.append(Path(os.environ["CUDA_HOME"]) / "bin" / "nvcc")
-    found = shutil.which("nvcc")
+        candidates.append(Path(os.environ["CUDA_HOME"]) / "bin" / name)
+    found = shutil.which(name)
     if found:
         candidates.append(Path(found))
-    candidates.append(Path("/usr/local/cuda/bin/nvcc"))
+    candidates.append(Path("/usr/local/cuda/bin") / name)
     for c in candidates:
         if c.is_file():
             return str(c)
-    raise NvccError("nvcc not found (set CUDA_HOME or put nvcc on PATH); "
-                    "the CUDA kernels are built from source at first use")
+    raise NvccError(f"{name} not found (set CUDA_HOME or put {name} on "
+                    "PATH); the CUDA kernels are built from source at first "
+                    "use")
 
 
 def sources() -> List[Path]:
@@ -74,6 +77,11 @@ def _library(source: Path) -> Path:
     return BUILD_DIR / f"{source.stem}-{h.hexdigest()[:16]}.so"
 
 
+def library_path(source_name: str) -> Path:
+    """Where the library of ``csrc/<source_name>`` is built."""
+    return _library(CSRC / source_name)
+
+
 def build_all() -> float:
     """Compile every source whose library is missing, all in parallel;
     returns the wall seconds spent (0.0 when everything was built)."""
@@ -81,7 +89,7 @@ def build_all() -> float:
         todo = [s for s in sources() if not _library(s).exists()]
         if not todo:
             return 0.0
-        nvcc = _nvcc()
+        nvcc = cuda_tool()
         BUILD_DIR.mkdir(exist_ok=True)
         t0 = time.perf_counter()
         jobs = []

@@ -4,11 +4,12 @@
     python3 chip_smoke.py          # from the repository root, one card
 
 Drives the port only (it imports neither ``jax`` nor ``apex_tpu``).
-It covers the four ported paths: the serving engine (phases 4-5), the GPT
+It covers the five ported paths: the serving engine (phases 4-5), the GPT
 training step of ``pretrain_gpt`` (phases 6-7), the contrib multi-head
-attention training path (phases 8-9) and GPT training on the flat
-superblock with ``FlatFusedAdam`` (phases 10-11).  Phases, each of which
-fails the run (non-zero exit) on error:
+attention training path (phases 8-9), GPT training on the flat
+superblock with ``FlatFusedAdam`` (phases 10-11) and the kernel
+microbenches with their HBM roof and attention dot floor (phase 12).
+Phases, each of which fails the run (non-zero exit) on error:
 
 1. device — a CUDA card is required; its name and power limit are read
    from ``nvidia-smi``;
@@ -83,6 +84,23 @@ fails the run (non-zero exit) on error:
     ``FLAT_TREE_TOL``; step time, tokens/s, peak memory and the
     optimizer's device time (K8 + clip) are reported beside phase 7's.
 
+12. roofs and floors — K9 (``hbm_copy``) bit for bit against its plain
+    version at the HBM roof's 16384 x 8192 fp32 and at a ragged bf16
+    length, and a misaligned destination refused; K10
+    (``attention_dots``) within ``tolerance`` of its plain version and bitwise across two runs at
+    bench.py's (128, 1024, 64, blocks 512), GPT-1.3B's (64, 2048, 128,
+    blocks 64) and Transformer-big's encoder (512, 256, 64, blocks 64)
+    shapes; the count of ``HMMA`` instructions in K10's SASS
+    (``cuobjdump``), which must not be 0; K1/K2 and K6/K7 against their
+    plain versions at the microbenches' shapes.  Then the main path, the
+    port of bench.py's kernel-microbench path: ``hbm_roof``,
+    ``matmul_roof``, ``attention_kernel`` at bench.py's two shapes (the
+    first with the dot floor) and ``layer_norm_kernel``, each printed with
+    the card, with exact launch counts; then K9 and K10 timed cold beside
+    their plain versions, ``copy_`` and two dense ``torch.bmm``; last,
+    every kernel row read against what the card demonstrably reaches
+    (the HBM roof, or the dot floor at its shape).
+
 The last three lines of standard output are the kernels' JSON record,
 the ``nvidia-smi`` name/power line, and ``{"ok": true, "device": ...}``.
 fp32 matrix products run in full fp32 (``allow_tf32`` off).
@@ -118,15 +136,15 @@ from apex_tpu_torch.ops import fused_layer_norm as ln  # noqa: E402
 from apex_tpu_torch.optimizers import (FlatAdamState,  # noqa: E402
                                        FlatFusedAdam, FusedAdam)
 from apex_tpu_torch.optimizers import flat as flat_opt  # noqa: E402
+from apex_tpu_torch.profiling import microbench, roofs, timing  # noqa: E402
+from apex_tpu_torch.profiling.roofs import (HBM_BYTES_PER_S,  # noqa: E402
+                                            PEAK_FLOPS, bound)
+from apex_tpu_torch.profiling.timing import cold_ms  # noqa: E402
 from apex_tpu_torch.transformer.testing import gpt_param_count  # noqa: E402
 from apex_tpu_torch.serving import model as model_mod  # noqa: E402
 from apex_tpu_torch.serving import (ServingEngine, ServingModelConfig,  # noqa: E402
                                     SimClock, init_params, poisson_trace)
 
-# H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, and flop/s by
-# input type (bf16 on the tensor cores, fp32 on the FMA units)
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 BF16_TOL = 2.0 ** -7    # x max|ref|: one bf16 ulp at the output's scale
 FP32_TOL = 1e-5         # x max(1, max|ref|)
 
@@ -139,31 +157,6 @@ NUM_PAGES = 1 + BATCH * PAGES_PER_REQ * 3 // 2
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-L2_FLUSH_BYTES = 256 * 2 ** 20   # > 5x the H100's 50 MB L2
-
-
-def cuda_ms(fn, iters: int = 20, warm: int = 3) -> float:
-    """Mean device time of one call of ``fn`` with its operands cold in L2,
-    as the main path finds them (each layer's weights stream through L2
-    between two attention calls).  Before each timed call a 256 MiB buffer
-    is written, evicting L2, and the device sleeps ~0.5 ms so the host has
-    enqueued the call before its start event fires.  CUDA events around
-    each call, after ``warm`` untimed calls."""
-    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
-    for _ in range(warm):
-        fn()
-    events = [(torch.cuda.Event(enable_timing=True),
-               torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
-    for start, end in events:
-        flush.zero_()
-        torch.cuda._sleep(1_000_000)
-        start.record()
-        fn()
-        end.record()
-    torch.cuda.synchronize()
-    return statistics.mean(s.elapsed_time(e) for s, e in events)
 
 
 def ptxas_report(text: str) -> list:
@@ -192,12 +185,6 @@ def demangle(name: str) -> str:
         return name
     found = re.search(r"\w+<[^()]*>", full)
     return found.group(0) if found else full.strip()
-
-
-def bound(nbytes: float, flops: float, dtype) -> tuple:
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def tolerance(ref: torch.Tensor) -> float:
@@ -261,15 +248,15 @@ def flash_fwd_case(gen, name, dtype, lengths):
 def time_flash_fwd(dtype, q, k, v, seg) -> dict:
     b, h, s, d = q.shape
     scale = 1 / math.sqrt(d)
-    ms = cuda_ms(lambda: att.flash_attention_fwd(q, k, v, causal=True,
+    ms = cold_ms(lambda: att.flash_attention_fwd(q, k, v, causal=True,
                                                  segment_ids=seg))
     qf, kf, vf = (t.reshape(b * h, s, d) for t in (q, k, v))
-    plain_ms = cuda_ms(lambda: att._blockwise_fwd(qf, kf, vf, scale, True,
+    plain_ms = cold_ms(lambda: att._blockwise_fwd(qf, kf, vf, scale, True,
                                                   None, seg, seg))
     sid = seg[0]
     visible = (sid[:, None] == sid[None, :]) & torch.ones(
         s, s, dtype=torch.bool, device="cuda").tril()
-    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+    lib_ms = cold_ms(lambda: F.scaled_dot_product_attention(
         q, k, v, attn_mask=visible[None, None]))
     item = q.element_size()
     # q, k, v read once; o written once; lse out; the two seg-id rows in
@@ -326,8 +313,8 @@ def flash_decode_case(gen, name, dtype, q_len, lengths):
 def time_flash_decode(dtype, q, kp, vp, table, kv_len) -> dict:
     b, h, q_len, d = q.shape
     page_size, p_max = kp.shape[1], table.shape[1]
-    ms = cuda_ms(lambda: att.flash_decode(q, kp, vp, table, kv_len), 50)
-    plain_ms = cuda_ms(lambda: att._paged_attention(
+    ms = cold_ms(lambda: att.flash_decode(q, kp, vp, table, kv_len), 50)
+    plain_ms = cold_ms(lambda: att._paged_attention(
         q, kp, vp, table, kv_len, 1 / math.sqrt(d)), 50)
     cols = torch.arange(p_max * page_size, device="cuda")
     rows = torch.arange(q_len, device="cuda")[:, None]
@@ -339,7 +326,7 @@ def time_flash_decode(dtype, q, kp, vp, table, kv_len) -> dict:
         vc = vp[idx].reshape(b, -1, h, d).transpose(1, 2)
         return F.scaled_dot_product_attention(q, kc, vc, attn_mask=visible)
 
-    lib_ms = cuda_ms(library, 50)
+    lib_ms = cold_ms(library, 50)
     item = q.element_size()
     reach = p_max * page_size
     live_cols = sum(min(int(n), reach) for n in kv_len.tolist())
@@ -407,21 +394,21 @@ def time_flash_qkv(qkv, dctx, ctx, lse, rate) -> tuple:
     b, s, _ = qkv.shape
     h, d = TRAIN["heads"], TRAIN["d"]
     args = (None, None, h, d ** -0.5, True, rate, RATE_SEED)
-    fwd_ms = cuda_ms(lambda: att._flash_qkv_fwd_cuda(qkv, *args), 10)
-    fwd_plain = cuda_ms(lambda: att._flash_qkv_fwd_plain(qkv, *args), 5, 1)
-    bwd_ms = cuda_ms(lambda: att._flash_qkv_bwd_cuda(qkv, dctx, ctx, lse,
+    fwd_ms = cold_ms(lambda: att._flash_qkv_fwd_cuda(qkv, *args), 10)
+    fwd_plain = cold_ms(lambda: att._flash_qkv_fwd_plain(qkv, *args), 5, 1)
+    bwd_ms = cold_ms(lambda: att._flash_qkv_bwd_cuda(qkv, dctx, ctx, lse,
                                                      *args), 10)
-    bwd_plain = cuda_ms(lambda: att._flash_qkv_bwd_plain(
+    bwd_plain = cold_ms(lambda: att._flash_qkv_bwd_plain(
         qkv, dctx, ctx, lse, *args), 5, 1)
     # the library yardstick: SDPA on the same strided per-head views
     q, k, v = (t.detach().requires_grad_() for t in
                qkv.view(b, s, h, 3, d).permute(3, 0, 2, 1, 4))
-    fwd_lib = cuda_ms(lambda: F.scaled_dot_product_attention(
+    fwd_lib = cold_ms(lambda: F.scaled_dot_product_attention(
         q, k, v, dropout_p=rate, is_causal=True), 10)
     out = F.scaled_dot_product_attention(q, k, v, dropout_p=rate,
                                          is_causal=True)
     dout = dctx.view(b, s, h, d).transpose(1, 2)
-    bwd_lib = cuda_ms(lambda: torch.autograd.grad(
+    bwd_lib = cold_ms(lambda: torch.autograd.grad(
         out, (q, k, v), dout, retain_graph=True), 10)
     item = qkv.element_size()
     pairs = b * h * s * (s + 1) // 2          # visible causal pairs
@@ -436,9 +423,9 @@ def time_flash_qkv(qkv, dctx, ctx, lse, rate) -> tuple:
         f"plain {bwd_plain:.4f}, sdpa backward {bwd_lib:.4f}, bound "
         f"{bb:.4f} ({bby})")
     return (dict(ms=fwd_ms, plain_ms=fwd_plain, library_ms=fwd_lib,
-                 bound_ms=fb, bound_by=fby),
+                 bound_ms=fb, bound_by=fby, flops=4 * d * pairs),
             dict(ms=bwd_ms, plain_ms=bwd_plain, library_ms=bwd_lib,
-                 bound_ms=bb, bound_by=bby))
+                 bound_ms=bb, bound_by=bby, flops=10 * d * pairs))
 
 
 def layer_norm_case(gen, name, dtype, rows=TRAIN["b"] * TRAIN["s"],
@@ -466,19 +453,19 @@ def layer_norm_case(gen, name, dtype, rows=TRAIN["b"] * TRAIN["s"],
 
 def time_layer_norm(x, dy, w, b, mean, invvar) -> tuple:
     rows, cols = x.shape
-    fwd_ms = cuda_ms(lambda: ln._ln_fwd_cuda(x, w, b, 1e-5), 50)
-    fwd_plain = cuda_ms(lambda: ln._ln_fwd_plain(x, w, b, 1e-5), 20)
-    bwd_ms = cuda_ms(lambda: ln._ln_bwd_cuda(x, dy, mean, invvar, w, True),
+    fwd_ms = cold_ms(lambda: ln._ln_fwd_cuda(x, w, b, 1e-5), 50)
+    fwd_plain = cold_ms(lambda: ln._ln_fwd_plain(x, w, b, 1e-5), 20)
+    bwd_ms = cold_ms(lambda: ln._ln_bwd_cuda(x, dy, mean, invvar, w, True),
                      50)
-    bwd_plain = cuda_ms(lambda: ln._ln_bwd_plain(x, dy, mean, invvar, w,
+    bwd_plain = cold_ms(lambda: ln._ln_bwd_plain(x, dy, mean, invvar, w,
                                                  True), 20)
     # the library yardstick in x's dtype throughout (F.layer_norm wants
     # one dtype), forward and its autograd backward
     xl = x.detach().requires_grad_()
     wl, bl = (t.to(x.dtype).requires_grad_() for t in (w, b))
-    fwd_lib = cuda_ms(lambda: F.layer_norm(xl, (cols,), wl, bl), 50)
+    fwd_lib = cold_ms(lambda: F.layer_norm(xl, (cols,), wl, bl), 50)
     yl = F.layer_norm(xl, (cols,), wl, bl)
-    bwd_lib = cuda_ms(lambda: torch.autograd.grad(
+    bwd_lib = cold_ms(lambda: torch.autograd.grad(
         yl, (xl, wl, bl), dy, retain_graph=True), 50)
     item = x.element_size()
     # x in, y out, w and b in, mean and invvar out; ~7 fp32 ops an element
@@ -820,19 +807,19 @@ def time_generic(enc, dec, gen) -> dict:
         else:
             fmask = mask.to(q.dtype)
             visible, live_q, live_k = B * H * sq * sk, B * H * sq, B * H * sk
-        fwd_ms = cuda_ms(lambda: att._flash_fwd_cuda(q, k, v, *args), 20)
-        drop_ms = cuda_ms(lambda: att._flash_fwd_cuda(
+        fwd_ms = cold_ms(lambda: att._flash_fwd_cuda(q, k, v, *args), 20)
+        drop_ms = cold_ms(lambda: att._flash_fwd_cuda(
             q, k, v, *args[:5], MHA["dropout"], RATE_SEED), 20)
-        fwd_plain = cuda_ms(lambda: att._flash_fwd_plain(q, k, v, *args), 5, 1)
+        fwd_plain = cold_ms(lambda: att._flash_fwd_plain(q, k, v, *args), 5, 1)
         ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
-        fwd_lib = cuda_ms(lambda: F.scaled_dot_product_attention(
+        fwd_lib = cold_ms(lambda: F.scaled_dot_product_attention(
             ql, kl, vl, attn_mask=fmask), 20)
-        bwd_ms = cuda_ms(lambda: att._flash_bwd_cuda(q, k, v, o, lse, do,
+        bwd_ms = cold_ms(lambda: att._flash_bwd_cuda(q, k, v, o, lse, do,
                                                      *args), 20)
-        bwd_plain = cuda_ms(lambda: att._flash_bwd_plain(
+        bwd_plain = cold_ms(lambda: att._flash_bwd_plain(
             q, k, v, o, lse, do, *args), 5, 1)
         ol = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=fmask)
-        bwd_lib = cuda_ms(lambda: torch.autograd.grad(
+        bwd_lib = cold_ms(lambda: torch.autograd.grad(
             ol, (ql, kl, vl), do, retain_graph=True), 20)
         fb, fby = mha_bound(q, k, mask, True, live_q, live_k, visible)
         bb, bby = mha_bound(q, k, mask, False, live_q, live_k, visible)
@@ -845,10 +832,11 @@ def time_generic(enc, dec, gen) -> dict:
             f"({bby})")
         out[name] = dict(fwd=dict(ms=fwd_ms, ms_dropout=drop_ms,
                                   plain_ms=fwd_plain, library_ms=fwd_lib,
-                                  bound_ms=fb, bound_by=fby),
+                                  bound_ms=fb, bound_by=fby,
+                                  flops=4 * d * visible),
                          bwd=dict(ms=bwd_ms, plain_ms=bwd_plain,
                                   library_ms=bwd_lib, bound_ms=bb,
-                                  bound_by=bby))
+                                  bound_by=bby, flops=10 * d * visible))
         del ql, kl, vl, ol
     return {"flash_fwd_mha": out["encoder"]["fwd"],
             "flash_fwd_mha_mask": out["decoder"]["fwd"],
@@ -988,9 +976,9 @@ def flat_adam_plans(opt, p0, schema, got) -> dict:
         torch.cuda.set_sync_debug_mode(0)
     log("  flat_adam step, one launch and bucketed, under "
         "set_sync_debug_mode('error'): no host sync")
-    ms = cuda_ms(lambda: run(g, state, p), 20)
+    ms = cold_ms(lambda: run(g, state, p), 20)
     with plain_flat_adam():
-        plain_ms = cuda_ms(lambda: run(g, state, p), 5, 1)
+        plain_ms = cold_ms(lambda: run(g, state, p), 5, 1)
     # the library yardstick: PyTorch's fused AdamW on the same one-tensor
     # lists (the same function, its arithmetic in another order); its
     # state_steps hold the step after the increment, as K8's c1, c2 do
@@ -1002,7 +990,7 @@ def flat_adam_plans(opt, p0, schema, got) -> dict:
                             weight_decay=opt.weight_decay, eps=opt.eps,
                             amsgrad=False, maximize=False)
 
-    lib_ms = cuda_ms(lambda: library(*pmv(p, state)), 20)
+    lib_ms = cold_ms(lambda: library(*pmv(p, state)), 20)
     # its gap to K8: one step of each from the same state
     twin = [x.clone() for x in pmv(p, state)]
     run(g, state, p)
@@ -2032,6 +2020,247 @@ def flat_checks(tr: SuperblockTrainer, it: int) -> dict:
             "flat_bucketed_spans": plan.num_buckets}
 
 
+# -- phase 12: the bench's roofs and floor (K9, K10) and the kernel
+# microbenches ---------------------------------------------------------------
+
+# K10 at three shapes (bh, s, d, block_q, block_k): bench.py's microbench;
+# K3/K4's GPT-1.3B attention at the port's key tile of 64
+# (csrc/flash_tile.cuh); K1/K2's Transformer-big encoder
+DOT_SHAPES = (
+    ("bench", (128, 1024, 64, 512, 512)),
+    ("GPT-1.3B (K3/K4)", (TRAIN["b"] * TRAIN["heads"], TRAIN["s"],
+                          TRAIN["d"], 64, 64)),
+    ("Transformer-big encoder (K1/K2)", (MHA["batch"] * MHA["heads"],
+                                        MHA["src"],
+                                        MHA["hidden"] // MHA["heads"], 64,
+                                        64)),
+)
+# the physical ceilings a demonstrated rate must stay under (a timer that
+# lost a launch would read above them)
+ROOF_SLACK = 1.05
+
+
+def bits(t: torch.Tensor) -> torch.Tensor:
+    return t.view(torch.uint8)
+
+
+def hbm_copy_checks(gen) -> tuple:
+    """K9 bit for bit against its plain version: the roof's 16384 x 8192
+    fp32 buffer; a ragged bf16 length (2^20 + 3 elements: a 6-byte tail).
+    A destination 2 bytes off 16-byte alignment is refused before any
+    launch.  Returns (max |kernel - plain|, the roof's buffer)."""
+    x = torch.randn(16384, 8192, generator=gen, device="cuda")
+    got = roofs.hbm_copy(x)
+    ref = roofs._hbm_copy_plain(x, None)
+    torch.cuda.synchronize()
+    check_bitwise("hbm_copy [16384, 8192] fp32 vs plain", (bits(got),),
+                  (bits(ref),))
+    err = (got - ref).abs().max().item()
+    del got, ref
+    r = torch.randn(2 ** 20 + 3, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    check_bitwise("hbm_copy [2^20 + 3] bf16 (byte tail) vs plain",
+                  (bits(roofs.hbm_copy(r)),),
+                  (bits(roofs._hbm_copy_plain(r, None)),))
+    out = torch.zeros(r.numel() + 1, dtype=r.dtype, device="cuda")[1:]
+    launches = kernels.HBM_COPY.launches
+    try:
+        roofs.hbm_copy(r, out)
+    except ValueError as e:
+        log(f"  hbm_copy into a destination 2 bytes off alignment: refused "
+            f"({e})")
+    else:
+        raise AssertionError("hbm_copy took a misaligned destination")
+    if kernels.HBM_COPY.launches != launches:
+        raise AssertionError("hbm_copy launched on a misaligned destination")
+    return err, x
+
+
+def dots_case(gen, what, shape) -> tuple:
+    """K10 against its plain version within ``tolerance`` (bf16), and run
+    twice, bitwise."""
+    bh, s, d, bq, bk = shape
+    q, k, v = (torch.randn(bh, s, d, generator=gen, device="cuda").to(
+        torch.bfloat16) for _ in range(3))
+    o = roofs.attention_dots(q, k, v, bq, bk)
+    ref = roofs._attention_dots_plain(q, k, v, bq, bk)
+    torch.cuda.synchronize()
+    name = f"attention_dots {what} [{bh}, {s}, {d}] blocks ({bq}, {bk})"
+    err = check(name, o, ref)
+    del ref
+    check_bitwise(f"{name} run twice", (o,),
+                  (roofs.attention_dots(q, k, v, bq, bk),))
+    return err, (q, k, v)
+
+
+def hmma_count(source: str = "attention_dots.cu") -> int:
+    """Tensor-core instructions (``HMMA``) in the SASS of a built source's
+    library, from ``cuobjdump -sass``."""
+    tool = kernels._build.cuda_tool("cuobjdump")
+    sass = subprocess.run([tool, "-sass",
+                           str(kernels._build.library_path(source))],
+                          capture_output=True, text=True, check=True).stdout
+    return sum("HMMA" in line for line in sass.splitlines())
+
+
+def time_hbm_copy(x) -> dict:
+    y = torch.empty_like(x)
+    ms = cold_ms(lambda: roofs.hbm_copy(x, y))
+    plain_ms = cold_ms(lambda: roofs._hbm_copy_plain(x, None))
+    lib_ms = cold_ms(lambda: y.copy_(x))    # a device-to-device memcpy
+    nbytes = roofs.copy_bytes(x)
+    bound_ms, bound_by = bound(nbytes, 0, torch.float32)
+    log(f"  hbm_copy timing {list(x.shape)} fp32: kernel {ms:.4f} ms "
+        f"({nbytes / ms / 1e9:.3f} TB/s), plain (clone) {plain_ms:.4f}, "
+        f"copy_ {lib_ms:.4f} ({nbytes / lib_ms / 1e9:.3f} TB/s), bound "
+        f"{bound_ms:.4f} ({bound_by})")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
+def time_dots(what, shape, q, k, v) -> dict:
+    """K10 timed cold beside its plain version, its bound from the executed
+    pairs, and cuBLAS's reading: two ``torch.bmm`` over the DENSE pair
+    (more work than the kernel's: no tile is skipped, no scale)."""
+    bh, s, d, bq, bk = shape
+    ms = cold_ms(lambda: roofs.attention_dots(q, k, v, bq, bk))
+    plain_ms = cold_ms(lambda: roofs._attention_dots_plain(q, k, v, bq, bk),
+                       5, 1)
+    lib_ms = cold_ms(lambda: torch.bmm(torch.bmm(q, k.transpose(1, 2)), v))
+    pairs = bh * roofs.dots_pairs(s, bq, bk)
+    executed = 4 * d * pairs
+    bound_ms, bound_by = bound(4 * q.numel() * q.element_size(), executed)
+    dense = 4 * bh * s * s * d
+    log(f"  attention_dots timing {what} [{bh}, {s}, {d}] blocks ({bq}, "
+        f"{bk}): kernel {ms:.4f} ms ({executed / ms / 1e9:.1f} TFLOP/s "
+        f"executed, {roofs.dots_flops(bh, s, d) / ms / 1e9:.1f} under the "
+        f"JAX count; {pairs / (bh * s * s):.4f} of the dense pairs), plain "
+        f"{plain_ms:.4f}, two dense torch.bmm {lib_ms:.4f} "
+        f"({dense / lib_ms / 1e9:.1f} TFLOP/s, {dense / executed:.2f}x the "
+        f"work), bound {bound_ms:.4f} ({bound_by})")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=bound_ms, bound_by=bound_by, executed_flops=executed,
+                library_note="two torch.bmm over the dense pair, "
+                             f"{dense / executed:.2f}x the kernel's work")
+
+
+def phase_roofs(smi: str) -> dict:
+    """K9 and K10 against their plain versions, K10's tensor-core
+    instructions, K1/K2 and K6/K7 against theirs at the microbenches'
+    shapes; then the main path, bench.py's kernel-microbench path, with
+    exact launch counts; then the kernel rows, timed cold."""
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    bf16 = torch.bfloat16
+    err9, x = hbm_copy_checks(gen)
+    cases = {what: dots_case(gen, what, shape) for what, shape in DOT_SHAPES}
+    hmma = hmma_count()
+    log(f"  attention_dots.cu SASS: {hmma} HMMA (tensor-core) instructions")
+    if hmma == 0:
+        raise AssertionError("attention_dots.cu runs no tensor-core "
+                             "instruction")
+    # the microbenches' kernels at shapes they have not run at elsewhere
+    for bh, s, d in ((128, 1024, 64), (16, 4096, 128)):
+        generic_case(gen, f"microbench causal [{bh}, 1, {s}, {d}] bf16", bf16,
+                     s, s, b=bh, d=d, h=1, causal=True)
+        torch.cuda.empty_cache()
+    layer_norm_case(gen, "bf16 x [16384, 4096] (the LN microbench's)", bf16,
+                    rows=microbench.LN_ROWS, cols=microbench.LN_COLS)
+    torch.cuda.empty_cache()
+
+    kernels.reset_launch_counts()
+    hbm = roofs.hbm_roof()
+    mm = roofs.matmul_roof()
+    att_s1024 = microbench.attention_kernel(128, 1024, 64, 512, 512,
+                                            measure_floor=True)
+    att_s4096 = microbench.attention_kernel(16, 4096, 128, 512, 512)
+    lnk = microbench.layer_norm_kernel()
+    launches = {k.symbol: k.launches for k in kernels.KERNELS if k.launches}
+    for att_k in (att_s1024, att_s4096):   # as bench.py::main adds them
+        att_k.update(fwd_frac_of_roof=att_k["fwd_tflops"] / mm,
+                     fwdbwd_frac_of_roof=att_k["fwdbwd_tflops"] / mm)
+    calls = timing.WARM + timing.STEPS
+    pingpongs = 2 * (timing.WARM + timing.ROOF_STEPS)  # two roofs, two copies
+    want = {"hbm_copy": 2 * pingpongs, "attention_dots": calls,
+            "flash_fwd": 2 * 3 * calls, "flash_bwd": 2 * calls,
+            "layer_norm_fwd": 4 * calls, "layer_norm_bwd": 2 * calls}
+    log(f"  hbm_roof {hbm:.1f} GB/s  [{smi}]")
+    log(f"  matmul_roof {mm:.1f} TFLOP/s  [{smi}]")
+    log(f"  attention_kernel(128, 1024, 64, 512, 512, measure_floor=True) "
+        f"{json.dumps(att_s1024)}  [{smi}]")
+    log(f"  attention_kernel(16, 4096, 128, 512, 512) "
+        f"{json.dumps(att_s4096)}  [{smi}]")
+    log(f"  layer_norm_kernel() {json.dumps(lnk)}  [{smi}]")
+    log(f"  launches {launches}, expected {want}")
+    if launches != want:
+        raise AssertionError("the microbench path's launch counts do not "
+                             "match its calls")
+    results = [hbm, mm, *att_s1024.values(), *att_s4096.values(),
+               *lnk.values()]
+    sane = (all(math.isfinite(r) and r > 0 for r in results)
+            and hbm <= ROOF_SLACK * HBM_BYTES_PER_S / 1e9
+            and lnk["adjacent_hbm_gb_s"] <= ROOF_SLACK * HBM_BYTES_PER_S / 1e9
+            and mm <= ROOF_SLACK * PEAK_FLOPS[bf16] / 1e12
+            and att_s1024["dot_floor_executed_tflops"]
+            <= ROOF_SLACK * PEAK_FLOPS[bf16] / 1e12)
+    if not sane:
+        raise AssertionError("a roof, floor or rate is not finite and "
+                             "positive, or exceeds the card's data sheet")
+
+    rows = {"hbm_copy": time_hbm_copy(x)}
+    del x
+    torch.cuda.empty_cache()
+    for what, shape in DOT_SHAPES:
+        err, ops = cases.pop(what)
+        rows[what] = time_dots(what, shape, *ops)
+        rows[what]["max_abs_err"] = err
+        del ops
+        torch.cuda.empty_cache()
+    rows["hbm_copy"]["max_abs_err"] = err9
+    return {"rows": rows, "launches": launches, "hbm_roof_gb_s": hbm,
+            "matmul_roof_tflops": mm, "flash_attention_s1024": att_s1024,
+            "flash_attention_s4096": att_s4096, "layer_norm": lnk,
+            "hmma": hmma, "card": smi}
+
+
+# the attention rows at one of K10's shapes (DOT_SHAPES: the same bh, s
+# and d)
+FLOOR_OF = {"flash_qkv_fwd": "GPT-1.3B (K3/K4)",
+            "flash_qkv_bwd": "GPT-1.3B (K3/K4)",
+            "flash_fwd_mha": "Transformer-big encoder (K1/K2)",
+            "flash_bwd": "Transformer-big encoder (K1/K2)"}
+
+
+def demonstrated(timings: dict, probes: dict) -> dict:
+    """Each kernel row's least time as demonstrated on this card in this
+    run, beside its data-sheet bound: for an attention row at a K10 shape,
+    the row's own flops (its visible pairs, 4 d each forward, 10 d
+    backward) at the rate K10 reached on the pairs it executed there; for
+    any other row bound by bytes, its bytes over the HBM roof
+    (``hbm_roof``, K9).  A row bound by operations at no K10 shape gets
+    none."""
+    roof = probes["hbm_roof_gb_s"] * 1e9
+    out = {}
+    for name, t in {**timings, "hbm_copy": probes["rows"]["hbm_copy"]}.items():
+        if name in FLOOR_OF:
+            k10 = probes["rows"][FLOOR_OF[name]]
+            work = t["flops"] / k10["executed_flops"]
+            ms = work * k10["ms"]
+            by = (f"dot floor x {work:.4f}, its flops over K10's executed "
+                  f"({FLOOR_OF[name]})")
+        elif t["bound_by"] == "bytes":
+            ms = t["bound_ms"] * HBM_BYTES_PER_S / roof
+            by = "bytes at hbm_roof"
+        else:
+            continue
+        out[name] = dict(demonstrated_ms=ms, demonstrated_by=by,
+                         share_of_demonstrated=ms / t["ms"])
+        log(f"  {name}: {t['ms']:.4f} ms; demonstrated least time "
+            f"{ms:.4f} ms ({by}): {ms / t['ms']:.1%} of it; data-sheet "
+            f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}): "
+            f"{t['bound_ms'] / t['ms']:.1%}")
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2092,6 +2321,13 @@ def main() -> int:
     log("phase 11 full-width training on the flat superblock (GPT-1.3B, "
         "FlatFusedAdam)")
     flat = phase_flat_training(smi, train)
+    torch.cuda.empty_cache()
+
+    log("phase 12 roofs and floors: K9 (hbm_copy) and K10 (attention_dots), "
+        "the kernel microbenches")
+    probes = phase_roofs(smi)
+    log("  each kernel row against what this card demonstrably reaches:")
+    shares = demonstrated(timings, probes)
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
 
     record = {"kernels": [
@@ -2130,7 +2366,20 @@ def main() -> int:
              replaces="apex_tpu/optimizers/flat.py:161",
              launches=flat["launches"]["flat_adam"],
              **timings["flat_adam"]),
+        dict(name="hbm_copy", route="cuda",
+             source="apex_tpu_torch/csrc/hbm_copy.cu", replaces="bench.py:188",
+             launches=probes["launches"]["hbm_copy"],
+             **probes["rows"]["hbm_copy"]),
+        dict(name="attention_dots", route="cuda",
+             source="apex_tpu_torch/csrc/attention_dots.cu",
+             replaces="bench.py:2671",
+             launches=probes["launches"]["attention_dots"],
+             **probes["rows"]["bench"]),
     ]}
+    for entry in record["kernels"]:
+        entry.update(shares.get(entry["name"], {}))
+    record["kernels"][0].update({f"{k}_mha": v for k, v in
+                                 shares["flash_fwd_mha"].items()})
     print(json.dumps(record))
     print(smi)
     print(json.dumps({"ok": True, "device": {
