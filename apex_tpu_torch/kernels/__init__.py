@@ -88,6 +88,30 @@ FLASH_QKV_BWD = Kernel("flash_qkv_bwd.cu", "flash_qkv_bwd", [
     _p,                         # stream
 ])
 
+#: flash_qkv_fwd_sm90.cu — the same forward on the tensor cores (wgmma, TMA):
+#: the bf16 route (flash_qkv_fwd.cu stays the fp32 one)
+FLASH_QKV_FWD_SM90 = Kernel("flash_qkv_fwd_sm90.cu", "flash_qkv_fwd_sm90", [
+    _i, _i,                     # d, device
+    _p, _p, _p,                 # qkv, ctx, lse
+    _p, _p, _i,                 # seg_q, seg_k, seg_div
+    _i, _i, _i,                 # B, H, s
+    _f, _i,                     # scale, causal
+    _u, _u, _f,                 # dropout seed, threshold, keep prob
+    _p,                         # stream
+])
+
+#: flash_qkv_bwd_sm90.cu — its backward on the tensor cores: the bf16 route
+FLASH_QKV_BWD_SM90 = Kernel("flash_qkv_bwd_sm90.cu", "flash_qkv_bwd_sm90", [
+    _i, _i,                     # d, device
+    _p, _p, _p, _p, _p, _p,     # qkv, dctx, ctx, lse, delta (scratch), dqkv
+    _p, _p, _i,                 # seg_q, seg_k, seg_div
+    _p,                         # visits (int32 tiles walked per block, or null)
+    _i, _i, _i,                 # B, H, s
+    _f, _i,                     # scale, causal
+    _u, _u, _f,                 # dropout seed, threshold, 1 / keep prob
+    _p,                         # stream
+])
+
 #: layer_norm.cu — row LayerNorm forward (y, mean, invvar)
 LAYER_NORM_FWD = Kernel("layer_norm.cu", "layer_norm_fwd", [
     _i, _i,                     # dtype, device
@@ -130,7 +154,8 @@ ATTENTION_DOTS = Kernel("attention_dots.cu", "attention_dots", [
 ])
 
 KERNELS = (FLASH_FWD, FLASH_BWD, FLASH_DECODE, FLASH_QKV_FWD, FLASH_QKV_BWD,
-           LAYER_NORM_FWD, LAYER_NORM_BWD, FLAT_ADAM, HBM_COPY, ATTENTION_DOTS)
+           FLASH_QKV_FWD_SM90, FLASH_QKV_BWD_SM90, LAYER_NORM_FWD, LAYER_NORM_BWD,
+           FLAT_ADAM, HBM_COPY, ATTENTION_DOTS)
 
 
 def reset_launch_counts() -> None:
@@ -140,6 +165,7 @@ def reset_launch_counts() -> None:
 
 __all__ = ["NvccError", "Kernel", "build_all", "build_log", "DTYPE_CODES",
            "FLASH_FWD", "FLASH_BWD", "FLASH_DECODE", "FLASH_QKV_FWD", "FLASH_QKV_BWD",
+           "FLASH_QKV_FWD_SM90", "FLASH_QKV_BWD_SM90",
            "LAYER_NORM_FWD", "LAYER_NORM_BWD", "FLAT_ADAM", "HBM_COPY",
            "ATTENTION_DOTS", "KERNELS",
            "reset_launch_counts"]

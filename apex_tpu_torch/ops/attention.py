@@ -10,8 +10,10 @@ public function has two implementations of one contract:
   ``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu`` in place of the TPU
   kernels ``_flash_fwd_pallas`` and ``_flash_bwd_pallas``,
   ``csrc/flash_decode.cu`` in place of ``_flash_decode_pallas``,
-  ``csrc/flash_qkv_fwd.cu`` and ``csrc/flash_qkv_bwd.cu`` in place of
-  ``_flash_qkv_fwd_pallas`` and ``_flash_qkv_bwd_pallas``;
+  ``csrc/flash_qkv_fwd_sm90.cu`` and ``csrc/flash_qkv_bwd_sm90.cu``
+  (bf16, on the tensor cores) and ``csrc/flash_qkv_fwd.cu`` and
+  ``csrc/flash_qkv_bwd.cu`` (fp32) in place of ``_flash_qkv_fwd_pallas``
+  and ``_flash_qkv_bwd_pallas``;
 * a plain PyTorch version with the JAX package's math
   (:func:`_blockwise_fwd` for ``_blockwise_fwd_xla``,
   :func:`_blockwise_bwd` for ``_blockwise_bwd_xla``,
@@ -45,7 +47,8 @@ from typing import Optional, Tuple, Union
 import torch
 
 from apex_tpu_torch.kernels import (DTYPE_CODES, FLASH_BWD, FLASH_DECODE,
-                                    FLASH_FWD, FLASH_QKV_BWD, FLASH_QKV_FWD)
+                                    FLASH_FWD, FLASH_QKV_BWD, FLASH_QKV_BWD_SM90,
+                                    FLASH_QKV_FWD, FLASH_QKV_FWD_SM90)
 
 _NEG_INF = -1e30
 
@@ -827,10 +830,18 @@ def _qkv_kernel_args(qkv, seg_q, seg_k, num_heads):
     return hn, (seg_q, seg_k), (b * num_heads) // seg_q.shape[0]
 
 
+#: the tiles the bf16 packed backward walks (csrc/flash_qkv_bwd_sm90.cu):
+#: (query rows, key columns) of its dk/dv pass and of its dq pass
+QKV_SM90_BWD_TILES = {"dkdv": (32, 128), "dq": (128, 64)}
+
+
 def _flash_qkv_fwd_cuda(qkv, seg_q, seg_k, num_heads, scale, causal,
                         dropout_rate, dropout_seed):
-    """Launch ``flash_qkv_fwd.cu``; same contract as
-    :func:`_flash_qkv_fwd_plain`."""
+    """Launch the packed forward; same contract as
+    :func:`_flash_qkv_fwd_plain`.  A bf16 qkv runs
+    ``flash_qkv_fwd_sm90.cu`` (wgmma and TMA), an fp32 one
+    ``flash_qkv_fwd.cu`` (scalar FMAs): the tensor cores take no fp32
+    operands, and TF32 would not meet the fp32 contract."""
     b, s, _ = qkv.shape
     hn, segs, seg_div = _qkv_kernel_args(qkv, seg_q, seg_k, num_heads)
     seed, thresh, keep, _ = _dropout_launch_args(dropout_rate, dropout_seed)
@@ -838,18 +849,27 @@ def _flash_qkv_fwd_cuda(qkv, seg_q, seg_k, num_heads, scale, causal,
                       device=qkv.device)
     lse = torch.empty((b * num_heads, s), dtype=torch.float32,
                       device=qkv.device)
-    FLASH_QKV_FWD(_KERNEL_DTYPES[qkv.dtype], hn, qkv.device.index,
-                  qkv.data_ptr(), ctx.data_ptr(), lse.data_ptr(),
-                  *(None if t is None else t.data_ptr() for t in segs),
-                  seg_div, b, num_heads, s, scale, int(causal), seed, thresh,
-                  keep, torch.cuda.current_stream(qkv.device).cuda_stream)
+    head = (qkv.data_ptr(), ctx.data_ptr(), lse.data_ptr(),
+            *(None if t is None else t.data_ptr() for t in segs), seg_div, b,
+            num_heads, s, scale, int(causal), seed, thresh, keep,
+            torch.cuda.current_stream(qkv.device).cuda_stream)
+    if qkv.dtype == torch.bfloat16:
+        FLASH_QKV_FWD_SM90(hn, qkv.device.index, *head)
+    else:
+        FLASH_QKV_FWD(_KERNEL_DTYPES[qkv.dtype], hn, qkv.device.index, *head)
     return ctx, lse
 
 
 def _flash_qkv_bwd_cuda(qkv, dctx, ctx, lse, seg_q, seg_k, num_heads,
-                        scale, causal, dropout_rate, dropout_seed):
-    """Launch ``flash_qkv_bwd.cu``; same contract as
-    :func:`_flash_qkv_bwd_plain`."""
+                        scale, causal, dropout_rate, dropout_seed,
+                        visits=None):
+    """Launch the packed backward; same contract as
+    :func:`_flash_qkv_bwd_plain`.  A bf16 qkv runs
+    ``flash_qkv_bwd_sm90.cu``, an fp32 one ``flash_qkv_bwd.cu`` (as the
+    forward).  ``visits`` (int32 on the card, or None) takes the tiles each
+    block of the bf16 kernel walked: [b*np*ceil(s/128)] for its dk/dv pass,
+    then [b*np*ceil(s/128)] for its dq pass (tiles of
+    :data:`QKV_SM90_BWD_TILES`)."""
     b, s, _ = qkv.shape
     hn, segs, seg_div = _qkv_kernel_args(qkv, seg_q, seg_k, num_heads)
     seed, thresh, _, inv = _dropout_launch_args(dropout_rate, dropout_seed)
@@ -862,12 +882,27 @@ def _flash_qkv_bwd_cuda(qkv, dctx, ctx, lse, seg_q, seg_k, num_heads,
                              f"{qkv.device}")
     delta = torch.empty_like(lse)
     dqkv = torch.empty_like(qkv)
-    FLASH_QKV_BWD(_KERNEL_DTYPES[qkv.dtype], hn, qkv.device.index,
-                  qkv.data_ptr(), dctx.data_ptr(), ctx.data_ptr(),
-                  lse.data_ptr(), delta.data_ptr(), dqkv.data_ptr(),
-                  *(None if t is None else t.data_ptr() for t in segs),
-                  seg_div, b, num_heads, s, scale, int(causal), seed, thresh,
-                  inv, torch.cuda.current_stream(qkv.device).cuda_stream)
+    ptrs = (qkv.data_ptr(), dctx.data_ptr(), ctx.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dqkv.data_ptr(),
+            *(None if t is None else t.data_ptr() for t in segs), seg_div)
+    tail = (b, num_heads, s, scale, int(causal), seed, thresh, inv,
+            torch.cuda.current_stream(qkv.device).cuda_stream)
+    if qkv.dtype == torch.bfloat16:
+        if visits is not None:
+            n = -(-s // QKV_SM90_BWD_TILES["dkdv"][1])
+            n += -(-s // QKV_SM90_BWD_TILES["dq"][0])
+            if (visits.dtype != torch.int32 or visits.device != qkv.device
+                    or visits.numel() != b * num_heads * n):
+                raise ValueError("visits must be int32 [b*np*(ceil(s/128) * "
+                                 "2)] on qkv's device")
+        FLASH_QKV_BWD_SM90(hn, qkv.device.index, *ptrs,
+                           None if visits is None else visits.data_ptr(),
+                           *tail)
+    else:
+        if visits is not None:
+            raise ValueError("visits are counted by the bf16 kernel only")
+        FLASH_QKV_BWD(_KERNEL_DTYPES[qkv.dtype], hn, qkv.device.index, *ptrs,
+                      *tail)
     return dqkv
 
 
@@ -951,9 +986,10 @@ def flash_attention_qkv(
     with the counter hash of ``dropout_seed`` (an int), batch-head index
     ``b*num_heads + head``.  ``segment_ids``: int [s] or [b, s] packing
     ids, or a ``(seg_q, seg_k)`` pair of those; scores across segments are
-    masked.  CUDA tensors run ``csrc/flash_qkv_fwd.cu`` and
-    ``csrc/flash_qkv_bwd.cu`` (head dim 128); CPU tensors run the plain
-    versions."""
+    masked.  CUDA tensors run the kernels (head dim 128): bf16 ones
+    ``csrc/flash_qkv_fwd_sm90.cu`` and ``csrc/flash_qkv_bwd_sm90.cu`` on
+    the tensor cores, fp32 ones ``csrc/flash_qkv_fwd.cu`` and
+    ``csrc/flash_qkv_bwd.cu``; CPU tensors run the plain versions."""
     b, s, three_h = qkv.shape
     hn = three_h // (3 * num_heads)
     if three_h != 3 * num_heads * hn:

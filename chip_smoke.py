@@ -14,18 +14,27 @@ Phases, each of which fails the run (non-zero exit) on error:
 1. device — a CUDA card is required; its name and power limit are read
    from ``nvidia-smi``;
 2. build — ``apex_tpu_torch/csrc/*.cu`` are compiled with ``nvcc`` (in
-   parallel, one process per source);
+   parallel, one process per source); the tensor-core sources of K3/K4
+   (``flash_qkv_*_sm90.cu``) must show no spill or stack in ``ptxas
+   -v``'s report and hold ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA loads)
+   in their SASS;
 3. kernels — each kernel against its plain PyTorch version on the card,
    at its main path's shapes (bf16; the training kernels with and without
    dropout) and in fp32, with the tolerance stated; then timed (operands
    cold in L2) beside its plain version, one PyTorch library call
-   computing the same function, and its bound.  The generic attention
-   kernels (K1 with its additive mask, dropout and head dim 64; K2) are
-   checked at the multi-head attention path's three shapes, with each
-   feature alone and combined at head dims 8, 64 and 128 in both dtypes,
-   a zero-stride mask against the same mask materialised, K2 run twice
-   (bitwise), the tiles K2 walks against the plain statement of its skip
-   rule, and ``flash_attention_varlen`` on a BERT-large-shaped packed
+   computing the same function, and its bound.  K3/K4 route by dtype:
+   bf16 to the tensor-core kernels, held to their plain versions causal
+   and not, with segment ids, and at a ragged s = 1000, run twice
+   (bitwise), with K4's tiles walked against :func:`flash_bwd_tiles` at
+   its own tiles; fp32 to the scalar kernels.  The scalar kernels' bf16
+   instances are timed against the tensor-core ones, cold and in turns
+   (``timed_pair``).  The generic attention kernels (K1 with its additive
+   mask, dropout and head dim 64; K2) are checked at the multi-head
+   attention path's three shapes, with each feature alone and combined
+   at head dims 8, 64 and 128 in both dtypes, a zero-stride mask against
+   the same mask materialised, K2 run twice (bitwise), the tiles K2 walks
+   against the plain statement of its skip rule, and
+   ``flash_attention_varlen`` on a BERT-large-shaped packed
    batch.  K8 (``flat_adam``) runs over the GPT-1.3B superblock (its init
    weights) and must give its plain version's bits for p, m and v over 3
    steps in four variants (AdamW decay 0.01, L2 decay 0.05, decay 0, no
@@ -46,13 +55,15 @@ Phases, each of which fails the run (non-zero exit) on error:
    device-done times are reported beside the serve metrics;
 6. toy training — ``pretrain_gpt.main`` at fp32, 2 layers, hidden 256,
    from the same weights and batches on the card (kernels) and on the CPU
-   (plain versions): per-step losses and final weights agree;
+   (plain versions): per-step losses and final weights agree, and the
+   fp32 attention ran the scalar K3/K4 (their fp32 route);
 7. full-width training — ``pretrain_gpt.main`` with the GPT-1.3B flags
    (24 layers, hidden 2048, 16 heads of 128, seq 2048, batch 4, bf16,
    default dropouts, clip and decay, remat ``attn_res``): 10 finite
    steps, step 1's loss near ln(vocab) + 0.41 (the init's logit variance
    0.02^2 x 2048, halved), exact launch counts of the four
-   training kernels; then on a fixed batch the loss falls over 5 steps,
+   training kernels (K3/K4 the tensor-core ones, the scalar ones never);
+   then on a fixed batch the loss falls over 5 steps,
    one dropout-free step through the kernels agrees with the same step
    through the plain versions, and one step run twice from the same state
    gives bitwise-equal loss and weights; step time, tokens/s, model
@@ -99,7 +110,9 @@ Phases, each of which fails the run (non-zero exit) on error:
     the card, with exact launch counts; then K9 and K10 timed cold beside
     their plain versions, ``copy_`` and two dense ``torch.bmm``; last,
     every kernel row read against what the card demonstrably reaches
-    (the HBM roof, or the dot floor at its shape).
+    (the HBM roof, or the dot floor at its shape; attention rows also at
+    ``matmul_roof``'s rate, since a wgmma kernel can outrun the mma.sync
+    floor).
 
 The last three lines of standard output are the kernels' JSON record,
 the ``nvidia-smi`` name/power line, and ``{"ok": true, "device": ...}``.
@@ -368,38 +381,114 @@ def qkv_operands(gen, dtype, b=TRAIN["b"], s=TRAIN["s"]):
     return qkv, dctx
 
 
+def sm90_visits_want(seg, b, s, causal):
+    """The tiles ``flash_qkv_bwd_sm90.cu`` walks, from the plain statement
+    of its skip rule (:func:`flash_bwd_tiles` at its two passes' tiles,
+    ``att.QKV_SM90_BWD_TILES``), in the layout of its ``visits``: the dk/dv
+    pass's blocks, then the dq pass's, each [b*h, n_blocks] flattened."""
+    h = TRAIN["heads"]
+    seg_q = seg_k = seg
+    (bq2, bk2), (bq3, bk3) = (att.QKV_SM90_BWD_TILES[k] for k in ("dkdv",
+                                                                   "dq"))
+    kv = flash_bwd_tiles(seg_q, seg_k, s, s, causal, bq2, bk2)[0]
+    q = flash_bwd_tiles(seg_q, seg_k, s, s, causal, bq3, bk3)[1]
+    per = [(r[..., 1] - r[..., 0]) for r in (kv, q)]
+    return torch.cat([w.repeat_interleave(b * h // w.shape[0], 0).flatten()
+                      for w in per])
+
+
 def flash_qkv_case(gen, name, dtype, rate, b=TRAIN["b"], s=TRAIN["s"],
-                   seg=None):
-    """K3 and K4 against their plain versions; returns (K3 error, K4
+                   seg=None, causal=True):
+    """K3 and K4 against their plain versions; for bf16 (the tensor-core
+    kernels) also K4's tiles walked against the plain statement of its
+    skip rule and K3 and K4 run twice (bitwise).  Returns (K3 error, K4
     error, operands)."""
     qkv, dctx = qkv_operands(gen, dtype, b, s)
     h = TRAIN["heads"]
-    args = (seg, seg, h, TRAIN["d"] ** -0.5, True, rate, RATE_SEED)
+    args = (seg, seg, h, TRAIN["d"] ** -0.5, causal, rate, RATE_SEED)
     ctx, lse = att._flash_qkv_fwd_cuda(qkv, *args)
     rctx, rlse = att._flash_qkv_fwd_plain(qkv, *args)
     torch.cuda.synchronize()
     e3 = check(f"flash_qkv_fwd {name} ctx", ctx, rctx)
     check_lse(f"flash_qkv_fwd {name} lse", lse, rlse)
     del rctx, rlse
-    dqkv = att._flash_qkv_bwd_cuda(qkv, dctx, ctx, lse, *args)
+    visits = None
+    if dtype == torch.bfloat16:
+        want = sm90_visits_want(seg, b, s, causal)
+        visits = torch.full((want.numel(),), -1, dtype=torch.int32,
+                            device="cuda")
+    dqkv = att._flash_qkv_bwd_cuda(qkv, dctx, ctx, lse, *args, visits=visits)
     rdqkv = att._flash_qkv_bwd_plain(qkv, dctx, ctx, lse, *args)
     torch.cuda.synchronize()
     e4 = check(f"flash_qkv_bwd {name} dqkv", dqkv, rdqkv)
     del rdqkv
+    if visits is not None:
+        got = visits.cpu().long()
+        n_kv = b * h * -(-s // att.QKV_SM90_BWD_TILES["dkdv"][1])
+        log(f"  flash_qkv_bwd {name} tiles walked: dk/dv "
+            f"{int(got[:n_kv].sum())}, dq {int(got[n_kv:].sum())}; the plain "
+            f"rule's {int(want[:n_kv].sum())}, {int(want[n_kv:].sum())}: "
+            f"{'ok' if torch.equal(got, want) else 'FAIL'}")
+        if not torch.equal(got, want):
+            raise AssertionError(f"flash_qkv_bwd {name}: tiles walked differ "
+                                 "from flash_bwd_tiles")
+        again = att._flash_qkv_fwd_cuda(qkv, *args)
+        check_bitwise(f"flash_qkv_fwd {name} run twice", (ctx, lse), again)
+        check_bitwise(f"flash_qkv_bwd {name} run twice", (dqkv,),
+                      (att._flash_qkv_bwd_cuda(qkv, dctx, ctx, lse, *args),))
     torch.cuda.empty_cache()
     return e3, e4, (qkv, dctx, ctx, lse)
 
 
+def scalar_qkv(qkv, dctx, ctx, lse, rate):
+    """Calls of the scalar kernels' bf16 instances (``flash_qkv_fwd.cu``,
+    ``flash_qkv_bwd.cu``, the bf16 route before the tensor-core kernels)
+    straight through their ``Kernel`` objects: the wrappers send bf16 to
+    the tensor-core kernels only.  Returns (forward, backward) callables."""
+    b, s, _ = qkv.shape
+    h, d = TRAIN["heads"], TRAIN["d"]
+    seed, thresh, keep, inv = att._dropout_launch_args(rate, RATE_SEED)
+    out, out_lse = torch.empty_like(ctx), torch.empty_like(lse)
+    delta, dqkv = torch.empty_like(lse), torch.empty_like(qkv)
+    code, dev = kernels.DTYPE_CODES[qkv.dtype], qkv.device.index
+
+    def fwd():
+        kernels.FLASH_QKV_FWD(
+            code, d, dev, qkv.data_ptr(), out.data_ptr(), out_lse.data_ptr(),
+            None, None, 1, b, h, s, d ** -0.5, 1, seed, thresh, keep,
+            torch.cuda.current_stream().cuda_stream)
+
+    def bwd():
+        kernels.FLASH_QKV_BWD(
+            code, d, dev, qkv.data_ptr(), dctx.data_ptr(), ctx.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dqkv.data_ptr(), None, None, 1,
+            b, h, s, d ** -0.5, 1, seed, thresh, inv,
+            torch.cuda.current_stream().cuda_stream)
+
+    return fwd, bwd
+
+
 def time_flash_qkv(qkv, dctx, ctx, lse, rate) -> tuple:
+    """K3 and K4 (the tensor-core kernels, through the wrappers) timed cold
+    beside their plain versions, SDPA and the scalar kernels they replace
+    on bf16 (cold too); then the scalar and the tensor-core kernel of each
+    in turns (a, b, b, a) in this one call (``timing.timed_pair``)."""
     b, s, _ = qkv.shape
     h, d = TRAIN["heads"], TRAIN["d"]
     args = (None, None, h, d ** -0.5, True, rate, RATE_SEED)
-    fwd_ms = cold_ms(lambda: att._flash_qkv_fwd_cuda(qkv, *args), 10)
+    new_fwd = lambda: att._flash_qkv_fwd_cuda(qkv, *args)  # noqa: E731
+    new_bwd = lambda: att._flash_qkv_bwd_cuda(  # noqa: E731
+        qkv, dctx, ctx, lse, *args)
+    old_fwd, old_bwd = scalar_qkv(qkv, dctx, ctx, lse, rate)
+    fwd_ms = cold_ms(new_fwd, 10)
+    fwd_old = cold_ms(old_fwd, 5, 1)
     fwd_plain = cold_ms(lambda: att._flash_qkv_fwd_plain(qkv, *args), 5, 1)
-    bwd_ms = cold_ms(lambda: att._flash_qkv_bwd_cuda(qkv, dctx, ctx, lse,
-                                                     *args), 10)
+    bwd_ms = cold_ms(new_bwd, 10)
+    bwd_old = cold_ms(old_bwd, 5, 1)
     bwd_plain = cold_ms(lambda: att._flash_qkv_bwd_plain(
         qkv, dctx, ctx, lse, *args), 5, 1)
+    pair_fwd = timing.timed_pair(old_fwd, new_fwd, (), ())
+    pair_bwd = timing.timed_pair(old_bwd, new_bwd, (), ())
     # the library yardstick: SDPA on the same strided per-head views
     q, k, v = (t.detach().requires_grad_() for t in
                qkv.view(b, s, h, 3, d).permute(3, 0, 2, 1, 4))
@@ -418,14 +507,24 @@ def time_flash_qkv(qkv, dctx, ctx, lse, rate) -> tuple:
     fb, fby = bound(fwd_bytes, 4 * d * pairs, qkv.dtype)
     bb, bby = bound(bwd_bytes, 10 * d * pairs, qkv.dtype)
     log(f"  flash_qkv timing [{b},{s},{h}x3x{d}] {qkv.dtype} dropout {rate}:"
-        f" fwd kernel {fwd_ms:.4f} ms, plain {fwd_plain:.4f}, sdpa "
-        f"{fwd_lib:.4f}, bound {fb:.4f} ({fby}); bwd kernel {bwd_ms:.4f} ms, "
-        f"plain {bwd_plain:.4f}, sdpa backward {bwd_lib:.4f}, bound "
-        f"{bb:.4f} ({bby})")
-    return (dict(ms=fwd_ms, plain_ms=fwd_plain, library_ms=fwd_lib,
-                 bound_ms=fb, bound_by=fby, flops=4 * d * pairs),
-            dict(ms=bwd_ms, plain_ms=bwd_plain, library_ms=bwd_lib,
-                 bound_ms=bb, bound_by=bby, flops=10 * d * pairs))
+        f" fwd kernel {fwd_ms:.4f} ms (scalar {fwd_old:.4f}: "
+        f"{fwd_old / fwd_ms:.2f}x), plain {fwd_plain:.4f}, sdpa "
+        f"{fwd_lib:.4f}, bound {fb:.4f} ({fby}); bwd kernel {bwd_ms:.4f} ms "
+        f"(scalar {bwd_old:.4f}: {bwd_old / bwd_ms:.2f}x), plain "
+        f"{bwd_plain:.4f}, sdpa backward {bwd_lib:.4f}, bound {bb:.4f} "
+        f"({bby})")
+    log(f"  in turns (timed_pair, warm): fwd scalar {pair_fwd[0]:.4f} ms vs "
+        f"tensor-core {pair_fwd[1]:.4f} ms ({pair_fwd[0] / pair_fwd[1]:.2f}x);"
+        f" bwd scalar {pair_bwd[0]:.4f} vs {pair_bwd[1]:.4f} "
+        f"({pair_bwd[0] / pair_bwd[1]:.2f}x)")
+    fwd = dict(ms=fwd_ms, plain_ms=fwd_plain, library_ms=fwd_lib,
+               bound_ms=fb, bound_by=fby, flops=4 * d * pairs)
+    bwd = dict(ms=bwd_ms, plain_ms=bwd_plain, library_ms=bwd_lib,
+               bound_ms=bb, bound_by=bby, flops=10 * d * pairs)
+    scalar = ({**fwd, "ms": fwd_old, "warm_pair_ms": pair_fwd[0]},
+              {**bwd, "ms": bwd_old, "warm_pair_ms": pair_bwd[0]})
+    fwd["warm_pair_ms"], bwd["warm_pair_ms"] = pair_fwd[1], pair_bwd[1]
+    return fwd, bwd, scalar
 
 
 def layer_norm_case(gen, name, dtype, rows=TRAIN["b"] * TRAIN["s"],
@@ -491,20 +590,28 @@ def phase_training_kernels() -> dict:
     flash_qkv_case(gen, "bf16 causal, no dropout", bf16, 0.0)
     e3, e4, ops = flash_qkv_case(gen, f"bf16 causal, dropout {ATT_DROPOUT}",
                                  bf16, ATT_DROPOUT)
-    flash_qkv_case(gen, f"fp32 causal, dropout {ATT_DROPOUT}, b=1", fp32,
-                   ATT_DROPOUT, b=1)
+    s3, s4, _ = flash_qkv_case(gen, f"fp32 causal, dropout {ATT_DROPOUT}, "
+                               "b=1", fp32, ATT_DROPOUT, b=1)
     seg = torch.stack([seg_row(512, [200, 250]), seg_row(512, [512])]).cuda()
     flash_qkv_case(gen, "bf16 causal + segment ids, dropout, b=2 s=512",
                    bf16, ATT_DROPOUT, b=2, s=512, seg=seg)
-    fwd, bwd = time_flash_qkv(*ops, ATT_DROPOUT)
+    flash_qkv_case(gen, f"bf16 non-causal, dropout {ATT_DROPOUT}, b=2 s=512",
+                   bf16, ATT_DROPOUT, b=2, s=512, causal=False)
+    seg = torch.stack([seg_row(1000, [300, 450]),
+                       seg_row(1000, [1000])]).cuda()
+    flash_qkv_case(gen, "bf16 causal + segment ids, dropout, b=2 ragged "
+                   "s=1000", bf16, ATT_DROPOUT, b=2, s=1000, seg=seg)
+    fwd, bwd, (sfwd, sbwd) = time_flash_qkv(*ops, ATT_DROPOUT)
     del ops
     torch.cuda.empty_cache()
     e6, e7, lops = layer_norm_case(gen, "bf16 x", bf16)
     layer_norm_case(gen, "fp32 x", fp32)
     lfwd, lbwd = time_layer_norm(*lops)
     fwd["max_abs_err"], bwd["max_abs_err"] = e3, e4
+    sfwd["max_abs_err"], sbwd["max_abs_err"] = s3, s4  # their fp32 route
     lfwd["max_abs_err"], lbwd["max_abs_err"] = e6, e7
-    return {"flash_qkv_fwd": fwd, "flash_qkv_bwd": bwd,
+    return {"flash_qkv_fwd_sm90": fwd, "flash_qkv_bwd_sm90": bwd,
+            "flash_qkv_fwd": sfwd, "flash_qkv_bwd": sbwd,
             "layer_norm_fwd": lfwd, "layer_norm_bwd": lbwd}
 
 
@@ -582,43 +689,46 @@ def check_bitwise(name, a, b):
         raise AssertionError(f"{name}: not bitwise equal")
 
 
-def flash_bwd_tiles(seg_q, seg_k, sq, sk, causal, block=64):
-    """The tiles ``csrc/flash_bwd_kernel.cuh`` walks (K2's backward, which
-    K4 runs on packed strides), as [lo, hi) ranges: ([rows, n_kb, 2]
-    q-tiles of each k-tile's dk/dv block, [rows, n_qb, 2] k-tiles of each
-    q-tile's dq block), rows being the segment-id rows (one without
-    segments); an empty range has lo == hi.  The dk/dv pass takes the
-    transposed segment rule (``_segment_block_bounds``' second output)
-    and, under the causal mask, starts at the tile of row k0 - (sk - sq),
-    the first row that sees its first column; the dq pass takes the
-    forward's rule and stops at the causal limit.  Tiles of ``block``; a
-    ragged last tile counts its valid ids only.  The kernel's own count
-    (``visits``) is held against this in phase 3, and this against the
-    JAX package's rule in the tests."""
-    n_qb, n_kb = -(-sq // block), -(-sk // block)
+def flash_bwd_tiles(seg_q, seg_k, sq, sk, causal, block_q=64,
+                    block_k=64):
+    """The tiles a three-pass flash backward walks, as [lo, hi) ranges:
+    ([rows, n_kb, 2] q-tiles of each k-tile's dk/dv block, [rows, n_qb, 2]
+    k-tiles of each q-tile's dq block), rows being the segment-id rows
+    (one without segments); an empty range has lo == hi.  The dk/dv pass
+    takes the transposed segment rule (``_segment_block_bounds``' second
+    output) and, under the causal mask, starts at the tile of row k0 - (sk
+    - sq), the first row that sees its first column; the dq pass takes the
+    forward's rule and stops at the causal limit.  Tiles of ``block_q``
+    rows and ``block_k`` columns (64 and 64: ``csrc/flash_bwd_kernel.cuh``,
+    K2; ``csrc/flash_qkv_bwd_sm90.cu``, K4, walks 32 x 128 in its dk/dv pass
+    and 128 x 64 in its dq pass); a ragged last tile counts its valid ids
+    only.  The kernels' own counts (``visits``) are held against this in
+    phase 3, and this against the JAX package's rule in the tests."""
+    n_qb, n_kb = -(-sq // block_q), -(-sk // block_k)
     if seg_q is None:
         q_lo, q_hi = torch.zeros(1, n_kb, dtype=torch.int64), torch.full(
             (1, n_kb), n_qb)
         k_lo, k_hi = torch.zeros(1, n_qb, dtype=torch.int64), torch.full(
             (1, n_qb), n_kb)
     else:
-        def pad(ids, n):  # repeat the last id: min and max stay the same
+        def pad(ids, n, block):  # repeat the last id: min and max stay
             ids = ids.to(torch.int64).cpu()
             return torch.cat([ids, ids[:, -1:].expand(-1, n * block
                                                       - ids.shape[1])], 1)
 
         lohi_q, lohi_k = att._segment_block_bounds(
-            pad(seg_q, n_qb), pad(seg_k, n_kb), block, block)
+            pad(seg_q, n_qb, block_q), pad(seg_k, n_kb, block_k), block_q,
+            block_k)
         k_lo, k_hi = lohi_q[..., 0].long(), lohi_q[..., 1].long()
         q_lo, q_hi = lohi_k[..., 0].long(), lohi_k[..., 1].long()
     if causal:
-        first = torch.arange(n_kb) * block - (sk - sq)
+        first = torch.arange(n_kb) * block_k - (sk - sq)
         q_lo = torch.maximum(q_lo, torch.where(
-            first <= 0, 0, (first // block).clamp(max=n_qb)))
-        q0 = torch.arange(n_qb) * block
-        last = q0 + (sq - q0).clamp(max=block) - 1 + (sk - sq)
-        k_hi = torch.minimum(k_hi, torch.where(last >= 0, last // block + 1,
-                                               0))
+            first <= 0, 0, (first // block_q).clamp(max=n_qb)))
+        q0 = torch.arange(n_qb) * block_q
+        last = q0 + (sq - q0).clamp(max=block_q) - 1 + (sk - sq)
+        k_hi = torch.minimum(k_hi, torch.where(last >= 0,
+                                               last // block_k + 1, 0))
     return (torch.stack([q_lo, torch.maximum(q_hi, q_lo)], -1),
             torch.stack([k_lo, torch.maximum(k_hi, k_lo)], -1))
 
@@ -1275,8 +1385,16 @@ def phase_toy_training() -> dict:
     gen = torch.Generator().manual_seed(7)
     batches = [b for b, _ in zip(pretrain_gpt.synthetic_batches(args, gen),
                                  range(5))]
+    kernels.reset_launch_counts()
     on_card, w_card = toy_run("cuda", state, batches)
+    launches = {k.symbol: k.launches for k in kernels.KERNELS if k.launches}
     on_cpu, w_cpu = toy_run("cpu", state, batches)
+    log(f"  toy fp32 launches over 5 steps {launches}")
+    if not (launches.get("flash_qkv_fwd") and launches.get("flash_qkv_bwd")
+            and "flash_qkv_fwd_sm90" not in launches
+            and "flash_qkv_bwd_sm90" not in launches):
+        raise AssertionError("toy training: fp32 attention did not take the "
+                             "scalar kernels (the fp32 route)")
     log(f"  toy fp32 losses, cuda (kernels): {on_card}")
     log(f"  toy fp32 losses, cpu (plain):    {on_cpu}")
     loss_err = max(abs(a - b) / abs(b) for a, b in zip(on_card, on_cpu))
@@ -1291,7 +1409,8 @@ def phase_toy_training() -> dict:
     if not (loss_err <= TOY_LOSS_TOL and w_err <= TOY_WEIGHT_TOL
             and moved > 2 * TOY_WEIGHT_TOL):
         raise AssertionError("toy training: card and CPU disagree")
-    return {"toy_loss_rel_diff": loss_err, "toy_weight_max_diff": w_err}
+    return {"toy_loss_rel_diff": loss_err, "toy_weight_max_diff": w_err,
+            "launches": launches}
 
 
 # -- phase 7: full-width training (GPT-1.3B) --------------------------------
@@ -1311,8 +1430,10 @@ PLAIN_NORM_TOL = 5e-4        # relative, global grad norm (read 4.9e-5)
 PLAIN_LEAF_TOL = 5e-2
 
 # kernel-name fragments -> the part of the step they belong to
-STEP_KINDS = (("flash_fwd_kernel", "K3 flash_qkv_fwd"),
-              ("attn_bwd", "K4 flash_qkv_bwd"),   # K2's kernels, packed strides
+STEP_KINDS = (("qkv_fwd_sm90", "K3 flash_qkv_fwd"),
+              ("qkv_bwd_", "K4 flash_qkv_bwd"),   # its three passes
+              # the scalar kernels (the fp32 route): none in a bf16 step
+              ("flash_fwd_kernel", "K3/K4 scalar"), ("attn_bwd", "K3/K4 scalar"),
               ("ln_fwd_kernel", "K6 layer_norm_fwd"),
               ("ln_bwd", "K7 layer_norm_bwd"),
               ("gemm", "GEMMs (cuBLAS)"), ("xmma", "GEMMs (cuBLAS)"),
@@ -1383,7 +1504,8 @@ def loss_and_grads(model, tokens, labels):
 
 def phase_full_training(smi: str) -> dict:
     L = 24
-    want = {"flash_qkv_fwd": L, "flash_qkv_bwd": L,
+    # bf16: the tensor-core K3/K4, and not one launch of the scalar ones
+    want = {"flash_qkv_fwd_sm90": L, "flash_qkv_bwd_sm90": L,
             "layer_norm_fwd": 4 * L + 1, "layer_norm_bwd": 2 * L + 1}
     steps, losses, times = 10, [], []
     torch.cuda.empty_cache()
@@ -1888,7 +2010,7 @@ def optimizer_ms(prof, kinds) -> float:
 
 def phase_flat_training(smi: str, train: dict) -> dict:
     L, steps = 24, 5
-    per_step = {"flash_qkv_fwd": L, "flash_qkv_bwd": L,
+    per_step = {"flash_qkv_fwd_sm90": L, "flash_qkv_bwd_sm90": L,
                 "layer_norm_fwd": 4 * L + 1, "layer_norm_bwd": 2 * L + 1,
                 "flat_adam": 1}
     torch.cuda.empty_cache()
@@ -2093,14 +2215,52 @@ def dots_case(gen, what, shape) -> tuple:
     return err, (q, k, v)
 
 
-def hmma_count(source: str = "attention_dots.cu") -> int:
-    """Tensor-core instructions (``HMMA``) in the SASS of a built source's
-    library, from ``cuobjdump -sass``."""
+def sass_count(source: str, opcode: str) -> int:
+    """Lines of one instruction (``HMMA``: ``mma.sync`` on the tensor cores,
+    ``HGMMA``: ``wgmma``, ``UTMALDG``: a TMA load) in the SASS of a built
+    source's library, from ``cuobjdump -sass``."""
     tool = kernels._build.cuda_tool("cuobjdump")
     sass = subprocess.run([tool, "-sass",
                            str(kernels._build.library_path(source))],
                           capture_output=True, text=True, check=True).stdout
-    return sum("HMMA" in line for line in sass.splitlines())
+    return sum(re.search(rf"\b{opcode}\b", line) is not None
+               for line in sass.splitlines())
+
+
+SM90_SOURCES = ("flash_qkv_fwd_sm90.cu", "flash_qkv_bwd_sm90.cu")
+
+
+def sm90_build_checks() -> dict:
+    """The tensor-core sources (K3/K4's bf16 route) as built: every
+    instance free of spills and stack in ``ptxas -v``'s report, and their
+    SASS holding ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA loads)."""
+    out = {}
+    for src in SM90_SOURCES:
+        text = kernels.build_log.get(src)
+        if text is None:  # built by an earlier run: ask ptxas again
+            out_so = kernels._build.BUILD_DIR / f"{src}.report.so"
+            text = subprocess.run(
+                [kernels._build.cuda_tool(), *kernels._build.NVCC_FLAGS,
+                 "-o", str(out_so), str(kernels._build.CSRC / src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                check=True).stdout
+            out_so.unlink()
+        report = ptxas_report(text)
+        spills = [(demangle(fn), stack, spill)
+                  for fn, _, stack, spill in report if stack or spill]
+        counts = {op: sass_count(src, op) for op in ("HGMMA", "UTMALDG")}
+        log(f"  {src}: {len(report)} instances, registers "
+            f"{min(r for _, r, _, _ in report)}.."
+            f"{max(r for _, r, _, _ in report)}, spills or stack in "
+            f"{len(spills)}; SASS {counts['HGMMA']} HGMMA, "
+            f"{counts['UTMALDG']} UTMALDG")
+        if spills or not report:
+            raise AssertionError(f"{src}: ptxas reports spills {spills}")
+        if not all(counts.values()):
+            raise AssertionError(f"{src}: no wgmma or TMA in its SASS "
+                                 f"({counts})")
+        out[src] = dict(counts, instances=len(report))
+    return out
 
 
 def time_hbm_copy(x) -> dict:
@@ -2153,7 +2313,7 @@ def phase_roofs(smi: str) -> dict:
     bf16 = torch.bfloat16
     err9, x = hbm_copy_checks(gen)
     cases = {what: dots_case(gen, what, shape) for what, shape in DOT_SHAPES}
-    hmma = hmma_count()
+    hmma = sass_count("attention_dots.cu", "HMMA")
     log(f"  attention_dots.cu SASS: {hmma} HMMA (tensor-core) instructions")
     if hmma == 0:
         raise AssertionError("attention_dots.cu runs no tensor-core "
@@ -2224,7 +2384,9 @@ def phase_roofs(smi: str) -> dict:
 
 # the attention rows at one of K10's shapes (DOT_SHAPES: the same bh, s
 # and d)
-FLOOR_OF = {"flash_qkv_fwd": "GPT-1.3B (K3/K4)",
+FLOOR_OF = {"flash_qkv_fwd_sm90": "GPT-1.3B (K3/K4)",
+            "flash_qkv_bwd_sm90": "GPT-1.3B (K3/K4)",
+            "flash_qkv_fwd": "GPT-1.3B (K3/K4)",
             "flash_qkv_bwd": "GPT-1.3B (K3/K4)",
             "flash_fwd_mha": "Transformer-big encoder (K1/K2)",
             "flash_bwd": "Transformer-big encoder (K1/K2)"}
@@ -2234,30 +2396,45 @@ def demonstrated(timings: dict, probes: dict) -> dict:
     """Each kernel row's least time as demonstrated on this card in this
     run, beside its data-sheet bound: for an attention row at a K10 shape,
     the row's own flops (its visible pairs, 4 d each forward, 10 d
-    backward) at the rate K10 reached on the pairs it executed there; for
+    backward) at the rate K10 reached on the pairs it executed there, and
+    the same flops at ``matmul_roof``'s rate (cuBLAS, 8192^3 bf16); for
     any other row bound by bytes, its bytes over the HBM roof
     (``hbm_roof``, K9).  A row bound by operations at no K10 shape gets
-    none."""
+    none.  K10 is an ``mma.sync`` kernel: a ``wgmma`` kernel may beat it,
+    and a share of its floor above 100 % then says the floor is stale, not
+    that the kernel is at its limit; the matmul roof is the bar there."""
     roof = probes["hbm_roof_gb_s"] * 1e9
+    mm_flops = probes["matmul_roof_tflops"] * 1e12
     out = {}
     for name, t in {**timings, "hbm_copy": probes["rows"]["hbm_copy"]}.items():
+        extra = {}
         if name in FLOOR_OF:
             k10 = probes["rows"][FLOOR_OF[name]]
             work = t["flops"] / k10["executed_flops"]
             ms = work * k10["ms"]
             by = (f"dot floor x {work:.4f}, its flops over K10's executed "
                   f"({FLOOR_OF[name]})")
+            mm_ms = t["flops"] / mm_flops * 1e3
+            extra = dict(matmul_roof_ms=mm_ms,
+                         share_of_matmul_roof=mm_ms / t["ms"])
         elif t["bound_by"] == "bytes":
             ms = t["bound_ms"] * HBM_BYTES_PER_S / roof
             by = "bytes at hbm_roof"
         else:
             continue
         out[name] = dict(demonstrated_ms=ms, demonstrated_by=by,
-                         share_of_demonstrated=ms / t["ms"])
+                         share_of_demonstrated=ms / t["ms"], **extra)
         log(f"  {name}: {t['ms']:.4f} ms; demonstrated least time "
             f"{ms:.4f} ms ({by}): {ms / t['ms']:.1%} of it; data-sheet "
             f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}): "
             f"{t['bound_ms'] / t['ms']:.1%}")
+        if extra:
+            log(f"    its flops at matmul_roof ({mm_flops / 1e12:.1f} "
+                f"TFLOP/s): {extra['matmul_roof_ms']:.4f} ms, "
+                f"{extra['share_of_matmul_roof']:.1%} of it")
+        if extra and ms > t["ms"]:
+            log(f"    over 100 % of K10's floor: the mma.sync floor is stale "
+                f"for {name} (a wgmma kernel outruns it), not a limit")
     return out
 
 
@@ -2288,6 +2465,7 @@ def main() -> int:
                 log(f"    {demangle(fn)}: {r} registers, {stack} bytes stack "
                     f"frame, {spill} bytes spill stores")
     log(f"  build {build_s:.1f} s")
+    sm90_build = sm90_build_checks()
 
     log("phase 3 kernels vs plain versions on the card")
     timings = phase_kernels()
@@ -2300,7 +2478,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     log("phase 6 toy training, cuda vs cpu")
-    phase_toy_training()
+    toy_train = phase_toy_training()
 
     log("phase 7 full-width training (GPT-1.3B, 24 layers, bf16, batch 4 "
         "x 2048)")
@@ -2348,14 +2526,26 @@ def main() -> int:
              launches=metrics["launches"]["flash_decode"],
              **timings["flash_decode"]),
     ] + [
+        # K3/K4: the bf16 route on the tensor cores runs the GPT-1.3B step
+        # (phase 7); the scalar kernels are the fp32 route (phase 6's toy
+        # step) and are timed on bf16 as the kernels they replaced there
+        dict(name=name, route="cuda", source=f"apex_tpu_torch/csrc/{src}",
+             replaces=where, launches=runs["launches"][name],
+             **timings[name])
+        for name, src, where, runs in (
+            ("flash_qkv_fwd_sm90", "flash_qkv_fwd_sm90.cu",
+             "apex_tpu/ops/attention.py:1766", train),
+            ("flash_qkv_bwd_sm90", "flash_qkv_bwd_sm90.cu",
+             "apex_tpu/ops/attention.py:1800", train),
+            ("flash_qkv_fwd", "flash_qkv_fwd.cu",
+             "apex_tpu/ops/attention.py:1766", toy_train),
+            ("flash_qkv_bwd", "flash_qkv_bwd.cu",
+             "apex_tpu/ops/attention.py:1800", toy_train))
+    ] + [
         dict(name=name, route="cuda", source=f"apex_tpu_torch/csrc/{src}",
              replaces=where, launches=train["launches"][name],
              **timings[name])
         for name, src, where in (
-            ("flash_qkv_fwd", "flash_qkv_fwd.cu",
-             "apex_tpu/ops/attention.py:1766"),
-            ("flash_qkv_bwd", "flash_qkv_bwd.cu",
-             "apex_tpu/ops/attention.py:1800"),
             ("layer_norm_fwd", "layer_norm.cu",
              "apex_tpu/ops/fused_layer_norm.py:75"),
             ("layer_norm_bwd", "layer_norm.cu",
@@ -2378,6 +2568,9 @@ def main() -> int:
     ]}
     for entry in record["kernels"]:
         entry.update(shares.get(entry["name"], {}))
+        src = entry["source"].rsplit("/", 1)[1]
+        if src in sm90_build:
+            entry["sass"] = sm90_build[src]
     record["kernels"][0].update({f"{k}_mha": v for k, v in
                                  shares["flash_fwd_mha"].items()})
     print(json.dumps(record))

@@ -167,6 +167,15 @@ SEG_CASES = {
     "padding_tail": ([[1] * 40 + [0] * 24], 16, 8),
     "one_segment": ([[1] * 64], 32, 16),
     "interleaved": ([[1, 2] * 32], 8, 8),
+    # the tiles of the tensor-core packed kernels (csrc/flash_qkv_*_sm90.cu):
+    # the forward's 128 x 128, the dk/dv pass's 32 x 128, the dq pass's
+    # 128 x 64 (ops/attention.py::QKV_SM90_BWD_TILES)
+    "sm90_fwd_128x128": ([[1] * 100 + [2] * 60 + [3] * 96,
+                          [1] * 200 + [0] * 56], 128, 128),
+    "sm90_dkdv_32x128": ([[1] * 100 + [2] * 60 + [3] * 96,
+                          [1] * 30 + [2] * 170 + [0] * 56], 32, 128),
+    "sm90_dq_128x64": ([[1] * 100 + [2] * 60 + [3] * 96,
+                        [1] * 130 + [2] * 70 + [0] * 56], 128, 64),
 }
 
 

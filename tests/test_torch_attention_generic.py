@@ -288,6 +288,32 @@ def test_flash_bwd_tiles_never_skip_a_visible_pair(sq, sk):
             assert k_ranges[r, qt, 0] <= kt < k_ranges[r, qt, 1]
 
 
+@pytest.mark.parametrize("s", [150, 1000])
+def test_sm90_tiles_never_skip_a_visible_pair(s):
+    # the packed tensor-core backward's two walks (ops/attention.py::
+    # QKV_SM90_BWD_TILES: 32 x 128 for dk/dv, 128 x 64 for dq) under the
+    # causal cut, ragged s: every tile pair holding a visible (row, col) of
+    # self-attention is inside its pass's walk
+    (bq2, bk2), (bq3, bk3) = (tatt.QKV_SM90_BWD_TILES[k]
+                              for k in ("dkdv", "dq"))
+    rng = np.random.RandomState(s)
+    seg = np.sort(rng.randint(0, 4, (2, s)), 1).astype(np.int32)
+    q_ranges = flash_bwd_tiles(torch.tensor(seg), torch.tensor(seg), s, s,
+                               True, bq2, bk2)[0]
+    k_ranges = flash_bwd_tiles(torch.tensor(seg), torch.tensor(seg), s, s,
+                               True, bq3, bk3)[1]
+    rows = np.arange(s)[:, None]
+    for r in range(2):
+        vis = (seg[r][:, None] == seg[r][None, :]) & (rows >= rows.T)
+        i, j = np.nonzero(vis)
+        qt, kt = i // bq2, j // bk2
+        assert np.all(q_ranges[r].numpy()[kt, 0] <= qt)
+        assert np.all(qt < q_ranges[r].numpy()[kt, 1])
+        qt, kt = i // bq3, j // bk3
+        assert np.all(k_ranges[r].numpy()[qt, 0] <= kt)
+        assert np.all(kt < k_ranges[r].numpy()[qt, 1])
+
+
 # -- the op and the kernel wrappers ------------------------------------------
 
 

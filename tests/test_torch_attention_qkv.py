@@ -92,19 +92,26 @@ def _segments(b, s, kind):
     return np.ones_like(keep), keep
 
 
-# (name, b, s, heads, hn, dtype, dropout rate, segments)
+# (name, b, s, heads, hn, dtype, dropout rate, segments, causal).  The
+# last three are the contract the tensor-core kernels meet on the card
+# (chip_smoke.py holds them to these plain versions): not causal, a ragged
+# s (no tile size divides 30), and bf16 at head dim 128.
 QKV_CASES = [
-    ("fp32", 2, 32, 2, 16, "float32", 0.0, None),
-    ("fp32_dropout", 2, 32, 2, 16, "float32", 0.2, None),
-    ("fp32_segment_ids_dropout", 2, 32, 2, 16, "float32", 0.1, "ids"),
-    ("fp32_seg_pair", 2, 24, 3, 8, "float32", 0.0, "pair"),
-    ("bf16_dropout", 1, 32, 2, 32, "bfloat16", 0.1, None),
+    ("fp32", 2, 32, 2, 16, "float32", 0.0, None, True),
+    ("fp32_dropout", 2, 32, 2, 16, "float32", 0.2, None, True),
+    ("fp32_segment_ids_dropout", 2, 32, 2, 16, "float32", 0.1, "ids", True),
+    ("fp32_seg_pair", 2, 24, 3, 8, "float32", 0.0, "pair", True),
+    ("bf16_dropout", 1, 32, 2, 32, "bfloat16", 0.1, None, True),
+    ("fp32_noncausal_dropout", 2, 32, 2, 16, "float32", 0.1, None, False),
+    ("fp32_ragged_s30_segment_ids_dropout", 2, 30, 2, 16, "float32", 0.1,
+     "ids", True),
+    ("bf16_hn128_dropout", 1, 64, 1, 128, "bfloat16", 0.1, None, True),
 ]
 
 
 @pytest.mark.parametrize("case", QKV_CASES, ids=[c[0] for c in QKV_CASES])
 def test_flash_attention_qkv_fwd_bwd_match_jax(case):
-    _, b, s, nh, hn, dtype, rate, segs = case
+    _, b, s, nh, hn, dtype, rate, segs, causal = case
     rng = np.random.RandomState(0)
     qkv = rng.randn(b, s, nh * 3 * hn).astype(np.float32)
     dctx = rng.randn(b, s, nh * hn).astype(np.float32)
@@ -115,8 +122,9 @@ def test_flash_attention_qkv_fwd_bwd_match_jax(case):
     seed = 11 if rate else None
 
     def f(x):
-        return jatt.flash_attention_qkv(x, nh, causal=True, dropout_rate=rate,
-                                        dropout_seed=seed, segment_ids=jseg)
+        return jatt.flash_attention_qkv(x, nh, causal=causal,
+                                        dropout_rate=rate, dropout_seed=seed,
+                                        segment_ids=jseg)
 
     jctx, vjp = jax.vjp(f, jqkv)
     (jd,) = vjp(jnp.asarray(dctx, getattr(jnp, dtype)))
@@ -125,7 +133,7 @@ def test_flash_attention_qkv_fwd_bwd_match_jax(case):
         getattr(torch, dtype)).requires_grad_()
     tseg = None if seg_q is None else (torch.tensor(seg_q),
                                        torch.tensor(seg_k))
-    ctx = flash_attention_qkv(tqkv, nh, causal=True, dropout_rate=rate,
+    ctx = flash_attention_qkv(tqkv, nh, causal=causal, dropout_rate=rate,
                               dropout_seed=seed, segment_ids=tseg)
     assert ctx.dtype == tqkv.dtype and ctx.shape == (b, s, nh * hn)
     ctx.backward(torch.tensor(dctx).to(ctx.dtype))
@@ -185,12 +193,25 @@ def test_qkv_op_is_a_custom_op_with_a_fake():
     assert lse.dtype == torch.float32
 
 
+QKV_KERNELS = (kernels.FLASH_QKV_FWD, kernels.FLASH_QKV_BWD,
+               kernels.FLASH_QKV_FWD_SM90, kernels.FLASH_QKV_BWD_SM90)
+
+
 def test_cpu_path_launches_no_kernel():
-    before = (kernels.FLASH_QKV_FWD.launches, kernels.FLASH_QKV_BWD.launches)
+    before = [k.launches for k in QKV_KERNELS]
     qkv = torch.randn(1, 8, 3 * 2 * 4, requires_grad=True)
     flash_attention_qkv(qkv, 2).sum().backward()
-    assert (kernels.FLASH_QKV_FWD.launches,
-            kernels.FLASH_QKV_BWD.launches) == before
+    assert [k.launches for k in QKV_KERNELS] == before
+
+
+def test_cpu_path_launches_no_kernel_bf16():
+    # a bf16 CUDA tensor takes the tensor-core kernels; a bf16 CPU tensor
+    # takes neither route
+    before = [k.launches for k in QKV_KERNELS]
+    qkv = torch.randn(1, 8, 3 * 2 * 4, dtype=torch.bfloat16,
+                      requires_grad=True)
+    flash_attention_qkv(qkv, 2).sum().backward()
+    assert [k.launches for k in QKV_KERNELS] == before
 
 
 @pytest.mark.parametrize("kwargs,error", [
