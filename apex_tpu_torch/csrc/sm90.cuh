@@ -1,9 +1,9 @@
-// Hopper building blocks of the packed-QKV attention kernels
-// (flash_qkv_fwd_sm90.cu, flash_qkv_bwd_sm90.cu), as raw inline PTX for
+// Hopper building blocks of the tensor-core attention kernels
+// (flash_qkv_fwd_sm90.cu, flash_qkv_bwd_sm90.cu, flash_bwd_sm90.cu), as raw inline PTX for
 // sm_90a: the warpgroup matrix multiply (wgmma.mma_async m64nNk16, bf16 in,
 // fp32 sums) with its shared-memory matrix descriptor and its fence,
 // commit and wait; mbarrier init, arrive, expect-tx and parity wait; TMA
-// tile loads (cp.async.bulk.tensor); the block-wide segment-id intervals
+// tile loads (cp.async.bulk.tensor, 3-D and 4-D); the block-wide segment-id intervals
 // of the tile skip; and, on the host, the encoding of a TMA tensor map by
 // cuTensorMapEncodeTiled, looked up at run time with
 // cudaGetDriverEntryPointByVersion (no -lcuda: the libraries link only the
@@ -114,6 +114,18 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// one box of a 4-D tensor map at element coordinates (c0 innermost), as
+// tma_load_3d
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
       : "memory");
 }
 
@@ -231,6 +243,24 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint6
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(da), "l"(db), "r"(accumulate), "n"(TRANS_B));
+}
+
+// d[64 x 64] (+)= A[64 x 16] B[16 x 64], A from registers (the m16n8k16
+// A fragment of each warp's 16 rows, bf16 pairs), B through a descriptor.
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
+                                            uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31 "
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate), "n"(TRANS_B));
 }
 
 // d[64 x 128] (+)= A[64 x 16] B[16 x 128], A from registers (the m16n8k16
@@ -378,6 +408,38 @@ inline cudaError_t bf16_map(CUtensorMap* map, const void* base, int batch, int r
   const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(box_rows), 1};
   const cuuint32_t elem[3] = {1, 1, 1};
   const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
+                            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// A bf16 [b, h, rows, width] tensor with a unit last stride and element
+// strides st = (b, h, row), as a 4-D TMA map (dims width, rows, h, b) whose
+// boxes are 64 columns by box_rows rows of one (b, h), 128-byte swizzle.
+// The tensor may be any strided view (heads and batch interleaved with
+// the rows, as the attention modules' projections are); every stride is a
+// multiple of 16 bytes, and a zero stride only on a dimension of size 1
+// (the stride of such a dimension is never used: it is given the next
+// compact value).  Rows past `rows` read as zeros.
+inline cudaError_t bf16_map_4d(CUtensorMap* map, const void* base, int b, int h, int rows,
+                               int width, const int64_t* st, int box_rows) {
+  const EncodeTiled encode = encoder();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(width), static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(h), static_cast<cuuint64_t>(b)};
+  const int64_t el[3] = {st[2], st[1], st[0]};  // row, h, b
+  cuuint64_t strides[3];
+  cuuint64_t prev = static_cast<cuuint64_t>(width) * 2, prev_n = 1;
+  for (int i = 0; i < 3; ++i) {
+    const cuuint64_t s = dims[i + 1] == 1 ? prev * prev_n : static_cast<cuuint64_t>(el[i]) * 2;
+    if (el[i] < 0 || s == 0 || s % 16 != 0) return cudaErrorInvalidValue;
+    strides[i] = prev = s;
+    prev_n = dims[i + 1];
+  }
+  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(box_rows), 1, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
                             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
                             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

@@ -7,8 +7,10 @@ PyTorch port of the JAX package's ``apex_tpu/ops/attention.py``.  Each
 public function has two implementations of one contract:
 
 * a kernel written by hand for Hopper, which runs for CUDA tensors:
-  ``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu`` in place of the TPU
-  kernels ``_flash_fwd_pallas`` and ``_flash_bwd_pallas``,
+  ``csrc/flash_fwd.cu`` in place of the TPU kernel ``_flash_fwd_pallas``,
+  ``csrc/flash_bwd_sm90.cu`` (bf16 at head dims 64 and 128, on the tensor
+  cores) and ``csrc/flash_bwd.cu`` (fp32, head dim 8) in place of
+  ``_flash_bwd_pallas``,
   ``csrc/flash_decode.cu`` in place of ``_flash_decode_pallas``,
   ``csrc/flash_qkv_fwd_sm90.cu`` and ``csrc/flash_qkv_bwd_sm90.cu``
   (bf16, on the tensor cores) and ``csrc/flash_qkv_fwd.cu`` and
@@ -46,9 +48,10 @@ from typing import Optional, Tuple, Union
 
 import torch
 
-from apex_tpu_torch.kernels import (DTYPE_CODES, FLASH_BWD, FLASH_DECODE,
-                                    FLASH_FWD, FLASH_QKV_BWD, FLASH_QKV_BWD_SM90,
-                                    FLASH_QKV_FWD, FLASH_QKV_FWD_SM90)
+from apex_tpu_torch.kernels import (DTYPE_CODES, FLASH_BWD, FLASH_BWD_SM90,
+                                    FLASH_DECODE, FLASH_FWD, FLASH_QKV_BWD,
+                                    FLASH_QKV_BWD_SM90, FLASH_QKV_FWD,
+                                    FLASH_QKV_FWD_SM90)
 
 _NEG_INF = -1e30
 
@@ -334,12 +337,55 @@ def _flash_fwd_cuda(q, k, v, mask, seg_q, seg_k, scale, causal,
     return o, lse
 
 
+#: the tiles each route of the generic backward walks, as (query rows, key
+#: columns) of its dk/dv pass and of its dq pass: the scalar
+#: ``csrc/flash_bwd_kernel.cuh`` and the tensor-core ``csrc/flash_bwd_sm90.cu``
+FLASH_BWD_TILES = {"dkdv": (64, 64), "dq": (64, 64)}
+FLASH_BWD_SM90_TILES = {"dkdv": (32, 128), "dq": (128, 64)}
+_SM90_BWD_HEAD_DIMS = (64, 128)
+
+
+def _bwd_on_tensor_cores(q: torch.Tensor) -> bool:
+    """The route of :func:`_flash_bwd_cuda`: bf16 at head dims 64 and 128
+    runs ``flash_bwd_sm90.cu`` (wgmma and TMA), everything else the scalar
+    ``flash_bwd.cu`` (the tensor cores take no fp32 operands, and TF32
+    would not meet the fp32 contract)."""
+    return q.dtype == torch.bfloat16 and q.shape[-1] in _SM90_BWD_HEAD_DIMS
+
+
+def flash_bwd_tiles_of(q: torch.Tensor) -> dict:
+    """The tiles the backward walks for operands like ``q`` (one of
+    :data:`FLASH_BWD_TILES`, :data:`FLASH_BWD_SM90_TILES`)."""
+    return FLASH_BWD_SM90_TILES if _bwd_on_tensor_cores(q) else FLASH_BWD_TILES
+
+
+def flash_bwd_visits_len(q: torch.Tensor, sk: int) -> int:
+    """The length of the ``visits`` tensor of :func:`_flash_bwd_cuda` for
+    q [B, H, sq, d] and sk keys: a count per dk/dv block, then per dq
+    block, at the route's tiles."""
+    B, H, sq = q.shape[:3]
+    tiles = flash_bwd_tiles_of(q)
+    return B * H * (-(-sk // tiles["dkdv"][1]) + -(-sq // tiles["dq"][0]))
+
+
+def _tma_loadable(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself, or a contiguous copy when it broadcasts a dimension
+    (a zero stride on a dimension of size > 1), which a TMA map cannot
+    describe."""
+    if any(st == 0 and n > 1 for st, n in zip(t.stride(), t.shape)):
+        return t.contiguous()
+    return t
+
+
 def _flash_bwd_cuda(q, k, v, o, lse, do, mask, seg_q, seg_k, scale, causal,
                     dropout_rate, dropout_seed, visits=None):
-    """Launch ``flash_bwd.cu``: (dq, dk, dv) laid out in q's, k's and v's
-    dimension orders.  ``visits``: None, or an int32 tensor of
-    B*H*(n_kb + n_qb) that receives the tiles each dk/dv block and then
-    each dq block walked."""
+    """Launch the generic backward: (dq, dk, dv) laid out in q's, k's and
+    v's dimension orders.  bf16 at head dims 64 and 128 runs
+    ``flash_bwd_sm90.cu``, anything else ``flash_bwd.cu``
+    (:func:`_bwd_on_tensor_cores`).  ``visits``: None, or an int32 tensor
+    of :func:`flash_bwd_visits_len` elements that receives the tiles each
+    dk/dv block and then each dq block walked (at the route's tiles,
+    :func:`flash_bwd_tiles_of`)."""
     B, H, sq, sk, d = _check_qkv(q, k, v)
     if do.dtype != q.dtype or not _kernel_loadable(do):
         do = do.to(q.dtype).contiguous()
@@ -358,22 +404,33 @@ def _flash_bwd_cuda(q, k, v, o, lse, do, mask, seg_q, seg_k, scale, causal,
     seed, thresh, _, inv = _dropout_launch_args(dropout_rate, dropout_seed)
     if visits is not None and (visits.dtype != torch.int32
                                or visits.device != q.device
-                               or visits.numel() != B * H * (
-                                   -(-sk // 64) + -(-sq // 64))):
-        raise ValueError("visits must be int32 [B*H*(n_kb + n_qb)] on "
-                         "q's device")
+                               or visits.numel() != flash_bwd_visits_len(
+                                   q, sk)):
+        raise ValueError("visits must be int32 [flash_bwd_visits_len(q, sk)]"
+                         " on q's device")
+    tensor_cores = _bwd_on_tensor_cores(q)
+    if tensor_cores:
+        q, k, v, do = (_tma_loadable(t) for t in (q, k, v, do))
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     delta = torch.empty_like(lse)
-    strides = (ctypes.c_int64 * 22)(
-        *(st for t in (q, k, o, do, dq, dk) for st in t.stride()[:3]), *mst)
-    FLASH_BWD(_KERNEL_DTYPES[q.dtype], d, q.device.index,
-              q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-              do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-              dk.data_ptr(), dv.data_ptr(), mptr,
-              *(None if t is None else t.data_ptr() for t in (seg_q, seg_k)),
-              seg_div, None if visits is None else visits.data_ptr(),
-              B, H, sq, sk, strides, scale, int(causal), seed, thresh, inv,
-              _stream(q.device))
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), mptr,
+            *(None if t is None else t.data_ptr() for t in (seg_q, seg_k)),
+            seg_div, None if visits is None else visits.data_ptr(),
+            B, H, sq, sk)
+    tail = (scale, int(causal), seed, thresh, inv, _stream(q.device))
+    if tensor_cores:
+        strides = (ctypes.c_int64 * 28)(
+            *(st for t in (q, k, v, o, do, dq, dk, dv)
+              for st in t.stride()[:3]), *mst)
+        FLASH_BWD_SM90(d, q.device.index, *ptrs, strides, *tail)
+    else:
+        strides = (ctypes.c_int64 * 22)(
+            *(st for t in (q, k, o, do, dq, dk) for st in t.stride()[:3]),
+            *mst)
+        FLASH_BWD(_KERNEL_DTYPES[q.dtype], d, q.device.index, *ptrs, strides,
+                  *tail)
     return dq, dk, dv
 
 
@@ -588,9 +645,10 @@ def flash_attention(
     hash of ``dropout_seed`` (an int) at batch-head ``b*h + head`` and
     global (row, col), replayed bit for bit by the backward.  Scores are
     fp32 whatever the input dtype; the output has q's dtype.  CUDA tensors
-    run ``csrc/flash_fwd.cu`` and, for the gradients, ``csrc/flash_bwd.cu``
-    (head dims 8, 64, 128); CPU tensors run :func:`_blockwise_fwd` and
-    :func:`_blockwise_bwd`."""
+    run ``csrc/flash_fwd.cu`` (head dims 8, 64, 128) and, for the
+    gradients, ``csrc/flash_bwd_sm90.cu`` (bf16 at head dims 64 and 128)
+    or ``csrc/flash_bwd.cu`` (the rest); CPU tensors run
+    :func:`_blockwise_fwd` and :func:`_blockwise_bwd`."""
     o, _ = flash_attention_fwd(q, k, v, causal=causal, mask_bias=mask_bias,
                                segment_ids=segment_ids, scale=scale,
                                mask_is_constant=mask_is_constant,
