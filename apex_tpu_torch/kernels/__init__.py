@@ -38,6 +38,23 @@ FLASH_FWD = Kernel("flash_fwd.cu", "flash_fwd", [
     _p,                         # stream
 ])
 
+#: flash_fwd_sm90.cu — the same forward on the tensor cores (wgmma, TMA):
+#: the route for bf16 at head dims 64 and 128 (flash_fwd.cu keeps fp32 and
+#: head dim 8)
+FLASH_FWD_SM90 = Kernel("flash_fwd_sm90.cu", "flash_fwd_sm90", [
+    _i, _i,                     # d, device
+    _p, _p, _p, _p, _p,         # q, k, v, o, lse
+    _p,                         # mask (fp32, or null)
+    _p, _p, _i,                 # seg_q, seg_k, seg_div
+    _p,                         # visits (int32 tiles walked per block, or null)
+    _i, _i, _i, _i,             # B, H, sq, sk
+    _strides,                   # int64[16]: (b, h, s) of q, k, v, o; mask
+                                # (b, h, row, col)
+    _f, _i,                     # scale, causal
+    _u, _u, _f,                 # dropout seed, threshold, 1 / keep prob
+    _p,                         # stream
+])
+
 #: flash_bwd.cu — its backward: dq, dk, dv
 FLASH_BWD = Kernel("flash_bwd.cu", "flash_bwd", [
     _i, _i, _i,                 # dtype, d, device
@@ -172,9 +189,9 @@ ATTENTION_DOTS = Kernel("attention_dots.cu", "attention_dots", [
     _i, _i, _p,                 # block_q, block_k, stream
 ])
 
-KERNELS = (FLASH_FWD, FLASH_BWD, FLASH_BWD_SM90, FLASH_DECODE, FLASH_QKV_FWD,
-           FLASH_QKV_BWD, FLASH_QKV_FWD_SM90, FLASH_QKV_BWD_SM90, LAYER_NORM_FWD,
-           LAYER_NORM_BWD, FLAT_ADAM, HBM_COPY, ATTENTION_DOTS)
+KERNELS = (FLASH_FWD, FLASH_FWD_SM90, FLASH_BWD, FLASH_BWD_SM90, FLASH_DECODE,
+           FLASH_QKV_FWD, FLASH_QKV_BWD, FLASH_QKV_FWD_SM90, FLASH_QKV_BWD_SM90,
+           LAYER_NORM_FWD, LAYER_NORM_BWD, FLAT_ADAM, HBM_COPY, ATTENTION_DOTS)
 
 
 def reset_launch_counts() -> None:
@@ -183,8 +200,8 @@ def reset_launch_counts() -> None:
 
 
 __all__ = ["NvccError", "Kernel", "build_all", "build_log", "DTYPE_CODES",
-           "FLASH_FWD", "FLASH_BWD", "FLASH_BWD_SM90", "FLASH_DECODE",
-           "FLASH_QKV_FWD", "FLASH_QKV_BWD", "FLASH_QKV_FWD_SM90",
-           "FLASH_QKV_BWD_SM90", "LAYER_NORM_FWD", "LAYER_NORM_BWD",
-           "FLAT_ADAM", "HBM_COPY", "ATTENTION_DOTS", "KERNELS",
-           "reset_launch_counts"]
+           "FLASH_FWD", "FLASH_FWD_SM90", "FLASH_BWD", "FLASH_BWD_SM90",
+           "FLASH_DECODE", "FLASH_QKV_FWD", "FLASH_QKV_BWD",
+           "FLASH_QKV_FWD_SM90", "FLASH_QKV_BWD_SM90", "LAYER_NORM_FWD",
+           "LAYER_NORM_BWD", "FLAT_ADAM", "HBM_COPY", "ATTENTION_DOTS",
+           "KERNELS", "reset_launch_counts"]

@@ -7,7 +7,9 @@ PyTorch port of the JAX package's ``apex_tpu/ops/attention.py``.  Each
 public function has two implementations of one contract:
 
 * a kernel written by hand for Hopper, which runs for CUDA tensors:
-  ``csrc/flash_fwd.cu`` in place of the TPU kernel ``_flash_fwd_pallas``,
+  ``csrc/flash_fwd_sm90.cu`` (bf16 at head dims 64 and 128, on the tensor
+  cores) and ``csrc/flash_fwd.cu`` (fp32, head dim 8) in place of the TPU
+  kernel ``_flash_fwd_pallas``,
   ``csrc/flash_bwd_sm90.cu`` (bf16 at head dims 64 and 128, on the tensor
   cores) and ``csrc/flash_bwd.cu`` (fp32, head dim 8) in place of
   ``_flash_bwd_pallas``,
@@ -49,9 +51,9 @@ from typing import Optional, Tuple, Union
 import torch
 
 from apex_tpu_torch.kernels import (DTYPE_CODES, FLASH_BWD, FLASH_BWD_SM90,
-                                    FLASH_DECODE, FLASH_FWD, FLASH_QKV_BWD,
-                                    FLASH_QKV_BWD_SM90, FLASH_QKV_FWD,
-                                    FLASH_QKV_FWD_SM90)
+                                    FLASH_DECODE, FLASH_FWD, FLASH_FWD_SM90,
+                                    FLASH_QKV_BWD, FLASH_QKV_BWD_SM90,
+                                    FLASH_QKV_FWD, FLASH_QKV_FWD_SM90)
 
 _NEG_INF = -1e30
 
@@ -70,10 +72,10 @@ def _segment_block_bounds(seg_q, seg_k, block_q, block_k):
     A (q-block, k-block) tile is *possibly live* iff the segment-id
     intervals [min, max] of the two blocks intersect — conservative: a
     tile outside the returned range has no equal (seg_q, seg_k) pair, so
-    skipping it is exact.  ``csrc/flash_fwd.cu`` applies this rule per
-    q-block inside the kernel, with its own 64-wide tiles; this function
-    is the rule's statement in PyTorch (held against the JAX package's in
-    the tests) and counts the tiles a run visits."""
+    skipping it is exact.  The forward kernels apply this rule per q-block
+    inside the kernel, at their own tiles (:func:`flash_fwd_tiles_of`);
+    this function is the rule's statement in PyTorch (held against the JAX
+    package's in the tests) and counts the tiles a run visits."""
     sbh, sq = seg_q.shape
     sk = seg_k.shape[1]
     n_qb, n_kb = sq // block_q, sk // block_k
@@ -312,28 +314,80 @@ def _stream(device):
     return torch.cuda.current_stream(device).cuda_stream
 
 
+#: the tiles each route of the generic forward walks, as (query rows of a
+#: block, key columns of a tile): the scalar ``csrc/flash_fwd_kernel.cuh``
+#: and the tensor-core ``csrc/flash_fwd_sm90.cu``
+FLASH_FWD_TILES = (64, 64)
+FLASH_FWD_SM90_TILES = (128, 128)
+_SM90_HEAD_DIMS = (64, 128)
+
+
+def _fwd_on_tensor_cores(q: torch.Tensor) -> bool:
+    """The route of :func:`_flash_fwd_cuda`: bf16 at head dims 64 and 128
+    runs ``flash_fwd_sm90.cu`` (wgmma and TMA), everything else the scalar
+    ``flash_fwd.cu`` (the tensor cores take no fp32 operands, and TF32
+    would not meet the fp32 contract)."""
+    return q.dtype == torch.bfloat16 and q.shape[-1] in _SM90_HEAD_DIMS
+
+
+def flash_fwd_tiles_of(q: torch.Tensor) -> tuple:
+    """The tiles the forward walks for operands like ``q`` (one of
+    :data:`FLASH_FWD_TILES`, :data:`FLASH_FWD_SM90_TILES`)."""
+    return FLASH_FWD_SM90_TILES if _fwd_on_tensor_cores(q) else FLASH_FWD_TILES
+
+
+def flash_fwd_visits_len(q: torch.Tensor) -> int:
+    """The length of the ``visits`` tensor of :func:`_flash_fwd_cuda` for
+    q [B, H, sq, d]: a count per q-tile block, at the route's tiles."""
+    B, H, sq = q.shape[:3]
+    return B * H * -(-sq // flash_fwd_tiles_of(q)[0])
+
+
 def _flash_fwd_cuda(q, k, v, mask, seg_q, seg_k, scale, causal,
-                    dropout_rate, dropout_seed):
-    """Launch ``flash_fwd.cu``: q [B, H, sq, d], k/v [B, H, sk, d] with
-    any strides the kernel can vector-load; ``mask`` fp32 broadcastable
-    to [B, H, sq, sk] or None; seg ids [rows, s] with rows in {1, B, B*H}
-    or None.  Returns (o [B, H, sq, d] laid out in q's dimension order,
-    lse [B*H, sq] fp32)."""
+                    dropout_rate, dropout_seed, visits=None):
+    """Launch the generic forward: q [B, H, sq, d], k/v [B, H, sk, d]
+    with any strides the kernels can load; ``mask`` fp32 broadcastable to
+    [B, H, sq, sk] or None; seg ids [rows, s] with rows in {1, B, B*H} or
+    None.  bf16 at head dims 64 and 128 runs ``flash_fwd_sm90.cu``,
+    anything else ``flash_fwd.cu`` (:func:`_fwd_on_tensor_cores`).
+    ``visits``: None, or an int32 tensor of :func:`flash_fwd_visits_len`
+    elements that receives the key tiles each q-tile block walked (the
+    tensor-core kernel counts them; the scalar one does not).  Returns (o
+    [B, H, sq, d] laid out in q's dimension order, lse [B*H, sq] fp32)."""
     B, H, sq, sk, d = _check_qkv(q, k, v)
     seg_q, seg_k, seg_div = _kernel_segments(seg_q, seg_k, B, H, sq, sk,
                                              q.device)
     mptr, mst = _kernel_mask(mask, B, H, sq, sk, q.device)
-    seed, thresh, keep, _ = _dropout_launch_args(dropout_rate, dropout_seed)
+    seed, thresh, keep, inv = _dropout_launch_args(dropout_rate, dropout_seed)
+    tensor_cores = _fwd_on_tensor_cores(q)
+    if visits is not None and (not tensor_cores
+                               or visits.dtype != torch.int32
+                               or visits.device != q.device
+                               or visits.numel() != flash_fwd_visits_len(q)):
+        raise ValueError("visits are counted by the bf16 kernel at head dims "
+                         "64 and 128 only, as int32 [flash_fwd_visits_len(q)]"
+                         " on q's device")
+    if tensor_cores:
+        q, k, v = (_tma_loadable(t) for t in (q, k, v))
     o = torch.empty_like(q)
     lse = torch.empty((B * H, sq), dtype=torch.float32, device=q.device)
-    strides = (ctypes.c_int64 * 13)(*q.stride()[:3], *k.stride()[:3],
-                                    *o.stride()[:3], *mst)
-    FLASH_FWD(_KERNEL_DTYPES[q.dtype], d, q.device.index,
-              q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-              lse.data_ptr(), mptr,
-              *(None if t is None else t.data_ptr() for t in (seg_q, seg_k)),
-              seg_div, B, H, sq, sk, strides, scale, int(causal), seed,
-              thresh, keep, _stream(q.device))
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), mptr,
+            *(None if t is None else t.data_ptr() for t in (seg_q, seg_k)),
+            seg_div)
+    if tensor_cores:
+        strides = (ctypes.c_int64 * 16)(
+            *(st for t in (q, k, v, o) for st in t.stride()[:3]), *mst)
+        FLASH_FWD_SM90(d, q.device.index, *ptrs,
+                       None if visits is None else visits.data_ptr(),
+                       B, H, sq, sk, strides, scale, int(causal), seed,
+                       thresh, inv, _stream(q.device))
+    else:
+        strides = (ctypes.c_int64 * 13)(*q.stride()[:3], *k.stride()[:3],
+                                        *o.stride()[:3], *mst)
+        FLASH_FWD(_KERNEL_DTYPES[q.dtype], d, q.device.index, *ptrs,
+                  B, H, sq, sk, strides, scale, int(causal), seed, thresh,
+                  keep, _stream(q.device))
     return o, lse
 
 
@@ -342,7 +396,6 @@ def _flash_fwd_cuda(q, k, v, mask, seg_q, seg_k, scale, causal,
 #: ``csrc/flash_bwd_kernel.cuh`` and the tensor-core ``csrc/flash_bwd_sm90.cu``
 FLASH_BWD_TILES = {"dkdv": (64, 64), "dq": (64, 64)}
 FLASH_BWD_SM90_TILES = {"dkdv": (32, 128), "dq": (128, 64)}
-_SM90_BWD_HEAD_DIMS = (64, 128)
 
 
 def _bwd_on_tensor_cores(q: torch.Tensor) -> bool:
@@ -350,7 +403,7 @@ def _bwd_on_tensor_cores(q: torch.Tensor) -> bool:
     runs ``flash_bwd_sm90.cu`` (wgmma and TMA), everything else the scalar
     ``flash_bwd.cu`` (the tensor cores take no fp32 operands, and TF32
     would not meet the fp32 contract)."""
-    return q.dtype == torch.bfloat16 and q.shape[-1] in _SM90_BWD_HEAD_DIMS
+    return q.dtype == torch.bfloat16 and q.shape[-1] in _SM90_HEAD_DIMS
 
 
 def flash_bwd_tiles_of(q: torch.Tensor) -> dict:
@@ -645,10 +698,11 @@ def flash_attention(
     hash of ``dropout_seed`` (an int) at batch-head ``b*h + head`` and
     global (row, col), replayed bit for bit by the backward.  Scores are
     fp32 whatever the input dtype; the output has q's dtype.  CUDA tensors
-    run ``csrc/flash_fwd.cu`` (head dims 8, 64, 128) and, for the
-    gradients, ``csrc/flash_bwd_sm90.cu`` (bf16 at head dims 64 and 128)
-    or ``csrc/flash_bwd.cu`` (the rest); CPU tensors run
-    :func:`_blockwise_fwd` and :func:`_blockwise_bwd`."""
+    run, bf16 at head dims 64 and 128, ``csrc/flash_fwd_sm90.cu`` and for
+    the gradients ``csrc/flash_bwd_sm90.cu`` (on the tensor cores, with P
+    rounded to bf16 before P V as the JAX kernels round it), the rest
+    (fp32; head dim 8) ``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu``;
+    CPU tensors run :func:`_blockwise_fwd` and :func:`_blockwise_bwd`."""
     o, _ = flash_attention_fwd(q, k, v, causal=causal, mask_bias=mask_bias,
                                segment_ids=segment_ids, scale=scale,
                                mask_is_constant=mask_is_constant,

@@ -15,9 +15,10 @@ Phases, each of which fails the run (non-zero exit) on error:
    from ``nvidia-smi``;
 2. build — ``apex_tpu_torch/csrc/*.cu`` are compiled with ``nvcc`` (in
    parallel, one process per source); the tensor-core sources of K3/K4
-   (``flash_qkv_*_sm90.cu``) and K2 (``flash_bwd_sm90.cu``) must show no
-   spill or stack in ``ptxas -v``'s report and hold ``HGMMA`` (wgmma)
-   and ``UTMALDG`` (TMA loads) in their SASS;
+   (``flash_qkv_*_sm90.cu``), K2 (``flash_bwd_sm90.cu``) and K1
+   (``flash_fwd_sm90.cu``) must show no spill or stack in ``ptxas -v``'s
+   report and hold ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA loads) in their
+   SASS;
 3. kernels — each kernel against its plain PyTorch version on the card,
    at its main path's shapes (bf16; the training kernels with and without
    dropout) and in fp32, with the tolerance stated; then timed (operands
@@ -28,20 +29,27 @@ Phases, each of which fails the run (non-zero exit) on error:
    (bitwise), with K4's tiles walked against :func:`flash_bwd_tiles` at
    its own tiles; fp32 to the scalar kernels.  The scalar kernels' bf16
    instances are timed against the tensor-core ones, cold and in turns
-   (``timed_pair``).  The generic attention kernels (K1 with its additive
-   mask, dropout and head dim 64; K2, whose bf16 route at head dims 64
-   and 128 is the tensor-core ``flash_bwd_sm90.cu`` and whose fp32 and
-   head dim 8 route is the scalar ``flash_bwd.cu``) are checked at the
+   (``timed_pair``).  The generic attention kernels (K1 and K2, whose bf16
+   routes at head dims 64 and 128 are the tensor-core
+   ``flash_fwd_sm90.cu`` and ``flash_bwd_sm90.cu`` and whose fp32 and
+   head dim 8 routes are the scalar ``flash_fwd.cu`` and
+   ``flash_bwd.cu``; each case names the kernel that ran) are checked at
+   the prefill's shape and at the
    multi-head attention path's three shapes, with each feature alone and
    combined at head dims 8, 64 and 128 in both dtypes, causal with sq <
    sk and sq > sk, an all-padded batch row (exact zeros) in both dtypes,
    an additive mask that hides every key of a batch row at a ragged key
-   length, a zero-stride mask against the same mask materialised, K2 run
-   twice (bitwise), the tiles K2 walks against the plain statement of its
-   skip rule at its route's tiles, and ``flash_attention_varlen`` on a
-   BERT-large-shaped packed batch; K2's scalar bf16 instance is timed
-   against the tensor-core one, cold and in turns.  K8 (``flat_adam``) runs over the GPT-1.3B superblock (its init
-   weights) and must give its plain version's bits for p, m and v over 3
+   length, causal with a -300 mask hiding every key of a batch row (the
+   tensor-core K1's FMA-chain path for mask-dominated rows), a
+   zero-stride mask against the same mask materialised, K1 and
+   K2 run twice (bitwise: the prefill, the encoder and the decoder's mask
+   shapes), the tiles each walks against the plain statement of its skip
+   rule at its route's tiles (:func:`flash_fwd_tiles`,
+   :func:`flash_bwd_tiles`), and ``flash_attention_varlen`` on a
+   BERT-large-shaped packed batch; K1's (at the prefill and encoder
+   shapes) and K2's (encoder) scalar bf16 instances are timed against
+   the tensor-core ones, cold and in turns.  K8 (``flat_adam``) runs
+   over the GPT-1.3B superblock (its init weights) and must give its plain version's bits for p, m and v over 3
    steps in four variants (AdamW decay 0.01, L2 decay 0.05, decay 0, no
    bias correction); a ``plan_buckets`` walk and a hand-built 3-span walk
    must give the single launch's bits; a step must run under
@@ -49,12 +57,13 @@ Phases, each of which fails the run (non-zero exit) on error:
    exactly 0; it is timed beside ``torch._fused_adamw_``;
 4. toy engine — the same weights served at toy width in fp32 on the card
    (kernels) and on the CPU (plain versions) give identical greedy
-   streams;
+   streams, the attention on the scalar K1 (its fp32 route);
 5. full-width engine — GPT-1.3B width (hidden 2048, 16 heads of 128, 24
    layers, vocab 51200, bf16, page 64, batch 8): ``warmup()`` then
    ``serve()`` of a seeded Poisson trace; every request finishes, the
    pool drains, the kernels' launch counts match the main path's
-   prefills and decode steps exactly, the kernel path's logits agree
+   prefills (the tensor-core K1) and decode steps exactly, the kernel
+   path's logits agree
    with the plain path's, and batched == sequential at equal
    ``max_batch``; a full-batch decode step's host-enqueue and
    device-done times are reported beside the serve metrics;
@@ -78,13 +87,13 @@ Phases, each of which fails the run (non-zero exit) on error:
    ``SelfMultiheadAttn`` / ``EncdecMultiheadAttn`` at toy width (4 heads
    of 8), fp32, five ``FusedAdam`` steps from the same weights on the card
    and on the CPU: losses and final weights agree, the weights moved, and
-   K2 ran its scalar route (fp32);
+   K1 and K2 ran their scalar routes (fp32);
 9. full-width multi-head attention — the same stack at Transformer-big
    width (d_model 1024, 16 heads of 64, 6 encoder and 6 decoder layers,
    dropout 0.1, bias, pre-norm), 32 sentence pairs padded to 256 / 192,
    bf16 with fp32 masters, MSE against a fixed target, ``FusedAdam``:
-   exact launch counts (K1 = K2 = K6 = K7 = 18 a step, K2 the
-   tensor-core kernel and the scalar one never), the loss falls
+   exact launch counts (K1 = K2 = K6 = K7 = 18 a step, K1 and K2 the
+   tensor-core kernels and the scalar ones never), the loss falls
    over 5 steps, a dropout-free step through the kernels agrees with the
    plain path (loss, grad norm, worst leaf) at the seeded initial weights
    and again at the weights six training steps leave, a step run twice
@@ -253,28 +262,67 @@ def prefill_operands(gen, dtype, lengths, b=1, h=16, s=1024, d=128):
     return q, k, v, seg_row(s, lengths)[None].cuda()
 
 
+def launched(fn):
+    """(``fn()``, the symbols of the kernels it launched)."""
+    before = {k.symbol: k.launches for k in kernels.KERNELS}
+    out = fn()
+    return out, [k.symbol for k in kernels.KERNELS
+                 if k.launches != before[k.symbol]]
+
+
 def flash_fwd_case(gen, name, dtype, lengths):
+    """K1 at the prefill's shape through ``flash_attention_fwd`` against
+    its plain version, naming the kernel that ran (bf16 at head dim 128:
+    ``flash_fwd_sm90``; fp32: the scalar ``flash_fwd``); on the tensor
+    cores also run again (bitwise) counting its tiles walked, against
+    :func:`flash_fwd_tiles`."""
     q, k, v, seg = prefill_operands(gen, dtype, lengths)
     b, h, s, d = q.shape
-    o, lse = att.flash_attention_fwd(q, k, v, causal=True, segment_ids=seg)
+    (o, lse), ran = launched(lambda: att.flash_attention_fwd(
+        q, k, v, causal=True, segment_ids=seg))
     ro, rlse = att._blockwise_fwd(
         q.reshape(b * h, s, d), k.reshape(b * h, s, d),
         v.reshape(b * h, s, d), 1 / math.sqrt(d), True, None, seg, seg)
     torch.cuda.synchronize()
-    err = check(f"flash_fwd {name} o", o, ro.view(b, h, s, d))
+    err = check(f"{ran[0]} {name} o", o, ro.view(b, h, s, d))
     lerr = (lse - rlse).abs().max().item()
-    log(f"  flash_fwd {name} lse: max_abs_diff {lerr:.3e}  tol 1e-4  "
+    log(f"  {ran[0]} {name} lse: max_abs_diff {lerr:.3e}  tol 1e-4  "
         f"{'ok' if lerr <= 1e-4 else 'FAIL'}")
     if not lerr <= 1e-4:
-        raise AssertionError(f"flash_fwd {name}: lse disagrees ({lerr:.3e})")
+        raise AssertionError(f"{ran[0]} {name}: lse disagrees ({lerr:.3e})")
+    if att._fwd_on_tensor_cores(q):
+        visits = fwd_visits(q)
+        again = att._flash_fwd_cuda(q, k, v, None, seg, seg, 1 / math.sqrt(d),
+                                    True, 0.0, 0, visits=visits)
+        check_bitwise(f"{ran[0]} {name} run twice", (o, lse), again)
+        check_fwd_visits(f"{ran[0]} {name}", visits, seg, seg, s, s, True,
+                         b * h)
     return err, (q, k, v, seg)
 
 
-def time_flash_fwd(dtype, q, k, v, seg) -> dict:
+def scalar_fwd(fn):
+    """``fn`` with K1 routed to its scalar kernel (``flash_fwd.cu``, the
+    bf16 route before ``flash_fwd_sm90.cu``)."""
+    def old():
+        with mock.patch.object(att, "_fwd_on_tensor_cores", lambda t: False):
+            return fn()
+    return old
+
+
+def time_flash_fwd(dtype, q, k, v, seg) -> tuple:
+    """K1 at the prefill's shape (the tensor-core kernel, through
+    ``flash_attention_fwd``) timed cold beside its plain version, SDPA
+    and its bound; the scalar kernel it replaced on bf16 timed cold too,
+    and the two in turns (a, b, b, a) in this one call
+    (``timing.timed_pair``).  Returns (tensor-core row, scalar row)."""
     b, h, s, d = q.shape
     scale = 1 / math.sqrt(d)
-    ms = cold_ms(lambda: att.flash_attention_fwd(q, k, v, causal=True,
-                                                 segment_ids=seg))
+    new = lambda: att.flash_attention_fwd(  # noqa: E731
+        q, k, v, causal=True, segment_ids=seg)
+    old = scalar_fwd(new)
+    ms = cold_ms(new)
+    old_ms = cold_ms(old, 10)
+    pair = timing.timed_pair(old, new, (), ())
     qf, kf, vf = (t.reshape(b * h, s, d) for t in (q, k, v))
     plain_ms = cold_ms(lambda: att._blockwise_fwd(qf, kf, vf, scale, True,
                                                   None, seg, seg))
@@ -288,14 +336,19 @@ def time_flash_fwd(dtype, q, k, v, seg) -> dict:
     nbytes = 4 * b * h * s * d * item + b * h * s * 4 + 2 * s * 4
     flops = 4 * d * b * h * int(visible.sum().item())
     bound_ms, bound_by = bound(nbytes, flops, dtype)
-    lohi = att._segment_block_bounds(seg, seg, 64, 64)[0]
-    n_tiles = int((lohi[..., 1] - lohi[..., 0]).sum())
-    log(f"  flash_fwd timing [{b},{h},{s},{d}] {dtype}: kernel {ms:.4f} ms, "
+    bq, bk = att.flash_fwd_tiles_of(q)
+    walk = flash_fwd_tiles(seg, seg, s, s, True, bq, bk)
+    n_tiles = int((walk[..., 1] - walk[..., 0]).sum())
+    log(f"  flash_fwd_sm90 timing [{b},{h},{s},{d}] {dtype}: kernel "
+        f"{ms:.4f} ms (scalar flash_fwd {old_ms:.4f}: {old_ms / ms:.2f}x), "
         f"plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
-        f"{bound_ms:.4f} ms ({bound_by}); live 64x64 tiles per head "
-        f"(segment rule, before the causal cut) {n_tiles}")
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                bound_ms=bound_ms, bound_by=bound_by)
+        f"{bound_ms:.4f} ms ({bound_by}); {bq}x{bk} tiles walked per head "
+        f"{n_tiles}")
+    log(f"  in turns (timed_pair, warm): scalar {pair[0]:.4f} ms vs "
+        f"tensor-core {pair[1]:.4f} ms ({pair[0] / pair[1]:.2f}x)")
+    row = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+               bound_ms=bound_ms, bound_by=bound_by, warm_pair_ms=pair[1])
+    return row, {**row, "ms": old_ms, "warm_pair_ms": pair[0]}
 
 
 def decode_operands(gen, dtype, q_len, lengths, b=BATCH, h=16, d=128,
@@ -701,6 +754,42 @@ def check_bitwise(name, a, b):
         raise AssertionError(f"{name}: not bitwise equal")
 
 
+def flash_fwd_tiles(seg_q, seg_k, sq, sk, causal, block_q=128,
+                    block_k=128):
+    """The key tiles each q-tile block of a flash forward walks, as
+    [rows, n_qb, 2] [lo, hi) ranges: the segment rule
+    (``_segment_block_bounds``' first output), cut at the tile of the
+    last key the block's last query sees under the causal mask.  The
+    backward's dq pass walks the same rule (:func:`flash_bwd_tiles`).
+    ``csrc/flash_fwd_sm90.cu`` walks 128 x 128; its ``visits`` are held
+    against this in phase 3, and this against the JAX package's rule in
+    the tests."""
+    return flash_bwd_tiles(seg_q, seg_k, sq, sk, causal, block_q, block_k)[1]
+
+
+def fwd_visits(q):
+    """A ``visits`` tensor for the tensor-core K1 on operands like ``q``."""
+    return torch.full((att.flash_fwd_visits_len(q),), -1, dtype=torch.int32,
+                      device="cuda")
+
+
+def check_fwd_visits(name, visits, seg_q, seg_k, sq, sk, causal, bh):
+    """The tensor-core K1's tiles walked, per block, against
+    :func:`flash_fwd_tiles` at its tiles."""
+    bq, bk = att.FLASH_FWD_SM90_TILES
+    want = flash_fwd_tiles(seg_q, seg_k, sq, sk, causal, bq, bk)
+    want = want[..., 1] - want[..., 0]
+    want = want.repeat_interleave(bh // want.shape[0], 0).flatten()
+    got = visits.cpu().long()
+    ok = torch.equal(got, want)
+    log(f"  {name} tiles walked ({bq} x {bk}): {int(got.sum())} of "
+        f"{bh * -(-sq // bq) * -(-sk // bk)}; the plain rule's "
+        f"{int(want.sum())}: {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name}: tiles walked differ from "
+                             "flash_fwd_tiles")
+
+
 def flash_bwd_tiles(seg_q, seg_k, sq, sk, causal, block_q=64,
                     block_k=64):
     """The tiles a three-pass flash backward walks, as [lo, hi) ranges:
@@ -749,28 +838,38 @@ def flash_bwd_tiles(seg_q, seg_k, sq, sk, causal, block_q=64,
 def generic_case(gen, name, dtype, sq, sk, *, b, d, h=16, causal=False,
                  mask=None, seg=None, rate=0.0, repeat=False):
     """K1 and K2 against their plain versions on the same inputs (K2 gets
-    K1's o and lse), and K2's tiles walked against the plain statement
-    of its skip rule (:func:`flash_bwd_tiles` at the route's tiles: bf16
-    at head dims 64 and 128 runs ``flash_bwd_sm90.cu``, the rest
-    ``flash_bwd.cu``; the launch counts name the kernel that ran).
-    Returns (K1 error, K2 error, operands)."""
+    K1's o and lse), and the tiles each walked against the plain
+    statement of its skip rule (bf16 at head dims 64 and 128 runs
+    ``flash_fwd_sm90.cu`` and ``flash_bwd_sm90.cu``, held to
+    :func:`flash_fwd_tiles` and :func:`flash_bwd_tiles` at their tiles;
+    the rest the scalar ``flash_fwd.cu`` and ``flash_bwd.cu``, K2 held to
+    its rule at its tiles; the launch counts name the kernel that ran).
+    ``repeat`` runs both again (bitwise).  Returns (K1 error, K2 error,
+    operands)."""
     q, k, v, do = mha_operands(gen, dtype, sq, sk, b, d, h)
     seg_q, seg_k = seg if seg is not None else (None, None)
     args = (mask, seg_q, seg_k, d ** -0.5, causal, rate, RATE_SEED)
-    o, lse = att._flash_fwd_cuda(q, k, v, *args)
+    tensor_cores = att._fwd_on_tensor_cores(q)
+    visits = fwd_visits(q) if tensor_cores else None
+    (o, lse), ran = launched(lambda: att._flash_fwd_cuda(q, k, v, *args,
+                                                         visits=visits))
     ro, rlse = att._flash_fwd_plain(q, k, v, *args)
     torch.cuda.synchronize()
-    e1 = check(f"flash_fwd {name} o", o, ro)
-    check_lse(f"flash_fwd {name} lse", lse, rlse)
+    e1 = check(f"{ran[0]} {name} o", o, ro)
+    check_lse(f"{ran[0]} {name} lse", lse, rlse)
+    if tensor_cores:
+        check_fwd_visits(f"{ran[0]} {name}", visits, seg_q, seg_k, sq, sk,
+                         causal, b * h)
+    if repeat:
+        check_bitwise(f"{ran[0]} {name} run twice", (o, lse),
+                      att._flash_fwd_cuda(q, k, v, *args))
     tiles = att.flash_bwd_tiles_of(q)
     (bq2, bk2), (bq3, bk3) = tiles["dkdv"], tiles["dq"]
     n_kb = -(-sk // bk2)
     visits = torch.full((att.flash_bwd_visits_len(q, sk),), -1,
                         dtype=torch.int32, device="cuda")
-    before = {k.symbol: k.launches for k in kernels.KERNELS}
-    grads = att._flash_bwd_cuda(q, k, v, o, lse, do, *args, visits=visits)
-    ran = [k.symbol for k in kernels.KERNELS
-           if k.launches != before[k.symbol]]
+    grads, ran = launched(lambda: att._flash_bwd_cuda(q, k, v, o, lse, do,
+                                                      *args, visits=visits))
     ref = att._flash_bwd_plain(q, k, v, o, lse, do, *args)
     torch.cuda.synchronize()
     e2 = max(check(f"{ran[0]} {name} {n}", g, r)
@@ -806,7 +905,7 @@ def phase_generic_kernels() -> dict:
     # the main path's three attention calls, at their shapes
     e1, e2, enc = generic_case(
         gen, "encoder self [32,16,256,64] bf16 key-padding segments", bf16,
-        S, S, b=B, d=64, seg=segments_of(src_pad, S))
+        S, S, b=B, d=64, seg=segments_of(src_pad, S), repeat=True)
     dec_mask = (torch.where(tgt_pad, MASK_FILL, 0.0)[:, None, None, :]
                 + causal_fill(T, T))                    # [b, 1, sq, sk]
     _, _, dec = generic_case(
@@ -829,10 +928,9 @@ def phase_generic_kernels() -> dict:
                  "zero strides", bf16, S, S, b=8, d=64,
                  mask=torch.where(pad8, MASK_FILL, 0.0)[:, None, None, :]
                  + causal_fill(S, S))
-    e2_fp32 = generic_case(gen, "full [b,h,sq,sk] random mask, fp32", fp32,
-                           128, 128, b=2, d=64, mask=torch.randn(
-                               2, 16, 128, 128, generator=gen,
-                               device="cuda"))[1]
+    e1_fp32, e2_fp32, _ = generic_case(
+        gen, "full [b,h,sq,sk] random mask, fp32", fp32, 128, 128, b=2, d=64,
+        mask=torch.randn(2, 16, 128, 128, generator=gen, device="cuda"))
     # each feature alone and combined, at other shapes, both dtypes
     generic_case(gen, "causal sq < sk (192 x 256) bf16", bf16, 192, 256, b=4,
                  d=64, causal=True)
@@ -868,9 +966,20 @@ def phase_generic_kernels() -> dict:
         generic_case(gen, f"mask hides every key of a row, sk 200, d={d} "
                      "bf16", bf16, 200, 200, b=4, d=d, h=4,
                      mask=torch.where(hidden, MASK_FILL, 0.0))
+    # the causal masked instances without dropout (at d = 64 the one that
+    # takes two 64-key steps a tile), with a batch row whose every key a
+    # mask of -300 hides: its scores take the tensor-core K1's FMA-chain
+    # path (|row max| >= 256), where fp32's spacing (3e-5) is under
+    # LSE_TOL; a generator of their own keeps the later cases' data
+    gen_c = torch.Generator(device="cuda").manual_seed(4)
+    for d in (64, 128):
+        generic_case(gen_c, f"causal + mask of -300 hiding every key of a row,"
+                     f" d={d} bf16", bf16, 200, 200, b=4, d=d, h=4,
+                     causal=True, mask=torch.where(hidden, -300.0, 0.0))
     varlen_case(gen)
     timing = time_generic(enc, dec, gen)
-    timing["flash_fwd_mha"]["max_abs_err"] = e1
+    timing["flash_fwd_sm90_mha"]["max_abs_err"] = e1
+    timing["flash_fwd_mha"]["max_abs_err"] = e1_fp32  # its route: fp32, d = 8
     timing["flash_bwd_sm90"]["max_abs_err"] = e2
     timing["flash_bwd"]["max_abs_err"] = e2_fp32  # its route: fp32, d = 8
     return timing
@@ -943,9 +1052,10 @@ def time_generic(enc, dec, gen) -> dict:
     """K1 and K2 at the main path's encoder shape (segments) and K1's
     mask, dropout and K2 at the decoder's (pad + causal mask): kernel,
     plain, SDPA with the same float mask (forward; backward through
-    autograd) and the bound.  At the encoder shape K2's scalar bf16
-    instance is also timed cold, and against the tensor-core K2 in turns
-    (a, b, b, a) in this one call (``timing.timed_pair``)."""
+    autograd) and the bound.  At the encoder shape K1's and K2's scalar
+    bf16 instances are also timed cold, and each against its tensor-core
+    kernel in turns (a, b, b, a) in this one call
+    (``timing.timed_pair``)."""
     out = {}
     for name, ops in (("encoder", enc), ("decoder", dec)):
         q, k, v, do, o, lse, args = ops
@@ -963,7 +1073,8 @@ def time_generic(enc, dec, gen) -> dict:
         else:
             fmask = mask.to(q.dtype)
             visible, live_q, live_k = B * H * sq * sk, B * H * sq, B * H * sk
-        fwd_ms = cold_ms(lambda: att._flash_fwd_cuda(q, k, v, *args), 20)
+        new_fwd = lambda: att._flash_fwd_cuda(q, k, v, *args)  # noqa: E731
+        fwd_ms = cold_ms(new_fwd, 20)
         drop_ms = cold_ms(lambda: att._flash_fwd_cuda(
             q, k, v, *args[:5], MHA["dropout"], RATE_SEED), 20)
         fwd_plain = cold_ms(lambda: att._flash_fwd_plain(q, k, v, *args), 5, 1)
@@ -982,7 +1093,8 @@ def time_generic(enc, dec, gen) -> dict:
         bb, bby = mha_bound(q, k, mask, False, live_q, live_k, visible)
         log(f"  generic attention timing, {name} [{B},{H},{sq}x{sk},{d}] "
             f"{q.dtype} ({'segments' if seg_q is not None else 'mask'}): "
-            f"fwd kernel {fwd_ms:.4f} ms (dropout {MHA['dropout']}: "
+            f"fwd kernel (tensor cores) {fwd_ms:.4f} ms (dropout "
+            f"{MHA['dropout']}: "
             f"{drop_ms:.4f}), plain {fwd_plain:.4f}, sdpa {fwd_lib:.4f}, "
             f"bound {fb:.4f} ({fby}); bwd kernel (tensor cores) "
             f"{bwd_ms:.4f} ms, plain {bwd_plain:.4f}, sdpa backward "
@@ -995,6 +1107,20 @@ def time_generic(enc, dec, gen) -> dict:
                                   library_ms=bwd_lib, bound_ms=bb,
                                   bound_by=bby, flops=10 * d * visible))
         if name == "encoder":
+            old_fwd = scalar_fwd(new_fwd)
+            old_fwd_ms = cold_ms(old_fwd, 10)
+            pair_fwd = timing.timed_pair(old_fwd, new_fwd, (), ())
+            log(f"  K1 at the encoder shape, scalar bf16 instance (flash_fwd"
+                f".cu) {old_fwd_ms:.4f} ms cold ({old_fwd_ms / fwd_ms:.2f}x "
+                f"the tensor-core kernel's); in turns (timed_pair, warm): "
+                f"scalar {pair_fwd[0]:.4f} ms vs tensor-core "
+                f"{pair_fwd[1]:.4f} ms ({pair_fwd[0] / pair_fwd[1]:.2f}x)")
+            out["scalar_fwd"] = {
+                **{k: v for k, v in out[name]["fwd"].items()
+                   if k != "ms_dropout"},
+                "ms": old_fwd_ms, "warm_pair_ms": pair_fwd[0]}
+            out[name]["fwd"]["warm_pair_ms"] = pair_fwd[1]
+
             def old_bwd():  # the scalar K2's bf16 instance (flash_bwd.cu)
                 with mock.patch.object(att, "_bwd_on_tensor_cores",
                                        lambda t: False):
@@ -1010,8 +1136,9 @@ def time_generic(enc, dec, gen) -> dict:
                                  "warm_pair_ms": pair[0]}
             out[name]["bwd"]["warm_pair_ms"] = pair[1]
         del ql, kl, vl, ol
-    return {"flash_fwd_mha": out["encoder"]["fwd"],
-            "flash_fwd_mha_mask": out["decoder"]["fwd"],
+    return {"flash_fwd_sm90_mha": out["encoder"]["fwd"],
+            "flash_fwd_mha": out["scalar_fwd"],
+            "flash_fwd_sm90_mha_mask": out["decoder"]["fwd"],
             "flash_bwd_sm90": out["encoder"]["bwd"],
             "flash_bwd_sm90_mask": out["decoder"]["bwd"],
             "flash_bwd": out["scalar_bwd"]}
@@ -1187,7 +1314,8 @@ def phase_kernels() -> dict:
     err_fwd, fwd_ops = flash_fwd_case(gen, "bf16 one segment C=700 + pad",
                                       bf16, [700])
     flash_fwd_case(gen, "bf16 three segments", bf16, [300, 400, 200])
-    flash_fwd_case(gen, "fp32 one segment C=700 + pad", fp32, [700])
+    err_fwd32 = flash_fwd_case(gen, "fp32 one segment C=700 + pad", fp32,
+                               [700])[0]
     ragged = [1, 2, 63, 64, 65, 200, 320, 3]
     err_dec, dec_ops = flash_decode_case(gen, "bf16 q_len=1", bf16, 1, ragged)
     flash_decode_case(gen, "bf16 q_len=5 (kv_len < q_len rows)", bf16, 5,
@@ -1195,13 +1323,15 @@ def phase_kernels() -> dict:
     flash_decode_case(gen, "bf16 q_len=20 (two row blocks)", bf16, 20,
                       ragged)
     flash_decode_case(gen, "fp32 q_len=1", fp32, 1, ragged)
-    fwd = time_flash_fwd(bf16, *fwd_ops)
+    fwd, sfwd = time_flash_fwd(bf16, *fwd_ops)
     dec = time_flash_decode(bf16, *dec_ops)
     # a full decode batch as the main path sees it mid-trace
     time_flash_decode(bf16, *decode_operands(gen, bf16, 1, [300] * BATCH))
     fwd["max_abs_err"], dec["max_abs_err"] = err_fwd, err_dec
+    sfwd["max_abs_err"] = err_fwd32   # the scalar K1's route: fp32, d = 8
     del fwd_ops, dec_ops
-    out = {"flash_fwd": fwd, "flash_decode": dec, **phase_training_kernels(),
+    out = {"flash_fwd_sm90": fwd, "flash_fwd": sfwd, "flash_decode": dec,
+           **phase_training_kernels(),
            **phase_generic_kernels()}
     torch.cuda.empty_cache()
     out["flat_adam"] = phase_flat_adam()
@@ -1212,7 +1342,7 @@ def phase_kernels() -> dict:
 # -- phase 4: toy width, cuda vs cpu ---------------------------------------
 
 
-def phase_toy() -> None:
+def phase_toy() -> dict:
     cfg = ServingModelConfig(vocab_size=64, hidden_size=32, num_heads=4,
                              num_layers=2, max_position=96)
     params = init_params(cfg, seed=0, device="cpu")
@@ -1227,11 +1357,19 @@ def phase_toy() -> None:
         eng.run()
         return [list(r.generated) for r in reqs]
 
-    on_card, on_cpu = streams("cuda"), streams("cpu")
+    kernels.reset_launch_counts()
+    on_card = streams("cuda")
+    launches = {k.symbol: k.launches for k in kernels.KERNELS if k.launches}
+    on_cpu = streams("cpu")
+    log(f"  toy fp32 launches {launches}")
+    if not (launches.get("flash_fwd") and "flash_fwd_sm90" not in launches):
+        raise AssertionError("toy engine: fp32 attention did not take the "
+                             "scalar K1 (the fp32 route)")
     log(f"  toy fp32 streams, cuda (kernels): {on_card}")
     log(f"  toy fp32 streams, cpu (plain):    {on_cpu}")
     if on_card != on_cpu:
         raise AssertionError("toy engine: cuda and cpu streams differ")
+    return {"launches": launches}
 
 
 # -- phase 5: the full-width engine ----------------------------------------
@@ -1353,7 +1491,7 @@ def phase_full(smi: str) -> dict:
     if eng.cache.pages_used != 0:
         raise AssertionError(f"pool not drained: {eng.cache.pages_used} used")
     prefills = sum(1 + r.preemptions for r in finished)
-    want = {"flash_fwd": cfg.num_layers * (prefills + 1),
+    want = {"flash_fwd_sm90": cfg.num_layers * (prefills + 1),
             "flash_decode": cfg.num_layers * (eng.decode_steps + 1)}
     log(f"  launches {launches}, expected {want} ({prefills} prefills + "
         f"warmup, {eng.decode_steps} decode steps + warmup)")
@@ -1825,9 +1963,11 @@ def phase_toy_mha() -> dict:
     launches = {k.symbol: k.launches for k in kernels.KERNELS if k.launches}
     on_cpu, w_cpu = run(cpu, "cpu")
     log(f"  toy fp32 launches over 5 steps {launches}")
-    if not (launches.get("flash_bwd") and "flash_bwd_sm90" not in launches):
+    if not (launches.get("flash_fwd") and launches.get("flash_bwd")
+            and "flash_fwd_sm90" not in launches
+            and "flash_bwd_sm90" not in launches):
         raise AssertionError("toy MHA training: fp32 attention did not take "
-                             "the scalar K2 (the fp32 route)")
+                             "the scalar K1 and K2 (the fp32 route)")
     log(f"  toy fp32 losses, cuda (kernels): {on_card}")
     log(f"  toy fp32 losses, cpu (plain):    {on_cpu}")
     loss_err = max(abs(a - b) / abs(b) for a, b in zip(on_card, on_cpu))
@@ -1869,7 +2009,8 @@ MHA_PLAIN_NORM_TOL = 8e-4    # relative, global grad norm (read 7.3e-5)
 # relative, |g - g_plain| / |g_plain| on the worst leaf (read 1.05e-2, on
 # encoder layer 5's in_proj_weight; the median leaf reads 8.7e-3)
 MHA_PLAIN_LEAF_TOL = 1.1e-1
-MHA_KINDS = (("flash_fwd_kernel", "K1 flash_fwd"),
+MHA_KINDS = (("attn_fwd_sm90", "K1 flash_fwd_sm90"),   # before K2's "_sm90"
+             ("flash_fwd_kernel", "K1 flash_fwd (scalar)"),
              # K2's three passes: attn_bwd_{delta,dkdv,dq}_sm90 on the
              # tensor cores; the scalar attn_bwd_* are the fp32 route
              ("_sm90", "K2 flash_bwd_sm90"),
@@ -1932,7 +2073,7 @@ def check_mha_vs_plain(model, batch, state: str) -> dict:
 def phase_mha(smi: str) -> dict:
     c = MHA
     L, steps = c["layers"], 5
-    per_step = {"flash_fwd": 3 * L, "flash_bwd_sm90": 3 * L,
+    per_step = {"flash_fwd_sm90": 3 * L, "flash_bwd_sm90": 3 * L,
                 "layer_norm_fwd": 3 * L, "layer_norm_bwd": 3 * L}
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1957,7 +2098,8 @@ def phase_mha(smi: str) -> dict:
     log(f"  fixed-batch losses {losses}")
     log(f"  launches over {steps} steps {launches}, expected {want} (per "
         f"step K1 = K2 = K6 = K7 = {3 * L}: {L} encoder, {L} decoder self, "
-        f"{L} cross; K2 the tensor-core kernel, the scalar one never)")
+        f"{L} cross; K1 and K2 the tensor-core kernels, the scalar ones "
+        f"never)")
     if launches != want:
         raise AssertionError("MHA launch counts do not match the main path")
     if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
@@ -2326,11 +2468,11 @@ def sass_count(source: str, opcode: str) -> int:
 
 
 SM90_SOURCES = ("flash_qkv_fwd_sm90.cu", "flash_qkv_bwd_sm90.cu",
-                "flash_bwd_sm90.cu")
+                "flash_bwd_sm90.cu", "flash_fwd_sm90.cu")
 
 
 def sm90_build_checks() -> dict:
-    """The tensor-core sources (K3/K4's and K2's bf16 routes) as built: every
+    """The tensor-core sources (K3/K4's, K2's and K1's bf16 routes) as built: every
     instance free of spills and stack in ``ptxas -v``'s report, and their
     SASS holding ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA loads)."""
     out = {}
@@ -2440,7 +2582,7 @@ def phase_roofs(smi: str) -> dict:
     calls = timing.WARM + timing.STEPS
     pingpongs = 2 * (timing.WARM + timing.ROOF_STEPS)  # two roofs, two copies
     want = {"hbm_copy": 2 * pingpongs, "attention_dots": calls,
-            "flash_fwd": 2 * 3 * calls, "flash_bwd_sm90": 2 * calls,
+            "flash_fwd_sm90": 2 * 3 * calls, "flash_bwd_sm90": 2 * calls,
             "layer_norm_fwd": 4 * calls, "layer_norm_bwd": 2 * calls}
     log(f"  hbm_roof {hbm:.1f} GB/s  [{smi}]")
     log(f"  matmul_roof {mm:.1f} TFLOP/s  [{smi}]")
@@ -2487,6 +2629,7 @@ FLOOR_OF = {"flash_qkv_fwd_sm90": "GPT-1.3B (K3/K4)",
             "flash_qkv_bwd_sm90": "GPT-1.3B (K3/K4)",
             "flash_qkv_fwd": "GPT-1.3B (K3/K4)",
             "flash_qkv_bwd": "GPT-1.3B (K3/K4)",
+            "flash_fwd_sm90_mha": "Transformer-big encoder (K1/K2)",
             "flash_fwd_mha": "Transformer-big encoder (K1/K2)",
             "flash_bwd_sm90": "Transformer-big encoder (K1/K2)",
             "flash_bwd": "Transformer-big encoder (K1/K2)"}
@@ -2580,7 +2723,7 @@ def main() -> int:
     timings = phase_kernels()
 
     begin(4, "toy engine, cuda vs cpu")
-    phase_toy()
+    toy = phase_toy()
 
     begin(5, "full-width engine (GPT-1.3B width, 24 layers, bf16)")
     metrics = phase_full(smi)
@@ -2619,11 +2762,23 @@ def main() -> int:
     PHASE.update(n=13, name="record")
 
     record = {"kernels": [
+        # K1: the bf16 route at head dims 64 and 128 on the tensor cores
+        # runs the serving prefill (phase 5), the multi-head attention step
+        # (phase 9) and the microbenches (phase 12); the scalar kernel is
+        # the fp32 and head dim 8 route (phases 4 and 8) and is timed on
+        # bf16 as the kernel it replaced there
+        dict(name="flash_fwd_sm90", route="cuda",
+             source="apex_tpu_torch/csrc/flash_fwd_sm90.cu",
+             replaces="apex_tpu/ops/attention.py:738",
+             launches=metrics["launches"]["flash_fwd_sm90"],
+             launches_mha=mha["launches"]["flash_fwd_sm90"],
+             launches_microbench=probes["launches"]["flash_fwd_sm90"],
+             **timings["flash_fwd_sm90"]),
         dict(name="flash_fwd", route="cuda",
              source="apex_tpu_torch/csrc/flash_fwd.cu",
              replaces="apex_tpu/ops/attention.py:738",
-             launches=metrics["launches"]["flash_fwd"],
-             launches_mha=mha["launches"]["flash_fwd"],
+             launches=toy_mha["launches"]["flash_fwd"],
+             launches_toy_engine=toy["launches"]["flash_fwd"],
              **timings["flash_fwd"]),
         # K2: the bf16 route on the tensor cores runs the multi-head
         # attention step (phase 9); the scalar kernel is the fp32 and head
@@ -2690,8 +2845,11 @@ def main() -> int:
         src = entry["source"].rsplit("/", 1)[1]
         if src in sm90_build:
             entry["sass"] = sm90_build[src]
-    record["kernels"][0].update({f"{k}_mha": v for k, v in
-                                 shares["flash_fwd_mha"].items()})
+    for entry, at in zip(record["kernels"][:2], ("flash_fwd_sm90_mha",
+                                                 "flash_fwd_mha")):
+        entry.update({f"{k}_mha": v for k, v in
+                      {**timings[at], **shares[at]}.items()
+                      if k not in ("bound_by", "flops")})
     print(json.dumps(record))
     print(smi)
     print(json.dumps({"ok": True, "device": {
