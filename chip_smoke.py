@@ -426,17 +426,33 @@ def time_flash_decode(dtype, q, kp, vp, table, kv_len) -> dict:
 # pretrain_gpt at micro-batch 4, seq 2048)
 TRAIN = dict(b=4, s=2048, heads=16, d=128, hidden=2048)
 ATT_DROPOUT = 0.1            # arguments.py's default, on the main path
-LSE_TOL = 1e-4               # absolute, fp32 log-sum-exp near 8
+# absolute, fp32 log-sum-exp near 8; raised elementwise to one fp32
+# spacing at |ref| where that is larger (rows an additive mask hides
+# whole, lse near -1e4, spacing 2^-10): scripts/lse_masked_rows.py, 150
+# draws a head dim on an NVIDIA H100 80GB HBM3 at 700 W, read every miss
+# of 1e-4 there as exactly one spacing (flash_fwd_sm90 9 rows at d 64, 8
+# at d 128; the scalar flash_fwd 6 and 6)
+LSE_TOL = 1e-4
 RATE_SEED = 1234
 
 
+def fp32_spacing(t: torch.Tensor) -> torch.Tensor:
+    """The gap from |t| to the next float32 above it, elementwise."""
+    a = t.float().abs()
+    return torch.nextafter(a, torch.full_like(a, math.inf)) - a
+
+
 def check_lse(name: str, got: torch.Tensor, ref: torch.Tensor) -> None:
-    err = (got - ref).abs().max().item()
-    ok = err <= LSE_TOL
-    log(f"  {name}: max_abs_diff {err:.3e}  tol {LSE_TOL:.0e}  "
+    gap = (got - ref).abs()
+    tol = torch.clamp(fp32_spacing(ref), min=LSE_TOL)
+    err, worst = gap.max().item(), (gap / tol).max().item()
+    ok = worst <= 1.0
+    log(f"  {name}: max_abs_diff {err:.3e}  tol max({LSE_TOL:.0e}, one fp32 "
+        f"spacing at |ref|): worst gap {worst:.3f} of its bar  "
         f"{'ok' if ok else 'FAIL'}")
     if not ok:
-        raise AssertionError(f"{name}: disagrees ({err:.3e})")
+        raise AssertionError(f"{name}: disagrees ({err:.3e}, {worst:.3f} "
+                             "of its bar)")
 
 
 def qkv_operands(gen, dtype, b=TRAIN["b"], s=TRAIN["s"]):

@@ -184,6 +184,32 @@ def test_3d_layout_with_per_row_segments_and_lse():
     assert o.requires_grad and not lse.requires_grad   # lse: no gradient
 
 
+@pytest.mark.parametrize("d", [8, 64, 128])
+def test_lse_where_an_additive_mask_hides_every_key_of_a_row(d):
+    # batch row 1 sees every key at -1e4: its rows' lse lies near -9997,
+    # where fp32's spacing (2^-10) is a hundred times this file's lse
+    # tolerance, so the bound asks for the reference's bits there
+    rng = np.random.RandomState(40 + d)
+    b, h, sq, sk = 3, 2, 12, 20
+    q, k, v = (rng.randn(b, h, s, d).astype(np.float32)
+               for s in (sq, sk, sk))
+    lengths = rng.randint(1, sk + 1, b)
+    lengths[1] = 0
+    mask = np.where(_keep_ids(lengths, sk) == 0, -10000.0,
+                    0.0)[:, None, None, :].astype(np.float32)
+    _, jlse = jatt._blockwise_fwd_xla(
+        *(jnp.asarray(t.reshape(b * h, -1, d)) for t in (q, k, v)),
+        1 / math.sqrt(d), False,
+        jnp.asarray(np.broadcast_to(mask, (b, h, sq, sk)).reshape(
+            b * h, sq, sk)), None, None)
+    _, lse = tatt.flash_attention_fwd(
+        *(torch.tensor(t) for t in (q, k, v)), mask_bias=torch.tensor(mask))
+    jlse = np.asarray(jlse)
+    hidden = slice(h, 2 * h)       # batch row 1's b*h rows
+    assert (jlse[hidden] < -9000).all() and (jlse[:h] > -100).all()
+    np.testing.assert_allclose(lse.numpy(), jlse, rtol=0, atol=1e-5)
+
+
 def test_flash_attention_varlen_matches_jax():
     rng = np.random.RandomState(5)
     total, h, d = 40, 2, 8
