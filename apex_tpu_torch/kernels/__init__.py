@@ -164,6 +164,25 @@ LAYER_NORM_BWD = Kernel("layer_norm.cu", "layer_norm_bwd", [
     _i, _i, _p,                 # rows, cols, stream
 ])
 
+#: layer_norm_sm90.cu — the same forward with each row read once into
+#: registers: the route for fp32 and bf16 at 1024, 2048 and 4096 columns
+#: (layer_norm.cu keeps every other width)
+LAYER_NORM_FWD_SM90 = Kernel("layer_norm_sm90.cu", "layer_norm_fwd_sm90", [
+    _i, _i,                     # dtype, device
+    _p, _p, _p,                 # x, weight, bias
+    _p, _p, _p,                 # y, mean, invvar
+    _i, _i, _f, _p,             # rows, cols, eps, stream
+])
+
+#: layer_norm_sm90.cu — its backward (one pass over x and dy; dweight,
+#: dbias summed on chip a block, then over the blocks in a fixed order)
+LAYER_NORM_BWD_SM90 = Kernel("layer_norm_sm90.cu", "layer_norm_bwd_sm90", [
+    _i, _i,                     # dtype, device
+    _p, _p, _p, _p, _p,         # x, dy, mean, invvar, weight
+    _p, _p, _p, _p,             # dx, dweight, dbias, partials (scratch)
+    _i, _i, _p,                 # rows, cols, stream
+])
+
 #: flat_adam.cu — Adam / AdamW over one span of a flat fp32 superblock
 FLAT_ADAM = Kernel("flat_adam.cu", "flat_adam", [
     _i,                         # device
@@ -191,7 +210,8 @@ ATTENTION_DOTS = Kernel("attention_dots.cu", "attention_dots", [
 
 KERNELS = (FLASH_FWD, FLASH_FWD_SM90, FLASH_BWD, FLASH_BWD_SM90, FLASH_DECODE,
            FLASH_QKV_FWD, FLASH_QKV_BWD, FLASH_QKV_FWD_SM90, FLASH_QKV_BWD_SM90,
-           LAYER_NORM_FWD, LAYER_NORM_BWD, FLAT_ADAM, HBM_COPY, ATTENTION_DOTS)
+           LAYER_NORM_FWD, LAYER_NORM_BWD, LAYER_NORM_FWD_SM90,
+           LAYER_NORM_BWD_SM90, FLAT_ADAM, HBM_COPY, ATTENTION_DOTS)
 
 
 def reset_launch_counts() -> None:
@@ -203,5 +223,6 @@ __all__ = ["NvccError", "Kernel", "build_all", "build_log", "DTYPE_CODES",
            "FLASH_FWD", "FLASH_FWD_SM90", "FLASH_BWD", "FLASH_BWD_SM90",
            "FLASH_DECODE", "FLASH_QKV_FWD", "FLASH_QKV_BWD",
            "FLASH_QKV_FWD_SM90", "FLASH_QKV_BWD_SM90", "LAYER_NORM_FWD",
-           "LAYER_NORM_BWD", "FLAT_ADAM", "HBM_COPY", "ATTENTION_DOTS",
+           "LAYER_NORM_BWD", "LAYER_NORM_FWD_SM90", "LAYER_NORM_BWD_SM90",
+           "FLAT_ADAM", "HBM_COPY", "ATTENTION_DOTS",
            "KERNELS", "reset_launch_counts"]

@@ -6,9 +6,13 @@ invvar)`` for the backward and returns the output in x's dtype (the
 "mixed" semantics: a bf16 x with fp32 weights gives a bf16 y and fp32
 dweight/dbias).  Each direction has two implementations of one contract:
 
-* a kernel written by hand for Hopper, ``csrc/layer_norm.cu``
-  (``layer_norm_fwd`` in place of the TPU kernel ``_pallas_ln_fwd``,
-  ``layer_norm_bwd`` in place of ``_pallas_ln_bwd``), for CUDA tensors;
+* kernels written by hand for Hopper, for CUDA tensors, in place of the
+  TPU kernels ``_pallas_ln_fwd`` and ``_pallas_ln_bwd``: fp32 and bf16
+  rows at :data:`SM90_WIDTHS` columns run ``csrc/layer_norm_sm90.cu``
+  (``layer_norm_fwd_sm90``, ``layer_norm_bwd_sm90``: each row read once
+  into registers), every other width ``csrc/layer_norm.cu``
+  (``layer_norm_fwd``, ``layer_norm_bwd``); :func:`_ln_route` names the
+  route from the dtype and the width alone;
 * a plain PyTorch version with the JAX package's math
   (:func:`_ln_fwd_plain` for ``_xla_ln_fwd``, :func:`_ln_bwd_plain` for
   the XLA backward of ``_layer_norm_bwd``), for CPU tensors.
@@ -25,9 +29,48 @@ import torch
 from torch import nn
 
 from apex_tpu_torch.kernels import DTYPE_CODES as _KERNEL_DTYPES
-from apex_tpu_torch.kernels import LAYER_NORM_BWD, LAYER_NORM_FWD
+from apex_tpu_torch.kernels import (LAYER_NORM_BWD, LAYER_NORM_BWD_SM90,
+                                    LAYER_NORM_FWD, LAYER_NORM_FWD_SM90)
 
-_ROWS_PER_PARTIAL = 32   # layer_norm.cu's kRowsPerBlock
+#: the widths ``layer_norm_sm90.cu`` has instances of, for fp32 and bf16 x
+SM90_WIDTHS = (1024, 2048, 4096)
+#: rows per dgamma/dbeta partial of either backward (``layer_norm.cu``'s
+#: kRowsPerBlock, ``layer_norm_sm90.cu``'s kBwdRowsPerBlock)
+_ROWS_PER_PARTIAL = 32
+_SM90_WARPS = 8          # layer_norm_sm90.cu's warps a block (kWarps)
+_SM90_LANE_COLS = 16     # its backward's columns a lane (kBwdLaneCols)
+
+
+def _ln_route(dtype: torch.dtype, cols: int) -> str:
+    """``"sm90"`` (``layer_norm_sm90.cu``) for fp32 and bf16 at
+    :data:`SM90_WIDTHS` columns, else ``"rows"`` (``layer_norm.cu``,
+    which :func:`_check_rows` holds to its own limits)."""
+    if dtype in _KERNEL_DTYPES and cols in SM90_WIDTHS:
+        return "sm90"
+    return "rows"
+
+
+def ln_bwd_partition(rows: int, dtype: torch.dtype, cols: int) -> list:
+    """The rows whose dgamma/dbeta each backward block sums, as
+    ``[block][group] -> rows in the order the group adds them``; the block
+    adds its groups in order, then the second pass its blocks.  It is a
+    function of the shape and dtype alone, as the kernels' order is.
+    ``layer_norm_sm90.cu`` gives a row ``cols / 512`` warps, so a block of
+    eight warps holds ``8 / (cols / 512)`` groups, each taking every
+    group-th row of the block's 32; ``layer_norm.cu`` sums a block's rows
+    in order (one group)."""
+    groups = 1
+    if _ln_route(dtype, cols) == "sm90":
+        groups = _SM90_WARPS // (cols // (32 * _SM90_LANE_COLS))
+    return [[list(range(r0 + g, min(rows, r0 + _ROWS_PER_PARTIAL), groups))
+             for g in range(groups)]
+            for r0 in range(0, rows, _ROWS_PER_PARTIAL)]
+
+
+def ln_bwd_workspace(rows: int, cols: int) -> int:
+    """fp32 elements of the backward's partials: dweight's and dbias's,
+    one row of ``cols`` for each block of :func:`ln_bwd_partition`."""
+    return 2 * math.ceil(rows / _ROWS_PER_PARTIAL) * cols
 
 
 def _ln_fwd_plain(x2d, weight, bias, eps):
@@ -60,19 +103,19 @@ def _ln_bwd_plain(x2d, dy, mean, invvar, weight, has_bias):
     return dx, dw, db
 
 
-def _check_rows(x2d: torch.Tensor) -> None:
-    """What layer_norm.cu takes: fp32 or bf16 rows of whole 16-byte
+def _check_rows(x2d: torch.Tensor, name: str = "x") -> None:
+    """What both kernels take: fp32 or bf16 rows of whole 16-byte
     vectors, 16-byte aligned."""
     if x2d.dtype not in _KERNEL_DTYPES:
-        raise TypeError(f"layer_norm.cu takes float32 or bfloat16 x, got "
-                        f"{x2d.dtype}")
+        raise TypeError(f"the LayerNorm kernels take float32 or bfloat16 "
+                        f"{name}, got {x2d.dtype}")
     if x2d.shape[1] % (16 // x2d.element_size()):
-        raise ValueError(f"layer_norm.cu reads 16-byte vectors: cols "
+        raise ValueError(f"the LayerNorm kernels read 16-byte vectors: cols "
                          f"{x2d.shape[1]} must be a multiple of "
                          f"{16 // x2d.element_size()} for {x2d.dtype}")
     if x2d.data_ptr() % 16:
-        raise ValueError("layer_norm.cu needs a 16-byte aligned x; pass "
-                         "x.clone()")
+        raise ValueError(f"the LayerNorm kernels need a 16-byte aligned "
+                         f"{name}; pass {name}.clone()")
 
 
 def _f32_on(t: Optional[torch.Tensor], device) -> Optional[torch.Tensor]:
@@ -93,39 +136,43 @@ def _stream(device):
 
 
 def _ln_fwd_cuda(x2d, weight, bias, eps):
-    """Launch ``layer_norm_fwd``; same contract as :func:`_ln_fwd_plain`."""
+    """Launch the forward of :func:`_ln_route`'s kernel; same contract as
+    :func:`_ln_fwd_plain`."""
     _check_rows(x2d)
     rows, cols = x2d.shape
     w, b = _f32_on(weight, x2d.device), _f32_on(bias, x2d.device)
     y = torch.empty_like(x2d)
     mean = torch.empty(rows, dtype=torch.float32, device=x2d.device)
     invvar = torch.empty_like(mean)
-    LAYER_NORM_FWD(_KERNEL_DTYPES[x2d.dtype], x2d.device.index,
-                   x2d.data_ptr(), _ptr(w), _ptr(b), y.data_ptr(),
-                   mean.data_ptr(), invvar.data_ptr(), rows, cols, eps,
-                   _stream(x2d.device))
+    kernel = (LAYER_NORM_FWD_SM90 if _ln_route(x2d.dtype, cols) == "sm90"
+              else LAYER_NORM_FWD)
+    kernel(_KERNEL_DTYPES[x2d.dtype], x2d.device.index, x2d.data_ptr(),
+           _ptr(w), _ptr(b), y.data_ptr(), mean.data_ptr(), invvar.data_ptr(),
+           rows, cols, eps, _stream(x2d.device))
     return y, mean, invvar
 
 
 def _ln_bwd_cuda(x2d, dy, mean, invvar, weight, has_bias):
-    """Launch ``layer_norm_bwd``; same contract as :func:`_ln_bwd_plain`."""
+    """Launch the backward of :func:`_ln_route`'s kernel; same contract as
+    :func:`_ln_bwd_plain`."""
     _check_rows(x2d)
     rows, cols = x2d.shape
     dy = dy.to(x2d.dtype).contiguous()
+    _check_rows(dy, "dy")
     w = _f32_on(weight, x2d.device)
     dx = torch.empty_like(x2d)
     dw = (torch.empty(cols, dtype=torch.float32, device=x2d.device)
           if weight is not None else None)
     db = (torch.empty(cols, dtype=torch.float32, device=x2d.device)
           if has_bias else None)
-    n_parts = math.ceil(rows / _ROWS_PER_PARTIAL)
-    part = torch.empty(2 * n_parts * cols, dtype=torch.float32,
+    part = torch.empty(ln_bwd_workspace(rows, cols), dtype=torch.float32,
                        device=x2d.device)
-    LAYER_NORM_BWD(_KERNEL_DTYPES[x2d.dtype], x2d.device.index,
-                   x2d.data_ptr(), dy.data_ptr(), mean.data_ptr(),
-                   invvar.data_ptr(), _ptr(w), dx.data_ptr(), _ptr(dw),
-                   _ptr(db), part.data_ptr(), rows, cols,
-                   _stream(x2d.device))
+    kernel = (LAYER_NORM_BWD_SM90 if _ln_route(x2d.dtype, cols) == "sm90"
+              else LAYER_NORM_BWD)
+    kernel(_KERNEL_DTYPES[x2d.dtype], x2d.device.index, x2d.data_ptr(),
+           dy.data_ptr(), mean.data_ptr(), invvar.data_ptr(), _ptr(w),
+           dx.data_ptr(), _ptr(dw), _ptr(db), part.data_ptr(), rows, cols,
+           _stream(x2d.device))
     return dx, dw, db
 
 
@@ -168,8 +215,9 @@ def layer_norm(x: torch.Tensor, weight: Optional[torch.Tensor] = None,
                eps: float = 1e-5) -> torch.Tensor:
     """Fused layer norm over the trailing dims covered by ``weight`` (the
     last dim without one).  Statistics are fp32; the output has x's
-    dtype.  CUDA tensors run ``csrc/layer_norm.cu``; CPU tensors run the
-    plain version."""
+    dtype.  CUDA tensors run :func:`_ln_route`'s kernel
+    (``csrc/layer_norm_sm90.cu`` or ``csrc/layer_norm.cu``); CPU tensors run
+    the plain version."""
     norm_ndim = weight.ndim if weight is not None else 1
     cols = math.prod(x.shape[-norm_ndim:])
     x2d = x.reshape(-1, cols).contiguous()

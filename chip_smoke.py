@@ -18,7 +18,8 @@ Phases, each of which fails the run (non-zero exit) on error:
    (``flash_qkv_*_sm90.cu``), K2 (``flash_bwd_sm90.cu``) and K1
    (``flash_fwd_sm90.cu``) must show no spill or stack in ``ptxas -v``'s
    report and hold ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA loads) in their
-   SASS;
+   SASS; K6/K7's ``layer_norm_sm90.cu``, whose rows and dgamma/dbeta sums
+   live in registers, must show no spill or stack either;
 3. kernels — each kernel against its plain PyTorch version on the card,
    at its main path's shapes (bf16; the training kernels with and without
    dropout) and in fp32, with the tolerance stated; then timed (operands
@@ -48,7 +49,15 @@ Phases, each of which fails the run (non-zero exit) on error:
    :func:`flash_bwd_tiles`), and ``flash_attention_varlen`` on a
    BERT-large-shaped packed batch; K1's (at the prefill and encoder
    shapes) and K2's (encoder) scalar bf16 instances are timed against
-   the tensor-core ones, cold and in turns.  K8 (``flat_adam``) runs
+   the tensor-core ones, cold and in turns.  K6/K7 (LayerNorm) route by
+   width: fp32 and bf16 at 1024, 2048 and 4096 columns to
+   ``layer_norm_sm90.cu``, other widths to ``layer_norm.cu``; each case
+   names the kernels that ran and is held to the plain versions (y, mean,
+   invvar, dx, dweight, dbias) at the GPT-1.3B shape in bf16 and fp32,
+   the MHA decoder's rows, a ragged row count, no weight or bias, fp32 at
+   4096 with ragged rows and bf16 at 1536 (the old route), the new route's
+   cases run twice (bitwise); the two routes are timed against each
+   other at the GPT-1.3B shape, cold and in turns.  K8 (``flat_adam``) runs
    over the GPT-1.3B superblock (its init weights) and must give its plain version's bits for p, m and v over 3
    steps in four variants (AdamW decay 0.01, L2 decay 0.05, decay 0, no
    bias correction); a ``plan_buckets`` walk and a hand-built 3-span walk
@@ -76,13 +85,17 @@ Phases, each of which fails the run (non-zero exit) on error:
    default dropouts, clip and decay, remat ``attn_res``): 10 finite
    steps, step 1's loss near ln(vocab) + 0.41 (the init's logit variance
    0.02^2 x 2048, halved), exact launch counts of the four
-   training kernels (K3/K4 the tensor-core ones, the scalar ones never);
+   training kernels (K3/K4 the tensor-core ones, K6/K7
+   ``layer_norm_sm90.cu``'s; the scalar K3/K4 and ``layer_norm.cu``
+   never);
    then on a fixed batch the loss falls over 5 steps,
    one dropout-free step through the kernels agrees with the same step
    through the plain versions, and one step run twice from the same state
    gives bitwise-equal loss and weights; step time, tokens/s, model
    TFLOP/s, peak memory and a step's host-enqueue vs device-done time are
-   reported;
+   reported, and one step's device time by kind, with the kernels no kind
+   names split by the ATen op that launched them (also in phases 9 and
+   11);
 8. toy multi-head attention — the encoder-decoder stack of
    ``SelfMultiheadAttn`` / ``EncdecMultiheadAttn`` at toy width (4 heads
    of 8), fp32, five ``FusedAdam`` steps from the same weights on the card
@@ -93,7 +106,8 @@ Phases, each of which fails the run (non-zero exit) on error:
    dropout 0.1, bias, pre-norm), 32 sentence pairs padded to 256 / 192,
    bf16 with fp32 masters, MSE against a fixed target, ``FusedAdam``:
    exact launch counts (K1 = K2 = K6 = K7 = 18 a step, K1 and K2 the
-   tensor-core kernels and the scalar ones never), the loss falls
+   tensor-core kernels and the scalar ones never, K6 and K7
+   ``layer_norm_sm90.cu``'s and ``layer_norm.cu``'s never), the loss falls
    over 5 steps, a dropout-free step through the kernels agrees with the
    plain path (loss, grad norm, worst leaf) at the seeded initial weights
    and again at the weights six training steps leave, a step run twice
@@ -609,29 +623,85 @@ def time_flash_qkv(qkv, dctx, ctx, lse, rate) -> tuple:
 
 
 def layer_norm_case(gen, name, dtype, rows=TRAIN["b"] * TRAIN["s"],
-                    cols=TRAIN["hidden"]):
+                    cols=TRAIN["hidden"], affine=True):
     """K6 and K7 against their plain versions (fp32 weights, as the
-    main path's masters are)."""
+    main path's masters are), naming the kernels that ran; on the
+    ``layer_norm_sm90.cu`` route both run again (bitwise)."""
     x = torch.randn(rows, cols, generator=gen, device="cuda").to(dtype)
     dy = torch.randn(rows, cols, generator=gen, device="cuda").to(dtype)
     w = 1 + 0.1 * torch.randn(cols, generator=gen, device="cuda")
     b = 0.1 * torch.randn(cols, generator=gen, device="cuda")
-    y, mean, invvar = ln._ln_fwd_cuda(x, w, b, 1e-5)
+    if not affine:
+        w = b = None
+    (y, mean, invvar), ran6 = launched(lambda: ln._ln_fwd_cuda(x, w, b,
+                                                               1e-5))
     ry, rmean, rinvvar = ln._ln_fwd_plain(x, w, b, 1e-5)
     torch.cuda.synchronize()
-    e6 = check(f"layer_norm_fwd {name} y", y, ry)
-    check(f"layer_norm_fwd {name} mean", mean, rmean)
-    check(f"layer_norm_fwd {name} invvar", invvar, rinvvar)
-    dx, dw, db = ln._ln_bwd_cuda(x, dy, mean, invvar, w, True)
-    rdx, rdw, rdb = ln._ln_bwd_plain(x, dy, mean, invvar, w, True)
+    route = ln._ln_route(dtype, cols)
+    want = (["layer_norm_fwd_sm90"] if route == "sm90"
+            else ["layer_norm_fwd"])
+    log(f"  {name} [{rows}, {cols}]: route {route}, ran {ran6}")
+    if ran6 != want:
+        raise AssertionError(f"layer_norm {name}: ran {ran6}, expected "
+                             f"{want}")
+    e6 = check(f"{ran6[0]} {name} y", y, ry)
+    check(f"{ran6[0]} {name} mean", mean, rmean)
+    check(f"{ran6[0]} {name} invvar", invvar, rinvvar)
+    (dx, dw, db), ran7 = launched(lambda: ln._ln_bwd_cuda(
+        x, dy, mean, invvar, w, affine))
+    rdx, rdw, rdb = ln._ln_bwd_plain(x, dy, mean, invvar, w, affine)
     torch.cuda.synchronize()
-    e7 = check(f"layer_norm_bwd {name} dx", dx, rdx)
-    check(f"layer_norm_bwd {name} dweight", dw, rdw)
-    check(f"layer_norm_bwd {name} dbias", db, rdb)
+    if ran7 != [k.replace("fwd", "bwd") for k in want]:
+        raise AssertionError(f"layer_norm {name}: backward ran {ran7}")
+    e7 = check(f"{ran7[0]} {name} dx", dx, rdx)
+    if affine:
+        check(f"{ran7[0]} {name} dweight", dw, rdw)
+        check(f"{ran7[0]} {name} dbias", db, rdb)
+    elif dw is not None or db is not None:
+        raise AssertionError(f"layer_norm {name}: gradients of no weight")
+    if route == "sm90":
+        check_bitwise(f"{ran6[0]} {name} run twice", (y, mean, invvar),
+                      ln._ln_fwd_cuda(x, w, b, 1e-5))
+        again = ln._ln_bwd_cuda(x, dy, mean, invvar, w, affine)
+        check_bitwise(f"{ran7[0]} {name} run twice",
+                      [t for t in (dx, dw, db) if t is not None],
+                      [t for t in again if t is not None])
     return e6, e7, (x, dy, w, b, mean, invvar)
 
 
+def ln_kernel_calls(kernel_fwd, kernel_bwd, x, dy, w, b, mean, invvar):
+    """Calls of one route's two kernels straight through their ``Kernel``
+    objects on preallocated outputs (the wrappers pick the route by width
+    and allocate on every call): (forward, backward) callables."""
+    rows, cols = x.shape
+    y, dx = torch.empty_like(x), torch.empty_like(x)
+    out_mean, out_inv = torch.empty_like(mean), torch.empty_like(invvar)
+    dw, db = torch.empty_like(w), torch.empty_like(b)
+    part = torch.empty(ln.ln_bwd_workspace(rows, cols), device="cuda")
+    code, dev = kernels.DTYPE_CODES[x.dtype], x.device.index
+
+    def fwd():
+        kernel_fwd(code, dev, x.data_ptr(), w.data_ptr(), b.data_ptr(),
+                   y.data_ptr(), out_mean.data_ptr(), out_inv.data_ptr(),
+                   rows, cols, 1e-5, torch.cuda.current_stream().cuda_stream)
+
+    def bwd():
+        kernel_bwd(code, dev, x.data_ptr(), dy.data_ptr(), mean.data_ptr(),
+                   invvar.data_ptr(), w.data_ptr(), dx.data_ptr(),
+                   dw.data_ptr(), db.data_ptr(), part.data_ptr(), rows, cols,
+                   torch.cuda.current_stream().cuda_stream)
+
+    return fwd, bwd
+
+
 def time_layer_norm(x, dy, w, b, mean, invvar) -> tuple:
+    """K6 and K7 on ``layer_norm_sm90.cu`` (through the wrappers) timed
+    cold beside their plain versions, ``F.layer_norm`` and the kernels of
+    ``layer_norm.cu`` they replace at this width (cold too); then the old
+    and the new kernel of each in turns (a, b, b, a) in this one call
+    (``timing.timed_pair``, both straight through their ``Kernel``
+    objects).  Returns (new forward, new backward, old forward, old
+    backward) rows."""
     rows, cols = x.shape
     fwd_ms = cold_ms(lambda: ln._ln_fwd_cuda(x, w, b, 1e-5), 50)
     fwd_plain = cold_ms(lambda: ln._ln_fwd_plain(x, w, b, 1e-5), 20)
@@ -639,6 +709,15 @@ def time_layer_norm(x, dy, w, b, mean, invvar) -> tuple:
                      50)
     bwd_plain = cold_ms(lambda: ln._ln_bwd_plain(x, dy, mean, invvar, w,
                                                  True), 20)
+    new_fwd, new_bwd = ln_kernel_calls(kernels.LAYER_NORM_FWD_SM90,
+                                       kernels.LAYER_NORM_BWD_SM90, x, dy, w,
+                                       b, mean, invvar)
+    old_fwd, old_bwd = ln_kernel_calls(kernels.LAYER_NORM_FWD,
+                                       kernels.LAYER_NORM_BWD, x, dy, w, b,
+                                       mean, invvar)
+    fwd_old, bwd_old = cold_ms(old_fwd, 50), cold_ms(old_bwd, 50)
+    pair_fwd = timing.timed_pair(old_fwd, new_fwd, (), ())
+    pair_bwd = timing.timed_pair(old_bwd, new_bwd, (), ())
     # the library yardstick in x's dtype throughout (F.layer_norm wants
     # one dtype), forward and its autograd backward
     xl = x.detach().requires_grad_()
@@ -655,14 +734,23 @@ def time_layer_norm(x, dy, w, b, mean, invvar) -> tuple:
     bb, bby = bound(3 * rows * cols * item + 3 * cols * 4 + 2 * rows * 4,
                     12 * rows * cols, torch.float32)
     log(f"  layer_norm timing [{rows},{cols}] {x.dtype} (fp32 w): fwd kernel"
-        f" {fwd_ms:.4f} ms, plain {fwd_plain:.4f}, F.layer_norm "
-        f"{fwd_lib:.4f}, bound {fb:.4f} ({fby}); bwd kernel {bwd_ms:.4f} ms,"
-        f" plain {bwd_plain:.4f}, F.layer_norm backward {bwd_lib:.4f}, bound"
-        f" {bb:.4f} ({bby})")
-    return (dict(ms=fwd_ms, plain_ms=fwd_plain, library_ms=fwd_lib,
-                 bound_ms=fb, bound_by=fby),
-            dict(ms=bwd_ms, plain_ms=bwd_plain, library_ms=bwd_lib,
-                 bound_ms=bb, bound_by=bby))
+        f" {fwd_ms:.4f} ms (layer_norm.cu {fwd_old:.4f}: "
+        f"{fwd_old / fwd_ms:.2f}x), plain {fwd_plain:.4f}, F.layer_norm "
+        f"{fwd_lib:.4f}, bound {fb:.4f} ({fby}, {fb / fwd_ms:.1%} of it); "
+        f"bwd kernel {bwd_ms:.4f} ms (layer_norm.cu {bwd_old:.4f}: "
+        f"{bwd_old / bwd_ms:.2f}x), plain {bwd_plain:.4f}, F.layer_norm "
+        f"backward {bwd_lib:.4f}, bound {bb:.4f} ({bby}, {bb / bwd_ms:.1%} "
+        f"of it)")
+    log(f"  in turns (timed_pair, warm): fwd layer_norm.cu {pair_fwd[0]:.4f}"
+        f" ms vs layer_norm_sm90.cu {pair_fwd[1]:.4f} ms "
+        f"({pair_fwd[0] / pair_fwd[1]:.2f}x); bwd {pair_bwd[0]:.4f} vs "
+        f"{pair_bwd[1]:.4f} ({pair_bwd[0] / pair_bwd[1]:.2f}x)")
+    fwd = dict(ms=fwd_ms, plain_ms=fwd_plain, library_ms=fwd_lib,
+               bound_ms=fb, bound_by=fby, warm_pair_ms=pair_fwd[1])
+    bwd = dict(ms=bwd_ms, plain_ms=bwd_plain, library_ms=bwd_lib,
+               bound_ms=bb, bound_by=bby, warm_pair_ms=pair_bwd[1])
+    return (fwd, bwd, {**fwd, "ms": fwd_old, "warm_pair_ms": pair_fwd[0]},
+            {**bwd, "ms": bwd_old, "warm_pair_ms": pair_bwd[0]})
 
 
 def phase_training_kernels() -> dict:
@@ -687,13 +775,25 @@ def phase_training_kernels() -> dict:
     torch.cuda.empty_cache()
     e6, e7, lops = layer_norm_case(gen, "bf16 x", bf16)
     layer_norm_case(gen, "fp32 x", fp32)
-    lfwd, lbwd = time_layer_norm(*lops)
+    layer_norm_case(gen, "bf16 x, the MHA decoder's rows", bf16,
+                    rows=MHA["batch"] * MHA["tgt"], cols=MHA["hidden"])
+    layer_norm_case(gen, "bf16 x, ragged rows", bf16, rows=8191)
+    layer_norm_case(gen, "bf16 x, no weight or bias", bf16, rows=37,
+                    affine=False)
+    layer_norm_case(gen, "fp32 x at 4096, ragged rows", fp32, rows=1001,
+                    cols=4096)
+    # a width outside SM90_WIDTHS: layer_norm.cu's route
+    o6, o7, _ = layer_norm_case(gen, "bf16 x at 1536", bf16, rows=4096,
+                                cols=1536)
+    lfwd, lbwd, ofwd, obwd = time_layer_norm(*lops)
     fwd["max_abs_err"], bwd["max_abs_err"] = e3, e4
     sfwd["max_abs_err"], sbwd["max_abs_err"] = s3, s4  # their fp32 route
     lfwd["max_abs_err"], lbwd["max_abs_err"] = e6, e7
+    ofwd["max_abs_err"], obwd["max_abs_err"] = o6, o7  # their route
     return {"flash_qkv_fwd_sm90": fwd, "flash_qkv_bwd_sm90": bwd,
             "flash_qkv_fwd": sfwd, "flash_qkv_bwd": sbwd,
-            "layer_norm_fwd": lfwd, "layer_norm_bwd": lbwd}
+            "layer_norm_fwd_sm90": lfwd, "layer_norm_bwd_sm90": lbwd,
+            "layer_norm_fwd": ofwd, "layer_norm_bwd": obwd}
 
 
 # -- phase 3, slice 3: the generic attention kernels K1 (mask, dropout,
@@ -1651,7 +1751,9 @@ STEP_KINDS = (("qkv_fwd_sm90", "K3 flash_qkv_fwd"),
               ("qkv_bwd_", "K4 flash_qkv_bwd"),   # its three passes
               # the scalar kernels (the fp32 route): none in a bf16 step
               ("flash_fwd_kernel", "K3/K4 scalar"), ("attn_bwd", "K3/K4 scalar"),
-              ("ln_fwd_kernel", "K6 layer_norm_fwd"),
+              # both routes: layer_norm_sm90.cu's ln_fwd_rows, ln_bwd_rows
+              # and ln_bwd_cols, layer_norm.cu's ln_fwd_kernel, ln_bwd_*
+              ("ln_fwd", "K6 layer_norm_fwd"),
               ("ln_bwd", "K7 layer_norm_bwd"),
               ("gemm", "GEMMs (cuBLAS)"), ("xmma", "GEMMs (cuBLAS)"),
               ("nvjet", "GEMMs (cuBLAS)"), ("cutlass", "GEMMs (cuBLAS)"),
@@ -1671,12 +1773,19 @@ def plain_kernels():
         ln, _ln_fwd_cuda=ln._ln_fwd_plain, _ln_bwd_cuda=ln._ln_bwd_plain)
 
 
+OTHER_KIND = "other elementwise, copies, reductions"
+
+
 def step_profile(step, parts=STEP_KINDS) -> dict:
     """Device time of one call of ``step`` by part, from a
     ``torch.profiler`` trace (CUPTI): kernel durations summed by kind and
     the ten longest kernels by name; the device's busy time is the union
     of the kernels' intervals, and its idle share is the rest of the
-    step's wall time."""
+    step's wall time.  The kernels that ``parts`` does not name (the
+    ``OTHER_KIND`` bucket) are also split by the ATen op that launched
+    each (the CPU op the profiler correlates the launch with), the ten
+    largest in ``top_other_ops``; what no op launched is
+    ``"(no ATen op)"``."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
@@ -1695,20 +1804,42 @@ def step_profile(step, parts=STEP_KINDS) -> dict:
         ms = e.time_range.elapsed_us() / 1e3
         spans.append((e.time_range.start, e.time_range.end))
         kind = next((k for frag, k in parts if frag in e.name.lower()),
-                    "other elementwise, copies, reductions")
+                    OTHER_KIND)
         kinds[kind] = kinds.get(kind, 0.0) + ms
-        n, t = names.get(e.name[:60], (0, 0.0))
-        names[e.name[:60]] = (n + 1, t + ms)
+        n, t = names.get(e.name[:160], (0, 0.0))
+        names[e.name[:160]] = (n + 1, t + ms)
+    ops = {}
+    for e in prof.events():     # CPU ops, each with the kernels it launched
+        if e.device_type != torch.autograd.DeviceType.CPU:
+            continue
+        for k in e.kernels:
+            if any(frag in k.name.lower() for frag, _ in parts):
+                continue
+            n, t = ops.get(e.name, (0, 0.0))
+            ops[e.name] = (n + 1, t + k.duration / 1e3)
+    unclaimed = kinds.get(OTHER_KIND, 0.0) - sum(t for _, t in ops.values())
+    if unclaimed > 1e-3:
+        ops["(no ATen op)"] = (0, unclaimed)
     busy, end = 0.0, float("-inf")
     for a, b in sorted(spans):
         if b > end:
             busy += (b - max(a, end)) / 1e3
             end = b
     top = sorted(names.items(), key=lambda kv: -kv[1][1])[:10]
+    top_ops = sorted(ops.items(), key=lambda kv: -kv[1][1])[:10]
     return {"wall_ms": wall, "device_busy_ms": busy,
             "idle_share": max(0.0, 1 - busy / wall),
             "by_kind_ms": dict(sorted(kinds.items(), key=lambda kv: -kv[1])),
-            "top_kernels": [(k, n, t) for k, (n, t) in top]}
+            "top_kernels": [(k, n, t) for k, (n, t) in top],
+            "top_other_ops": [(k, n, t) for k, (n, t) in top_ops]}
+
+
+def log_other_ops(prof: dict) -> None:
+    """The ``OTHER_KIND`` bucket of :func:`step_profile`, by ATen op."""
+    log(f"  {OTHER_KIND} ({prof['by_kind_ms'].get(OTHER_KIND, 0.0):.2f} "
+        "ms) by the ATen op that launched each kernel, the ten largest:")
+    for name, n, t in prof["top_other_ops"]:
+        log(f"    {t:8.2f} ms  x{n:<5d} {name}")
 
 
 def loss_and_grads(model, tokens, labels):
@@ -1721,9 +1852,10 @@ def loss_and_grads(model, tokens, labels):
 
 def phase_full_training(smi: str) -> dict:
     L = 24
-    # bf16: the tensor-core K3/K4, and not one launch of the scalar ones
+    # bf16: the tensor-core K3/K4 and layer_norm_sm90.cu's K6/K7, and not
+    # one launch of the scalar K3/K4 or of layer_norm.cu
     want = {"flash_qkv_fwd_sm90": L, "flash_qkv_bwd_sm90": L,
-            "layer_norm_fwd": 4 * L + 1, "layer_norm_bwd": 2 * L + 1}
+            "layer_norm_fwd_sm90": 4 * L + 1, "layer_norm_bwd_sm90": 2 * L + 1}
     steps, losses, times = 10, [], []
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1749,7 +1881,8 @@ def phase_full_training(smi: str) -> dict:
     expect = math.log(51200) + 0.02 ** 2 * 2048 / 2
     log(f"  losses {losses}")
     log(f"  launches over {steps} steps {launches}; per step {per_step}, "
-        f"expected {want} (remat attn_res: K3 L, K4 L, K6 4L+1, K7 2L+1)")
+        f"expected {want} (remat attn_res: K3 L, K4 L, K6 4L+1, K7 2L+1; "
+        f"the scalar K3/K4 and layer_norm.cu never)")
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError("full-width training: non-finite loss")
     if abs(losses[0] - expect) > STEP_LOSS_TOL:
@@ -1808,6 +1941,7 @@ def phase_full_training(smi: str) -> dict:
               f"{prof['device_busy_ms']:.1f} ms, idle {prof['idle_share']:.1%}")
         for name, n, t in prof["top_kernels"]:
             log(f"    {t:8.1f} ms  x{n:<5d} {name}")
+        log_other_ops(prof)
     else:
         log("  one step under torch.profiler: no device time recorded "
             "(breakdown not measured)")
@@ -2025,14 +2159,14 @@ MHA_PLAIN_NORM_TOL = 8e-4    # relative, global grad norm (read 7.3e-5)
 # relative, |g - g_plain| / |g_plain| on the worst leaf (read 1.05e-2, on
 # encoder layer 5's in_proj_weight; the median leaf reads 8.7e-3)
 MHA_PLAIN_LEAF_TOL = 1.1e-1
-MHA_KINDS = (("attn_fwd_sm90", "K1 flash_fwd_sm90"),   # before K2's "_sm90"
+MHA_KINDS = (("ln_fwd", "K6 layer_norm_fwd"),   # before K2's "_sm90"
+             ("ln_bwd", "K7 layer_norm_bwd"),
+             ("attn_fwd_sm90", "K1 flash_fwd_sm90"),   # before K2's "_sm90"
              ("flash_fwd_kernel", "K1 flash_fwd (scalar)"),
              # K2's three passes: attn_bwd_{delta,dkdv,dq}_sm90 on the
              # tensor cores; the scalar attn_bwd_* are the fp32 route
              ("_sm90", "K2 flash_bwd_sm90"),
              ("attn_bwd", "K2 flash_bwd (scalar)"),
-             ("ln_fwd_kernel", "K6 layer_norm_fwd"),
-             ("ln_bwd", "K7 layer_norm_bwd"),
              ("gemm", "GEMMs (cuBLAS)"), ("xmma", "GEMMs (cuBLAS)"),
              ("nvjet", "GEMMs (cuBLAS)"), ("cutlass", "GEMMs (cuBLAS)"),
              ("foreach", "optimizer (foreach)"),
@@ -2090,7 +2224,7 @@ def phase_mha(smi: str) -> dict:
     c = MHA
     L, steps = c["layers"], 5
     per_step = {"flash_fwd_sm90": 3 * L, "flash_bwd_sm90": 3 * L,
-                "layer_norm_fwd": 3 * L, "layer_norm_bwd": 3 * L}
+                "layer_norm_fwd_sm90": 3 * L, "layer_norm_bwd_sm90": 3 * L}
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     batch = mha_batch("cuda", torch.bfloat16, c["hidden"], c["batch"],
@@ -2115,7 +2249,7 @@ def phase_mha(smi: str) -> dict:
     log(f"  launches over {steps} steps {launches}, expected {want} (per "
         f"step K1 = K2 = K6 = K7 = {3 * L}: {L} encoder, {L} decoder self, "
         f"{L} cross; K1 and K2 the tensor-core kernels, the scalar ones "
-        f"never)")
+        f"never; K6 and K7 layer_norm_sm90.cu's, layer_norm.cu's never)")
     if launches != want:
         raise AssertionError("MHA launch counts do not match the main path")
     if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
@@ -2140,6 +2274,7 @@ def phase_mha(smi: str) -> dict:
               f"{prof['device_busy_ms']:.2f} ms, idle {prof['idle_share']:.1%}")
         for name, n, t in prof["top_kernels"]:
             log(f"    {t:8.2f} ms  x{n:<5d} {name}")
+        log_other_ops(prof)
     else:
         log("  one step under torch.profiler: no device time recorded "
             "(breakdown not measured)")
@@ -2267,8 +2402,8 @@ def optimizer_ms(prof, kinds) -> float:
 def phase_flat_training(smi: str, train: dict) -> dict:
     L, steps = 24, 5
     per_step = {"flash_qkv_fwd_sm90": L, "flash_qkv_bwd_sm90": L,
-                "layer_norm_fwd": 4 * L + 1, "layer_norm_bwd": 2 * L + 1,
-                "flat_adam": 1}
+                "layer_norm_fwd_sm90": 4 * L + 1,
+                "layer_norm_bwd_sm90": 2 * L + 1, "flat_adam": 1}
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     args, model, _ = pretrain_gpt.setup(FULL_TRAIN, "cuda")
@@ -2290,7 +2425,7 @@ def phase_flat_training(smi: str, train: dict) -> dict:
     log(f"  superblock: {tr.schema.num_tensors} leaves, {tr.schema.total} "
         f"elements; fixed-batch losses {losses}")
     log(f"  launches over {steps} steps {launches}, expected {want} (K8 one "
-        "launch a step)")
+        "launch a step; layer_norm.cu never)")
     if launches != want:
         raise AssertionError("flat training launch counts do not match the "
                              "main path")
@@ -2332,6 +2467,7 @@ def phase_flat_training(smi: str, train: dict) -> dict:
         f" FusedAdam + clip {tree_ms:.2f} ms")
     for name, n, t in prof["top_kernels"]:
         log(f"    {t:8.1f} ms  x{n:<5d} {name}")
+    log_other_ops(prof)
     metrics.update(flat_checks(tr, steps + 1))
     metrics["launches"] = launches
     return metrics
@@ -2485,14 +2621,18 @@ def sass_count(source: str, opcode: str) -> int:
 
 SM90_SOURCES = ("flash_qkv_fwd_sm90.cu", "flash_qkv_bwd_sm90.cu",
                 "flash_bwd_sm90.cu", "flash_fwd_sm90.cu")
+#: the sources held to no spill and no stack: the tensor-core ones and
+#: K6/K7's, whose rows and dgamma/dbeta sums live in registers
+SPILL_FREE_SOURCES = SM90_SOURCES + ("layer_norm_sm90.cu",)
 
 
 def sm90_build_checks() -> dict:
-    """The tensor-core sources (K3/K4's, K2's and K1's bf16 routes) as built: every
-    instance free of spills and stack in ``ptxas -v``'s report, and their
-    SASS holding ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA loads)."""
+    """The tensor-core sources (K3/K4's, K2's and K1's bf16 routes) and
+    ``layer_norm_sm90.cu`` (K6/K7) as built: every instance free of spills
+    and stack in ``ptxas -v``'s report, and the tensor-core sources' SASS
+    holding ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA loads)."""
     out = {}
-    for src in SM90_SOURCES:
+    for src in SPILL_FREE_SOURCES:
         text = kernels.build_log.get(src)
         if text is None:  # built by an earlier run: ask ptxas again
             out_so = kernels._build.BUILD_DIR / f"{src}.report.so"
@@ -2505,18 +2645,18 @@ def sm90_build_checks() -> dict:
         report = ptxas_report(text)
         spills = [(demangle(fn), stack, spill)
                   for fn, _, stack, spill in report if stack or spill]
-        counts = {op: sass_count(src, op) for op in ("HGMMA", "UTMALDG")}
-        log(f"  {src}: {len(report)} instances, registers "
-            f"{min(r for _, r, _, _ in report)}.."
-            f"{max(r for _, r, _, _ in report)}, spills or stack in "
-            f"{len(spills)}; SASS {counts['HGMMA']} HGMMA, "
-            f"{counts['UTMALDG']} UTMALDG")
+        regs = [r for _, r, _, _ in report] or [0]
+        counts = ({op: sass_count(src, op) for op in ("HGMMA", "UTMALDG")}
+                  if src in SM90_SOURCES else {})
+        log(f"  {src}: {len(report)} instances, registers {min(regs)}.."
+            f"{max(regs)}, spills or stack in {len(spills)}"
+            + "".join(f"; SASS {n} {op}" for op, n in counts.items()))
         if spills or not report:
             raise AssertionError(f"{src}: ptxas reports spills {spills}")
         if not all(counts.values()):
             raise AssertionError(f"{src}: no wgmma or TMA in its SASS "
                                  f"({counts})")
-        out[src] = dict(counts, instances=len(report))
+        out[src] = dict(counts, instances=len(report), max_registers=max(regs))
     return out
 
 
@@ -2599,7 +2739,7 @@ def phase_roofs(smi: str) -> dict:
     pingpongs = 2 * (timing.WARM + timing.ROOF_STEPS)  # two roofs, two copies
     want = {"hbm_copy": 2 * pingpongs, "attention_dots": calls,
             "flash_fwd_sm90": 2 * 3 * calls, "flash_bwd_sm90": 2 * calls,
-            "layer_norm_fwd": 4 * calls, "layer_norm_bwd": 2 * calls}
+            "layer_norm_fwd_sm90": 4 * calls, "layer_norm_bwd_sm90": 2 * calls}
     log(f"  hbm_roof {hbm:.1f} GB/s  [{smi}]")
     log(f"  matmul_roof {mm:.1f} TFLOP/s  [{smi}]")
     log(f"  attention_kernel(128, 1024, 64, 512, 512, measure_floor=True) "
@@ -2832,14 +2972,27 @@ def main() -> int:
             ("flash_qkv_bwd", "flash_qkv_bwd.cu",
              "apex_tpu/ops/attention.py:1800", toy_train))
     ] + [
+        # K6/K7: layer_norm_sm90.cu is the route at 1024, 2048 and 4096
+        # columns: the GPT-1.3B steps (phases 7 and 11), the multi-head
+        # attention step (phase 9) and the LayerNorm microbench (phase 12);
+        # layer_norm.cu takes every other width (the toys' 256 and 32,
+        # phases 6, 8 and 10) and is timed at 2048 as the kernel it replaced
         dict(name=name, route="cuda", source=f"apex_tpu_torch/csrc/{src}",
-             replaces=where, launches=train["launches"][name],
+             replaces=where, launches=runs["launches"][name],
+             **({} if runs is toy_train else dict(
+                 launches_mha=mha["launches"][name],
+                 launches_flat=flat["launches"][name],
+                 launches_microbench=probes["launches"][name])),
              **timings[name])
-        for name, src, where in (
+        for name, src, where, runs in (
+            ("layer_norm_fwd_sm90", "layer_norm_sm90.cu",
+             "apex_tpu/ops/fused_layer_norm.py:75", train),
+            ("layer_norm_bwd_sm90", "layer_norm_sm90.cu",
+             "apex_tpu/ops/fused_layer_norm.py:150", train),
             ("layer_norm_fwd", "layer_norm.cu",
-             "apex_tpu/ops/fused_layer_norm.py:75"),
+             "apex_tpu/ops/fused_layer_norm.py:75", toy_train),
             ("layer_norm_bwd", "layer_norm.cu",
-             "apex_tpu/ops/fused_layer_norm.py:150"))
+             "apex_tpu/ops/fused_layer_norm.py:150", toy_train))
     ] + [
         dict(name="flat_adam", route="cuda",
              source="apex_tpu_torch/csrc/flat_adam.cu",

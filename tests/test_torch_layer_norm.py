@@ -2,8 +2,9 @@
 fused_layer_norm``) with the JAX package's (``apex_tpu.ops.layer_norm``).
 
 The same inputs, drawn with numpy from a seed, go through both.  On the
-CPU the port runs its plain PyTorch versions (``csrc/layer_norm.cu`` is
-held against those on the card by ``chip_smoke.py``); JAX runs its XLA
+CPU the port runs its plain PyTorch versions (``csrc/layer_norm_sm90.cu``
+and ``csrc/layer_norm.cu`` are held against those on the card by
+``chip_smoke.py``); JAX runs its XLA
 route (``use_pallas=False``) and its Pallas kernels in interpret mode
 (``use_pallas=True``, as ``tests/L0/test_ops.py`` runs them).
 
@@ -147,11 +148,13 @@ def test_modules_hold_fp32_params_and_call_layer_norm():
 
 
 def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
-    before = (kernels.LAYER_NORM_FWD.launches, kernels.LAYER_NORM_BWD.launches)
-    x = torch.randn(4, 32, requires_grad=True)
-    layer_norm(x, torch.ones(32), torch.zeros(32)).sum().backward()
-    assert (kernels.LAYER_NORM_FWD.launches,
-            kernels.LAYER_NORM_BWD.launches) == before
+    both = (kernels.LAYER_NORM_FWD, kernels.LAYER_NORM_BWD,
+            kernels.LAYER_NORM_FWD_SM90, kernels.LAYER_NORM_BWD_SM90)
+    before = [k.launches for k in both]
+    for cols in (32, 1024):   # a width of each route
+        x = torch.randn(4, cols, requires_grad=True)
+        layer_norm(x, torch.ones(cols), torch.zeros(cols)).sum().backward()
+    assert [k.launches for k in both] == before
 
 
 @pytest.mark.parametrize("dtype,cols,error", [
