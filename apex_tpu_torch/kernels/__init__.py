@@ -102,6 +102,32 @@ FLASH_DECODE = Kernel("flash_decode.cu", "flash_decode", [
     _f, _p,                     # scale, stream
 ])
 
+#: flash_decode_sm90.cu — the same attention at head dim 128, one entry
+#: point a pool dtype so that launches count by pool: the bf16 pool
+#: (flash_decode.cu keeps the fp32 pool and head dim 8), and the quantized
+#: int8 and fp8 e4m3 pools with their fp32 scales
+_FLASH_DECODE_SM90_ARGS = [
+    _i, _i, _i,                 # q dtype, d, device
+    _p, _p, _p,                 # q, k_pages, v_pages
+    _p, _p,                     # k_scale, v_scale (fp32, or null)
+    _p, _p,                     # o, work (fp32 split partials, or null)
+    _p, _p,                     # page_table, kv_len
+    _i, _i, _i, _i, _i, _i,     # B, H, q_len, p_max, page_size, n_pages
+    _i,                         # max_splits
+    _strides,                   # int64[12]: q (b, h, row), pools (page,
+                                # slot, head), o (b, h, row), scales
+                                # (page, slot, head)
+    _f, _p,                     # scale, stream
+]
+FLASH_DECODE_SM90 = Kernel("flash_decode_sm90.cu", "flash_decode_sm90",
+                           _FLASH_DECODE_SM90_ARGS)
+FLASH_DECODE_SM90_INT8 = Kernel("flash_decode_sm90.cu",
+                                "flash_decode_sm90_int8",
+                                _FLASH_DECODE_SM90_ARGS)
+FLASH_DECODE_SM90_FP8 = Kernel("flash_decode_sm90.cu",
+                               "flash_decode_sm90_fp8",
+                               _FLASH_DECODE_SM90_ARGS)
+
 #: flash_qkv_fwd.cu — packed-QKV self-attention forward (training)
 FLASH_QKV_FWD = Kernel("flash_qkv_fwd.cu", "flash_qkv_fwd", [
     _i, _i, _i,                 # dtype, d, device
@@ -209,6 +235,7 @@ ATTENTION_DOTS = Kernel("attention_dots.cu", "attention_dots", [
 ])
 
 KERNELS = (FLASH_FWD, FLASH_FWD_SM90, FLASH_BWD, FLASH_BWD_SM90, FLASH_DECODE,
+           FLASH_DECODE_SM90, FLASH_DECODE_SM90_INT8, FLASH_DECODE_SM90_FP8,
            FLASH_QKV_FWD, FLASH_QKV_BWD, FLASH_QKV_FWD_SM90, FLASH_QKV_BWD_SM90,
            LAYER_NORM_FWD, LAYER_NORM_BWD, LAYER_NORM_FWD_SM90,
            LAYER_NORM_BWD_SM90, FLAT_ADAM, HBM_COPY, ATTENTION_DOTS)
@@ -221,7 +248,8 @@ def reset_launch_counts() -> None:
 
 __all__ = ["NvccError", "Kernel", "build_all", "build_log", "DTYPE_CODES",
            "FLASH_FWD", "FLASH_FWD_SM90", "FLASH_BWD", "FLASH_BWD_SM90",
-           "FLASH_DECODE", "FLASH_QKV_FWD", "FLASH_QKV_BWD",
+           "FLASH_DECODE", "FLASH_DECODE_SM90", "FLASH_DECODE_SM90_INT8",
+           "FLASH_DECODE_SM90_FP8", "FLASH_QKV_FWD", "FLASH_QKV_BWD",
            "FLASH_QKV_FWD_SM90", "FLASH_QKV_BWD_SM90", "LAYER_NORM_FWD",
            "LAYER_NORM_BWD", "LAYER_NORM_FWD_SM90", "LAYER_NORM_BWD_SM90",
            "FLAT_ADAM", "HBM_COPY", "ATTENTION_DOTS",

@@ -13,7 +13,9 @@ public function has two implementations of one contract:
   ``csrc/flash_bwd_sm90.cu`` (bf16 at head dims 64 and 128, on the tensor
   cores) and ``csrc/flash_bwd.cu`` (fp32, head dim 8) in place of
   ``_flash_bwd_pallas``,
-  ``csrc/flash_decode.cu`` in place of ``_flash_decode_pallas``,
+  ``csrc/flash_decode_sm90.cu`` (head dim 128: the bf16 pool and the
+  quantized int8 and fp8 pools) and ``csrc/flash_decode.cu`` (the fp32
+  pool, head dim 8) in place of ``_flash_decode_pallas``,
   ``csrc/flash_qkv_fwd_sm90.cu`` and ``csrc/flash_qkv_bwd_sm90.cu``
   (bf16, on the tensor cores) and ``csrc/flash_qkv_fwd.cu`` and
   ``csrc/flash_qkv_bwd.cu`` (fp32) in place of ``_flash_qkv_fwd_pallas``
@@ -36,10 +38,9 @@ batch-head, row, col) (:func:`_keep_from_coords`), bit for bit, so the
 forward, the backward and the plain versions draw the same mask with
 nothing stored.  :func:`flash_attention` and :func:`flash_attention_qkv`
 are differentiable, each a ``torch.library`` custom op pair, so a
-selective checkpoint can keep their outputs.  The quantized pool is not
-ported yet (ROADMAP.md).  The JAX package's TPU tiling knobs
-(``block``, ``block_q``, ``block_k``) have no meaning here and are not
-taken.
+selective checkpoint can keep their outputs.  The JAX package's TPU
+tiling knobs (``block``, ``block_q``, ``block_k``) have no meaning here
+and are not taken.
 """
 
 from __future__ import annotations
@@ -51,9 +52,12 @@ from typing import Optional, Tuple, Union
 import torch
 
 from apex_tpu_torch.kernels import (DTYPE_CODES, FLASH_BWD, FLASH_BWD_SM90,
-                                    FLASH_DECODE, FLASH_FWD, FLASH_FWD_SM90,
-                                    FLASH_QKV_BWD, FLASH_QKV_BWD_SM90,
-                                    FLASH_QKV_FWD, FLASH_QKV_FWD_SM90)
+                                    FLASH_DECODE, FLASH_DECODE_SM90,
+                                    FLASH_DECODE_SM90_FP8,
+                                    FLASH_DECODE_SM90_INT8, FLASH_FWD,
+                                    FLASH_FWD_SM90, FLASH_QKV_BWD,
+                                    FLASH_QKV_BWD_SM90, FLASH_QKV_FWD,
+                                    FLASH_QKV_FWD_SM90)
 
 _NEG_INF = -1e30
 
@@ -745,17 +749,36 @@ def flash_attention_varlen(
     return o.movedim(0, 1)
 
 
-def _paged_attention(q, k_pages, v_pages, page_table, kv_len, scale):
+def code_bytes(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or for an fp8 tensor a uint8 view of the same bytes: fp8
+    pools are gathered and scattered through it, since not every build
+    indexes float8 tensors (the pool's dtype never changes)."""
+    return t.view(torch.uint8) if t.dtype == torch.float8_e4m3fn else t
+
+
+def _gather_pages(pool: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``pool[idx]``, through :func:`code_bytes`."""
+    return code_bytes(pool)[idx].view(pool.dtype)
+
+
+def _paged_attention(q, k_pages, v_pages, page_table, kv_len, scale,
+                     k_scale=None, v_scale=None):
     """The plain version of the decode attention: gather each request's
     page list into a contiguous [b, p_max*page_size, h, d] view, then
-    masked attention in fp32 (the JAX package's ``_paged_attention_xla``,
-    without the quantized pool)."""
+    masked attention in fp32 (the JAX package's ``_paged_attention_xla``).
+    With ``k_scale``/``v_scale`` [n_pages, page_size, h] the pool holds
+    int8 or fp8 codes, dequantized on read as ``code.float() * scale``."""
     b, h, q_len, d = q.shape
     page_size = k_pages.shape[1]
     p_max = page_table.shape[1]
     idx = page_table.long()
-    kc = k_pages[idx].reshape(b, p_max * page_size, h, d)
-    vc = v_pages[idx].reshape(b, p_max * page_size, h, d)
+    kc = _gather_pages(k_pages, idx)       # [b, p_max, page_size, h, d]
+    vc = _gather_pages(v_pages, idx)
+    if k_scale is not None:
+        kc = kc.float() * k_scale[idx][..., None]
+        vc = vc.float() * v_scale[idx][..., None]
+    kc = kc.reshape(b, p_max * page_size, h, d)
+    vc = vc.reshape(b, p_max * page_size, h, d)
     s = torch.einsum("bhqd,bkhd->bhqk", q.float(), kc.float()) * scale
     rows = torch.arange(q_len, device=q.device)[:, None]
     cols = torch.arange(p_max * page_size, device=q.device)[None, :]
@@ -768,27 +791,109 @@ def _paged_attention(q, k_pages, v_pages, page_table, kv_len, scale):
     return (o / torch.where(l == 0, 1.0, l)).to(q.dtype)
 
 
-def _flash_decode_cuda(q, k_pages, v_pages, page_table, kv_len, scale):
-    """Launch ``flash_decode.cu``; returns o [b, h, q_len, d] laid out as
-    [b, q_len, h, d]."""
-    B, H, q_len, d = q.shape
-    n_pages, page_size = k_pages.shape[:2]
-    if (tuple(k_pages.shape) != (n_pages, page_size, H, d)
-            or v_pages.shape != k_pages.shape):
-        raise ValueError(f"pools {tuple(k_pages.shape)}/"
-                         f"{tuple(v_pages.shape)} do not fit q "
-                         f"{tuple(q.shape)}")
-    _check_kernel_dtype_and_dim(q)
-    for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages)):
-        _check_kernel_operand(name, t, q)
-    if k_pages.stride() != v_pages.stride():
-        raise ValueError("k_pages and v_pages must share their strides")
-    page_table = _int32_on(page_table, q.device)
-    kv_len = _int32_on(kv_len, q.device)
+#: ``csrc/flash_decode_sm90.cu``'s partition of a request's page walk: a
+#: split of a block is ``_DECODE_SPLIT_ELEMS / d`` columns rounded down to
+#: whole pages (kSplitElems); its warps (kWarps) fold tiles of
+#: ``_DECODE_TILE`` columns (kTile), tile t to warp t % kWarps; a block
+#: works for one query row when q_len is 1, else for ``_DECODE_ROWS_MULTI``
+#: (kRowsMulti)
+_DECODE_SPLIT_ELEMS = 16384
+_DECODE_WARPS = 4
+_DECODE_TILE = 16
+_DECODE_ROWS_MULTI = 2
+#: the pool dtypes of ``flash_decode_sm90.cu``'s entry points, at head dim
+#: 128; the fp32 pool and head dim 8 run ``flash_decode.cu``
+_DECODE_SM90_KERNELS = {torch.bfloat16: FLASH_DECODE_SM90,
+                        torch.int8: FLASH_DECODE_SM90_INT8,
+                        torch.float8_e4m3fn: FLASH_DECODE_SM90_FP8}
+_DECODE_SM90_HEAD_DIMS = (128,)
+
+
+def decode_split_columns(page_size: int, d: int) -> int:
+    """The columns one block of ``flash_decode_sm90.cu`` walks: the
+    split's elements over the head dim, rounded down to whole pages, at
+    least one page."""
+    return max(1, _DECODE_SPLIT_ELEMS // d // page_size) * page_size
+
+
+def decode_partition(kv_len: int, page_size: int, d: int) -> list:
+    """The order in which ``flash_decode_sm90.cu`` folds one query row's
+    visible columns, as ``[split][warp] -> columns in the order the warp
+    folds them``: each split (a block) adds its warps in order, then the
+    splits are added in order.  A tile's columns are summed by a fixed
+    butterfly inside the warp.  For q_len 1 a row sees ``kv_len`` columns
+    (``kv_len - q_len + i + 1`` for row i of a longer window; a block of
+    several rows walks the partition of its last row's count, the rows
+    before it seeing the tail as masked).  It is a function of the
+    request's own length, the page size and the head dim alone, never of
+    the batch or the card: the engine's batched == sequential contract
+    rests on it.  An empty window still has one split, which writes the
+    zeros."""
+    cols = decode_split_columns(page_size, d)
+    n_splits = max(1, -(-kv_len // cols))
+    out = []
+    for s in range(n_splits):
+        c0, n = s * cols, max(0, min(kv_len - s * cols, cols))
+        n_tiles = -(-n // _DECODE_TILE)
+        out.append([[c0 + j for t in range(w, n_tiles, _DECODE_WARPS)
+                     for j in range(t * _DECODE_TILE,
+                                    min(n, (t + 1) * _DECODE_TILE))]
+                    for w in range(_DECODE_WARPS)])
+    return out
+
+
+def decode_max_splits(p_max: int, page_size: int, d: int) -> int:
+    """Splits of the longest window a ``p_max``-page table can hold
+    (``len(decode_partition(p_max * page_size, page_size, d))``): the
+    split-partial workspace's extent (1: no workspace, no merge pass)."""
+    return max(1, -(-p_max * page_size // decode_split_columns(page_size,
+                                                                d)))
+
+
+def _decode_route(q: torch.Tensor, k_pages: torch.Tensor) -> str:
+    """``"sm90"`` (``flash_decode_sm90.cu``) for a bf16, int8 or fp8 pool
+    at head dim 128 with an fp32 or bf16 q, else ``"scalar"``
+    (``flash_decode.cu``: the fp32 pool, head dim 8)."""
+    if (k_pages.dtype in _DECODE_SM90_KERNELS and q.dtype in _KERNEL_DTYPES
+            and q.shape[-1] in _DECODE_SM90_HEAD_DIMS):
+        return "sm90"
+    return "scalar"
+
+
+def _check_decode_tables(page_table, kv_len, B, device):
+    page_table = _int32_on(page_table, device)
+    kv_len = _int32_on(kv_len, device)
     if page_table.ndim != 2 or page_table.shape[0] != B \
             or tuple(kv_len.shape) != (B,):
         raise ValueError(f"page_table {tuple(page_table.shape)} / kv_len "
                          f"{tuple(kv_len.shape)} do not fit batch {B}")
+    return page_table, kv_len
+
+
+def _check_pools(q, k_pages, v_pages):
+    B, H, q_len, d = q.shape
+    n_pages, page_size = k_pages.shape[:2]
+    if (tuple(k_pages.shape) != (n_pages, page_size, H, d)
+            or v_pages.shape != k_pages.shape
+            or v_pages.dtype != k_pages.dtype):
+        raise ValueError(f"pools {tuple(k_pages.shape)}/"
+                         f"{tuple(v_pages.shape)} do not fit q "
+                         f"{tuple(q.shape)}")
+    if k_pages.stride() != v_pages.stride():
+        raise ValueError("k_pages and v_pages must share their strides")
+    return n_pages, page_size
+
+
+def _flash_decode_cuda(q, k_pages, v_pages, page_table, kv_len, scale):
+    """Launch ``flash_decode.cu`` (the fp32 pool, head dim 8); returns o
+    [b, h, q_len, d] laid out as [b, q_len, h, d]."""
+    B, H, q_len, d = q.shape
+    n_pages, page_size = _check_pools(q, k_pages, v_pages)
+    _check_kernel_dtype_and_dim(q)
+    for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages)):
+        _check_kernel_operand(name, t, q)
+    page_table, kv_len = _check_decode_tables(page_table, kv_len, B,
+                                              q.device)
     o = torch.empty((B, q_len, H, d), dtype=q.dtype,
                     device=q.device).permute(0, 2, 1, 3)
     strides = (ctypes.c_int64 * 9)(*q.stride()[:3], *k_pages.stride()[:3],
@@ -797,8 +902,61 @@ def _flash_decode_cuda(q, k_pages, v_pages, page_table, kv_len, scale):
                  q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                  o.data_ptr(), page_table.data_ptr(), kv_len.data_ptr(),
                  B, H, q_len, page_table.shape[1], page_size, n_pages,
-                 strides, scale,
-                 torch.cuda.current_stream(q.device).cuda_stream)
+                 strides, scale, _stream(q.device))
+    return o
+
+
+def _flash_decode_sm90_cuda(q, k_pages, v_pages, page_table, kv_len, scale,
+                            k_scale=None, v_scale=None):
+    """Launch ``flash_decode_sm90.cu``'s entry point for the pool's dtype
+    (bf16, or the int8 / fp8 codes with their fp32 scales); returns o
+    [b, h, q_len, d] in q's dtype, laid out as [b, q_len, h, d].  The
+    split partials' workspace is sized by :func:`decode_max_splits`."""
+    B, H, q_len, d = q.shape
+    n_pages, page_size = _check_pools(q, k_pages, v_pages)
+    kernel = _DECODE_SM90_KERNELS[k_pages.dtype]
+    quantized = k_pages.dtype != torch.bfloat16
+    if quantized != (k_scale is not None):
+        raise ValueError(f"a {k_pages.dtype} pool takes k_scale/v_scale "
+                         "exactly when it holds quantized codes")
+    _check_kernel_dtype_and_dim(q)
+    _check_kernel_operand("q", q, q)
+    if k_pages.device != q.device:
+        raise ValueError(f"k_pages is on {k_pages.device}, expected "
+                         f"{q.device}")
+    for name, t in (("k_pages", k_pages), ("v_pages", v_pages)):
+        _check_kernel_operand(name, t, k_pages)
+    scale_strides = (0, 0, 0)
+    if quantized:
+        for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
+            if t.device != q.device or t.dtype != torch.float32 \
+                    or tuple(t.shape) != (n_pages, page_size, H):
+                raise ValueError(
+                    f"{name} must be fp32 [{n_pages}, {page_size}, {H}] on "
+                    f"{q.device}, got {t.dtype} {tuple(t.shape)} on "
+                    f"{t.device}")
+        if k_scale.stride() != v_scale.stride():
+            raise ValueError("k_scale and v_scale must share their strides")
+        scale_strides = k_scale.stride()
+    page_table, kv_len = _check_decode_tables(page_table, kv_len, B,
+                                              q.device)
+    p_max = page_table.shape[1]
+    max_splits = decode_max_splits(p_max, page_size, d)
+    o = torch.empty((B, q_len, H, d), dtype=q.dtype,
+                    device=q.device).permute(0, 2, 1, 3)
+    work = (torch.empty(B * H * q_len * max_splits * (d + 2),
+                        dtype=torch.float32, device=q.device)
+            if max_splits > 1 else None)
+    strides = (ctypes.c_int64 * 12)(*q.stride()[:3], *k_pages.stride()[:3],
+                                    *o.stride()[:3], *scale_strides)
+    kernel(_KERNEL_DTYPES[q.dtype], d, q.device.index,
+           q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+           k_scale.data_ptr() if quantized else None,
+           v_scale.data_ptr() if quantized else None,
+           o.data_ptr(), None if work is None else work.data_ptr(),
+           page_table.data_ptr(), kv_len.data_ptr(),
+           B, H, q_len, p_max, page_size, n_pages, max_splits,
+           strides, scale, _stream(q.device))
     return o
 
 
@@ -824,20 +982,35 @@ def flash_decode(
     is an error on both implementations (on the card the kernel traps,
     which poisons the CUDA context as a device-side assert does).
 
+    Quantized pool: with ``k_scale``/``v_scale`` [n_pages, page_size, h]
+    fp32 (both or neither) the pools hold int8 or fp8 e4m3 codes, and
+    both implementations dequantize on read, ``code * scale`` in fp32.
+
     Deterministic and row-independent on both implementations: a row's
     result depends on its own request's pages only.  CUDA tensors run
-    ``csrc/flash_decode.cu``; CPU tensors run :func:`_paged_attention`.
-    The quantized pool (``k_scale``/``v_scale``) is not ported yet."""
-    if k_scale is not None or v_scale is not None:
-        raise NotImplementedError(
-            "the quantized KV pool is not ported yet (ROADMAP.md, queue B)")
+    ``csrc/flash_decode_sm90.cu`` (head dim 128: a bf16, int8 or fp8
+    pool) or ``csrc/flash_decode.cu`` (an fp32 pool, head dim 8); a
+    quantized pool at another shape raises.  CPU tensors run
+    :func:`_paged_attention`."""
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("k_scale and v_scale must be given together")
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     if q.is_cuda:
+        if _decode_route(q, k_pages) == "sm90":
+            return _flash_decode_sm90_cuda(q, k_pages, v_pages, page_table,
+                                           kv_len, float(scale), k_scale,
+                                           v_scale)
+        if k_scale is not None:
+            raise ValueError(
+                f"the quantized pool's kernel takes head dim "
+                f"{_DECODE_SM90_HEAD_DIMS} with int8 or fp8 codes and an "
+                f"fp32 or bf16 q; got head dim {q.shape[-1]}, "
+                f"{k_pages.dtype} codes, {q.dtype} q")
         return _flash_decode_cuda(q, k_pages, v_pages, page_table, kv_len,
                                   float(scale))
     return _paged_attention(q, k_pages, v_pages, page_table, kv_len,
-                            float(scale))
+                            float(scale), k_scale, v_scale)
 
 
 # -- packed-QKV self-attention (the training path) -------------------------

@@ -33,12 +33,19 @@ pageable memory, so the host waits for that copy on an idle stream) and
 reads back ONE result (the sampled token ids): one wait for the device's
 work per step, as the JAX engine's ``np.asarray`` of its argmax.
 
+``kv_quant="int8"`` or ``"fp8"`` stores the pool as codes plus fp32
+per-(page, slot, head) scales: tokens are quantized on write (the
+admission scatter and each decode step's append) and dequantized inside
+the decode attention's kernel.  A quantized stream is deterministic and
+batched == sequential like the default one, but is not the default
+pool's stream.
+
 Not ported yet (ROADMAP.md), and refused when asked for: speculative
 decoding and chunked prefill (``spec``), tensor parallelism (``tp``),
-the quantized pool (``kv_quant``), prefix sharing, disaggregated
-prefill/decode (``prefill_only``/``kv_import``), the telemetry bus, the
-watchdog, per-page CRC validation, and ``snapshot``/``restore``/
-``recover``/``adopt``/``adopt_prefilled``/``export_request``.
+prefix sharing, disaggregated prefill/decode (``prefill_only``/
+``kv_import``), the telemetry bus, the watchdog, per-page CRC
+validation, and ``snapshot``/``restore``/``recover``/``adopt``/
+``adopt_prefilled``/``export_request``.
 """
 
 from __future__ import annotations
@@ -61,7 +68,7 @@ from apex_tpu_torch.serving.scheduler import (FINISHED, WAITING,
 #: "off"; any other value is refused.
 _UNPORTED_OPTIONS = {"telemetry": None, "watchdog": None,
                      "validate_pages": False, "spec": None, "tp": 1,
-                     "kv_quant": None, "prefix_sharing": False,
+                     "prefix_sharing": False,
                      "prefill_only": False, "kv_import": False}
 
 
@@ -129,7 +136,8 @@ class ServingEngine:
     deadlines, the deadline policy.  ``max_queue`` bounds the submit
     queue (overflow -> ``rejected``), ``preempt_cap`` is the aging cap of
     evict-newest preemption, ``shed_min_service_s`` the SLO floor used to
-    shed queued requests before their deadline expires.
+    shed queued requests before their deadline expires.  ``kv_quant``
+    (None, ``"int8"`` or ``"fp8"``) quantizes the KV pool.
 
     ``device=None`` means the card; without one the constructor raises
     instead of falling back.  ``device="cpu"`` runs the plain PyTorch
@@ -154,6 +162,7 @@ class ServingEngine:
                  preempt_cap: Optional[int] = 4,
                  shed_min_service_s: float = 0.0,
                  reject_unservable: bool = False,
+                 kv_quant: Optional[str] = None,
                  device=None,
                  **options):
         for name, value in options.items():
@@ -180,7 +189,8 @@ class ServingEngine:
             page_size=page_size, num_heads=cfg.num_heads,
             head_dim=cfg.head_dim,
             max_pages_per_request=max_pages_per_request,
-            dtype=cfg.dtype, device=self.device)
+            dtype=cfg.dtype, device=self.device, quantize=kv_quant)
+        self.kv_quant = kv_quant
         self.sched = ContinuousBatchingScheduler(
             self.cache, max_batch=max_batch,
             prefill_budget=self.prefill_budget,
@@ -249,6 +259,16 @@ class ServingEngine:
     def _to_device(self, host: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(host).to(self.device)
 
+    def _decode(self, dev: torch.Tensor) -> torch.Tensor:
+        """The decode step on the pool from one int32 operand row:
+        tokens [b] | positions [b] | kv_len [b] | page_table [b, p_max]
+        (with a quantized pool's scale planes)."""
+        b, p_max = self.max_batch, self.cache.max_pages_per_request
+        return self.decoder.decode(
+            self.params, self.cache.k, self.cache.v, dev[:b], dev[b:2 * b],
+            dev[3 * b:].view(b, p_max), dev[2 * b:3 * b],
+            k_scale=self.cache.k_scale, v_scale=self.cache.v_scale)
+
     @torch.no_grad()
     def warmup(self) -> float:
         """Run one prefill row, one admission scatter and one decode step
@@ -265,10 +285,7 @@ class ServingEngine:
         p_max = self.cache.max_pages_per_request
         host = np.zeros(3 * b + b * p_max, np.int32)
         host[2 * b:3 * b] = 1   # kv_len 1: each idle row sees its own slot
-        dev = self._to_device(host)
-        self.decoder.decode(self.params, self.cache.k, self.cache.v,
-                            dev[:b], dev[b:2 * b],
-                            dev[3 * b:].view(b, p_max), dev[2 * b:3 * b])
+        self._decode(self._to_device(host))
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         return time.perf_counter() - t0
@@ -321,11 +338,7 @@ class ServingEngine:
             host[2 * b + i] = req.seq_len
         host[3 * b:] = self.cache.page_table([r.pages for r in rows],
                                              rows=b).ravel()
-        dev = self._to_device(host)
-        logits = self.decoder.decode(
-            self.params, self.cache.k, self.cache.v, dev[:b], dev[b:2 * b],
-            dev[3 * b:].view(b, p_max), dev[2 * b:3 * b])
-        next_tok = logits.argmax(-1).cpu().numpy()
+        next_tok = self._decode(self._to_device(host)).argmax(-1).cpu().numpy()
         for i, req in enumerate(rows):
             req.kv_len = req.seq_len
             req.generated.append(int(next_tok[i]))

@@ -1,6 +1,5 @@
 """Paged KV cache: a preallocated device page pool + host-side page
-accounting (port of the JAX package's ``apex_tpu/serving/kv_cache.py``,
-unquantized pool).
+accounting (port of the JAX package's ``apex_tpu/serving/kv_cache.py``).
 
 * ``k``/``v``: ``[num_layers, num_pages, page_size, num_heads,
   head_dim]`` device tensors, allocated ONCE.  A request's cache is a
@@ -14,16 +13,23 @@ unquantized pool).
 * Host-side accounting (free list, per-page owner, per-page refcount) is
   plain Python; allocation is LOWEST-INDEX-FIRST, so every run of the
   scheduler is reproducible.
+* A **quantized pool** (``quantize="int8"``/``"fp8"``): the pool holds
+  narrow codes (``torch.int8`` / ``torch.float8_e4m3fn``) plus
+  per-(page, slot, head) fp32 scales ``k_scale``/``v_scale``
+  ``[num_layers, num_pages, page_size, num_heads]``; tokens are
+  quantized on write (:func:`quantize_tokens`) and dequantized on read in
+  ``flash_decode``.
 
 Unlike the JAX package, whose arrays are immutable (``.at[].set``
 returns a new pool and the cache re-binds it), the pool here is updated
 IN PLACE (``index_put_`` in :meth:`PagedKVCache.write_tokens` and in the
 decode step's append): one admission or decode step never copies the
-pool.
+pool.  An fp8 pool is written through a uint8 view of the same bytes
+(``ops.attention.code_bytes``), since not every build scatters float8
+tensors.
 
-Not ported yet (ROADMAP.md): the int8/fp8 quantized pool, copy-on-write
-and the prefix index, per-page CRC validation, page export/import and
-defrag.
+Not ported yet (ROADMAP.md): copy-on-write and the prefix index, per-page
+CRC validation, page export/import and defrag.
 """
 
 from __future__ import annotations
@@ -35,6 +41,43 @@ import numpy as np
 import torch
 
 from apex_tpu_torch._device import resolve_device
+from apex_tpu_torch.ops.attention import code_bytes
+
+
+#: qmax per quantization mode: int8 symmetric [-127, 127] (the -128 code is
+#: unused so the grid is symmetric), fp8 e4m3 saturates at 448
+_QUANT_QMAX = {"int8": 127.0, "fp8": 448.0}
+
+
+def quant_pool_dtype(mode: str) -> torch.dtype:
+    """Dtype of the quantized pool's code tensors."""
+    if mode == "int8":
+        return torch.int8
+    if mode == "fp8":
+        return torch.float8_e4m3fn
+    raise ValueError(f"unknown quantize mode {mode!r} "
+                     f"(expected one of {sorted(_QUANT_QMAX)})")
+
+
+def quantize_tokens(x: torch.Tensor, qdtype: torch.dtype, qmax: float):
+    """``x`` [..., H, D] -> (codes [..., H, D] ``qdtype``, scale [..., H]
+    fp32), the JAX package's ``quantize_tokens`` bit for bit.
+
+    The scale is a pure per-(token, head) function of that token's own
+    values: absmax over D divided by ``qmax``, with absmax 0 mapped to
+    scale 1 so zero rows stay exactly zero.  So quantizing a token on its
+    decode append and on a bulk prefill write give the same bytes.  The
+    divisor is a tensor, not a Python number: PyTorch's CUDA division by
+    a scalar multiplies by its rounded reciprocal, which would move some
+    scales by an ulp on the card against the CPU and JAX."""
+    xf = x.float()
+    absmax = xf.abs().amax(-1)
+    scale = torch.where(absmax == 0.0, 1.0,
+                        absmax / torch.full_like(absmax, qmax))
+    codes = xf / scale[..., None]
+    if qdtype == torch.int8:
+        codes = codes.round().clamp(-qmax, qmax)
+    return codes.to(qdtype), scale
 
 
 class PagePoolExhausted(RuntimeError):
@@ -54,11 +97,14 @@ class PagedKVCache:
 
     ``max_pages_per_request`` fixes the page-table width ``p_max`` —
     every decode step sees a ``[batch, p_max]`` table.  ``device=None``
-    means the card."""
+    means the card.  ``dtype`` is the compute dtype of the tokens fed to
+    :meth:`write_tokens`; ``quantize`` (None, ``"int8"`` or ``"fp8"``)
+    stores them as codes plus fp32 scales."""
 
     def __init__(self, *, num_layers: int, num_pages: int, page_size: int,
                  num_heads: int, head_dim: int, max_pages_per_request: int,
-                 dtype: torch.dtype = torch.float32, device=None):
+                 dtype: torch.dtype = torch.float32, device=None,
+                 quantize: Optional[str] = None):
         if num_pages < 2:
             raise ValueError("num_pages must be >= 2 (page 0 is the "
                              "reserved scratch page)")
@@ -73,10 +119,18 @@ class PagedKVCache:
         self.head_dim = head_dim
         self.max_pages_per_request = max_pages_per_request
         self.dtype = dtype
+        self.quantize = quantize
+        pool_dtype = quant_pool_dtype(quantize) if quantize else dtype
         self.device = resolve_device(device)
         shape = (num_layers, num_pages, page_size, num_heads, head_dim)
-        self.k = torch.zeros(shape, dtype=dtype, device=self.device)
-        self.v = torch.zeros(shape, dtype=dtype, device=self.device)
+        self.k = torch.zeros(shape, dtype=pool_dtype, device=self.device)
+        self.v = torch.zeros(shape, dtype=pool_dtype, device=self.device)
+        self.qmax = _QUANT_QMAX[quantize] if quantize else None
+        self.k_scale = self.v_scale = None
+        if quantize:
+            self.k_scale = torch.zeros(shape[:-1], dtype=torch.float32,
+                                       device=self.device)
+            self.v_scale = torch.zeros_like(self.k_scale)
         # sorted free list, lowest-first allocation: deterministic
         self._free: List[int] = list(range(1, num_pages))
         self._owner: Dict[int, int] = {}
@@ -179,6 +233,13 @@ class PagedKVCache:
         fill path).  ``k_new``/``v_new``: ``[num_layers, T, num_heads,
         head_dim]``; token t lands in ``(pages[t], offsets[t])`` (int
         tensors on the pool's device).  Padding positions point at the
-        scratch page 0."""
-        self.k[:, pages, offsets] = k_new
-        self.v[:, pages, offsets] = v_new
+        scratch page 0.  A quantized pool quantizes on write: codes and
+        per-(slot, head) scales are scattered together."""
+        if self.quantize:
+            kq, ks = quantize_tokens(k_new, self.k.dtype, self.qmax)
+            vq, vs = quantize_tokens(v_new, self.v.dtype, self.qmax)
+            self.k_scale[:, pages, offsets] = ks
+            self.v_scale[:, pages, offsets] = vs
+            k_new, v_new = kq, vq
+        code_bytes(self.k)[:, pages, offsets] = code_bytes(k_new)
+        code_bytes(self.v)[:, pages, offsets] = code_bytes(v_new)

@@ -10,9 +10,12 @@ Two entry points mirror the two phases of continuous batching:
   scatters them into the request's pages.
 * :meth:`PagedDecoder.decode` — the STEADY-STATE path: one token per
   running request; append the token's K/V into its current page, then
-  attend over the request's page list (``csrc/flash_decode.cu`` on the
-  card).  The batch width is fixed at the engine's ``max_batch``, idle
-  rows pointed at the scratch page.
+  attend over the request's page list (``csrc/flash_decode_sm90.cu`` on
+  the card at head dim 128, ``csrc/flash_decode.cu`` for an fp32 pool).
+  The batch width is fixed at the engine's ``max_batch``, idle rows
+  pointed at the scratch page.  Over a quantized pool (int8 / fp8 codes
+  with fp32 scale planes) the new token's K/V are quantized before they
+  are appended.
 
 Per-row independence is a hard contract: every op in ``decode`` is
 row-wise (embedding lookup, layer norm, per-row matmuls, paged attention
@@ -27,7 +30,7 @@ embeddings, weights kept in the JAX package's ``[in, out]`` layout so
 ``torch.matmul``, as the JAX package leaves them to XLA.
 
 Not ported yet (ROADMAP.md): ``extend`` (speculative verify and chunked
-prefill), tensor parallelism and the quantized pool.
+prefill) and tensor parallelism.
 """
 
 from __future__ import annotations
@@ -41,6 +44,8 @@ import torch.nn.functional as F
 
 from apex_tpu_torch._device import resolve_device
 from apex_tpu_torch.ops import flash_attention, flash_decode
+from apex_tpu_torch.ops.attention import code_bytes
+from apex_tpu_torch.serving.kv_cache import quantize_tokens
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,6 +66,12 @@ class ServingModelConfig:
         if self.hidden_size % self.num_heads:
             raise ValueError("hidden_size must divide by num_heads")
         return self.hidden_size // self.num_heads
+
+
+def quant_qmax(dtype: torch.dtype) -> float:
+    """qmax for a quantized pool's code dtype (int8 -> 127, fp8 e4m3 ->
+    448): the model reads the grid off the pool it is handed."""
+    return 127.0 if dtype == torch.int8 else 448.0
 
 
 def init_params(cfg: ServingModelConfig, seed: int = 0, device=None) -> Dict:
@@ -169,8 +180,9 @@ class PagedDecoder:
 
     def decode(self, params, k_pool: torch.Tensor, v_pool: torch.Tensor,
                tokens: torch.Tensor, positions: torch.Tensor,
-               page_table: torch.Tensor, kv_len: torch.Tensor
-               ) -> torch.Tensor:
+               page_table: torch.Tensor, kv_len: torch.Tensor, *,
+               k_scale: Optional[torch.Tensor] = None,
+               v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
         """One decode step for a fixed-width batch; returns logits
         ``[b, vocab]``.
 
@@ -182,23 +194,37 @@ class PagedDecoder:
         scratch page 0 and their outputs are discarded by the engine.
 
         ``k_pool``/``v_pool`` ``[L, n_pages, page_size, H, D]`` are
-        updated IN PLACE (each layer's new K/V is written with
-        ``index_put_`` before that layer's attention reads the pool) —
-        the JAX package returns new pools instead."""
+        updated IN PLACE (each layer's new K/V is written before that
+        layer's attention reads the pool) — the JAX package returns new
+        pools instead.  With ``k_scale``/``v_scale`` (a quantized pool's
+        ``[L, n_pages, page_size, H]`` fp32 scale planes) the new K/V are
+        quantized on write, their scales written in place beside the
+        codes, and ``flash_decode`` dequantizes on read."""
         page_size = k_pool.shape[2]
         b = tokens.shape[0]
         hd = self.cfg.head_dim
+        quantized = k_scale is not None
+        qmax = quant_qmax(k_pool.dtype) if quantized else None
         x = params["embed"][tokens] + params["pos"][positions]  # [b, h]
         rows = torch.arange(b, device=tokens.device)
-        page_idx = page_table[rows, positions // page_size]
-        offset = positions % page_size
+        at = (page_table[rows, positions // page_size],
+              positions % page_size)
         for li, layer in enumerate(params["layers"]):
             qkv = _ln(x, layer["ln1"]) @ layer["wqkv"]
-            q, k, v = qkv[:, None].chunk(3, dim=-1)  # [b, 1, h] each
-            k_pool[li].index_put_((page_idx, offset), k.view(b, -1, hd))
-            v_pool[li].index_put_((page_idx, offset), v.view(b, -1, hd))
-            ctx = flash_decode(self._heads(q), k_pool[li], v_pool[li],
-                               page_table, kv_len)
+            q = qkv[:, None, :self.cfg.hidden_size]   # [b, 1, h]
+            kv = qkv[:, self.cfg.hidden_size:].view(b, 2, -1, hd)  # K, V
+            if quantized:
+                # one pass for K and V: the scale is a per-(token, head)
+                # function, so this is quantize_tokens of each alone
+                kv, s = quantize_tokens(kv, k_pool.dtype, qmax)
+                k_scale[li].index_put_(at, s[:, 0])
+                v_scale[li].index_put_(at, s[:, 1])
+            code_bytes(k_pool[li]).index_put_(at, code_bytes(kv[:, 0]))
+            code_bytes(v_pool[li]).index_put_(at, code_bytes(kv[:, 1]))
+            ctx = flash_decode(
+                self._heads(q), k_pool[li], v_pool[li], page_table, kv_len,
+                k_scale=k_scale[li] if quantized else None,
+                v_scale=v_scale[li] if quantized else None)
             x = x + ctx.transpose(1, 2).reshape(b, -1) @ layer["wo"]
             x = x + _mlp(_ln(x, layer["ln2"]), layer)
         return _ln(x, params["ln_f"]) @ params["embed"].T

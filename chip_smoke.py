@@ -19,12 +19,23 @@ Phases, each of which fails the run (non-zero exit) on error:
    (``flash_fwd_sm90.cu``) must show no spill or stack in ``ptxas -v``'s
    report and hold ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA loads) in their
    SASS; K6/K7's ``layer_norm_sm90.cu``, whose rows and dgamma/dbeta sums
-   live in registers, must show no spill or stack either;
+   live in registers, must show no spill or stack either, nor K5's
+   ``flash_decode_sm90.cu``, whose SASS must hold 16-byte global loads
+   (``LDG.E.128``);
 3. kernels — each kernel against its plain PyTorch version on the card,
    at its main path's shapes (bf16; the training kernels with and without
    dropout) and in fp32, with the tolerance stated; then timed (operands
    cold in L2) beside its plain version, one PyTorch library call
-   computing the same function, and its bound.  K3/K4 route by dtype:
+   computing the same function, and its bound.  K5 (paged decode) routes
+   by pool: the bf16, int8 and fp8 pools at head dim 128 to
+   ``flash_decode_sm90.cu`` (one entry point a pool), the fp32 pool to
+   ``flash_decode.cu``; each pool is held to the plain version at q_len
+   1, 5 (windows shorter than q_len: exact zeros) and 20 over ragged
+   lengths, each case naming the entry point that ran and run twice
+   (bitwise), then timed cold at the ragged batch, 8 x 300 and 8 x 1024
+   (16 pages a request), ``flash_decode.cu`` on bf16 cold and in turns
+   beside it; the card's ``quantize_tokens`` must give the CPU's codes
+   and scales bit for bit.  K3/K4 route by dtype:
    bf16 to the tensor-core kernels, held to their plain versions causal
    and not, with segment ids, and at a ragged s = 1000, run twice
    (bitwise), with K4's tiles walked against :func:`flash_bwd_tiles` at
@@ -68,14 +79,18 @@ Phases, each of which fails the run (non-zero exit) on error:
    (kernels) and on the CPU (plain versions) give identical greedy
    streams, the attention on the scalar K1 (its fp32 route);
 5. full-width engine — GPT-1.3B width (hidden 2048, 16 heads of 128, 24
-   layers, vocab 51200, bf16, page 64, batch 8): ``warmup()`` then
+   layers, vocab 51200, bf16, page 64, batch 8), on the bf16 pool and on
+   the quantized ones (``kv_quant="int8"``, ``"fp8"``): ``warmup()`` then
    ``serve()`` of a seeded Poisson trace; every request finishes, the
    pool drains, the kernels' launch counts match the main path's
-   prefills (the tensor-core K1) and decode steps exactly, the kernel
-   path's logits agree
-   with the plain path's, and batched == sequential at equal
-   ``max_batch``; a full-batch decode step's host-enqueue and
-   device-done times are reported beside the serve metrics;
+   prefills (the tensor-core K1) and decode steps (the pool's
+   ``flash_decode_sm90`` entry point, ``flash_decode.cu`` never)
+   exactly, the kernel path's prefill (bf16) and full-batch decode
+   logits agree with the plain path's, and batched == sequential == a
+   re-run at equal ``max_batch``, bitwise (the quantized streams are not
+   held to the bf16 ones); a full-batch decode step's host-enqueue and
+   device-done times and its device time by part under
+   ``torch.profiler`` are reported beside the serve metrics;
 6. toy training — ``pretrain_gpt.main`` at fp32, 2 layers, hidden 256,
    from the same weights and batches on the card (kernels) and on the CPU
    (plain versions): per-step losses and final weights agree, and the
@@ -191,7 +206,8 @@ from apex_tpu_torch.profiling.timing import cold_ms  # noqa: E402
 from apex_tpu_torch.transformer.testing import gpt_param_count  # noqa: E402
 from apex_tpu_torch.serving import model as model_mod  # noqa: E402
 from apex_tpu_torch.serving import (ServingEngine, ServingModelConfig,  # noqa: E402
-                                    SimClock, init_params, poisson_trace)
+                                    SimClock, init_params, poisson_trace,
+                                    quant_pool_dtype, quantize_tokens)
 
 BF16_TOL = 2.0 ** -7    # x max|ref|: one bf16 ulp at the output's scale
 FP32_TOL = 1e-5         # x max(1, max|ref|)
@@ -365,13 +381,36 @@ def time_flash_fwd(dtype, q, k, v, seg) -> tuple:
     return row, {**row, "ms": old_ms, "warm_pair_ms": pair[0]}
 
 
+# the decode step's pools, each with the flash_decode_sm90.cu entry point
+# it runs: the default bf16 pool and the quantized ones (kv_quant)
+DECODE_POOLS = (("bf16", None, "flash_decode_sm90"),
+                ("int8", "int8", "flash_decode_sm90_int8"),
+                ("fp8", "fp8", "flash_decode_sm90_fp8"))
+# K5's timed shapes (name, kv lengths, pages a request): the ragged batch,
+# a full batch mid-trace, and a full batch at FULL's max_position
+DECODE_RAGGED = [1, 2, 63, 64, 65, 200, 320, 3]
+DECODE_SHAPES = (("ragged", DECODE_RAGGED, PAGES_PER_REQ),
+                 ("8x300", [300] * BATCH, PAGES_PER_REQ),
+                 ("8x1024", [1024] * BATCH, FULL["max_position"] // PAGE))
+
+
 def decode_operands(gen, dtype, q_len, lengths, b=BATCH, h=16, d=128,
-                    page_size=PAGE, p_max=PAGES_PER_REQ):
+                    page_size=PAGE, p_max=PAGES_PER_REQ, quant=None):
+    """(q, k_pages, v_pages, table, kv_len, k_scale, v_scale) as the decode
+    step hands them in: q a view of a fused qkv projection, a pool of
+    random K/V in ``dtype`` or, with ``quant``, quantized by the port's
+    ``quantize_tokens`` (codes and fp32 scales; the scales are None for an
+    unquantized pool), a shuffled page table."""
     n_pages = 1 + b * p_max
     kp = torch.randn(n_pages, page_size, h, d, generator=gen,
                      device="cuda").to(dtype)
     vp = torch.randn(n_pages, page_size, h, d, generator=gen,
                      device="cuda").to(dtype)
+    ks = vs = None
+    if quant:
+        codes = quant_pool_dtype(quant)
+        kp, ks = quantize_tokens(kp, codes, model_mod.quant_qmax(codes))
+        vp, vs = quantize_tokens(vp, codes, model_mod.quant_qmax(codes))
     # shuffled, non-contiguous page ids: the indirection is under test
     free = (torch.randperm(n_pages - 1, generator=gen, device="cuda")
             + 1).tolist()
@@ -383,57 +422,162 @@ def decode_operands(gen, dtype, q_len, lengths, b=BATCH, h=16, d=128,
                       device="cuda").to(dtype)
     q = qkv[..., :h * d].view(b, q_len, h, d).transpose(1, 2)
     kv_len = torch.tensor(lengths, dtype=torch.int32, device="cuda")
-    return q, kp, vp, table.cuda(), kv_len
+    return q, kp, vp, table.cuda(), kv_len, ks, vs
 
 
-def flash_decode_case(gen, name, dtype, q_len, lengths):
-    q, kp, vp, table, kv_len = decode_operands(gen, dtype, q_len, lengths)
-    o = att.flash_decode(q, kp, vp, table, kv_len)
-    ro = att._paged_attention(q, kp, vp, table, kv_len,
-                              1 / math.sqrt(q.shape[-1]))
+def decode_plain(q, kp, vp, table, kv_len, ks, vs):
+    return att._paged_attention(q, kp, vp, table, kv_len,
+                                1 / math.sqrt(q.shape[-1]), ks, vs)
+
+
+def flash_decode_case(gen, name, dtype, q_len, lengths, quant=None):
+    """K5 through ``flash_decode`` against its plain version, naming the
+    entry point that ran; ``flash_decode_sm90.cu``'s run again (bitwise).
+    Returns (max error, operands, the entry point)."""
+    ops = decode_operands(gen, dtype, q_len, lengths, quant=quant)
+    q, kp, vp, table, kv_len, ks, vs = ops
+
+    def run():
+        return att.flash_decode(q, kp, vp, table, kv_len, k_scale=ks,
+                                v_scale=vs)
+
+    o, ran = launched(run)
+    ro = decode_plain(*ops)
     torch.cuda.synchronize()
-    err = check(f"flash_decode {name}", o, ro)
+    err = check(f"{ran[0]} {name}", o, ro)
     for i, n in enumerate(lengths):
         for r in range(q_len):
             if n - q_len + r < 0 and not bool((o[i, :, r] == 0).all()):
                 raise AssertionError(
-                    f"flash_decode {name}: row {r} of request {i} "
+                    f"{ran[0]} {name}: row {r} of request {i} "
                     f"(kv_len {n} < q_len {q_len}) is not exact zeros")
-    return err, (q, kp, vp, table, kv_len)
+    if ran[0] != "flash_decode":
+        check_bitwise(f"{ran[0]} {name} run twice", (o,), (run(),))
+    return err, ops, ran[0]
 
 
-def time_flash_decode(dtype, q, kp, vp, table, kv_len) -> dict:
+def time_flash_decode(name, ops) -> dict:
+    """K5 at one shape, cold: the kernel ``flash_decode`` runs for this
+    pool, its plain version, a page gather + SDPA (the codes dequantized
+    to q's dtype first) and the bound: the live pages' rows (codes and
+    scales) read once, q in, o out, the table and lengths in.  On a bf16
+    pool ``flash_decode.cu``, the route before ``flash_decode_sm90.cu``,
+    is timed cold too, and the two in turns (``timing.timed_pair``)."""
+    q, kp, vp, table, kv_len, ks, vs = ops
     b, h, q_len, d = q.shape
     page_size, p_max = kp.shape[1], table.shape[1]
-    ms = cold_ms(lambda: att.flash_decode(q, kp, vp, table, kv_len), 50)
-    plain_ms = cold_ms(lambda: att._paged_attention(
-        q, kp, vp, table, kv_len, 1 / math.sqrt(d)), 50)
+
+    def new():
+        return att.flash_decode(q, kp, vp, table, kv_len, k_scale=ks,
+                                v_scale=vs)
+
+    ms = cold_ms(new, 50)
+    plain_ms = cold_ms(lambda: decode_plain(*ops), 50)
     cols = torch.arange(p_max * page_size, device="cuda")
     rows = torch.arange(q_len, device="cuda")[:, None]
     visible = cols <= (kv_len.long() - q_len)[:, None, None, None] + rows
 
     def library():
         idx = table.long()
-        kc = kp[idx].reshape(b, -1, h, d).transpose(1, 2)
-        vc = vp[idx].reshape(b, -1, h, d).transpose(1, 2)
+        kc, vc = att._gather_pages(kp, idx), att._gather_pages(vp, idx)
+        if ks is not None:
+            kc = (kc.float() * ks[idx][..., None]).to(q.dtype)
+            vc = (vc.float() * vs[idx][..., None]).to(q.dtype)
+        kc = kc.reshape(b, -1, h, d).transpose(1, 2)
+        vc = vc.reshape(b, -1, h, d).transpose(1, 2)
         return F.scaled_dot_product_attention(q, kc, vc, attn_mask=visible)
 
     lib_ms = cold_ms(library, 50)
-    item = q.element_size()
     reach = p_max * page_size
     live_cols = sum(min(int(n), reach) for n in kv_len.tolist())
     seen = sum(max(0, min(int(n) - q_len + r + 1, reach))
                for n in kv_len.tolist() for r in range(q_len))
-    # live K/V pages' rows read once, q in, o out, table and lengths in
-    nbytes = (2 * live_cols * h * d * item + 2 * b * h * q_len * d * item
+    nbytes = (2 * live_cols * h * d * kp.element_size()
+              + 2 * b * h * q_len * d * q.element_size()
               + table.numel() * 4 + b * 4)
     flops = 4 * d * h * seen
-    bound_ms, bound_by = bound(nbytes, flops, dtype)
-    log(f"  flash_decode timing [{b},{h},{q_len},{d}] {dtype} kv_len "
+    op_dtype = q.dtype
+    if ks is not None:
+        # the scales, and the dequantizing products, in fp32
+        nbytes += 2 * live_cols * h * 4
+        flops += 2 * d * h * live_cols
+        op_dtype = torch.float32
+    bound_ms, bound_by = bound(nbytes, flops, op_dtype)
+    row = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+               bound_ms=bound_ms, bound_by=bound_by)
+    old = ""
+    if ks is None:
+        scale = 1 / math.sqrt(d)
+
+        def scalar():
+            return att._flash_decode_cuda(q, kp, vp, table, kv_len, scale)
+
+        pair = timing.timed_pair(scalar, new, (), ())
+        row.update(old_ms=cold_ms(scalar, 50), old_warm_pair_ms=pair[0],
+                   warm_pair_ms=pair[1])
+        old = (f"; flash_decode.cu {row['old_ms']:.4f} ms cold; in turns, "
+               f"warm: flash_decode.cu {pair[0]:.4f} vs {pair[1]:.4f} ms")
+    log(f"  {name} timing [{b},{h},{q_len},{d}] {kp.dtype} kv_len "
         f"{kv_len.tolist()}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"gather+sdpa {lib_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by})")
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                bound_ms=bound_ms, bound_by=bound_by)
+        f"gather+sdpa {lib_ms:.4f} ms, bound {bound_ms:.5f} ms "
+        f"({bound_by}): {bound_ms / ms:.1%} of it" + old)
+    return row
+
+
+def phase_decode_kernels(gen) -> dict:
+    """K5 on each pool: held to its plain version at q_len 1, 5 (windows
+    shorter than q_len) and 20 over the ragged lengths, then timed at
+    :data:`DECODE_SHAPES`; the fp32 pool on ``flash_decode.cu``, which
+    is also timed on bf16 as the kernel ``flash_decode_sm90.cu``
+    replaced there; the card's ``quantize_tokens`` against the CPU's."""
+    bf16 = torch.bfloat16
+    out = {}
+    for pool, quant, name in DECODE_POOLS:
+        cases = [flash_decode_case(gen, f"{pool} pool q_len={q_len}{what}",
+                                   bf16, q_len, DECODE_RAGGED, quant)
+                 for q_len, what in ((1, ""), (5, " (kv_len < q_len rows)"),
+                                     (20, " (ten row pairs)"))]
+        if any(ran != name for _, _, ran in cases):
+            raise AssertionError(f"the {pool} pool did not run {name}")
+        shapes = {shape: time_flash_decode(
+            f"{name} {shape}", cases[0][1] if shape == "ragged" else
+            decode_operands(gen, bf16, 1, lengths, p_max=p_max, quant=quant))
+            for shape, lengths, p_max in DECODE_SHAPES}
+        out[name] = dict(shapes["ragged"], max_abs_err=max(
+            e for e, _, _ in cases), shapes=shapes)
+    err32, _, ran = flash_decode_case(gen, "fp32 pool q_len=1",
+                                      torch.float32, 1, DECODE_RAGGED)
+    if ran != "flash_decode":
+        raise AssertionError(f"the fp32 pool ran {ran}, not flash_decode")
+    new = {k: v for k, v in out["flash_decode_sm90"].items()
+           if not k.startswith("old_")}
+    out["flash_decode"] = dict(
+        new, ms=out["flash_decode_sm90"]["old_ms"], max_abs_err=err32,
+        warm_pair_ms=out["flash_decode_sm90"]["old_warm_pair_ms"],
+        shapes={k: dict(v, ms=v["old_ms"])
+                for k, v in out["flash_decode_sm90"]["shapes"].items()})
+    quantize_card_vs_cpu(gen)
+    return out
+
+
+def quantize_card_vs_cpu(gen, tokens=4096) -> None:
+    """``quantize_tokens`` on the card against the CPU, bit for bit, codes
+    and scales, on one seeded [tokens, 16, 128] input over six decades."""
+    x = torch.randn(tokens, 16, 128, generator=gen, device="cuda") * 10.0 ** (
+        torch.rand(tokens, 16, 1, generator=gen, device="cuda") * 6 - 3)
+    for mode in ("int8", "fp8"):
+        codes = quant_pool_dtype(mode)
+        qmax = model_mod.quant_qmax(codes)
+        c, sc = quantize_tokens(x, codes, qmax)
+        cc, csc = quantize_tokens(x.cpu(), codes, qmax)
+        same = (torch.equal(c.view(torch.uint8).cpu(), cc.view(torch.uint8))
+                and torch.equal(sc.cpu().view(torch.int32),
+                                csc.view(torch.int32)))
+        log(f"  quantize_tokens {mode} [{tokens}, 16, 128], card vs CPU: "
+            f"bitwise equal {same}")
+        if not same:
+            raise AssertionError(f"quantize_tokens {mode}: the card's codes "
+                                 "or scales differ from the CPU's")
 
 
 # the training main path's attention and LayerNorm shapes (GPT-1.3B,
@@ -1432,21 +1576,12 @@ def phase_kernels() -> dict:
     flash_fwd_case(gen, "bf16 three segments", bf16, [300, 400, 200])
     err_fwd32 = flash_fwd_case(gen, "fp32 one segment C=700 + pad", fp32,
                                [700])[0]
-    ragged = [1, 2, 63, 64, 65, 200, 320, 3]
-    err_dec, dec_ops = flash_decode_case(gen, "bf16 q_len=1", bf16, 1, ragged)
-    flash_decode_case(gen, "bf16 q_len=5 (kv_len < q_len rows)", bf16, 5,
-                      ragged)
-    flash_decode_case(gen, "bf16 q_len=20 (two row blocks)", bf16, 20,
-                      ragged)
-    flash_decode_case(gen, "fp32 q_len=1", fp32, 1, ragged)
     fwd, sfwd = time_flash_fwd(bf16, *fwd_ops)
-    dec = time_flash_decode(bf16, *dec_ops)
-    # a full decode batch as the main path sees it mid-trace
-    time_flash_decode(bf16, *decode_operands(gen, bf16, 1, [300] * BATCH))
-    fwd["max_abs_err"], dec["max_abs_err"] = err_fwd, err_dec
+    fwd["max_abs_err"] = err_fwd
     sfwd["max_abs_err"] = err_fwd32   # the scalar K1's route: fp32, d = 8
-    del fwd_ops, dec_ops
-    out = {"flash_fwd_sm90": fwd, "flash_fwd": sfwd, "flash_decode": dec,
+    del fwd_ops
+    out = {"flash_fwd_sm90": fwd, "flash_fwd": sfwd,
+           **phase_decode_kernels(gen),
            **phase_training_kernels(),
            **phase_generic_kernels()}
     torch.cuda.empty_cache()
@@ -1491,11 +1626,12 @@ def phase_toy() -> dict:
 # -- phase 5: the full-width engine ----------------------------------------
 
 
-def full_engine(params, cfg, max_batch=BATCH) -> ServingEngine:
+def full_engine(params, cfg, max_batch=BATCH, kv_quant=None) -> ServingEngine:
     return ServingEngine(cfg, params, num_pages=NUM_PAGES, page_size=PAGE,
                          max_batch=max_batch,
                          max_pages_per_request=PAGES_PER_REQ,
-                         prefill_budget=cfg.max_position, device="cuda")
+                         prefill_budget=cfg.max_position, kv_quant=kv_quant,
+                         device="cuda")
 
 
 def trace(seed, n):
@@ -1515,19 +1651,38 @@ def plain_attention():
                                   causal, None, segment_ids, segment_ids)
         return o.view(b, h, s, d)
 
-    def fd(q, k_pages, v_pages, page_table, kv_len):
-        return att._paged_attention(q, k_pages, v_pages, page_table, kv_len,
-                                    1 / math.sqrt(q.shape[-1]))
+    def fd(q, k_pages, v_pages, page_table, kv_len, k_scale=None,
+           v_scale=None):
+        return decode_plain(q, k_pages, v_pages, page_table, kv_len,
+                            k_scale, v_scale)
 
     return mock.patch.multiple(model_mod, flash_attention=fa,
                                flash_decode=fd)
 
 
+def logits_close(what, got, ref, shape) -> float:
+    """Kernel-path logits against the plain path's.  bf16 rounds at every
+    layer, so the bar is a few bf16 ulps of the logit scale (8 x 2^-8 x
+    max|ref|), not one."""
+    got, ref = got.float(), ref.float()
+    if not bool(torch.isfinite(got).all()) or tuple(got.shape) != shape:
+        raise AssertionError(f"{what} logits: shape {tuple(got.shape)} or "
+                             "non-finite values")
+    err = (got - ref).abs().max().item()
+    tol = 8 * 2.0 ** -8 * ref.abs().max().item()
+    log(f"  {what} logits, kernels vs plain: max_abs_diff {err:.3e}  tol "
+        f"{tol:.3e}  (logit scale {ref.abs().max().item():.3f}, argmax "
+        f"{got.argmax(-1).flatten().tolist()} vs "
+        f"{ref.argmax(-1).flatten().tolist()})")
+    if not err <= tol:
+        raise AssertionError(f"{what} logits: kernel path disagrees")
+    return err
+
+
 @torch.no_grad()
 def logits_check(eng: ServingEngine, prompt) -> float:
     """Last-position prefill logits of ``prompt``, kernel path vs plain
-    path, same weights.  bf16 rounds at every layer, so the bar is a few
-    bf16 ulps of the logit scale (8 x 2^-8 x max|ref|), not one."""
+    path, same weights."""
     S, C = eng.prefill_budget, len(prompt)
     host = np.zeros((3, S), np.int32)
     host[0, :C], host[1, :C], host[2, :C] = prompt, 1, np.arange(C)
@@ -1537,41 +1692,47 @@ def logits_check(eng: ServingEngine, prompt) -> float:
     with plain_attention():
         ref, _, _ = eng.decoder.prefill(eng.params, dev[0:1], dev[1:2],
                                         dev[2:3], C - 1)
-    got, ref = got.float(), ref.float()
-    if not bool(torch.isfinite(got).all()) or got.shape != (
-            1, 1, FULL["vocab_size"]):
-        raise AssertionError(f"prefill logits: shape {tuple(got.shape)} or "
-                             "non-finite values")
-    err = (got - ref).abs().max().item()
-    tol = 8 * 2.0 ** -8 * ref.abs().max().item()
-    log(f"  full-width prefill logits, kernels vs plain: max_abs_diff "
-        f"{err:.3e}  tol {tol:.3e}  (logit scale {ref.abs().max().item():.3f},"
-        f" argmax {int(got.argmax())} vs {int(ref.argmax())})")
-    if not err <= tol:
-        raise AssertionError("full-width logits: kernel path disagrees")
-    return err
+    return logits_close("full-width prefill", got, ref,
+                        (1, 1, FULL["vocab_size"]))
 
 
-@torch.no_grad()
-def decode_step_split(eng: ServingEngine, steps: int = 20) -> dict:
-    """A full-batch decode step (every row at kv_len 256, its own 5
-    pages) timed two ways: until the host has enqueued it, and until the
-    device has finished it.  When the two are close the host, not the
-    device, sets the step time.  Medians over ``steps`` steps; the pool
-    is drained, so the writes land in free pages."""
+def full_batch_operands(eng: ServingEngine) -> torch.Tensor:
+    """The engine's decode operand row for a full batch: every row at
+    kv_len 256 on its own 5 pages (the pool is drained, so the appends
+    land in free pages)."""
     b, p_max = eng.max_batch, eng.cache.max_pages_per_request
     host = np.zeros(3 * b + b * p_max, np.int32)
     host[b:2 * b], host[2 * b:3 * b] = 255, 256      # positions, kv_len
     host[3 * b:] = 1 + np.arange(b * p_max)         # distinct pages
-    dev = torch.from_numpy(host).cuda()
-    args = (eng.params, eng.cache.k, eng.cache.v, dev[:b], dev[b:2 * b],
-            dev[3 * b:].view(b, p_max), dev[2 * b:3 * b])
-    eng.decoder.decode(*args)
+    return torch.from_numpy(host).cuda()
+
+
+@torch.no_grad()
+def decode_logits_check(eng: ServingEngine) -> float:
+    """A full-batch decode step's logits through K5 against the same step
+    through its plain version, on the same pool (each run appends its own
+    token's K/V before reading)."""
+    dev = full_batch_operands(eng)
+    got = eng._decode(dev)
+    with plain_attention():
+        ref = eng._decode(dev)
+    return logits_close(f"full-batch decode ({eng.kv_quant or 'bf16'} "
+                        "pool)", got, ref, (BATCH, FULL["vocab_size"]))
+
+
+@torch.no_grad()
+def decode_step_split(eng: ServingEngine, steps: int = 20) -> dict:
+    """A full-batch decode step timed two ways: until the host has
+    enqueued it, and until the device has finished it.  When the two are
+    close the host, not the device, sets the step time.  Medians over
+    ``steps`` steps."""
+    dev = full_batch_operands(eng)
+    eng._decode(dev)
     torch.cuda.synchronize()
     enqueue, done = [], []
     for _ in range(steps):
         t0 = time.perf_counter()
-        eng.decoder.decode(*args)
+        eng._decode(dev)
         t1 = time.perf_counter()
         torch.cuda.synchronize()
         enqueue.append((t1 - t0) * 1e3)
@@ -1584,12 +1745,62 @@ def decode_step_split(eng: ServingEngine, steps: int = 20) -> dict:
     return split
 
 
-def phase_full(smi: str) -> dict:
+# kernel-name fragments of a decode step -> its parts (step_profile)
+DECODE_KINDS = (("decode_split", "K5 flash_decode_sm90"),
+                ("decode_merge", "K5 flash_decode_sm90 (split merge)"),
+                ("gemm", "GEMMs (cuBLAS)"), ("gemv", "GEMMs (cuBLAS)"),
+                ("xmma", "GEMMs (cuBLAS)"), ("nvjet", "GEMMs (cuBLAS)"),
+                ("cutlass", "GEMMs (cuBLAS)"))
+
+
+@torch.no_grad()
+def decode_step_profile(eng: ServingEngine) -> dict:
+    """One full-batch decode step's device time by part under
+    ``torch.profiler``: K5, the GEMMs, the elementwise rest, and busy
+    against wall (the wall holds the host's enqueue)."""
+    dev = full_batch_operands(eng)
+    eng._decode(dev)
+    prof = step_profile(lambda: eng._decode(dev), DECODE_KINDS)
+    k5 = sum(t for k, t in prof["by_kind_ms"].items() if k.startswith("K5"))
+    log(f"  full-batch decode step under torch.profiler "
+        f"({eng.kv_quant or 'bf16'} pool): busy "
+        f"{prof['device_busy_ms']:.3f} of a {prof['wall_ms']:.3f} ms wall "
+        f"(idle {prof['idle_share']:.1%}); K5 {k5:.3f} ms, "
+        f"{k5 / prof['device_busy_ms']:.1%} of busy; by kind "
+        + ", ".join(f"{k} {t:.3f}" for k, t in prof["by_kind_ms"].items()))
+    log_other_ops(prof)
+    return {k: prof[k] for k in ("wall_ms", "device_busy_ms", "idle_share",
+                                 "by_kind_ms")}
+
+
+def stream_sets(params, cfg, kv_quant) -> dict:
+    """Three requests of a seeded trace served together, again, one at a
+    time at the same ``max_batch``, and (recorded only) at ``max_batch``
+    1, where every GEMM has another shape."""
+    def run(max_batch=BATCH, one_at_a_time=False):
+        eng = full_engine(params, cfg, max_batch, kv_quant)
+        handles = []
+        for r in trace(1, 3):
+            handles.append(eng.submit(r.prompt, r.max_new_tokens))
+            if one_at_a_time:
+                eng.run()
+        eng.run()
+        return [h.generated for h in handles]
+
+    return {"together": run(), "again": run(),
+            "one_at_a_time": run(one_at_a_time=True),
+            "max_batch_1": run(max_batch=1)}
+
+
+def serve_full(params, cfg, pool, kv_quant, decode_kernel, smi) -> dict:
+    """``warmup()`` and ``serve()`` of the seeded trace on one pool, with
+    exact launch counts (the tensor-core K1 and the pool's K5 entry
+    point, nothing else), the kernel path's decode logits against the
+    plain path's, the decode step's host/device split and device profile,
+    and batched == sequential == a re-run, bitwise."""
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    cfg = ServingModelConfig(**FULL, dtype=torch.bfloat16)
-    params = init_params(cfg, seed=0, device="cuda")
-    eng = full_engine(params, cfg)
+    eng = full_engine(params, cfg, kv_quant=kv_quant)
     reqs = trace(0, 16)
 
     kernels.reset_launch_counts()
@@ -1603,21 +1814,21 @@ def phase_full(smi: str) -> dict:
     if len(finished) != len(reqs) or any(
             r.finish_reason != "length" or len(r.generated) != r.max_new_tokens
             for r in finished):
-        raise AssertionError("full-width serve: not every request finished")
+        raise AssertionError(f"{pool} serve: not every request finished")
     if eng.cache.pages_used != 0:
         raise AssertionError(f"pool not drained: {eng.cache.pages_used} used")
     prefills = sum(1 + r.preemptions for r in finished)
     want = {"flash_fwd_sm90": cfg.num_layers * (prefills + 1),
-            "flash_decode": cfg.num_layers * (eng.decode_steps + 1)}
-    log(f"  launches {launches}, expected {want} ({prefills} prefills + "
-        f"warmup, {eng.decode_steps} decode steps + warmup)")
+            decode_kernel: cfg.num_layers * (eng.decode_steps + 1)}
+    log(f"  {pool} pool: launches {launches}, expected {want} ({prefills} "
+        f"prefills + warmup, {eng.decode_steps} decode steps + warmup)")
     if launches != want:
         raise AssertionError("launch counts do not match the main path")
     tokens = sum(len(r.generated) for r in finished)
     ttft = [(r.first_token_t - r.arrival_t) * 1e3 for r in finished]
     tpot = [(r.finish_t - r.first_token_t) / (len(r.generated) - 1) * 1e3
             for r in finished if len(r.generated) > 1]
-    metrics = {"requests": len(finished), "tokens": tokens,
+    metrics = {"pool": pool, "requests": len(finished), "tokens": tokens,
                "wall_s": wall, "tok_per_s": tokens / wall,
                "ttft_p50_ms": statistics.median(ttft),
                "tpot_p50_ms": statistics.median(tpot),
@@ -1627,45 +1838,36 @@ def phase_full(smi: str) -> dict:
                "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
                "card": smi}
     log("  serve " + json.dumps(metrics))
-    logits_check(eng, reqs[0].prompt)
+    if kv_quant is None:
+        logits_check(eng, reqs[0].prompt)
+    metrics["decode_logits_err"] = decode_logits_check(eng)
     metrics.update(decode_step_split(eng))
+    metrics["decode_step_profile"] = decode_step_profile(eng)
     del eng
     torch.cuda.empty_cache()
 
-    # batched == sequential at equal max_batch (and, recorded only, at
-    # max_batch 1, where every GEMM has another shape)
-    def stream_sets():
-        together = full_engine(params, cfg)
-        handles = [together.submit(r.prompt, r.max_new_tokens)
-                   for r in trace(1, 3)]
-        together.run()
-        out = {"together": [h.generated for h in handles]}
-        del together
-        one = full_engine(params, cfg)
-        out["one_at_a_time"] = []
-        for r in trace(1, 3):
-            h = one.submit(r.prompt, r.max_new_tokens)
-            one.run()
-            out["one_at_a_time"].append(h.generated)
-        del one
-        batch1 = full_engine(params, cfg, max_batch=1)
-        handles = [batch1.submit(r.prompt, r.max_new_tokens)
-                   for r in trace(1, 3)]
-        batch1.run()
-        out["max_batch_1"] = [h.generated for h in handles]
-        return out
-
-    s = stream_sets()
+    s = stream_sets(params, cfg, kv_quant)
     same = s["together"] == s["one_at_a_time"]
+    rerun = s["together"] == s["again"]
     same_b1 = s["together"] == s["max_batch_1"]
-    log(f"  batched == sequential at max_batch {BATCH}: {same}; "
-        f"max_batch {BATCH} == max_batch 1: {same_b1} (recorded, not "
-        f"required)")
-    if not same:
-        raise AssertionError("batched and sequential streams differ")
+    log(f"  {pool} pool: batched == sequential at max_batch {BATCH}: "
+        f"{same}; a re-run equal to itself: {rerun}; max_batch {BATCH} == "
+        f"max_batch 1: {same_b1} (recorded, not required)")
+    if not (same and rerun):
+        raise AssertionError(f"{pool} pool: batched, sequential and re-run "
+                             "streams differ")
     metrics.update(launches=launches, batched_eq_sequential=same,
-                   batch8_eq_batch1=same_b1)
+                   rerun_eq=rerun, batch8_eq_batch1=same_b1)
     return metrics
+
+
+def phase_full(smi: str) -> dict:
+    """The full-width engine on each pool (:data:`DECODE_POOLS`); the
+    quantized streams are not held equal to the bf16 ones."""
+    cfg = ServingModelConfig(**FULL, dtype=torch.bfloat16)
+    params = init_params(cfg, seed=0, device="cuda")
+    return {pool: serve_full(params, cfg, pool, quant, name, smi)
+            for pool, quant, name in DECODE_POOLS}
 
 
 # -- phase 6: toy training, cuda vs cpu -------------------------------------
@@ -2609,8 +2811,9 @@ def dots_case(gen, what, shape) -> tuple:
 
 def sass_count(source: str, opcode: str) -> int:
     """Lines of one instruction (``HMMA``: ``mma.sync`` on the tensor cores,
-    ``HGMMA``: ``wgmma``, ``UTMALDG``: a TMA load) in the SASS of a built
-    source's library, from ``cuobjdump -sass``."""
+    ``HGMMA``: ``wgmma``, ``UTMALDG``: a TMA load; a regular expression,
+    matched as a word) in the SASS of a built source's library, from
+    ``cuobjdump -sass``."""
     tool = kernels._build.cuda_tool("cuobjdump")
     sass = subprocess.run([tool, "-sass",
                            str(kernels._build.library_path(source))],
@@ -2621,16 +2824,26 @@ def sass_count(source: str, opcode: str) -> int:
 
 SM90_SOURCES = ("flash_qkv_fwd_sm90.cu", "flash_qkv_bwd_sm90.cu",
                 "flash_bwd_sm90.cu", "flash_fwd_sm90.cu")
-#: the sources held to no spill and no stack: the tensor-core ones and
-#: K6/K7's, whose rows and dgamma/dbeta sums live in registers
-SPILL_FREE_SOURCES = SM90_SOURCES + ("layer_norm_sm90.cu",)
+#: the sources held to no spill and no stack: the tensor-core ones, K6/K7's,
+#: whose rows and dgamma/dbeta sums live in registers, and K5's, whose
+#: lanes hold q, a tile's K/V vectors and their partial sums in registers
+SPILL_FREE_SOURCES = SM90_SOURCES + ("layer_norm_sm90.cu",
+                                     "flash_decode_sm90.cu")
+#: the instructions each source's SASS must hold: wgmma (HGMMA) and TMA
+#: loads (UTMALDG) in the tensor-core sources; 16-byte global loads of the
+#: pool's K/V rows in K5's
+#: (as a name and the pattern ``sass_count`` searches for)
+SASS_WANT = {**{src: {"HGMMA": "HGMMA", "UTMALDG": "UTMALDG"}
+                for src in SM90_SOURCES},
+             "flash_decode_sm90.cu": {"LDG.E.128": r"LDG\.E(?:\.\w+)*\.128"}}
 
 
 def sm90_build_checks() -> dict:
-    """The tensor-core sources (K3/K4's, K2's and K1's bf16 routes) and
-    ``layer_norm_sm90.cu`` (K6/K7) as built: every instance free of spills
-    and stack in ``ptxas -v``'s report, and the tensor-core sources' SASS
-    holding ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA loads)."""
+    """The tensor-core sources (K3/K4's, K2's and K1's bf16 routes),
+    ``layer_norm_sm90.cu`` (K6/K7) and ``flash_decode_sm90.cu`` (K5) as
+    built: every instance free of spills and stack in ``ptxas -v``'s
+    report, and each source's SASS holding the instructions of
+    :data:`SASS_WANT`."""
     out = {}
     for src in SPILL_FREE_SOURCES:
         text = kernels.build_log.get(src)
@@ -2646,16 +2859,16 @@ def sm90_build_checks() -> dict:
         spills = [(demangle(fn), stack, spill)
                   for fn, _, stack, spill in report if stack or spill]
         regs = [r for _, r, _, _ in report] or [0]
-        counts = ({op: sass_count(src, op) for op in ("HGMMA", "UTMALDG")}
-                  if src in SM90_SOURCES else {})
+        counts = {op: sass_count(src, rx)
+                  for op, rx in SASS_WANT.get(src, {}).items()}
         log(f"  {src}: {len(report)} instances, registers {min(regs)}.."
             f"{max(regs)}, spills or stack in {len(spills)}"
             + "".join(f"; SASS {n} {op}" for op, n in counts.items()))
         if spills or not report:
             raise AssertionError(f"{src}: ptxas reports spills {spills}")
         if not all(counts.values()):
-            raise AssertionError(f"{src}: no wgmma or TMA in its SASS "
-                                 f"({counts})")
+            raise AssertionError(f"{src}: its SASS lacks an instruction of "
+                                 f"{list(counts)} ({counts})")
         out[src] = dict(counts, instances=len(report), max_registers=max(regs))
     return out
 
@@ -2882,7 +3095,7 @@ def main() -> int:
     toy = phase_toy()
 
     begin(5, "full-width engine (GPT-1.3B width, 24 layers, bf16)")
-    metrics = phase_full(smi)
+    serving = phase_full(smi)
     torch.cuda.empty_cache()
 
     begin(6, "toy training, cuda vs cpu")
@@ -2926,7 +3139,7 @@ def main() -> int:
         dict(name="flash_fwd_sm90", route="cuda",
              source="apex_tpu_torch/csrc/flash_fwd_sm90.cu",
              replaces="apex_tpu/ops/attention.py:738",
-             launches=metrics["launches"]["flash_fwd_sm90"],
+             launches=serving["bf16"]["launches"]["flash_fwd_sm90"],
              launches_mha=mha["launches"]["flash_fwd_sm90"],
              launches_microbench=probes["launches"]["flash_fwd_sm90"],
              **timings["flash_fwd_sm90"]),
@@ -2950,10 +3163,21 @@ def main() -> int:
              replaces="apex_tpu/ops/attention.py:1139",
              launches=toy_mha["launches"]["flash_bwd"],
              **timings["flash_bwd"]),
+    ] + [
+        # K5: flash_decode_sm90.cu is the route at head dim 128, one entry
+        # point a pool (phase 5 serves on each); flash_decode.cu is the
+        # fp32 and head dim 8 route (phase 4's toy) and is timed on bf16
+        # as the kernel it replaced there
+        dict(name=name, route="cuda",
+             source="apex_tpu_torch/csrc/flash_decode_sm90.cu",
+             replaces="apex_tpu/ops/attention.py:2239",
+             launches=serving[pool]["launches"][name], **timings[name])
+        for pool, _, name in DECODE_POOLS
+    ] + [
         dict(name="flash_decode", route="cuda",
              source="apex_tpu_torch/csrc/flash_decode.cu",
              replaces="apex_tpu/ops/attention.py:2239",
-             launches=metrics["launches"]["flash_decode"],
+             launches=toy["launches"]["flash_decode"],
              **timings["flash_decode"]),
     ] + [
         # K3/K4: the bf16 route on the tensor cores runs the GPT-1.3B step

@@ -249,16 +249,6 @@ def test_flash_decode_matches_jax_decode_kernel_interpret():
     assert (got[0, :, 0] == 0).all()  # kv_len 2 < q_len 3
 
 
-def test_flash_decode_quantized_pool_is_not_ported():
-    q = torch.zeros(1, 1, 1, 8)
-    pool = torch.zeros(2, 8, 1, 8)
-    scales = torch.ones(2, 8, 1)
-    with pytest.raises(NotImplementedError):
-        flash_decode(q, pool, pool, torch.zeros(1, 1, dtype=torch.int32),
-                     torch.ones(1, dtype=torch.int32), k_scale=scales,
-                     v_scale=scales)
-
-
 def test_cpu_tensors_never_reach_a_kernel():
     # CPU tensors take the plain versions: no kernel is built or launched
     before = [k.launches for k in kernels.KERNELS]
