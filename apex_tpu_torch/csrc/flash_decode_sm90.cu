@@ -25,8 +25,8 @@
 // * No idle rows.  A key row of the pool is 16-byte vectors, one a lane:
 //   LPR = D * sizeof(code) / 16 lanes hold a key row (16 at bf16, 8 at one
 //   byte), so a warp scores 32 / LPR keys at once against q held in
-//   registers, and a block works for RQ query rows only (1 when q_len is
-//   1, the main path; kRowsMulti otherwise), not for a 16-row tile.
+//   registers, and a block works for one query row, not for a 16-row
+//   tile (a longer q_len gives each row its own blocks).
 // * A split walk.  A request's visible columns are cut into splits of
 //   kSplitElems / D columns, rounded down to whole pages (at least one
 //   page); one block takes a split.  Inside it, the table's entries for
@@ -67,7 +67,6 @@ constexpr int kThreads = kWarps * 32;
 constexpr int kTile = 16;            // columns a warp folds at a time
 constexpr int kSplitElems = 16384;   // a split's columns x the head dim
 constexpr int kD = 128;              // the head dim of every instance
-constexpr int kRowsMulti = 2;        // query rows a block when q_len > 1
 
 // 16 bytes of pool codes widened to fp32.
 template <typename KV>
@@ -129,17 +128,16 @@ struct Strides {
 };
 
 // The partition, on the host and on the device alike: a split's columns,
-// the columns a group of rows may see (rows r0 .. r0 + nrows - 1 of q_len;
-// row i sees cols <= kv - q_len + i; capped at the table's reach), and the
-// group's number of splits (at least one, so an empty window still
-// writes its zeros).
+// the columns query row r of q_len may see (cols <= kv - q_len + r,
+// capped at the table's reach), and the row's number of splits (at least
+// one, so an empty window still writes its zeros).
 __host__ __device__ inline int split_columns(int page_size) {
   const int pages = kSplitElems / kD / page_size;
   return (pages > 1 ? pages : 1) * page_size;
 }
 
-__host__ __device__ inline int group_columns(int kv, int q_len, int r0, int nrows, int reach) {
-  const int cols = kv - q_len + r0 + nrows;
+__host__ __device__ inline int row_columns(int kv, int q_len, int r, int reach) {
+  const int cols = kv - q_len + r + 1;
   return cols < 0 ? 0 : (cols < reach ? cols : reach);
 }
 
@@ -156,10 +154,10 @@ __device__ __forceinline__ float keep_or_round(float p, bool round_bf16) {
   return round_bf16 ? __bfloat162float(__float2bfloat16(p)) : p;
 }
 
-// One split of one request, head and group of RQ query rows: the split's
-// (m, l, acc) over its columns, written to o (normalised) when the group
-// has one split, else to the workspace for decode_merge.
-template <typename Q, typename KV, int RQ>
+// One split of one request, head and query row: the split's (m, l, acc)
+// over its columns, written to o (normalised) when the row has one
+// split, else to the workspace for decode_merge.
+template <typename Q, typename KV>
 __global__ void __launch_bounds__(kThreads)
     decode_split(const Q* __restrict__ q, const KV* __restrict__ kp, const KV* __restrict__ vp,
                  const float* __restrict__ ks, const float* __restrict__ vs, Q* __restrict__ o,
@@ -174,7 +172,7 @@ __global__ void __launch_bounds__(kThreads)
   constexpr int QV = 16 / sizeof(Q);
   static_assert(kD % E == 0 && 32 % LPR == 0 && kTile % G == 0, "tile shape");
   extern __shared__ int64_t offs[];  // [split cols] K/V row offsets, then scale offsets
-  __shared__ float part[kWarps][RQ][kD + 2];
+  __shared__ float part[kWarps][kD + 2];
 
   // the merge pass (decode_merge) may start launching now: it waits for
   // this grid's memory before it reads any
@@ -182,13 +180,10 @@ __global__ void __launch_bounds__(kThreads)
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane / LPR, c = lane % LPR;
   const int h = blockIdx.y;
-  const int n_groups = (q_len + RQ - 1) / RQ;
-  const int b = blockIdx.z / n_groups;
-  const int r0 = (blockIdx.z % n_groups) * RQ;
-  const int nrows = min(RQ, q_len - r0);
+  const int b = blockIdx.z / q_len;
+  const int r = blockIdx.z % q_len;
   const int kv = kv_len[b];
-  const int shift = kv - q_len + r0;  // row i of the group sees cols <= shift + i
-  const int ncols = group_columns(kv, q_len, r0, nrows, p_max * page_size);
+  const int ncols = row_columns(kv, q_len, r, p_max * page_size);  // cols [0, ncols) visible
   const int split_cols = split_columns(page_size);
   const int ns = n_splits(ncols, split_cols);
   const int split = blockIdx.x;
@@ -210,29 +205,16 @@ __global__ void __launch_bounds__(kThreads)
     koff[j] = page * st.pp + slot * st.ps + h * st.ph;
     if constexpr (P::kQuant) soff[j] = page * st.sp + slot * st.ss + h * st.sh;
   }
-  // this lane's E columns of the group's q rows, widened (zeros past nrows)
-  float qf[RQ][E];
+  // this lane's E columns of the q row, widened
+  float qf[E];
+  const Q* qrow = q + b * st.qb + h * st.qh + r * st.qr + c * E;
 #pragma unroll
-  for (int i = 0; i < RQ; ++i) {
-    if (i < nrows) {
-      const Q* src = q + b * st.qb + h * st.qh + (r0 + i) * st.qr + c * E;
-#pragma unroll
-      for (int k = 0; k < E / QV; ++k) apex::load16(src + k * QV, &qf[i][k * QV]);
-    } else {
-#pragma unroll
-      for (int e = 0; e < E; ++e) qf[i][e] = 0.f;
-    }
-  }
+  for (int k = 0; k < E / QV; ++k) apex::load16(qrow + k * QV, &qf[k * QV]);
   __syncthreads();
 
-  float m[RQ], l[RQ], acc[RQ][E];
+  float m = kNegInf, l = 0.f, acc[E];
 #pragma unroll
-  for (int i = 0; i < RQ; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int e = 0; e < E; ++e) acc[i][e] = 0.f;
-  }
+  for (int e = 0; e < E; ++e) acc[e] = 0.f;
   const int n_tiles = (n + kTile - 1) / kTile;
   for (int t = warp; t < n_tiles; t += kWarps) {
     const int j0 = t * kTile;
@@ -256,7 +238,7 @@ __global__ void __launch_bounds__(kThreads)
         kr[u] = vr[u] = make_uint4(0u, 0u, 0u, 0u);
       }
     }
-    float s[RQ][U];
+    float s[U];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       float kf[E];
@@ -265,46 +247,38 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
         for (int e = 0; e < E; ++e) kf[e] *= ksc[u];
       }
+      float a = 0.f;
 #pragma unroll
-      for (int i = 0; i < RQ; ++i) {
-        float a = 0.f;
+      for (int e = 0; e < E; ++e) a = fmaf(qf[e], kf[e], a);
+      // the LPR lanes of a key row each hold a part of q.k
 #pragma unroll
-        for (int e = 0; e < E; ++e) a = fmaf(qf[i][e], kf[e], a);
-        // the LPR lanes of a key row each hold a part of q.k
-#pragma unroll
-        for (int off = 1; off < LPR; off <<= 1) a += __shfl_xor_sync(0xffffffffu, a, off);
-        s[i][u] = a;
-      }
+      for (int off = 1; off < LPR; off <<= 1) a += __shfl_xor_sync(0xffffffffu, a, off);
+      s[u] = a;
     }
-    float p[RQ][U];
+    // the split holds the row's visible columns only: j < n is its window
+    float mx = kNegInf;
 #pragma unroll
-    for (int i = 0; i < RQ; ++i) {
-      float mx = kNegInf;
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-        const int j = j0 + u * G + g;
-        s[i][u] = (j < n && c0 + j <= shift + i) ? s[i][u] * scale : kNegInf;
-        mx = fmaxf(mx, s[i][u]);
-      }
-#pragma unroll
-      for (int off = LPR; off < 32; off <<= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[i], mx);
-      // a tile that hides every column from this row leaves m at the
-      // sentinel: no rescale of nothing, and exp forced to 0 (_masked_exp)
-      const float alpha = (m[i] <= kNegInf / 2) ? 0.f : expf(m[i] - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-        const float pu = (m_new <= kNegInf / 2) ? 0.f : expf(s[i][u] - m_new);
-        sum += pu;
-        p[i][u] = keep_or_round(pu, !P::kQuant);
-      }
-      l[i] = alpha * l[i] + sum;  // this lane group's part; m is the warp's
-      m[i] = m_new;
-#pragma unroll
-      for (int e = 0; e < E; ++e) acc[i][e] *= alpha;
+    for (int u = 0; u < U; ++u) {
+      s[u] = (j0 + u * G + g < n) ? s[u] * scale : kNegInf;
+      mx = fmaxf(mx, s[u]);
     }
+#pragma unroll
+    for (int off = LPR; off < 32; off <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    const float m_new = fmaxf(m, mx);
+    // a tile that hides every column leaves m at the sentinel: no rescale
+    // of nothing, and exp forced to 0 (_masked_exp)
+    const float alpha = (m <= kNegInf / 2) ? 0.f : expf(m - m_new);
+    float p[U], sum = 0.f;
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const float pu = (m_new <= kNegInf / 2) ? 0.f : expf(s[u] - m_new);
+      sum += pu;
+      p[u] = keep_or_round(pu, !P::kQuant);
+    }
+    l = alpha * l + sum;  // this lane group's part; m is the warp's
+    m = m_new;
+#pragma unroll
+    for (int e = 0; e < E; ++e) acc[e] *= alpha;
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       float vf[E];
@@ -314,53 +288,46 @@ __global__ void __launch_bounds__(kThreads)
         for (int e = 0; e < E; ++e) vf[e] *= vsc[u];
       }
 #pragma unroll
-      for (int i = 0; i < RQ; ++i)
-#pragma unroll
-        for (int e = 0; e < E; ++e) acc[i][e] = fmaf(p[i][u], vf[e], acc[i][e]);
+      for (int e = 0; e < E; ++e) acc[e] = fmaf(p[u], vf[e], acc[e]);
     }
   }
 
   // the warp's lane groups added (a butterfly: every lane gets the same
   // bits), then each warp's (m, l, acc) to shared memory
 #pragma unroll
-  for (int i = 0; i < RQ; ++i) {
+  for (int off = LPR; off < 32; off <<= 1) {
+    l += __shfl_xor_sync(0xffffffffu, l, off);
 #pragma unroll
-    for (int off = LPR; off < 32; off <<= 1) {
-      l[i] += __shfl_xor_sync(0xffffffffu, l[i], off);
+    for (int e = 0; e < E; ++e) acc[e] += __shfl_xor_sync(0xffffffffu, acc[e], off);
+  }
+  if (g == 0) {
 #pragma unroll
-      for (int e = 0; e < E; ++e) acc[i][e] += __shfl_xor_sync(0xffffffffu, acc[i][e], off);
-    }
-    if (g == 0) {
-#pragma unroll
-      for (int e = 0; e < E; ++e) part[warp][i][2 + c * E + e] = acc[i][e];
-    }
-    if (lane == 0) {
-      part[warp][i][0] = m[i];
-      part[warp][i][1] = l[i];
-    }
+    for (int e = 0; e < E; ++e) part[warp][2 + c * E + e] = acc[e];
+  }
+  if (lane == 0) {
+    part[warp][0] = m;
+    part[warp][1] = l;
   }
   __syncthreads();
 
   // the warps in warp order
-  for (int idx = threadIdx.x; idx < nrows * kD; idx += kThreads) {
-    const int i = idx / kD, col = idx % kD;
+  for (int col = threadIdx.x; col < kD; col += kThreads) {
     float mx = kNegInf;
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, part[w][i][0]);
+    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, part[w][0]);
     float L = 0.f, O = 0.f;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) {
-      const float mw = part[w][i][0];
+      const float mw = part[w][0];
       const float f = (mw <= kNegInf / 2) ? 0.f : expf(mw - mx);
-      L += f * part[w][i][1];
-      O += f * part[w][i][2 + col];
+      L += f * part[w][1];
+      O += f * part[w][2 + col];
     }
     if (ns == 1) {
-      apex::store(o + b * st.ob + h * st.oh + (r0 + i) * st.orow + col,
-                  O / (L == 0.f ? 1.f : L));
+      apex::store(o + b * st.ob + h * st.oh + r * st.orow + col, O / (L == 0.f ? 1.f : L));
     } else {
-      float* wp = work + ((((static_cast<int64_t>(b) * gridDim.y + h) * q_len + r0 + i) *
-                               max_splits + split) * (kD + 2));
+      float* wp = work + (((static_cast<int64_t>(b) * gridDim.y + h) * q_len + r) * max_splits +
+                          split) * (kD + 2);
       if (col == 0) {
         wp[0] = mx;
         wp[1] = L;
@@ -371,19 +338,17 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // The splits of one request, head and query row, added in split order
-// (rows whose group has a single split were written by decode_split).
+// (rows with a single split were written by decode_split).
 template <typename Q>
 __global__ void __launch_bounds__(kD)
     decode_merge(const float* __restrict__ work, Q* __restrict__ o,
-                 const int* __restrict__ kv_len, int q_len, int rq, int p_max, int page_size,
+                 const int* __restrict__ kv_len, int q_len, int p_max, int page_size,
                  int max_splits, Strides st) {
   // launched as decode_split's programmatic dependent: wait for its
   // grid to finish and its writes to be visible
   asm volatile("griddepcontrol.wait;" ::: "memory");
   const int row = blockIdx.x, h = blockIdx.y, b = blockIdx.z, col = threadIdx.x;
-  const int r0 = row / rq * rq;
-  const int nrows = min(rq, q_len - r0);
-  const int ns = n_splits(group_columns(kv_len[b], q_len, r0, nrows, p_max * page_size),
+  const int ns = n_splits(row_columns(kv_len[b], q_len, row, p_max * page_size),
                           split_columns(page_size));
   if (ns == 1) return;
   const float* wp =
@@ -400,7 +365,7 @@ __global__ void __launch_bounds__(kD)
   apex::store(o + b * st.ob + h * st.oh + row * st.orow + col, O / (L == 0.f ? 1.f : L));
 }
 
-template <typename Q, typename KV, int RQ>
+template <typename Q, typename KV>
 cudaError_t launch(const void* q, const void* kp, const void* vp, const float* ks,
                    const float* vs, void* o, float* work, const int* page_table,
                    const int* kv_len, int B, int H, int q_len, int p_max, int page_size,
@@ -408,10 +373,10 @@ cudaError_t launch(const void* q, const void* kp, const void* vp, const float* k
                    cudaStream_t stream) {
   const size_t smem =
       sizeof(int64_t) * split_columns(page_size) * (Pool<KV>::kQuant ? 2 : 1);
-  const cudaError_t attr = apex::allow_smem(decode_split<Q, KV, RQ>, smem);
+  const cudaError_t attr = apex::allow_smem(decode_split<Q, KV>, smem);
   if (attr != cudaSuccess) return attr;
-  const dim3 grid(max_splits, H, B * ((q_len + RQ - 1) / RQ));
-  decode_split<Q, KV, RQ><<<grid, kThreads, smem, stream>>>(
+  const dim3 grid(max_splits, H, B * q_len);
+  decode_split<Q, KV><<<grid, kThreads, smem, stream>>>(
       static_cast<const Q*>(q), static_cast<const KV*>(kp), static_cast<const KV*>(vp), ks, vs,
       static_cast<Q*>(o), work, page_table, kv_len, q_len, p_max, page_size, n_pages,
       max_splits, st, scale);
@@ -429,9 +394,8 @@ cudaError_t launch(const void* q, const void* kp, const void* vp, const float* k
   cfg.numAttrs = 1;
   const float* cwork = work;
   Q* out = static_cast<Q*>(o);
-  const int rq = RQ;
-  return cudaLaunchKernelEx(&cfg, decode_merge<Q>, cwork, out, kv_len, q_len, rq, p_max,
-                            page_size, max_splits, st);
+  return cudaLaunchKernelEx(&cfg, decode_merge<Q>, cwork, out, kv_len, q_len, p_max, page_size,
+                            max_splits, st);
 }
 
 template <typename KV>
@@ -452,16 +416,11 @@ int entry(int qdtype, int d, int device, const void* q, const void* k_pages,
   const Strides st{strides[0], strides[1], strides[2], strides[3],  strides[4],  strides[5],
                    strides[6], strides[7], strides[8], strides[9], strides[10], strides[11]};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool one = q_len == 1;
 #define APEX_DECODE_ARGS                                                                      \
   q, k_pages, v_pages, k_scale, v_scale, o, work, page_table, kv_len, B, H, q_len, p_max, \
       page_size, n_pages, max_splits, st, scale, s
-  if (qdtype == 0)
-    return one ? launch<float, KV, 1>(APEX_DECODE_ARGS)
-               : launch<float, KV, kRowsMulti>(APEX_DECODE_ARGS);
-  if (qdtype == 1)
-    return one ? launch<__nv_bfloat16, KV, 1>(APEX_DECODE_ARGS)
-               : launch<__nv_bfloat16, KV, kRowsMulti>(APEX_DECODE_ARGS);
+  if (qdtype == 0) return launch<float, KV>(APEX_DECODE_ARGS);
+  if (qdtype == 1) return launch<__nv_bfloat16, KV>(APEX_DECODE_ARGS);
 #undef APEX_DECODE_ARGS
   return cudaErrorInvalidValue;
 }

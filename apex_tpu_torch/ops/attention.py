@@ -795,12 +795,10 @@ def _paged_attention(q, k_pages, v_pages, page_table, kv_len, scale,
 #: split of a block is ``_DECODE_SPLIT_ELEMS / d`` columns rounded down to
 #: whole pages (kSplitElems); its warps (kWarps) fold tiles of
 #: ``_DECODE_TILE`` columns (kTile), tile t to warp t % kWarps; a block
-#: works for one query row when q_len is 1, else for ``_DECODE_ROWS_MULTI``
-#: (kRowsMulti)
+#: works for one query row
 _DECODE_SPLIT_ELEMS = 16384
 _DECODE_WARPS = 4
 _DECODE_TILE = 16
-_DECODE_ROWS_MULTI = 2
 #: the pool dtypes of ``flash_decode_sm90.cu``'s entry points, at head dim
 #: 128; the fp32 pool and head dim 8 run ``flash_decode.cu``
 _DECODE_SM90_KERNELS = {torch.bfloat16: FLASH_DECODE_SM90,
@@ -822,9 +820,8 @@ def decode_partition(kv_len: int, page_size: int, d: int) -> list:
     folds them``: each split (a block) adds its warps in order, then the
     splits are added in order.  A tile's columns are summed by a fixed
     butterfly inside the warp.  For q_len 1 a row sees ``kv_len`` columns
-    (``kv_len - q_len + i + 1`` for row i of a longer window; a block of
-    several rows walks the partition of its last row's count, the rows
-    before it seeing the tail as masked).  It is a function of the
+    (``kv_len - q_len + i + 1`` for row i of a longer window, which walks
+    the partition of that count).  It is a function of the
     request's own length, the page size and the head dim alone, never of
     the batch or the card: the engine's batched == sequential contract
     rests on it.  An empty window still has one split, which writes the

@@ -31,10 +31,13 @@ Phases, each of which fails the run (non-zero exit) on error:
    ``flash_decode_sm90.cu`` (one entry point a pool), the fp32 pool to
    ``flash_decode.cu``; each pool is held to the plain version at q_len
    1, 5 (windows shorter than q_len: exact zeros) and 20 over ragged
-   lengths, each case naming the entry point that ran and run twice
-   (bitwise), then timed cold at the ragged batch, 8 x 300 and 8 x 1024
-   (16 pages a request), ``flash_decode.cu`` on bf16 cold and in turns
-   beside it; the card's ``quantize_tokens`` must give the CPU's codes
+   lengths (the fp32 pool at q_len 1 and 5), each case naming the entry
+   point that ran, ``flash_decode_sm90.cu``'s run twice (bitwise), then
+   timed cold at the ragged batch, 8 x 300 and 8 x 1024 (16 pages a
+   request); ``flash_decode.cu`` is also called directly on the bf16
+   pool at the three q_len and at each timed shape, held to the plain
+   version there and timed cold and in turns beside
+   ``flash_decode_sm90.cu``; the card's ``quantize_tokens`` must give the CPU's codes
    and scales bit for bit.  K3/K4 route by dtype:
    bf16 to the tensor-core kernels, held to their plain versions causal
    and not, with segment ids, and at a ragged s = 1000, run twice
@@ -430,14 +433,20 @@ def decode_plain(q, kp, vp, table, kv_len, ks, vs):
                                 1 / math.sqrt(q.shape[-1]), ks, vs)
 
 
-def flash_decode_case(gen, name, dtype, q_len, lengths, quant=None):
-    """K5 through ``flash_decode`` against its plain version, naming the
-    entry point that ran; ``flash_decode_sm90.cu``'s run again (bitwise).
-    Returns (max error, operands, the entry point)."""
+def flash_decode_case(gen, name, dtype, q_len, lengths, quant=None,
+                      scalar=False):
+    """K5 through ``flash_decode`` (with ``scalar``, ``flash_decode.cu``
+    called directly, as on a bf16 pool before ``flash_decode_sm90.cu``)
+    against its plain version, naming the entry point that ran;
+    ``flash_decode_sm90.cu``'s run again (bitwise).  Returns (max error,
+    operands, the entry point)."""
     ops = decode_operands(gen, dtype, q_len, lengths, quant=quant)
     q, kp, vp, table, kv_len, ks, vs = ops
 
     def run():
+        if scalar:
+            return att._flash_decode_cuda(q, kp, vp, table, kv_len,
+                                          1 / math.sqrt(q.shape[-1]))
         return att.flash_decode(q, kp, vp, table, kv_len, k_scale=ks,
                                 v_scale=vs)
 
@@ -462,7 +471,8 @@ def time_flash_decode(name, ops) -> dict:
     to q's dtype first) and the bound: the live pages' rows (codes and
     scales) read once, q in, o out, the table and lengths in.  On a bf16
     pool ``flash_decode.cu``, the route before ``flash_decode_sm90.cu``,
-    is timed cold too, and the two in turns (``timing.timed_pair``)."""
+    is held to the plain version on the same operands and timed cold too,
+    and the two in turns (``timing.timed_pair``)."""
     q, kp, vp, table, kv_len, ks, vs = ops
     b, h, q_len, d = q.shape
     page_size, p_max = kp.shape[1], table.shape[1]
@@ -512,9 +522,11 @@ def time_flash_decode(name, ops) -> dict:
         def scalar():
             return att._flash_decode_cuda(q, kp, vp, table, kv_len, scale)
 
+        old_err = check(f"flash_decode on the {name} operands", scalar(),
+                        decode_plain(*ops))
         pair = timing.timed_pair(scalar, new, (), ())
         row.update(old_ms=cold_ms(scalar, 50), old_warm_pair_ms=pair[0],
-                   warm_pair_ms=pair[1])
+                   warm_pair_ms=pair[1], old_max_abs_err=old_err)
         old = (f"; flash_decode.cu {row['old_ms']:.4f} ms cold; in turns, "
                f"warm: flash_decode.cu {pair[0]:.4f} vs {pair[1]:.4f} ms")
     log(f"  {name} timing [{b},{h},{q_len},{d}] {kp.dtype} kv_len "
@@ -524,19 +536,25 @@ def time_flash_decode(name, ops) -> dict:
     return row
 
 
+# K5's checked q_len: the decode step's, windows shorter than q_len, and
+# two of flash_decode.cu's 16-row tiles
+DECODE_Q_LENS = ((1, ""), (5, " (kv_len < q_len rows)"),
+                 (20, " (two 16-row tiles)"))
+
+
 def phase_decode_kernels(gen) -> dict:
-    """K5 on each pool: held to its plain version at q_len 1, 5 (windows
-    shorter than q_len) and 20 over the ragged lengths, then timed at
-    :data:`DECODE_SHAPES`; the fp32 pool on ``flash_decode.cu``, which
-    is also timed on bf16 as the kernel ``flash_decode_sm90.cu``
+    """K5 on each pool: held to its plain version at :data:`DECODE_Q_LENS`
+    over the ragged lengths, then timed at :data:`DECODE_SHAPES`;
+    ``flash_decode.cu``, the fp32 pool's route, held to it on the fp32
+    pool at q_len 1 and 5 and, called directly, on the bf16 pool at every
+    q_len, then timed on bf16 as the kernel ``flash_decode_sm90.cu``
     replaced there; the card's ``quantize_tokens`` against the CPU's."""
     bf16 = torch.bfloat16
     out = {}
     for pool, quant, name in DECODE_POOLS:
         cases = [flash_decode_case(gen, f"{pool} pool q_len={q_len}{what}",
                                    bf16, q_len, DECODE_RAGGED, quant)
-                 for q_len, what in ((1, ""), (5, " (kv_len < q_len rows)"),
-                                     (20, " (ten row pairs)"))]
+                 for q_len, what in DECODE_Q_LENS]
         if any(ran != name for _, _, ran in cases):
             raise AssertionError(f"the {pool} pool did not run {name}")
         shapes = {shape: time_flash_decode(
@@ -545,17 +563,24 @@ def phase_decode_kernels(gen) -> dict:
             for shape, lengths, p_max in DECODE_SHAPES}
         out[name] = dict(shapes["ragged"], max_abs_err=max(
             e for e, _, _ in cases), shapes=shapes)
-    err32, _, ran = flash_decode_case(gen, "fp32 pool q_len=1",
-                                      torch.float32, 1, DECODE_RAGGED)
-    if ran != "flash_decode":
-        raise AssertionError(f"the fp32 pool ran {ran}, not flash_decode")
-    new = {k: v for k, v in out["flash_decode_sm90"].items()
-           if not k.startswith("old_")}
+    scalar = [flash_decode_case(gen, f"fp32 pool q_len={q_len}{what}",
+                                torch.float32, q_len, DECODE_RAGGED)
+              for q_len, what in DECODE_Q_LENS[:2]]
+    scalar += [flash_decode_case(gen, f"bf16 pool q_len={q_len}{what}",
+                                 bf16, q_len, DECODE_RAGGED, scalar=True)
+               for q_len, what in DECODE_Q_LENS]
+    if any(ran != "flash_decode" for _, _, ran in scalar):
+        raise AssertionError("the fp32 pool or the direct call did not run "
+                             "flash_decode")
+    # the record's numbers from the bf16 run that is timed
+    sm90 = out["flash_decode_sm90"]
+    new = {k: v for k, v in sm90.items() if not k.startswith("old_")}
     out["flash_decode"] = dict(
-        new, ms=out["flash_decode_sm90"]["old_ms"], max_abs_err=err32,
-        warm_pair_ms=out["flash_decode_sm90"]["old_warm_pair_ms"],
-        shapes={k: dict(v, ms=v["old_ms"])
-                for k, v in out["flash_decode_sm90"]["shapes"].items()})
+        new, ms=sm90["old_ms"], max_abs_err=sm90["old_max_abs_err"],
+        warm_pair_ms=sm90["old_warm_pair_ms"],
+        cases_max_abs_err=max(e for e, _, _ in scalar),
+        shapes={k: dict(v, ms=v["old_ms"], max_abs_err=v["old_max_abs_err"])
+                for k, v in sm90["shapes"].items()})
     quantize_card_vs_cpu(gen)
     return out
 
@@ -1756,8 +1781,9 @@ DECODE_KINDS = (("decode_split", "K5 flash_decode_sm90"),
 @torch.no_grad()
 def decode_step_profile(eng: ServingEngine) -> dict:
     """One full-batch decode step's device time by part under
-    ``torch.profiler``: K5, the GEMMs, the elementwise rest, and busy
-    against wall (the wall holds the host's enqueue)."""
+    ``torch.profiler``: K5, the GEMMs, the elementwise rest (also by the
+    ATen op that launched each kernel), and busy against wall (the wall
+    holds the host's enqueue)."""
     dev = full_batch_operands(eng)
     eng._decode(dev)
     prof = step_profile(lambda: eng._decode(dev), DECODE_KINDS)
@@ -1770,7 +1796,7 @@ def decode_step_profile(eng: ServingEngine) -> dict:
         + ", ".join(f"{k} {t:.3f}" for k, t in prof["by_kind_ms"].items()))
     log_other_ops(prof)
     return {k: prof[k] for k in ("wall_ms", "device_busy_ms", "idle_share",
-                                 "by_kind_ms")}
+                                 "by_kind_ms", "top_other_ops")}
 
 
 def stream_sets(params, cfg, kv_quant) -> dict:

@@ -369,7 +369,6 @@ def test_partition_constants_are_the_sources():
     assert _source_constant("kSplitElems") == tatt._DECODE_SPLIT_ELEMS
     assert _source_constant("kWarps") == tatt._DECODE_WARPS
     assert _source_constant("kTile") == tatt._DECODE_TILE
-    assert _source_constant("kRowsMulti") == tatt._DECODE_ROWS_MULTI
     assert _source_constant("kD") in tatt._DECODE_SM90_HEAD_DIMS
     # the three entry points the Kernel objects bind, one a pool dtype
     for symbol, code in (("flash_decode_sm90", "__nv_bfloat16"),
