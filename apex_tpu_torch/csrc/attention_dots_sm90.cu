@@ -23,34 +23,36 @@
 // card's full tensor-core rate, which only wgmma reaches.
 //
 // Design: K3's (flash_qkv_fwd_sm90.cu) minus the softmax.  One block per
-// (128-row q tile, batch-head): two consumer warpgroups of 64 rows.
+// (q tile, batch-head), a consumer warpgroup per 64 query rows of the
+// tile: three at head dim 128, two at 64 (there two blocks an SM).
 // Thread 0 loads the Q tile once by TMA, then 64-key K and V steps through
-// a ring of kStages stages with full/empty mbarriers (one arrive a warp),
-// and warp 0 refills a stage once both warpgroups have released it; steps
-// past the block's kept prefix are never loaded.  The step is 64 keys
-// because the rule's prefix is 64-granular: at blocks of 64 the two
-// warpgroups of a tile keep prefixes 64 keys apart, and a warpgroup
-// multiplies exactly the pairs the rule keeps (S by m64n64k16, P V over k
-// = 64), then walks the block's remaining steps only to release them.  A
-// warpgroup whose rows lie past s (a q tail of 64 rows: TMA reads them as
-// zeros) multiplies nothing and stores nothing.  S = Q K^T by wgmma with
-// both operands in shared memory (K-major); P = bf16(S * 1e-3) is
-// converted straight from the accumulator into A fragments in registers;
-// O += P V by wgmma with V read MN-major through the transpose bit.  The
-// two products are pipelined: S of step i + 1 is issued before P V of
-// step i, and the warpgroup waits only for S (wgmma.wait_group 1), so the
-// convert of step i + 1 runs while the tensor cores add P V of step i; P
-// lives in two register buffers, one per step in flight.  A stage is
-// released once its P V is known complete, one step later, so the ring
-// needs three stages or more.  At head dim 64 two blocks fit an SM (S, O
-// and both P buffers in 128 registers a thread).  q tiles with the most
-// keys start first.  `visits`, when given, receives the 64 x 64 sub-tiles
-// each block multiplied, so a caller can hold the walk against the rule's
-// pair count.
+// a ring of stages with full/empty mbarriers (one arrive a warp), and warp
+// 0 refills a stage once every warpgroup has released it; steps past the
+// block's kept prefix are never loaded.  The step is 64 keys because the
+// rule's prefix is 64-granular: at blocks of 64 neighbouring warpgroups
+// keep prefixes 64 keys apart, and a warpgroup multiplies exactly the
+// pairs the rule keeps (S by m64n64k16, P V over k = 64), then walks the
+// block's remaining steps only to release them.  A warpgroup whose rows
+// lie past s (a q tail: TMA reads them as zeros) multiplies nothing and
+// stores nothing.  S = Q K^T by wgmma with both operands in shared memory
+// (K-major); P = bf16(S * 1e-3) is converted straight from the
+// accumulator into A fragments in registers; O += P V by wgmma with V
+// read MN-major through the transpose bit.  The two products are
+// pipelined: S of step i + 1 is issued before P V of step i, and the
+// warpgroup waits only for S (wgmma.wait_group 1), so the convert of step
+// i + 1 runs while the tensor cores add P V of step i; P lives in two
+// register buffers, one per step in flight.  A stage is released once its
+// P V is known complete, one step later, so the ring needs three stages
+// or more.  Each warpgroup's chain of dependent wgmmas and barrier waits,
+// not the tensor cores' rate nor the memory, sets the time (the probes of
+// scripts/attention_dots_sm90_ab.py), hence as many warpgroups an SM as
+// the registers allow.  Blocks run in groups of batch-heads, the q tiles
+// with the longest walks first inside a group.  `visits`, when given,
+// receives the 64 x 64 sub-tiles each block multiplied, so a caller can
+// hold the walk against the rule's pair count.
 
 #include <algorithm>
 #include <climits>
-#include <type_traits>
 
 #include "sm90.cuh"
 
@@ -59,10 +61,9 @@ namespace {
 constexpr int kStep = 64;         // keys of a step: the skip rule's granule
 constexpr float kScale = 1e-3f;   // bench.py's (sc * 1e-3)
 // by head dim: consumer warpgroups a block (64 query rows each), stages of
-// the ring, blocks an SM, and whether a warpgroup takes its walk in units
-// of two steps (S by m64n128k16) or of one
-constexpr int kWarpgroupsD64 = 4, kStagesD64 = 8, kBlocksD64 = 1, kWideD64 = 0;
-constexpr int kWarpgroupsD128 = 3, kStagesD128 = 5, kWideD128 = 0;
+// the ring, blocks an SM
+constexpr int kWarpgroupsD64 = 2, kStagesD64 = 5, kBlocksD64 = 2;
+constexpr int kWarpgroupsD128 = 3, kStagesD128 = 5;
 // blocks run in groups of batch-heads whose K and V together take at most
 // this many bytes (a third of the H100's 50 MB L2), every q tile of a group
 // before the next group, so that K and V are read from HBM about once
@@ -78,15 +79,12 @@ template <int D>
 struct Smem {
   static constexpr int kBQ = rows_per_block(D);  // query rows of a block
   static constexpr int kStages = D == 64 ? kStagesD64 : kStagesD128;
-  static constexpr int kUnit = (D == 64 ? kWideD64 : kWideD128) ? 2 : 1;  // steps a unit
   static constexpr int kQBytes = kBQ * D * 2;          // D / 64 boxes of [kBQ, 64]
   static constexpr int kBoxBytes = kStep * 128;        // one [kStep, 64] box
   static constexpr int kXBytes = kStages * kBoxBytes;  // a 64-column slab of the ring
   static constexpr int kTileBytes = kStep * D * 2;     // a step of K or of V
   static constexpr size_t kBytes = kQBytes + 2 * kStages * kTileBytes + 1024;
-  // a stage is held until the next unit's products are issued; a unit's
-  // two steps lie in neighbouring stages
-  static_assert(kStages >= 3 * kUnit && kStages % kUnit == 0, "ring too shallow");
+  static_assert(kStages >= 3, "a stage is held until the next step's P V is issued");
 };
 
 struct Args {
@@ -103,16 +101,6 @@ __device__ __forceinline__ int steps_of(const Args& a, int qw) {
   if (qw >= a.s) return 0;
   const int last = qw / a.bq * a.bq + a.bq - 1;
   return (last / a.bk + 1) * a.bk / kStep;
-}
-
-// d[64 x N] (+)= A[64 x 16] B[16 x N], both K-major through descriptors.
-template <int N>
-__device__ __forceinline__ void mma_ss(float (&d)[N / 2], uint64_t da, uint64_t db, int acc) {
-  if constexpr (N == 128) {
-    sm90::wgmma_ss_n128<0>(d, da, db, acc);
-  } else {
-    sm90::wgmma_ss_n64<0>(d, da, db, acc);
-  }
 }
 
 // d[64 x D] += A[64 x 16] B[16 x D], A from registers, B MN-major from
@@ -133,15 +121,11 @@ __global__ void __launch_bounds__(128 * warpgroups(D), blocks_per_sm(D))
                                const __grid_constant__ CUtensorMap tm_k,
                                const __grid_constant__ CUtensorMap tm_v, const Args a) {
   using SM = Smem<D>;
-  constexpr int kStages = SM::kStages, kUnit = SM::kUnit, kBQ = SM::kBQ;
-  constexpr int kConsumers = warpgroups(D);
-  using PFrag = uint32_t[kUnit * kStep / 16][4];
-  using Full = std::integral_constant<int, kUnit>;  // a unit of kUnit steps
-  using One = std::integral_constant<int, 1>;       // a unit of one step (the tail)
+  constexpr int kStages = SM::kStages, kBQ = SM::kBQ, kConsumers = warpgroups(D);
+  using PFrag = uint32_t[kStep / 16][4];
   extern __shared__ uint8_t smem_raw[];
   uint8_t* const Qs = sm90::align1024(smem_raw);
-  // K and V rings, [D / 64][kStages][kStep rows of 128 B]: a unit's two
-  // steps are one run of 128 rows in each 64-column slab
+  // K and V rings, [D / 64][kStages][kStep rows of 128 B]
   uint8_t* const Ks = Qs + SM::kQBytes;
   uint8_t* const Vs = Ks + kStages * SM::kTileBytes;
   __shared__ __align__(8) uint64_t q_full, kv_full[kStages], kv_empty[kStages];
@@ -186,8 +170,7 @@ __global__ void __launch_bounds__(128 * warpgroups(D), blocks_per_sm(D))
       sm90::mbar_init(&kv_empty[i], 4 * kConsumers);  // one arrive a warp
     }
     sm90::fence_barrier_init();
-    if (a.visits != nullptr)
-      a.visits[static_cast<int64_t>(bh) * n_qt + qt] = visits;
+    if (a.visits != nullptr) a.visits[static_cast<int64_t>(bh) * n_qt + qt] = visits;
     sm90::mbar_expect_tx(&q_full, SM::kQBytes);
 #pragma unroll
     for (int x = 0; x < D / 64; ++x)
@@ -198,7 +181,7 @@ __global__ void __launch_bounds__(128 * warpgroups(D), blocks_per_sm(D))
 
   // release step i's stage (each warp once its share of the step's
   // products is complete); warp 0 then refills it with step i + kStages
-  // once both warpgroups have released it
+  // once every warpgroup has released it
   const auto release = [&](int i) {
     const int st = i % kStages;
     __syncwarp();
@@ -221,115 +204,79 @@ __global__ void __launch_bounds__(128 * warpgroups(D), blocks_per_sm(D))
   float o[D / 2];
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
-  float sacc[kUnit * kStep / 2];
+  float sacc[kStep / 2];
 #pragma unroll
-  for (int i = 0; i < kUnit * kStep / 2; ++i) sacc[i] = 0.f;
+  for (int i = 0; i < kStep / 2; ++i) sacc[i] = 0.f;
   PFrag pa, pb;
 
-  // S = Q K^T of the unit from step i (W::value steps) into sacc over the
-  // head dim, 16 columns a wgmma
-  const auto issue_s = [&](int i, auto w) {
+  // S = Q K^T of step i into sacc over the head dim, 16 columns a wgmma
+  const auto issue_s = [&](int i) {
     const uint32_t k_box = k_ring + (i % kStages) * SM::kBoxBytes;
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
       const uint64_t da = sm90::desc_kmajor(q_box + (kk / 4) * kBQ * 128, kk % 4);
       const uint64_t db = sm90::desc_kmajor(k_box + (kk / 4) * SM::kXBytes, kk % 4);
-      // a one-step S is the accumulator's first 64 columns: the same
-      // registers in the same layout
-      constexpr int kN = decltype(w)::value * kStep;
-      mma_ss<kN>(*reinterpret_cast<float(*)[kN / 2]>(&sacc[0]), da, db, kk > 0);
+      sm90::wgmma_ss_n64<0>(sacc, da, db, kk > 0);
     }
     sm90::wgmma_commit();
   };
-  // O += P V of the unit from step i, 16 keys a wgmma
-  const auto issue_pv = [&](int i, const PFrag& p, auto w) {
+  // O += P V of step i, 16 keys a wgmma
+  const auto issue_pv = [&](int i, const PFrag& p) {
+    const uint32_t v_box = v_ring + (i % kStages) * SM::kBoxBytes;
 #pragma unroll
-    for (int kk = 0; kk < decltype(w)::value * kStep / 16; ++kk) {
-      const uint32_t v_box = v_ring + ((i + kk / 4) % kStages) * SM::kBoxBytes;
-      mma_rs<D>(o, p[kk], v_box, kk % 4, SM::kXBytes);
-    }
+    for (int kk = 0; kk < kStep / 16; ++kk) mma_rs<D>(o, p[kk], v_box, kk, SM::kXBytes);
     sm90::wgmma_commit();
   };
   // P = bf16(S * 1e-3): the product rounded in fp32, then once to bf16
   // (RN), straight from the accumulator into A fragments
-  const auto to_p = [&](PFrag& p, auto w) {
+  const auto to_p = [&](PFrag& p) {
 #pragma unroll
-    for (int kk = 0; kk < decltype(w)::value * kStep / 16; ++kk)
+    for (int kk = 0; kk < kStep / 16; ++kk)
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
         const int x = 8 * kk + 2 * u;
         p[kk][u] = sm90::pack_bf16(__fmul_rn(sacc[x], kScale), __fmul_rn(sacc[x + 1], kScale));
       }
   };
-  const auto release_unit = [&](int i, auto w) {
-#pragma unroll
-    for (int j = 0; j < decltype(w)::value; ++j) release(i + j);
-  };
-  // the unit from step i (width wc) with a unit after it (width wn): S of
-  // the next goes in before P V of this one, and only S is waited for;
-  // P V of the unit before (from step ip, width wc) is then complete
-  const auto advance = [&](int i, const PFrag& cur, PFrag& nxt, auto wc, auto wn) {
-    const int in = i + decltype(wc)::value;
-#pragma unroll
-    for (int j = 0; j < decltype(wn)::value; ++j) wait_full(in + j);
+  // step i with a step after it: S of step i + 1 goes in before P V of
+  // step i, and only S is waited for; P V of step i - 1 is then complete
+  const auto step_more = [&](int i, const PFrag& cur, PFrag& nxt) {
+    wait_full(i + 1);
     sm90::wgmma_fence();
-    issue_s(in, wn);
-    issue_pv(i, cur, wc);
+    issue_s(i + 1);
+    issue_pv(i, cur);
     sm90::wgmma_wait<1>();
     sm90::fence_regs(sacc);
-    to_p(nxt, wn);
-    if (i > 0) release_unit(i - kUnit, Full());  // every unit before the last is full
+    to_p(nxt);
+    if (i > 0) release(i - 1);
   };
-  // the last unit: P V alone, then everything is complete
-  const auto finish = [&](int i, const PFrag& cur, auto wc) {
+  // the last step: P V alone, then everything is complete
+  const auto step_last = [&](int i, const PFrag& cur) {
     sm90::wgmma_fence();
-    issue_pv(i, cur, wc);
+    issue_pv(i, cur);
     sm90::wgmma_wait<0>();
-    if (i > 0) release_unit(i - kUnit, Full());
-    release_unit(i, wc);
+    if (i > 0) release(i - 1);
+    release(i);
   };
 
   sm90::mbar_wait(&q_full, 0);
   if (my_steps > 0) {
-    // units of kUnit steps, then one step where my_steps is odd
-    const int full = my_steps / kUnit, tail = my_steps % kUnit;
-    const auto start = [&](auto w) {
-#pragma unroll
-      for (int j = 0; j < decltype(w)::value; ++j) wait_full(j);
-      sm90::wgmma_fence();
-      issue_s(0, w);
-      sm90::wgmma_wait<0>();
-      sm90::fence_regs(sacc);
-      to_p(pa, w);
-    };
-    if (full > 0) {
-      start(Full());
-    } else {
-      start(One());
+    wait_full(0);
+    sm90::wgmma_fence();
+    issue_s(0);
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(sacc);
+    to_p(pa);
+    int i = 0;
+    for (; i + 2 < my_steps; i += 2) {  // two at a time: the P buffers swap roles
+      step_more(i, pa, pb);
+      step_more(i + 1, pb, pa);
     }
-    int u = 0;  // units done; two at a time, so that the P buffers swap roles
-    for (; u + 2 < full; u += 2) {
-      advance(u * kUnit, pa, pb, Full(), Full());
-      advance((u + 1) * kUnit, pb, pa, Full(), Full());
-    }
-    const int i = u * kUnit;
-    if (full - u == 2) {
-      advance(i, pa, pb, Full(), Full());
-      if (tail) {
-        advance(i + kUnit, pb, pa, Full(), One());
-        finish(i + 2 * kUnit, pa, One());
-      } else {
-        finish(i + kUnit, pb, Full());
-      }
-    } else if (full - u == 1) {
-      if (tail) {
-        advance(i, pa, pb, Full(), One());
-        finish(i + kUnit, pb, One());
-      } else {
-        finish(i, pa, Full());
-      }
+    if (i + 1 < my_steps) {
+      step_more(i, pa, pb);
+      step_last(i + 1, pb);
     } else {
-      finish(0, pa, One());  // one step, no full unit
+      step_last(i, pa);
     }
     sm90::fence_regs(o);
 
@@ -367,9 +314,10 @@ extern "C" {
 
 // q, k, v, o: bf16 [bh, s, d] contiguous, 16-byte aligned; d 64 or 128.
 // bq, bk: the JAX blocks already clipped to s (min(block, s)), multiples
-// of 64 that divide s.  visits: null, or int32 [bh * ceil(s / 128)] that
-// receives the 64 x 64 sub-tiles each block multiplied.  Writes every row
-// of o.  Returns cudaGetLastError() after the launch.
+// of 64 that divide s.  visits: null, or int32 [bh * ceil(s / (64 *
+// warpgroups(d)))] that receives the 64 x 64 sub-tiles each block
+// multiplied.  Writes every row of o.  Returns cudaGetLastError() after
+// the launch.
 int attention_dots_sm90(int device, const void* q, const void* k, const void* v, void* o,
                         int* visits, int bh, int s, int d, int bq, int bk, void* stream) {
   const apex::DeviceGuard guard(device);
@@ -384,7 +332,8 @@ int attention_dots_sm90(int device, const void* q, const void* k, const void* v,
       (err = sm90_host::bf16_map(&tv, v, bh, s, d, kStep)) != cudaSuccess)
     return err;
   const int64_t kv_bytes = static_cast<int64_t>(s) * d * 4;  // one batch-head's K and V
-  const int group = static_cast<int>(std::max<int64_t>(1, std::min<int64_t>(bh, kGroupBytes / kv_bytes)));
+  const int group =
+      static_cast<int>(std::max<int64_t>(1, std::min<int64_t>(bh, kGroupBytes / kv_bytes)));
   const Args a{static_cast<__nv_bfloat16*>(o), visits, bh, s, bq, bk, group};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   return d == 64 ? launch<64>(tq, tk, tv, a, st) : launch<128>(tq, tk, tv, a, st);

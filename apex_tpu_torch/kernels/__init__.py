@@ -234,11 +234,22 @@ ATTENTION_DOTS = Kernel("attention_dots.cu", "attention_dots", [
     _i, _i, _p,                 # block_q, block_k, stream
 ])
 
+#: attention_dots_sm90.cu — the same floor on the tensor cores (wgmma, TMA):
+#: the route of every input; attention_dots.cu is the route it replaced
+ATTENTION_DOTS_SM90 = Kernel("attention_dots_sm90.cu", "attention_dots_sm90", [
+    _i,                         # device
+    _p, _p, _p, _p,             # q, k, v, o (bf16 [bh, s, d])
+    _p,                         # visits (int32 sub-tiles per block, or null)
+    _i, _i, _i,                 # bh, s, d
+    _i, _i, _p,                 # block_q, block_k, stream
+])
+
 KERNELS = (FLASH_FWD, FLASH_FWD_SM90, FLASH_BWD, FLASH_BWD_SM90, FLASH_DECODE,
            FLASH_DECODE_SM90, FLASH_DECODE_SM90_INT8, FLASH_DECODE_SM90_FP8,
            FLASH_QKV_FWD, FLASH_QKV_BWD, FLASH_QKV_FWD_SM90, FLASH_QKV_BWD_SM90,
            LAYER_NORM_FWD, LAYER_NORM_BWD, LAYER_NORM_FWD_SM90,
-           LAYER_NORM_BWD_SM90, FLAT_ADAM, HBM_COPY, ATTENTION_DOTS)
+           LAYER_NORM_BWD_SM90, FLAT_ADAM, HBM_COPY, ATTENTION_DOTS,
+           ATTENTION_DOTS_SM90)
 
 
 def reset_launch_counts() -> None:
@@ -252,5 +263,5 @@ __all__ = ["NvccError", "Kernel", "build_all", "build_log", "DTYPE_CODES",
            "FLASH_DECODE_SM90_FP8", "FLASH_QKV_FWD", "FLASH_QKV_BWD",
            "FLASH_QKV_FWD_SM90", "FLASH_QKV_BWD_SM90", "LAYER_NORM_FWD",
            "LAYER_NORM_BWD", "LAYER_NORM_FWD_SM90", "LAYER_NORM_BWD_SM90",
-           "FLAT_ADAM", "HBM_COPY", "ATTENTION_DOTS",
+           "FLAT_ADAM", "HBM_COPY", "ATTENTION_DOTS", "ATTENTION_DOTS_SM90",
            "KERNELS", "reset_launch_counts"]

@@ -13,9 +13,12 @@ which a kernel's rate reads as a share.
   cuBLAS, as the JAX package leaves it to XLA (no kernel of this
   repository);
 * K10, :func:`attention_dots` — only the two attention products with the
-  bench's static causal tile skip, ``csrc/attention_dots.cu`` (tensor
-  cores) in place of the TPU kernel ``bench.py::_attention_dot_floor``;
-  :func:`attention_dot_floor` times it.
+  bench's static causal tile skip, ``csrc/attention_dots_sm90.cu``
+  (``wgmma`` fed by TMA; its walk is :func:`dots_walk`) in place of the
+  TPU kernel ``bench.py::_attention_dot_floor``;
+  :func:`attention_dot_floor` times it.  ``csrc/attention_dots.cu``
+  (``mma.sync``), the route it replaced, is launched only through its
+  ``Kernel`` object, to be timed beside it.
 
 Each kernel's plain PyTorch version sits beside it and runs for CPU
 tensors; a CUDA tensor goes through the kernel or the call raises.  The
@@ -24,12 +27,12 @@ measuring functions run on the card only and raise without one.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple, Union
+from typing import List, NamedTuple, Optional, Tuple, Union
 
 import torch
 
 from apex_tpu_torch._device import resolve_device
-from apex_tpu_torch.kernels import ATTENTION_DOTS, HBM_COPY
+from apex_tpu_torch.kernels import ATTENTION_DOTS_SM90, HBM_COPY
 from apex_tpu_torch.ops._gemm import mm_f32
 from apex_tpu_torch.profiling.timing import ROOF_STEPS, device_time_ms
 
@@ -153,8 +156,10 @@ def matmul_roof(m: int = 8192, device: Device = None) -> float:
 
 # -- K10: the attention dot floor -------------------------------------------
 
-DOTS_TILE = 64               # attention_dots.cu's q rows a block, keys a step
+DOTS_TILE = 64               # the kernels' key step: blocks are multiples of it
 DOTS_HEAD_DIMS = (64, 128)
+#: attention_dots_sm90.cu's warpgroups a block by head dim, 64 q rows each
+DOTS_SM90_WARPGROUPS = {64: 2, 128: 3}
 DOTS_SCALE = 1e-3            # bench.py's (sc * 1e-3)
 
 
@@ -188,6 +193,41 @@ def dots_pairs(s: int, block_q: int, block_k: int) -> int:
                for qb in range(s // bq))
 
 
+def dots_rows(d: int) -> int:
+    """q rows a block of ``csrc/attention_dots_sm90.cu`` at head dim d."""
+    return DOTS_TILE * DOTS_SM90_WARPGROUPS[d]
+
+
+def dots_walk(s: int, block_q: int, block_k: int,
+              d: int) -> List[Tuple[range, ...]]:
+    """The walk of ``csrc/attention_dots_sm90.cu`` at head dim d: for each
+    q tile of :func:`dots_rows` rows, for each of its warpgroups (rows
+    ``dots_rows(d) t + 64 w`` on, 64 each), the first keys of the 64-key
+    steps it multiplies, in order.  A warpgroup's rows lie in one q block,
+    so it takes the block's prefix; one whose rows lie past s (a q tail)
+    takes none.  The block loads the longest of its walks; 4096 pairs a
+    step."""
+    bq, bk = dots_blocks(s, block_q, block_k)
+    if bq % DOTS_TILE or bk % DOTS_TILE:
+        raise ValueError(f"the walk takes blocks that are multiples of "
+                         f"{DOTS_TILE}, not ({bq}, {bk})")
+
+    def steps(qw):
+        if qw >= s:
+            return range(0)
+        return range(0, ((qw // bq * bq + bq - 1) // bk + 1) * bk, DOTS_TILE)
+
+    return [tuple(steps(q0 + DOTS_TILE * w)
+                  for w in range(DOTS_SM90_WARPGROUPS[d]))
+            for q0 in range(0, s, dots_rows(d))]
+
+
+def dots_visits_len(bh: int, s: int, d: int) -> int:
+    """The length of :func:`_attention_dots_cuda`'s ``visits``: one count
+    a block, [bh, ceil(s / dots_rows(d))]."""
+    return bh * -(-s // dots_rows(d))
+
+
 def dots_flops(bh: int, s: int, d: int) -> float:
     """The JAX bench's count, the useful causal work ``4 bh s^2 d / 2``."""
     return 4 * bh * s * s * d / 2
@@ -213,22 +253,36 @@ def _attention_dots_plain(q, k, v, block_q, block_k):
     return torch.matmul(p.float(), v.float()).to(q.dtype)
 
 
-def _attention_dots_cuda(q, k, v, block_q, block_k):
+def _attention_dots_cuda(q, k, v, block_q, block_k, visits=None):
+    """``csrc/attention_dots_sm90.cu`` on q, k, v.  ``visits``: None, or an
+    int32 tensor of :func:`dots_visits_len` elements that receives the 64
+    x 64 sub-tiles each block multiplied (:func:`dots_walk`'s steps of
+    its warpgroups)."""
     bh, s, d = q.shape
     bq, bk = dots_blocks(s, block_q, block_k)
     if d not in DOTS_HEAD_DIMS:
-        raise ValueError(f"attention_dots.cu takes head dims "
+        raise ValueError(f"attention_dots_sm90.cu takes head dims "
                          f"{DOTS_HEAD_DIMS}, got {d}")
     if bq % DOTS_TILE or bk % DOTS_TILE:
-        raise ValueError(f"attention_dots.cu walks tiles of {DOTS_TILE}: "
-                         f"blocks ({bq}, {bk}) must be multiples of it")
+        raise ValueError(f"attention_dots_sm90.cu walks keys in steps of "
+                         f"{DOTS_TILE}: blocks ({bq}, {bk}) must be "
+                         f"multiples of it")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"attention_dots.cu needs a contiguous, 16-byte "
-                             f"aligned {name}; pass {name}.contiguous()")
+            raise ValueError(f"attention_dots_sm90.cu needs a contiguous, "
+                             f"16-byte aligned {name}; pass "
+                             f"{name}.contiguous()")
+    if visits is not None and (visits.dtype != torch.int32
+                               or visits.device != q.device
+                               or visits.numel() != dots_visits_len(bh, s,
+                                                                    d)):
+        raise ValueError("visits must be int32 [dots_visits_len(bh, s, d)] "
+                         "on q's device")
     o = torch.empty_like(q)
-    ATTENTION_DOTS(q.device.index, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                   o.data_ptr(), bh, s, d, bq, bk, _stream(q.device))
+    ATTENTION_DOTS_SM90(q.device.index, q.data_ptr(), k.data_ptr(),
+                        v.data_ptr(), o.data_ptr(),
+                        None if visits is None else visits.data_ptr(), bh, s,
+                        d, bq, bk, _stream(q.device))
     return o
 
 
@@ -238,8 +292,8 @@ def attention_dots(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     bf16 out: the function the JAX bench's attention dot floor computes,
     over bf16 [bh, s, d] q, k, v (no softmax).  ``block_q``/``block_k``
     decide which pairs are summed (:func:`dots_keep`).  CUDA tensors run
-    ``csrc/attention_dots.cu`` (head dims 64, 128; blocks multiples of
-    64); CPU tensors the plain version."""
+    ``csrc/attention_dots_sm90.cu`` (head dims 64, 128; blocks multiples
+    of 64); CPU tensors the plain version."""
     _check_dots(q, k, v)
     fn = _attention_dots_cuda if q.is_cuda else _attention_dots_plain
     return fn(q, k, v, block_q, block_k)

@@ -15,10 +15,11 @@ Phases, each of which fails the run (non-zero exit) on error:
    from ``nvidia-smi``;
 2. build — ``apex_tpu_torch/csrc/*.cu`` are compiled with ``nvcc`` (in
    parallel, one process per source); the tensor-core sources of K3/K4
-   (``flash_qkv_*_sm90.cu``), K2 (``flash_bwd_sm90.cu``) and K1
-   (``flash_fwd_sm90.cu``) must show no spill or stack in ``ptxas -v``'s
-   report and hold ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA loads) in their
-   SASS; K6/K7's ``layer_norm_sm90.cu``, whose rows and dgamma/dbeta sums
+   (``flash_qkv_*_sm90.cu``), K2 (``flash_bwd_sm90.cu``), K1
+   (``flash_fwd_sm90.cu``) and K10 (``attention_dots_sm90.cu``) must show
+   no spill or stack in ``ptxas -v``'s report and hold ``HGMMA`` (wgmma)
+   and ``UTMALDG`` (TMA loads) in their SASS (ptxas's performance
+   advisories, such as serialized wgmma, are printed); K6/K7's ``layer_norm_sm90.cu``, whose rows and dgamma/dbeta sums
    live in registers, must show no spill or stack either, nor K5's
    ``flash_decode_sm90.cu``, whose SASS must hold 16-byte global loads
    (``LDG.E.128``);
@@ -148,21 +149,28 @@ Phases, each of which fails the run (non-zero exit) on error:
 12. roofs and floors — K9 (``hbm_copy``) bit for bit against its plain
     version at the HBM roof's 16384 x 8192 fp32 and at a ragged bf16
     length, and a misaligned destination refused; K10
-    (``attention_dots``) within ``tolerance`` of its plain version and bitwise across two runs at
+    (``attention_dots``, its route ``attention_dots_sm90.cu``) within
+    ``tolerance`` of its plain version and bitwise across two runs at
     bench.py's (128, 1024, 64, blocks 512), GPT-1.3B's (64, 2048, 128,
     blocks 64) and Transformer-big's encoder (512, 256, 64, blocks 64)
-    shapes; the count of ``HMMA`` instructions in K10's SASS
-    (``cuobjdump``), which must not be 0; K1/K2 and K6/K7 against their
-    plain versions at the microbenches' shapes.  Then the main path, the
-    port of bench.py's kernel-microbench path: ``hbm_roof``,
-    ``matmul_roof``, ``attention_kernel`` at bench.py's two shapes (the
-    first with the dot floor) and ``layer_norm_kernel``, each printed with
-    the card, with exact launch counts; then K9 and K10 timed cold beside
-    their plain versions, ``copy_`` and two dense ``torch.bmm``; last,
-    every kernel row read against what the card demonstrably reaches
-    (the HBM roof, or the dot floor at its shape; attention rows also at
-    ``matmul_roof``'s rate, since a wgmma kernel can outrun the mma.sync
-    floor).
+    shapes, and at q tails (s = 192 and 320, blocks 64) and unequal
+    blocks ((64, 128), (128, 64)) at head dims 64 and 128, the 64 x 64
+    sub-tiles each block multiplied equal to its walk
+    (:func:`roofs.dots_walk`) and to the rule's pairs / 4096; the route
+    before it, ``attention_dots.cu``
+    (``mma.sync``, called through its ``Kernel``), within ``tolerance`` at
+    the three shapes and its ``HMMA`` count in the SASS (``cuobjdump``),
+    which must not be 0; K1/K2 and K6/K7 against their plain versions at
+    the microbenches' shapes.  Then the main path, the port of bench.py's
+    kernel-microbench path: ``hbm_roof``, ``matmul_roof``,
+    ``attention_kernel`` at bench.py's two shapes (the first with the dot
+    floor) and ``layer_norm_kernel``, each printed with the card, with
+    exact launch counts (``attention_dots_sm90`` only, ``attention_dots``
+    never); then K9 and K10 timed cold beside their plain versions,
+    ``copy_`` and two dense ``torch.bmm``, K10's two routes also in turns
+    (``timed_pair``) at the three shapes; last, every kernel row read
+    against what the card demonstrably reaches (the HBM roof, or the dot
+    floor at its shape; attention rows also at ``matmul_roof``'s rate).
 
 The last three lines of standard output are the kernels' JSON record,
 the ``nvidia-smi`` name/power line, and ``{"ok": true, "device": ...}``.
@@ -2777,6 +2785,19 @@ DOT_SHAPES = (
                                         MHA["hidden"] // MHA["heads"], 64,
                                         64)),
 )
+# K10's new route at the edges of its walk, each at head dims 64 and 128
+# (q tiles of 128 and 192 rows): q tails (s = 192: half the last 128-row
+# tile past s, none of a 192-row one; s = 320: the last warpgroup of
+# either tile past s), and blocks that differ (warpgroups of a tile
+# keeping one prefix, or prefixes 128 keys apart; at s = 512 a 192-row
+# tile's last warpgroup also past s)
+DOT_EDGE_SHAPES = tuple(
+    (f"{what} d {d}", (8, s, d, bq, bk))
+    for d in roofs.DOTS_HEAD_DIMS
+    for what, s, bq, bk in (("q tail s 192", 192, 64, 64),
+                            ("q tail s 320", 320, 64, 64),
+                            ("bq < bk", 512, 64, 128),
+                            ("bq > bk", 512, 128, 64)))
 # the physical ceilings a demonstrated rate must stay under (a timer that
 # lost a launch would read above them)
 ROOF_SLACK = 1.05
@@ -2818,21 +2839,62 @@ def hbm_copy_checks(gen) -> tuple:
     return err, x
 
 
-def dots_case(gen, what, shape) -> tuple:
-    """K10 against its plain version within ``tolerance`` (bf16), and run
-    twice, bitwise."""
+def old_dots(q, k, v, bq, bk) -> torch.Tensor:
+    """K10's route before ``attention_dots_sm90.cu``: ``attention_dots.cu``
+    (``mma.sync``) called through its ``Kernel`` object, as the wrapper
+    called it."""
+    bh, s, d = q.shape
+    o = torch.empty_like(q)
+    kernels.ATTENTION_DOTS(q.device.index, q.data_ptr(), k.data_ptr(),
+                           v.data_ptr(), o.data_ptr(), bh, s, d, bq, bk,
+                           torch.cuda.current_stream().cuda_stream)
+    return o
+
+
+def check_dots_visits(name, visits, bh, s, d, bq, bk) -> None:
+    """The 64 x 64 sub-tiles each block of ``attention_dots_sm90.cu``
+    multiplied, against its walk as :func:`roofs.dots_walk` states it, and
+    their sum against the pairs the skip rule keeps."""
+    want = torch.tensor([sum(map(len, wgs))
+                         for wgs in roofs.dots_walk(s, bq, bk, d)],
+                        dtype=torch.int32)
+    got = visits.view(bh, -1).cpu()
+    pairs = roofs.dots_pairs(s, bq, bk)
+    ok = (bool((got == want).all())
+          and bool((got.sum(1) * 4096 == pairs).all()))
+    log(f"  {name}: sub-tiles {int(got[0].sum())} a batch-head, the rule's "
+        f"pairs / 4096 = {pairs // 4096}: {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name}: the sub-tiles multiplied "
+                             f"{got[0].tolist()} are not the walk's "
+                             f"{want.tolist()}")
+
+
+def dots_case(gen, what, shape, old=True) -> tuple:
+    """K10's kernel (``attention_dots_sm90.cu``, through the wrapper)
+    against its plain version within ``tolerance`` (bf16), its sub-tiles
+    against the walk, and run twice, bitwise; with ``old``, the route before
+    it (``attention_dots.cu``) against the plain version too.  Returns
+    (error of the new route, of the old one or None, the operands)."""
     bh, s, d, bq, bk = shape
     q, k, v = (torch.randn(bh, s, d, generator=gen, device="cuda").to(
         torch.bfloat16) for _ in range(3))
-    o = roofs.attention_dots(q, k, v, bq, bk)
+    visits = torch.full((roofs.dots_visits_len(bh, s, d),), -1,
+                        dtype=torch.int32, device="cuda")
+    o = roofs._attention_dots_cuda(q, k, v, bq, bk, visits=visits)
     ref = roofs._attention_dots_plain(q, k, v, bq, bk)
     torch.cuda.synchronize()
-    name = f"attention_dots {what} [{bh}, {s}, {d}] blocks ({bq}, {bk})"
+    name = f"attention_dots_sm90 {what} [{bh}, {s}, {d}] blocks ({bq}, {bk})"
     err = check(name, o, ref)
-    del ref
+    check_dots_visits(name, visits, bh, s, d, bq, bk)
     check_bitwise(f"{name} run twice", (o,),
                   (roofs.attention_dots(q, k, v, bq, bk),))
-    return err, (q, k, v)
+    err_old = None
+    if old:
+        err_old = check(f"attention_dots.cu {what} (the route before)",
+                        old_dots(q, k, v, bq, bk), ref)
+    del ref
+    return err, err_old, (q, k, v)
 
 
 def sass_count(source: str, opcode: str) -> int:
@@ -2849,7 +2911,8 @@ def sass_count(source: str, opcode: str) -> int:
 
 
 SM90_SOURCES = ("flash_qkv_fwd_sm90.cu", "flash_qkv_bwd_sm90.cu",
-                "flash_bwd_sm90.cu", "flash_fwd_sm90.cu")
+                "flash_bwd_sm90.cu", "flash_fwd_sm90.cu",
+                "attention_dots_sm90.cu")
 #: the sources held to no spill and no stack: the tensor-core ones, K6/K7's,
 #: whose rows and dgamma/dbeta sums live in registers, and K5's, whose
 #: lanes hold q, a tile's K/V vectors and their partial sums in registers
@@ -2865,7 +2928,7 @@ SASS_WANT = {**{src: {"HGMMA": "HGMMA", "UTMALDG": "UTMALDG"}
 
 
 def sm90_build_checks() -> dict:
-    """The tensor-core sources (K3/K4's, K2's and K1's bf16 routes),
+    """The tensor-core sources (K3/K4's, K2's and K1's bf16 routes, K10's),
     ``layer_norm_sm90.cu`` (K6/K7) and ``flash_decode_sm90.cu`` (K5) as
     built: every instance free of spills and stack in ``ptxas -v``'s
     report, and each source's SASS holding the instructions of
@@ -2890,6 +2953,9 @@ def sm90_build_checks() -> dict:
         log(f"  {src}: {len(report)} instances, registers {min(regs)}.."
             f"{max(regs)}, spills or stack in {len(spills)}"
             + "".join(f"; SASS {n} {op}" for op, n in counts.items()))
+        for line in text.splitlines():   # e.g. wgmma serialized by ptxas
+            if "Performance Loss" in line:
+                log(f"    {line.strip()}")
         if spills or not report:
             raise AssertionError(f"{src}: ptxas reports spills {spills}")
         if not all(counts.values()):
@@ -2917,9 +2983,14 @@ def time_hbm_copy(x) -> dict:
 def time_dots(what, shape, q, k, v) -> dict:
     """K10 timed cold beside its plain version, its bound from the executed
     pairs, and cuBLAS's reading: two ``torch.bmm`` over the DENSE pair
-    (more work than the kernel's: no tile is skipped, no scale)."""
+    (more work than the kernel's: no tile is skipped, no scale); the route
+    before it (``attention_dots.cu``) cold, and the two in turns
+    (``timing.timed_pair``, warm)."""
     bh, s, d, bq, bk = shape
     ms = cold_ms(lambda: roofs.attention_dots(q, k, v, bq, bk))
+    old_ms = cold_ms(lambda: old_dots(q, k, v, bq, bk))
+    pair = timing.timed_pair(old_dots, roofs.attention_dots,
+                             (q, k, v, bq, bk), (q, k, v, bq, bk))
     plain_ms = cold_ms(lambda: roofs._attention_dots_plain(q, k, v, bq, bk),
                        5, 1)
     lib_ms = cold_ms(lambda: torch.bmm(torch.bmm(q, k.transpose(1, 2)), v))
@@ -2930,27 +3001,38 @@ def time_dots(what, shape, q, k, v) -> dict:
     log(f"  attention_dots timing {what} [{bh}, {s}, {d}] blocks ({bq}, "
         f"{bk}): kernel {ms:.4f} ms ({executed / ms / 1e9:.1f} TFLOP/s "
         f"executed, {roofs.dots_flops(bh, s, d) / ms / 1e9:.1f} under the "
-        f"JAX count; {pairs / (bh * s * s):.4f} of the dense pairs), plain "
+        f"JAX count; {pairs / (bh * s * s):.4f} of the dense pairs; "
+        f"{bound_ms / ms:.1%} of its bound), plain "
         f"{plain_ms:.4f}, two dense torch.bmm {lib_ms:.4f} "
         f"({dense / lib_ms / 1e9:.1f} TFLOP/s, {dense / executed:.2f}x the "
-        f"work), bound {bound_ms:.4f} ({bound_by})")
+        f"work), bound {bound_ms:.4f} ({bound_by}); attention_dots.cu (the "
+        f"route before) {old_ms:.4f} ({executed / old_ms / 1e9:.1f} TFLOP/s "
+        f"executed); in turns (timed_pair, warm): attention_dots.cu "
+        f"{pair[0]:.4f} vs attention_dots_sm90.cu {pair[1]:.4f}")
     return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                 bound_ms=bound_ms, bound_by=bound_by, executed_flops=executed,
+                old_ms=old_ms, pair_old_ms=pair[0], pair_ms=pair[1],
                 library_note="two torch.bmm over the dense pair, "
                              f"{dense / executed:.2f}x the kernel's work")
 
 
 def phase_roofs(smi: str) -> dict:
-    """K9 and K10 against their plain versions, K10's tensor-core
-    instructions, K1/K2 and K6/K7 against theirs at the microbenches'
-    shapes; then the main path, bench.py's kernel-microbench path, with
-    exact launch counts; then the kernel rows, timed cold."""
+    """K9 and K10 against their plain versions (K10's new route also at the
+    edges of its walk, its sub-tiles against the walk; the route before it
+    at the three shapes), the tensor-core instructions of K10's route
+    before, K1/K2 and K6/K7 against theirs at the microbenches' shapes;
+    then the main path, bench.py's kernel-microbench path, with exact
+    launch counts; then the kernel rows, timed cold, K10's two routes also
+    in turns."""
     gen = torch.Generator(device="cuda").manual_seed(12)
     bf16 = torch.bfloat16
     err9, x = hbm_copy_checks(gen)
     cases = {what: dots_case(gen, what, shape) for what, shape in DOT_SHAPES}
+    for what, shape in DOT_EDGE_SHAPES:
+        dots_case(gen, what, shape, old=False)
     hmma = sass_count("attention_dots.cu", "HMMA")
-    log(f"  attention_dots.cu SASS: {hmma} HMMA (tensor-core) instructions")
+    log(f"  attention_dots.cu (the route before) SASS: {hmma} HMMA "
+        f"(mma.sync) instructions")
     if hmma == 0:
         raise AssertionError("attention_dots.cu runs no tensor-core "
                              "instruction")
@@ -2976,7 +3058,7 @@ def phase_roofs(smi: str) -> dict:
                      fwdbwd_frac_of_roof=att_k["fwdbwd_tflops"] / mm)
     calls = timing.WARM + timing.STEPS
     pingpongs = 2 * (timing.WARM + timing.ROOF_STEPS)  # two roofs, two copies
-    want = {"hbm_copy": 2 * pingpongs, "attention_dots": calls,
+    want = {"hbm_copy": 2 * pingpongs, "attention_dots_sm90": calls,
             "flash_fwd_sm90": 2 * 3 * calls, "flash_bwd_sm90": 2 * calls,
             "layer_norm_fwd_sm90": 4 * calls, "layer_norm_bwd_sm90": 2 * calls}
     log(f"  hbm_roof {hbm:.1f} GB/s  [{smi}]")
@@ -3006,12 +3088,14 @@ def phase_roofs(smi: str) -> dict:
     del x
     torch.cuda.empty_cache()
     for what, shape in DOT_SHAPES:
-        err, ops = cases.pop(what)
+        err, err_old, ops = cases.pop(what)
         rows[what] = time_dots(what, shape, *ops)
-        rows[what]["max_abs_err"] = err
+        rows[what].update(max_abs_err=err, old_max_abs_err=err_old)
         del ops
         torch.cuda.empty_cache()
     rows["hbm_copy"]["max_abs_err"] = err9
+    # the route before, launched only to be compared: its timed calls
+    launches["attention_dots (comparison)"] = kernels.ATTENTION_DOTS.launches
     return {"rows": rows, "launches": launches, "hbm_roof_gb_s": hbm,
             "matmul_roof_tflops": mm, "flash_attention_s1024": att_s1024,
             "flash_attention_s4096": att_s4096, "layer_norm": lnk,
@@ -3038,9 +3122,10 @@ def demonstrated(timings: dict, probes: dict) -> dict:
     the same flops at ``matmul_roof``'s rate (cuBLAS, 8192^3 bf16); for
     any other row bound by bytes, its bytes over the HBM roof
     (``hbm_roof``, K9).  A row bound by operations at no K10 shape gets
-    none.  K10 is an ``mma.sync`` kernel: a ``wgmma`` kernel may beat it,
-    and a share of its floor above 100 % then says the floor is stale, not
-    that the kernel is at its limit; the matmul roof is the bar there."""
+    none.  K10 runs on ``wgmma`` fed by TMA, as K1-K4 do, without their
+    softmax, so an attention row should not outrun its floor; a share
+    above 100 % says the floor is still stale at that shape (logged, not
+    hidden), and the matmul roof is the bar there."""
     roof = probes["hbm_roof_gb_s"] * 1e9
     mm_flops = probes["matmul_roof_tflops"] * 1e12
     out = {}
@@ -3071,8 +3156,9 @@ def demonstrated(timings: dict, probes: dict) -> dict:
                 f"TFLOP/s): {extra['matmul_roof_ms']:.4f} ms, "
                 f"{extra['share_of_matmul_roof']:.1%} of it")
         if extra and ms > t["ms"]:
-            log(f"    over 100 % of K10's floor: the mma.sync floor is stale "
-                f"for {name} (a wgmma kernel outruns it), not a limit")
+            log(f"    over 100 % of K10's floor: the wgmma floor is still "
+                f"stale for {name} at this shape (the kernel outruns the "
+                f"two products alone), not a limit")
     return out
 
 
@@ -3253,11 +3339,28 @@ def main() -> int:
              source="apex_tpu_torch/csrc/hbm_copy.cu", replaces="bench.py:188",
              launches=probes["launches"]["hbm_copy"],
              **probes["rows"]["hbm_copy"]),
+        # K10: attention_dots_sm90.cu is the route of every input (the
+        # microbench path, phase 12); attention_dots.cu, the route before,
+        # is launched only to be compared with it (its launches are those
+        # of the comparison), timed at the same shapes cold and in turns
+        dict(name="attention_dots_sm90", route="cuda",
+             source="apex_tpu_torch/csrc/attention_dots_sm90.cu",
+             replaces="bench.py:2671",
+             launches=probes["launches"]["attention_dots_sm90"],
+             **probes["rows"]["bench"],
+             at_shapes={what: probes["rows"][what]
+                        for what, _ in DOT_SHAPES[1:]}),
         dict(name="attention_dots", route="cuda",
              source="apex_tpu_torch/csrc/attention_dots.cu",
              replaces="bench.py:2671",
-             launches=probes["launches"]["attention_dots"],
-             **probes["rows"]["bench"]),
+             launches=probes["launches"]["attention_dots (comparison)"],
+             **{**probes["rows"]["bench"],
+                "ms": probes["rows"]["bench"]["old_ms"],
+                "max_abs_err": probes["rows"]["bench"]["old_max_abs_err"]},
+             at_shapes={what: dict(ms=probes["rows"][what]["old_ms"],
+                                   max_abs_err=probes["rows"][what][
+                                       "old_max_abs_err"])
+                        for what, _ in DOT_SHAPES[1:]}),
     ]}
     for entry in record["kernels"]:
         entry.update(shares.get(entry["name"], {}))

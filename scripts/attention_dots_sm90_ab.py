@@ -8,15 +8,23 @@ The variants are the committed source with its constants changed, made by
 exact text substitution (the script stops if a pattern is missing):
 
 * ``kept`` — the source as committed;
-* ``two_wg`` — two consumer warpgroups a block (128 query rows), at head
-  dim 128 with six stages, at 64 with five stages and two blocks an SM;
-* ``d64_wg3`` — at head dim 64, three warpgroups a block.
+* ``two_wg128`` — at head dim 128 two consumer warpgroups a block (128
+  query rows) and six stages, in place of three;
+* ``four_wg64`` — at head dim 64 four warpgroups a block (256 rows), one
+  block an SM and eight stages, in place of two blocks of two;
+* ``ungrouped`` — one group of every batch-head: the q tiles with the
+  longest walks first across all batch-heads (each wave of blocks reads
+  every batch-head's K and V again).
 
 The probes compute something else, so they are timed but not checked:
 
 * ``same_keys`` — every step loads the first 64 keys of its batch-head
   (the same walk, barriers and products, with K and V from L2);
-* ``no_pv`` — no P V product (S, the convert and the walk as kept).
+* ``no_pv`` — no P V product (S, the convert and the walk as kept);
+* ``no_s`` — no S product (P converted from a stale accumulator).
+
+Earlier variants (units of 128 keys, Q in registers, shallower rings)
+were measured on the source of the commit that added this script.
 
 Each is built with the package's ``nvcc`` flags into the git-ignored
 ``apex_tpu_torch/_build/ab/`` (its ``ptxas -v`` spills printed) and called
@@ -25,8 +33,9 @@ microbench, GPT-1.3B's attention at blocks of 64, Transformer-big's
 encoder).  A variant changes only the schedule, not the order of any sum,
 so each must give the plain version's result within one bf16 ulp at the
 output's scale (2^-7 x max|ref|) and the committed kernel's bits.  Each
-shape is timed warm (``timing.device_time_ms``, ten calls) in the order a,
-b, c, d, d, c, b, a and averaged, then once cold (``timing.cold_ms``).
+shape is timed warm (``timing.device_time_ms``, ten calls) in the order of
+the variants and back (a, b, ..., b, a) and averaged, then once cold
+(``timing.cold_ms``).
 Prints the card and one JSON line; needs one CUDA card.
 """
 
@@ -51,23 +60,25 @@ from apex_tpu_torch.kernels import _build  # noqa: E402
 from apex_tpu_torch.profiling import roofs, timing  # noqa: E402
 
 SRC = "attention_dots_sm90.cu"
-D64 = ("constexpr int kWarpgroupsD64 = 4, kStagesD64 = 8, kBlocksD64 = 1, "
-       "kWideD64 = 0;")
-D128 = "constexpr int kWarpgroupsD128 = 3, kStagesD128 = 5, kWideD128 = 0;"
+D64 = "constexpr int kWarpgroupsD64 = 2, kStagesD64 = 5, kBlocksD64 = 2;"
+D128 = "constexpr int kWarpgroupsD128 = 3, kStagesD128 = 5;"
+GROUP = "constexpr int64_t kGroupBytes = 16ll << 20;"
 VARIANTS = {
     "kept": [],
-    "two_wg": [(D64, "constexpr int kWarpgroupsD64 = 2, kStagesD64 = 5, "
-                     "kBlocksD64 = 2, kWideD64 = 0;"),
-               (D128, "constexpr int kWarpgroupsD128 = 2, kStagesD128 = 6, "
-                      "kWideD128 = 0;")],
-    "d64_wg3": [(D64, "constexpr int kWarpgroupsD64 = 3, kStagesD64 = 8, "
-                      "kBlocksD64 = 1, kWideD64 = 0;")],
+    "two_wg128": [(D128, "constexpr int kWarpgroupsD128 = 2, "
+                         "kStagesD128 = 6;")],
+    "four_wg64": [(D64, "constexpr int kWarpgroupsD64 = 4, kStagesD64 = 8, "
+                        "kBlocksD64 = 1;")],
+    "ungrouped": [(GROUP, "constexpr int64_t kGroupBytes = 1ll << 62;")],
     "same_keys": [(f"{kv}, 64 * x, i * kStep, bh);", f"{kv}, 64 * x, 0, bh);")
                   for kv in ("&tm_k, &kv_full[st]", "&tm_v, &kv_full[st]")],
-    "no_pv": [("      mma_rs<D>(o, p[kk], v_box, kk % 4, SM::kXBytes);",
-               "      (void)v_box;")],
+    "no_pv": [("for (int kk = 0; kk < kStep / 16; ++kk) mma_rs<D>(o, p[kk], "
+               "v_box, kk, SM::kXBytes);",
+               "for (int kk = 0; kk < kStep / 16; ++kk) (void)v_box;")],
+    "no_s": [("      sm90::wgmma_ss_n64<0>(sacc, da, db, kk > 0);",
+              "      (void)da, (void)db;")],
 }
-PROBES = ("same_keys", "no_pv")
+PROBES = ("same_keys", "no_pv", "no_s")
 
 
 def build(variants):
