@@ -64,10 +64,6 @@ constexpr float kScale = 1e-3f;   // bench.py's (sc * 1e-3)
 // the ring, blocks an SM
 constexpr int kWarpgroupsD64 = 2, kStagesD64 = 5, kBlocksD64 = 2;
 constexpr int kWarpgroupsD128 = 3, kStagesD128 = 5;
-// warp 0 refills a stage as soon as it finds it released (polling at each
-// of its releases, blocking only for the step it waits for next), or (0)
-// blocks at each release until every warpgroup has released that stage
-constexpr int kEagerRefill = 1;
 // blocks run in groups of batch-heads whose K and V together take at most
 // this many bytes (a third of the H100's 50 MB L2), every q tile of a group
 // before the next group, so that K and V are read from HBM about once
@@ -105,19 +101,6 @@ __device__ __forceinline__ int steps_of(const Args& a, int qw) {
   if (qw >= a.s) return 0;
   const int last = qw / a.bq * a.bq + a.bq - 1;
   return (last / a.bk + 1) * a.bk / kStep;
-}
-
-// whether the phase of parity `parity` of `bar` has completed, without
-// waiting; the same answer in every lane of the warp (lane 0's)
-__device__ __forceinline__ bool mbar_test(uint64_t* bar, uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n.reg .pred p;\nmbarrier.test_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(done)
-      : "r"(sm90::smem_u32(bar)), "r"(parity)
-      : "memory");
-  return __shfl_sync(0xffffffffu, done, 0) != 0;
 }
 
 // d[64 x D] += A[64 x 16] B[16 x D], A from registers, B MN-major from
@@ -196,43 +179,20 @@ __global__ void __launch_bounds__(128 * warpgroups(D), blocks_per_sm(D))
   }
   __syncthreads();  // the barriers are initialised before anyone waits on them
 
-  // warp 0: load every step up to `need` whose stage every warpgroup has
-  // released, blocking for those, then any later one already released
-  int next_fill = min(n_steps, kStages);  // the next step to load (warp 0)
-  const auto refill = [&](int need) {
-    while (next_fill < n_steps) {
-      const int prev = next_fill - kStages;  // the step the stage held
-      uint64_t* bar = &kv_empty[prev % kStages];
-      const uint32_t parity = (prev / kStages) & 1;
-      if (next_fill <= need) {
-        sm90::mbar_wait(bar, parity);
-      } else if (!mbar_test(bar, parity)) {
-        break;
-      }
-      if (lane == 0) issue(next_fill);
-      __syncwarp();
-      ++next_fill;
-    }
-  };
   // release step i's stage (each warp once its share of the step's
-  // products is complete); warp 0 then refills what it can
+  // products is complete); warp 0 then refills it with step i + kStages
+  // once every warpgroup has released it
   const auto release = [&](int i) {
     const int st = i % kStages;
     __syncwarp();
     if (lane == 0) sm90::mbar_arrive(&kv_empty[st]);
-    if (warp == 0) {
-      if constexpr (kEagerRefill) {
-        refill(-1);
-      } else if (i + kStages < n_steps) {
-        sm90::mbar_wait(&kv_empty[st], (i / kStages) & 1);
-        if (lane == 0) issue(i + kStages);
-        __syncwarp();
-        next_fill = i + kStages + 1;
-      }
+    if (warp == 0 && i + kStages < n_steps) {
+      sm90::mbar_wait(&kv_empty[st], (i / kStages) & 1);
+      if (lane == 0) issue(i + kStages);
+      __syncwarp();
     }
   };
   const auto wait_full = [&](int i) {
-    if (kEagerRefill && warp == 0) refill(i);
     sm90::mbar_wait(&kv_full[i % kStages], (i / kStages) & 1);
   };
 

@@ -8,9 +8,6 @@ The variants are the committed source with its constants changed, made by
 exact text substitution (the script stops if a pattern is missing):
 
 * ``kept`` — the source as committed;
-* ``blocking`` — warp 0 blocks at each release until every warpgroup has
-  released that stage, then refills it, in place of refilling whatever
-  it finds released and blocking only for the step it needs next;
 * ``two_wg128`` — at head dim 128 two consumer warpgroups a block (128
   query rows) and six stages, in place of three;
 * ``four_wg64`` — at head dim 64 four warpgroups a block (256 rows), one
@@ -68,8 +65,6 @@ D128 = "constexpr int kWarpgroupsD128 = 3, kStagesD128 = 5;"
 GROUP = "constexpr int64_t kGroupBytes = 16ll << 20;"
 VARIANTS = {
     "kept": [],
-    "blocking": [("constexpr int kEagerRefill = 1;",
-                  "constexpr int kEagerRefill = 0;")],
     "two_wg128": [(D128, "constexpr int kWarpgroupsD128 = 2, "
                          "kStagesD128 = 6;")],
     "four_wg64": [(D64, "constexpr int kWarpgroupsD64 = 4, kStagesD64 = 8, "
