@@ -62,8 +62,8 @@ constexpr int kStep = 64;         // keys of a step: the skip rule's granule
 constexpr float kScale = 1e-3f;   // bench.py's (sc * 1e-3)
 // by head dim: consumer warpgroups a block (64 query rows each), stages of
 // the ring, blocks an SM
-constexpr int kWarpgroupsD64 = 4, kStagesD64 = 8, kBlocksD64 = 1;
-constexpr int kWarpgroupsD128 = 3, kStagesD128 = 4;
+constexpr int kWarpgroupsD64 = 2, kStagesD64 = 5, kBlocksD64 = 2;
+constexpr int kWarpgroupsD128 = 3, kStagesD128 = 5;
 // blocks run in groups of batch-heads whose K and V together take at most
 // this many bytes (a third of the H100's 50 MB L2), every q tile of a group
 // before the next group, so that K and V are read from HBM about once
@@ -83,7 +83,7 @@ struct Smem {
   static constexpr int kBoxBytes = kStep * 128;        // one [kStep, 64] box
   static constexpr int kXBytes = kStages * kBoxBytes;  // a 64-column slab of the ring
   static constexpr int kTileBytes = kStep * D * 2;     // a step of K or of V
-  static constexpr size_t kBytes = 2 * kQBytes + 2 * kStages * kTileBytes + 1024;
+  static constexpr size_t kBytes = kQBytes + 2 * kStages * kTileBytes + 1024;
   static_assert(kStages >= 3, "a stage is held until the next step's P V is issued");
 };
 
@@ -124,140 +124,94 @@ __global__ void __launch_bounds__(128 * warpgroups(D), blocks_per_sm(D))
   constexpr int kStages = SM::kStages, kBQ = SM::kBQ, kConsumers = warpgroups(D);
   using PFrag = uint32_t[kStep / 16][4];
   extern __shared__ uint8_t smem_raw[];
-  // two Q buffers (tile c in c % 2), then the K and V rings,
-  // [D / 64][kStages][kStep rows of 128 B]
   uint8_t* const Qs = sm90::align1024(smem_raw);
-  uint8_t* const Ks = Qs + 2 * SM::kQBytes;
+  // K and V rings, [D / 64][kStages][kStep rows of 128 B]
+  uint8_t* const Ks = Qs + SM::kQBytes;
   uint8_t* const Vs = Ks + kStages * SM::kTileBytes;
-  __shared__ __align__(8) uint64_t q_full[2], q_empty[2], kv_full[kStages], kv_empty[kStages];
+  __shared__ __align__(8) uint64_t q_full, kv_full[kStages], kv_empty[kStages];
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  // block b: group b / (group * n_qt); inside it the q tiles with the
+  // longest walks first, each over the group's batch-heads
+  const int n_qt = (a.s + kBQ - 1) / kBQ;
+  const int per_group = a.group * n_qt;
+  const int gr = blockIdx.x / per_group, r = blockIdx.x % per_group;
+  const int g_size = min(a.group, a.bh - gr * a.group);
+  const int bh = gr * a.group + r % g_size;
+  const int qt = n_qt - 1 - r / g_size;
+  const int q0 = qt * kBQ;
   const int wg = warp >> 2;
-  const int n_qt = (a.s + kBQ - 1) / kBQ, n_tiles = a.bh * n_qt;
-  // The block's tiles: of the list (groups of batch-heads, inside a group
-  // the q tiles with the longest walks first, each over the group's
-  // batch-heads), entries dealt to the blocks in rounds, forwards in even
-  // rounds and backwards in odd ones, so that every block gets a like
-  // share of long and short walks.  Tile c of this block is entry
-  // entry(c); none once that passes the list.
-  const int n_blocks = gridDim.x, me = blockIdx.x;
-  const auto entry = [&](int c) { return c * n_blocks + ((c & 1) ? n_blocks - 1 - me : me); };
-  struct Tile {
-    int bh, q0, n_steps, visits;
-  };
-  const auto tile_at = [&](int e) {
-    const int per_group = a.group * n_qt;
-    const int gr = e / per_group, r = e % per_group;
-    const int g_size = min(a.group, a.bh - gr * a.group);
-    Tile t{gr * a.group + r % g_size, (n_qt - 1 - r / g_size) * kBQ, 0, 0};
-    // the tile's walk: the longest prefix of its warpgroups (the last one
-    // inside s)
+  const int my_steps = steps_of(a, q0 + 64 * wg);
+  // the block's walk: the longest prefix of its warpgroups (the last one
+  // inside s)
+  int n_steps = 0, visits = 0;
 #pragma unroll
-    for (int w = 0; w < kConsumers; ++w) {
-      t.n_steps = max(t.n_steps, steps_of(a, t.q0 + 64 * w));
-      t.visits += steps_of(a, t.q0 + 64 * w);
-    }
-    return t;
-  };
+  for (int w = 0; w < kConsumers; ++w) {
+    n_steps = max(n_steps, steps_of(a, q0 + 64 * w));
+    visits += steps_of(a, q0 + 64 * w);
+  }
 
-  if (tid == 0) {
+  // thread 0 loads step i of the walk into stage i % kStages
+  const auto issue = [&](int i) {
+    const int st = i % kStages;
+    sm90::mbar_expect_tx(&kv_full[st], 2 * SM::kTileBytes);
 #pragma unroll
-    for (int b = 0; b < 2; ++b) {
-      sm90::mbar_init(&q_full[b], 1);
-      sm90::mbar_init(&q_empty[b], 4 * kConsumers);  // one arrive a warp
+    for (int x = 0; x < D / 64; ++x) {
+      const int off = x * SM::kXBytes + st * SM::kBoxBytes;
+      sm90::tma_load_3d(Ks + off, &tm_k, &kv_full[st], 64 * x, i * kStep, bh);
+      sm90::tma_load_3d(Vs + off, &tm_v, &kv_full[st], 64 * x, i * kStep, bh);
     }
+  };
+  if (tid == 0) {
+    sm90::mbar_init(&q_full, 1);
 #pragma unroll
     for (int i = 0; i < kStages; ++i) {
       sm90::mbar_init(&kv_full[i], 1);
-      sm90::mbar_init(&kv_empty[i], 4 * kConsumers);
+      sm90::mbar_init(&kv_empty[i], 4 * kConsumers);  // one arrive a warp
     }
     sm90::fence_barrier_init();
+    if (a.visits != nullptr) a.visits[static_cast<int64_t>(bh) * n_qt + qt] = visits;
+    sm90::mbar_expect_tx(&q_full, SM::kQBytes);
+#pragma unroll
+    for (int x = 0; x < D / 64; ++x)
+      sm90::tma_load_3d(Qs + x * kBQ * 128, &tm_q, &q_full, 64 * x, q0, bh);
+    for (int i = 0; i < min(n_steps, kStages); ++i) issue(i);  // the ring starts empty
   }
   __syncthreads();  // the barriers are initialised before anyone waits on them
 
-  // -- the loads, by warp 0 (lane 0 issues) ----------------------------------
-  // Fill f is the f-th step of the block's walk over all its tiles, into
-  // stage f % kStages; a tile's first fill also loads its Q into buffer
-  // c % 2.  A fill waits for its stage to be released by every warpgroup,
-  // and a Q load for its buffer; a fill of tile c is issued only once
-  // warp 0 has reached tile c - 1 (else it would wait for the buffer of
-  // warp 0's own tile): until then it is deferred.
-  int f_next = 0, f_c = 0, f_l = 0;  // next fill: its index, tile, step in the tile
-  int f_bh = 0, f_q0 = 0, f_n = 0;   // that tile's batch-head, first row, steps (0: none)
-  const auto fill_tile = [&]() {
-    f_n = 0;
-    if (entry(f_c) < n_tiles) {
-      const Tile t = tile_at(entry(f_c));
-      f_bh = t.bh, f_q0 = t.q0, f_n = t.n_steps;
-    }
-  };
-  fill_tile();
-  int f_target = kStages - 1;  // the last fill asked for
-  int c_w = 0;                 // the tile warp 0 computes
-  const auto produce = [&]() {
-    while (f_n > 0 && f_next <= f_target && f_c <= c_w + 1) {
-      const int st = f_next % kStages;
-      if (f_l == 0) {
-        const int b = f_c & 1;
-        if (f_c >= 2) sm90::mbar_wait(&q_empty[b], ((f_c - 2) >> 1) & 1);
-        if (lane == 0) {
-          sm90::mbar_expect_tx(&q_full[b], SM::kQBytes);
-#pragma unroll
-          for (int x = 0; x < D / 64; ++x)
-            sm90::tma_load_3d(Qs + b * SM::kQBytes + x * kBQ * 128, &tm_q, &q_full[b], 64 * x,
-                              f_q0, f_bh);
-        }
-      }
-      if (f_next >= kStages) sm90::mbar_wait(&kv_empty[st], ((f_next / kStages) - 1) & 1);
-      if (lane == 0) {
-        sm90::mbar_expect_tx(&kv_full[st], 2 * SM::kTileBytes);
-#pragma unroll
-        for (int x = 0; x < D / 64; ++x) {
-          const int off = x * SM::kXBytes + st * SM::kBoxBytes;
-          sm90::tma_load_3d(Ks + off, &tm_k, &kv_full[st], 64 * x, f_l * kStep, f_bh);
-          sm90::tma_load_3d(Vs + off, &tm_v, &kv_full[st], 64 * x, f_l * kStep, f_bh);
-        }
-      }
+  // release step i's stage (each warp once its share of the step's
+  // products is complete); warp 0 then refills it with step i + kStages
+  // once every warpgroup has released it
+  const auto release = [&](int i) {
+    const int st = i % kStages;
+    __syncwarp();
+    if (lane == 0) sm90::mbar_arrive(&kv_empty[st]);
+    if (warp == 0 && i + kStages < n_steps) {
+      sm90::mbar_wait(&kv_empty[st], (i / kStages) & 1);
+      if (lane == 0) issue(i + kStages);
       __syncwarp();
-      ++f_next;
-      if (++f_l == f_n) {
-        f_l = 0;
-        ++f_c;
-        fill_tile();
-      }
     }
   };
-  if (warp == 0) produce();
+  const auto wait_full = [&](int i) {
+    sm90::mbar_wait(&kv_full[i % kStages], (i / kStages) & 1);
+  };
 
-  // -- the consumers: warpgroup wg takes query rows q0 + 64 wg .. + 63 of
-  // every tile of the block
+  // -- warpgroup wg: query rows q0 + 64 wg .. + 63 ---------------------------
   const int g = lane >> 2, t = lane & 3;
+  const int row0 = q0 + 64 * wg + 16 * (warp & 3) + g;  // this thread's rows: row0, row0 + 8
+  const uint32_t q_box = sm90::smem_u32(Qs) + 64 * wg * 128;
   const uint32_t k_ring = sm90::smem_u32(Ks), v_ring = sm90::smem_u32(Vs);
   float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
   float sacc[kStep / 2];
 #pragma unroll
   for (int i = 0; i < kStep / 2; ++i) sacc[i] = 0.f;
   PFrag pa, pb;
-  int g0 = 0;          // the block's steps before this tile
-  uint32_t q_box = 0;  // this warpgroup's rows of the tile's Q buffer
 
-  // release step i of the tile (each warp once its share of the step's
-  // products is complete); warp 0 then asks for the fill that reuses the
-  // stage
-  const auto release = [&](int i) {
-    __syncwarp();
-    if (lane == 0) sm90::mbar_arrive(&kv_empty[(g0 + i) % kStages]);
-    if (warp == 0) {
-      f_target = g0 + i + kStages;
-      produce();
-    }
-  };
-  const auto wait_full = [&](int i) {
-    sm90::mbar_wait(&kv_full[(g0 + i) % kStages], ((g0 + i) / kStages) & 1);
-  };
   // S = Q K^T of step i into sacc over the head dim, 16 columns a wgmma
   const auto issue_s = [&](int i) {
-    const uint32_t k_box = k_ring + ((g0 + i) % kStages) * SM::kBoxBytes;
+    const uint32_t k_box = k_ring + (i % kStages) * SM::kBoxBytes;
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
       const uint64_t da = sm90::desc_kmajor(q_box + (kk / 4) * kBQ * 128, kk % 4);
@@ -268,7 +222,7 @@ __global__ void __launch_bounds__(128 * warpgroups(D), blocks_per_sm(D))
   };
   // O += P V of step i, 16 keys a wgmma
   const auto issue_pv = [&](int i, const PFrag& p) {
-    const uint32_t v_box = v_ring + ((g0 + i) % kStages) * SM::kBoxBytes;
+    const uint32_t v_box = v_ring + (i % kStages) * SM::kBoxBytes;
 #pragma unroll
     for (int kk = 0; kk < kStep / 16; ++kk) mma_rs<D>(o, p[kk], v_box, kk, SM::kXBytes);
     sm90::wgmma_commit();
@@ -305,72 +259,50 @@ __global__ void __launch_bounds__(128 * warpgroups(D), blocks_per_sm(D))
     release(i);
   };
 
-  for (int c = 0; entry(c) < n_tiles; ++c) {
-    const Tile tl = tile_at(entry(c));
-    const int q_row = tl.q0 + 64 * wg;
-    const int my_steps = steps_of(a, q_row);
-    if (tid == 0 && a.visits != nullptr)
-      a.visits[static_cast<int64_t>(tl.bh) * n_qt + tl.q0 / kBQ] = tl.visits;
-    if (warp == 0) {
-      c_w = c;
-      produce();  // fills deferred until warp 0 reached this tile
+  sm90::mbar_wait(&q_full, 0);
+  if (my_steps > 0) {
+    wait_full(0);
+    sm90::wgmma_fence();
+    issue_s(0);
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(sacc);
+    to_p(pa);
+    int i = 0;
+    for (; i + 2 < my_steps; i += 2) {  // two at a time: the P buffers swap roles
+      step_more(i, pa, pb);
+      step_more(i + 1, pb, pa);
     }
-    q_box = sm90::smem_u32(Qs + (c & 1) * SM::kQBytes) + 64 * wg * 128;
-    sm90::mbar_wait(&q_full[c & 1], (c >> 1) & 1);
-    if (my_steps > 0) {
+    if (i + 1 < my_steps) {
+      step_more(i, pa, pb);
+      step_last(i + 1, pb);
+    } else {
+      step_last(i, pa);
+    }
+    sm90::fence_regs(o);
+
+    // o as bf16, rounded once; every row of an active warpgroup is < s
+    __nv_bfloat16* out = a.o + (static_cast<int64_t>(bh) * a.s + row0) * D + 2 * t;
 #pragma unroll
-      for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
-      wait_full(0);
-      sm90::wgmma_fence();
-      issue_s(0);
-      sm90::wgmma_wait<0>();
-      sm90::fence_regs(sacc);
-      to_p(pa);
-      int i = 0;
-      for (; i + 2 < my_steps; i += 2) {  // two at a time: the P buffers swap roles
-        step_more(i, pa, pb);
-        step_more(i + 1, pb, pa);
-      }
-      if (i + 1 < my_steps) {
-        step_more(i, pa, pb);
-        step_last(i + 1, pb);
-      } else {
-        step_last(i, pa);
-      }
-      sm90::fence_regs(o);
-    }
-    // this warp is done with the tile's Q buffer
-    __syncwarp();
-    if (lane == 0) sm90::mbar_arrive(&q_empty[c & 1]);
-    if (my_steps > 0) {
-      // o as bf16, rounded once; every row of an active warpgroup is < s
-      const int row0 = q_row + 16 * (warp & 3) + g;  // this thread's rows: row0, row0 + 8
-      __nv_bfloat16* out = a.o + (static_cast<int64_t>(tl.bh) * a.s + row0) * D + 2 * t;
+    for (int r = 0; r < 2; ++r)
 #pragma unroll
-      for (int r = 0; r < 2; ++r)
-#pragma unroll
-        for (int j = 0; j < D / 8; ++j)
-          *reinterpret_cast<uint32_t*>(out + 8 * r * D + 8 * j) =
-              sm90::pack_bf16(o[4 * j + 2 * r], o[4 * j + 2 * r + 1]);
-    }
-    // the tile's steps past this warpgroup's prefix: released unread
-    for (int i = my_steps; i < tl.n_steps; ++i) {
-      wait_full(i);
-      release(i);
-    }
-    g0 += tl.n_steps;
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<uint32_t*>(out + 8 * r * D + 8 * j) =
+            sm90::pack_bf16(o[4 * j + 2 * r], o[4 * j + 2 * r + 1]);
+  }
+  // the block's steps past this warpgroup's prefix: released unread
+  for (int i = my_steps; i < n_steps; ++i) {
+    wait_full(i);
+    release(i);
   }
 }
 
-// one block for every SM it fits on (fewer if there are fewer tiles)
 template <int D>
 cudaError_t launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
-                   const Args& a, int sms, cudaStream_t stream) {
+                   const Args& a, cudaStream_t stream) {
   const cudaError_t attr = apex::allow_smem(attention_dots_sm90_kernel<D>, Smem<D>::kBytes);
   if (attr != cudaSuccess) return attr;
-  const int64_t tiles = static_cast<int64_t>(a.bh) * ((a.s + Smem<D>::kBQ - 1) / Smem<D>::kBQ);
-  if (tiles > INT_MAX) return cudaErrorInvalidValue;
-  const int64_t blocks = std::min<int64_t>(tiles, static_cast<int64_t>(sms) * blocks_per_sm(D));
+  const int64_t blocks = static_cast<int64_t>(a.bh) * ((a.s + Smem<D>::kBQ - 1) / Smem<D>::kBQ);
+  if (blocks > INT_MAX) return cudaErrorInvalidValue;
   attention_dots_sm90_kernel<D><<<static_cast<unsigned>(blocks), 128 * warpgroups(D),
                                   Smem<D>::kBytes, stream>>>(tq, tk, tv, a);
   return cudaGetLastError();
@@ -403,11 +335,8 @@ int attention_dots_sm90(int device, const void* q, const void* k, const void* v,
   const int group =
       static_cast<int>(std::max<int64_t>(1, std::min<int64_t>(bh, kGroupBytes / kv_bytes)));
   const Args a{static_cast<__nv_bfloat16*>(o), visits, bh, s, bq, bk, group};
-  int sms = 0;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess)
-    return err;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return d == 64 ? launch<64>(tq, tk, tv, a, sms, st) : launch<128>(tq, tk, tv, a, sms, st);
+  return d == 64 ? launch<64>(tq, tk, tv, a, st) : launch<128>(tq, tk, tv, a, st);
 }
 
 }  // extern "C"

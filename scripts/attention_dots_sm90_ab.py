@@ -8,14 +8,13 @@ The variants are the committed source with its constants changed, made by
 exact text substitution (the script stops if a pattern is missing):
 
 * ``kept`` — the source as committed;
-* ``one_tile_a_block`` — a block for every tile, in place of one block an
-  SM walking a dealt share of the tiles (its next tile's loads overlap
-  the end of the current one);
-* ``d64_two_blocks`` — at head dim 64 two warpgroups a block (128 rows),
-  two blocks an SM, four stages, in place of four warpgroups, one block;
-* ``d64_two_blocks_tiles`` — the same with a block for every tile (the
-  schedule of the kernel before it walked tiles);
-* ``d128_two_wg`` — at head dim 128 two warpgroups a block, five stages.
+* ``two_wg128`` — at head dim 128 two consumer warpgroups a block (128
+  query rows) and six stages, in place of three;
+* ``four_wg64`` — at head dim 64 four warpgroups a block (256 rows), one
+  block an SM and eight stages, in place of two blocks of two;
+* ``ungrouped`` — one group of every batch-head: the q tiles with the
+  longest walks first across all batch-heads (each wave of blocks reads
+  every batch-head's K and V again).
 
 The probes compute something else, so they are timed but not checked:
 
@@ -61,20 +60,17 @@ from apex_tpu_torch.kernels import _build  # noqa: E402
 from apex_tpu_torch.profiling import roofs, timing  # noqa: E402
 
 SRC = "attention_dots_sm90.cu"
-D64 = "constexpr int kWarpgroupsD64 = 4, kStagesD64 = 8, kBlocksD64 = 1;"
-D128 = "constexpr int kWarpgroupsD128 = 3, kStagesD128 = 4;"
-GRID = ("std::min<int64_t>(tiles, static_cast<int64_t>(sms) * "
-        "blocks_per_sm(D));")
-TWO64 = (D64, "constexpr int kWarpgroupsD64 = 2, kStagesD64 = 4, kBlocksD64 = 2;")
+D64 = "constexpr int kWarpgroupsD64 = 2, kStagesD64 = 5, kBlocksD64 = 2;"
+D128 = "constexpr int kWarpgroupsD128 = 3, kStagesD128 = 5;"
+GROUP = "constexpr int64_t kGroupBytes = 16ll << 20;"
 VARIANTS = {
     "kept": [],
-    "one_tile_a_block": [(GRID, "tiles;")],
-    "d64_two_blocks": [TWO64],
-    "d64_two_blocks_tiles": [TWO64, (GRID, "tiles;")],
-    "d128_two_wg": [(D128, "constexpr int kWarpgroupsD128 = 2, "
-                           "kStagesD128 = 5;")],
-    "same_keys": [(f"{kv}, 64 * x, f_l * kStep, f_bh);",
-                   f"{kv}, 64 * x, 0, f_bh);")
+    "two_wg128": [(D128, "constexpr int kWarpgroupsD128 = 2, "
+                         "kStagesD128 = 6;")],
+    "four_wg64": [(D64, "constexpr int kWarpgroupsD64 = 4, kStagesD64 = 8, "
+                        "kBlocksD64 = 1;")],
+    "ungrouped": [(GROUP, "constexpr int64_t kGroupBytes = 1ll << 62;")],
+    "same_keys": [(f"{kv}, 64 * x, i * kStep, bh);", f"{kv}, 64 * x, 0, bh);")
                   for kv in ("&tm_k, &kv_full[st]", "&tm_v, &kv_full[st]")],
     "no_pv": [("for (int kk = 0; kk < kStep / 16; ++kk) mma_rs<D>(o, p[kk], "
                "v_box, kk, SM::kXBytes);",
