@@ -14,7 +14,9 @@ exact text substitution (the script stops if a pattern is missing):
   block an SM and eight stages, in place of two blocks of two;
 * ``ungrouped`` — one group of every batch-head: the q tiles with the
   longest walks first across all batch-heads (each wave of blocks reads
-  every batch-head's K and V again).
+  every batch-head's K and V again);
+* ``shallow`` — three stages at both head dims, the fewest the pipelined
+  walk allows (a stage is held one step past its products).
 
 The probes compute something else, so they are timed but not checked:
 
@@ -23,8 +25,9 @@ The probes compute something else, so they are timed but not checked:
 * ``no_pv`` — no P V product (S, the convert and the walk as kept);
 * ``no_s`` — no S product (P converted from a stale accumulator).
 
-Earlier variants (units of 128 keys, Q in registers, shallower rings)
-were measured on the source of the commit that added this script.
+Designs measured before and dropped (units of 128 keys, Q held in
+registers, an eager refill, a persistent kernel) are listed in PERF.md
+with the sources they ran.
 
 Each is built with the package's ``nvcc`` flags into the git-ignored
 ``apex_tpu_torch/_build/ab/`` (its ``ptxas -v`` spills printed) and called
@@ -70,6 +73,9 @@ VARIANTS = {
     "four_wg64": [(D64, "constexpr int kWarpgroupsD64 = 4, kStagesD64 = 8, "
                         "kBlocksD64 = 1;")],
     "ungrouped": [(GROUP, "constexpr int64_t kGroupBytes = 1ll << 62;")],
+    "shallow": [(D64, "constexpr int kWarpgroupsD64 = 2, kStagesD64 = 3, "
+                      "kBlocksD64 = 2;"),
+                (D128, "constexpr int kWarpgroupsD128 = 3, kStagesD128 = 3;")],
     "same_keys": [(f"{kv}, 64 * x, i * kStep, bh);", f"{kv}, 64 * x, 0, bh);")
                   for kv in ("&tm_k, &kv_full[st]", "&tm_v, &kv_full[st]")],
     "no_pv": [("for (int kk = 0; kk < kStep / 16; ++kk) mma_rs<D>(o, p[kk], "
