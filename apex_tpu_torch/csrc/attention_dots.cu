@@ -31,8 +31,9 @@
 // m16n8 accumulator layout is the A layout of two neighbouring tiles);
 // O += P v by mma.sync into fp32 registers, V's fragments by ldmatrix
 // .trans from its row-major tile.  q tiles with the most keys start
-// first.  No wgmma and no TMA: the PRs that redesign the flash kernels for
-// Hopper start from here.
+// first.  No wgmma and no TMA: attention_dots_sm90.cu, on both, is the
+// route of every input now; this kernel is launched only to be compared
+// with it.
 
 #include "common.cuh"
 

@@ -28,5 +28,6 @@ from apex_tpu_torch.profiling.timing import (cold_ms, device_time_ms,
 __all__ = ["DotFloor", "attention_dot_floor", "attention_dots",
            "attention_flops", "attention_kernel", "bound", "cold_ms",
            "copy_bytes", "device_time_ms", "dots_flops", "dots_keep",
-           "dots_pairs", "dots_walk", "hbm_copy", "hbm_roof", "layer_norm_bytes",
-           "layer_norm_kernel", "matmul_roof", "require_card", "timed_pair"]
+           "dots_pairs", "dots_walk", "hbm_copy", "hbm_roof",
+           "layer_norm_bytes", "layer_norm_kernel", "matmul_roof",
+           "require_card", "timed_pair"]

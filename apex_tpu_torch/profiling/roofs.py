@@ -156,7 +156,7 @@ def matmul_roof(m: int = 8192, device: Device = None) -> float:
 
 # -- K10: the attention dot floor -------------------------------------------
 
-DOTS_TILE = 64               # the kernels' key step: blocks are multiples of it
+DOTS_TILE = 64               # the kernels' key step; blocks are multiples
 DOTS_HEAD_DIMS = (64, 128)
 #: attention_dots_sm90.cu's warpgroups a block by head dim, 64 q rows each
 DOTS_SM90_WARPGROUPS = {64: 2, 128: 3}

@@ -19,8 +19,9 @@ Phases, each of which fails the run (non-zero exit) on error:
    (``flash_fwd_sm90.cu``) and K10 (``attention_dots_sm90.cu``) must show
    no spill or stack in ``ptxas -v``'s report and hold ``HGMMA`` (wgmma)
    and ``UTMALDG`` (TMA loads) in their SASS (ptxas's performance
-   advisories, such as serialized wgmma, are printed); K6/K7's ``layer_norm_sm90.cu``, whose rows and dgamma/dbeta sums
-   live in registers, must show no spill or stack either, nor K5's
+   advisories, such as serialized wgmma, are printed); K6/K7's
+   ``layer_norm_sm90.cu``, whose rows and dgamma/dbeta sums live in
+   registers, must show no spill or stack either, nor K5's
    ``flash_decode_sm90.cu``, whose SASS must hold 16-byte global loads
    (``LDG.E.128``);
 3. kernels — each kernel against its plain PyTorch version on the card,
@@ -157,12 +158,12 @@ Phases, each of which fails the run (non-zero exit) on error:
     blocks ((64, 128), (128, 64)) at head dims 64 and 128, the 64 x 64
     sub-tiles each block multiplied equal to its walk
     (:func:`roofs.dots_walk`) and to the rule's pairs / 4096; the route
-    before it, ``attention_dots.cu``
-    (``mma.sync``, called through its ``Kernel``), within ``tolerance`` at
-    the three shapes and its ``HMMA`` count in the SASS (``cuobjdump``),
-    which must not be 0; K1/K2 and K6/K7 against their plain versions at
-    the microbenches' shapes.  Then the main path, the port of bench.py's
-    kernel-microbench path: ``hbm_roof``, ``matmul_roof``,
+    before it, ``attention_dots.cu`` (``mma.sync``, called through its
+    ``Kernel``), within ``tolerance`` at the three shapes and its ``HMMA``
+    count in the SASS (``cuobjdump``), which must not be 0; K1/K2 and
+    K6/K7 against their plain versions at the microbenches' shapes.  Then
+    the main path, the port of bench.py's kernel-microbench path:
+    ``hbm_roof``, ``matmul_roof``,
     ``attention_kernel`` at bench.py's two shapes (the first with the dot
     floor) and ``layer_norm_kernel``, each printed with the card, with
     exact launch counts (``attention_dots_sm90`` only, ``attention_dots``

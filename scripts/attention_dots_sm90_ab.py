@@ -104,9 +104,9 @@ def build(variants):
             text = text.replace(old, new)
         (out / SRC).write_text(text)
         procs[name] = (out, subprocess.Popen(
-            [_build.cuda_tool(), *_build.NVCC_FLAGS, "-o", str(out / f"{SRC}.so"),
-             str(out / SRC)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True))
+            [_build.cuda_tool(), *_build.NVCC_FLAGS, "-o",
+             str(out / f"{SRC}.so"), str(out / SRC)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     built = {}
     for name, (out, p) in procs.items():
         log, _ = p.communicate()
@@ -172,7 +172,8 @@ def main() -> int:
         warm = {n: [] for n in names}
         for n in names + names[::-1]:
             warm[n].append(timing.device_time_ms(runs[n], steps=10))
-        flops = 4 * d * bh * roofs.dots_pairs(s, bq, bk)  # the kernel's, not a probe's
+        # the kernel's executed flops (a probe does less work)
+        flops = 4 * d * bh * roofs.dots_pairs(s, bq, bk)
         for n in names:
             row[n]["warm_ms"] = sum(warm[n]) / 2
             row[n]["cold_ms"] = timing.cold_ms(runs[n], 20)

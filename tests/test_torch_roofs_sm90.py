@@ -144,7 +144,7 @@ def test_visits_len_is_a_count_a_block():
     assert roofs.dots_visits_len(8, 192, 128) == 8 * 1
 
 
-# -- the wrapper's launch ------------------------------------------------------
+# -- the wrapper's launch ----------------------------------------------------
 
 
 class _Recorder:
