@@ -52,34 +52,56 @@ cudaError_t launch_qkv(const void* qkv, const void* dctx, const void* ctx, const
   return bwd::launch<T, D, false, true>(a, stream);
 }
 
+template <int D>
+int run(int dtype, int device, const void* qkv, const void* dctx, const void* ctx,
+        const float* lse, float* delta, void* dqkv, const int* seg_q, const int* seg_k,
+        int seg_div, int B, int H, int s, float scale, int causal, uint32_t seed,
+        uint32_t thresh, float inv_keep, void* stream) {
+  const apex::DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) return guard.error();
+  if (s <= 0 || B * H <= 0) return cudaSuccess;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch_qkv<float, D>(qkv, dctx, ctx, lse, delta, dqkv, seg_q, seg_k, seg_div, B, H,
+                                s, scale, causal, seed, thresh, inv_keep, st);
+  if (dtype == 1)
+    return launch_qkv<__nv_bfloat16, D>(qkv, dctx, ctx, lse, delta, dqkv, seg_q, seg_k,
+                                        seg_div, B, H, s, scale, causal, seed, thresh,
+                                        inv_keep, st);
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16; d: head dim (128).  qkv/dqkv [B, s,
-// H*3*d], ctx/dctx [B, s, H*d] (all contiguous), lse and the delta
-// workspace [B*H, s] fp32.  seg_q/seg_k may be null; seg row = (b*H + h) /
-// seg_div.  thresh = round(rate * 2^32) and inv_keep = 1 / (1 - rate)
-// (thresh 0 and inv_keep 1: no dropout).  Launches three kernels in order
-// on `stream`; returns the first launch error, or cudaSuccess.
+// dtype: 0 = float32, 1 = bfloat16; d: head dim (128 here, 64 in
+// flash_qkv_bwd_d64: one entry point an instance, so that launches count
+// by head dim).  qkv/dqkv [B, s, H*3*d], ctx/dctx [B, s, H*d] (all
+// contiguous), lse and the delta workspace [B*H, s] fp32.  seg_q/seg_k may
+// be null; seg row = (b*H + h) / seg_div.  thresh = round(rate * 2^32) and
+// inv_keep = 1 / (1 - rate) (thresh 0 and inv_keep 1: no dropout).
+// Launches three kernels in order on `stream`; returns the first launch
+// error, or cudaSuccess.
 int flash_qkv_bwd(int dtype, int d, int device, const void* qkv, const void* dctx,
                   const void* ctx, const float* lse, float* delta, void* dqkv,
                   const int* seg_q, const int* seg_k, int seg_div, int B, int H, int s,
                   float scale, int causal, uint32_t seed, uint32_t thresh, float inv_keep,
                   void* stream) {
-  const apex::DeviceGuard guard(device);
-  if (guard.error() != cudaSuccess) return guard.error();
-  if (s <= 0 || B * H <= 0) return cudaSuccess;
   if (d != 128) return cudaErrorInvalidValue;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch_qkv<float, 128>(qkv, dctx, ctx, lse, delta, dqkv, seg_q, seg_k, seg_div, B, H,
-                                  s, scale, causal, seed, thresh, inv_keep, st);
-  if (dtype == 1)
-    return launch_qkv<__nv_bfloat16, 128>(qkv, dctx, ctx, lse, delta, dqkv, seg_q, seg_k,
-                                          seg_div, B, H, s, scale, causal, seed, thresh,
-                                          inv_keep, st);
-  return cudaErrorInvalidValue;
+  return run<128>(dtype, device, qkv, dctx, ctx, lse, delta, dqkv, seg_q, seg_k, seg_div, B, H,
+                  s, scale, causal, seed, thresh, inv_keep, stream);
+}
+
+// The same at head dim 64 (d must be 64).
+int flash_qkv_bwd_d64(int dtype, int d, int device, const void* qkv, const void* dctx,
+                      const void* ctx, const float* lse, float* delta, void* dqkv,
+                      const int* seg_q, const int* seg_k, int seg_div, int B, int H, int s,
+                      float scale, int causal, uint32_t seed, uint32_t thresh, float inv_keep,
+                      void* stream) {
+  if (d != 64) return cudaErrorInvalidValue;
+  return run<64>(dtype, device, qkv, dctx, ctx, lse, delta, dqkv, seg_q, seg_k, seg_div, B, H,
+                 s, scale, causal, seed, thresh, inv_keep, stream);
 }
 
 }  // extern "C"

@@ -21,7 +21,9 @@
 // is ~0.17 ms): bound by operations, so every product runs on the tensor
 // cores by wgmma, fed by TMA.  Seven products instead of five cap this
 // design at 5/7 of the floor; spilling dS, or dq partials with an ordered
-// reduction, would remove the recompute.
+// reduction, would remove the recompute.  At BERT-large's padded shape (b = 16, s
+// = 512, 16 heads of 64, key padding, not causal) it moves ~135 MB (~0.040
+// ms) for ~29 GFLOP (~0.030 ms): bound by bytes there.
 //
 // Design: three launches, each output owned by one block, no atomics, so
 // two runs give bitwise-equal gradients.
@@ -52,7 +54,11 @@
 // Elementwise work as in the forward: masks behind one branch a tile,
 // hidden pairs at -inf, p by ex2.approx.
 //
-// Template on the head dim D; 128 is the only one built.
+// Template on the head dim D, built at 128 (GPT) and 64 (BERT-large): one
+// entry point each, so that launches count by instance.  At D = 64 the
+// resident and streamed tiles are one 64-column box, dV, dK and dQ are
+// m64n64k16 products and a thread holds 32 sums of each; the tiles
+// (QKV_SM90_BWD_TILES), rings and warpgroups are those of D = 128.
 
 #include <climits>
 #include <type_traits>
@@ -122,6 +128,19 @@ __global__ void __launch_bounds__(256) qkv_bwd_delta_sm90(BwdArgs a, int rows) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
   if (lane == 0) a.delta[w] = acc;
+}
+
+// d[64 x D] += A[64 x 16] B[16 x D], A from registers, B MN-major from
+// `box` (its D columns in 64-column boxes `box_bytes` apart).
+template <int D>
+__device__ __forceinline__ void mma_rs(float (&d)[D / 2], const uint32_t (&a)[4], uint32_t box,
+                                       int k, uint32_t box_bytes) {
+  static_assert(D == 64 || D == 128, "head dims 64 and 128 are built");
+  if constexpr (D == 128) {
+    sm90::wgmma_rs_n128<1>(d, a, sm90::desc_mnmajor(box, k, box_bytes), 1);
+  } else {
+    sm90::wgmma_rs_n64<1>(d, a, sm90::desc_mnmajor(box, k, box_bytes), 1);
+  }
 }
 
 // Of one pair, from its score in log2 units less lse (-inf where the pair
@@ -338,10 +357,10 @@ __global__ void __launch_bounds__(kThreads, 1)
       sm90::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kQ2 / 16; ++kk)
-        sm90::wgmma_rs_n128<1>(dv, pf[kk], sm90::desc_mnmajor(do_box, kk, SM::kTileBox), 1);
+        mma_rs<D>(dv, pf[kk], do_box, kk, SM::kTileBox);
 #pragma unroll
       for (int kk = 0; kk < kQ2 / 16; ++kk)
-        sm90::wgmma_rs_n128<1>(dk, sf[kk], sm90::desc_mnmajor(q_box, kk, SM::kTileBox), 1);
+        mma_rs<D>(dk, sf[kk], q_box, kk, SM::kTileBox);
       sm90::wgmma_commit();
       sm90::wgmma_wait<0>();
       sm90::fence_regs(dv);
@@ -556,7 +575,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       sm90::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kK3 / 16; ++kk)
-        sm90::wgmma_rs_n128<1>(dq, sf[kk], sm90::desc_mnmajor(k_box, kk, SM::kTileBox), 1);
+        mma_rs<D>(dq, sf[kk], k_box, kk, SM::kTileBox);
       sm90::wgmma_commit();
       sm90::wgmma_wait<0>();
       sm90::fence_regs(dq);
@@ -615,34 +634,58 @@ cudaError_t launch(const BwdArgs& a, const void* qkv, cudaStream_t stream) {
 
 }  // namespace
 
-extern "C" {
+namespace {
 
-// bf16 only; d: head dim (128).  qkv/dqkv [B, s, H*3*d], ctx/dctx [B, s,
-// H*d] (all contiguous, 16-byte aligned), lse and the delta workspace [B*H,
-// s] fp32.  seg_q/seg_k may be null; seg row = (b*H + h) / seg_div.
-// visits may be null, else int32 [B*H*ceil(s/128)] (pass 2) then
-// [B*H*ceil(s/128)] (pass 3).  thresh = round(rate * 2^32) and inv_keep =
-// 1 / (1 - rate) (thresh 0 and inv_keep 1: no dropout).  Launches three
-// kernels in order on `stream`; returns the first launch error, or
-// cudaSuccess.
-int flash_qkv_bwd_sm90(int d, int device, const void* qkv, const void* dctx, const void* ctx,
-                       const float* lse, float* delta, void* dqkv, const int* seg_q,
-                       const int* seg_k, int seg_div, int* visits, int B, int H, int s,
-                       float scale, int causal, uint32_t seed, uint32_t thresh, float inv_keep,
-                       void* stream) {
+template <int D>
+int run(int device, const void* qkv, const void* dctx, const void* ctx, const float* lse,
+        float* delta, void* dqkv, const int* seg_q, const int* seg_k, int seg_div, int* visits,
+        int B, int H, int s, float scale, int causal, uint32_t seed, uint32_t thresh,
+        float inv_keep, void* stream) {
   const apex::DeviceGuard guard(device);
   if (guard.error() != cudaSuccess) return guard.error();
   if (s <= 0 || B * H <= 0) return cudaSuccess;
-  if (d != 128) return cudaErrorInvalidValue;
   const BwdArgs a{static_cast<const __nv_bfloat16*>(dctx), static_cast<const __nv_bfloat16*>(ctx),
                   lse, delta, static_cast<__nv_bfloat16*>(dqkv), seg_q, seg_k, seg_div, visits,
                   B, H, s, scale, scale * kLog2e, seed, thresh, inv_keep};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool drop = !(thresh == 0 && inv_keep == 1.f);
   if (causal) {
-    return drop ? launch<128, true, true>(a, qkv, st) : launch<128, true, false>(a, qkv, st);
+    return drop ? launch<D, true, true>(a, qkv, st) : launch<D, true, false>(a, qkv, st);
   }
-  return drop ? launch<128, false, true>(a, qkv, st) : launch<128, false, false>(a, qkv, st);
+  return drop ? launch<D, false, true>(a, qkv, st) : launch<D, false, false>(a, qkv, st);
+}
+
+}  // namespace
+
+extern "C" {
+
+// bf16 only; d: head dim (128 here, 64 in flash_qkv_bwd_sm90_d64).
+// qkv/dqkv [B, s, H*3*d], ctx/dctx [B, s, H*d] (all contiguous, 16-byte
+// aligned), lse and the delta workspace [B*H, s] fp32.  seg_q/seg_k may be
+// null; seg row = (b*H + h) / seg_div.  visits may be null, else int32
+// [B*H*ceil(s/128)] (pass 2) then [B*H*ceil(s/128)] (pass 3).  thresh =
+// round(rate * 2^32) and inv_keep = 1 / (1 - rate) (thresh 0 and inv_keep
+// 1: no dropout).  Launches three kernels in order on `stream`; returns
+// the first launch error, or cudaSuccess.
+int flash_qkv_bwd_sm90(int d, int device, const void* qkv, const void* dctx, const void* ctx,
+                       const float* lse, float* delta, void* dqkv, const int* seg_q,
+                       const int* seg_k, int seg_div, int* visits, int B, int H, int s,
+                       float scale, int causal, uint32_t seed, uint32_t thresh, float inv_keep,
+                       void* stream) {
+  if (d != 128) return cudaErrorInvalidValue;
+  return run<128>(device, qkv, dctx, ctx, lse, delta, dqkv, seg_q, seg_k, seg_div, visits, B, H,
+                  s, scale, causal, seed, thresh, inv_keep, stream);
+}
+
+// The same at head dim 64 (d must be 64).
+int flash_qkv_bwd_sm90_d64(int d, int device, const void* qkv, const void* dctx,
+                           const void* ctx, const float* lse, float* delta, void* dqkv,
+                           const int* seg_q, const int* seg_k, int seg_div, int* visits, int B,
+                           int H, int s, float scale, int causal, uint32_t seed, uint32_t thresh,
+                           float inv_keep, void* stream) {
+  if (d != 64) return cudaErrorInvalidValue;
+  return run<64>(device, qkv, dctx, ctx, lse, delta, dqkv, seg_q, seg_k, seg_div, visits, B, H,
+                 s, scale, causal, seed, thresh, inv_keep, stream);
 }
 
 }  // extern "C"

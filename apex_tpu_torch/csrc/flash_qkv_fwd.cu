@@ -47,28 +47,49 @@ cudaError_t launch_qkv(const void* qkv, void* ctx, float* lse, const int* seg_q,
   return launch_fwd<T, D, true, false>(a, stream);
 }
 
+template <int D>
+int run(int dtype, int device, const void* qkv, void* ctx, float* lse, const int* seg_q,
+        const int* seg_k, int seg_div, int B, int H, int s, float scale, int causal,
+        uint32_t seed, uint32_t thresh, float keep_prob, void* stream) {
+  const apex::DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) return guard.error();
+  if (s <= 0 || B * H <= 0) return cudaSuccess;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch_qkv<float, D>(qkv, ctx, lse, seg_q, seg_k, seg_div, B, H, s, scale, causal,
+                                seed, thresh, keep_prob, st);
+  if (dtype == 1)
+    return launch_qkv<__nv_bfloat16, D>(qkv, ctx, lse, seg_q, seg_k, seg_div, B, H, s, scale,
+                                        causal, seed, thresh, keep_prob, st);
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16; d: head dim (128).  seg_q/seg_k may be
-// null (no segments); with them, seg row = (b * H + h) / seg_div.  thresh
-// = round(rate * 2^32) (0: no dropout), keep_prob = 1 - rate.  Returns
-// cudaGetLastError() after the launch.
+// dtype: 0 = float32, 1 = bfloat16; d: head dim (128 here, 64 in
+// flash_qkv_fwd_d64: one entry point an instance, so that launches count
+// by head dim).  seg_q/seg_k may be null (no segments); with them, seg row
+// = (b * H + h) / seg_div.  thresh = round(rate * 2^32) (0: no dropout),
+// keep_prob = 1 - rate.  Returns cudaGetLastError() after the launch.
 int flash_qkv_fwd(int dtype, int d, int device, const void* qkv, void* ctx, float* lse,
                   const int* seg_q, const int* seg_k, int seg_div, int B, int H, int s,
                   float scale, int causal, uint32_t seed, uint32_t thresh, float keep_prob,
                   void* stream) {
-  const apex::DeviceGuard guard(device);
-  if (guard.error() != cudaSuccess) return guard.error();
-  if (s <= 0 || B * H <= 0) return cudaSuccess;
   if (d != 128) return cudaErrorInvalidValue;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch_qkv<float, 128>(qkv, ctx, lse, seg_q, seg_k, seg_div, B, H, s, scale, causal, seed, thresh, keep_prob, st);
-  if (dtype == 1)
-    return launch_qkv<__nv_bfloat16, 128>(qkv, ctx, lse, seg_q, seg_k, seg_div, B, H, s, scale, causal, seed, thresh, keep_prob, st);
-  return cudaErrorInvalidValue;
+  return run<128>(dtype, device, qkv, ctx, lse, seg_q, seg_k, seg_div, B, H, s, scale, causal,
+                  seed, thresh, keep_prob, stream);
+}
+
+// The same at head dim 64 (d must be 64).
+int flash_qkv_fwd_d64(int dtype, int d, int device, const void* qkv, void* ctx, float* lse,
+                      const int* seg_q, const int* seg_k, int seg_div, int B, int H, int s,
+                      float scale, int causal, uint32_t seed, uint32_t thresh, float keep_prob,
+                      void* stream) {
+  if (d != 64) return cudaErrorInvalidValue;
+  return run<64>(dtype, device, qkv, ctx, lse, seg_q, seg_k, seg_div, B, H, s, scale, causal,
+                 seed, thresh, keep_prob, stream);
 }
 
 }  // extern "C"

@@ -15,7 +15,10 @@
 // once, ctx and lse written once: ~0.04 ms at 3.35 TB/s) and do ~69 GFLOP
 // on the visible half of the score matrix (~0.07 ms at the 989 TFLOP/s bf16
 // tensor-core rate): bound by operations, so both products run on the
-// tensor cores by wgmma, fed by TMA.
+// tensor cores by wgmma, fed by TMA.  At BERT-large's padded shape (b =
+// 16, s = 512, 16 heads of 64, key padding, not causal) it must move ~68
+// MB (~0.020 ms) for ~12 GFLOP on the visible pairs (~0.012 ms): bound by
+// bytes there.
 //
 // Design.  One block per (128-row q tile, batch*head): two warpgroups of 64
 // query rows each.  Warp 0 also loads: the Q tile once by TMA, then 128-key
@@ -41,8 +44,11 @@
 // independent chains; lse is returned in natural-log units.  Heavier q
 // tiles (causal: later rows) are scheduled first.
 //
-// Template on the head dim D so that another width is one more instance;
-// 128 is the only one built.
+// Template on the head dim D, built at 128 (GPT) and 64 (BERT-large): one
+// entry point each, so that launches count by instance.  At D = 64, Q and
+// each K or V tile are one 64-column box, P V is m64n64k16 and a thread
+// holds 32 output sums; tiles, ring and warpgroups are those of D = 128
+// (one block an SM).
 
 #include <climits>
 #include <type_traits>
@@ -80,6 +86,19 @@ struct FwdArgs {
   uint32_t seed, thresh;
   float inv_keep;    // 1 / (1 - rate)
 };
+
+// o[64 x D] += P[64 x 16] V[16 x D], P from registers, V MN-major from
+// `box` (its D columns in 64-column boxes `box_bytes` apart).
+template <int D>
+__device__ __forceinline__ void mma_pv(float (&o)[D / 2], const uint32_t (&p)[4], uint32_t box,
+                                       int k, uint32_t box_bytes) {
+  static_assert(D == 64 || D == 128, "head dims 64 and 128 are built");
+  if constexpr (D == 128) {
+    sm90::wgmma_rs_n128<1>(o, p, sm90::desc_mnmajor(box, k, box_bytes), 1);
+  } else {
+    sm90::wgmma_rs_n64<1>(o, p, sm90::desc_mnmajor(box, k, box_bytes), 1);
+  }
+}
 
 template <int D, bool CAUSAL, bool DROP>
 __global__ void __launch_bounds__(kThreads, 1)
@@ -285,7 +304,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       sm90::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kBK / 16; ++kk)
-        sm90::wgmma_rs_n128<1>(o, pf[kk], sm90::desc_mnmajor(v_box, kk, SM::kBoxBytes), 1);
+        mma_pv<D>(o, pf[kk], v_box, kk, SM::kBoxBytes);
       sm90::wgmma_commit();
       sm90::wgmma_wait<0>();
       sm90::fence_regs(o);
@@ -327,33 +346,55 @@ cudaError_t launch(const CUtensorMap& tm, const FwdArgs& a, cudaStream_t stream)
 
 }  // namespace
 
-extern "C" {
+namespace {
 
-// bf16 only; d: head dim (128).  qkv [B, s, H*3*d] and ctx [B, s, H*d]
-// contiguous, 16-byte aligned; lse [B*H, s] fp32.  seg_q/seg_k may be null
-// (no segments); with them, seg row = (b * H + h) / seg_div.  thresh =
-// round(rate * 2^32) (0: no dropout), keep_prob = 1 - rate.  Returns
-// cudaGetLastError() after the launch.
-int flash_qkv_fwd_sm90(int d, int device, const void* qkv, void* ctx, float* lse,
-                       const int* seg_q, const int* seg_k, int seg_div, int B, int H, int s,
-                       float scale, int causal, uint32_t seed, uint32_t thresh, float keep_prob,
-                       void* stream) {
+template <int D>
+int run(int device, const void* qkv, void* ctx, float* lse, const int* seg_q, const int* seg_k,
+        int seg_div, int B, int H, int s, float scale, int causal, uint32_t seed,
+        uint32_t thresh, float keep_prob, void* stream) {
   const apex::DeviceGuard guard(device);
   if (guard.error() != cudaSuccess) return guard.error();
   if (s <= 0 || B * H <= 0) return cudaSuccess;
-  if (d != 128) return cudaErrorInvalidValue;
   CUtensorMap tm;
   const cudaError_t err =
-      sm90_host::bf16_map(&tm, qkv, B, s, static_cast<int64_t>(H) * 3 * d, kBK);
+      sm90_host::bf16_map(&tm, qkv, B, s, static_cast<int64_t>(H) * 3 * D, kBK);
   if (err != cudaSuccess) return err;
   const FwdArgs a{static_cast<__nv_bfloat16*>(ctx), lse, seg_q, seg_k, seg_div, B, H, s,
                   scale * kLog2e, seed, thresh, 1.f / keep_prob};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool drop = !(thresh == 0 && keep_prob == 1.f);
   if (causal) {
-    return drop ? launch<128, true, true>(tm, a, st) : launch<128, true, false>(tm, a, st);
+    return drop ? launch<D, true, true>(tm, a, st) : launch<D, true, false>(tm, a, st);
   }
-  return drop ? launch<128, false, true>(tm, a, st) : launch<128, false, false>(tm, a, st);
+  return drop ? launch<D, false, true>(tm, a, st) : launch<D, false, false>(tm, a, st);
+}
+
+}  // namespace
+
+extern "C" {
+
+// bf16 only; d: head dim (128 here, 64 in flash_qkv_fwd_sm90_d64).  qkv
+// [B, s, H*3*d] and ctx [B, s, H*d] contiguous, 16-byte aligned; lse [B*H,
+// s] fp32.  seg_q/seg_k may be null (no segments); with them, seg row = (b
+// * H + h) / seg_div.  thresh = round(rate * 2^32) (0: no dropout),
+// keep_prob = 1 - rate.  Returns cudaGetLastError() after the launch.
+int flash_qkv_fwd_sm90(int d, int device, const void* qkv, void* ctx, float* lse,
+                       const int* seg_q, const int* seg_k, int seg_div, int B, int H, int s,
+                       float scale, int causal, uint32_t seed, uint32_t thresh, float keep_prob,
+                       void* stream) {
+  if (d != 128) return cudaErrorInvalidValue;
+  return run<128>(device, qkv, ctx, lse, seg_q, seg_k, seg_div, B, H, s, scale, causal, seed,
+                  thresh, keep_prob, stream);
+}
+
+// The same at head dim 64 (d must be 64).
+int flash_qkv_fwd_sm90_d64(int d, int device, const void* qkv, void* ctx, float* lse,
+                           const int* seg_q, const int* seg_k, int seg_div, int B, int H, int s,
+                           float scale, int causal, uint32_t seed, uint32_t thresh,
+                           float keep_prob, void* stream) {
+  if (d != 64) return cudaErrorInvalidValue;
+  return run<64>(device, qkv, ctx, lse, seg_q, seg_k, seg_div, B, H, s, scale, causal, seed,
+                 thresh, keep_prob, stream);
 }
 
 }  // extern "C"

@@ -128,8 +128,10 @@ FLASH_DECODE_SM90_FP8 = Kernel("flash_decode_sm90.cu",
                                "flash_decode_sm90_fp8",
                                _FLASH_DECODE_SM90_ARGS)
 
-#: flash_qkv_fwd.cu — packed-QKV self-attention forward (training)
-FLASH_QKV_FWD = Kernel("flash_qkv_fwd.cu", "flash_qkv_fwd", [
+#: flash_qkv_fwd.cu — packed-QKV self-attention forward (training), one
+#: entry point a head dim so that launches count by instance: 128 (GPT)
+#: here, 64 (BERT-large) in FLASH_QKV_FWD_D64
+_FLASH_QKV_FWD_ARGS = [
     _i, _i, _i,                 # dtype, d, device
     _p, _p, _p,                 # qkv, ctx, lse
     _p, _p, _i,                 # seg_q, seg_k, seg_div
@@ -137,10 +139,15 @@ FLASH_QKV_FWD = Kernel("flash_qkv_fwd.cu", "flash_qkv_fwd", [
     _f, _i,                     # scale, causal
     _u, _u, _f,                 # dropout seed, threshold, keep prob
     _p,                         # stream
-])
+]
+FLASH_QKV_FWD = Kernel("flash_qkv_fwd.cu", "flash_qkv_fwd",
+                       _FLASH_QKV_FWD_ARGS)
+FLASH_QKV_FWD_D64 = Kernel("flash_qkv_fwd.cu", "flash_qkv_fwd_d64",
+                           _FLASH_QKV_FWD_ARGS)
 
-#: flash_qkv_bwd.cu — its backward: dqkv in the packed layout
-FLASH_QKV_BWD = Kernel("flash_qkv_bwd.cu", "flash_qkv_bwd", [
+#: flash_qkv_bwd.cu — its backward: dqkv in the packed layout (head dims
+#: 128 and 64, as the forward)
+_FLASH_QKV_BWD_ARGS = [
     _i, _i, _i,                 # dtype, d, device
     _p, _p, _p, _p, _p, _p,     # qkv, dctx, ctx, lse, delta (scratch), dqkv
     _p, _p, _i,                 # seg_q, seg_k, seg_div
@@ -148,11 +155,16 @@ FLASH_QKV_BWD = Kernel("flash_qkv_bwd.cu", "flash_qkv_bwd", [
     _f, _i,                     # scale, causal
     _u, _u, _f,                 # dropout seed, threshold, 1 / keep prob
     _p,                         # stream
-])
+]
+FLASH_QKV_BWD = Kernel("flash_qkv_bwd.cu", "flash_qkv_bwd",
+                       _FLASH_QKV_BWD_ARGS)
+FLASH_QKV_BWD_D64 = Kernel("flash_qkv_bwd.cu", "flash_qkv_bwd_d64",
+                           _FLASH_QKV_BWD_ARGS)
 
 #: flash_qkv_fwd_sm90.cu — the same forward on the tensor cores (wgmma, TMA):
-#: the bf16 route (flash_qkv_fwd.cu stays the fp32 one)
-FLASH_QKV_FWD_SM90 = Kernel("flash_qkv_fwd_sm90.cu", "flash_qkv_fwd_sm90", [
+#: the bf16 route (flash_qkv_fwd.cu stays the fp32 one), head dim 128 here
+#: and 64 in FLASH_QKV_FWD_SM90_D64
+_FLASH_QKV_FWD_SM90_ARGS = [
     _i, _i,                     # d, device
     _p, _p, _p,                 # qkv, ctx, lse
     _p, _p, _i,                 # seg_q, seg_k, seg_div
@@ -160,10 +172,16 @@ FLASH_QKV_FWD_SM90 = Kernel("flash_qkv_fwd_sm90.cu", "flash_qkv_fwd_sm90", [
     _f, _i,                     # scale, causal
     _u, _u, _f,                 # dropout seed, threshold, keep prob
     _p,                         # stream
-])
+]
+FLASH_QKV_FWD_SM90 = Kernel("flash_qkv_fwd_sm90.cu", "flash_qkv_fwd_sm90",
+                            _FLASH_QKV_FWD_SM90_ARGS)
+FLASH_QKV_FWD_SM90_D64 = Kernel("flash_qkv_fwd_sm90.cu",
+                                "flash_qkv_fwd_sm90_d64",
+                                _FLASH_QKV_FWD_SM90_ARGS)
 
-#: flash_qkv_bwd_sm90.cu — its backward on the tensor cores: the bf16 route
-FLASH_QKV_BWD_SM90 = Kernel("flash_qkv_bwd_sm90.cu", "flash_qkv_bwd_sm90", [
+#: flash_qkv_bwd_sm90.cu — its backward on the tensor cores: the bf16
+#: route, head dims 128 and 64 as the forward
+_FLASH_QKV_BWD_SM90_ARGS = [
     _i, _i,                     # d, device
     _p, _p, _p, _p, _p, _p,     # qkv, dctx, ctx, lse, delta (scratch), dqkv
     _p, _p, _i,                 # seg_q, seg_k, seg_div
@@ -172,7 +190,12 @@ FLASH_QKV_BWD_SM90 = Kernel("flash_qkv_bwd_sm90.cu", "flash_qkv_bwd_sm90", [
     _f, _i,                     # scale, causal
     _u, _u, _f,                 # dropout seed, threshold, 1 / keep prob
     _p,                         # stream
-])
+]
+FLASH_QKV_BWD_SM90 = Kernel("flash_qkv_bwd_sm90.cu", "flash_qkv_bwd_sm90",
+                            _FLASH_QKV_BWD_SM90_ARGS)
+FLASH_QKV_BWD_SM90_D64 = Kernel("flash_qkv_bwd_sm90.cu",
+                                "flash_qkv_bwd_sm90_d64",
+                                _FLASH_QKV_BWD_SM90_ARGS)
 
 #: layer_norm.cu — row LayerNorm forward (y, mean, invvar)
 LAYER_NORM_FWD = Kernel("layer_norm.cu", "layer_norm_fwd", [
@@ -247,6 +270,8 @@ ATTENTION_DOTS_SM90 = Kernel("attention_dots_sm90.cu", "attention_dots_sm90", [
 KERNELS = (FLASH_FWD, FLASH_FWD_SM90, FLASH_BWD, FLASH_BWD_SM90, FLASH_DECODE,
            FLASH_DECODE_SM90, FLASH_DECODE_SM90_INT8, FLASH_DECODE_SM90_FP8,
            FLASH_QKV_FWD, FLASH_QKV_BWD, FLASH_QKV_FWD_SM90, FLASH_QKV_BWD_SM90,
+           FLASH_QKV_FWD_D64, FLASH_QKV_BWD_D64, FLASH_QKV_FWD_SM90_D64,
+           FLASH_QKV_BWD_SM90_D64,
            LAYER_NORM_FWD, LAYER_NORM_BWD, LAYER_NORM_FWD_SM90,
            LAYER_NORM_BWD_SM90, FLAT_ADAM, HBM_COPY, ATTENTION_DOTS,
            ATTENTION_DOTS_SM90)
@@ -261,7 +286,9 @@ __all__ = ["NvccError", "Kernel", "build_all", "build_log", "DTYPE_CODES",
            "FLASH_FWD", "FLASH_FWD_SM90", "FLASH_BWD", "FLASH_BWD_SM90",
            "FLASH_DECODE", "FLASH_DECODE_SM90", "FLASH_DECODE_SM90_INT8",
            "FLASH_DECODE_SM90_FP8", "FLASH_QKV_FWD", "FLASH_QKV_BWD",
-           "FLASH_QKV_FWD_SM90", "FLASH_QKV_BWD_SM90", "LAYER_NORM_FWD",
+           "FLASH_QKV_FWD_SM90", "FLASH_QKV_BWD_SM90", "FLASH_QKV_FWD_D64",
+           "FLASH_QKV_BWD_D64", "FLASH_QKV_FWD_SM90_D64",
+           "FLASH_QKV_BWD_SM90_D64", "LAYER_NORM_FWD",
            "LAYER_NORM_BWD", "LAYER_NORM_FWD_SM90", "LAYER_NORM_BWD_SM90",
            "FLAT_ADAM", "HBM_COPY", "ATTENTION_DOTS", "ATTENTION_DOTS_SM90",
            "KERNELS", "reset_launch_counts"]

@@ -18,8 +18,8 @@ public function has two implementations of one contract:
   pool, head dim 8) in place of ``_flash_decode_pallas``,
   ``csrc/flash_qkv_fwd_sm90.cu`` and ``csrc/flash_qkv_bwd_sm90.cu``
   (bf16, on the tensor cores) and ``csrc/flash_qkv_fwd.cu`` and
-  ``csrc/flash_qkv_bwd.cu`` (fp32) in place of ``_flash_qkv_fwd_pallas``
-  and ``_flash_qkv_bwd_pallas``;
+  ``csrc/flash_qkv_bwd.cu`` (fp32), each at head dims 64 and 128, in
+  place of ``_flash_qkv_fwd_pallas`` and ``_flash_qkv_bwd_pallas``;
 * a plain PyTorch version with the JAX package's math
   (:func:`_blockwise_fwd` for ``_blockwise_fwd_xla``,
   :func:`_blockwise_bwd` for ``_blockwise_bwd_xla``,
@@ -56,8 +56,10 @@ from apex_tpu_torch.kernels import (DTYPE_CODES, FLASH_BWD, FLASH_BWD_SM90,
                                     FLASH_DECODE_SM90_FP8,
                                     FLASH_DECODE_SM90_INT8, FLASH_FWD,
                                     FLASH_FWD_SM90, FLASH_QKV_BWD,
-                                    FLASH_QKV_BWD_SM90, FLASH_QKV_FWD,
-                                    FLASH_QKV_FWD_SM90)
+                                    FLASH_QKV_BWD_D64, FLASH_QKV_BWD_SM90,
+                                    FLASH_QKV_BWD_SM90_D64, FLASH_QKV_FWD,
+                                    FLASH_QKV_FWD_D64, FLASH_QKV_FWD_SM90,
+                                    FLASH_QKV_FWD_SM90_D64)
 
 _NEG_INF = -1e30
 
@@ -1089,6 +1091,23 @@ def _flash_qkv_bwd_plain(qkv, dctx, ctx, lse, seg_q, seg_k, num_heads,
     return d.permute(1, 3, 2, 0, 4).reshape(b, s, w)
 
 
+#: the packed kernels' instances, (forward, backward) by (route, head
+#: dim): bf16 runs the tensor-core sources, fp32 the scalar ones; each
+#: instance is an entry point of its own, so its launches count apart
+QKV_KERNELS = {("sm90", 128): (FLASH_QKV_FWD_SM90, FLASH_QKV_BWD_SM90),
+               ("sm90", 64): (FLASH_QKV_FWD_SM90_D64, FLASH_QKV_BWD_SM90_D64),
+               ("scalar", 128): (FLASH_QKV_FWD, FLASH_QKV_BWD),
+               ("scalar", 64): (FLASH_QKV_FWD_D64, FLASH_QKV_BWD_D64)}
+QKV_HEAD_DIMS = tuple(sorted({hn for _, hn in QKV_KERNELS}))
+
+
+def _qkv_route(dtype: torch.dtype) -> str:
+    """bf16 on the tensor cores; fp32 on the scalar kernels (the tensor
+    cores take no fp32 operands, and TF32 would not meet the fp32
+    contract)."""
+    return "sm90" if dtype == torch.bfloat16 else "scalar"
+
+
 def _qkv_kernel_args(qkv, seg_q, seg_k, num_heads):
     """Checks shared by the two packed kernels; returns (hn, seg
     pointers, seg_div)."""
@@ -1097,9 +1116,9 @@ def _qkv_kernel_args(qkv, seg_q, seg_k, num_heads):
     if qkv.dtype not in _KERNEL_DTYPES:
         raise TypeError(f"the packed-QKV kernels take float32 or bfloat16, "
                         f"got {qkv.dtype}")
-    if hn != 128:
-        raise ValueError(f"the packed-QKV kernels are built for head dim "
-                         f"128, got {hn}")
+    if hn not in QKV_HEAD_DIMS:
+        raise ValueError(f"the packed-QKV kernels are built for head dims "
+                         f"{QKV_HEAD_DIMS}, got {hn}")
     if not qkv.is_contiguous() or qkv.data_ptr() % 16:
         raise ValueError("the packed-QKV kernels take a contiguous, 16-byte "
                          "aligned qkv")
@@ -1113,7 +1132,8 @@ def _qkv_kernel_args(qkv, seg_q, seg_k, num_heads):
 
 
 #: the tiles the bf16 packed backward walks (csrc/flash_qkv_bwd_sm90.cu):
-#: (query rows, key columns) of its dk/dv pass and of its dq pass
+#: (query rows, key columns) of its dk/dv pass and of its dq pass, the
+#: same at head dims 64 and 128
 QKV_SM90_BWD_TILES = {"dkdv": (32, 128), "dq": (128, 64)}
 
 
@@ -1122,8 +1142,8 @@ def _flash_qkv_fwd_cuda(qkv, seg_q, seg_k, num_heads, scale, causal,
     """Launch the packed forward; same contract as
     :func:`_flash_qkv_fwd_plain`.  A bf16 qkv runs
     ``flash_qkv_fwd_sm90.cu`` (wgmma and TMA), an fp32 one
-    ``flash_qkv_fwd.cu`` (scalar FMAs): the tensor cores take no fp32
-    operands, and TF32 would not meet the fp32 contract."""
+    ``flash_qkv_fwd.cu`` (scalar FMAs), each at its head dim's instance
+    (:data:`QKV_KERNELS`)."""
     b, s, _ = qkv.shape
     hn, segs, seg_div = _qkv_kernel_args(qkv, seg_q, seg_k, num_heads)
     seed, thresh, keep, _ = _dropout_launch_args(dropout_rate, dropout_seed)
@@ -1135,10 +1155,12 @@ def _flash_qkv_fwd_cuda(qkv, seg_q, seg_k, num_heads, scale, causal,
             *(None if t is None else t.data_ptr() for t in segs), seg_div, b,
             num_heads, s, scale, int(causal), seed, thresh, keep,
             torch.cuda.current_stream(qkv.device).cuda_stream)
-    if qkv.dtype == torch.bfloat16:
-        FLASH_QKV_FWD_SM90(hn, qkv.device.index, *head)
+    route = _qkv_route(qkv.dtype)
+    kernel = QKV_KERNELS[route, hn][0]
+    if route == "sm90":
+        kernel(hn, qkv.device.index, *head)
     else:
-        FLASH_QKV_FWD(_KERNEL_DTYPES[qkv.dtype], hn, qkv.device.index, *head)
+        kernel(_KERNEL_DTYPES[qkv.dtype], hn, qkv.device.index, *head)
     return ctx, lse
 
 
@@ -1169,7 +1191,9 @@ def _flash_qkv_bwd_cuda(qkv, dctx, ctx, lse, seg_q, seg_k, num_heads,
             *(None if t is None else t.data_ptr() for t in segs), seg_div)
     tail = (b, num_heads, s, scale, int(causal), seed, thresh, inv,
             torch.cuda.current_stream(qkv.device).cuda_stream)
-    if qkv.dtype == torch.bfloat16:
+    route = _qkv_route(qkv.dtype)
+    kernel = QKV_KERNELS[route, hn][1]
+    if route == "sm90":
         if visits is not None:
             n = -(-s // QKV_SM90_BWD_TILES["dkdv"][1])
             n += -(-s // QKV_SM90_BWD_TILES["dq"][0])
@@ -1177,14 +1201,12 @@ def _flash_qkv_bwd_cuda(qkv, dctx, ctx, lse, seg_q, seg_k, num_heads,
                     or visits.numel() != b * num_heads * n):
                 raise ValueError("visits must be int32 [b*np*(ceil(s/128) * "
                                  "2)] on qkv's device")
-        FLASH_QKV_BWD_SM90(hn, qkv.device.index, *ptrs,
-                           None if visits is None else visits.data_ptr(),
-                           *tail)
+        kernel(hn, qkv.device.index, *ptrs,
+               None if visits is None else visits.data_ptr(), *tail)
     else:
         if visits is not None:
             raise ValueError("visits are counted by the bf16 kernel only")
-        FLASH_QKV_BWD(_KERNEL_DTYPES[qkv.dtype], hn, qkv.device.index, *ptrs,
-                      *tail)
+        kernel(_KERNEL_DTYPES[qkv.dtype], hn, qkv.device.index, *ptrs, *tail)
     return dqkv
 
 
@@ -1268,9 +1290,9 @@ def flash_attention_qkv(
     with the counter hash of ``dropout_seed`` (an int), batch-head index
     ``b*num_heads + head``.  ``segment_ids``: int [s] or [b, s] packing
     ids, or a ``(seg_q, seg_k)`` pair of those; scores across segments are
-    masked.  CUDA tensors run the kernels (head dim 128): bf16 ones
-    ``csrc/flash_qkv_fwd_sm90.cu`` and ``csrc/flash_qkv_bwd_sm90.cu`` on
-    the tensor cores, fp32 ones ``csrc/flash_qkv_fwd.cu`` and
+    masked.  CUDA tensors run the kernels (head dims 64 and 128): bf16
+    ones ``csrc/flash_qkv_fwd_sm90.cu`` and ``csrc/flash_qkv_bwd_sm90.cu``
+    on the tensor cores, fp32 ones ``csrc/flash_qkv_fwd.cu`` and
     ``csrc/flash_qkv_bwd.cu``; CPU tensors run the plain versions."""
     b, s, three_h = qkv.shape
     hn = three_h // (3 * num_heads)

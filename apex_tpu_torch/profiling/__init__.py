@@ -10,7 +10,9 @@ of the roof and microbench functions of ``bench.py``:
   :func:`hbm_roof`, :func:`matmul_roof`, K10 :func:`attention_dots`
   (``csrc/attention_dots_sm90.cu``) and :func:`attention_dot_floor`;
 * :mod:`.microbench` — :func:`attention_kernel` and
-  :func:`layer_norm_kernel`.
+  :func:`layer_norm_kernel`;
+* :mod:`.bert_large` — the BERT-large MLM workload (its batches, padded
+  and packed, its flops, model and train step), imported on its own.
 """
 
 from apex_tpu_torch.profiling.microbench import (attention_flops,

@@ -1,11 +1,16 @@
-"""The standalone Megatron GPT of the training path, its flagship
-configuration, the Megatron argument parser and the JAX weight
+"""The standalone Megatron GPT and BERT of the training paths, the GPT
+flagship configuration, the Megatron argument parser and the JAX weight
 converter."""
 
 from apex_tpu_torch.transformer.testing.flagship import (  # noqa: F401
     GPT1P3B_KW,
     gpt1p3b_config,
     gpt_param_count,
+)
+from apex_tpu_torch.transformer.testing.standalone_bert import (  # noqa: F401
+    BertConfig,
+    BertModel,
+    bert_model_provider,
 )
 from apex_tpu_torch.transformer.testing.standalone_gpt import (  # noqa: F401
     GPTConfig,
@@ -16,6 +21,7 @@ from apex_tpu_torch.transformer.testing.standalone_gpt import (  # noqa: F401
     ParallelTransformerLayer,
 )
 
-__all__ = ["GPT1P3B_KW", "gpt1p3b_config", "gpt_param_count", "GPTConfig",
+__all__ = ["BertConfig", "BertModel", "bert_model_provider", "GPT1P3B_KW",
+           "gpt1p3b_config", "gpt_param_count", "GPTConfig",
            "GPTModel", "ParallelAttention", "ParallelMLP",
            "ParallelTransformer", "ParallelTransformerLayer"]

@@ -1,12 +1,14 @@
-"""Carry GPT weights between the JAX package and the port.
+"""Carry GPT and BERT weights between the JAX package and the port.
 
-The JAX ``GPTModel.init_master`` / ``shard_master(..., 0)`` tree is a
-nested dict of arrays whose transformer leaves are stacked on a leading
-layer axis (``transformer.layers.<leaf>`` of shape [L, ...]); the port
-has one module per layer (``transformer.layers.<i>.<leaf>``).  Every
-other name is the same path joined with dots, and every layout is the
-same ([out, in] weights, [vocab, hidden] embedding), so nothing is
-transposed.  Arrays travel as numpy.
+The JAX ``GPTModel`` / ``BertModel`` ``init_master`` / ``shard_master(...,
+0)`` tree is a nested dict of arrays whose transformer leaves are stacked
+on a leading layer axis (``transformer.layers.<leaf>`` of shape [L,
+...]); the port has one module per layer (``transformer.layers.<i>.
+<leaf>``).  Every other name is the same path joined with dots (BERT's
+``lm_head.{dense,layernorm}.*``, ``lm_head.bias``, ``pooler``,
+``binary_head`` and ``tokentype_embeddings`` are the port's submodule
+names), and every layout is the same ([out, in] weights, [vocab, hidden]
+embedding), so nothing is transposed.  Arrays travel as numpy.
 """
 
 from __future__ import annotations
@@ -31,7 +33,8 @@ def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
 
 
 def state_dict_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
-    """The port's ``GPTModel`` state_dict from a JAX GPT param tree."""
+    """The port's ``GPTModel`` or ``BertModel`` state_dict from a JAX GPT
+    or BERT param tree."""
     sd = {}
     for name, arr in _flatten(tree).items():
         if name.startswith(_LAYERS + "."):
@@ -44,8 +47,9 @@ def state_dict_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
 
 
 def jax_tree_from_state_dict(sd: Mapping[str, torch.Tensor]) -> dict:
-    """The JAX GPT param tree (numpy leaves, layers stacked) from the
-    port's state_dict or a dict of its gradients under the same names."""
+    """The JAX GPT or BERT param tree (numpy leaves, layers stacked) from
+    the port's state_dict or a dict of its gradients under the same
+    names."""
     flat, stacks = {}, {}
     for name, t in sd.items():
         a = t.detach().cpu().float().numpy() if t.dtype == torch.bfloat16 \

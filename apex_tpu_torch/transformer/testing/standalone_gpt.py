@@ -9,9 +9,13 @@ parameter names are the JAX tree's paths (``transformer.layers.<i>...``
 for the JAX leading layer axis), see :mod:`.convert`.
 
 What runs where: the LayerNorms are ``ops.layer_norm`` (``csrc/
-layer_norm.cu`` on the card), attention is ``ops.flash_attention_qkv``
-straight from the QKV projection (``csrc/flash_qkv_fwd.cu`` /
-``flash_qkv_bwd.cu``), the GEMMs are fp32-accumulated library products.
+layer_norm_sm90.cu`` or ``layer_norm.cu`` on the card), attention is
+``ops.flash_attention_qkv`` straight from the QKV projection (the packed
+kernels of ``csrc/flash_qkv_*.cu``), the GEMMs are fp32-accumulated
+library products.  The body is shared with BERT (:mod:`.standalone_bert`):
+``ParallelAttention(causal=False)``, and a key-padding mask [b, 1, 1, s]
+(True = masked key) and packing ids folded into the kernels' segment ids
+as the JAX ``ParallelAttention.apply`` folds them.
 With labels, a bf16 model takes the fused LM-head cross-entropy and an
 fp32 model the plain vocab-parallel one (the JAX package's choice).
 
@@ -26,7 +30,8 @@ re-creates its generator, so the recompute redraws the same masks.
 
 Not ported (raise ``NotImplementedError``): tensor parallelism above 1,
 the non-flash attention path, the MoE MLP, remat policies other than
-``attn_res`` and ``full``, attention masks, fp16 on the card.
+``attn_res`` and ``full``, attention masks other than key padding (the
+fused-softmax path), fp16 on the card.
 """
 
 from __future__ import annotations
@@ -124,13 +129,40 @@ def _attn_res_context():
     return create_selective_checkpoint_contexts(_attn_res_policy)
 
 
-class ParallelAttention(nn.Module):
-    """Causal self-attention through the packed-QKV flash op (reference
-    standalone_gpt.py:283)."""
+def attention_segments(attention_mask: Optional[torch.Tensor],
+                       segment_ids: Optional[torch.Tensor]):
+    """The packed kernels' segment ids for a key-padding mask and packing
+    ids, as the JAX ``ParallelAttention.apply`` folds them: packing ids
+    alone as they are; a mask alone as (ones, keep), so pad keys are
+    hidden from every query and pad queries still see the real keys;
+    both as (ids, ids with pad keys at -1), a bucket no real segment
+    uses.  Any other mask raises: the fused-softmax path is not ported."""
+    if attention_mask is None:
+        return segment_ids
+    if attention_mask.ndim != 4 or attention_mask.shape[1:3] != (1, 1):
+        raise NotImplementedError(
+            f"attention mask of shape {tuple(attention_mask.shape)}: only a "
+            "key-padding mask [b, 1, 1, s] is ported (the fused-softmax path "
+            "is not, ROADMAP.md)")
+    pad = attention_mask[:, 0, 0, :].bool()
+    if segment_ids is not None:
+        seg = segment_ids.to(torch.int32)
+        return seg, torch.where(pad, -1, seg)
+    keep = (~pad).to(torch.int32)
+    return torch.ones_like(keep), keep
 
-    def __init__(self, cfg: GPTConfig, *, device=None, generator=None):
+
+class ParallelAttention(nn.Module):
+    """Self-attention through the packed-QKV flash op (reference
+    standalone_gpt.py:283): causal for GPT, bidirectional for BERT
+    (``causal``, the counterpart of the JAX module's
+    ``softmax.attn_mask_type``)."""
+
+    def __init__(self, cfg: GPTConfig, *, causal: bool = True, device=None,
+                 generator=None):
         super().__init__()
         self.cfg = cfg
+        self.causal = causal
         init = normal_init(cfg.init_method_std)
         self.qkv = ColumnParallelLinear(
             cfg.hidden_size, 3 * cfg.hidden_size, init_method=init,
@@ -140,8 +172,13 @@ class ParallelAttention(nn.Module):
             tp_size=cfg.tp_size, device=device, generator=generator)
         self.np_local = cfg.num_attention_heads // cfg.tp_size
 
-    def forward(self, h: torch.Tensor,
-                dropout_seed: Optional[int] = None) -> torch.Tensor:
+    def forward(self, h: torch.Tensor, dropout_seed: Optional[int] = None,
+                attention_mask: Optional[torch.Tensor] = None,
+                segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``attention_mask``: a key-padding mask [b, 1, 1, s], True =
+        masked key; ``segment_ids``: int [b, s] packing ids (pad tokens in
+        their own bucket); see :func:`attention_segments`."""
+        seg = attention_segments(attention_mask, segment_ids)
         qkv = self.qkv(h)  # [b, s, 3 * hidden], per head q | k | v
         drop = {}
         if dropout_seed is not None and self.cfg.attention_dropout > 0:
@@ -149,7 +186,8 @@ class ParallelAttention(nn.Module):
             drop = dict(dropout_rate=self.cfg.attention_dropout,
                         dropout_seed=model_parallel_dropout_seed(
                             dropout_seed) & 0xFFFFFFFF)
-        ctx = flash_attention_qkv(qkv, self.np_local, causal=True, **drop)
+        ctx = flash_attention_qkv(qkv, self.np_local, causal=self.causal,
+                                  segment_ids=seg, **drop)
         return self.proj(ctx.to(h.dtype))
 
 
@@ -191,23 +229,26 @@ def _hidden_dropout(x: torch.Tensor, cfg: GPTConfig,
 class ParallelTransformerLayer(nn.Module):
     """Pre-LN block (reference standalone_gpt.py:575)."""
 
-    def __init__(self, cfg: GPTConfig, *, device=None, generator=None):
+    def __init__(self, cfg: GPTConfig, *, causal: bool = True, device=None,
+                 generator=None):
         super().__init__()
         self.cfg = cfg
         h = cfg.hidden_size
         eps = cfg.layernorm_epsilon
         self.input_layernorm = FusedLayerNorm(h, eps, device=device)
-        self.attention = ParallelAttention(cfg, device=device,
+        self.attention = ParallelAttention(cfg, causal=causal, device=device,
                                            generator=generator)
         self.post_attention_layernorm = FusedLayerNorm(h, eps, device=device)
         self.mlp = ParallelMLP(cfg, device=device, generator=generator)
 
-    def forward(self, h: torch.Tensor,
-                dropout_seed: Optional[int] = None) -> torch.Tensor:
+    def forward(self, h: torch.Tensor, dropout_seed: Optional[int] = None,
+                attention_mask: Optional[torch.Tensor] = None,
+                segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
         s_attn = s_h1 = s_h2 = None
         if dropout_seed is not None:
             s_attn, s_h1, s_h2 = (fold_in(dropout_seed, i) for i in range(3))
-        attn = self.attention(self.input_layernorm(h), s_attn)
+        attn = self.attention(self.input_layernorm(h), s_attn,
+                              attention_mask, segment_ids)
         h = h + _hidden_dropout(attn, self.cfg, s_h1)
         out = self.mlp(self.post_attention_layernorm(h))
         return h + _hidden_dropout(out, self.cfg, s_h2)
@@ -218,25 +259,28 @@ class ParallelTransformer(nn.Module):
     ``cfg.remat``."""
 
     def __init__(self, cfg: GPTConfig, num_layers: Optional[int] = None, *,
-                 device=None, generator=None):
+                 causal: bool = True, device=None, generator=None):
         super().__init__()
         self.cfg = cfg
         n = cfg.num_layers if num_layers is None else num_layers
         self.layers = nn.ModuleList(
-            ParallelTransformerLayer(cfg, device=device, generator=generator)
+            ParallelTransformerLayer(cfg, causal=causal, device=device,
+                                     generator=generator)
             for _ in range(n))
 
-    def forward(self, h: torch.Tensor,
-                dropout_seed: Optional[int] = None) -> torch.Tensor:
+    def forward(self, h: torch.Tensor, dropout_seed: Optional[int] = None,
+                attention_mask: Optional[torch.Tensor] = None,
+                segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
         remat = self.cfg.remat and torch.is_grad_enabled()
         context_fn = (_attn_res_context
                       if self.cfg.remat_policy == "attn_res" else None)
         for i, layer in enumerate(self.layers):
             seed = None if dropout_seed is None else fold_in(dropout_seed, i)
             if remat:
-                h = checkpoint(layer, h, seed, context_fn=context_fn)
+                h = checkpoint(layer, h, seed, attention_mask, segment_ids,
+                               context_fn=context_fn)
             else:
-                h = layer(h, seed)
+                h = layer(h, seed, attention_mask, segment_ids)
         return h
 
 
@@ -283,13 +327,11 @@ class GPTModel(nn.Module):
                 dropout_seed: Optional[int] = None) -> torch.Tensor:
         """With ``labels``, per-token losses [b, s] (fp32); otherwise fp32
         logits.  ``dropout_seed`` (an int) switches the config's attention
-        and hidden dropout on (training mode)."""
-        if attention_mask is not None:
-            raise NotImplementedError(
-                "attention masks are not ported: the GPT path is causal "
-                "self-attention without padding (ROADMAP.md)")
+        and hidden dropout on (training mode).  ``attention_mask``: a
+        key-padding mask [b, 1, 1, s] (True = masked key), applied on top
+        of the causal mask; any other mask raises."""
         h = embedding_dropout(self.embed(tokens), self.cfg, dropout_seed)
-        h = self.transformer(h, dropout_seed)
+        h = self.transformer(h, dropout_seed, attention_mask)
         if labels is None:
             return self.head_logits_local(h)
         if self.cfg.compute_dtype != torch.float32:
@@ -305,4 +347,4 @@ class GPTModel(nn.Module):
 
 __all__ = ["GPTConfig", "GPTModel", "ParallelAttention", "ParallelMLP",
            "ParallelTransformerLayer", "ParallelTransformer",
-           "embedding_dropout", "REMAT_POLICIES"]
+           "attention_segments", "embedding_dropout", "REMAT_POLICIES"]

@@ -4,11 +4,12 @@
     python3 chip_smoke.py          # from the repository root, one card
 
 Drives the port only (it imports neither ``jax`` nor ``apex_tpu``).
-It covers the five ported paths: the serving engine (phases 4-5), the GPT
+It covers the six ported paths: the serving engine (phases 4-5), the GPT
 training step of ``pretrain_gpt`` (phases 6-7), the contrib multi-head
 attention training path (phases 8-9), GPT training on the flat
-superblock with ``FlatFusedAdam`` (phases 10-11) and the kernel
-microbenches with their HBM roof and attention dot floor (phase 12).
+superblock with ``FlatFusedAdam`` (phases 10-11), the kernel
+microbenches with their HBM roof and attention dot floor (phase 12) and
+BERT-large training, padded and packed (phases 13-14).
 Phases, each of which fails the run (non-zero exit) on error:
 
 1. device — a CUDA card is required; its name and power limit are read
@@ -23,7 +24,9 @@ Phases, each of which fails the run (non-zero exit) on error:
    ``layer_norm_sm90.cu``, whose rows and dgamma/dbeta sums live in
    registers, must show no spill or stack either, nor K5's
    ``flash_decode_sm90.cu``, whose SASS must hold 16-byte global loads
-   (``LDG.E.128``);
+   (``LDG.E.128``); K3/K4's head-dim-64 instances (BERT-large) must all
+   be built, four of each kernel, each with ``HGMMA`` and ``UTMALDG`` in
+   its own SASS;
 3. kernels — each kernel against its plain PyTorch version on the card,
    at its main path's shapes (bf16; the training kernels with and without
    dropout) and in fp32, with the tolerance stated; then timed (operands
@@ -46,7 +49,16 @@ Phases, each of which fails the run (non-zero exit) on error:
    (bitwise), with K4's tiles walked against :func:`flash_bwd_tiles` at
    its own tiles; fp32 to the scalar kernels.  The scalar kernels' bf16
    instances are timed against the tensor-core ones, cold and in turns
-   (``timed_pair``).  The generic attention kernels (K1 and K2, whose bf16
+   (``timed_pair``).  Each case names the instance that ran: head dim 128
+   (GPT) or 64 (BERT-large), one entry point each.  At head dim 64, not
+   causal, at BERT-large's batches (``profiling.bert_large``: 16
+   sequences padded to 512, packed into 13 rows): key padding folded as
+   (ones, keep), the packing ids (pad tail in its own bucket), both
+   folded, a ragged s = 500, dropout, causal with segment ids, and fp32
+   on the scalar route; K4's tiles walked against :func:`flash_bwd_tiles`
+   with distinct ``seg_q`` and ``seg_k``; timed cold at the padded and
+   the packed batch beside the plain versions and SDPA with the ids as a
+   boolean mask.  The generic attention kernels (K1 and K2, whose bf16
    routes at head dims 64 and 128 are the tensor-core
    ``flash_fwd_sm90.cu`` and ``flash_bwd_sm90.cu`` and whose fp32 and
    head dim 8 routes are the scalar ``flash_fwd.cu`` and
@@ -172,6 +184,26 @@ Phases, each of which fails the run (non-zero exit) on error:
     (``timed_pair``) at the three shapes; last, every kernel row read
     against what the card demonstrably reaches (the HBM roof, or the dot
     floor at its shape; attention rows also at ``matmul_roof``'s rate).
+13. toy BERT — ``BertModel`` at fp32, 2 layers, 2 heads of 64, padded
+    and packed (``profiling.bert_large.bert_batches`` at 8 sequences of
+    at most 128 tokens), three ``FusedAdam`` steps from the same weights
+    on the card and on the CPU: losses and final weights agree, the
+    attention ran the scalar K3/K4's head-dim-64 instance (the fp32
+    route) and nothing else of K3/K4, and the packed per-token losses
+    equal the padded ones on the real tokens within 2e-5;
+14. full-width BERT-large — ``profiling.bert_large`` (bench.py's
+    ``_bert_setup``: 24 layers, hidden 1024, 16 heads of 64, vocab 30592,
+    seq 512, bf16, remat ``attn_res``, ``FusedAdam(lr=1e-4)``), padded (16
+    rows and a key-padding mask) and packed (13 rows, segment and
+    position ids): five steps on a fixed batch each, finite and falling,
+    step 1 near ln(30592) + 0.02^2 x 1024 / 2, exact launch counts a step
+    (the tensor-core K3/K4's head-dim-64 instances only, K6/K7
+    ``layer_norm_sm90.cu``'s, the MLM head's fp32 LayerNorm included);
+    one step through the kernels against the plain versions, and one step
+    run twice (bitwise), in each layout; step ms, real tokens/s, model
+    TFLOP/s (``bert_analytic_flops``), ``bert_varlen_vs_padded_speedup``,
+    peak memory, a step's host enqueue vs device done time and its device
+    time by kind under ``torch.profiler``.
 
 The last three lines of standard output are the kernels' JSON record,
 the ``nvidia-smi`` name/power line, and ``{"ok": true, "device": ...}``.
@@ -211,11 +243,16 @@ from apex_tpu_torch.ops import fused_layer_norm as ln  # noqa: E402
 from apex_tpu_torch.optimizers import (FlatAdamState,  # noqa: E402
                                        FlatFusedAdam, FusedAdam)
 from apex_tpu_torch.optimizers import flat as flat_opt  # noqa: E402
-from apex_tpu_torch.profiling import microbench, roofs, timing  # noqa: E402
+from apex_tpu_torch.profiling import (bert_large, microbench,  # noqa: E402
+                                      roofs, timing)
+from apex_tpu_torch.profiling.bert_large import bert_lengths  # noqa: E402
 from apex_tpu_torch.profiling.roofs import (HBM_BYTES_PER_S,  # noqa: E402
                                             PEAK_FLOPS, bound)
 from apex_tpu_torch.profiling.timing import cold_ms  # noqa: E402
-from apex_tpu_torch.transformer.testing import gpt_param_count  # noqa: E402
+from apex_tpu_torch.transformer.testing import (  # noqa: E402
+    BertModel, gpt_param_count)
+from apex_tpu_torch.transformer.testing.standalone_gpt import (  # noqa: E402
+    attention_segments)
 from apex_tpu_torch.serving import model as model_mod  # noqa: E402
 from apex_tpu_torch.serving import (ServingEngine, ServingModelConfig,  # noqa: E402
                                     SimClock, init_params, poisson_trace,
@@ -647,20 +684,27 @@ def check_lse(name: str, got: torch.Tensor, ref: torch.Tensor) -> None:
                              "of its bar)")
 
 
-def qkv_operands(gen, dtype, b=TRAIN["b"], s=TRAIN["s"]):
-    h, d = TRAIN["heads"], TRAIN["d"]
+def qkv_operands(gen, dtype, b=TRAIN["b"], s=TRAIN["s"], d=TRAIN["d"],
+                 h=TRAIN["heads"]):
     qkv = torch.randn(b, s, 3 * h * d, generator=gen, device="cuda").to(dtype)
     dctx = torch.randn(b, s, h * d, generator=gen, device="cuda").to(dtype)
     return qkv, dctx
 
 
-def sm90_visits_want(seg, b, s, causal):
+def seg_pair(seg):
+    """(seg_q, seg_k) of the packed kernels' ``segment_ids``: None, one id
+    tensor for both sides, or a pair (the key-padding fold)."""
+    return seg if isinstance(seg, tuple) else (seg, seg)
+
+
+def sm90_visits_want(seg, b, s, causal, h=TRAIN["heads"]):
     """The tiles ``flash_qkv_bwd_sm90.cu`` walks, from the plain statement
     of its skip rule (:func:`flash_bwd_tiles` at its two passes' tiles,
     ``att.QKV_SM90_BWD_TILES``), in the layout of its ``visits``: the dk/dv
-    pass's blocks, then the dq pass's, each [b*h, n_blocks] flattened."""
-    h = TRAIN["heads"]
-    seg_q = seg_k = seg
+    pass's blocks, then the dq pass's, each [b*h, n_blocks] flattened.
+    ``seg``: None, one id tensor for both sides, or a (seg_q, seg_k)
+    pair."""
+    seg_q, seg_k = seg_pair(seg)
     (bq2, bk2), (bq3, bk3) = (att.QKV_SM90_BWD_TILES[k] for k in ("dkdv",
                                                                    "dq"))
     kv = flash_bwd_tiles(seg_q, seg_k, s, s, causal, bq2, bk2)[0]
@@ -671,15 +715,20 @@ def sm90_visits_want(seg, b, s, causal):
 
 
 def flash_qkv_case(gen, name, dtype, rate, b=TRAIN["b"], s=TRAIN["s"],
-                   seg=None, causal=True):
-    """K3 and K4 against their plain versions; for bf16 (the tensor-core
+                   seg=None, causal=True, d=TRAIN["d"], h=TRAIN["heads"]):
+    """K3 and K4 against their plain versions, naming the instances that
+    ran (the route's, at head dim ``d``); for bf16 (the tensor-core
     kernels) also K4's tiles walked against the plain statement of its
-    skip rule and K3 and K4 run twice (bitwise).  Returns (K3 error, K4
-    error, operands)."""
-    qkv, dctx = qkv_operands(gen, dtype, b, s)
-    h = TRAIN["heads"]
-    args = (seg, seg, h, TRAIN["d"] ** -0.5, causal, rate, RATE_SEED)
-    ctx, lse = att._flash_qkv_fwd_cuda(qkv, *args)
+    skip rule and K3 and K4 run twice (bitwise).  ``seg``: None, one id
+    tensor or a (seg_q, seg_k) pair.  Returns (K3 error, K4 error,
+    operands)."""
+    qkv, dctx = qkv_operands(gen, dtype, b, s, d, h)
+    args = (*seg_pair(seg), h, d ** -0.5, causal, rate, RATE_SEED)
+    want = [k.symbol for k in att.QKV_KERNELS[att._qkv_route(dtype), d]]
+    (ctx, lse), ran3 = launched(lambda: att._flash_qkv_fwd_cuda(qkv, *args))
+    if ran3 != want[:1]:
+        raise AssertionError(f"flash_qkv {name}: ran {ran3}, expected "
+                             f"{want[:1]}")
     rctx, rlse = att._flash_qkv_fwd_plain(qkv, *args)
     torch.cuda.synchronize()
     e3 = check(f"flash_qkv_fwd {name} ctx", ctx, rctx)
@@ -687,10 +736,15 @@ def flash_qkv_case(gen, name, dtype, rate, b=TRAIN["b"], s=TRAIN["s"],
     del rctx, rlse
     visits = None
     if dtype == torch.bfloat16:
-        want = sm90_visits_want(seg, b, s, causal)
-        visits = torch.full((want.numel(),), -1, dtype=torch.int32,
+        tiles = sm90_visits_want(seg, b, s, causal, h)
+        visits = torch.full((tiles.numel(),), -1, dtype=torch.int32,
                             device="cuda")
-    dqkv = att._flash_qkv_bwd_cuda(qkv, dctx, ctx, lse, *args, visits=visits)
+    dqkv, ran4 = launched(lambda: att._flash_qkv_bwd_cuda(
+        qkv, dctx, ctx, lse, *args, visits=visits))
+    log(f"  flash_qkv {name} [{b},{s},{h}x3x{d}]: ran {ran3 + ran4}")
+    if ran4 != want[1:]:
+        raise AssertionError(f"flash_qkv {name}: backward ran {ran4}, "
+                             f"expected {want[1:]}")
     rdqkv = att._flash_qkv_bwd_plain(qkv, dctx, ctx, lse, *args)
     torch.cuda.synchronize()
     e4 = check(f"flash_qkv_bwd {name} dqkv", dqkv, rdqkv)
@@ -700,9 +754,9 @@ def flash_qkv_case(gen, name, dtype, rate, b=TRAIN["b"], s=TRAIN["s"],
         n_kv = b * h * -(-s // att.QKV_SM90_BWD_TILES["dkdv"][1])
         log(f"  flash_qkv_bwd {name} tiles walked: dk/dv "
             f"{int(got[:n_kv].sum())}, dq {int(got[n_kv:].sum())}; the plain "
-            f"rule's {int(want[:n_kv].sum())}, {int(want[n_kv:].sum())}: "
-            f"{'ok' if torch.equal(got, want) else 'FAIL'}")
-        if not torch.equal(got, want):
+            f"rule's {int(tiles[:n_kv].sum())}, {int(tiles[n_kv:].sum())}: "
+            f"{'ok' if torch.equal(got, tiles) else 'FAIL'}")
+        if not torch.equal(got, tiles):
             raise AssertionError(f"flash_qkv_bwd {name}: tiles walked differ "
                                  "from flash_bwd_tiles")
         again = att._flash_qkv_fwd_cuda(qkv, *args)
@@ -974,6 +1028,126 @@ def phase_training_kernels() -> dict:
             "layer_norm_fwd": ofwd, "layer_norm_bwd": obwd}
 
 
+# -- phase 3, slice 12: K3/K4 at BERT-large's shape (head dim 64, not
+# causal, key padding and packing ids folded into segment ids) -------------
+
+BERT_D = bert_large.BERT_H // bert_large.BERT_HEADS     # 64
+
+
+def bert_attention_ids(batch, layout):
+    """The packed kernels' segment ids of one BERT-large batch as the
+    model folds them (``standalone_gpt.attention_segments``): ``padded``
+    its key-padding mask, ``packed`` its packing ids, ``folded`` the
+    packed rows with their padding mask too."""
+    if layout == "packed":
+        return batch["segment_ids"]
+    pad = ~batch["loss_mask" if layout == "folded"
+                 else "attention_mask"][:, None, None, :].bool()
+    return attention_segments(
+        pad, batch["segment_ids"] if layout == "folded" else None)
+
+
+def visible_pairs(seg, h):
+    """(query, key) pairs that non-causal packed attention with these ids
+    sees, over all heads: what this run's data needs."""
+    seg_q, seg_k = seg_pair(seg)
+    return int((seg_q[:, :, None] == seg_k[:, None, :]).sum()) * h
+
+
+def time_bert_qkv(qkv, dctx, ctx, lse, seg, what) -> tuple:
+    """K3 and K4 (through the wrappers: the route of qkv's dtype at head
+    dim 64) timed cold at a BERT-large batch beside their plain versions
+    and SDPA with the same ids as a boolean mask (the library call for the
+    same function), with the bound of this batch's visible pairs."""
+    b, s, _ = qkv.shape
+    h, d = bert_large.BERT_HEADS, BERT_D
+    seg_q, seg_k = seg_pair(seg)
+    args = (seg_q, seg_k, h, d ** -0.5, False, 0.0, RATE_SEED)
+    fwd_ms = cold_ms(lambda: att._flash_qkv_fwd_cuda(qkv, *args), 10)
+    fwd_plain = cold_ms(lambda: att._flash_qkv_fwd_plain(qkv, *args), 5, 1)
+    bwd_ms = cold_ms(lambda: att._flash_qkv_bwd_cuda(
+        qkv, dctx, ctx, lse, *args), 10)
+    bwd_plain = cold_ms(lambda: att._flash_qkv_bwd_plain(
+        qkv, dctx, ctx, lse, *args), 5, 1)
+    q, k, v = (t.detach().requires_grad_() for t in
+               qkv.view(b, s, h, 3, d).permute(3, 0, 2, 1, 4))
+    mask = (seg_q[:, None, :, None] == seg_k[:, None, None, :])
+    fwd_lib = cold_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask), 10)
+    out = F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+    dout = dctx.view(b, s, h, d).transpose(1, 2)
+    bwd_lib = cold_ms(lambda: torch.autograd.grad(
+        out, (q, k, v), dout, retain_graph=True), 10)
+    item = qkv.element_size()
+    pairs = visible_pairs(seg, h)
+    fwd_bytes = b * s * 4 * h * d * item + b * h * s * 4  # qkv, ctx, lse
+    bwd_bytes = (b * s * 3 * h * d * item * 2          # qkv in, dqkv out
+                 + b * s * h * d * item * 2 + b * h * s * 4)  # dctx, ctx, lse
+    fb, fby = bound(fwd_bytes, 4 * d * pairs, qkv.dtype)
+    bb, bby = bound(bwd_bytes, 10 * d * pairs, qkv.dtype)
+    log(f"  flash_qkv d 64 timing, {what} [{b},{s},{h}x3x{d}] {qkv.dtype}, "
+        f"{pairs} visible pairs: fwd kernel {fwd_ms:.4f} ms, plain "
+        f"{fwd_plain:.4f}, sdpa (boolean mask) {fwd_lib:.4f}, bound "
+        f"{fb:.4f} ({fby}, {fb / fwd_ms:.1%} of it); bwd kernel {bwd_ms:.4f}"
+        f" ms, plain {bwd_plain:.4f}, sdpa backward {bwd_lib:.4f}, bound "
+        f"{bb:.4f} ({bby}, {bb / bwd_ms:.1%} of it)")
+    fwd = dict(ms=fwd_ms, plain_ms=fwd_plain, library_ms=fwd_lib,
+               bound_ms=fb, bound_by=fby, flops=4 * d * pairs)
+    bwd = dict(ms=bwd_ms, plain_ms=bwd_plain, library_ms=bwd_lib,
+               bound_ms=bb, bound_by=bby, flops=10 * d * pairs)
+    return fwd, bwd
+
+
+def phase_bert_kernels() -> dict:
+    """K3/K4's head-dim-64 instances against their plain versions at
+    BERT-large's batches (bench.py's workload: 16 sequences padded to 512,
+    and packed into 13 rows), not causal, through the three foldings of
+    key padding and packing ids; a ragged s = 500; the dropout and the
+    causal instances; fp32 on the scalar route; then timed."""
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    bf16, fp32 = torch.bfloat16, torch.float32
+    padded, packed, _, _ = bert_large.bert_batches()
+    kw = dict(d=BERT_D, h=bert_large.BERT_HEADS, causal=False)
+    segs, errs, ops = {}, {}, {}
+    for layout, batch in (("padded", padded), ("packed", packed),
+                          ("folded", packed)):
+        segs[layout] = bert_attention_ids(batch, layout)
+        e3, e4, ops[layout] = flash_qkv_case(
+            gen, f"bf16 BERT-large {layout}", bf16, 0.0,
+            b=batch["tokens"].shape[0], s=bert_large.BERT_SEQ,
+            seg=segs[layout], **kw)
+        errs[layout] = (e3, e4)
+        if layout == "folded":
+            del ops[layout]
+    lens = torch.tensor([500, 437, 256, 64], device="cuda")
+    flash_qkv_case(gen, "bf16 key padding, ragged s=500", bf16, 0.0, b=4,
+                   s=500, seg=segments_of(key_padding(lens, 500), 500), **kw)
+    pad4 = {k: v[:4] for k, v in padded.items()}
+    flash_qkv_case(gen, f"bf16 key padding, dropout {ATT_DROPOUT}", bf16,
+                   ATT_DROPOUT, b=4, s=bert_large.BERT_SEQ,
+                   seg=bert_attention_ids(pad4, "padded"), **kw)
+    seg = torch.stack([seg_row(512, [200, 250]), seg_row(512, [512])]).cuda()
+    flash_qkv_case(gen, "bf16 causal + segment ids, dropout, b=2 s=512",
+                   bf16, ATT_DROPOUT, b=2, s=512, seg=seg, d=BERT_D,
+                   h=bert_large.BERT_HEADS)
+    s3, s4, sops = flash_qkv_case(gen, "fp32 BERT-large padded", fp32, 0.0,
+                                  b=padded["tokens"].shape[0],
+                                  s=bert_large.BERT_SEQ,
+                                  seg=segs["padded"], **kw)
+    fwd, bwd = time_bert_qkv(*ops["padded"], segs["padded"], "padded")
+    pfwd, pbwd = time_bert_qkv(*ops["packed"], segs["packed"], "packed")
+    sfwd, sbwd = time_bert_qkv(*sops, segs["padded"], "padded")
+    del ops, sops
+    torch.cuda.empty_cache()
+    fwd["max_abs_err"], bwd["max_abs_err"] = errs["padded"]
+    pfwd["max_abs_err"], pbwd["max_abs_err"] = errs["packed"]
+    fwd["at_packed"], bwd["at_packed"] = pfwd, pbwd
+    fwd["max_abs_err_folded"], bwd["max_abs_err_folded"] = errs["folded"]
+    sfwd["max_abs_err"], sbwd["max_abs_err"] = s3, s4
+    return {"flash_qkv_fwd_sm90_d64": fwd, "flash_qkv_bwd_sm90_d64": bwd,
+            "flash_qkv_fwd_d64": sfwd, "flash_qkv_bwd_d64": sbwd}
+
+
 # -- phase 3, slice 3: the generic attention kernels K1 (mask, dropout,
 # d = 64) and K2 ------------------------------------------------------------
 
@@ -982,15 +1156,6 @@ def phase_training_kernels() -> dict:
 MHA = dict(hidden=1024, heads=16, layers=6, batch=32, src=256, tgt=192,
            dropout=0.1)
 MASK_FILL = -10000.0         # the modules' fill for a boolean mask
-
-
-def bert_lengths(n, seq=512, seed=7):
-    """bench.py::bert_lengths: ~25 % at the full window, the rest uniform
-    in [seq/8, seq) rounded to 8 (copied: the port imports no JAX)."""
-    rng = np.random.RandomState(seed)
-    lens = np.where(rng.rand(n) < 0.25, seq,
-                    (rng.randint(seq // 8, seq, size=n) // 8) * 8)
-    return np.maximum(lens, 8).astype(np.int64)
 
 
 def mha_lengths(seed, b, lo, hi):
@@ -1617,6 +1782,7 @@ def phase_kernels() -> dict:
     out = {"flash_fwd_sm90": fwd, "flash_fwd": sfwd,
            **phase_decode_kernels(gen),
            **phase_training_kernels(),
+           **phase_bert_kernels(),
            **phase_generic_kernels()}
     torch.cuda.empty_cache()
     out["flat_adam"] = phase_flat_adam()
@@ -2771,6 +2937,331 @@ def flat_checks(tr: SuperblockTrainer, it: int) -> dict:
             "flat_bucketed_spans": plan.num_buckets}
 
 
+# -- phases 13-14: BERT-large training, padded and packed -------------------
+
+# the toy: fp32, 2 layers, 2 heads of 64 (BERT-large's head dim), so that
+# its attention runs the scalar K3/K4's d = 64 instance (the fp32 route)
+TOY_BERT = dict(num_layers=2, hidden_size=128, num_attention_heads=2,
+                vocab_size=512, max_position_embeddings=128, bf16=False)
+TOY_BERT_SEQS, TOY_BERT_SEQ, TOY_BERT_STEPS = 8, 128, 3
+TOY_BERT_LR = 1e-3
+# final weights, card vs CPU, absolute: fp32 sums in another order, which
+# Adam turns into steps of a sizeable fraction of lr where a gradient is
+# near zero; the CPU test of the same toy against JAX reads 5.8e-5 after
+# three steps at this lr and holds 6e-4 (tests/test_torch_bert.py).  Three
+# steps move a weight by up to 3e-3, so a skipped update fails it.
+TOY_BERT_WEIGHT_TOL = 6e-4
+# packed == padded on the real tokens (tests/L0/test_megatron_models.py's
+# bar: rtol and atol 2e-5)
+PACKED_TOL = 2e-5
+LAYOUTS = (("padded", False), ("packed", True))
+
+
+def toy_bert_run(device, state, batch, with_packing):
+    """TOY_BERT_STEPS FusedAdam steps of the toy from ``state`` on
+    ``device``: (losses, final weights on the CPU)."""
+    model = BertModel(bert_large.bert_large_config(**TOY_BERT),
+                      device=device)
+    model.load_state_dict(state)
+    opt = FusedAdam(model.parameters(), lr=TOY_BERT_LR)
+    batch = {k: v.to(device) for k, v in batch.items()}
+    losses = [float(bert_large.train_step(model, opt, batch, with_packing))
+              for _ in range(TOY_BERT_STEPS)]
+    return losses, {k: v.detach().cpu() for k, v in
+                    model.state_dict().items()}
+
+
+def real_token_losses(losses, lens, rows=None):
+    """The per-token losses of the real tokens, sequence by sequence in
+    the workload's order: padded rows one a sequence, or packed rows
+    (``rows``: :func:`bert_large.bert_pack_rows`)."""
+    if rows is None:
+        return torch.cat([losses[i, :int(n)] for i, n in enumerate(lens)])
+    parts = {}
+    for r, idxs in enumerate(rows):
+        at = 0
+        for i in idxs:
+            parts[i] = losses[r, at:at + int(lens[i])]
+            at += int(lens[i])
+    return torch.cat([parts[i] for i in range(len(lens))])
+
+
+def packed_vs_padded(model, padded, packed, lens, seq) -> float:
+    """Max gap of the packed per-token losses from the padded ones on the
+    real tokens, checked against PACKED_TOL (rtol and atol)."""
+    with torch.no_grad():
+        l_pad = bert_large.bert_losses(model, padded, False)
+        l_pack = bert_large.bert_losses(model, packed, True)
+    got = real_token_losses(l_pack, lens, bert_large.bert_pack_rows(lens, seq))
+    want = real_token_losses(l_pad, lens)
+    gap = (got - want).abs()
+    worst = (gap / (PACKED_TOL + PACKED_TOL * want.abs())).max().item()
+    log(f"  packed vs padded per-token losses on {want.numel()} real tokens:"
+        f" max diff {gap.max().item():.3e} (rtol = atol = {PACKED_TOL:.0e}:"
+        f" worst {worst:.3f} of its bar)")
+    if not worst <= 1.0:
+        raise AssertionError("packed losses differ from the padded ones")
+    return gap.max().item()
+
+
+def phase_toy_bert() -> dict:
+    cfg = bert_large.bert_large_config(**TOY_BERT)
+    state = {k: v.clone() for k, v in
+             BertModel(cfg, device="cpu").state_dict().items()}
+    padded, packed, _, _ = bert_large.bert_batches(
+        TOY_BERT_SEQS, TOY_BERT_SEQ, TOY_BERT["vocab_size"], device="cpu")
+    L = TOY_BERT["num_layers"] * TOY_BERT_STEPS
+    want = {"flash_qkv_fwd_d64": L, "flash_qkv_bwd_d64": L}
+    out = {}
+    for layout, packing in LAYOUTS:
+        batch = padded if layout == "padded" else packed
+        kernels.reset_launch_counts()
+        on_card, w_card = toy_bert_run("cuda", state, batch, packing)
+        launches = {k.symbol: k.launches for k in kernels.KERNELS
+                    if k.launches}
+        on_cpu, w_cpu = toy_bert_run("cpu", state, batch, packing)
+        att_ran = {k: v for k, v in launches.items() if "qkv" in k}
+        log(f"  toy BERT {layout}, fp32 launches over {TOY_BERT_STEPS} "
+            f"steps {launches}")
+        if att_ran != want:
+            raise AssertionError(f"toy BERT {layout}: attention ran "
+                                 f"{att_ran}, expected {want} (the scalar "
+                                 "d = 64 instance, the fp32 route)")
+        loss_err = max(abs(a - b) / abs(b) for a, b in zip(on_card, on_cpu))
+        w_err = max((w_card[k] - w_cpu[k]).abs().max().item() for k in w_cpu)
+        moved = max((w_cpu[k] - state[k]).abs().max().item() for k in w_cpu)
+        log(f"  toy BERT {layout}: losses cuda {on_card}, cpu {on_cpu}; "
+            f"loss rel diff {loss_err:.3e} (tol {TOY_LOSS_TOL:.0e}); final "
+            f"weights max diff {w_err:.3e} (tol {TOY_BERT_WEIGHT_TOL:.0e}); "
+            f"the largest update on the CPU {moved:.3e}")
+        if not (loss_err <= TOY_LOSS_TOL and w_err <= TOY_BERT_WEIGHT_TOL
+                and moved > 2 * TOY_BERT_WEIGHT_TOL):
+            raise AssertionError(f"toy BERT {layout}: card and CPU disagree")
+        out[layout] = {"loss_rel_diff": loss_err, "weight_max_diff": w_err,
+                       "launches": launches}
+    model = BertModel(cfg, device="cuda")
+    model.load_state_dict(state)
+    out["packed_vs_padded_max_diff"] = packed_vs_padded(
+        model, *({k: v.cuda() for k, v in b.items()}
+                 for b in (padded, packed)),
+        bert_large.bert_lengths(TOY_BERT_SEQS, TOY_BERT_SEQ), TOY_BERT_SEQ)
+    return out
+
+
+BERT_STEPS = 5
+# kernel vs plain step: ten times the largest gap of four readings on an
+# H100 (scripts/bert_step_gaps.py: padded and packed, at the seeded
+# weights and after three steps).  The step's gradients move by ~2 % a
+# leaf (median) under any change of bf16 rounding in the 24-layer body:
+# the kernels, the plain versions, the plain versions with the kernels'
+# rounding points, each ~2 % from the same step in fp32, the fp32 MLM
+# head's leaves too
+BERT_PLAIN_LOSS_TOL = 5e-4       # absolute, on a loss near 10.5 (read 5.05e-5)
+BERT_PLAIN_NORM_TOL = 7.4e-3     # relative, global grad norm (read 7.39e-4)
+BERT_PLAIN_LEAF_TOL = 0.23       # relative, the worst leaf (read 2.30e-2)
+# the sharper check: the kernel step's median leaf gap from the same step
+# in an fp32 model, over the plain step's (read 0.96-1.00 on the same
+# four states); a kernel that added an error of its own would raise it
+BERT_FP32_RATIO_TOL = 1.25
+# the step's parts: the fp32 GEMMs of the MLM head (TF32 off) apart from
+# the body's bf16 ones
+BERT_KINDS = STEP_KINDS[:6] + (
+    ("sgemm", "GEMMs fp32 (MLM head)"),
+    ("f32f32_f32f32", "GEMMs fp32 (MLM head)"),
+    ("_sss_", "GEMMs fp32 (MLM head)")) + STEP_KINDS[6:]
+
+
+def bert_loss_and_grads(model, batch, packing):
+    loss = bert_large.bert_loss(model, batch, packing)
+    loss.backward()
+    grads = {n: p.grad for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    return loss.detach().item(), grads
+
+
+def median_leaf_gap(grads, ref) -> float:
+    return statistics.median(((grads[n] - g).norm() / g.norm()).item()
+                             for n, g in ref.items())
+
+
+def bert_vs_plain(model, model32, batch, packing, layout) -> dict:
+    """One step's loss and gradients through the kernels against the same
+    step through the plain versions, from the same weights; and each
+    one's median leaf gap from the same step in an fp32 model
+    (``model32``, the weights loaded)."""
+    loss, grads = bert_loss_and_grads(model, batch, packing)
+    patches = plain_kernels()
+    with patches[0], patches[1]:
+        ref_loss, ref_grads = bert_loss_and_grads(model, batch, packing)
+    model32.load_state_dict(model.state_dict())
+    _, grads32 = bert_loss_and_grads(model32, batch, packing)
+    ratio = median_leaf_gap(grads, grads32) / median_leaf_gap(ref_grads,
+                                                               grads32)
+    del grads32
+    norm = multi_tensor_l2norm(list(grads.values())).item()
+    ref_norm = multi_tensor_l2norm(list(ref_grads.values())).item()
+    dl, dn = abs(loss - ref_loss), abs(norm - ref_norm) / ref_norm
+    leaf = {n: ((grads[n] - g).norm() / g.norm()).item()
+            for n, g in ref_grads.items()}
+    worst = max(leaf, key=leaf.get)
+    log(f"  {layout} step, kernels vs plain: loss {loss:.6f} vs "
+        f"{ref_loss:.6f} (diff {dl:.3e}, tol {BERT_PLAIN_LOSS_TOL:.1e}); "
+        f"grad norm {norm:.6f} vs {ref_norm:.6f} (rel diff {dn:.3e}, tol "
+        f"{BERT_PLAIN_NORM_TOL:.1e}); worst leaf {worst} {leaf[worst]:.3e} "
+        f"(tol {BERT_PLAIN_LEAF_TOL:.2f}), median over {len(leaf)} leaves "
+        f"{statistics.median(leaf.values()):.3e}; median leaf gap from the "
+        f"fp32 step, kernels over plain {ratio:.3f} (tol "
+        f"{BERT_FP32_RATIO_TOL})")
+    if not (dl <= BERT_PLAIN_LOSS_TOL and dn <= BERT_PLAIN_NORM_TOL
+            and leaf[worst] <= BERT_PLAIN_LEAF_TOL
+            and ratio <= BERT_FP32_RATIO_TOL):
+        raise AssertionError(f"BERT-large {layout} step: kernel path "
+                             "disagrees with the plain path")
+    return {"loss_diff": dl, "grad_norm_rel_diff": dn,
+            "worst_leaf": worst, "worst_leaf_rel_diff": leaf[worst],
+            "fp32_gap_ratio": ratio}
+
+
+def bert_train(layout, batch, packing, expect, want) -> dict:
+    """BERT_STEPS steps on one fixed batch from the seeded weights: exact
+    launch counts, finite and falling losses, step 1 near ``expect``; the
+    step time, peak memory, a step's host enqueue vs device done time and
+    its device time by kind."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model, opt = bert_large.bert_setup()
+    kernels.reset_launch_counts()
+    losses, times = [], []
+    for _ in range(BERT_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(bert_large.train_step(model, opt, batch,
+                                                  packing)))
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = {k.symbol: k.launches for k in kernels.KERNELS if k.launches}
+    per_step = {k: v / BERT_STEPS for k, v in launches.items()}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"  {layout}: losses {losses}")
+    log(f"  {layout}: launches over {BERT_STEPS} steps {launches}; per step "
+        f"{per_step}, expected {want}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"BERT-large {layout}: non-finite loss")
+    if abs(losses[0] - expect) > STEP_LOSS_TOL:
+        raise AssertionError(f"BERT-large {layout}: step 1 loss {losses[0]} "
+                             f"is not within {STEP_LOSS_TOL} of {expect:.3f}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"BERT-large {layout}: the loss does not fall "
+                             "on a fixed batch")
+    if per_step != want:
+        raise AssertionError(f"BERT-large {layout}: launch counts do not "
+                             "match the main path")
+    enqueue, done = [], []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bert_large.train_step(model, opt, batch, packing)
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        enqueue.append((t1 - t0) * 1e3)
+        done.append((time.perf_counter() - t0) * 1e3)
+    prof = step_profile(lambda: bert_large.train_step(model, opt, batch,
+                                                      packing), BERT_KINDS)
+    out = {"step_ms_p50": statistics.median(times[1:]), "losses": losses,
+           "peak_mem_gib": peak, "launches": launches,
+           "launches_per_step": per_step,
+           "step_enqueue_ms": statistics.median(enqueue),
+           "step_done_ms": statistics.median(done), "step_profile": prof}
+    log(f"  {layout}: step {out['step_ms_p50']:.1f} ms (median of steps "
+        f"2-{BERT_STEPS}), peak {peak:.2f} GiB; one step: host enqueue "
+        f"{out['step_enqueue_ms']:.1f} ms, device done "
+        f"{out['step_done_ms']:.1f} ms (medians of 3)")
+    if prof["device_busy_ms"] > 0:
+        log(f"  {layout} step under torch.profiler: " + ", ".join(
+            f"{k} {v:.1f} ms" for k, v in prof["by_kind_ms"].items())
+            + f"; wall {prof['wall_ms']:.1f} ms, device busy "
+              f"{prof['device_busy_ms']:.1f} ms, idle {prof['idle_share']:.1%}")
+        for name, n, t in prof["top_kernels"]:
+            log(f"    {t:8.2f} ms  x{n:<5d} {name}")
+        log_other_ops(prof)
+    else:
+        log("  one step under torch.profiler: no device time recorded "
+            "(breakdown not measured)")
+    return out
+
+
+def phase_bert_large(smi: str) -> dict:
+    L, H, V = bert_large.BERT_L, bert_large.BERT_H, bert_large.BERT_V
+    # bf16: the tensor-core K3/K4 at head dim 64 (not the d = 128 instance
+    # nor the scalar route) and layer_norm_sm90.cu's K6/K7, the MLM head's
+    # fp32 LayerNorm included: remat attn_res runs K3 once a layer, K4
+    # once, K6 twice a layer forward and twice in the recompute plus the
+    # head's, K7 twice a layer plus the head's
+    want = {"flash_qkv_fwd_sm90_d64": L, "flash_qkv_bwd_sm90_d64": L,
+            "layer_norm_fwd_sm90": 4 * L + 1,
+            "layer_norm_bwd_sm90": 2 * L + 1}
+    padded, packed, n_real, seq_sq = bert_large.bert_batches()
+    batches = {"padded": padded, "packed": packed}
+    # at init the MLM head's LayerNorm gives each token unit variance over
+    # H = 1024, the tied embedding is N(0, 0.02^2): Gaussian logits of
+    # variance v = 0.02^2 x 1024, whose cross entropy on random labels
+    # averages ln(vocab) + v / 2 = 10.329 + 0.205
+    expect = math.log(V) + 0.02 ** 2 * H / 2
+    flops = bert_large.bert_analytic_flops(n_real, seq_sq)
+    out = {"rows": {k: int(b["tokens"].shape[0]) for k, b in
+                    batches.items()},
+           "real_tokens": n_real, "seq_sq_sum": seq_sq,
+           "model_flops": flops, "card": smi}
+    for layout, packing in LAYOUTS:
+        run = bert_train(layout, batches[layout], packing, expect, want)
+        run["tok_per_s"] = n_real / run["step_ms_p50"] * 1e3
+        run["model_tflops"] = flops / run["step_ms_p50"] / 1e9
+        out[layout] = run
+    out["bert_varlen_vs_padded_speedup"] = (out["padded"]["step_ms_p50"]
+                                            / out["packed"]["step_ms_p50"])
+    log("  bert " + json.dumps({
+        "padded_ms": out["padded"]["step_ms_p50"],
+        "packed_ms": out["packed"]["step_ms_p50"],
+        "real_tok_per_s": {k: out[k]["tok_per_s"] for k in batches},
+        "model_tflops": {k: out[k]["model_tflops"] for k in batches},
+        "bert_varlen_vs_padded_speedup":
+            out["bert_varlen_vs_padded_speedup"],
+        "peak_mem_gib": {k: out[k]["peak_mem_gib"] for k in batches},
+        "real_tokens": n_real, "model_flops": flops, "card": smi}))
+    torch.cuda.empty_cache()
+
+    # kernels vs plain versions, one step from the seeded weights
+    model, _ = bert_large.bert_setup()
+    model32 = BertModel(bert_large.bert_large_config(bf16=False))
+    for layout, packing in LAYOUTS:
+        out[layout]["vs_plain"] = bert_vs_plain(model, model32,
+                                                batches[layout], packing,
+                                                layout)
+    del model, model32
+    torch.cuda.empty_cache()
+
+    # determinism: the same step twice from the same state
+    for layout, packing in LAYOUTS:
+        def one_step():
+            m, o = bert_large.bert_setup()
+            loss = bert_large.train_step(m, o, batches[layout], packing)
+            return float(loss), [p.detach().clone() for p in m.parameters()]
+
+        loss1, w1 = one_step()
+        torch.cuda.empty_cache()
+        loss2, w2 = one_step()
+        same = loss1 == loss2 and all(torch.equal(x, y)
+                                      for x, y in zip(w1, w2))
+        del w1, w2
+        torch.cuda.empty_cache()
+        log(f"  {layout}: the same step twice from the same state: losses "
+            f"{loss1!r} / {loss2!r}, weights bitwise equal: {same}")
+        if not same:
+            raise AssertionError(f"BERT-large {layout} step is not "
+                                 "deterministic")
+        out[layout]["deterministic"] = same
+    return out
+
+
 # -- phase 12: the bench's roofs and floor (K9, K10) and the kernel
 # microbenches ---------------------------------------------------------------
 
@@ -2911,6 +3402,67 @@ def sass_count(source: str, opcode: str) -> int:
                for line in sass.splitlines())
 
 
+def sass_functions(source: str) -> dict:
+    """The SASS of a built source's library split by kernel instance:
+    {demangled name: its SASS text} (``cuobjdump -sass``)."""
+    tool = kernels._build.cuda_tool("cuobjdump")
+    sass = subprocess.run([tool, "-sass",
+                           str(kernels._build.library_path(source))],
+                          capture_output=True, text=True, check=True).stdout
+    out, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = demangle(line.split("Function :")[1].strip())
+            out[name] = ""
+        elif name is not None:
+            out[name] += line + "\n"
+    return out
+
+
+#: the instances each packed source builds at head dim 64 (BERT-large),
+#: by kernel name, with the tensor-core products: causal and not, dropout
+#: and not (K4's delta pass has no product)
+D64_INSTANCES = {"flash_qkv_fwd_sm90.cu": ("qkv_fwd_sm90",),
+                 "flash_qkv_bwd_sm90.cu": ("qkv_bwd_dkdv_sm90",
+                                           "qkv_bwd_dq_sm90")}
+
+
+def is_d64(name: str, kernel: str) -> bool:
+    """``name`` (demangled, or mangled where c++filt is missing) is an
+    instance of ``kernel`` at head dim 64."""
+    return (name.startswith(f"{kernel}<64,")
+            or f"{len(kernel)}{kernel}ILi64E" in name)
+
+
+def d64_instance_checks(src: str, report: list) -> dict:
+    """The head-dim-64 instances of a packed tensor-core source: all four
+    of each kernel built (causal and not, dropout and not), and each one's
+    own SASS holding wgmma (``HGMMA``) and TMA loads (``UTMALDG``); their
+    spills are held by the source-wide check."""
+    sass = sass_functions(src)
+    out = {}
+    for kernel in D64_INSTANCES[src]:
+        regs = [r for fn, r, _, _ in report if is_d64(demangle(fn), kernel)]
+        ops = {n: {op: sum(re.search(rf"\b{op}\b", line) is not None
+                           for line in text.splitlines())
+                   for op in ("HGMMA", "UTMALDG")}
+               for n, text in sass.items() if is_d64(n, kernel)}
+        log(f"    {kernel} at head dim 64: {len(regs)} instances, registers "
+            f"{min(regs or [0])}..{max(regs or [0])}; SASS " + "; ".join(
+                f"{n} HGMMA {c['HGMMA']} UTMALDG {c['UTMALDG']}"
+                for n, c in sorted(ops.items())))
+        if len(regs) != 4 or len(ops) != 4:
+            raise AssertionError(f"{src}: {kernel} has {len(regs)} head-dim"
+                                 f"-64 instances in ptxas's report and "
+                                 f"{len(ops)} in the SASS, expected 4")
+        if not all(c["HGMMA"] and c["UTMALDG"] for c in ops.values()):
+            raise AssertionError(f"{src}: a head-dim-64 instance of {kernel}"
+                                 f" lacks HGMMA or UTMALDG ({ops})")
+        out[kernel] = dict(instances=len(regs), max_registers=max(regs),
+                           sass=ops)
+    return out
+
+
 SM90_SOURCES = ("flash_qkv_fwd_sm90.cu", "flash_qkv_bwd_sm90.cu",
                 "flash_bwd_sm90.cu", "flash_fwd_sm90.cu",
                 "attention_dots_sm90.cu")
@@ -2963,6 +3515,8 @@ def sm90_build_checks() -> dict:
             raise AssertionError(f"{src}: its SASS lacks an instruction of "
                                  f"{list(counts)} ({counts})")
         out[src] = dict(counts, instances=len(report), max_registers=max(regs))
+        if src in D64_INSTANCES:
+            out[src]["d64"] = d64_instance_checks(src, report)
     return out
 
 
@@ -3240,8 +3794,18 @@ def main() -> int:
     probes = phase_roofs(smi)
     log("  each kernel row against what this card demonstrably reaches:")
     shares = demonstrated(timings, probes)
+    torch.cuda.empty_cache()
+
+    begin(13, "toy BERT, cuda vs cpu (fp32, 2 heads of 64, padded and "
+          "packed)")
+    toy_bert = phase_toy_bert()
+
+    begin(14, "full-width BERT-large training (24 layers, hidden 1024, 16 "
+          "heads of 64, bf16, padded 16 x 512 and packed 13 x 512)")
+    bert = phase_bert_large(smi)
+    torch.cuda.empty_cache()
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
-    PHASE.update(n=13, name="record")
+    PHASE.update(n=15, name="record")
 
     record = {"kernels": [
         # K1: the bf16 route at head dims 64 and 128 on the tensor cores
@@ -3309,6 +3873,35 @@ def main() -> int:
             ("flash_qkv_bwd", "flash_qkv_bwd.cu",
              "apex_tpu/ops/attention.py:1800", toy_train))
     ] + [
+        # K3/K4 at head dim 64: the tensor-core instances run the
+        # BERT-large steps (phase 14, padded and packed), the scalar ones
+        # are the fp32 route (phase 13's toy) and are timed on fp32 at the
+        # padded BERT-large batch
+        dict(name="flash_qkv_fwd_sm90_d64", route="cuda",
+             source="apex_tpu_torch/csrc/flash_qkv_fwd_sm90.cu",
+             replaces="apex_tpu/ops/attention.py:1766",
+             launches=bert["padded"]["launches"]["flash_qkv_fwd_sm90_d64"],
+             launches_packed=bert["packed"]["launches"][
+                 "flash_qkv_fwd_sm90_d64"],
+             **timings["flash_qkv_fwd_sm90_d64"]),
+        dict(name="flash_qkv_bwd_sm90_d64", route="cuda",
+             source="apex_tpu_torch/csrc/flash_qkv_bwd_sm90.cu",
+             replaces="apex_tpu/ops/attention.py:1800",
+             launches=bert["padded"]["launches"]["flash_qkv_bwd_sm90_d64"],
+             launches_packed=bert["packed"]["launches"][
+                 "flash_qkv_bwd_sm90_d64"],
+             **timings["flash_qkv_bwd_sm90_d64"]),
+    ] + [
+        dict(name=name, route="cuda", source=f"apex_tpu_torch/csrc/{src}",
+             replaces=where, launches=toy_bert["padded"]["launches"][name],
+             launches_packed=toy_bert["packed"]["launches"][name],
+             **timings[name])
+        for name, src, where in (
+            ("flash_qkv_fwd_d64", "flash_qkv_fwd.cu",
+             "apex_tpu/ops/attention.py:1766"),
+            ("flash_qkv_bwd_d64", "flash_qkv_bwd.cu",
+             "apex_tpu/ops/attention.py:1800"))
+    ] + [
         # K6/K7: layer_norm_sm90.cu is the route at 1024, 2048 and 4096
         # columns: the GPT-1.3B steps (phases 7 and 11), the multi-head
         # attention step (phase 9) and the LayerNorm microbench (phase 12);
@@ -3319,7 +3912,8 @@ def main() -> int:
              **({} if runs is toy_train else dict(
                  launches_mha=mha["launches"][name],
                  launches_flat=flat["launches"][name],
-                 launches_microbench=probes["launches"][name])),
+                 launches_microbench=probes["launches"][name],
+                 launches_bert=bert["padded"]["launches"][name])),
              **timings[name])
         for name, src, where, runs in (
             ("layer_norm_fwd_sm90", "layer_norm_sm90.cu",

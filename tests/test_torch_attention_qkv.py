@@ -193,8 +193,7 @@ def test_qkv_op_is_a_custom_op_with_a_fake():
     assert lse.dtype == torch.float32
 
 
-QKV_KERNELS = (kernels.FLASH_QKV_FWD, kernels.FLASH_QKV_BWD,
-               kernels.FLASH_QKV_FWD_SM90, kernels.FLASH_QKV_BWD_SM90)
+QKV_KERNELS = tuple(k for pair in tatt.QKV_KERNELS.values() for k in pair)
 
 
 def test_cpu_path_launches_no_kernel():
@@ -229,10 +228,22 @@ def test_flash_attention_qkv_refuses_bad_arguments(kwargs, error):
 
 @pytest.mark.parametrize("dtype,hn,error", [
     (torch.float16, 128, TypeError),
-    (torch.float32, 64, ValueError),    # instances are built for hn 128
+    (torch.float32, 96, ValueError),    # instances are built for hn 64, 128
 ])
 def test_kernel_wrapper_refuses_what_the_kernels_do_not_take(dtype, hn,
                                                              error):
     qkv = torch.zeros(1, 4, 2 * 3 * hn, dtype=dtype)
     with pytest.raises(error):
         tatt._qkv_kernel_args(qkv, None, None, 2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hn", [64, 128])
+def test_kernel_wrapper_takes_head_dims_64_and_128(dtype, hn):
+    qkv = torch.zeros(1, 4, 2 * 3 * hn, dtype=dtype)
+    assert tatt._qkv_kernel_args(qkv, None, None, 2) == (hn, (None, None), 1)
+    route = "sm90" if dtype == torch.bfloat16 else "scalar"
+    fwd, bwd = tatt.QKV_KERNELS[route, hn]
+    suffix = "_d64" if hn == 64 else ""
+    assert fwd.symbol == f"flash_qkv_fwd{'_sm90' * (route == 'sm90')}{suffix}"
+    assert bwd.symbol == f"flash_qkv_bwd{'_sm90' * (route == 'sm90')}{suffix}"
