@@ -173,12 +173,10 @@ class ParallelAttention(nn.Module):
         self.np_local = cfg.num_attention_heads // cfg.tp_size
 
     def forward(self, h: torch.Tensor, dropout_seed: Optional[int] = None,
-                attention_mask: Optional[torch.Tensor] = None,
-                segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """``attention_mask``: a key-padding mask [b, 1, 1, s], True =
-        masked key; ``segment_ids``: int [b, s] packing ids (pad tokens in
-        their own bucket); see :func:`attention_segments`."""
-        seg = attention_segments(attention_mask, segment_ids)
+                segment_ids=None) -> torch.Tensor:
+        """``segment_ids``: the packed kernels' ids, None, one int [b, s]
+        tensor or a (seg_q, seg_k) pair, as :func:`attention_segments`
+        folds them from a key-padding mask and packing ids."""
         qkv = self.qkv(h)  # [b, s, 3 * hidden], per head q | k | v
         drop = {}
         if dropout_seed is not None and self.cfg.attention_dropout > 0:
@@ -187,7 +185,7 @@ class ParallelAttention(nn.Module):
                         dropout_seed=model_parallel_dropout_seed(
                             dropout_seed) & 0xFFFFFFFF)
         ctx = flash_attention_qkv(qkv, self.np_local, causal=self.causal,
-                                  segment_ids=seg, **drop)
+                                  segment_ids=segment_ids, **drop)
         return self.proj(ctx.to(h.dtype))
 
 
@@ -242,13 +240,13 @@ class ParallelTransformerLayer(nn.Module):
         self.mlp = ParallelMLP(cfg, device=device, generator=generator)
 
     def forward(self, h: torch.Tensor, dropout_seed: Optional[int] = None,
-                attention_mask: Optional[torch.Tensor] = None,
-                segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+                segment_ids=None) -> torch.Tensor:
+        """``segment_ids``: as :meth:`ParallelAttention.forward` takes
+        them."""
         s_attn = s_h1 = s_h2 = None
         if dropout_seed is not None:
             s_attn, s_h1, s_h2 = (fold_in(dropout_seed, i) for i in range(3))
-        attn = self.attention(self.input_layernorm(h), s_attn,
-                              attention_mask, segment_ids)
+        attn = self.attention(self.input_layernorm(h), s_attn, segment_ids)
         h = h + _hidden_dropout(attn, self.cfg, s_h1)
         out = self.mlp(self.post_attention_layernorm(h))
         return h + _hidden_dropout(out, self.cfg, s_h2)
@@ -271,16 +269,19 @@ class ParallelTransformer(nn.Module):
     def forward(self, h: torch.Tensor, dropout_seed: Optional[int] = None,
                 attention_mask: Optional[torch.Tensor] = None,
                 segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``attention_mask`` and ``segment_ids``: see
+        :func:`attention_segments`, which folds them once for every
+        layer."""
+        seg = attention_segments(attention_mask, segment_ids)
         remat = self.cfg.remat and torch.is_grad_enabled()
         context_fn = (_attn_res_context
                       if self.cfg.remat_policy == "attn_res" else None)
         for i, layer in enumerate(self.layers):
             seed = None if dropout_seed is None else fold_in(dropout_seed, i)
             if remat:
-                h = checkpoint(layer, h, seed, attention_mask, segment_ids,
-                               context_fn=context_fn)
+                h = checkpoint(layer, h, seed, seg, context_fn=context_fn)
             else:
-                h = layer(h, seed, attention_mask, segment_ids)
+                h = layer(h, seed, seg)
         return h
 
 

@@ -199,8 +199,10 @@ Phases, each of which fails the run (non-zero exit) on error:
     step 1 near ln(30592) + 0.02^2 x 1024 / 2, exact launch counts a step
     (the tensor-core K3/K4's head-dim-64 instances only, K6/K7
     ``layer_norm_sm90.cu``'s, the MLM head's fp32 LayerNorm included);
-    one step through the kernels against the plain versions, and one step
-    run twice (bitwise), in each layout; step ms, real tokens/s, model
+    one step through the kernels against the plain versions within its
+    bars, the same step with a planted fault (one head's dK dropped, the
+    segment ids dropped) outside them, and one step run twice (bitwise),
+    in each layout; step ms, real tokens/s, model
     TFLOP/s (``bert_analytic_flops``), ``bert_varlen_vs_padded_speedup``,
     peak memory, a step's host enqueue vs device done time and its device
     time by kind under ``torch.profiler``.
@@ -826,13 +828,12 @@ def time_flash_qkv(qkv, dctx, ctx, lse, rate) -> tuple:
     dout = dctx.view(b, s, h, d).transpose(1, 2)
     bwd_lib = cold_ms(lambda: torch.autograd.grad(
         out, (q, k, v), dout, retain_graph=True), 10)
-    item = qkv.element_size()
+    rows = b * h * s                          # every row live
     pairs = b * h * s * (s + 1) // 2          # visible causal pairs
-    fwd_bytes = b * s * 4 * h * d * item + b * h * s * 4  # qkv, ctx, lse
-    bwd_bytes = (b * s * 3 * h * d * item * 2          # qkv in, dqkv out
-                 + b * s * h * d * item * 2 + b * h * s * 4)  # dctx, ctx, lse
-    fb, fby = bound(fwd_bytes, 4 * d * pairs, qkv.dtype)
-    bb, bby = bound(bwd_bytes, 10 * d * pairs, qkv.dtype)
+    fb, fby = attention_bound(qkv.dtype, d, rows, rows, True, rows, rows,
+                              pairs)
+    bb, bby = attention_bound(qkv.dtype, d, rows, rows, False, rows, rows,
+                              pairs)
     log(f"  flash_qkv timing [{b},{s},{h}x3x{d}] {qkv.dtype} dropout {rate}:"
         f" fwd kernel {fwd_ms:.4f} ms (scalar {fwd_old:.4f}: "
         f"{fwd_old / fwd_ms:.2f}x), plain {fwd_plain:.4f}, sdpa "
@@ -1047,13 +1048,6 @@ def bert_attention_ids(batch, layout):
         pad, batch["segment_ids"] if layout == "folded" else None)
 
 
-def visible_pairs(seg, h):
-    """(query, key) pairs that non-causal packed attention with these ids
-    sees, over all heads: what this run's data needs."""
-    seg_q, seg_k = seg_pair(seg)
-    return int((seg_q[:, :, None] == seg_k[:, None, :]).sum()) * h
-
-
 def time_bert_qkv(qkv, dctx, ctx, lse, seg, what) -> tuple:
     """K3 and K4 (through the wrappers: the route of qkv's dtype at head
     dim 64) timed cold at a BERT-large batch beside their plain versions
@@ -1078,19 +1072,20 @@ def time_bert_qkv(qkv, dctx, ctx, lse, seg, what) -> tuple:
     dout = dctx.view(b, s, h, d).transpose(1, 2)
     bwd_lib = cold_ms(lambda: torch.autograd.grad(
         out, (q, k, v), dout, retain_graph=True), 10)
-    item = qkv.element_size()
-    pairs = visible_pairs(seg, h)
-    fwd_bytes = b * s * 4 * h * d * item + b * h * s * 4  # qkv, ctx, lse
-    bwd_bytes = (b * s * 3 * h * d * item * 2          # qkv in, dqkv out
-                 + b * s * h * d * item * 2 + b * h * s * 4)  # dctx, ctx, lse
-    fb, fby = bound(fwd_bytes, 4 * d * pairs, qkv.dtype)
-    bb, bby = bound(bwd_bytes, 10 * d * pairs, qkv.dtype)
+    pairs, live_q, live_k = live_counts(seg_q, seg_k, h)
+    ids = seg_q.untyped_storage().nbytes() + seg_k.untyped_storage().nbytes()
+    rows = b * h * s
+    fb, fby = attention_bound(qkv.dtype, d, rows, rows, True, live_q, live_k,
+                              pairs, ids)
+    bb, bby = attention_bound(qkv.dtype, d, rows, rows, False, live_q,
+                              live_k, pairs, ids)
     log(f"  flash_qkv d 64 timing, {what} [{b},{s},{h}x3x{d}] {qkv.dtype}, "
-        f"{pairs} visible pairs: fwd kernel {fwd_ms:.4f} ms, plain "
-        f"{fwd_plain:.4f}, sdpa (boolean mask) {fwd_lib:.4f}, bound "
-        f"{fb:.4f} ({fby}, {fb / fwd_ms:.1%} of it); bwd kernel {bwd_ms:.4f}"
-        f" ms, plain {bwd_plain:.4f}, sdpa backward {bwd_lib:.4f}, bound "
-        f"{bb:.4f} ({bby}, {bb / bwd_ms:.1%} of it)")
+        f"{pairs} visible pairs, {live_k} of {rows} key rows seen: fwd "
+        f"kernel {fwd_ms:.4f} ms, plain {fwd_plain:.4f}, sdpa (boolean "
+        f"mask) {fwd_lib:.4f}, bound {fb:.4f} ({fby}, {fb / fwd_ms:.1%} of "
+        f"it); bwd kernel {bwd_ms:.4f} ms, plain {bwd_plain:.4f}, sdpa "
+        f"backward {bwd_lib:.4f}, bound {bb:.4f} ({bby}, {bb / bwd_ms:.1%} "
+        f"of it)")
     fwd = dict(ms=fwd_ms, plain_ms=fwd_plain, library_ms=fwd_lib,
                bound_ms=fb, bound_by=fby, flops=4 * d * pairs)
     bwd = dict(ms=bwd_ms, plain_ms=bwd_plain, library_ms=bwd_lib,
@@ -1486,25 +1481,37 @@ def varlen_case(gen) -> None:
         check(f"flash_attention_varlen [{total},16,64] bf16 {n}", g, r)
 
 
-def mha_bound(q, k, mask, fwd, live_q, live_k, visible) -> tuple:
-    """(bound ms, what bounds it) of one K1 (fwd) or K2 call.  Bytes: the
-    rows of q (and for K2 o, do and lse) that see some key, and the rows
-    of k and v that some query sees, read once (``live_q``, ``live_k``:
-    counts over all batch*heads; a padded key is never read); o and lse
-    (K2: dq, dk and dv) written once in full; the mask's own elements.
-    Operations: 4 d (K1) or 10 d (K2) flops per ``visible`` pair."""
-    B, H, sq, d = q.shape
-    q_rows, k_rows = B * H * sq, B * H * k.shape[2]
-    item = q.element_size()
-    m = 0 if mask is None else mask.untyped_storage().nbytes()
+def live_counts(seg_q, seg_k, per_row) -> tuple:
+    """(visible pairs, live query rows, live key rows) of non-causal
+    attention with these ids ([rows, s] each), every count times
+    ``per_row`` (the heads a row of ids serves): what this run's data
+    needs.  A live query sees some key; a live key is seen by some
+    query."""
+    pairs = seg_q[:, :, None] == seg_k[:, None, :]  # [rows, sq, sk]
+    return (per_row * int(pairs.sum()), per_row * int(pairs.any(2).sum()),
+            per_row * int(pairs.any(1).sum()))
+
+
+def attention_bound(dtype, d, q_rows, k_rows, fwd, live_q, live_k, visible,
+                    extra_bytes=0) -> tuple:
+    """(bound ms, what bounds it) of one flash forward (``fwd``: K1, K3)
+    or backward (K2, K4) over ``q_rows`` query and ``k_rows`` key rows of
+    head dim ``d`` (counts over all batch*heads).  Bytes: the rows of q
+    (and for the backward o, do and lse) that see some key, and the rows
+    of k and v that some query sees, read once (``live_q``, ``live_k``; a
+    hidden key is never read); o and lse (backward: dq, dk and dv)
+    written once in full; ``extra_bytes`` (a mask, the ids) read once.
+    Operations: 4 d (forward) or 10 d (backward) flops per ``visible``
+    pair."""
+    item = torch.tensor([], dtype=dtype).element_size()
     if fwd:
-        nbytes = (live_q + 2 * live_k + q_rows) * d * item + q_rows * 4 + m
+        nbytes = (live_q + 2 * live_k + q_rows) * d * item + q_rows * 4
         flops = 4 * d * visible
     else:
         nbytes = ((3 * live_q + 2 * live_k + q_rows + 2 * k_rows) * d * item
-                  + live_q * 4 + m)
+                  + live_q * 4)
         flops = 10 * d * visible
-    return bound(nbytes, flops, q.dtype)
+    return bound(nbytes + extra_bytes, flops, dtype)
 
 
 def time_generic(enc, dec, gen) -> dict:
@@ -1524,11 +1531,8 @@ def time_generic(enc, dec, gen) -> dict:
         if seg_q is not None:   # key padding: -inf at padded keys
             fmask = torch.where(seg_k.bool(), 0.0, float("-inf"))[
                 :, None, None, :].to(q.dtype)
-            pairs = seg_q[:, :, None] == seg_k[:, None, :]  # [rows, sq, sk]
-            per_row = B * H // seg_q.shape[0]
-            visible = per_row * int(pairs.sum())
-            live_q = per_row * int(pairs.any(2).sum())
-            live_k = per_row * int(pairs.any(1).sum())
+            visible, live_q, live_k = live_counts(seg_q, seg_k,
+                                                  B * H // seg_q.shape[0])
         else:
             fmask = mask.to(q.dtype)
             visible, live_q, live_k = B * H * sq * sk, B * H * sq, B * H * sk
@@ -1548,8 +1552,11 @@ def time_generic(enc, dec, gen) -> dict:
         ol = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=fmask)
         bwd_lib = cold_ms(lambda: torch.autograd.grad(
             ol, (ql, kl, vl), do, retain_graph=True), 20)
-        fb, fby = mha_bound(q, k, mask, True, live_q, live_k, visible)
-        bb, bby = mha_bound(q, k, mask, False, live_q, live_k, visible)
+        m = 0 if mask is None else mask.untyped_storage().nbytes()
+        fb, fby = attention_bound(q.dtype, d, B * H * sq, B * H * sk, True,
+                                  live_q, live_k, visible, m)
+        bb, bby = attention_bound(q.dtype, d, B * H * sq, B * H * sk, False,
+                                  live_q, live_k, visible, m)
         log(f"  generic attention timing, {name} [{B},{H},{sq}x{sk},{d}] "
             f"{q.dtype} ({'segments' if seg_q is not None else 'mask'}): "
             f"fwd kernel (tensor cores) {fwd_ms:.4f} ms (dropout "
@@ -3049,19 +3056,20 @@ def phase_toy_bert() -> dict:
 
 
 BERT_STEPS = 5
-# kernel vs plain step: ten times the largest gap of four readings on an
-# H100 (scripts/bert_step_gaps.py: padded and packed, at the seeded
-# weights and after three steps).  The step's gradients move by ~2 % a
-# leaf (median) under any change of bf16 rounding in the 24-layer body:
-# the kernels, the plain versions, the plain versions with the kernels'
-# rounding points, each ~2 % from the same step in fp32, the fp32 MLM
-# head's leaves too
+# kernel vs plain step, from the seeded weights (the step is bitwise
+# deterministic, so the readings repeat): the loss at ten times its
+# reading, the worst leaf at phase 7's bar, the grad norm at twice its
+# reading; each planted fault of BERT_FAULTS must miss one.  Any change of
+# bf16 rounding in the 24-layer body moves the step's gradients by ~2 % a
+# leaf (median) at these weights: the plain versions as much as the
+# kernels, each ~2 % from the same step in fp32, the fp32 MLM head's
+# leaves too (NVIDIA H100 80GB HBM3, 700 W)
 BERT_PLAIN_LOSS_TOL = 5e-4       # absolute, on a loss near 10.5 (read 5.05e-5)
-BERT_PLAIN_NORM_TOL = 7.4e-3     # relative, global grad norm (read 7.39e-4)
-BERT_PLAIN_LEAF_TOL = 0.23       # relative, the worst leaf (read 2.30e-2)
-# the sharper check: the kernel step's median leaf gap from the same step
-# in an fp32 model, over the plain step's (read 0.96-1.00 on the same
-# four states); a kernel that added an error of its own would raise it
+BERT_PLAIN_NORM_TOL = 1.5e-3     # relative, global grad norm (read 7.39e-4)
+BERT_PLAIN_LEAF_TOL = 5e-2       # relative, the worst leaf (read 2.30e-2)
+# the kernel step's median leaf gap from the same step in an fp32 model,
+# over the plain step's (read 0.981 padded, 0.960 packed); a kernel that
+# added an error of its own throughout would raise it
 BERT_FP32_RATIO_TOL = 1.25
 # the step's parts: the fp32 GEMMs of the MLM head (TF32 off) apart from
 # the body's bf16 ones
@@ -3079,47 +3087,116 @@ def bert_loss_and_grads(model, batch, packing):
     return loss.detach().item(), grads
 
 
-def median_leaf_gap(grads, ref) -> float:
-    return statistics.median(((grads[n] - g).norm() / g.norm()).item()
-                             for n, g in ref.items())
+def leaf_gaps(grads, ref) -> dict:
+    """|g - g_ref| / |g_ref| of every gradient leaf."""
+    return {n: ((grads[n] - g).norm() / g.norm()).item()
+            for n, g in ref.items()}
+
+
+def drop_head_dk():
+    """A planted K4 fault, the checks' control: head 0's dK zeroed in
+    every layer's backward."""
+    real = att._flash_qkv_bwd_cuda
+
+    def faulty(qkv, *args, **kw):
+        dqkv = real(qkv, *args, **kw)
+        b, s, _ = qkv.shape
+        dqkv.view(b, s, -1, 3, BERT_D)[:, :, 0, 1] = 0  # head, (q k v), d
+        return dqkv
+    return mock.patch.object(att, "_flash_qkv_bwd_cuda", faulty)
+
+
+def ignore_ids():
+    """A planted K3/K4 fault, the checks' control: the kernels drop their
+    segment ids, so every query sees every key of its row (the pads, the
+    other packed sequences)."""
+    fwd, bwd = att._flash_qkv_fwd_cuda, att._flash_qkv_bwd_cuda
+    return mock.patch.multiple(
+        att, _flash_qkv_fwd_cuda=lambda qkv, sq, sk, *a: fwd(
+            qkv, None, None, *a),
+        _flash_qkv_bwd_cuda=lambda qkv, dctx, ctx, lse, sq, sk, *a: bwd(
+            qkv, dctx, ctx, lse, None, None, *a))
+
+
+BERT_FAULTS = (("head 0's dK dropped", drop_head_dk),
+               ("segment ids dropped", ignore_ids))
+
+
+def step_gaps(run, ref, fp32_leaf_ref) -> dict:
+    """One step ``run`` (loss, grads) against the plain step ``ref``: the
+    loss gap, the global grad norm's relative gap, the worst leaf's
+    relative gap; and its median leaf gap from the fp32 step over the
+    plain step's (``fp32_leaf_ref``: (fp32 grads, the plain step's median
+    leaf gap from them)).  ``failed`` names the bars it misses."""
+    (loss, grads), (ref_loss, ref_grads) = run, ref
+    grads32, plain32 = fp32_leaf_ref
+    norm = multi_tensor_l2norm(list(grads.values())).item()
+    ref_norm = multi_tensor_l2norm(list(ref_grads.values())).item()
+    leaf = leaf_gaps(grads, ref_grads)
+    worst = max(leaf, key=leaf.get)
+    out = {"loss_diff": abs(loss - ref_loss),
+           "grad_norm_rel_diff": abs(norm - ref_norm) / ref_norm,
+           "worst_leaf": worst, "worst_leaf_rel_diff": leaf[worst],
+           "median_leaf_rel_diff": statistics.median(leaf.values()),
+           "fp32_gap_ratio": statistics.median(
+               leaf_gaps(grads, grads32).values()) / plain32}
+    out["failed"] = [name for name, key, tol in (
+        ("loss", "loss_diff", BERT_PLAIN_LOSS_TOL),
+        ("grad norm", "grad_norm_rel_diff", BERT_PLAIN_NORM_TOL),
+        ("worst leaf", "worst_leaf_rel_diff", BERT_PLAIN_LEAF_TOL),
+        ("fp32 ratio", "fp32_gap_ratio", BERT_FP32_RATIO_TOL))
+        if not out[key] <= tol]
+    return out
+
+
+def log_gaps(what, g) -> None:
+    log(f"  {what}: loss diff {g['loss_diff']:.3e} (tol "
+        f"{BERT_PLAIN_LOSS_TOL:.1e}); grad norm rel diff "
+        f"{g['grad_norm_rel_diff']:.3e} (tol {BERT_PLAIN_NORM_TOL:.1e}); "
+        f"worst leaf {g['worst_leaf']} {g['worst_leaf_rel_diff']:.3e} (tol "
+        f"{BERT_PLAIN_LEAF_TOL:.0e}), median leaf "
+        f"{g['median_leaf_rel_diff']:.3e}; median leaf gap from the fp32 "
+        f"step over the plain step's {g['fp32_gap_ratio']:.3f} (tol "
+        f"{BERT_FP32_RATIO_TOL}); bars missed: {g['failed'] or 'none'}")
+
+
+def bert_step_gaps(model, model32, batch, packing) -> dict:
+    """One step's loss and gradients through the kernels, and through the
+    kernels with each planted fault of ``BERT_FAULTS``, against the same
+    step through the plain versions, from the same weights
+    (:func:`step_gaps`; ``model32``: an fp32 model the weights are loaded
+    into)."""
+    patches = plain_kernels()
+    with patches[0], patches[1]:
+        ref = bert_loss_and_grads(model, batch, packing)
+    model32.load_state_dict(model.state_dict())
+    grads32 = bert_loss_and_grads(model32, batch, packing)[1]
+    fp32_ref = (grads32, statistics.median(leaf_gaps(ref[1],
+                                                     grads32).values()))
+    out = {"kernels": step_gaps(bert_loss_and_grads(model, batch, packing),
+                                ref, fp32_ref)}
+    for name, fault in BERT_FAULTS:
+        with fault():
+            out[name] = step_gaps(bert_loss_and_grads(model, batch, packing),
+                                  ref, fp32_ref)
+    return out
 
 
 def bert_vs_plain(model, model32, batch, packing, layout) -> dict:
-    """One step's loss and gradients through the kernels against the same
-    step through the plain versions, from the same weights; and each
-    one's median leaf gap from the same step in an fp32 model
-    (``model32``, the weights loaded)."""
-    loss, grads = bert_loss_and_grads(model, batch, packing)
-    patches = plain_kernels()
-    with patches[0], patches[1]:
-        ref_loss, ref_grads = bert_loss_and_grads(model, batch, packing)
-    model32.load_state_dict(model.state_dict())
-    _, grads32 = bert_loss_and_grads(model32, batch, packing)
-    ratio = median_leaf_gap(grads, grads32) / median_leaf_gap(ref_grads,
-                                                               grads32)
-    del grads32
-    norm = multi_tensor_l2norm(list(grads.values())).item()
-    ref_norm = multi_tensor_l2norm(list(ref_grads.values())).item()
-    dl, dn = abs(loss - ref_loss), abs(norm - ref_norm) / ref_norm
-    leaf = {n: ((grads[n] - g).norm() / g.norm()).item()
-            for n, g in ref_grads.items()}
-    worst = max(leaf, key=leaf.get)
-    log(f"  {layout} step, kernels vs plain: loss {loss:.6f} vs "
-        f"{ref_loss:.6f} (diff {dl:.3e}, tol {BERT_PLAIN_LOSS_TOL:.1e}); "
-        f"grad norm {norm:.6f} vs {ref_norm:.6f} (rel diff {dn:.3e}, tol "
-        f"{BERT_PLAIN_NORM_TOL:.1e}); worst leaf {worst} {leaf[worst]:.3e} "
-        f"(tol {BERT_PLAIN_LEAF_TOL:.2f}), median over {len(leaf)} leaves "
-        f"{statistics.median(leaf.values()):.3e}; median leaf gap from the "
-        f"fp32 step, kernels over plain {ratio:.3f} (tol "
-        f"{BERT_FP32_RATIO_TOL})")
-    if not (dl <= BERT_PLAIN_LOSS_TOL and dn <= BERT_PLAIN_NORM_TOL
-            and leaf[worst] <= BERT_PLAIN_LEAF_TOL
-            and ratio <= BERT_FP32_RATIO_TOL):
+    """The kernel step within every bar against the plain step; each
+    planted fault outside one at least, so the bars can see a kernel
+    fault."""
+    gaps = bert_step_gaps(model, model32, batch, packing)
+    for what, g in gaps.items():
+        log_gaps(f"{layout} step, {what} vs plain", g)
+    if gaps["kernels"]["failed"]:
         raise AssertionError(f"BERT-large {layout} step: kernel path "
                              "disagrees with the plain path")
-    return {"loss_diff": dl, "grad_norm_rel_diff": dn,
-            "worst_leaf": worst, "worst_leaf_rel_diff": leaf[worst],
-            "fp32_gap_ratio": ratio}
+    caught = [what for what, _ in BERT_FAULTS if gaps[what]["failed"]]
+    if len(caught) != len(BERT_FAULTS):
+        raise AssertionError(f"BERT-large {layout} step: a planted fault "
+                             "passes the kernel-vs-plain bars")
+    return gaps
 
 
 def bert_train(layout, batch, packing, expect, want) -> dict:
@@ -3229,7 +3306,8 @@ def phase_bert_large(smi: str) -> dict:
         "real_tokens": n_real, "model_flops": flops, "card": smi}))
     torch.cuda.empty_cache()
 
-    # kernels vs plain versions, one step from the seeded weights
+    # kernels (and the planted faults) vs plain versions, one step from
+    # the seeded weights
     model, _ = bert_large.bert_setup()
     model32 = BertModel(bert_large.bert_large_config(bf16=False))
     for layout, packing in LAYOUTS:

@@ -46,6 +46,7 @@ from apex_tpu_torch.transformer.testing import (BertConfig, BertModel,
                                                 bert_model_provider)
 from apex_tpu_torch.transformer.testing.convert import (
     _flatten, jax_tree_from_state_dict, state_dict_from_jax)
+import chip_smoke
 from chip_smoke import sm90_visits_want
 
 REPO = Path(__file__).resolve().parent.parent
@@ -400,24 +401,54 @@ def _jax_visits(seg_q, seg_k, b, h, s):
     return np.concatenate(out)
 
 
-@pytest.mark.parametrize("s", [512, 500])
-@pytest.mark.parametrize("fold", ["key_padding", "packed", "packed_padded"])
-def test_sm90_visits_want_takes_a_pair(fold, s):
-    b, h = 3, 2
-    rng = np.random.RandomState(s)
+def _fold_ids(fold, b, s, seed):
+    """(seg_q, seg_k, pad) of one folding of key padding and packing ids:
+    ragged lengths, sorted ids in 0-3 a row."""
+    rng = np.random.RandomState(seed)
     lens = rng.randint(40, s, b)
     pad = np.arange(s)[None] >= lens[:, None]
     ids = np.sort(rng.randint(0, 4, (b, s)), 1).astype(np.int32)
     if fold == "key_padding":
-        seg_q, seg_k = np.ones((b, s), np.int32), (~pad).astype(np.int32)
-    elif fold == "packed":
-        seg_q = seg_k = ids
-    else:
-        seg_q, seg_k = ids, np.where(pad, -1, ids).astype(np.int32)
+        return np.ones((b, s), np.int32), (~pad).astype(np.int32), pad
+    if fold == "packed":
+        return ids, ids, pad
+    return ids, np.where(pad, -1, ids).astype(np.int32), pad
+
+
+@pytest.mark.parametrize("s", [512, 500])
+@pytest.mark.parametrize("fold", ["key_padding", "packed", "packed_padded"])
+def test_sm90_visits_want_takes_a_pair(fold, s):
+    b, h = 3, 2
+    seg_q, seg_k, _ = _fold_ids(fold, b, s, s)
     got = sm90_visits_want((torch.tensor(seg_q), torch.tensor(seg_k)), b, s,
                            False, h)
     np.testing.assert_array_equal(got.numpy(), _jax_visits(seg_q, seg_k, b,
                                                            h, s))
+
+
+@pytest.mark.parametrize("fwd", [True, False])
+@pytest.mark.parametrize("fold", ["key_padding", "packed", "packed_padded"])
+def test_attention_bound_reads_only_the_kv_rows_some_query_sees(
+        monkeypatch, fold, fwd):
+    b, h, s, d = 3, 2, 256, 64
+    seg_q, seg_k, pad = _fold_ids(fold, b, s, 7)
+    seen = seg_q[:, :, None] == seg_k[:, None, :]
+    live_q, live_k = seen.any(2).sum() * h, seen.any(1).sum() * h
+    if fold != "packed":   # a padded key is never seen
+        assert live_k <= (~pad).sum() * h
+    got = chip_smoke.live_counts(torch.tensor(seg_q), torch.tensor(seg_k), h)
+    assert got == (seen.sum() * h, live_q, live_k)
+    monkeypatch.setattr(chip_smoke, "bound",
+                        lambda nbytes, flops, dtype: (nbytes, flops))
+    rows = b * h * s
+    nbytes, flops = chip_smoke.attention_bound(
+        torch.bfloat16, d, rows, rows, fwd, *got[1:], got[0], 100)
+    if fwd:   # q, k, v live rows in; ctx, lse out
+        want = (live_q + 2 * live_k + rows) * d * 2 + rows * 4 + 100
+    else:     # q, k, v, ctx, dctx, lse live rows in; dq, dk, dv out
+        want = ((3 * live_q + 2 * live_k + 3 * rows) * d * 2 + live_q * 4
+                + 100)
+    assert (nbytes, flops) == (want, (4 if fwd else 10) * d * got[0])
 
 
 def test_bert_modules_import_neither_jax_nor_apex_tpu():
