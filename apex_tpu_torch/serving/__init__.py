@@ -1,7 +1,9 @@
 """Inference serving on the card: paged KV cache, the decoder model,
 the continuous-batching scheduler and the engine (port of the JAX
-package's ``apex_tpu/serving``: the default mode and the quantized KV
-pool, ``kv_quant="int8"`` / ``"fp8"``).
+package's ``apex_tpu/serving``: the default mode, the quantized KV pool
+(``kv_quant="int8"`` / ``"fp8"``), speculative decoding and chunked
+prefill (``spec=SpecConfig(...)``) and prefix sharing
+(``prefix_sharing=True``)).
 
 Layers, bottom-up:
 
@@ -9,9 +11,14 @@ Layers, bottom-up:
   :func:`~apex_tpu_torch.ops.flash_decode` — the prefill's and the
   decode step's attention, CUDA kernels on the card;
 * :class:`PagedKVCache` — fixed-size pages in a preallocated device
-  pool, lowest-first allocation, refcounts; optionally int8 / fp8 codes
-  with fp32 scales (:func:`quantize_tokens`);
-* :class:`PagedDecoder` — the GPT decoder over that pool;
+  pool, lowest-first allocation, refcounts and copy-on-write; optionally
+  int8 / fp8 codes with fp32 scales (:func:`quantize_tokens`);
+  :class:`PrefixIndex` keeps finished prompt prefixes' pages shared;
+* :class:`PagedDecoder` — the GPT decoder over that pool (prefill,
+  decode, and ``extend`` for the verify and chunk steps);
+* :mod:`~apex_tpu_torch.serving.spec` — :class:`SpecConfig`, the draft
+  proposers (:class:`NgramProposer`) and the verify-accept rule
+  (:func:`commit_tokens`);
 * :class:`ContinuousBatchingScheduler` + :class:`ServingEngine` —
   admission/growth/preemption/retirement policy and the engine that runs
   it on the device.
@@ -27,6 +34,7 @@ from apex_tpu_torch.serving.kv_cache import (  # noqa: F401
     PagedKVCache,
     PagePoolCorruption,
     PagePoolExhausted,
+    PrefixIndex,
     quant_pool_dtype,
     quantize_tokens,
 )
@@ -45,6 +53,12 @@ from apex_tpu_torch.serving.scheduler import (  # noqa: F401
     QueueFullError,
     Request,
 )
+from apex_tpu_torch.serving.spec import (  # noqa: F401
+    NgramProposer,
+    Proposer,
+    SpecConfig,
+    commit_tokens,
+)
 
 __all__ = [
     "ServingEngine",
@@ -53,6 +67,7 @@ __all__ = [
     "PagedKVCache",
     "PagePoolCorruption",
     "PagePoolExhausted",
+    "PrefixIndex",
     "quant_pool_dtype",
     "quantize_tokens",
     "PagedDecoder",
@@ -67,4 +82,8 @@ __all__ = [
     "WAITING",
     "RUNNING",
     "FINISHED",
+    "SpecConfig",
+    "Proposer",
+    "NgramProposer",
+    "commit_tokens",
 ]

@@ -28,14 +28,22 @@ pool.  An fp8 pool is written through a uint8 view of the same bytes
 (``ops.attention.code_bytes``), since not every build scatters float8
 tensors.
 
-Not ported yet (ROADMAP.md): copy-on-write and the prefix index, per-page
-CRC validation, page export/import and defrag.
+**Prefix sharing.**  A page may have several readers (refcount > 1):
+live requests and the :class:`PrefixIndex`, which keeps a finished
+prefill's page-aligned prefix warm for later requests with the same
+prompt head.  A shared page's content is immutable; a writer first takes
+a private copy (:meth:`PagedKVCache.cow`, a plain page copy of K, V and
+a quantized pool's scale planes).
+
+Not ported yet (ROADMAP.md): per-page CRC validation, page export/import
+and defrag.
 """
 
 from __future__ import annotations
 
 import bisect
-from typing import Dict, List, Optional, Sequence
+from collections import OrderedDict
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -148,6 +156,12 @@ class PagedKVCache:
     def pages_used(self) -> int:
         return (self.num_pages - 1) - len(self._free)
 
+    @property
+    def pages_shared(self) -> int:
+        """Pages referenced by more than one reader (live requests and/or
+        the prefix index)."""
+        return sum(1 for r in self._ref.values() if r > 1)
+
     def pages_needed(self, n_tokens: int) -> int:
         return -(-n_tokens // self.page_size)  # ceil
 
@@ -166,16 +180,51 @@ class PagedKVCache:
         return pages
 
     def share(self, pages: Sequence[int]) -> None:
-        """Add one reader to each page.  Raises on pages that are not
-        currently allocated (sharing a free page would resurrect it)."""
+        """Add one reader to each page: its content is immutable until
+        the refcount drops back to 1 (writers :meth:`cow` first).  Raises
+        on pages that are not currently allocated (sharing a free page
+        would resurrect it)."""
         for p in pages:
             if p == 0 or p not in self._ref:
                 raise ValueError(f"share of unallocated page {p}")
         for p in pages:
             self._ref[p] += 1
 
+    def refcount(self, page: int) -> int:
+        return self._ref.get(page, 0)
+
     def is_shared(self, page: int) -> bool:
         return self._ref.get(page, 0) > 1
+
+    def owner_of(self, page: int) -> Optional[int]:
+        return self._owner.get(page)
+
+    def cow(self, page: int, owner: int) -> int:
+        """Copy-on-write: give ``owner`` a private copy of the shared
+        ``page`` and drop its reference to the original; returns the new
+        page id, for the caller to swap into its page list before it
+        writes.  K, V and a quantized pool's scale planes are copied on
+        the device, in place.  Raises on an unshared page (a private page
+        needs no copy) and :class:`PagePoolExhausted` when no page is
+        free."""
+        if self._ref.get(page, 0) < 2:
+            raise ValueError(f"cow on unshared page {page} "
+                             f"(refcount {self._ref.get(page, 0)})")
+        [new] = self.allocate(1, owner)
+        self._copy_page(page, new)
+        self._ref[page] -= 1
+        return new
+
+    def _copy_page(self, src: int, dst: int) -> None:
+        for t in (self.k, self.v, self.k_scale, self.v_scale):
+            if t is not None:
+                code_bytes(t)[:, dst] = code_bytes(t)[:, src]
+
+    def warm_copy(self) -> None:
+        """Run the copy-on-write page copy once, scratch page 0 onto
+        itself (its content unchanged, and no reader sees it), so the
+        first shared-prefix admission meets no first-use cost."""
+        self._copy_page(0, 0)
 
     def free(self, pages: Sequence[int]) -> None:
         """Drop one reference per page; a page returns to the pool only
@@ -243,3 +292,89 @@ class PagedKVCache:
             k_new, v_new = kq, vq
         code_bytes(self.k)[:, pages, offsets] = code_bytes(k_new)
         code_bytes(self.v)[:, pages, offsets] = code_bytes(v_new)
+
+
+class PrefixIndex:
+    """Prompt-prefix registry behind page sharing.
+
+    Maps a prefilled context (a token tuple) to the pages holding its
+    K/V, taking its OWN reference on every page (:meth:`PagedKVCache.
+    share`), so an entry outlives the request that built it.  Admission
+    asks :meth:`lookup` for the longest registered prefix of a new
+    context; on a hit the covered tokens are not prefilled again.  The
+    coverage is capped at ``len(context) - 1`` tokens, so every request
+    still computes its last prompt token (whose logits give the first
+    token).  At most ``max_entries`` entries; eviction is oldest-first
+    and drops only the index's reference: a page a live request reads
+    stays allocated."""
+
+    def __init__(self, cache: PagedKVCache, *, max_entries: int = 8):
+        if max_entries < 1:
+            raise ValueError("max_entries must be >= 1")
+        self.cache = cache
+        self.max_entries = int(max_entries)
+        self._entries: "OrderedDict[Tuple[int, ...], List[int]]" = \
+            OrderedDict()
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+    @property
+    def entries(self) -> List[Tuple[int, ...]]:
+        return list(self._entries)
+
+    def register(self, tokens: Sequence[int],
+                 pages: Sequence[int]) -> bool:
+        """Register a finished prefill's context and its pages (the
+        request keeps its own references; the index adds one).  Contexts
+        shorter than a page and known keys are not registered; ``pages``
+        must be exactly the context's footprint."""
+        key = tuple(int(t) for t in tokens)
+        if len(key) < self.cache.page_size or key in self._entries:
+            return False
+        if len(pages) != self.cache.pages_needed(len(key)):
+            raise ValueError(
+                f"register: {len(pages)} pages for a {len(key)}-token "
+                f"context (expected {self.cache.pages_needed(len(key))})")
+        self.cache.share(pages)
+        self._entries[key] = list(pages)
+        while len(self._entries) > self.max_entries:
+            self.evict_one()
+        return True
+
+    def lookup(self, tokens: Sequence[int]) -> Tuple[int, List[int]]:
+        """The longest usable shared prefix of ``tokens``: ``(m, pages)``,
+        the first ``m`` tokens covered by the entry's first
+        ``ceil(m / page_size)`` pages, or ``(0, [])``.  ``m`` is at most
+        ``len(tokens) - 1`` and at least a page.  When ``m`` ends
+        mid-page the last shared page also holds the entry's tokens past
+        ``m``: readers mask by their own ``kv_len``, and the new reader
+        copies the page before its first write there."""
+        ctx = tuple(int(t) for t in tokens)
+        best_m, best_pages = 0, []
+        for key, pages in self._entries.items():
+            lim = min(len(key), len(ctx) - 1)
+            m = 0
+            while m < lim and key[m] == ctx[m]:
+                m += 1
+            if m >= self.cache.page_size and m > best_m:
+                best_m = m
+                best_pages = pages[:self.cache.pages_needed(m)]
+        return best_m, list(best_pages)
+
+    def evict_one(self) -> int:
+        """Drop the oldest entry and the index's references; returns how
+        many pages went back to the free list."""
+        if not self._entries:
+            return 0
+        _, pages = self._entries.popitem(last=False)
+        before = self.cache.pages_free
+        self.cache.free(pages)
+        return self.cache.pages_free - before
+
+    def clear(self) -> int:
+        """Evict every entry; returns the pages returned to the pool."""
+        freed = 0
+        while self._entries:
+            freed += self.evict_one()
+        return freed

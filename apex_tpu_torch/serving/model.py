@@ -1,7 +1,7 @@
 """GPT-style decoder with a paged KV cache — the serving engine's model
 half (port of the JAX package's ``apex_tpu/serving/model.py``).
 
-Two entry points mirror the two phases of continuous batching:
+Three entry points serve the phases of continuous batching:
 
 * :meth:`PagedDecoder.prefill` — the ADMISSION path: a fixed-width
   packed token row with segment ids (0 = padding, real segments 1..n)
@@ -16,6 +16,11 @@ Two entry points mirror the two phases of continuous batching:
   pointed at the scratch page.  Over a quantized pool (int8 / fp8 codes
   with fp32 scale planes) the new token's K/V are quantized before they
   are appended.
+* :meth:`PagedDecoder.extend` — SEVERAL tokens per row: the speculative
+  verify step (the last committed token and its draft, ``q_len = k + 1``)
+  and the chunked prefill (``q_len = chunk_size``, one row).  Each layer
+  writes the window's K/V into the pool, then ``flash_decode`` at that
+  ``q_len`` reads it (``csrc/flash_decode_sm90.cu`` on the card).
 
 Per-row independence is a hard contract: every op in ``decode`` is
 row-wise (embedding lookup, layer norm, per-row matmuls, paged attention
@@ -29,8 +34,7 @@ embeddings, weights kept in the JAX package's ``[in, out]`` layout so
 (:func:`~apex_tpu_torch.serving.convert.params_from_jax`).  The GEMMs are
 ``torch.matmul``, as the JAX package leaves them to XLA.
 
-Not ported yet (ROADMAP.md): ``extend`` (speculative verify and chunked
-prefill) and tensor parallelism.
+Not ported yet (ROADMAP.md): tensor parallelism.
 """
 
 from __future__ import annotations
@@ -228,3 +232,59 @@ class PagedDecoder:
             x = x + ctx.transpose(1, 2).reshape(b, -1) @ layer["wo"]
             x = x + _mlp(_ln(x, layer["ln2"]), layer)
         return _ln(x, params["ln_f"]) @ params["embed"].T
+
+    # -- draft-verify / chunked prefill: several tokens a row -------------
+
+    def extend(self, params, k_pool: torch.Tensor, v_pool: torch.Tensor,
+               tokens: torch.Tensor, positions: torch.Tensor,
+               write_pages: torch.Tensor, write_offsets: torch.Tensor,
+               page_table: torch.Tensor, kv_len: torch.Tensor, *,
+               last_only: bool = False,
+               k_scale: Optional[torch.Tensor] = None,
+               v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Append ``q`` tokens a row to the paged cache and score them in
+        one ``flash_decode`` call a layer; returns logits ``[b, q, vocab]``
+        (``[b, 1, vocab]`` with ``last_only``).
+
+        ``tokens``/``positions`` ``[b, q]``: each row's newest tokens,
+        FRONT-padded (the valid tokens are the last ones, since row i of
+        the window sees columns ``[0, kv_len - q + i]``).
+        ``write_pages``/``write_offsets`` ``[b, q]``: where each token's
+        K/V goes; pad rows point at scratch page 0.  ``kv_len`` ``[b]``:
+        valid tokens including the window's real ones; it may be smaller
+        than ``q`` (rows whose window is empty get exact zeros from the
+        attention, and the engine discards them); idle rows pass
+        ``kv_len = q``.  ``page_table`` ``[b, p_max]``.
+
+        ``last_only``: only the last row through the LM head (the chunk
+        step, which wants one next-token distribution).  The pools (and
+        a quantized pool's ``k_scale``/``v_scale``) are updated IN PLACE,
+        each layer's K/V written before that layer's attention reads
+        them, quantized on write as in :meth:`decode`."""
+        b, q = tokens.shape
+        hd = self.cfg.head_dim
+        hidden = self.cfg.hidden_size
+        quantized = k_scale is not None
+        qmax = quant_qmax(k_pool.dtype) if quantized else None
+        x = params["embed"][tokens] + params["pos"][positions]  # [b, q, h]
+        at = (write_pages, write_offsets)
+        for li, layer in enumerate(params["layers"]):
+            qkv = _ln(x, layer["ln1"]) @ layer["wqkv"]
+            kv = qkv[..., hidden:].view(b, q, 2, -1, hd)      # K, V
+            if quantized:
+                kv, s = quantize_tokens(kv, k_pool.dtype, qmax)
+                k_scale[li].index_put_(at, s[:, :, 0])
+                v_scale[li].index_put_(at, s[:, :, 1])
+            code_bytes(k_pool[li]).index_put_(at, code_bytes(kv[:, :, 0]))
+            code_bytes(v_pool[li]).index_put_(at, code_bytes(kv[:, :, 1]))
+            ctx = flash_decode(
+                self._heads(qkv[..., :hidden]), k_pool[li], v_pool[li],
+                page_table, kv_len,
+                k_scale=k_scale[li] if quantized else None,
+                v_scale=v_scale[li] if quantized else None)
+            x = x + ctx.transpose(1, 2).reshape(b, q, -1) @ layer["wo"]
+            x = x + _mlp(_ln(x, layer["ln2"]), layer)
+        x = _ln(x, params["ln_f"])
+        if last_only:
+            x = x[:, -1:]
+        return x @ params["embed"].T

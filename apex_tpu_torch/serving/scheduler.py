@@ -1,6 +1,6 @@
 """Continuous-batching scheduler: host-side admission / growth /
 preemption / deadline / retirement policy (a copy of the JAX package's
-``apex_tpu/serving/scheduler.py`` for the whole-row prefill engine).
+``apex_tpu/serving/scheduler.py``).
 
 Pure Python: it owns request lifecycles and the page accounting and
 never touches device state.  Every decision is deterministic (FIFO
@@ -13,27 +13,39 @@ replays identically — and identically to the JAX package's scheduler.
   the fixed prefill row width (``submit`` rejects contexts that could
   outgrow it) and the per-step cap on admitted prefill tokens.  The
   first failure stops admission for the step.
+* **chunked prefill** (``chunk_size``): a context longer than
+  ``chunk_size`` is admitted into chunked prefill instead, one chunk of
+  at most ``chunk_size`` tokens a step under the same budget
+  (:meth:`ContinuousBatchingScheduler.schedule_prefill`); pages for the
+  whole context are still reserved at admission.  A chunked scheduler
+  lifts the prefill-row bound on request size.
+* **prefix sharing** (``prefix_index``): admission looks up the longest
+  registered prefix of the context, shares its pages and prefills only
+  the suffix, always through the chunk path.  A hit ending mid-page
+  copies that page at admission (copy-on-write).  Allocation pressure
+  evicts index entries, oldest first, before it preempts live work.
 * **growth**: before each decode step every running request crossing a
-  page boundary gets one page.
+  page boundary gets one page (and, with ``extra``, the pages its draft's
+  K/V will need).
 * **preemption**: when growth finds the pool empty, the MOST RECENTLY
   admitted running request under ``preempt_cap`` preemptions is evicted:
   its pages are freed, its generated tokens kept, and it rejoins the
   FRONT of the waiting queue; re-admission re-prefills prompt +
-  generated tokens, so preemption is invisible in the output stream.
+  generated tokens (a mid-chunk victim starts its prefill over), so
+  preemption is invisible in the output stream.
 * **deadlines**: queued requests that can no longer meet ``deadline_s``
   are shed; running requests past it time out with their pages freed.
 * **retirement**: EOS or ``max_new_tokens`` reached -> pages freed.
-
-Chunked prefill and prefix sharing are not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
 
 import dataclasses
 from collections import deque
-from typing import Deque, List, Optional, Tuple
+from typing import Deque, Dict, List, Optional, Tuple
 
-from apex_tpu_torch.serving.kv_cache import PagedKVCache, PagePoolExhausted
+from apex_tpu_torch.serving.kv_cache import (PagedKVCache, PagePoolExhausted,
+                                             PrefixIndex)
 
 WAITING = "waiting"
 RUNNING = "running"
@@ -62,6 +74,12 @@ class Request:
     generated: List[int] = dataclasses.field(default_factory=list)
     pages: List[int] = dataclasses.field(default_factory=list)
     kv_len: int = 0               # tokens whose K/V sit in the pool
+    # chunked prefill: context tokens already computed into pages; None
+    # when not mid-chunk (whole-row prefill, or prefill complete).  A
+    # preemption resets it: the prefill starts over
+    prefill_pos: Optional[int] = None
+    # the current admission covered a context prefix with shared pages
+    prefix_hit: bool = False
     preemptions: int = 0
     admit_t: Optional[float] = None
     first_token_t: Optional[float] = None
@@ -99,13 +117,28 @@ class ContinuousBatchingScheduler:
     def __init__(self, cache: PagedKVCache, *, max_batch: int,
                  prefill_budget: int, max_position: int,
                  max_queue: Optional[int] = None,
-                 preempt_cap: Optional[int] = 4):
+                 preempt_cap: Optional[int] = 4,
+                 chunk_size: Optional[int] = None,
+                 prefix_index: Optional[PrefixIndex] = None):
+        if chunk_size is not None and chunk_size > prefill_budget:
+            raise ValueError(
+                f"chunk_size {chunk_size} exceeds the per-step prefill "
+                f"budget {prefill_budget} — a chunk could never launch")
+        if prefix_index is not None and chunk_size is None:
+            # a hit's suffix is prefilled against the shared pages, which
+            # only the chunk step can do
+            raise ValueError(
+                "prefix sharing requires chunked prefill "
+                "(chunk_size=None)")
         self.cache = cache
         self.max_batch = max_batch
         self.prefill_budget = prefill_budget
         self.max_position = max_position
         self.max_queue = max_queue
         self.preempt_cap = preempt_cap
+        self.chunk_size = chunk_size
+        self.prefix_index = prefix_index
+        self.cows = 0                      # copy-on-writes at admission
         self.waiting: Deque[Request] = deque()
         self.running: List[Request] = []   # admission order
         self.finished: List[Request] = []
@@ -128,8 +161,9 @@ class ContinuousBatchingScheduler:
                 f"{self.cache.pages_needed(worst)} pages > "
                 f"max_pages_per_request "
                 f"{self.cache.max_pages_per_request}")
-        if worst > self.prefill_budget:
-            # a preempted request must always fit the prefill row again
+        if worst > self.prefill_budget and self.chunk_size is None:
+            # a preempted request must always fit the prefill row again;
+            # a chunked scheduler prefills any context in chunks
             raise ValueError(
                 f"request {req.rid}: prompt+max_new {worst} exceeds "
                 f"prefill budget {self.prefill_budget}")
@@ -152,29 +186,118 @@ class ContinuousBatchingScheduler:
         whole context allocated, state RUNNING).  Never raises on
         capacity — a full pool just admits fewer — unless nothing runs
         and the head request's context alone exceeds the pool (a sizing
-        bug)."""
+        bug).  Whole-row only: a chunked scheduler plans through
+        :meth:`schedule_prefill`."""
+        if self.chunk_size is not None:
+            raise RuntimeError(
+                "admit() on a chunked scheduler — use schedule_prefill()")
+        _, admitted = self.schedule_prefill()
+        return admitted
+
+    def schedule_prefill(self) -> Tuple[list, List[Request]]:
+        """Plan this step's prefill work under the shared prefill-token
+        budget; returns ``(chunks, admitted)``.
+
+        ``chunks``: ``(request, start, n_tokens)`` launches in order, one
+        chunk for each request already mid-chunk (admission order), then
+        the first chunk of each request admitted now into chunked
+        prefill.  ``admitted``: the requests admitted now, pages for the
+        whole context reserved; those taking the whole-row prefill
+        (contexts up to ``chunk_size``, or any without chunking) appear
+        only here.  A chunk costs its tokens, a whole-row admission its
+        context, a chunked admission its first chunk.  The first failure
+        stops each phase (FIFO)."""
         budget = self.prefill_budget
+        chunks: list = []
+        if self.chunk_size is not None:
+            for req in self.running:
+                if req.prefill_pos is None:
+                    continue
+                n = min(self.chunk_size, req.seq_len - req.prefill_pos)
+                if n > budget:
+                    break
+                chunks.append((req, req.prefill_pos, n))
+                budget -= n
         admitted: List[Request] = []
         while self.waiting and \
                 len(self.running) + len(admitted) < self.max_batch:
             req = self.waiting[0]
             ctx = req.seq_len
-            if ctx > budget:
+            m, shared = (0, [])
+            if self.prefix_index is not None:
+                m, shared = self.prefix_index.lookup(req.context)
+            if m:
+                chunked = True
+                need = min(self.chunk_size, ctx - m)
+            else:
+                chunked = (self.chunk_size is not None
+                           and ctx > self.chunk_size)
+                need = self.chunk_size if chunked else ctx
+            if need > budget:
                 break
+            if shared:
+                # pinned first: an eviction below may otherwise free them
+                self.cache.share(shared)
             try:
-                pages = self.cache.allocate(self.cache.pages_needed(ctx),
-                                            req.rid)
+                fresh = self._allocate_evicting(
+                    self.cache.pages_needed(ctx) - len(shared), req.rid)
             except PagePoolExhausted:
+                if shared:
+                    self.cache.free(shared)
                 if not self.running and not admitted:
                     raise
                 break
+            pages = list(shared) + fresh
+            if m % self.cache.page_size:
+                # the hit ends mid-page: the first chunk writes position m
+                # into the last shared page, so it is copied now, while
+                # exhaustion is still an ordinary stop-admitting event
+                try:
+                    self._privatize(pages, m // self.cache.page_size,
+                                    req.rid)
+                except PagePoolExhausted:
+                    self.cache.free(pages)
+                    if not self.running and not admitted:
+                        raise
+                    break
             self.waiting.popleft()
             req.pages = pages
             req.state = RUNNING
-            budget -= ctx
+            req.prefix_hit = bool(m)
+            budget -= need
+            if chunked:
+                req.prefill_pos = m
+                chunks.append((req, m, min(self.chunk_size, ctx - m)))
             admitted.append(req)
         self.running.extend(admitted)
-        return admitted
+        return chunks, admitted
+
+    def _allocate_evicting(self, n: int, rid: int) -> List[int]:
+        """:meth:`PagedKVCache.allocate`, evicting prefix-index entries
+        (oldest first) under pressure before it gives up."""
+        while True:
+            try:
+                return self.cache.allocate(n, rid)
+            except PagePoolExhausted:
+                if self.prefix_index is None or \
+                        len(self.prefix_index) == 0:
+                    raise
+                self.prefix_index.evict_one()
+
+    def _privatize(self, pages: List[int], idx: int, rid: int) -> None:
+        """Copy-on-write ``pages[idx]`` in place for ``rid``, evicting
+        index entries under pressure.  If an eviction leaves the caller
+        the page's only reader, no copy is needed."""
+        while self.cache.is_shared(pages[idx]):
+            try:
+                pages[idx] = self.cache.cow(pages[idx], rid)
+                self.cows += 1
+                return
+            except PagePoolExhausted:
+                if self.prefix_index is None or \
+                        len(self.prefix_index) == 0:
+                    raise
+                self.prefix_index.evict_one()
 
     # -- growth / preemption ---------------------------------------------
 
@@ -196,25 +319,37 @@ class ContinuousBatchingScheduler:
         self.cache.free(victim.pages)
         victim.pages = []
         victim.kv_len = 0
+        victim.prefill_pos = None
+        victim.prefix_hit = False
         victim.state = WAITING
         victim.preemptions += 1
         self.waiting.appendleft(victim)
         return victim
 
-    def ensure_decode_capacity(self) -> List[Request]:
+    def ensure_decode_capacity(self, extra: Optional[Dict[int, int]]
+                               = None) -> List[Request]:
         """Give every running request the page its next token needs,
         preempting from the back of the batch when the pool runs dry.
+        ``extra`` maps a rid to more tokens of headroom this step (a
+        draft's K/V, written at ``seq_len .. seq_len + draft - 1``).
+        Prefix-index entries are evicted before anything is preempted.
         Returns the requests preempted."""
         evicted: List[Request] = []
         for req in list(self.running):
             while req in self.running:
-                need_pages = self.cache.pages_needed(req.seq_len)
+                want = req.seq_len + (extra.get(req.rid, 0)
+                                      if extra else 0)
+                need_pages = self.cache.pages_needed(want)
                 if len(req.pages) >= need_pages:
                     break
                 try:
                     req.pages.extend(self.cache.allocate(
                         need_pages - len(req.pages), req.rid))
                 except PagePoolExhausted:
+                    if self.prefix_index is not None and \
+                            len(self.prefix_index):
+                        self.prefix_index.evict_one()
+                        continue
                     # the victim can be ``req`` itself; the membership
                     # check then ends its growth and it waits its turn
                     evicted.append(self.preempt_one())
@@ -246,6 +381,7 @@ class ContinuousBatchingScheduler:
                 self.cache.free(req.pages)
                 req.pages = []
                 req.kv_len = 0
+                req.prefill_pos = None
                 self._finish(req, now, "timeout")
                 timed_out.append(req)
         return shed, timed_out

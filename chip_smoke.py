@@ -4,7 +4,8 @@
     python3 chip_smoke.py          # from the repository root, one card
 
 Drives the port only (it imports neither ``jax`` nor ``apex_tpu``).
-It covers the six ported paths: the serving engine (phases 4-5), the GPT
+It covers the six ported paths: the serving engine (phases 4-5, and its
+speculative, chunked and prefix-sharing modes in phases 4 and 15), the GPT
 training step of ``pretrain_gpt`` (phases 6-7), the contrib multi-head
 attention training path (phases 8-9), GPT training on the flat
 superblock with ``FlatFusedAdam`` (phases 10-11), the kernel
@@ -35,12 +36,18 @@ Phases, each of which fails the run (non-zero exit) on error:
    by pool: the bf16, int8 and fp8 pools at head dim 128 to
    ``flash_decode_sm90.cu`` (one entry point a pool), the fp32 pool to
    ``flash_decode.cu``; each pool is held to the plain version at q_len
-   1, 5 (windows shorter than q_len: exact zeros) and 20 over ragged
-   lengths (the fp32 pool at q_len 1 and 5), each case naming the entry
-   point that ran, ``flash_decode_sm90.cu``'s run twice (bitwise), then
-   timed cold at the ragged batch, 8 x 300 and 8 x 1024 (16 pages a
-   request); ``flash_decode.cu`` is also called directly on the bf16
-   pool at the three q_len and at each timed shape, held to the plain
+   1, 5 (windows shorter than q_len: exact zeros), 20 and 128 (the chunk
+   width; rows of the ragged batch with kv_len < 128 see nothing) over
+   ragged lengths (the fp32 pool at q_len 1 and 5), each case naming the
+   entry point that ran, ``flash_decode_sm90.cu``'s run twice (bitwise),
+   then timed cold at the ragged batch, 8 x 300 and 8 x 1024 (16 pages a
+   request), and, where the serving modes run it, at the verify step's
+   [8, 16, 5, 128] (kv_len 192-448) and the chunk step's [1, 16, 128,
+   128] (kv_len 256 and 384), beside its plain version and a page gather
+   + SDPA with the causal offset mask, its bound counting only the
+   columns each query row sees; ``flash_decode.cu`` is also called
+   directly on the bf16 pool at q_len 1, 5 and 20 and at each decode
+   shape, held to the plain
    version there and timed cold and in turns beside
    ``flash_decode_sm90.cu``; the card's ``quantize_tokens`` must give the CPU's codes
    and scales bit for bit.  K3/K4 route by dtype:
@@ -94,7 +101,12 @@ Phases, each of which fails the run (non-zero exit) on error:
    exactly 0; it is timed beside ``torch._fused_adamw_``;
 4. toy engine — the same weights served at toy width in fp32 on the card
    (kernels) and on the CPU (plain versions) give identical greedy
-   streams, the attention on the scalar K1 (its fp32 route);
+   streams, the attention on the scalar K1 (its fp32 route); then with the
+   modes on (``SpecConfig(k=4, chunk_size=16)``, ``prefix_sharing=True``)
+   over a 16-token shared prompt, contexts above and below the chunk and
+   a repeated 24-token prompt whose hit ends mid-page (a copy-on-write):
+   the card's streams equal the CPU's and the plain engine's, every mode
+   ran, and the attention took the scalar K1 and K5 alone;
 5. full-width engine — GPT-1.3B width (hidden 2048, 16 heads of 128, 24
    layers, vocab 51200, bf16, page 64, batch 8), on the bf16 pool and on
    the quantized ones (``kv_quant="int8"``, ``"fp8"``): ``warmup()`` then
@@ -206,6 +218,34 @@ Phases, each of which fails the run (non-zero exit) on error:
     TFLOP/s (``bert_analytic_flops``), ``bert_varlen_vs_padded_speedup``,
     peak memory, a step's host enqueue vs device done time and its device
     time by kind under ``torch.profiler``.
+15. serving modes at full width — phase 5's model with bench.py's modes
+    (``SpecConfig(k=4, proposer=NgramProposer(), chunk_size=128)``,
+    ``prefix_sharing=True``, 7 pages a request, 85 pages) over
+    ``trace(0, 16)`` behind bench.py's 128-token system prompt, plus a
+    256-token prompt and its repeat (a hit ending mid-page):
+    ``warmup()`` then ``serve()``; every request finishes, the pool
+    drains once the prefix index is cleared, the run shows chunk steps, a
+    prefix hit, a copy-on-write and an accepted draft, and the launch
+    counts are exact (``flash_decode_sm90`` once a layer for each decode,
+    verify and chunk step and the warm-up's three, ``flash_fwd_sm90`` for
+    each whole-row prefill and the warm-up, nothing else); a full-batch
+    verify step's and a chunk step's logits through K5 within
+    ``logits_close``'s bar of the plain path's, and the verify step's
+    within it of five sequential decode steps over the same tokens on a
+    copy of the pool (bitwise on an H100: a speculative engine's decode
+    step runs at the verify step's 40 rows); three more runs whose
+    proposers replay the streams (drafts accepted), shift them (drafts
+    rejected) or never draft, each giving the same streams; batched ==
+    sequential == a re-run on six of the requests (where one at a time
+    the repeat hits the index and copies a page); the streams against a
+    ``spec=None`` engine's (the share equal, each divergence's first
+    token and the plain engine's top-2 logit margin there, which must be
+    at most twice the larger of two gaps held under ``logits_close``'s
+    bar: a prompt's first token through chunks against one whole-row
+    prefill, and the decode step at 40 rows against 8); TTFT,
+    TPOT, tokens/s, acceptance, committed tokens a verify step, prefix
+    hit rate, pool peak, peak memory and a verify and a chunk step's
+    device time by part, beside phase 5's bf16 numbers.
 
 The last three lines of standard output are the kernels' JSON record,
 the ``nvidia-smi`` name/power line, and ``{"ok": true, "device": ...}``.
@@ -256,9 +296,11 @@ from apex_tpu_torch.transformer.testing import (  # noqa: E402
 from apex_tpu_torch.transformer.testing.standalone_gpt import (  # noqa: E402
     attention_segments)
 from apex_tpu_torch.serving import model as model_mod  # noqa: E402
-from apex_tpu_torch.serving import (ServingEngine, ServingModelConfig,  # noqa: E402
-                                    SimClock, init_params, poisson_trace,
-                                    quant_pool_dtype, quantize_tokens)
+from apex_tpu_torch.serving import (NgramProposer,  # noqa: E402
+                                    ServingEngine, ServingModelConfig,
+                                    SimClock, SpecConfig, init_params,
+                                    poisson_trace, quant_pool_dtype,
+                                    quantize_tokens)
 
 BF16_TOL = 2.0 ** -7    # x max|ref|: one bf16 ulp at the output's scale
 FP32_TOL = 1e-5         # x max(1, max|ref|)
@@ -268,6 +310,14 @@ FULL = dict(vocab_size=51200, hidden_size=2048, num_heads=16, num_layers=24,
             max_position=1024)
 PAGE, BATCH, PAGES_PER_REQ = 64, 8, 5
 NUM_PAGES = 1 + BATCH * PAGES_PER_REQ * 3 // 2
+# the serving modes' settings and pool (phase 15), bench.py's: draft width
+# 4, chunks of 128, its 128-token system prompt ahead of every prompt, and
+# ceil((128 + 256 + 64) / 64) = 7 pages a request, 1 + 8 x 7 x 3 // 2 = 85
+SPEC_K, CHUNK = 4, 128
+SYSTEM_PROMPT = [1 + (7 * i) % (FULL["vocab_size"] - 1)
+                 for i in range(2 * PAGE)]
+MODES_PAGES_PER_REQ = -(-(len(SYSTEM_PROMPT) + 256 + 64) // PAGE)
+MODES_NUM_PAGES = 1 + BATCH * MODES_PAGES_PER_REQ * 3 // 2
 
 
 def log(msg: str) -> None:
@@ -515,12 +565,14 @@ def flash_decode_case(gen, name, dtype, q_len, lengths, quant=None,
 
 def time_flash_decode(name, ops) -> dict:
     """K5 at one shape, cold: the kernel ``flash_decode`` runs for this
-    pool, its plain version, a page gather + SDPA (the codes dequantized
-    to q's dtype first) and the bound: the live pages' rows (codes and
-    scales) read once, q in, o out, the table and lengths in.  On a bf16
-    pool ``flash_decode.cu``, the route before ``flash_decode_sm90.cu``,
-    is held to the plain version on the same operands and timed cold too,
-    and the two in turns (``timing.timed_pair``)."""
+    pool, its plain version, a page gather + SDPA with the causal offset
+    mask (the codes dequantized to q's dtype first) and the bound: the
+    live pages' rows (codes and scales) read once, q in, o out, the table
+    and lengths in, and the products over the columns each query row
+    sees.  On a bf16 pool ``flash_decode.cu``, the route before
+    ``flash_decode_sm90.cu``, is held to the plain version on the same
+    operands and timed cold too, and the two in turns
+    (``timing.timed_pair``)."""
     q, kp, vp, table, kv_len, ks, vs = ops
     b, h, q_len, d = q.shape
     page_size, p_max = kp.shape[1], table.shape[1]
@@ -584,19 +636,32 @@ def time_flash_decode(name, ops) -> dict:
     return row
 
 
-# K5's checked q_len: the decode step's, windows shorter than q_len, and
-# two of flash_decode.cu's 16-row tiles
+# K5's checked q_len: the decode step's, windows shorter than q_len (the
+# verify step's q_len, k + 1 = 5), two of flash_decode.cu's 16-row tiles,
+# and the chunk step's width (rows of the ragged batch see nothing)
 DECODE_Q_LENS = ((1, ""), (5, " (kv_len < q_len rows)"),
-                 (20, " (two 16-row tiles)"))
+                 (20, " (two 16-row tiles)"),
+                 (128, " (the chunk width; kv_len < q_len rows)"))
+# K5 where the serving modes run it (phase 15's geometry, 7 pages a
+# request): the full-batch verify step (q_len k + 1 = 5, a 4-token draft
+# a row, kv_len 192-448) and the chunk step ([1, 16, 128, 128] at kv_len
+# 256 and 384: its second and third chunk)
+DECODE_MODE_SHAPES = (
+    ("verify", 5, [192, 224, 256, 288, 320, 352, 384, 448]),
+    ("chunk", 128, [256]),
+    ("chunk_kv384", 128, [384]))
 
 
 def phase_decode_kernels(gen) -> dict:
     """K5 on each pool: held to its plain version at :data:`DECODE_Q_LENS`
     over the ragged lengths, then timed at :data:`DECODE_SHAPES`;
     ``flash_decode.cu``, the fp32 pool's route, held to it on the fp32
-    pool at q_len 1 and 5 and, called directly, on the bf16 pool at every
-    q_len, then timed on bf16 as the kernel ``flash_decode_sm90.cu``
-    replaced there; the card's ``quantize_tokens`` against the CPU's."""
+    pool at q_len 1 and 5 and, called directly, on the bf16 pool at q_len
+    1, 5 and 20, then timed on bf16 as the kernel ``flash_decode_sm90.cu``
+    replaced there; ``flash_decode_sm90.cu`` held and timed at
+    :data:`DECODE_MODE_SHAPES` (the record's ``flash_decode_sm90_verify``
+    and ``_chunk`` rows); the card's
+    ``quantize_tokens`` against the CPU's."""
     bf16 = torch.bfloat16
     out = {}
     for pool, quant, name in DECODE_POOLS:
@@ -616,7 +681,7 @@ def phase_decode_kernels(gen) -> dict:
               for q_len, what in DECODE_Q_LENS[:2]]
     scalar += [flash_decode_case(gen, f"bf16 pool q_len={q_len}{what}",
                                  bf16, q_len, DECODE_RAGGED, scalar=True)
-               for q_len, what in DECODE_Q_LENS]
+               for q_len, what in DECODE_Q_LENS[:3]]
     if any(ran != "flash_decode" for _, _, ran in scalar):
         raise AssertionError("the fp32 pool or the direct call did not run "
                              "flash_decode")
@@ -629,8 +694,32 @@ def phase_decode_kernels(gen) -> dict:
         cases_max_abs_err=max(e for e, _, _ in scalar),
         shapes={k: dict(v, ms=v["old_ms"], max_abs_err=v["old_max_abs_err"])
                 for k, v in sm90["shapes"].items()})
+    modes = {use: decode_mode_timing(gen, use, q_len, lengths)
+             for use, q_len, lengths in DECODE_MODE_SHAPES}
+    out["flash_decode_sm90_verify"] = modes["verify"]
+    out["flash_decode_sm90_chunk"] = dict(modes["chunk"],
+                                          at_kv_len_384=modes["chunk_kv384"])
     quantize_card_vs_cpu(gen)
     return out
+
+
+def decode_mode_timing(gen, use, q_len, lengths) -> dict:
+    """``flash_decode_sm90.cu`` at one of :data:`DECODE_MODE_SHAPES`: held
+    to its plain version, then timed (``time_flash_decode``).  Each query
+    row walks its own K/V in its own blocks, so at the chunk's 128 rows
+    the pages are read 128 times over: far from the bound, which counts
+    them once.  ``flash_decode.cu``, whose blocks take 16 query rows,
+    is timed beside it on the same operands."""
+    ops = decode_operands(gen, torch.bfloat16, q_len, lengths,
+                          b=len(lengths), p_max=MODES_PAGES_PER_REQ)
+    q, kp, vp, table, kv_len, _, _ = ops
+    o, ran = launched(lambda: att.flash_decode(q, kp, vp, table, kv_len))
+    if ran != ["flash_decode_sm90"]:
+        raise AssertionError(f"K5 at the {use} shape ran {ran}")
+    err = check(f"flash_decode_sm90 {use} [{len(lengths)},16,{q_len},128] "
+                f"kv_len {lengths}", o, decode_plain(*ops))
+    row = time_flash_decode(f"flash_decode_sm90 {use}", ops)
+    return dict(row, max_abs_err=err, q_len=q_len, kv_len=lengths)
 
 
 def quantize_card_vs_cpu(gen, tokens=4096) -> None:
@@ -1800,6 +1889,20 @@ def phase_kernels() -> dict:
 # -- phase 4: toy width, cuda vs cpu ---------------------------------------
 
 
+def toy_modes_prompts(vocab):
+    """Phase 4's modes trace: a 16-token (two-page) shared prompt ahead of
+    four prompts, all past the 16-token chunk; one short prompt under it;
+    and a repeat of the 24-token prompt, whose hit (capped at 23 tokens)
+    ends mid-page and forces a copy-on-write."""
+    rng = np.random.RandomState(13)
+    system = [int(t) for t in rng.randint(0, vocab, 16)]
+    prompts = [system + [int(t) for t in rng.randint(0, vocab, n)]
+               for n in (3, 8, 20, 30)]
+    prompts.append([int(t) for t in rng.randint(0, vocab, 6)])
+    prompts.append(list(prompts[1]))
+    return prompts
+
+
 def phase_toy() -> dict:
     cfg = ServingModelConfig(vocab_size=64, hidden_size=32, num_heads=4,
                              num_layers=2, max_position=96)
@@ -1807,13 +1910,33 @@ def phase_toy() -> dict:
     prompts = [[int(x) for x in np.random.RandomState(100 + i).randint(
         0, cfg.vocab_size, 5 + 3 * i)] for i in range(4)]
 
-    def streams(device):
-        eng = ServingEngine(cfg, params, num_pages=64, page_size=8,
-                            max_batch=4, prefill_budget=cfg.max_position,
-                            clock=SimClock(), device=device)
-        reqs = [eng.submit(p, 12) for p in prompts]
+    def streams(device, modes=False):
+        eng = ServingEngine(
+            cfg, params, num_pages=64, page_size=8, max_batch=4,
+            prefill_budget=cfg.max_position, clock=SimClock(),
+            spec=SpecConfig(k=4, chunk_size=16) if modes else None,
+            prefix_sharing=modes, device=device)
+        if not modes:
+            reqs = [eng.submit(p, 12) for p in prompts]
+            eng.run()
+            return [list(r.generated) for r in reqs]
+        eng.warmup()
+        reqs = []
+        for p in toy_modes_prompts(cfg.vocab_size):
+            reqs.append(eng.submit(p, 12))
+            eng.step()           # staggered: earlier prefixes registered
         eng.run()
-        return [list(r.generated) for r in reqs]
+        eng.prefix_index.clear()
+        if eng.cache.pages_used:
+            raise AssertionError("toy modes engine: the pool did not drain")
+        seen = dict(verify_steps=eng.verify_steps,
+                    chunk_steps=eng.chunk_steps, prefills=eng.prefills,
+                    accepted=eng.spec_accepted, prefix_hits=eng.prefix_hits,
+                    cows=eng.cows)
+        if not all(seen.values()):
+            raise AssertionError(f"toy modes engine: a mode did not run "
+                                 f"({seen})")
+        return [list(r.generated) for r in reqs], seen
 
     kernels.reset_launch_counts()
     on_card = streams("cuda")
@@ -1827,7 +1950,33 @@ def phase_toy() -> dict:
     log(f"  toy fp32 streams, cpu (plain):    {on_cpu}")
     if on_card != on_cpu:
         raise AssertionError("toy engine: cuda and cpu streams differ")
-    return {"launches": launches}
+
+    # the modes (spec k=4, chunks of 16, prefix sharing) on both devices,
+    # against the plain engine's streams of the same prompts
+    kernels.reset_launch_counts()
+    modes_card, seen = streams("cuda", modes=True)
+    modes_launches = {k.symbol: k.launches for k in kernels.KERNELS
+                      if k.launches}
+    modes_cpu, seen_cpu = streams("cpu", modes=True)
+    plain = ServingEngine(cfg, params, num_pages=64, page_size=8,
+                          max_batch=4, prefill_budget=cfg.max_position,
+                          clock=SimClock(), device="cuda")
+    reqs = [plain.submit(p, 12) for p in toy_modes_prompts(cfg.vocab_size)]
+    plain.run()
+    plain_streams = [list(r.generated) for r in reqs]
+    log(f"  toy fp32 modes (spec k=4, chunk 16, prefix sharing): {seen}, "
+        f"launches {modes_launches}")
+    log(f"  toy fp32 modes streams, cuda (kernels): {modes_card}")
+    log(f"  toy fp32 modes streams, cpu (plain):    {modes_cpu}")
+    log(f"  toy fp32 plain engine's streams, cuda:  {plain_streams}")
+    if set(modes_launches) != {"flash_fwd", "flash_decode"}:
+        raise AssertionError("toy modes engine: fp32 attention did not take "
+                             "the scalar K1 and K5 alone")
+    if not (modes_card == modes_cpu == plain_streams and seen == seen_cpu):
+        raise AssertionError("toy modes engine: the card's, the CPU's and "
+                             "the plain engine's streams differ")
+    return {"launches": launches, "modes": dict(seen,
+                                                launches=modes_launches)}
 
 
 # -- phase 5: the full-width engine ----------------------------------------
@@ -1867,8 +2016,9 @@ def plain_attention():
                                flash_decode=fd)
 
 
-def logits_close(what, got, ref, shape) -> float:
-    """Kernel-path logits against the plain path's.  bf16 rounds at every
+def logits_close(what, got, ref, shape, vs="kernels vs plain") -> float:
+    """Kernel-path logits against the plain path's (or two other ways of
+    computing the same logits, named by ``vs``).  bf16 rounds at every
     layer, so the bar is a few bf16 ulps of the logit scale (8 x 2^-8 x
     max|ref|), not one."""
     got, ref = got.float(), ref.float()
@@ -1877,7 +2027,7 @@ def logits_close(what, got, ref, shape) -> float:
                              "non-finite values")
     err = (got - ref).abs().max().item()
     tol = 8 * 2.0 ** -8 * ref.abs().max().item()
-    log(f"  {what} logits, kernels vs plain: max_abs_diff {err:.3e}  tol "
+    log(f"  {what} logits, {vs}: max_abs_diff {err:.3e}  tol "
         f"{tol:.3e}  (logit scale {ref.abs().max().item():.3f}, argmax "
         f"{got.argmax(-1).flatten().tolist()} vs "
         f"{ref.argmax(-1).flatten().tolist()})")
@@ -1981,23 +2131,73 @@ def decode_step_profile(eng: ServingEngine) -> dict:
                                  "by_kind_ms", "top_other_ops")}
 
 
+def streams_of(eng: ServingEngine, reqs, one_at_a_time=False):
+    """``reqs``' prompts and budgets submitted to ``eng`` at once (or each
+    run to its end before the next arrives) and run; their streams."""
+    handles = []
+    for r in reqs:
+        handles.append(eng.submit(r.prompt, r.max_new_tokens))
+        if one_at_a_time:
+            eng.run()
+    eng.run()
+    return [h.generated for h in handles]
+
+
 def stream_sets(params, cfg, kv_quant) -> dict:
     """Three requests of a seeded trace served together, again, one at a
     time at the same ``max_batch``, and (recorded only) at ``max_batch``
     1, where every GEMM has another shape."""
     def run(max_batch=BATCH, one_at_a_time=False):
-        eng = full_engine(params, cfg, max_batch, kv_quant)
-        handles = []
-        for r in trace(1, 3):
-            handles.append(eng.submit(r.prompt, r.max_new_tokens))
-            if one_at_a_time:
-                eng.run()
-        eng.run()
-        return [h.generated for h in handles]
+        return streams_of(full_engine(params, cfg, max_batch, kv_quant),
+                          trace(1, 3), one_at_a_time)
 
     return {"together": run(), "again": run(),
             "one_at_a_time": run(one_at_a_time=True),
             "max_batch_1": run(max_batch=1)}
+
+
+def serve_measured(eng: ServingEngine, reqs, what: str):
+    """``warmup()``, then ``serve()`` of ``reqs`` on the engine's clock:
+    every request must finish with its whole budget and the pool drain
+    (once a prefix index is cleared).  Returns the finished requests, the
+    launch counts of the serve (warm-up included) and its metrics: TTFT
+    and TPOT p50, tokens/s, the pool's peak occupancy and peak memory."""
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    warm_s = eng.warmup()
+    peak, step = [0], eng.step
+
+    def stepped():
+        out = step()
+        peak[0] = max(peak[0], eng.cache.pages_used)
+        return out
+
+    eng.step = stepped
+    t0 = time.perf_counter()
+    finished = eng.serve(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k.symbol: k.launches for k in kernels.KERNELS if k.launches}
+    if len(finished) != len(reqs) or any(
+            r.finish_reason != "length" or len(r.generated) != r.max_new_tokens
+            for r in finished):
+        raise AssertionError(f"{what} serve: not every request finished")
+    if eng.prefix_index is not None:
+        eng.prefix_index.clear()
+    if eng.cache.pages_used != 0:
+        raise AssertionError(f"{what} serve: the pool did not drain "
+                             f"({eng.cache.pages_used} pages used)")
+    tokens = sum(len(r.generated) for r in finished)
+    ttft = [(r.first_token_t - r.arrival_t) * 1e3 for r in finished]
+    tpot = [(r.finish_t - r.first_token_t) / (len(r.generated) - 1) * 1e3
+            for r in finished if len(r.generated) > 1]
+    return finished, launches, {
+        "requests": len(finished), "tokens": tokens, "wall_s": wall,
+        "tok_per_s": tokens / wall, "ttft_p50_ms": statistics.median(ttft),
+        "tpot_p50_ms": statistics.median(tpot), "warmup_s": warm_s,
+        "preemptions": sum(r.preemptions for r in finished),
+        "pool_peak": peak[0] / (eng.cache.num_pages - 1),
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
 
 
 def serve_full(params, cfg, pool, kv_quant, decode_kernel, smi) -> dict:
@@ -2007,24 +2207,9 @@ def serve_full(params, cfg, pool, kv_quant, decode_kernel, smi) -> dict:
     plain path's, the decode step's host/device split and device profile,
     and batched == sequential == a re-run, bitwise."""
     torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
     eng = full_engine(params, cfg, kv_quant=kv_quant)
     reqs = trace(0, 16)
-
-    kernels.reset_launch_counts()
-    warm_s = eng.warmup()
-    t0 = time.perf_counter()
-    finished = eng.serve(reqs)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {k.symbol: k.launches for k in kernels.KERNELS if k.launches}
-
-    if len(finished) != len(reqs) or any(
-            r.finish_reason != "length" or len(r.generated) != r.max_new_tokens
-            for r in finished):
-        raise AssertionError(f"{pool} serve: not every request finished")
-    if eng.cache.pages_used != 0:
-        raise AssertionError(f"pool not drained: {eng.cache.pages_used} used")
+    finished, launches, served = serve_measured(eng, reqs, pool)
     prefills = sum(1 + r.preemptions for r in finished)
     want = {"flash_fwd_sm90": cfg.num_layers * (prefills + 1),
             decode_kernel: cfg.num_layers * (eng.decode_steps + 1)}
@@ -2032,19 +2217,8 @@ def serve_full(params, cfg, pool, kv_quant, decode_kernel, smi) -> dict:
         f"prefills + warmup, {eng.decode_steps} decode steps + warmup)")
     if launches != want:
         raise AssertionError("launch counts do not match the main path")
-    tokens = sum(len(r.generated) for r in finished)
-    ttft = [(r.first_token_t - r.arrival_t) * 1e3 for r in finished]
-    tpot = [(r.finish_t - r.first_token_t) / (len(r.generated) - 1) * 1e3
-            for r in finished if len(r.generated) > 1]
-    metrics = {"pool": pool, "requests": len(finished), "tokens": tokens,
-               "wall_s": wall, "tok_per_s": tokens / wall,
-               "ttft_p50_ms": statistics.median(ttft),
-               "tpot_p50_ms": statistics.median(tpot),
-               "warmup_s": warm_s, "decode_steps": eng.decode_steps,
-               "prefills": prefills,
-               "preemptions": sum(r.preemptions for r in finished),
-               "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
-               "card": smi}
+    metrics = {"pool": pool, **served, "decode_steps": eng.decode_steps,
+               "prefills": prefills, "card": smi}
     log("  serve " + json.dumps(metrics))
     if kv_quant is None:
         logits_check(eng, reqs[0].prompt)
@@ -2076,6 +2250,445 @@ def phase_full(smi: str) -> dict:
     params = init_params(cfg, seed=0, device="cuda")
     return {pool: serve_full(params, cfg, pool, quant, name, smi)
             for pool, quant, name in DECODE_POOLS}
+
+
+# -- phase 15: the serving modes at full width -------------------------------
+
+
+def modes_engine(params, cfg, proposer=None, spec=True, share=True,
+                 k=SPEC_K) -> ServingEngine:
+    """Phase 15's engine: FULL's model on bench.py's modes pool, with
+    ``SpecConfig(k, proposer, chunk_size=CHUNK)`` and prefix sharing
+    (``spec=False``: the plain engine on the same pool)."""
+    return ServingEngine(
+        cfg, params, num_pages=MODES_NUM_PAGES, page_size=PAGE,
+        max_batch=BATCH, max_pages_per_request=MODES_PAGES_PER_REQ,
+        prefill_budget=cfg.max_position,
+        spec=(SpecConfig(k=k, proposer=proposer or (NgramProposer() if k
+                                                    else None),
+                         chunk_size=CHUNK) if spec else None),
+        prefix_sharing=spec and share, device="cuda")
+
+
+def modes_trace():
+    """bench.py's shared-prompt trace: its 128-token system prompt ahead of
+    every prompt of ``trace(0, 16)``; then a 256-token prompt (the longest
+    prompt's head) and, a quarter second later, its exact repeat, whose hit
+    (capped at 255 tokens) ends mid-page and forces a copy-on-write."""
+    reqs = trace(0, 16)
+    for r in reqs:
+        r.prompt = SYSTEM_PROMPT + r.prompt
+    head = max(reqs, key=lambda r: len(r.prompt)).prompt[:4 * PAGE]
+    last = max(r.arrival_t for r in reqs)
+    for i in range(2):
+        reqs.append(type(reqs[0])(rid=len(reqs), prompt=list(head),
+                                  max_new_tokens=32,
+                                  arrival_t=last + 0.25 * (i + 1)))
+    return reqs
+
+
+class ReplayProposer:
+    """Drafts each request's continuation in ``streams`` (prompt + tokens,
+    by rid) while its history follows it: drafts the verify step accepts
+    where it agrees with the run that made the streams.  With ``wrong``
+    every draft token is shifted by one id: drafts it rejects.  With
+    ``none`` it never drafts (every step is the decode step)."""
+
+    def __init__(self, streams, wrong=False, none=False):
+        self.streams, self.wrong, self.none = streams, wrong, none
+        self.drafted = self.accepted = 0
+
+    def propose(self, rid, context, k):
+        if self.none:
+            return []
+        full = self.streams[rid]
+        n = len(context)
+        if full[:n] != list(context):
+            return []
+        d = full[n:n + k]
+        return [(t + 1) % FULL["vocab_size"] for t in d] if self.wrong else d
+
+    def observe(self, drafted, accepted):
+        self.drafted += drafted
+        self.accepted += accepted
+
+    def release(self, rid):
+        pass
+
+
+def serve_modes(eng, reqs) -> dict:
+    """:func:`serve_measured` of ``reqs`` on a modes engine, whose kernels
+    must have run exactly the main path's launches (K1 once a layer for
+    each whole-row prefill and the warm-up, K5's bf16 entry point once a
+    layer for each decode, verify and chunk step and the warm-up's three,
+    nothing else).  Returns the metrics and the streams by rid."""
+    L = eng.cfg.num_layers
+    finished, launches, served = serve_measured(eng, reqs, "modes")
+    steps = eng.decode_steps + eng.verify_steps + eng.chunk_steps
+    warm = 1 + (eng.spec_k > 0) + (eng.chunk_size is not None)
+    want = {"flash_fwd_sm90": L * (eng.prefills + 1),
+            "flash_decode_sm90": L * (steps + warm)}
+    log(f"  launches {launches}, expected {want} ({eng.prefills} whole-row "
+        f"prefills, {eng.decode_steps} decode, {eng.verify_steps} verify, "
+        f"{eng.chunk_steps} chunk steps, + the warm-up's)")
+    if launches != want:
+        raise AssertionError("modes serve: launch counts do not match the "
+                             "main path")
+    admissions = sum(1 + r.preemptions for r in finished)
+    metrics = {
+        **served, "prefills": eng.prefills, "decode_steps": eng.decode_steps,
+        "verify_steps": eng.verify_steps, "chunk_steps": eng.chunk_steps,
+        "drafted": eng.spec_drafted, "accepted": eng.spec_accepted,
+        "committed": eng.spec_committed,
+        "acceptance_rate": (eng.spec_accepted / eng.spec_drafted
+                            if eng.spec_drafted else 0.0),
+        "committed_per_verify": (eng.spec_committed / eng.verify_steps
+                                 if eng.verify_steps else 0.0),
+        "prefix_hits": eng.prefix_hits, "admissions": admissions,
+        "prefix_hit_rate": eng.prefix_hits / admissions, "cows": eng.cows,
+        "launches": launches}
+    return metrics, {r.rid: list(r.generated) for r in finished}
+
+
+def verify_host(eng, seed=15) -> np.ndarray:
+    """A full-batch verify step's operand row: every row's last token at
+    position S - 1 and a 4-token draft, kv_len S + 4 = 4 pages (256), each
+    row on its own pages of the drained pool."""
+    b, qw, P = eng.max_batch, eng.spec_k + 1, eng.cache.max_pages_per_request
+    S = 4 * PAGE - SPEC_K
+    rng = np.random.RandomState(seed)
+    host, (tok, pos, wp, wo, kvl, table) = eng._extend_host(b, qw)
+    for i in range(b):
+        pages = 1 + i * P + np.arange(P)
+        at = np.arange(S - 1, S + qw - 1)
+        tok[i], pos[i] = rng.randint(0, FULL["vocab_size"], qw), at
+        wp[i], wo[i] = pages[at // PAGE], at % PAGE
+        kvl[i], table[i] = S + qw - 1, pages
+    return host
+
+
+def chunk_host(eng, seed=16) -> np.ndarray:
+    """A chunk step's operand row: the second chunk of one request,
+    context positions [CHUNK, 2 CHUNK) on pages 1.., kv_len 2 CHUNK."""
+    P, start = eng.cache.max_pages_per_request, CHUNK
+    rng = np.random.RandomState(seed)
+    host, (tok, pos, wp, wo, kvl, table) = eng._extend_host(1, CHUNK)
+    pages = 1 + np.arange(P)
+    at = np.arange(start, start + CHUNK)
+    tok[0], pos[0] = rng.randint(0, FULL["vocab_size"], CHUNK), at
+    wp[0], wo[0] = pages[at // PAGE], at % PAGE
+    kvl[0], table[0] = start + CHUNK, pages
+    return host
+
+
+def decode_host(eng, tok, pos, table, kv_len) -> np.ndarray:
+    """The engine's decode operand row (``decode_rows`` wide) with the
+    given rows first and idle rows after them."""
+    rows, p_max = eng.decode_rows, eng.cache.max_pages_per_request
+    b = len(tok)
+    host = np.zeros(3 * rows + rows * p_max, np.int32)
+    host[2 * rows:3 * rows] = 1
+    host[:b], host[rows:rows + b], host[2 * rows:2 * rows + b] = (
+        tok, pos, kv_len)
+    full = np.zeros((rows, p_max), np.int32)
+    full[:b] = table
+    host[3 * rows:] = full.ravel()
+    return host
+
+
+@torch.no_grad()
+def on_pool_copy(eng, fn):
+    """``fn()`` with the engine's pool swapped for a copy of it."""
+    k, v = eng.cache.k, eng.cache.v
+    eng.cache.k, eng.cache.v = k.clone(), v.clone()
+    try:
+        return fn()
+    finally:
+        eng.cache.k, eng.cache.v = k, v
+        torch.cuda.empty_cache()
+
+
+@torch.no_grad()
+def modes_logits_checks(eng) -> dict:
+    """Checks 5-7 on a drained pool: a full-batch verify step's logits and
+    a chunk step's last-row logits through K5 against the same step
+    through its plain version (each run writes its own K/V before it
+    reads), and the verify step's logits against five sequential decode
+    steps of the engine (``decode_rows`` wide) over the same tokens on a
+    copy of the pool, all under ``logits_close``'s bar.  Then, under the
+    same bar, the two gaps that part the modes engine's numbers from the
+    plain engine's: a prompt's first-token logits through chunks
+    against one whole-row prefill, and the decode step at ``decode_rows``
+    rows against ``max_batch`` rows."""
+    b, qw, V = eng.max_batch, eng.spec_k + 1, FULL["vocab_size"]
+    out = {}
+    host = verify_host(eng)
+    dev = torch.from_numpy(host).cuda()
+    got = eng._extend(dev, b, qw)
+    with plain_attention():
+        ref = eng._extend(dev, b, qw)
+    out["verify_vs_plain"] = logits_close(
+        f"full-batch verify [{b}, {qw}] at kv_len {4 * PAGE}", got, ref,
+        (b, qw, V))
+    cdev = torch.from_numpy(chunk_host(eng)).cuda()
+    got = eng._extend(cdev, 1, CHUNK, last_only=True)
+    with plain_attention():
+        ref = eng._extend(cdev, 1, CHUNK, last_only=True)
+    out["chunk_vs_plain"] = logits_close(
+        f"chunk step [1, {CHUNK}] at kv_len {2 * CHUNK} (last row)", got,
+        ref, (1, 1, V))
+    # verify against sequential decode: the same tokens one at a time, on
+    # a copy of the pool as it stands before the verify step writes
+    n = b * qw
+    tok, pos = host[:n].reshape(b, qw), host[n:2 * n].reshape(b, qw)
+    table = host[4 * n + b:].reshape(b, -1)
+
+    def sequential():
+        return torch.stack([eng._decode(torch.from_numpy(decode_host(
+            eng, tok[:, r], pos[:, r], table, pos[:, r] + 1)).cuda())[:b]
+            for r in range(qw)], 1)
+
+    seq = on_pool_copy(eng, sequential)
+    got = eng._extend(dev, b, qw)
+    out["verify_vs_decode"] = logits_close(
+        "full-batch verify step", got, seq, (b, qw, V),
+        vs=f"vs {qw} sequential decode steps, both through the kernels")
+    out["verify_vs_decode_bitwise"] = bool(torch.equal(got, seq))
+    log(f"  verify vs sequential decode: bitwise equal "
+        f"{out['verify_vs_decode_bitwise']}")
+    out.update(plain_engine_gaps(eng))
+    return out
+
+
+@torch.no_grad()
+def plain_engine_gaps(eng) -> dict:
+    """Where the modes engine computes what the plain engine computes
+    another way: a prompt's first-token logits through three chunk steps
+    (298 tokens at full width) against one whole-row prefill (K5 and
+    [1, 128] GEMMs against K1 and [1, 1024]), and a full-batch decode
+    step at ``decode_rows`` rows against ``max_batch`` rows (other GEMM
+    kernels and reduction layouts)."""
+    V, P = FULL["vocab_size"], eng.cache.max_pages_per_request
+    C = 2 * CHUNK + CHUNK // 3
+    ctx = np.random.RandomState(17).randint(0, V, C)
+    S = eng.prefill_budget
+    row = np.zeros((3, S), np.int32)
+    row[0, :C], row[1, :C], row[2, :C] = ctx, 1, np.arange(C)
+    rdev = torch.from_numpy(row).cuda()
+    whole, _, _ = eng.decoder.prefill(eng.params, rdev[0:1], rdev[1:2],
+                                      rdev[2:3], C - 1)
+    pages = 1 + np.arange(P)
+
+    def chunks():
+        for start in range(0, C, CHUNK):
+            m = min(CHUNK, C - start)
+            host, (tk, ps, wp, wo, kvl, table) = eng._extend_host(1, CHUNK)
+            at = np.arange(start, start + m)
+            tk[0, CHUNK - m:], ps[0, CHUNK - m:] = ctx[at], at
+            wp[0, CHUNK - m:], wo[0, CHUNK - m:] = pages[at // PAGE], at % PAGE
+            kvl[0], table[0] = start + m, pages
+            out = eng._extend(torch.from_numpy(host).cuda(), 1, CHUNK,
+                              last_only=True)
+        return out
+
+    chunked = on_pool_copy(eng, chunks)
+    first = logits_close(f"a {C}-token prompt's first token", chunked, whole,
+                         (1, 1, V), vs="chunk steps vs one whole-row prefill")
+    # the decode step at max_batch rows (the plain engine's) and at
+    # decode_rows (this engine's), the same rows on copies of one pool
+    b = eng.max_batch
+    host = verify_host(eng)
+    n = b * (eng.spec_k + 1)
+    tok = host[:n].reshape(b, -1)[:, 0]
+    pos = host[n:2 * n].reshape(b, -1)[:, 0]
+    table = host[4 * n + b:].reshape(b, -1)
+    wide = on_pool_copy(eng, lambda: eng._decode(torch.from_numpy(
+        decode_host(eng, tok, pos, table, pos + 1)).cuda())[:b])
+    kv_len = torch.from_numpy(pos + 1).cuda()
+    narrow = on_pool_copy(eng, lambda: eng.decoder.decode(
+        eng.params, eng.cache.k, eng.cache.v, torch.from_numpy(tok).cuda(),
+        torch.from_numpy(pos).cuda(), torch.from_numpy(table).cuda(),
+        kv_len))
+    rows = logits_close("the full-batch decode step", wide, narrow, (b, V),
+                        vs=f"at {eng.decode_rows} rows vs {b}")
+    return {"chunks_vs_whole_row": first, "decode_rows_vs_max_batch": rows}
+
+
+@torch.no_grad()
+def extend_step_profiles(eng) -> dict:
+    """One full-batch verify step and one chunk step under
+    ``torch.profiler``: device time by part, busy against wall."""
+    b, qw = eng.max_batch, eng.spec_k + 1
+    out = {}
+    for what, host, rows, q, last in (
+            ("verify", verify_host(eng), b, qw, False),
+            ("chunk", chunk_host(eng), 1, CHUNK, True)):
+        dev = torch.from_numpy(host).cuda()
+        eng._extend(dev, rows, q, last)
+        prof = step_profile(lambda: eng._extend(dev, rows, q, last),
+                            DECODE_KINDS)
+        k5 = sum(t for k, t in prof["by_kind_ms"].items()
+                 if k.startswith("K5"))
+        log(f"  {what} step under torch.profiler: busy "
+            f"{prof['device_busy_ms']:.3f} of a {prof['wall_ms']:.3f} ms "
+            f"wall (idle {prof['idle_share']:.1%}); K5 {k5:.3f} ms, "
+            f"{k5 / prof['device_busy_ms']:.1%} of busy; by kind "
+            + ", ".join(f"{k} {t:.3f}" for k, t in
+                        prof["by_kind_ms"].items()))
+        out[what] = {k: prof[k] for k in ("wall_ms", "device_busy_ms",
+                                          "idle_share", "by_kind_ms")}
+    return out
+
+
+def modes_stream_sets(params, cfg) -> dict:
+    """Check 8 on six requests of the modes trace (the first four and the
+    repeat pair): served together, again, and one at a time (where the
+    repeat hits the index and copies a page, which together it cannot)."""
+    reqs = modes_trace()
+    picked = reqs[:4] + reqs[-2:]
+
+    def run(one_at_a_time=False):
+        eng = modes_engine(params, cfg)
+        got = streams_of(eng, picked, one_at_a_time)
+        return got, (eng.verify_steps, eng.chunk_steps, eng.prefix_hits,
+                     eng.cows)
+
+    (together, s1), (again, _), (seq, s2) = run(), run(), run(True)
+    log(f"  six requests (verify, chunk steps, hits, COWs): together {s1}, "
+        f"one at a time {s2}")
+    return {"together": together, "again": again, "one_at_a_time": seq,
+            "seen_together": s1, "seen_one_at_a_time": s2}
+
+
+@torch.no_grad()
+def top2_margin(eng, context) -> float:
+    """The top-2 logit margin of the plain engine's next token after
+    ``context`` (a whole-row prefill through the kernels)."""
+    S, C = eng.prefill_budget, len(context)
+    host = np.zeros((3, S), np.int32)
+    host[0, :C], host[1, :C], host[2, :C] = context, 1, np.arange(C)
+    dev = torch.from_numpy(host).cuda()
+    logits, _, _ = eng.decoder.prefill(eng.params, dev[0:1], dev[1:2],
+                                       dev[2:3], C - 1)
+    top = logits[0, 0].float().topk(2).values
+    return float(top[0] - top[1])
+
+
+def spec_vs_plain(params, cfg, streams, reqs) -> dict:
+    """Phase 15's streams against the plain engine's (``spec=None``, no
+    sharing) on the same requests, run as one batch: the share equal, and
+    for each request that differs its first divergent token and the top-2
+    logit margin the plain engine had there."""
+    prompts = {r.rid: r.prompt for r in reqs}
+    eng = modes_engine(params, cfg, spec=False)
+    ref = dict(zip((r.rid for r in reqs), streams_of(eng, reqs)))
+    diverge = []
+    for rid in sorted(streams):
+        a, b = streams[rid], ref[rid]
+        if a == b:
+            continue
+        t = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
+        diverge.append(dict(rid=rid, token=t, modes=a[t], plain=b[t],
+                            margin=top2_margin(eng, prompts[rid] + b[:t])))
+    tok_eq = sum(x == y for rid in streams
+                 for x, y in zip(streams[rid], ref[rid]))
+    out = dict(requests_equal=(len(streams) - len(diverge)) / len(streams),
+               tokens_equal=tok_eq / sum(len(v) for v in streams.values()),
+               divergences=diverge)
+    log(f"  modes vs the plain engine: {len(streams) - len(diverge)} of "
+        f"{len(streams)} requests equal, {out['tokens_equal']:.1%} of tokens; "
+        f"first divergences {diverge}")
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_modes(smi: str, serving: dict) -> dict:
+    """The serving modes at GPT-1.3B width (:func:`modes_engine`,
+    :func:`modes_trace`): checks 1-8 and the readings beside phase 5's
+    bf16 numbers."""
+    cfg = ServingModelConfig(**FULL, dtype=torch.bfloat16)
+    params = init_params(cfg, seed=0, device="cuda")
+    reqs = modes_trace()
+    eng = modes_engine(params, cfg)
+    metrics, streams = serve_modes(eng, reqs)
+    seen = {k: metrics[k] for k in ("chunk_steps", "prefix_hits", "cows",
+                                    "verify_steps", "accepted")}
+    log("  modes serve " + json.dumps(
+        {k: v for k, v in metrics.items() if k != "launches"}))
+    if not all(seen.values()):
+        raise AssertionError(f"modes serve: a mode did not run ({seen})")
+    metrics.update(modes_logits_checks(eng))
+    metrics["step_profiles"] = extend_step_profiles(eng)
+    del eng
+    torch.cuda.empty_cache()
+
+    # drafts that follow the served streams (accepted), that never do
+    # (rejected), and none at all: speculation changes how many tokens a
+    # step commits, never which, so the streams stay the served ones
+    prompts = {r.rid: r.prompt for r in reqs}
+    full_streams = {rid: prompts[rid] + g for rid, g in streams.items()}
+    replays = {}
+    for what, prop in (("replay", ReplayProposer(full_streams)),
+                       ("wrong", ReplayProposer(full_streams, wrong=True)),
+                       ("none", ReplayProposer({}, none=True))):
+        m, got = serve_modes(modes_engine(params, cfg, proposer=prop),
+                             modes_trace())
+        replays[what] = dict(
+            streams_equal=got == streams, verify_steps=m["verify_steps"],
+            decode_steps=m["decode_steps"], drafted=m["drafted"],
+            accepted=m["accepted"], committed=m["committed"])
+        log(f"  {what} proposer: {replays[what]}")
+        torch.cuda.empty_cache()
+    if not all(r["streams_equal"] for r in replays.values()):
+        raise AssertionError("the streams moved with the proposer")
+    if not (replays["replay"]["accepted"] and not replays["wrong"]["accepted"]
+            and not replays["none"]["verify_steps"]):
+        raise AssertionError("the replaying proposer's drafts were not "
+                             "accepted, a wrong draft was, or a step "
+                             "without drafts verified")
+    metrics["proposers"] = replays
+
+    s = modes_stream_sets(params, cfg)
+    same = s["together"] == s["one_at_a_time"]
+    rerun = s["together"] == s["again"]
+    log(f"  modes: batched == sequential: {same}; a re-run equal to itself: "
+        f"{rerun}")
+    if not (same and rerun):
+        raise AssertionError("modes: batched, sequential and re-run streams "
+                             "differ")
+    metrics.update(batched_eq_sequential=same, rerun_eq=rerun,
+                   sets_seen={k: s[k] for k in ("seen_together",
+                                                "seen_one_at_a_time")})
+    vs = spec_vs_plain(params, cfg, streams, reqs)
+    metrics["vs_plain"] = vs
+    # equal to the plain engine's streams, or every divergence starts
+    # where the plain engine's top two logits lay within twice the larger
+    # gap between the two engines' ways of computing logits (each of the
+    # two logits moves by at most the gap, so a flip needs a margin of at
+    # most twice it; ROADMAP.md, queue C)
+    gaps = (metrics["chunks_vs_whole_row"],
+            metrics["decode_rows_vs_max_batch"])
+    bar = 2 * max(gaps)
+    wide = [d for d in vs["divergences"] if not d["margin"] <= bar]
+    log(f"  modes vs plain: {len(vs['divergences'])} divergent requests, "
+        f"margins {[d['margin'] for d in vs['divergences']]} against twice "
+        f"the engines' larger gap, {bar:.4f} (chunks vs whole row "
+        f"{gaps[0]:.4f}, decode at {BATCH * (SPEC_K + 1)} rows vs {BATCH} "
+        f"{gaps[1]:.4f}); checks 5-7: verify "
+        f"{metrics['verify_vs_plain']:.4f}, chunk "
+        f"{metrics['chunk_vs_plain']:.4f}, verify vs decode "
+        f"{metrics['verify_vs_decode']:.4f}")
+    if wide:
+        raise AssertionError(f"modes vs plain: divergences at margins above "
+                             f"twice the engines' gap, {bar:.4f}: {wide}")
+    bf16 = serving["bf16"]
+    metrics["card"] = smi
+    log("  beside phase 5's bf16 serve (same card, same run): " + ", ".join(
+        f"{k} {metrics[k]:.4g} vs {bf16[k]:.4g}"
+        for k in ("ttft_p50_ms", "tpot_p50_ms", "tok_per_s", "peak_mem_gib",
+                  "pool_peak")) + f"; {smi}")
+    return metrics
 
 
 # -- phase 6: toy training, cuda vs cpu -------------------------------------
@@ -3882,8 +4495,14 @@ def main() -> int:
           "heads of 64, bf16, padded 16 x 512 and packed 13 x 512)")
     bert = phase_bert_large(smi)
     torch.cuda.empty_cache()
+
+    begin(15, "serving modes at full width (GPT-1.3B width, 24 layers, "
+          "bf16: speculative verify k=4, chunked prefill 128, prefix "
+          "sharing)")
+    modes = phase_modes(smi, serving)
+    torch.cuda.empty_cache()
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
-    PHASE.update(n=15, name="record")
+    PHASE.update(n=16, name="record")
 
     record = {"kernels": [
         # K1: the bf16 route at head dims 64 and 128 on the tensor cores
@@ -3929,10 +4548,23 @@ def main() -> int:
              launches=serving[pool]["launches"][name], **timings[name])
         for pool, _, name in DECODE_POOLS
     ] + [
+        # K5 where the serving modes run it (phase 15): the verify step at
+        # q_len k + 1 and the chunk step at q_len 128, the same entry
+        # point; their launches are phase 15's steps of that kind (the
+        # entry point's total there is counted exactly), their times phase
+        # 3's at the steps' shapes
+        dict(name=f"flash_decode_sm90_{use}", route="cuda",
+             source="apex_tpu_torch/csrc/flash_decode_sm90.cu",
+             replaces="apex_tpu/ops/attention.py:2239",
+             launches=FULL["num_layers"] * (modes[f"{use}_steps"] + 1),
+             **timings[f"flash_decode_sm90_{use}"])
+        for use in ("verify", "chunk")
+    ] + [
         dict(name="flash_decode", route="cuda",
              source="apex_tpu_torch/csrc/flash_decode.cu",
              replaces="apex_tpu/ops/attention.py:2239",
              launches=toy["launches"]["flash_decode"],
+             launches_toy_modes=toy["modes"]["launches"]["flash_decode"],
              **timings["flash_decode"]),
     ] + [
         # K3/K4: the bf16 route on the tensor cores runs the GPT-1.3B step

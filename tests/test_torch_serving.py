@@ -245,9 +245,18 @@ def test_default_device_is_the_card_and_never_falls_back(tparams,
 
 
 def test_unported_options_are_refused(tparams):
-    with pytest.raises(NotImplementedError, match="spec"):
+    with pytest.raises(NotImplementedError, match="watchdog"):
         tsv.ServingEngine(TCFG, tparams, num_pages=8, device="cpu",
-                          spec=object())
+                          watchdog=object())
+    # the JAX engine's rule: prefix sharing prefills a hit's suffix in
+    # chunks, so it needs a chunk size
+    with pytest.raises(ValueError, match="chunked prefill"):
+        tsv.ServingEngine(TCFG, tparams, num_pages=8, page_size=8,
+                          device="cpu", prefix_sharing=True)
+    with pytest.raises(ValueError, match="chunked prefill"):
+        tsv.ServingEngine(TCFG, tparams, num_pages=8, page_size=8,
+                          device="cpu", prefix_sharing=True,
+                          spec=tsv.SpecConfig(k=2))
     with pytest.raises(NotImplementedError, match="tp"):
         tsv.ServingEngine(TCFG, tparams, num_pages=8, device="cpu", tp=2)
     with pytest.raises(TypeError):
@@ -367,7 +376,8 @@ def test_scheduler_decisions_match_jax():
 
 def test_import_pulls_in_neither_jax_nor_apex_tpu():
     code = ("import sys, apex_tpu_torch, apex_tpu_torch.ops, "
-            "apex_tpu_torch.serving, apex_tpu_torch.kernels\n"
+            "apex_tpu_torch.serving, apex_tpu_torch.serving.spec, "
+            "apex_tpu_torch.kernels\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'apex_tpu'))\n"
             "print(bad)\nsys.exit(1 if bad else 0)\n")
@@ -382,6 +392,9 @@ def test_source_never_imports_jax_or_apex_tpu():
     files = sorted((REPO / "apex_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) >= 10
+    spec = REPO / "apex_tpu_torch" / "serving" / "spec"
+    assert {spec / f"{m}.py" for m in ("__init__", "proposer",
+                                       "verify")} <= set(files)
     for path in files:
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):
