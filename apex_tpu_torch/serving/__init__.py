@@ -2,8 +2,9 @@
 the continuous-batching scheduler and the engine (port of the JAX
 package's ``apex_tpu/serving``: the default mode, the quantized KV pool
 (``kv_quant="int8"`` / ``"fp8"``), speculative decoding and chunked
-prefill (``spec=SpecConfig(...)``) and prefix sharing
-(``prefix_sharing=True``)).
+prefill (``spec=SpecConfig(...)``), prefix sharing
+(``prefix_sharing=True``), snapshot/restore/recover, per-page CRCs, the
+export and adoption of prefilled pages, and the telemetry events).
 
 Layers, bottom-up:
 
@@ -21,14 +22,17 @@ Layers, bottom-up:
   (:func:`commit_tokens`);
 * :class:`ContinuousBatchingScheduler` + :class:`ServingEngine` —
   admission/growth/preemption/retirement policy and the engine that runs
-  it on the device.
+  it on the device; :func:`set_fault_hook` is the seam the chaos tier
+  (:mod:`apex_tpu_torch.resilience.chaos`) injects faults through.
 """
 
 from apex_tpu_torch.serving.convert import params_from_jax  # noqa: F401
 from apex_tpu_torch.serving.engine import (  # noqa: F401
+    AdmissionRefused,
     ServingEngine,
     SimClock,
     poisson_trace,
+    set_fault_hook,
 )
 from apex_tpu_torch.serving.kv_cache import (  # noqa: F401
     PagedKVCache,
@@ -37,6 +41,7 @@ from apex_tpu_torch.serving.kv_cache import (  # noqa: F401
     PrefixIndex,
     quant_pool_dtype,
     quantize_tokens,
+    verify_page_payload,
 )
 from apex_tpu_torch.serving.model import (  # noqa: F401
     PagedDecoder,
@@ -61,15 +66,18 @@ from apex_tpu_torch.serving.spec import (  # noqa: F401
 )
 
 __all__ = [
+    "AdmissionRefused",
     "ServingEngine",
     "SimClock",
     "poisson_trace",
+    "set_fault_hook",
     "PagedKVCache",
     "PagePoolCorruption",
     "PagePoolExhausted",
     "PrefixIndex",
     "quant_pool_dtype",
     "quantize_tokens",
+    "verify_page_payload",
     "PagedDecoder",
     "ServingModelConfig",
     "init_params",

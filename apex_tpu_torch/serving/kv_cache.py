@@ -35,13 +35,29 @@ prompt head.  A shared page's content is immutable; a writer first takes
 a private copy (:meth:`PagedKVCache.cow`, a plain page copy of K, V and
 a quantized pool's scale planes).
 
-Not ported yet (ROADMAP.md): per-page CRC validation, page export/import
-and defrag.
+**Page integrity** (``crc_pages=True``, opt-in): every write the host
+makes records a crc32 of each touched page's bytes (K, and V; a
+quantized pool's scale planes included), and :meth:`PagedKVCache.
+verify_pages` reads the pages back and raises :class:`PagePoolCorruption`
+on a mismatch.  A digest reads its pages back to the host (the read waits
+for the write before it on the stream), so it costs a device-to-host copy
+of every touched page a step: a debugging and chaos knob.
+
+**Page shipping**: :meth:`PagedKVCache.export_page_bytes` serializes a
+page as the JAX package does — the C-order bytes of ``pool[:, page]``
+(bf16 and fp8 through an integer view of the same width), a quantized
+pool's fp32 scale planes as their own keys, base64 text and a crc32 a
+plane — so a payload exported by either package verifies
+(:func:`verify_page_payload`) and lands (:meth:`PagedKVCache.
+import_page_bytes`) in the other, byte for byte.
+:meth:`PagedKVCache.defrag` compacts the live pages to the lowest ids.
 """
 
 from __future__ import annotations
 
+import base64
 import bisect
+import zlib
 from collections import OrderedDict
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -88,6 +104,36 @@ def quantize_tokens(x: torch.Tensor, qdtype: torch.dtype, qmax: float):
     return codes.to(qdtype), scale
 
 
+def verify_page_payload(data: Dict[str, int]) -> bool:
+    """Host-side CRC check of one shipped-page payload — pure
+    base64/zlib, no device work, so a receiver rejects a page corrupted
+    in flight BEFORE touching its pool.  The digest recipe is
+    :meth:`PagedKVCache._page_digest`'s (K bytes plus — quantized,
+    inferred from the scale keys — the K scale bytes), so a payload that
+    verifies here lands with a CRC the importing pool's read-back
+    validation agrees with.  The JAX package's function, byte for
+    byte."""
+    kb = base64.b64decode(data["k"])
+    vb = base64.b64decode(data["v"])
+    if "k_scale" in data:
+        kb += base64.b64decode(data["k_scale"])
+        vb += base64.b64decode(data["v_scale"])
+    return (zlib.crc32(kb) == data["crc_k"]
+            and zlib.crc32(vb) == data["crc_v"])
+
+
+def _planes_bytes(planes: Sequence[torch.Tensor]) -> List[bytes]:
+    """The C-order bytes of each of ``planes`` (slices of the pool arrays,
+    any dtype), read back in ONE device-to-host copy."""
+    flat = [p.contiguous().view(torch.uint8).reshape(-1) for p in planes]
+    host = torch.cat(flat).cpu().numpy().tobytes()
+    out, at = [], 0
+    for f in flat:
+        out.append(host[at:at + f.numel()])
+        at += f.numel()
+    return out
+
+
 class PagePoolExhausted(RuntimeError):
     """No free pages left — the scheduler's cue to preempt, never an
     OOM: the pool size is fixed at construction and allocation failure
@@ -95,9 +141,12 @@ class PagePoolExhausted(RuntimeError):
 
 
 class PagePoolCorruption(RuntimeError):
-    """A pool page's content no longer matches its recorded checksum.
-    Raised by the per-page validation the JAX package has; kept here so
-    callers can name it, though the validation itself is not ported yet."""
+    """A pool page's content no longer matches its recorded CRC32 — an
+    HBM bit flip / DMA fault stand-in, raised by
+    :meth:`PagedKVCache.verify_pages`.  Recoverable by construction: page
+    content is always rebuildable from host-side tokens by re-prefill, so
+    the engine treats it like a device loss (rebuild the pool, restore
+    the live requests) rather than an abort."""
 
 
 class PagedKVCache:
@@ -107,12 +156,13 @@ class PagedKVCache:
     every decode step sees a ``[batch, p_max]`` table.  ``device=None``
     means the card.  ``dtype`` is the compute dtype of the tokens fed to
     :meth:`write_tokens`; ``quantize`` (None, ``"int8"`` or ``"fp8"``)
-    stores them as codes plus fp32 scales."""
+    stores them as codes plus fp32 scales.  ``crc_pages`` turns on the
+    per-page CRC read-back validation (module docstring)."""
 
     def __init__(self, *, num_layers: int, num_pages: int, page_size: int,
                  num_heads: int, head_dim: int, max_pages_per_request: int,
                  dtype: torch.dtype = torch.float32, device=None,
-                 quantize: Optional[str] = None):
+                 crc_pages: bool = False, quantize: Optional[str] = None):
         if num_pages < 2:
             raise ValueError("num_pages must be >= 2 (page 0 is the "
                              "reserved scratch page)")
@@ -145,6 +195,10 @@ class PagedKVCache:
         # every allocated page has one entry: allocate -> 1, share -> +1,
         # free -> -1, back on the free list only at zero
         self._ref: Dict[int, int] = {}
+        # opt-in per-page CRCs: page -> (crc of K, crc of V), recorded at
+        # each host-visible write, checked by verify_pages
+        self.crc_pages = bool(crc_pages)
+        self._crc: Dict[int, Tuple[int, int]] = {}
 
     # -- accounting ------------------------------------------------------
 
@@ -213,6 +267,9 @@ class PagedKVCache:
         [new] = self.allocate(1, owner)
         self._copy_page(page, new)
         self._ref[page] -= 1
+        # content moved verbatim, so the copy inherits the digest
+        if page in self._crc:
+            self._crc[new] = self._crc[page]
         return new
 
     def _copy_page(self, src: int, dst: int) -> None:
@@ -239,6 +296,7 @@ class PagedKVCache:
                 continue
             del self._ref[p]
             self._owner.pop(p, None)
+            self._crc.pop(p, None)
             bisect.insort(self._free, p)
 
     def free_tail(self, pages: List[int], keep: int) -> None:
@@ -283,7 +341,8 @@ class PagedKVCache:
         head_dim]``; token t lands in ``(pages[t], offsets[t])`` (int
         tensors on the pool's device).  Padding positions point at the
         scratch page 0.  A quantized pool quantizes on write: codes and
-        per-(slot, head) scales are scattered together."""
+        per-(slot, head) scales are scattered together.  With
+        ``crc_pages`` the touched pages' CRCs are recorded anew."""
         if self.quantize:
             kq, ks = quantize_tokens(k_new, self.k.dtype, self.qmax)
             vq, vs = quantize_tokens(v_new, self.v.dtype, self.qmax)
@@ -292,6 +351,187 @@ class PagedKVCache:
             k_new, v_new = kq, vq
         code_bytes(self.k)[:, pages, offsets] = code_bytes(k_new)
         code_bytes(self.v)[:, pages, offsets] = code_bytes(v_new)
+        if self.crc_pages:
+            self.refresh_page_crcs(pages.cpu().tolist())
+
+    # -- page shipping ---------------------------------------------------
+
+    def _planes(self, page: int) -> List[torch.Tensor]:
+        """Page ``page``'s slices of the pool arrays, in digest order:
+        K, V, and (quantized) the K and V scale planes."""
+        return [t[:, page] for t in (self.k, self.v, self.k_scale,
+                                     self.v_scale) if t is not None]
+
+    def export_page_bytes(self, page: int) -> Dict[str, int]:
+        """Serialize one page for shipping: the C-order K/V page slices
+        (quantized: the narrow codes, plus the fp32 scale planes as
+        separate keys) as base64 text, with per-page CRCs stamped at
+        export using the :meth:`_page_digest` recipe — the receiver
+        verifies them host-side (:func:`verify_page_payload`) before its
+        pool ever sees the bytes, and records them as the imported page's
+        read-back digest."""
+        planes = _planes_bytes(self._planes(page))
+        kb, vb = planes[0], planes[1]
+        out = {"k": base64.b64encode(kb).decode("ascii"),
+               "v": base64.b64encode(vb).decode("ascii")}
+        if self.quantize:
+            ksb, vsb = planes[2], planes[3]
+            out["k_scale"] = base64.b64encode(ksb).decode("ascii")
+            out["v_scale"] = base64.b64encode(vsb).decode("ascii")
+            kb += ksb
+            vb += vsb
+        out["crc_k"] = zlib.crc32(kb)
+        out["crc_v"] = zlib.crc32(vb)
+        return out
+
+    def import_page_bytes(self, page: int, data: Dict[str, int]) -> None:
+        """Land one shipped payload in (already allocated) ``page``,
+        verbatim and in place: the pool bytes after import are the source
+        pool's bytes — quantized codes and scale planes included — so
+        decode over an imported page is decode over a locally prefilled
+        one.  Callers verify the payload first
+        (:func:`verify_page_payload`); this method trusts it and records
+        the shipped CRCs as the page's read-back digest."""
+        keys = ("k", "v", "k_scale", "v_scale")
+        for key, t in zip(keys, (self.k, self.v, self.k_scale,
+                                 self.v_scale)):
+            if t is None:
+                continue
+            raw = bytearray(base64.b64decode(data[key]))
+            src = torch.frombuffer(raw, dtype=torch.uint8).to(self.device)
+            dst = t[:, page]
+            dst.view(torch.uint8).copy_(
+                src.view(dst.view(torch.uint8).shape))
+        if self.crc_pages:
+            # shipped bytes land verbatim, so the export digest IS the
+            # imported page's digest — no device read-back needed
+            self._crc[page] = (data["crc_k"], data["crc_v"])
+
+    def warm_import(self) -> None:
+        """Move an all-zero page through :meth:`import_page_bytes`'s
+        write path into scratch page 0 (a content no-op no reader ever
+        sees), so a decode engine's first inbound shipment meets no
+        first-use cost.  The JAX package warms its import executable
+        here; ``ServingEngine.warmup`` calls both at the same point."""
+        for t in (self.k, self.v, self.k_scale, self.v_scale):
+            if t is not None:
+                zero = torch.zeros(t[:, 0].shape, dtype=torch.uint8
+                                   if t.dtype == torch.float8_e4m3fn
+                                   else t.dtype, device=self.device)
+                code_bytes(t)[:, 0] = zero
+
+    def warm_export(self) -> None:
+        """Read scratch page 0 out through :meth:`export_page_bytes` once
+        and discard the payload, so a prefill engine's first outbound
+        shipment meets no first-use cost (the export twin of
+        :meth:`warm_import`)."""
+        self.export_page_bytes(0)
+
+    # -- per-page CRC validation (opt-in) --------------------------------
+
+    def _page_digests(self, pages: Sequence[int]) -> List[Tuple[int, int]]:
+        """crc32 of each page's K and V bytes across all layers
+        (quantized: codes AND scale planes — a flipped scale bit must not
+        read back clean), the pages read back in one copy."""
+        if not pages:
+            return []
+        idx = torch.tensor(list(pages), dtype=torch.long, device=self.device)
+        planes = _planes_bytes([code_bytes(t)[:, idx].transpose(0, 1)
+                                for t in (self.k, self.v, self.k_scale,
+                                          self.v_scale) if t is not None])
+        n = len(pages)
+        per = [[b[i * len(b) // n:(i + 1) * len(b) // n] for i in range(n)]
+               for b in planes]
+        out = []
+        for i in range(n):
+            kb, vb = per[0][i], per[1][i]
+            if self.quantize:
+                kb += per[2][i]
+                vb += per[3][i]
+            out.append((zlib.crc32(kb), zlib.crc32(vb)))
+        return out
+
+    def _page_digest(self, page: int) -> Tuple[int, int]:
+        """crc32 of page ``page``'s K and V bytes (the JAX package's
+        recipe: K, then — quantized — the K scale plane; V likewise)."""
+        return self._page_digests([page])[0]
+
+    def refresh_page_crcs(self, pages: Sequence[int]) -> None:
+        """Re-record CRCs after a host-visible write (the admission
+        scatter, a decode or extend step's append).  The read-back waits
+        for the write on the stream.  No-op unless ``crc_pages``."""
+        if not self.crc_pages:
+            return
+        todo = sorted({int(p) for p in pages} - {0})
+        for p, crc in zip(todo, self._page_digests(todo)):
+            self._crc[p] = crc
+
+    def verify_pages(self, page_lists: Sequence[Sequence[int]]) -> None:
+        """Read-back validation: recompute each live page's digest and
+        compare against the recorded CRC; raises
+        :class:`PagePoolCorruption` naming the lowest damaged page.
+        Pages with no recorded CRC (never written through a CRC-tracking
+        path) are skipped — absence of a record is not corruption."""
+        if not self.crc_pages:
+            return
+        todo = [p for p in sorted({int(p) for lst in page_lists
+                                   for p in lst} - {0})
+                if p in self._crc]
+        for p, crc in zip(todo, self._page_digests(todo)):
+            if crc != self._crc[p]:
+                raise PagePoolCorruption(
+                    f"page {p} failed CRC read-back "
+                    f"(owner rid {self._owner.get(p)})")
+
+    # -- defrag ----------------------------------------------------------
+
+    def defrag(self, page_lists: Sequence[List[int]]) -> Dict[int, int]:
+        """Compact live pages to the lowest pool indices.
+
+        ``page_lists`` are the page lists of every live request, IN
+        PLACE — they are rewritten to the new ids.  Returns the old→new
+        mapping.  Content moves by one device gather per pool array
+        (quantized: the scale planes gather with the codes), written back
+        into the pool in place; refcounts, owners and digests move with
+        the ids.
+
+        FORBIDDEN while any page is shared: one physical page then
+        appears in several page lists (and in the prefix index, which
+        this method never sees), so neither the overlap check nor the
+        dense renumbering holds.  Callers drain sharing first or skip the
+        compaction."""
+        shared = sorted(p for p, r in self._ref.items() if r > 1)
+        if shared:
+            raise ValueError(
+                f"defrag forbidden while page(s) {shared} are shared "
+                "(refcount > 1) — evict the prefix index / let readers "
+                "retire first")
+        live: List[int] = []
+        for pages in page_lists:
+            live.extend(pages)
+        if len(set(live)) != len(live):
+            raise ValueError("page lists overlap — pool corruption")
+        mapping = {old: new for new, old in enumerate(live, start=1)}
+        src = np.arange(self.num_pages)
+        for old, new in mapping.items():
+            src[new] = old
+        # pages outside the live prefix keep whatever content the gather
+        # assigns them — they are free, nothing reads them
+        idx = torch.from_numpy(src).to(self.device)
+        for t in (self.k, self.v, self.k_scale, self.v_scale):
+            if t is not None:
+                code_bytes(t).copy_(code_bytes(t)[:, idx])
+        self._owner = {mapping[p]: o for p, o in self._owner.items()
+                       if p in mapping}
+        self._ref = {mapping[p]: r for p, r in self._ref.items()
+                     if p in mapping}
+        # content moves verbatim with the ids, so digests remap too
+        self._crc = {mapping[p]: c for p, c in self._crc.items()
+                     if p in mapping}
+        self._free = list(range(len(live) + 1, self.num_pages))
+        for pages in page_lists:
+            pages[:] = [mapping[p] for p in pages]
+        return mapping
 
 
 class PrefixIndex:

@@ -85,6 +85,12 @@ class Request:
     first_token_t: Optional[float] = None
     finish_t: Optional[float] = None
     finish_reason: Optional[str] = None
+    # when the first token became STREAMABLE: first_token_t on a
+    # colocated engine, the adoption on the decode engine for a shipped
+    # request, whose ship wall (export -> adoption) is ship_s; TTFT runs
+    # to stream_t
+    stream_t: Optional[float] = None
+    ship_s: float = 0.0
 
     @property
     def deadline_t(self) -> Optional[float]:

@@ -4,8 +4,9 @@
     python3 chip_smoke.py          # from the repository root, one card
 
 Drives the port only (it imports neither ``jax`` nor ``apex_tpu``).
-It covers the six ported paths: the serving engine (phases 4-5, and its
-speculative, chunked and prefix-sharing modes in phases 4 and 15), the GPT
+It covers the six ported paths: the serving engine (phases 4-5, its
+speculative, chunked and prefix-sharing modes in phases 4 and 15, and its
+state, page integrity and telemetry in phase 16), the GPT
 training step of ``pretrain_gpt`` (phases 6-7), the contrib multi-head
 attention training path (phases 8-9), GPT training on the flat
 superblock with ``FlatFusedAdam`` (phases 10-11), the kernel
@@ -245,7 +246,33 @@ Phases, each of which fails the run (non-zero exit) on error:
     prefill, and the decode step at 40 rows against 8); TTFT,
     TPOT, tokens/s, acceptance, committed tokens a verify step, prefix
     hit rate, pool peak, peak memory and a verify and a chunk step's
-    device time by part, beside phase 5's bf16 numbers.
+    device time by part, beside phase 5's bf16 numbers.  Then the split
+    of ROADMAP queue C's C1: a plain engine that decodes at the modes
+    engine's 40 rows (a never-drafting proposer, no chunks) against the
+    plain engine at 8 rows and against the modes engine (recorded, bf16);
+    and the three engines again in fp32 at hidden 512, 4 layers, 4 heads
+    of 128 on the scalar routes, where the modes engine's streams must
+    equal the plain engine's (the contract the JAX package pins at fp32).
+16. serving state, page integrity and telemetry — on the fp32 toy (card):
+    recovery from a ``ServingDeviceLoss`` and from a ``CorruptLivePage``
+    caught by ``validate_pages``, and a snapshot restored into a fresh
+    engine, each bitwise equal to the uninterrupted run, and a
+    ``Watchdog`` escalating on a ``SlowDecode``; at GPT-1.3B width in
+    bf16 (phase 5's engine on a ``SimClock``): ``trace(0, 16)`` served
+    with a ``TelemetryBus`` and without gives the same streams and launch
+    counts, every event valid, 16 valid traces whose TTFT parts sum to
+    the retire event's TTFT; a device loss at decode boundary 12 and a
+    corrupt page on a short trace recovered with exact K1/K5 counts
+    (prefills + re-prefills + warm-up, decode steps + warm-up), the bf16
+    streams against the uninterrupted ones recorded with each
+    divergence's margin, ``validate_pages``'s ms and bytes a step and the
+    recovery's wall; a snapshot through JSON restored into a fresh engine
+    (a restore into the busy one refused); ``defrag`` after every step,
+    bitwise; four requests prefilled on a ``prefill_only`` engine,
+    exported, verified and adopted by a ``kv_import`` engine on the bf16
+    and int8 pools, bitwise equal to the colocated engine, K1 only on the
+    prefill side and K5 only on the decode side, a flipped byte refused
+    with the engine unchanged, export and import ms a page.
 
 The last three lines of standard output are the kernels' JSON record,
 the ``nvidia-smi`` name/power line, and ``{"ok": true, "device": ...}``.
@@ -256,6 +283,7 @@ fp32 matrix products run in full fp32 (``allow_tf32`` off).
 
 from __future__ import annotations
 
+import base64
 import json
 import math
 import os
@@ -295,12 +323,21 @@ from apex_tpu_torch.transformer.testing import (  # noqa: E402
     BertModel, gpt_param_count)
 from apex_tpu_torch.transformer.testing.standalone_gpt import (  # noqa: E402
     attention_segments)
+from apex_tpu_torch.resilience import (CorruptLivePage,  # noqa: E402
+                                       ServingDeviceLoss, SlowDecode,
+                                       Watchdog)
 from apex_tpu_torch.serving import model as model_mod  # noqa: E402
 from apex_tpu_torch.serving import (NgramProposer,  # noqa: E402
+                                    PagedKVCache, PagePoolCorruption,
                                     ServingEngine, ServingModelConfig,
                                     SimClock, SpecConfig, init_params,
                                     poisson_trace, quant_pool_dtype,
-                                    quantize_tokens)
+                                    quantize_tokens, verify_page_payload)
+from apex_tpu_torch.telemetry import (TTFT_SUM_TOLERANCE_MS,  # noqa: E402
+                                      MemorySink, TelemetryBus, build_traces,
+                                      format_summary, summarize_events,
+                                      ttft_decomposition, validate_event,
+                                      validate_trace)
 
 BF16_TOL = 2.0 ** -7    # x max|ref|: one bf16 ulp at the output's scale
 FP32_TOL = 1e-5         # x max(1, max|ref|)
@@ -2256,18 +2293,28 @@ def phase_full(smi: str) -> dict:
 
 
 def modes_engine(params, cfg, proposer=None, spec=True, share=True,
-                 k=SPEC_K) -> ServingEngine:
+                 k=SPEC_K, chunk=CHUNK, prefill_budget=None) -> ServingEngine:
     """Phase 15's engine: FULL's model on bench.py's modes pool, with
-    ``SpecConfig(k, proposer, chunk_size=CHUNK)`` and prefix sharing
+    ``SpecConfig(k, proposer, chunk_size=chunk)`` and prefix sharing
     (``spec=False``: the plain engine on the same pool)."""
     return ServingEngine(
         cfg, params, num_pages=MODES_NUM_PAGES, page_size=PAGE,
         max_batch=BATCH, max_pages_per_request=MODES_PAGES_PER_REQ,
-        prefill_budget=cfg.max_position,
+        prefill_budget=prefill_budget or cfg.max_position,
         spec=(SpecConfig(k=k, proposer=proposer or (NgramProposer() if k
                                                     else None),
-                         chunk_size=CHUNK) if spec else None),
+                         chunk_size=chunk) if spec else None),
         prefix_sharing=spec and share, device="cuda")
+
+
+def rows40_engine(params, cfg, prefill_budget=None) -> ServingEngine:
+    """The plain engine that decodes at the modes engine's 40 rows: a
+    speculative engine whose proposer never drafts and that has no chunks
+    prefills whole rows on K1 and runs every token through the decode
+    step at ``decode_rows = BATCH * (SPEC_K + 1)``."""
+    return modes_engine(params, cfg, proposer=ReplayProposer({}, none=True),
+                        share=False, chunk=None,
+                        prefill_budget=prefill_budget)
 
 
 def modes_trace():
@@ -2324,13 +2371,15 @@ def serve_modes(eng, reqs) -> dict:
     nothing else).  Returns the metrics and the streams by rid."""
     L = eng.cfg.num_layers
     finished, launches, served = serve_measured(eng, reqs, "modes")
-    steps = eng.decode_steps + eng.verify_steps + eng.chunk_steps
+    # decode_steps counts every decode boundary, decode or verify step
+    steps = eng.decode_steps + eng.chunk_steps
     warm = 1 + (eng.spec_k > 0) + (eng.chunk_size is not None)
     want = {"flash_fwd_sm90": L * (eng.prefills + 1),
             "flash_decode_sm90": L * (steps + warm)}
     log(f"  launches {launches}, expected {want} ({eng.prefills} whole-row "
-        f"prefills, {eng.decode_steps} decode, {eng.verify_steps} verify, "
-        f"{eng.chunk_steps} chunk steps, + the warm-up's)")
+        f"prefills, {eng.decode_steps} decode boundaries of which "
+        f"{eng.verify_steps} verify, {eng.chunk_steps} chunk steps, + the "
+        f"warm-up's)")
     if launches != want:
         raise AssertionError("modes serve: launch counts do not match the "
                              "main path")
@@ -2574,32 +2623,105 @@ def top2_margin(eng, context) -> float:
     return float(top[0] - top[1])
 
 
-def spec_vs_plain(params, cfg, streams, reqs) -> dict:
-    """Phase 15's streams against the plain engine's (``spec=None``, no
-    sharing) on the same requests, run as one batch: the share equal, and
-    for each request that differs its first divergent token and the top-2
-    logit margin the plain engine had there."""
-    prompts = {r.rid: r.prompt for r in reqs}
-    eng = modes_engine(params, cfg, spec=False)
-    ref = dict(zip((r.rid for r in reqs), streams_of(eng, reqs)))
+def divergences(streams, ref, prompts, eng) -> dict:
+    """``streams`` against ``ref`` (by rid): the share of requests and
+    tokens equal, and for each request that differs its first divergent
+    token and the top-2 logit margin ``eng`` (a plain engine) had there
+    after ``ref``'s context."""
     diverge = []
     for rid in sorted(streams):
         a, b = streams[rid], ref[rid]
         if a == b:
             continue
         t = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
-        diverge.append(dict(rid=rid, token=t, modes=a[t], plain=b[t],
+        diverge.append(dict(rid=rid, token=t, got=a[t], ref=b[t],
                             margin=top2_margin(eng, prompts[rid] + b[:t])))
     tok_eq = sum(x == y for rid in streams
                  for x, y in zip(streams[rid], ref[rid]))
-    out = dict(requests_equal=(len(streams) - len(diverge)) / len(streams),
-               tokens_equal=tok_eq / sum(len(v) for v in streams.values()),
-               divergences=diverge)
-    log(f"  modes vs the plain engine: {len(streams) - len(diverge)} of "
-        f"{len(streams)} requests equal, {out['tokens_equal']:.1%} of tokens; "
-        f"first divergences {diverge}")
+    return dict(requests_equal=(len(streams) - len(diverge)) / len(streams),
+                tokens_equal=tok_eq / sum(len(v) for v in streams.values()),
+                diverged=len(diverge), divergences=diverge)
+
+
+def spec_vs_plain(params, cfg, streams, reqs, prefill_budget=None) -> dict:
+    """Phase 15's streams against the plain engine's (``spec=None``, no
+    sharing) on the same requests, run as one batch: the share equal, and
+    for each request that differs its first divergent token and the top-2
+    logit margin the plain engine had there.  Then the split of queue C's
+    C1: a plain engine decoding at the modes engine's 40 rows
+    (:func:`rows40_engine`) against both, so what is left against the
+    modes engine comes from chunked against whole-row prefill."""
+    prompts = {r.rid: r.prompt for r in reqs}
+    rids = [r.rid for r in reqs]
+    eng = modes_engine(params, cfg, spec=False,
+                       prefill_budget=prefill_budget)
+    ref = dict(zip(rids, streams_of(eng, reqs)))
+    rows40 = dict(zip(rids, streams_of(
+        rows40_engine(params, cfg, prefill_budget), reqs)))
+    out = divergences(streams, ref, prompts, eng)
+    out["rows40_vs_plain"] = divergences(rows40, ref, prompts, eng)
+    out["modes_vs_rows40"] = divergences(streams, rows40, prompts, eng)
+    what = f"{cfg.dtype}".replace("torch.", "")
+    log(f"  modes vs the plain engine ({what}): {len(streams) - out['diverged']}"
+        f" of {len(streams)} requests equal, {out['tokens_equal']:.1%} of "
+        f"tokens; first divergences {out['divergences']}")
+    for key, name in (("rows40_vs_plain", "plain at 40 decode rows vs plain "
+                       "at 8"), ("modes_vs_rows40", "modes vs plain at 40 "
+                                 "decode rows (chunked vs whole-row prefill)")):
+        d = out[key]
+        log(f"  C1 split ({what}), {name}: {d['diverged']} of {len(streams)} "
+            f"requests diverge, {d['tokens_equal']:.1%} of tokens equal; "
+            f"first divergences {d['divergences']}")
     del eng
     torch.cuda.empty_cache()
+    return out
+
+
+# C1's fp32 reading: FULL's vocabulary and context at a width where the
+# scalar fp32 routes (flash_fwd.cu, flash_decode.cu) serve the modes trace
+# in seconds; a prefill row of 512 holds the trace's longest context
+# (128 + 256 + 64)
+FP32_MODES = dict(vocab_size=FULL["vocab_size"], hidden_size=512,
+                  num_heads=4, num_layers=4,
+                  max_position=FULL["max_position"])
+FP32_PREFILL = 512
+
+
+def c1_fp32(smi: str) -> dict:
+    """Phase 15's spec-vs-plain comparison (and its 40-row split) in fp32
+    at :data:`FP32_MODES`: the JAX package pins the modes' streams equal
+    to the plain engine's at fp32, so a divergence here breaks that
+    contract (ROADMAP.md queue C, C1)."""
+    cfg = ServingModelConfig(**FP32_MODES, dtype=torch.float32)
+    params = init_params(cfg, seed=0, device="cuda")
+    t0 = time.perf_counter()
+    reqs = modes_trace()
+    eng = modes_engine(params, cfg, prefill_budget=FP32_PREFILL)
+    kernels.reset_launch_counts()
+    streams = dict(zip((r.rid for r in reqs), streams_of(eng, reqs)))
+    launches = launch_counts()
+    serve_s = time.perf_counter() - t0
+    # every context passes the chunk, so K1 may not run at all
+    if not (set(launches) <= {"flash_fwd", "flash_decode"}
+            and launches.get("flash_decode")):
+        raise AssertionError(f"fp32 modes engine: attention did not take the "
+                             f"scalar K1 and K5 alone ({launches})")
+    seen = dict(verify=eng.verify_steps, chunk=eng.chunk_steps,
+                hits=eng.prefix_hits)
+    if not all(seen.values()):
+        raise AssertionError(f"fp32 modes engine: a mode did not run {seen}")
+    out = spec_vs_plain(params, cfg, streams, reqs,
+                        prefill_budget=FP32_PREFILL)
+    out.update(seen=seen, launches=launches, modes_serve_s=serve_s,
+               wall_s=time.perf_counter() - t0, width=FP32_MODES, card=smi)
+    if out["diverged"]:
+        raise AssertionError("fp32: the modes engine's streams part from the "
+                             "plain engine's, the contract the JAX package "
+                             f"pins ({out['divergences']})")
+    log(f"  C1 fp32 at hidden {FP32_MODES['hidden_size']}, "
+        f"{FP32_MODES['num_layers']} layers, {FP32_MODES['num_heads']} heads "
+        f"of {cfg.head_dim}, prefill row {FP32_PREFILL}: modes serve {serve_s:.1f} s, "
+        f"all three engines {out['wall_s']:.1f} s; {seen}; {smi}")
     return out
 
 
@@ -2662,6 +2784,7 @@ def phase_modes(smi: str, serving: dict) -> dict:
                                                 "seen_one_at_a_time")})
     vs = spec_vs_plain(params, cfg, streams, reqs)
     metrics["vs_plain"] = vs
+    metrics["c1_fp32"] = c1_fp32(smi)
     # equal to the plain engine's streams, or every divergence starts
     # where the plain engine's top two logits lay within twice the larger
     # gap between the two engines' ways of computing logits (each of the
@@ -2689,6 +2812,504 @@ def phase_modes(smi: str, serving: dict) -> dict:
         for k in ("ttft_p50_ms", "tpot_p50_ms", "tok_per_s", "peak_mem_gib",
                   "pool_peak")) + f"; {smi}")
     return metrics
+
+
+# -- phase 16: serving state, page integrity and telemetry -------------------
+
+TOY_SERVE = dict(vocab_size=64, hidden_size=32, num_heads=4, num_layers=2,
+                 max_position=96)
+LOSS_AT = 12       # the decode boundary the full-width device loss hits
+SNAP_AT = 10       # steps before the full-width snapshot
+CRC_AT = 6         # the decode boundary the corrupted page is found at
+
+
+def launch_counts() -> dict:
+    return {k.symbol: k.launches for k in kernels.KERNELS if k.launches}
+
+
+def by_rid(reqs) -> dict:
+    return {r.rid: list(r.generated) for r in reqs}
+
+
+def state_engine(params, cfg, **kw) -> ServingEngine:
+    """Phase 5's engine on a :class:`SimClock` (a 50 ms tick): admissions
+    and decode steps land at the same steps in every run, so two runs'
+    launch counts compare exactly."""
+    return ServingEngine(cfg, params, num_pages=NUM_PAGES, page_size=PAGE,
+                         max_batch=BATCH, max_pages_per_request=PAGES_PER_REQ,
+                         prefill_budget=cfg.max_position,
+                         clock=SimClock(tick=0.05), device="cuda", **kw)
+
+
+def want_launches(eng: ServingEngine, decode_kernel="flash_decode_sm90"):
+    """The main path's launches of a plain full-width engine, warm-up
+    included: K1 once a layer for each whole-row prefill (re-prefills
+    too), K5's entry point once a layer for each decode step."""
+    L = eng.cfg.num_layers
+    return {"flash_fwd_sm90": L * (eng.prefills + 1),
+            decode_kernel: L * (eng.decode_steps + 1)}
+
+
+def held_streams(what, got, ref, prompts, eng, required) -> dict:
+    """``got`` against ``ref`` (by rid), bitwise; ``required`` fails the
+    run on a difference, otherwise each diverged request is logged with
+    its first divergent token and the plain engine's top-2 margin there."""
+    d = divergences(got, ref, prompts, eng)
+    log(f"  {what}: {len(got) - d['diverged']} of {len(got)} requests "
+        f"bitwise equal to the uninterrupted run, {d['tokens_equal']:.1%} of "
+        f"tokens{'' if required else ' (recorded, not required)'}; "
+        f"divergences {d['divergences']}")
+    if required and d["diverged"]:
+        raise AssertionError(f"{what}: streams differ from the "
+                             "uninterrupted run")
+    return d
+
+
+def toy_state_checks() -> dict:
+    """The fp32 toy on the card (the contract the JAX package pins):
+    recovery from a device loss and from a CRC-caught corrupt page, and a
+    snapshot restored into a fresh engine, each bitwise equal to the
+    uninterrupted run; and the watchdog escalating on a wedged decode."""
+    cfg = ServingModelConfig(**TOY_SERVE)
+    params = init_params(cfg, seed=0, device="cuda")
+
+    def eng_(**kw):
+        return ServingEngine(cfg, params, num_pages=64, page_size=8,
+                             max_batch=4, prefill_budget=96,
+                             clock=SimClock(), device="cuda", **kw)
+
+    def trace_():
+        return poisson_trace(3, 6, rate=2.0, prompt_len=(4, 10),
+                             max_new=(3, 8), vocab_size=64)
+
+    ref = trace_()
+    eng_().serve(ref)
+    ref = by_rid(ref)
+    out = {}
+    tr = trace_()
+    with ServingDeviceLoss(at_step=3) as dl:
+        eng = eng_()
+        eng.serve(tr)
+    out["device_loss"] = dict(fired=dl.fired, recoveries=eng.recoveries,
+                              equal=by_rid(tr) == ref)
+    tr = trace_()
+    eng = eng_(validate_pages=True)
+    with CorruptLivePage(eng.cache, at_step=2) as cp:
+        eng.serve(tr)
+    out["corrupt_page"] = dict(page=cp.corrupted_page,
+                               recoveries=eng.recoveries,
+                               equal=by_rid(tr) == ref)
+    src = eng_()
+    for r in trace_():
+        src.submit_request(r)
+    for _ in range(4):
+        src.step()
+    dst = eng_()
+    restored = dst.restore(json.loads(json.dumps(src.snapshot())))
+    dst.run()
+    out["snapshot_restore"] = dict(
+        restored=len(restored),
+        equal=all(r.generated == ref[r.rid] for r in restored))
+    reports = []
+    wd = Watchdog(timeout=1.0, on_hang=reports.append, poll_interval=0.02,
+                  devices=[0])
+    eng = eng_(watchdog=wd)
+    eng.warmup()
+    with SlowDecode(at_step=2, delay=2.5), wd:
+        reqs = [eng.submit([1, 2, 3], 4), eng.submit([4, 5], 4)]
+        eng.run()
+    out["watchdog"] = dict(fired=wd.expired, reports=len(reports),
+                           finished=all(len(r.generated) == 4 for r in reqs))
+    log(f"  fp32 toy on the card: {out}")
+    if not (out["device_loss"]["fired"] and out["device_loss"]["equal"]
+            and out["device_loss"]["recoveries"] == 1
+            and out["corrupt_page"]["page"] is not None
+            and out["corrupt_page"]["recoveries"] == 1
+            and out["corrupt_page"]["equal"]
+            and out["snapshot_restore"]["restored"]
+            and out["snapshot_restore"]["equal"]
+            and out["watchdog"]["fired"] and out["watchdog"]["reports"]
+            and out["watchdog"]["finished"]):
+        raise AssertionError("fp32 toy: recovery, restore or the watchdog "
+                             "failed its contract")
+    return out
+
+
+def telemetry_inert(params, cfg, smi) -> dict:
+    """Phase 5's serve of ``trace(0, 16)`` with a telemetry bus and without:
+    the same streams and launch counts; every event valid, one valid trace
+    a request whose TTFT decomposition sums to its retire event's TTFT."""
+    runs = {}
+    for what in ("off", "on"):
+        mem = MemorySink()
+        bus = TelemetryBus(run_id="phase16", sinks=[mem]) if what == "on" \
+            else None
+        eng = state_engine(params, cfg, telemetry=bus)
+        kernels.reset_launch_counts()
+        eng.warmup()
+        reqs = trace(0, 16)
+        t0 = time.perf_counter()
+        eng.serve(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = launch_counts()
+        if launches != want_launches(eng) or len(eng.sched.finished) != 16:
+            raise AssertionError(f"telemetry {what}: launches {launches}, "
+                                 f"expected {want_launches(eng)}")
+        runs[what] = dict(streams=by_rid(reqs), launches=launches,
+                          wall_s=wall, events=mem.events,
+                          prompts={r.rid: r.prompt for r in reqs})
+        del eng
+    on, off = runs["on"], runs["off"]
+    events = on["events"]
+    for e in events:
+        validate_event(e)
+    traces = build_traces(events)
+    retire = {e["rid"]: e for e in events if e["type"] == "request_retire"}
+    worst = 0.0
+    for rid, tr in traces.items():
+        problems = validate_trace(tr)
+        dec = ttft_decomposition(tr)
+        parts = sum(v for k, v in dec.items()
+                    if k.startswith("ttft_") and k != "ttft_ms")
+        worst = max(worst, abs(parts - retire[rid]["ttft_ms"]))
+        if problems:
+            raise AssertionError(f"trace of request {rid}: {problems}")
+    summary = summarize_events(events)
+    log("  telemetry summary: " + format_summary(summary).replace(
+        "\n", "\n  "))
+    out = dict(streams_equal=on["streams"] == off["streams"],
+               launches_equal=on["launches"] == off["launches"],
+               events=len(events), traces=len(traces),
+               ttft_sum_worst_ms=worst, wall_on_s=on["wall_s"],
+               wall_off_s=off["wall_s"], launches=on["launches"], card=smi)
+    log(f"  telemetry inert: {json.dumps(out)}")
+    if not (out["streams_equal"] and out["launches_equal"]
+            and len(traces) == 16 and worst <= TTFT_SUM_TOLERANCE_MS):
+        raise AssertionError("telemetry changed the streams or launches, or "
+                             "a trace is short of its request's TTFT")
+    return dict(out, reference=off["streams"], prompts=off["prompts"])
+
+
+class DigestMeter:
+    """Times and counts the page digests' read-back (``verify_pages`` and
+    ``refresh_page_crcs`` both read through ``_page_digests``)."""
+
+    def __init__(self):
+        self.ms, self.pages, self.calls = 0.0, 0, 0
+        self.orig = PagedKVCache._page_digests
+
+    def __call__(self, cache, pages):
+        t0 = time.perf_counter()
+        out = self.orig(cache, pages)
+        self.ms += (time.perf_counter() - t0) * 1e3
+        self.pages += len(pages)
+        self.calls += 1
+        return out
+
+
+def page_bytes(cfg) -> int:
+    """One page's K and V bytes across the layers at bf16."""
+    return 2 * cfg.num_layers * PAGE * cfg.num_heads * cfg.head_dim * 2
+
+
+def recovery_full(params, cfg, ref, prompts, smi) -> dict:
+    """A device loss at decode boundary ``LOSS_AT`` of the telemetry run's
+    serve, recovered; then a corrupted live page caught by the CRCs on a
+    short trace.  Launch counts exact; the streams against the
+    uninterrupted runs recorded (bf16: a re-prefill computes the tokens'
+    K/V through prefill GEMMs at ``prefill_budget`` rows, not decode
+    GEMMs at ``max_batch`` rows)."""
+    out = {}
+    mem = MemorySink()
+    eng = state_engine(params, cfg, telemetry=TelemetryBus(sinks=[mem]))
+    kernels.reset_launch_counts()
+    eng.warmup()
+    walls, steps, recover, step = [], [], eng.recover, eng.step
+
+    def timed_recover(cause):
+        t0 = time.perf_counter()
+        recover(cause)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+
+    def timed_step():
+        # the first step after the recovery re-prefills what it restored
+        t0 = time.perf_counter()
+        out = step()
+        if walls and not steps:
+            torch.cuda.synchronize()
+            steps.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    eng.recover, eng.step = timed_recover, timed_step
+    reqs = trace(0, 16)
+    with ServingDeviceLoss(at_step=LOSS_AT) as dl:
+        eng.serve(reqs)
+    rec = [e for e in mem.events if e["type"] == "serving_recovery"]
+    restored = rec[0]["running_restored"] if rec else 0
+    admissions = sum(1 + r.preemptions for r in reqs)
+    launches = launch_counts()
+    ok = (dl.fired and eng.recoveries == 1 and launches == want_launches(eng)
+          and eng.prefills == admissions + restored)
+    out["device_loss"] = dict(
+        at_decode_step=LOSS_AT, recoveries=eng.recoveries,
+        running_restored=restored, waiting_restored=rec[0][
+            "waiting_restored"] if rec else None,
+        prefills=eng.prefills, admissions=admissions,
+        decode_steps=eng.decode_steps, launches=launches,
+        recover_ms=walls[0] if walls else None,
+        reprefill_step_ms=steps[0] if steps else None,
+        streams=held_streams("device loss at full width (bf16)",
+                             by_rid(reqs), ref, prompts,
+                             state_engine(params, cfg), required=False))
+    log(f"  device loss: {json.dumps({k: v for k, v in out['device_loss'].items() if k != 'streams'})}; {smi}")
+    if not ok:
+        raise AssertionError("device loss: no recovery, or the launches are "
+                             f"not the main path's (want {want_launches(eng)}"
+                             f", K1 for {admissions} admissions + {restored} "
+                             "re-prefills)")
+    del eng
+    torch.cuda.empty_cache()
+
+    # CRCs on a short trace: 4 requests of at most 32 tokens
+    def short():
+        return poisson_trace(2, 4, rate=8.0, prompt_len=(64, 256),
+                             max_new=(16, 32), vocab_size=FULL["vocab_size"])
+
+    plain = state_engine(params, cfg)
+    plain.warmup()
+    ctl = short()
+    t0 = time.perf_counter()
+    plain.serve(ctl)
+    torch.cuda.synchronize()
+    plain_s, plain_steps = time.perf_counter() - t0, plain.decode_steps
+    del plain
+    mem = MemorySink()
+    meter = DigestMeter()
+    with mock.patch.object(PagedKVCache, "_page_digests",
+                           lambda c, pages: meter(c, pages)):
+        eng = state_engine(params, cfg, validate_pages=True,
+                           telemetry=TelemetryBus(sinks=[mem]))
+        kernels.reset_launch_counts()
+        eng.warmup()
+        reqs = short()
+        raised = []
+        verify = PagedKVCache.verify_pages
+
+        def seen(cache, lists):
+            try:
+                verify(cache, lists)
+            except PagePoolCorruption as e:
+                raised.append(str(e))
+                raise
+
+        t0 = time.perf_counter()
+        with mock.patch.object(PagedKVCache, "verify_pages", seen), \
+                CorruptLivePage(eng.cache, at_step=CRC_AT) as cp:
+            eng.serve(reqs)
+        torch.cuda.synchronize()
+        crc_s = time.perf_counter() - t0
+    launches = launch_counts()
+    rec = [e for e in mem.events if e["type"] == "serving_recovery"]
+    steps = max(1, eng.decode_steps)
+    out["corrupt_page"] = dict(
+        page=cp.corrupted_page, raised=raised, recoveries=eng.recoveries,
+        cause=rec[0]["cause"] if rec else None, launches=launches,
+        digest_calls=meter.calls, digest_pages=meter.pages,
+        digest_ms=meter.ms, decode_steps=eng.decode_steps,
+        validate_ms_per_step=meter.ms / steps,
+        validate_bytes_per_step=meter.pages * page_bytes(cfg) / steps,
+        serve_s=crc_s, plain_serve_s=plain_s, plain_decode_steps=plain_steps,
+        streams=held_streams("corrupt page caught and recovered (bf16)",
+                             by_rid(reqs), by_rid(ctl),
+                             {r.rid: r.prompt for r in reqs},
+                             state_engine(params, cfg), required=False))
+    log(f"  corrupt page: {json.dumps({k: v for k, v in out['corrupt_page'].items() if k != 'streams'})}; {smi}")
+    if not (cp.corrupted_page is not None and raised
+            and eng.recoveries == 1 and out["corrupt_page"]["cause"]
+            == "page_corruption" and launches == want_launches(eng)):
+        raise AssertionError("corrupt page: not caught as PagePoolCorruption "
+                             "inside the engine and recovered, or the "
+                             "launches are not the main path's")
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def submit_all(eng, reqs):
+    for r in reqs:
+        eng.submit_request(r)
+
+
+def restore_full(params, cfg, smi) -> dict:
+    """``trace(0, 16)`` submitted at once and run (the reference); again
+    with a snapshot after ``SNAP_AT`` steps, through JSON, restored into a
+    fresh engine and run there (a second restore into it, busy, refuses);
+    and again with every live page compacted by ``defrag`` after every
+    step (bitwise required: content moves verbatim)."""
+    ref_eng = state_engine(params, cfg)
+    reqs = trace(0, 16)
+    submit_all(ref_eng, reqs)
+    ref_eng.run()
+    ref, prompts = by_rid(reqs), {r.rid: r.prompt for r in reqs}
+    out = {}
+    src = state_engine(params, cfg)
+    submit_all(src, trace(0, 16))
+    for _ in range(SNAP_AT):
+        src.step()
+    t0 = time.perf_counter()
+    text = json.dumps(src.snapshot())
+    dst = state_engine(params, cfg)
+    restored = dst.restore(json.loads(text))
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    try:
+        dst.restore(json.loads(text))
+        busy = "accepted"
+    except RuntimeError:
+        busy = "refused"
+    del src
+    kernels.reset_launch_counts()
+    dst.run()
+    out["snapshot_restore"] = dict(
+        after_steps=SNAP_AT, snapshot_bytes=len(text),
+        restored=len(restored), snapshot_restore_ms=restore_ms,
+        busy_restore=busy, launches=launch_counts(),
+        streams=held_streams(
+            "snapshot -> JSON -> restore (bf16)",
+            {r.rid: r.generated for r in restored},
+            {r.rid: ref[r.rid] for r in restored}, prompts, ref_eng,
+            required=False))
+    log(f"  snapshot/restore: {json.dumps({k: v for k, v in out['snapshot_restore'].items() if k != 'streams'})}; {smi}")
+    if busy != "refused" or not restored:
+        raise AssertionError("restore into a busy engine was not refused")
+    del dst
+    eng = state_engine(params, cfg)
+    reqs = trace(0, 16)
+    submit_all(eng, reqs)
+    moved, ms = 0, []
+    while not eng.sched.idle:
+        eng.step()
+        t0 = time.perf_counter()
+        mapping = eng.cache.defrag([r.pages for r in eng.sched.running])
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        moved += sum(o != n for o, n in mapping.items())
+    out["defrag"] = dict(calls=len(ms), pages_moved=moved,
+                         defrag_ms_p50=statistics.median(ms),
+                         streams=held_streams("defrag after every step (bf16)",
+                                              by_rid(reqs), ref, prompts,
+                                              ref_eng, required=True))
+    log(f"  defrag: {json.dumps({k: v for k, v in out['defrag'].items() if k != 'streams'})}; {smi}")
+    if not moved:
+        raise AssertionError("defrag moved no page: the check saw nothing")
+    del eng, ref_eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def disaggregated(params, cfg, pool, quant, decode_kernel, smi) -> dict:
+    """Four requests prefilled on a ``prefill_only`` engine, shipped by
+    ``export_request`` (one through ``json.dumps``/``loads``), checked by
+    ``verify_page_payload`` and adopted by a ``kv_import`` engine, which
+    decodes them: bitwise the colocated engine's streams at the same
+    ``max_batch``; K1 only on the prefill side and K5 only on the decode
+    side, in exact counts; a payload with one flipped byte refused with
+    the decode engine unchanged."""
+    L = cfg.num_layers
+    reqs = trace(1, 4)
+    colocated = state_engine(params, cfg, kv_quant=quant)
+    handles = [colocated.submit(r.prompt, r.max_new_tokens) for r in reqs]
+    colocated.run()
+    want = by_rid(handles)
+    del colocated
+    pre = state_engine(params, cfg, kv_quant=quant, prefill_only=True)
+    dec = state_engine(params, cfg, kv_quant=quant, kv_import=True)
+    pre.warmup()
+    dec.warmup()
+    kernels.reset_launch_counts()
+    shipped, export_ms, pages_out = [], 0.0, 0
+    for r in reqs:
+        h = pre.submit(r.prompt, r.max_new_tokens)
+        pre.step()
+        if h.prefill_pos is not None or len(h.generated) != 1:
+            raise AssertionError("prefill_only engine: no first token")
+        t0 = time.perf_counter()
+        shipped.append(pre.export_request(h.rid))
+        export_ms += (time.perf_counter() - t0) * 1e3
+        pages_out += len(shipped[-1][1])
+    pre_launches = launch_counts()
+    kernels.reset_launch_counts()
+    wire = json.dumps(list(shipped[0]))
+    shipped[0] = tuple(json.loads(wire))
+    if not all(verify_page_payload(p) for _, pages, _ in shipped
+               for p in pages):
+        raise AssertionError("a shipped page failed its CRC")
+    record, pages, kv_len = shipped[1]
+    raw = bytearray(base64.b64decode(pages[0]["k"]))
+    raw[len(raw) // 2] ^= 0x10
+    bad = [dict(pages[0], k=base64.b64encode(bytes(raw)).decode("ascii"))]
+    before = (len(dec.sched.running), dec.cache.pages_free)
+    try:
+        dec.adopt_prefilled(record, bad + pages[1:], kv_len)
+        flipped = "adopted"
+    except ValueError:
+        flipped = "refused"
+    unchanged = before == (len(dec.sched.running), dec.cache.pages_free)
+    import_ms = 0.0
+    adopted = []
+    for record, pages, kv_len in shipped:
+        t0 = time.perf_counter()
+        adopted.append(dec.adopt_prefilled(record, pages, kv_len))
+        torch.cuda.synchronize()
+        import_ms += (time.perf_counter() - t0) * 1e3
+    dec.run()
+    dec_launches = launch_counts()
+    got = by_rid(adopted)
+    out = dict(pool=pool, requests=len(reqs), pages=pages_out,
+               export_ms_per_page=export_ms / pages_out,
+               import_ms_per_page=import_ms / pages_out,
+               wire_bytes_one_request=len(wire),
+               streams_equal=got == want, flipped_byte=flipped,
+               refusal_left_engine_unchanged=unchanged,
+               prefill_launches=pre_launches, decode_launches=dec_launches,
+               prefills=pre.prefills, decode_steps=dec.decode_steps,
+               card=smi)
+    log(f"  disaggregated ({pool} pool): {json.dumps(out)}")
+    want_pre = {"flash_fwd_sm90": L * pre.prefills}
+    want_dec = {decode_kernel: L * dec.decode_steps}
+    if not (got == want and flipped == "refused" and unchanged
+            and pre_launches == want_pre and dec_launches == want_dec
+            and dec.prefills == 0):
+        raise AssertionError(f"disaggregated ({pool}): streams differ from "
+                             "the colocated engine's, a flipped byte was "
+                             "adopted, or the launches are not K1 on the "
+                             f"prefill side {want_pre} and K5 on the decode "
+                             f"side {want_dec}")
+    del pre, dec
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_state(smi: str) -> dict:
+    """Phase 16: the serving engine's state, page integrity and telemetry
+    at full width (and the contracts the JAX package pins at fp32 on the
+    toy)."""
+    t0 = time.perf_counter()
+    out = {"toy": toy_state_checks()}
+    cfg = ServingModelConfig(**FULL, dtype=torch.bfloat16)
+    params = init_params(cfg, seed=0, device="cuda")
+    tel = telemetry_inert(params, cfg, smi)
+    ref, prompts = tel.pop("reference"), tel.pop("prompts")
+    out["telemetry"] = tel
+    out["recovery"] = recovery_full(params, cfg, ref, prompts, smi)
+    out.update(restore_full(params, cfg, smi))
+    out["disaggregated"] = {
+        pool: disaggregated(params, cfg, pool, quant, name, smi)
+        for pool, quant, name in DECODE_POOLS[:2]}
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"  phase 16 took {out['wall_s']:.1f} s; {smi}")
+    return out
 
 
 # -- phase 6: toy training, cuda vs cpu -------------------------------------
@@ -4501,8 +5122,13 @@ def main() -> int:
           "sharing)")
     modes = phase_modes(smi, serving)
     torch.cuda.empty_cache()
+
+    begin(16, "serving state, page integrity and telemetry at full width "
+          "(GPT-1.3B width, 24 layers, bf16; the fp32 toy)")
+    state = phase_state(smi)
+    torch.cuda.empty_cache()
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
-    PHASE.update(n=16, name="record")
+    PHASE.update(n=17, name="record")
 
     record = {"kernels": [
         # K1: the bf16 route at head dims 64 and 128 on the tensor cores
@@ -4516,6 +5142,7 @@ def main() -> int:
              launches=serving["bf16"]["launches"]["flash_fwd_sm90"],
              launches_mha=mha["launches"]["flash_fwd_sm90"],
              launches_microbench=probes["launches"]["flash_fwd_sm90"],
+             launches_state=state["telemetry"]["launches"]["flash_fwd_sm90"],
              **timings["flash_fwd_sm90"]),
         dict(name="flash_fwd", route="cuda",
              source="apex_tpu_torch/csrc/flash_fwd.cu",
@@ -4545,7 +5172,15 @@ def main() -> int:
         dict(name=name, route="cuda",
              source="apex_tpu_torch/csrc/flash_decode_sm90.cu",
              replaces="apex_tpu/ops/attention.py:2239",
-             launches=serving[pool]["launches"][name], **timings[name])
+             launches=serving[pool]["launches"][name],
+             # phase 16: the telemetry serve (bf16) and the disaggregated
+             # decode engines (bf16, int8)
+             **({"launches_state": state["telemetry"]["launches"][name]}
+                if pool == "bf16" else {}),
+             **({"launches_disaggregated": state["disaggregated"][pool][
+                 "decode_launches"][name]}
+                if pool in state["disaggregated"] else {}),
+             **timings[name])
         for pool, _, name in DECODE_POOLS
     ] + [
         # K5 where the serving modes run it (phase 15): the verify step at

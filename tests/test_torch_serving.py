@@ -245,9 +245,10 @@ def test_default_device_is_the_card_and_never_falls_back(tparams,
 
 
 def test_unported_options_are_refused(tparams):
-    with pytest.raises(NotImplementedError, match="watchdog"):
-        tsv.ServingEngine(TCFG, tparams, num_pages=8, device="cpu",
-                          watchdog=object())
+    # only tensor parallelism is left unported: tp=2 is refused, tp=1 (the
+    # JAX engine's default) accepted
+    with pytest.raises(NotImplementedError, match="tp"):
+        tsv.ServingEngine(TCFG, tparams, num_pages=8, device="cpu", tp=2)
     # the JAX engine's rule: prefix sharing prefills a hit's suffix in
     # chunks, so it needs a chunk size
     with pytest.raises(ValueError, match="chunked prefill"):
@@ -257,18 +258,38 @@ def test_unported_options_are_refused(tparams):
         tsv.ServingEngine(TCFG, tparams, num_pages=8, page_size=8,
                           device="cpu", prefix_sharing=True,
                           spec=tsv.SpecConfig(k=2))
-    with pytest.raises(NotImplementedError, match="tp"):
-        tsv.ServingEngine(TCFG, tparams, num_pages=8, device="cpu", tp=2)
     with pytest.raises(TypeError):
         tsv.ServingEngine(TCFG, tparams, num_pages=8, device="cpu",
                           no_such_option=1)
-    # the "off" values are accepted, as the JAX engine's defaults
-    eng = tsv.ServingEngine(TCFG, tparams, num_pages=8, page_size=8,
-                            device="cpu", tp=1, telemetry=None)
-    for name in ("snapshot", "restore", "recover", "adopt",
-                 "adopt_prefilled", "export_request"):
-        with pytest.raises(NotImplementedError, match=name):
-            getattr(eng, name)()
+    # the five options that were refused are taken, with the JAX engine's
+    # recovery knobs, and the six methods exist and run
+    from apex_tpu_torch.resilience import Watchdog
+    from apex_tpu_torch.telemetry import MemorySink, TelemetryBus
+    bus = TelemetryBus(sinks=[MemorySink()])
+    with Watchdog(60.0) as wd:
+        eng = tsv.ServingEngine(TCFG, tparams, num_pages=8, page_size=8,
+                                device="cpu", tp=1, telemetry=bus,
+                                watchdog=wd, validate_pages=True,
+                                recover_on_fault=True, max_recoveries=3,
+                                prefill_only=True, kv_import=True,
+                                clock=tsv.SimClock())
+        eng.warmup()
+        req = eng.submit([1, 2, 3], 4)
+        eng.step()
+    assert eng.cache.crc_pages and req.generated and not eng.decode_steps
+    snap = eng.snapshot()
+    assert snap["format"] == 1 and snap["requests"][0]["rid"] == req.rid
+    record, payload, kv_len = eng.export_request(req.rid)
+    dec = tsv.ServingEngine(TCFG, tparams, num_pages=8, page_size=8,
+                            device="cpu", kv_import=True)
+    dec.adopt_prefilled(record, payload, kv_len)
+    dec.recover("device_loss")
+    assert dec.recoveries == 1 and len(dec.sched.waiting) == 1
+    fresh = tsv.ServingEngine(TCFG, tparams, num_pages=8, page_size=8,
+                              device="cpu")
+    assert len(fresh.restore(snap)) == 1
+    assert len(fresh.adopt([dict(snap["requests"][0], rid=9)])) == 1
+    assert bus.counts["request_admit"] == 1
 
 
 def test_submit_rejects_what_can_never_be_served(tparams):

@@ -663,7 +663,7 @@ def test_rejected_draft_rolls_back_kv_len_and_pages(tparams):
     assert req.generated == plain[0]
     # the last token has no room for a draft: a decode step
     assert eng.spec_accepted == 0 and eng.spec_committed == 8
-    assert eng.verify_steps == 8 and eng.decode_steps == 1
+    assert eng.verify_steps == 8 and eng.decode_steps == 9
     assert eng.proposer.released == [req.rid]
 
 
