@@ -1,10 +1,12 @@
 // What every kernel source of the package shares: fp32 <-> T conversion and
-// 16-byte vector loads, the host-side launch helpers, the attention-dropout
-// hash, and the one error-string export every library carries.
+// 16-byte vector loads (T = float, __nv_bfloat16, __half), the host-side
+// launch helpers, the attention-dropout hash, and the one error-string
+// export every library carries.
 
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -14,6 +16,8 @@ __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
+__device__ __forceinline__ float to_float(__half x) { return __half2float(x); }
+__device__ __forceinline__ void store(__half* p, float x) { *p = __float2half_rn(x); }
 
 // 16 bytes of T from global memory, widened to fp32.
 __device__ __forceinline__ void load16(const float* src, float* dst) {
@@ -26,6 +30,17 @@ __device__ __forceinline__ void load16(const __nv_bfloat16* src, float* dst) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const float2 f = __bfloat1622float2(h[i]);
+    dst[2 * i] = f.x;
+    dst[2 * i + 1] = f.y;
+  }
+}
+
+__device__ __forceinline__ void load16(const __half* src, float* dst) {
+  const uint4 x = *reinterpret_cast<const uint4*>(src);
+  const __half2* h = reinterpret_cast<const __half2*>(&x);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __half22float2(h[i]);
     dst[2 * i] = f.x;
     dst[2 * i + 1] = f.y;
   }

@@ -1,6 +1,6 @@
 // Packed-QKV self-attention backward for GPT training, on Hopper's tensor
-// cores (sm_90a: wgmma and TMA).  The bf16 route of K4; flash_qkv_bwd.cu
-// stays the fp32 route.
+// cores (sm_90a: wgmma and TMA).  The bf16 and fp16 routes of K4;
+// flash_qkv_bwd.cu stays the fp32 route.
 //
 // Replaces the TPU kernel apex_tpu/ops/attention.py::_flash_qkv_bwd_pallas:
 // from (qkv, dctx, ctx, lse) it writes dqkv [b, s, H * 3 * d] in qkv's
@@ -11,8 +11,9 @@
 //   dv[c] += p~ dctx[r];  ds = p (dp~ - delta[r]) scale;  dk[c] += ds q[r];  dq[r] += ds k[c]
 // with delta[r] = dctx[r] . ctx[r] and the keep bits redrawn from the
 // forward's counter hash at the same global (row = query, col = key).  p~
-// and ds are rounded to bf16 before they multiply (the JAX kernel's
-// p_drop.astype(do.dtype) and ds.astype(q.dtype)); every sum is fp32.
+// and ds are rounded to the operands' type T before they multiply (the
+// JAX kernel's p_drop.astype(do.dtype) and ds.astype(q.dtype)); every sum
+// is fp32.
 //
 // What bounds it on an H100: at the GPT-1.3B training shape (b = 4, s =
 // 2048, 16 heads of 128, causal) it moves ~168 MB (~0.05 ms at 3.35 TB/s)
@@ -54,8 +55,11 @@
 // Elementwise work as in the forward: masks behind one branch a tile,
 // hidden pairs at -inf, p by ex2.approx.
 //
-// Template on the head dim D, built at 128 (GPT) and 64 (BERT-large): one
-// entry point each, so that launches count by instance.  At D = 64 the
+// Template on the head dim D, built at 128 (GPT) and 64 (BERT-large), and
+// on the 16-bit type T, bf16 or fp16 (amp's half): one entry point each,
+// so that launches count by instance.  fp16 takes the same tiles and
+// rounding points; a dS or a dqkv past fp16's range becomes inf, which
+// nothing clamps: under a loss scale that overflow is what amp must see.  At D = 64 the
 // resident and streamed tiles are one 64-column box, dV, dK and dQ are
 // m64n64k16 products and a thread holds 32 sums of each; the tiles
 // (QKV_SM90_BWD_TILES), rings and warpgroups are those of D = 128.
@@ -97,11 +101,11 @@ struct Smem3 {
 };
 
 struct BwdArgs {
-  const __nv_bfloat16* dctx;
-  const __nv_bfloat16* ctx;
+  const void* dctx;  // T [b, s, H * D]
+  const void* ctx;
   const float* lse;  // [B*H, s]
   float* delta;      // [B*H, s] workspace
-  __nv_bfloat16* dqkv;
+  void* dqkv;        // T [b, s, H * 3 * D]
   const int* seg_q;  // null: no segments
   const int* seg_k;
   int seg_div;
@@ -112,7 +116,15 @@ struct BwdArgs {
   float inv_keep;    // 1 / (1 - rate)
 };
 
-template <int D>
+// two T values widened to fp32
+__device__ __forceinline__ float2 widen2(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+__device__ __forceinline__ float2 widen2(const __half* p) {
+  return __half22float2(*reinterpret_cast<const __half2*>(p));
+}
+
+template <int D, typename T>
 __global__ void __launch_bounds__(256) qkv_bwd_delta_sm90(BwdArgs a, int rows) {
   const int w = (blockIdx.x * 256 + threadIdx.x) >> 5, lane = threadIdx.x & 31;
   if (w >= rows) return;
@@ -120,8 +132,8 @@ __global__ void __launch_bounds__(256) qkv_bwd_delta_sm90(BwdArgs a, int rows) {
   const int64_t off = (static_cast<int64_t>(b) * a.s + r) * a.H * D + h * D;
   float acc = 0.f;
   for (int c = 2 * lane; c < D; c += 64) {
-    const float2 x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(a.dctx + off + c));
-    const float2 y = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(a.ctx + off + c));
+    const float2 x = widen2(static_cast<const T*>(a.dctx) + off + c);
+    const float2 y = widen2(static_cast<const T*>(a.ctx) + off + c);
     acc = fmaf(x.x, y.x, acc);
     acc = fmaf(x.y, y.y, acc);
   }
@@ -132,14 +144,14 @@ __global__ void __launch_bounds__(256) qkv_bwd_delta_sm90(BwdArgs a, int rows) {
 
 // d[64 x D] += A[64 x 16] B[16 x D], A from registers, B MN-major from
 // `box` (its D columns in 64-column boxes `box_bytes` apart).
-template <int D>
+template <int D, typename T>
 __device__ __forceinline__ void mma_rs(float (&d)[D / 2], const uint32_t (&a)[4], uint32_t box,
                                        int k, uint32_t box_bytes) {
   static_assert(D == 64 || D == 128, "head dims 64 and 128 are built");
   if constexpr (D == 128) {
-    sm90::wgmma_rs_n128<1>(d, a, sm90::desc_mnmajor(box, k, box_bytes), 1);
+    sm90::wgmma_rs_n128<1, T>(d, a, sm90::desc_mnmajor(box, k, box_bytes), 1);
   } else {
-    sm90::wgmma_rs_n64<1>(d, a, sm90::desc_mnmajor(box, k, box_bytes), 1);
+    sm90::wgmma_rs_n64<1, T>(d, a, sm90::desc_mnmajor(box, k, box_bytes), 1);
   }
 }
 
@@ -163,7 +175,7 @@ __device__ __forceinline__ void pair_grads(const BwdArgs& a, int bh, float s, fl
 // ---------------------------------------------------------------------------
 // pass 2: dK and dV of one 128-key tile of one batch*head
 
-template <int D, bool CAUSAL, bool DROP>
+template <int D, bool CAUSAL, bool DROP, typename T>
 __global__ void __launch_bounds__(kThreads, 1)
     qkv_bwd_dkdv_sm90(const __grid_constant__ CUtensorMap tm_kv,
                       const __grid_constant__ CUtensorMap tm_q,
@@ -298,12 +310,12 @@ __global__ void __launch_bounds__(kThreads, 1)
       sm90::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
-        sm90::wgmma_ss_n32<0>(sacc, sm90::desc_kmajor(k_box + (kk / 4) * SM::kResBox, kk % 4),
+        sm90::wgmma_ss_n32<0, T>(sacc, sm90::desc_kmajor(k_box + (kk / 4) * SM::kResBox, kk % 4),
                               sm90::desc_kmajor(q_box + (kk / 4) * SM::kTileBox, kk % 4),
                               kk > 0);
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
-        sm90::wgmma_ss_n32<0>(pacc, sm90::desc_kmajor(v_box + (kk / 4) * SM::kResBox, kk % 4),
+        sm90::wgmma_ss_n32<0, T>(pacc, sm90::desc_kmajor(v_box + (kk / 4) * SM::kResBox, kk % 4),
                               sm90::desc_kmajor(do_box + (kk / 4) * SM::kTileBox, kk % 4),
                               kk > 0);
       sm90::wgmma_commit();
@@ -347,8 +359,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int kk = 0; kk < kQ2 / 16; ++kk) {
 #pragma unroll
         for (int u = 0; u < 4; ++u) {
-          pf[kk][u] = sm90::pack_bf16(sacc[8 * kk + 2 * u], sacc[8 * kk + 2 * u + 1]);
-          sf[kk][u] = sm90::pack_bf16(pacc[8 * kk + 2 * u], pacc[8 * kk + 2 * u + 1]);
+          pf[kk][u] = sm90::pack2<T>(sacc[8 * kk + 2 * u], sacc[8 * kk + 2 * u + 1]);
+          sf[kk][u] = sm90::pack2<T>(pacc[8 * kk + 2 * u], pacc[8 * kk + 2 * u + 1]);
         }
       }
       // dV += P~^T dO and dK += dS^T Q, dO and Q read MN-major
@@ -357,10 +369,10 @@ __global__ void __launch_bounds__(kThreads, 1)
       sm90::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kQ2 / 16; ++kk)
-        mma_rs<D>(dv, pf[kk], do_box, kk, SM::kTileBox);
+        mma_rs<D, T>(dv, pf[kk], do_box, kk, SM::kTileBox);
 #pragma unroll
       for (int kk = 0; kk < kQ2 / 16; ++kk)
-        mma_rs<D>(dk, sf[kk], q_box, kk, SM::kTileBox);
+        mma_rs<D, T>(dk, sf[kk], q_box, kk, SM::kTileBox);
       sm90::wgmma_commit();
       sm90::wgmma_wait<0>();
       sm90::fence_regs(dv);
@@ -379,13 +391,14 @@ __global__ void __launch_bounds__(kThreads, 1)
   for (int r = 0; r < 2; ++r) {
     const int key = key0 + 8 * r;
     if (key >= a.s) continue;
-    __nv_bfloat16* out = a.dqkv + (static_cast<int64_t>(b) * a.s + key) * row + h * 3 * D + 2 * t;
+    T* out = static_cast<T*>(a.dqkv) + (static_cast<int64_t>(b) * a.s + key) * row + h * 3 * D +
+             2 * t;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
       *reinterpret_cast<uint32_t*>(out + D + 8 * j) =
-          sm90::pack_bf16(dk[4 * j + 2 * r], dk[4 * j + 2 * r + 1]);
+          sm90::pack2<T>(dk[4 * j + 2 * r], dk[4 * j + 2 * r + 1]);
       *reinterpret_cast<uint32_t*>(out + 2 * D + 8 * j) =
-          sm90::pack_bf16(dv[4 * j + 2 * r], dv[4 * j + 2 * r + 1]);
+          sm90::pack2<T>(dv[4 * j + 2 * r], dv[4 * j + 2 * r + 1]);
     }
   }
 }
@@ -393,7 +406,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 // ---------------------------------------------------------------------------
 // pass 3: dQ of one 128-query tile of one batch*head
 
-template <int D, bool CAUSAL, bool DROP>
+template <int D, bool CAUSAL, bool DROP, typename T>
 __global__ void __launch_bounds__(kThreads, 1)
     qkv_bwd_dq_sm90(const __grid_constant__ CUtensorMap tm_q,
                     const __grid_constant__ CUtensorMap tm_do,
@@ -521,12 +534,12 @@ __global__ void __launch_bounds__(kThreads, 1)
       sm90::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
-        sm90::wgmma_ss_n64<0>(sacc, sm90::desc_kmajor(q_box + (kk / 4) * SM::kResBox, kk % 4),
+        sm90::wgmma_ss_n64<0, T>(sacc, sm90::desc_kmajor(q_box + (kk / 4) * SM::kResBox, kk % 4),
                               sm90::desc_kmajor(k_box + (kk / 4) * SM::kTileBox, kk % 4),
                               kk > 0);
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
-        sm90::wgmma_ss_n64<0>(pacc, sm90::desc_kmajor(do_box + (kk / 4) * SM::kResBox, kk % 4),
+        sm90::wgmma_ss_n64<0, T>(pacc, sm90::desc_kmajor(do_box + (kk / 4) * SM::kResBox, kk % 4),
                               sm90::desc_kmajor(v_box + (kk / 4) * SM::kTileBox, kk % 4),
                               kk > 0);
       sm90::wgmma_commit();
@@ -568,14 +581,14 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int kk = 0; kk < kK3 / 16; ++kk) {
 #pragma unroll
         for (int u = 0; u < 4; ++u)
-          sf[kk][u] = sm90::pack_bf16(pacc[8 * kk + 2 * u], pacc[8 * kk + 2 * u + 1]);
+          sf[kk][u] = sm90::pack2<T>(pacc[8 * kk + 2 * u], pacc[8 * kk + 2 * u + 1]);
       }
       // dQ += dS K, K read MN-major
       sm90::fence_regs(dq);
       sm90::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kK3 / 16; ++kk)
-        mma_rs<D>(dq, sf[kk], k_box, kk, SM::kTileBox);
+        mma_rs<D, T>(dq, sf[kk], k_box, kk, SM::kTileBox);
       sm90::wgmma_commit();
       sm90::wgmma_wait<0>();
       sm90::fence_regs(dq);
@@ -592,41 +605,43 @@ __global__ void __launch_bounds__(kThreads, 1)
   for (int r = 0; r < 2; ++r) {
     const int q = row0 + 8 * r;
     if (q >= a.s) continue;
-    __nv_bfloat16* out = a.dqkv + (static_cast<int64_t>(b) * a.s + q) * row + h * 3 * D + 2 * t;
+    T* out = static_cast<T*>(a.dqkv) + (static_cast<int64_t>(b) * a.s + q) * row + h * 3 * D +
+             2 * t;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
       *reinterpret_cast<uint32_t*>(out + 8 * j) =
-          sm90::pack_bf16(dq[4 * j + 2 * r], dq[4 * j + 2 * r + 1]);
+          sm90::pack2<T>(dq[4 * j + 2 * r], dq[4 * j + 2 * r + 1]);
   }
 }
 
-template <int D, bool CAUSAL, bool DROP>
+template <int D, bool CAUSAL, bool DROP, typename T>
 cudaError_t launch(const BwdArgs& a, const void* qkv, cudaStream_t stream) {
   const int64_t w = static_cast<int64_t>(a.H) * 3 * D, wc = static_cast<int64_t>(a.H) * D;
+  constexpr CUtensorMapDataType ty = sm90_host::tma_type<T>();
   CUtensorMap kv128, q32, do32, q128, do128, kv64;
   cudaError_t err;
-  if ((err = sm90_host::bf16_map(&kv128, qkv, a.B, a.s, w, kKV2)) != cudaSuccess ||
-      (err = sm90_host::bf16_map(&q32, qkv, a.B, a.s, w, kQ2)) != cudaSuccess ||
-      (err = sm90_host::bf16_map(&do32, a.dctx, a.B, a.s, wc, kQ2)) != cudaSuccess ||
-      (err = sm90_host::bf16_map(&q128, qkv, a.B, a.s, w, kQ3)) != cudaSuccess ||
-      (err = sm90_host::bf16_map(&do128, a.dctx, a.B, a.s, wc, kQ3)) != cudaSuccess ||
-      (err = sm90_host::bf16_map(&kv64, qkv, a.B, a.s, w, kK3)) != cudaSuccess)
+  if ((err = sm90_host::bf16_map(&kv128, qkv, a.B, a.s, w, kKV2, ty)) != cudaSuccess ||
+      (err = sm90_host::bf16_map(&q32, qkv, a.B, a.s, w, kQ2, ty)) != cudaSuccess ||
+      (err = sm90_host::bf16_map(&do32, a.dctx, a.B, a.s, wc, kQ2, ty)) != cudaSuccess ||
+      (err = sm90_host::bf16_map(&q128, qkv, a.B, a.s, w, kQ3, ty)) != cudaSuccess ||
+      (err = sm90_host::bf16_map(&do128, a.dctx, a.B, a.s, wc, kQ3, ty)) != cudaSuccess ||
+      (err = sm90_host::bf16_map(&kv64, qkv, a.B, a.s, w, kK3, ty)) != cudaSuccess)
     return err;
 
   const int rows = a.B * a.H * a.s;
-  qkv_bwd_delta_sm90<D><<<(rows + 7) / 8, 256, 0, stream>>>(a, rows);
+  qkv_bwd_delta_sm90<D, T><<<(rows + 7) / 8, 256, 0, stream>>>(a, rows);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
-  err = apex::allow_smem(qkv_bwd_dkdv_sm90<D, CAUSAL, DROP>, Smem2<D>::kBytes);
+  err = apex::allow_smem(qkv_bwd_dkdv_sm90<D, CAUSAL, DROP, T>, Smem2<D>::kBytes);
   if (err != cudaSuccess) return err;
-  qkv_bwd_dkdv_sm90<D, CAUSAL, DROP>
+  qkv_bwd_dkdv_sm90<D, CAUSAL, DROP, T>
       <<<dim3(a.B * a.H, (a.s + kKV2 - 1) / kKV2), kThreads, Smem2<D>::kBytes, stream>>>(
           kv128, q32, do32, a);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
-  err = apex::allow_smem(qkv_bwd_dq_sm90<D, CAUSAL, DROP>, Smem3<D>::kBytes);
+  err = apex::allow_smem(qkv_bwd_dq_sm90<D, CAUSAL, DROP, T>, Smem3<D>::kBytes);
   if (err != cudaSuccess) return err;
-  qkv_bwd_dq_sm90<D, CAUSAL, DROP>
+  qkv_bwd_dq_sm90<D, CAUSAL, DROP, T>
       <<<dim3(a.B * a.H, (a.s + kQ3 - 1) / kQ3), kThreads, Smem3<D>::kBytes, stream>>>(
           q128, do128, kv64, a);
   return cudaGetLastError();
@@ -636,7 +651,7 @@ cudaError_t launch(const BwdArgs& a, const void* qkv, cudaStream_t stream) {
 
 namespace {
 
-template <int D>
+template <int D, typename T>
 int run(int device, const void* qkv, const void* dctx, const void* ctx, const float* lse,
         float* delta, void* dqkv, const int* seg_q, const int* seg_k, int seg_div, int* visits,
         int B, int H, int s, float scale, int causal, uint32_t seed, uint32_t thresh,
@@ -644,22 +659,22 @@ int run(int device, const void* qkv, const void* dctx, const void* ctx, const fl
   const apex::DeviceGuard guard(device);
   if (guard.error() != cudaSuccess) return guard.error();
   if (s <= 0 || B * H <= 0) return cudaSuccess;
-  const BwdArgs a{static_cast<const __nv_bfloat16*>(dctx), static_cast<const __nv_bfloat16*>(ctx),
-                  lse, delta, static_cast<__nv_bfloat16*>(dqkv), seg_q, seg_k, seg_div, visits,
+  const BwdArgs a{dctx, ctx, lse, delta, dqkv, seg_q, seg_k, seg_div, visits,
                   B, H, s, scale, scale * kLog2e, seed, thresh, inv_keep};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool drop = !(thresh == 0 && inv_keep == 1.f);
   if (causal) {
-    return drop ? launch<D, true, true>(a, qkv, st) : launch<D, true, false>(a, qkv, st);
+    return drop ? launch<D, true, true, T>(a, qkv, st) : launch<D, true, false, T>(a, qkv, st);
   }
-  return drop ? launch<D, false, true>(a, qkv, st) : launch<D, false, false>(a, qkv, st);
+  return drop ? launch<D, false, true, T>(a, qkv, st) : launch<D, false, false, T>(a, qkv, st);
 }
 
 }  // namespace
 
 extern "C" {
 
-// bf16 only; d: head dim (128 here, 64 in flash_qkv_bwd_sm90_d64).
+// bf16; d: head dim (128 here, 64 in flash_qkv_bwd_sm90_d64; fp16 in the
+// _f16 entry points below).
 // qkv/dqkv [B, s, H*3*d], ctx/dctx [B, s, H*d] (all contiguous, 16-byte
 // aligned), lse and the delta workspace [B*H, s] fp32.  seg_q/seg_k may be
 // null; seg row = (b*H + h) / seg_div.  visits may be null, else int32
@@ -673,8 +688,8 @@ int flash_qkv_bwd_sm90(int d, int device, const void* qkv, const void* dctx, con
                        float scale, int causal, uint32_t seed, uint32_t thresh, float inv_keep,
                        void* stream) {
   if (d != 128) return cudaErrorInvalidValue;
-  return run<128>(device, qkv, dctx, ctx, lse, delta, dqkv, seg_q, seg_k, seg_div, visits, B, H,
-                  s, scale, causal, seed, thresh, inv_keep, stream);
+  return run<128, __nv_bfloat16>(device, qkv, dctx, ctx, lse, delta, dqkv, seg_q, seg_k, seg_div,
+                                 visits, B, H, s, scale, causal, seed, thresh, inv_keep, stream);
 }
 
 // The same at head dim 64 (d must be 64).
@@ -684,8 +699,30 @@ int flash_qkv_bwd_sm90_d64(int d, int device, const void* qkv, const void* dctx,
                            int H, int s, float scale, int causal, uint32_t seed, uint32_t thresh,
                            float inv_keep, void* stream) {
   if (d != 64) return cudaErrorInvalidValue;
-  return run<64>(device, qkv, dctx, ctx, lse, delta, dqkv, seg_q, seg_k, seg_div, visits, B, H,
-                 s, scale, causal, seed, thresh, inv_keep, stream);
+  return run<64, __nv_bfloat16>(device, qkv, dctx, ctx, lse, delta, dqkv, seg_q, seg_k, seg_div,
+                                visits, B, H, s, scale, causal, seed, thresh, inv_keep, stream);
+}
+
+// The same on fp16 qkv, dctx, ctx and dqkv, head dim 128 (d must be 128).
+int flash_qkv_bwd_sm90_f16(int d, int device, const void* qkv, const void* dctx,
+                           const void* ctx, const float* lse, float* delta, void* dqkv,
+                           const int* seg_q, const int* seg_k, int seg_div, int* visits, int B,
+                           int H, int s, float scale, int causal, uint32_t seed, uint32_t thresh,
+                           float inv_keep, void* stream) {
+  if (d != 128) return cudaErrorInvalidValue;
+  return run<128, __half>(device, qkv, dctx, ctx, lse, delta, dqkv, seg_q, seg_k, seg_div, visits,
+                          B, H, s, scale, causal, seed, thresh, inv_keep, stream);
+}
+
+// fp16 at head dim 64 (d must be 64).
+int flash_qkv_bwd_sm90_d64_f16(int d, int device, const void* qkv, const void* dctx,
+                               const void* ctx, const float* lse, float* delta, void* dqkv,
+                               const int* seg_q, const int* seg_k, int seg_div, int* visits,
+                               int B, int H, int s, float scale, int causal, uint32_t seed,
+                               uint32_t thresh, float inv_keep, void* stream) {
+  if (d != 64) return cudaErrorInvalidValue;
+  return run<64, __half>(device, qkv, dctx, ctx, lse, delta, dqkv, seg_q, seg_k, seg_div, visits,
+                         B, H, s, scale, causal, seed, thresh, inv_keep, stream);
 }
 
 }  // extern "C"

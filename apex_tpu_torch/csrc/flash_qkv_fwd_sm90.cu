@@ -1,6 +1,6 @@
 // Packed-QKV self-attention forward for GPT training, on Hopper's tensor
-// cores (sm_90a: wgmma and TMA).  The bf16 route of K3; flash_qkv_fwd.cu
-// stays the fp32 route.
+// cores (sm_90a: wgmma and TMA).  The bf16 and fp16 routes of K3;
+// flash_qkv_fwd.cu stays the fp32 route.
 //
 // Replaces the TPU kernel apex_tpu/ops/attention.py::_flash_qkv_fwd_pallas:
 // attention read straight from the QKV projection's output in its
@@ -31,7 +31,7 @@
 // the accumulators do not fit.)  A warpgroup computes S = Q K^T by wgmma
 // with both operands in shared memory (K-major: d contiguous in both),
 // runs the online softmax in registers on the accumulator layout,
-// converts P to bf16 A fragments in registers (the JAX kernel's rounding
+// converts P to T A fragments in registers (the JAX kernel's rounding
 // point: p.astype(v.dtype) before P V) and adds P V by wgmma with V as an
 // MN-major B read through the transpose bit.  Only tiles that cross the
 // causal diagonal, the end of the sequence or a segment boundary are
@@ -44,8 +44,11 @@
 // independent chains; lse is returned in natural-log units.  Heavier q
 // tiles (causal: later rows) are scheduled first.
 //
-// Template on the head dim D, built at 128 (GPT) and 64 (BERT-large): one
-// entry point each, so that launches count by instance.  At D = 64, Q and
+// Template on the head dim D, built at 128 (GPT) and 64 (BERT-large), and
+// on the 16-bit type T, bf16 or fp16 (amp's half): one entry point each,
+// so that launches count by instance.  fp16 takes the same tiles, the
+// f16 form of each wgmma and the same rounding points (P, ctx); an fp16
+// overflow becomes inf and is not clamped.  At D = 64, Q and
 // each K or V tile are one 64-column box, P V is m64n64k16 and a thread
 // holds 32 output sums; tiles, ring and warpgroups are those of D = 128
 // (one block an SM).
@@ -76,7 +79,7 @@ struct Smem {
 };
 
 struct FwdArgs {
-  __nv_bfloat16* ctx;
+  void* ctx;         // T [b, s, H * D]
   float* lse;
   const int* seg_q;  // null: no segments
   const int* seg_k;
@@ -89,18 +92,18 @@ struct FwdArgs {
 
 // o[64 x D] += P[64 x 16] V[16 x D], P from registers, V MN-major from
 // `box` (its D columns in 64-column boxes `box_bytes` apart).
-template <int D>
+template <int D, typename T>
 __device__ __forceinline__ void mma_pv(float (&o)[D / 2], const uint32_t (&p)[4], uint32_t box,
                                        int k, uint32_t box_bytes) {
   static_assert(D == 64 || D == 128, "head dims 64 and 128 are built");
   if constexpr (D == 128) {
-    sm90::wgmma_rs_n128<1>(o, p, sm90::desc_mnmajor(box, k, box_bytes), 1);
+    sm90::wgmma_rs_n128<1, T>(o, p, sm90::desc_mnmajor(box, k, box_bytes), 1);
   } else {
-    sm90::wgmma_rs_n64<1>(o, p, sm90::desc_mnmajor(box, k, box_bytes), 1);
+    sm90::wgmma_rs_n64<1, T>(o, p, sm90::desc_mnmajor(box, k, box_bytes), 1);
   }
 }
 
-template <int D, bool CAUSAL, bool DROP>
+template <int D, bool CAUSAL, bool DROP, typename T>
 __global__ void __launch_bounds__(kThreads, 1)
     qkv_fwd_sm90(const __grid_constant__ CUtensorMap tm, const FwdArgs a) {
   using SM = Smem<D>;
@@ -210,7 +213,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int kk = 0; kk < D / 16; ++kk) {
         const uint64_t da = sm90::desc_kmajor(q_box + (kk / 4) * kBQ * 128, kk % 4);
         const uint64_t db = sm90::desc_kmajor(k_box + (kk / 4) * SM::kBoxBytes, kk % 4);
-        sm90::wgmma_ss_n128<0>(sacc, da, db, kk > 0);
+        sm90::wgmma_ss_n128<0, T>(sacc, da, db, kk > 0);
       }
       sm90::wgmma_commit();
       sm90::wgmma_wait<0>();
@@ -281,7 +284,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
       for (int x = 0; x < D / 2; ++x) o[x] *= alpha[(x >> 1) & 1];
 
-      // P (dropped, rescaled) to bf16 A fragments, 16 keys a step
+      // P (dropped, rescaled) to T A fragments, 16 keys a step
       uint32_t pf[kBK / 16][4];
 #pragma unroll
       for (int kk = 0; kk < kBK / 16; ++kk) {
@@ -295,7 +298,7 @@ __global__ void __launch_bounds__(kThreads, 1)
             p0 = apex::dropout_keep(a.seed, bh, row, col, a.thresh) ? p0 * a.inv_keep : 0.f;
             p1 = apex::dropout_keep(a.seed, bh, row, col + 1, a.thresh) ? p1 * a.inv_keep : 0.f;
           }
-          pf[kk][u] = sm90::pack_bf16(p0, p1);
+          pf[kk][u] = sm90::pack2<T>(p0, p1);
         }
       }
       // O += P V, V read MN-major (the transpose bit)
@@ -304,7 +307,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       sm90::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kBK / 16; ++kk)
-        mma_pv<D>(o, pf[kk], v_box, kk, SM::kBoxBytes);
+        mma_pv<D, T>(o, pf[kk], v_box, kk, SM::kBoxBytes);
       sm90::wgmma_commit();
       sm90::wgmma_wait<0>();
       sm90::fence_regs(o);
@@ -316,7 +319,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
   }
 
-  // epilogue: O / l in bf16, lse in natural-log units
+  // epilogue: O / l in T, lse in natural-log units
   const int64_t crow = static_cast<int64_t>(a.H) * D;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -324,23 +327,23 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (row >= a.s) continue;
     const float l_safe = l[r] == 0.f ? 1.f : l[r];
     const float inv = 1.f / l_safe;
-    __nv_bfloat16* out = a.ctx + (static_cast<int64_t>(b) * a.s + row) * crow + h * D + 2 * t;
+    T* out = static_cast<T*>(a.ctx) + (static_cast<int64_t>(b) * a.s + row) * crow + h * D + 2 * t;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
       *reinterpret_cast<uint32_t*>(out + 8 * j) =
-          sm90::pack_bf16(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
+          sm90::pack2<T>(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
     if (t == 0)
       a.lse[static_cast<int64_t>(bh) * a.s + row] =
           l[r] == 0.f ? kNegInf : (m[r] + log2f(l_safe)) * kLn2;
   }
 }
 
-template <int D, bool CAUSAL, bool DROP>
+template <int D, bool CAUSAL, bool DROP, typename T>
 cudaError_t launch(const CUtensorMap& tm, const FwdArgs& a, cudaStream_t stream) {
-  const cudaError_t attr = apex::allow_smem(qkv_fwd_sm90<D, CAUSAL, DROP>, Smem<D>::kBytes);
+  const cudaError_t attr = apex::allow_smem(qkv_fwd_sm90<D, CAUSAL, DROP, T>, Smem<D>::kBytes);
   if (attr != cudaSuccess) return attr;
   const dim3 grid(a.B * a.H, (a.s + kBQ - 1) / kBQ);
-  qkv_fwd_sm90<D, CAUSAL, DROP><<<grid, kThreads, Smem<D>::kBytes, stream>>>(tm, a);
+  qkv_fwd_sm90<D, CAUSAL, DROP, T><<<grid, kThreads, Smem<D>::kBytes, stream>>>(tm, a);
   return cudaGetLastError();
 }
 
@@ -348,7 +351,7 @@ cudaError_t launch(const CUtensorMap& tm, const FwdArgs& a, cudaStream_t stream)
 
 namespace {
 
-template <int D>
+template <int D, typename T>
 int run(int device, const void* qkv, void* ctx, float* lse, const int* seg_q, const int* seg_k,
         int seg_div, int B, int H, int s, float scale, int causal, uint32_t seed,
         uint32_t thresh, float keep_prob, void* stream) {
@@ -357,23 +360,25 @@ int run(int device, const void* qkv, void* ctx, float* lse, const int* seg_q, co
   if (s <= 0 || B * H <= 0) return cudaSuccess;
   CUtensorMap tm;
   const cudaError_t err =
-      sm90_host::bf16_map(&tm, qkv, B, s, static_cast<int64_t>(H) * 3 * D, kBK);
+      sm90_host::bf16_map(&tm, qkv, B, s, static_cast<int64_t>(H) * 3 * D, kBK,
+                          sm90_host::tma_type<T>());
   if (err != cudaSuccess) return err;
-  const FwdArgs a{static_cast<__nv_bfloat16*>(ctx), lse, seg_q, seg_k, seg_div, B, H, s,
+  const FwdArgs a{ctx, lse, seg_q, seg_k, seg_div, B, H, s,
                   scale * kLog2e, seed, thresh, 1.f / keep_prob};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool drop = !(thresh == 0 && keep_prob == 1.f);
   if (causal) {
-    return drop ? launch<D, true, true>(tm, a, st) : launch<D, true, false>(tm, a, st);
+    return drop ? launch<D, true, true, T>(tm, a, st) : launch<D, true, false, T>(tm, a, st);
   }
-  return drop ? launch<D, false, true>(tm, a, st) : launch<D, false, false>(tm, a, st);
+  return drop ? launch<D, false, true, T>(tm, a, st) : launch<D, false, false, T>(tm, a, st);
 }
 
 }  // namespace
 
 extern "C" {
 
-// bf16 only; d: head dim (128 here, 64 in flash_qkv_fwd_sm90_d64).  qkv
+// bf16; d: head dim (128 here, 64 in flash_qkv_fwd_sm90_d64; fp16 in the
+// _f16 entry points below).  qkv
 // [B, s, H*3*d] and ctx [B, s, H*d] contiguous, 16-byte aligned; lse [B*H,
 // s] fp32.  seg_q/seg_k may be null (no segments); with them, seg row = (b
 // * H + h) / seg_div.  thresh = round(rate * 2^32) (0: no dropout),
@@ -383,8 +388,8 @@ int flash_qkv_fwd_sm90(int d, int device, const void* qkv, void* ctx, float* lse
                        float scale, int causal, uint32_t seed, uint32_t thresh, float keep_prob,
                        void* stream) {
   if (d != 128) return cudaErrorInvalidValue;
-  return run<128>(device, qkv, ctx, lse, seg_q, seg_k, seg_div, B, H, s, scale, causal, seed,
-                  thresh, keep_prob, stream);
+  return run<128, __nv_bfloat16>(device, qkv, ctx, lse, seg_q, seg_k, seg_div, B, H, s, scale,
+                                 causal, seed, thresh, keep_prob, stream);
 }
 
 // The same at head dim 64 (d must be 64).
@@ -393,8 +398,28 @@ int flash_qkv_fwd_sm90_d64(int d, int device, const void* qkv, void* ctx, float*
                            float scale, int causal, uint32_t seed, uint32_t thresh,
                            float keep_prob, void* stream) {
   if (d != 64) return cudaErrorInvalidValue;
-  return run<64>(device, qkv, ctx, lse, seg_q, seg_k, seg_div, B, H, s, scale, causal, seed,
-                 thresh, keep_prob, stream);
+  return run<64, __nv_bfloat16>(device, qkv, ctx, lse, seg_q, seg_k, seg_div, B, H, s, scale,
+                                causal, seed, thresh, keep_prob, stream);
+}
+
+// The same on fp16 qkv and ctx, head dim 128 (d must be 128).
+int flash_qkv_fwd_sm90_f16(int d, int device, const void* qkv, void* ctx, float* lse,
+                           const int* seg_q, const int* seg_k, int seg_div, int B, int H, int s,
+                           float scale, int causal, uint32_t seed, uint32_t thresh,
+                           float keep_prob, void* stream) {
+  if (d != 128) return cudaErrorInvalidValue;
+  return run<128, __half>(device, qkv, ctx, lse, seg_q, seg_k, seg_div, B, H, s, scale, causal,
+                          seed, thresh, keep_prob, stream);
+}
+
+// fp16 at head dim 64 (d must be 64).
+int flash_qkv_fwd_sm90_d64_f16(int d, int device, const void* qkv, void* ctx, float* lse,
+                               const int* seg_q, const int* seg_k, int seg_div, int B, int H,
+                               int s, float scale, int causal, uint32_t seed, uint32_t thresh,
+                               float keep_prob, void* stream) {
+  if (d != 64) return cudaErrorInvalidValue;
+  return run<64, __half>(device, qkv, ctx, lse, seg_q, seg_k, seg_div, B, H, s, scale, causal,
+                         seed, thresh, keep_prob, stream);
 }
 
 }  // extern "C"

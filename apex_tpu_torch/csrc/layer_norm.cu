@@ -7,7 +7,8 @@
 // ::_pallas_ln_bwd (backward: dx in one pass, dgamma/dbeta as per-block
 // partials plus a second, ordered reduction: the part1/part2 structure of
 // the reference's cuda_layer_norm_gradient).  x, y, dy, dx are [rows, cols]
-// in x's dtype (fp32 or bf16); the statistics, the weight and bias, and
+// in x's dtype (fp32, bf16, or fp16 through the _f16 entry points, whose
+// launches count apart); the statistics, the weight and bias, and
 // their gradients are fp32 (the caller casts weights of another dtype), as
 // on the main path, where the weights are fp32 masters and x is bf16.
 //
@@ -204,6 +205,39 @@ int layer_norm_bwd(int dtype, int device, const void* x, const void* dy, const f
     ln_bwd_kernel<__nv_bfloat16><<<n_parts, kThreads, 0, st>>>(static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(dy), mean, invvar, w, static_cast<__nv_bfloat16*>(dx), part_w, part_b, rows, cols);
   else
     return cudaErrorInvalidValue;
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || (dw == nullptr && db == nullptr)) return err;
+  ln_bwd_reduce_kernel<<<(cols + kThreads - 1) / kThreads, kThreads, 0, st>>>(part_w, part_b, dw, db, n_parts, cols);
+  return cudaGetLastError();
+}
+
+// fp16 x, y [rows, cols] (dtype must be 2), otherwise as layer_norm_fwd.
+int layer_norm_fwd_f16(int dtype, int device, const void* x, const float* w, const float* b,
+                       void* y, float* mean, float* invvar, int rows, int cols, float eps,
+                       void* stream) {
+  const apex::DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) return guard.error();
+  if (dtype != 2) return cudaErrorInvalidValue;
+  if (rows <= 0) return cudaSuccess;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int grid = (rows + kWarps - 1) / kWarps;
+  ln_fwd_kernel<__half><<<grid, kThreads, 0, st>>>(static_cast<const __half*>(x), w, b, static_cast<__half*>(y), mean, invvar, rows, cols, eps);
+  return cudaGetLastError();
+}
+
+// fp16 x, dy, dx (dtype must be 2), otherwise as layer_norm_bwd.
+int layer_norm_bwd_f16(int dtype, int device, const void* x, const void* dy, const float* mean,
+                       const float* invvar, const float* w, void* dx, float* dw, float* db,
+                       float* part, int rows, int cols, void* stream) {
+  const apex::DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) return guard.error();
+  if (dtype != 2) return cudaErrorInvalidValue;
+  if (rows <= 0) return cudaSuccess;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int n_parts = (rows + kRowsPerBlock - 1) / kRowsPerBlock;
+  float* part_w = dw != nullptr ? part : nullptr;
+  float* part_b = db != nullptr ? part + static_cast<int64_t>(n_parts) * cols : nullptr;
+  ln_bwd_kernel<__half><<<n_parts, kThreads, 0, st>>>(static_cast<const __half*>(x), static_cast<const __half*>(dy), mean, invvar, w, static_cast<__half*>(dx), part_w, part_b, rows, cols);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || (dw == nullptr && db == nullptr)) return err;
   ln_bwd_reduce_kernel<<<(cols + kThreads - 1) / kThreads, kThreads, 0, st>>>(part_w, part_b, dw, db, n_parts, cols);

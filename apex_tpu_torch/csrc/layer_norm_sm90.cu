@@ -1,6 +1,9 @@
 // Row LayerNorm forward and backward for Hopper (sm_90a), each row read
-// once and held in registers: the route for fp32 and bf16 x at 1024, 2048
-// and 4096 columns (layer_norm.cu keeps every other width).
+// once and held in registers: the route for fp32, bf16 and fp16 x at 1024,
+// 2048 and 4096 columns (layer_norm.cu keeps every other width).  fp16
+// (amp's half) has entry points of its own, so its launches count apart;
+// it takes bf16's instances (8 values a 16-byte vector), and a y or dx
+// past fp16's range becomes inf, which nothing clamps.
 //
 // Replace the TPU kernels apex_tpu/ops/fused_layer_norm.py::_pallas_ln_fwd
 // (forward: y in x's dtype, the fp32 mean and invvar the backward keeps;
@@ -90,6 +93,27 @@ struct Pack<__nv_bfloat16> {
     __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&v);
 #pragma unroll
     for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
+    return v;
+  }
+};
+
+template <>
+struct Pack<__half> {
+  static constexpr int N = 8;
+  __device__ static void widen(const uint4& v, float* f) {
+    const __half2* h = reinterpret_cast<const __half2*>(&v);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 t = __half22float2(h[i]);
+      f[2 * i] = t.x;
+      f[2 * i + 1] = t.y;
+    }
+  }
+  __device__ static uint4 narrow(const float* f) {
+    uint4 v;
+    __half2* h = reinterpret_cast<__half2*>(&v);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) h[i] = __floats2half2_rn(f[2 * i], f[2 * i + 1]);
     return v;
   }
 };
@@ -436,6 +460,21 @@ int layer_norm_fwd_sm90(int dtype, int device, const void* x, const float* w, co
   return cudaErrorInvalidValue;
 }
 
+// The same forward on fp16 x and y (dtype must be 2).
+int layer_norm_fwd_sm90_f16(int dtype, int device, const void* x, const float* w,
+                            const float* b, void* y, float* mean, float* invvar, int rows,
+                            int cols, float eps, void* stream) {
+  const apex::DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) return guard.error();
+  if (dtype != 2) return cudaErrorInvalidValue;
+  if (rows <= 0) return cudaSuccess;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (cols == 1024) return launch_fwd<__half, 4, 1>(x, w, b, y, mean, invvar, rows, eps, st);
+  if (cols == 2048) return launch_fwd<__half, 8, 1>(x, w, b, y, mean, invvar, rows, eps, st);
+  if (cols == 4096) return launch_fwd<__half, 8, 2>(x, w, b, y, mean, invvar, rows, eps, st);
+  return cudaErrorInvalidValue;
+}
+
 // dx like x; dw, db fp32 [cols] or null (then w, b had none); w fp32 or
 // null; part: fp32 workspace of 2 * ceil(rows / 32) * cols.  Launches the
 // row pass and the column pass in order on `stream`; returns the first
@@ -462,6 +501,25 @@ int layer_norm_bwd_sm90(int dtype, int device, const void* x, const void* dy,
     if (cols == 4096)
       return launch_bwd<float, 4, 8>(x, dy, mean, invvar, w, dx, dw, db, part, rows, st);
   }
+  return cudaErrorInvalidValue;
+}
+
+// The same backward on fp16 x, dy and dx (dtype must be 2).
+int layer_norm_bwd_sm90_f16(int dtype, int device, const void* x, const void* dy,
+                            const float* mean, const float* invvar, const float* w, void* dx,
+                            float* dw, float* db, float* part, int rows, int cols,
+                            void* stream) {
+  const apex::DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) return guard.error();
+  if (dtype != 2) return cudaErrorInvalidValue;
+  if (rows <= 0) return cudaSuccess;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (cols == 1024)
+    return launch_bwd<__half, 2, 2>(x, dy, mean, invvar, w, dx, dw, db, part, rows, st);
+  if (cols == 2048)
+    return launch_bwd<__half, 2, 4>(x, dy, mean, invvar, w, dx, dw, db, part, rows, st);
+  if (cols == 4096)
+    return launch_bwd<__half, 2, 8>(x, dy, mean, invvar, w, dx, dw, db, part, rows, st);
   return cudaErrorInvalidValue;
 }
 

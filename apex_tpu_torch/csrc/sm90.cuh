@@ -1,7 +1,7 @@
 // Hopper building blocks of the tensor-core attention kernels
 // (flash_qkv_fwd_sm90.cu, flash_qkv_bwd_sm90.cu, flash_bwd_sm90.cu), as raw inline PTX for
-// sm_90a: the warpgroup matrix multiply (wgmma.mma_async m64nNk16, bf16 in,
-// fp32 sums) with its shared-memory matrix descriptor and its fence,
+// sm_90a: the warpgroup matrix multiply (wgmma.mma_async m64nNk16, bf16 or
+// fp16 in, fp32 sums) with its shared-memory matrix descriptor and its fence,
 // commit and wait; mbarrier init, arrive, expect-tx and parity wait; TMA
 // tile loads (cp.async.bulk.tensor, 3-D and 4-D); the block-wide segment-id intervals
 // of the tile skip; and, on the host, the encoding of a TMA tensor map by
@@ -39,6 +39,7 @@
 #pragma once
 
 #include <climits>
+#include <type_traits>
 
 #include <cuda.h>
 
@@ -188,103 +189,145 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
+// Two fp32 values rounded (to nearest even) into one register of T pairs:
+// the A fragment's and the stores' packing, T = __nv_bfloat16 or __half.
+// An fp16 overflow becomes inf: nothing clamps it.
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  if constexpr (std::is_same<T, __half>::value) {
+    const __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&v);
+  } else {
+    return pack_bf16(lo, hi);
+  }
+}
+
+template <typename T>
+constexpr bool is_f16 = std::is_same<T, __half>::value;
+
+// The wgmma instructions below, for 16-bit operands T (bf16, the
+// default, or fp16: the same shapes, register layouts and rates); the
+// fp32 accumulator registers as "+f" operands.
+#define SM90_D16(d)                                                                       \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),    \
+      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),          \
+      "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+#define SM90_D32(d)                                                                       \
+  SM90_D16(d), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),          \
+      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]),       \
+      "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+#define SM90_D64(d)                                                                       \
+  SM90_D32(d), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),          \
+      "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),       \
+      "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),       \
+      "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),       \
+      "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),       \
+      "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+#define SM90_R16                                                                          \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15 "
+#define SM90_R32                                                                          \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "                \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31 "
+#define SM90_R64                                                                          \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "                \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "      \
+  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "      \
+  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63 "
+// A and B through descriptors: operands A and B, the accumulate flag ACC,
+// the transpose-B immediate TB (operand numbers, as strings)
+#define SM90_SS(SHAPE, TY, REGS, A, B, ACC, TB)                                           \
+  "{\n.reg .pred p;\nsetp.ne.b32 p, %" ACC ", 0;\n"                                       \
+  "wgmma.mma_async.sync.aligned." SHAPE ".f32." TY "." TY " {" REGS "}, %" A ", %" B      \
+  ", p, 1, 1, 0, %" TB ";\n}\n"
+// A from four registers A0..A3, B through a descriptor, then ACC and TB
+// as above
+#define SM90_RS(SHAPE, TY, REGS, A0, A1, A2, A3, B, ACC, TB)                              \
+  "{\n.reg .pred p;\nsetp.ne.b32 p, %" ACC ", 0;\n"                                       \
+  "wgmma.mma_async.sync.aligned." SHAPE ".f32." TY "." TY " {" REGS "}, {%" A0 ", %" A1   \
+  ", %" A2 ", %" A3 "}, %" B ", p, 1, 1, %" TB ";\n}\n"
+
 // d[64 x 32] (+)= A[64 x 16] B[16 x 32], A and B read through shared-memory
 // descriptors; accumulate 0 overwrites d.
-template <int TRANS_B>
+template <int TRANS_B, typename T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da, uint64_t db,
                                              int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15 "
-      "}, %16, %17, p, 1, 1, 0, %19;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "l"(da), "l"(db), "r"(accumulate), "n"(TRANS_B));
+  if constexpr (is_f16<T>) {
+    asm volatile(SM90_SS("m64n32k16", "f16", SM90_R16, "16", "17", "18", "19")
+                 : SM90_D16(d)
+                 : "l"(da), "l"(db), "r"(accumulate), "n"(TRANS_B));
+  } else {
+    asm volatile(SM90_SS("m64n32k16", "bf16", SM90_R16, "16", "17", "18", "19")
+                 : SM90_D16(d)
+                 : "l"(da), "l"(db), "r"(accumulate), "n"(TRANS_B));
+  }
 }
 
 // d[64 x 64] (+)= A[64 x 16] B[16 x 64], A and B read through shared-memory
 // descriptors; accumulate 0 overwrites d.
-template <int TRANS_B>
+template <int TRANS_B, typename T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db,
                                              int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31 "
-      "}, %32, %33, p, 1, 1, 0, %35;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(accumulate), "n"(TRANS_B));
+  if constexpr (is_f16<T>) {
+    asm volatile(SM90_SS("m64n64k16", "f16", SM90_R32, "32", "33", "34", "35")
+                 : SM90_D32(d)
+                 : "l"(da), "l"(db), "r"(accumulate), "n"(TRANS_B));
+  } else {
+    asm volatile(SM90_SS("m64n64k16", "bf16", SM90_R32, "32", "33", "34", "35")
+                 : SM90_D32(d)
+                 : "l"(da), "l"(db), "r"(accumulate), "n"(TRANS_B));
+  }
 }
 
 // d[64 x 128] (+)= A[64 x 16] B[16 x 128], A and B read through shared-memory
 // descriptors; accumulate 0 overwrites d.
-template <int TRANS_B>
+template <int TRANS_B, typename T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db,
-                                             int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63 "
-      "}, %64, %65, p, 1, 1, 0, %67;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(accumulate), "n"(TRANS_B));
+                                              int accumulate) {
+  if constexpr (is_f16<T>) {
+    asm volatile(SM90_SS("m64n128k16", "f16", SM90_R64, "64", "65", "66", "67")
+                 : SM90_D64(d)
+                 : "l"(da), "l"(db), "r"(accumulate), "n"(TRANS_B));
+  } else {
+    asm volatile(SM90_SS("m64n128k16", "bf16", SM90_R64, "64", "65", "66", "67")
+                 : SM90_D64(d)
+                 : "l"(da), "l"(db), "r"(accumulate), "n"(TRANS_B));
+  }
 }
 
 // d[64 x 64] (+)= A[64 x 16] B[16 x 64], A from registers (the m16n8k16
-// A fragment of each warp's 16 rows, bf16 pairs), B through a descriptor.
-template <int TRANS_B>
+// A fragment of each warp's 16 rows, T pairs), B through a descriptor.
+template <int TRANS_B, typename T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
                                             uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31 "
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate), "n"(TRANS_B));
+  if constexpr (is_f16<T>) {
+    asm volatile(SM90_RS("m64n64k16", "f16", SM90_R32, "32", "33", "34", "35", "36", "37", "38")
+                 : SM90_D32(d)
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate),
+                   "n"(TRANS_B));
+  } else {
+    asm volatile(SM90_RS("m64n64k16", "bf16", SM90_R32, "32", "33", "34", "35", "36", "37", "38")
+                 : SM90_D32(d)
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate),
+                   "n"(TRANS_B));
+  }
 }
 
 // d[64 x 128] (+)= A[64 x 16] B[16 x 128], A from registers (the m16n8k16
-// A fragment of each warp's 16 rows, bf16 pairs), B through a descriptor.
-template <int TRANS_B>
+// A fragment of each warp's 16 rows, T pairs), B through a descriptor.
+template <int TRANS_B, typename T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4],
                                              uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63 "
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate), "n"(TRANS_B));
+  if constexpr (is_f16<T>) {
+    asm volatile(SM90_RS("m64n128k16", "f16", SM90_R64, "64", "65", "66", "67", "68", "69", "70")
+                 : SM90_D64(d)
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate),
+                   "n"(TRANS_B));
+  } else {
+    asm volatile(SM90_RS("m64n128k16", "bf16", SM90_R64, "64", "65", "66", "67", "68", "69", "70")
+                 : SM90_D64(d)
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate),
+                   "n"(TRANS_B));
+  }
 }
 
 // -- the segment-id tile skip (the _segment_block_bounds rule) -----------------
@@ -393,12 +436,21 @@ inline EncodeTiled encoder() {
   return fn;
 }
 
-// A bf16 [batch, rows, width] tensor (contiguous) as a 3-D TMA map whose
-// boxes are 64 columns by box_rows rows of one batch entry, 128-byte
-// swizzle.  Rows past `rows` read as zeros, so a ragged last tile never
-// sees the next batch entry's tokens.
+// The TMA element type of a 16-bit T (bf16, or fp16: the same 2 bytes,
+// so every stride and box below holds for both).
+template <typename T>
+constexpr CUtensorMapDataType tma_type() {
+  return std::is_same<T, __half>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                        : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+}
+
+// A bf16 (or, by `dtype`, fp16) [batch, rows, width] tensor (contiguous)
+// as a 3-D TMA map whose boxes are 64 columns by box_rows rows of one
+// batch entry, 128-byte swizzle.  Rows past `rows` read as zeros, so a
+// ragged last tile never sees the next batch entry's tokens.
 inline cudaError_t bf16_map(CUtensorMap* map, const void* base, int batch, int rows,
-                            int64_t width, int box_rows) {
+                            int64_t width, int box_rows,
+                            CUtensorMapDataType dtype = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   const EncodeTiled encode = encoder();
   if (encode == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(width), static_cast<cuuint64_t>(rows),
@@ -407,7 +459,7 @@ inline cudaError_t bf16_map(CUtensorMap* map, const void* base, int batch, int r
                                  static_cast<cuuint64_t>(width) * 2 * rows};
   const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(box_rows), 1};
   const cuuint32_t elem[3] = {1, 1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
+  const CUresult r = encode(map, dtype, 3, const_cast<void*>(base),
                             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
                             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

@@ -131,8 +131,11 @@ def setup(argv=None, device=None):
             "gradient accumulation is not wired in this example")
     dev = resolve_device(device)
     if dev.type == "cuda":
-        # bf16 GEMMs reduce in fp32, as the TPU's MXU passes do
+        # bf16 and fp16 GEMMs reduce in fp32, as the TPU's MXU passes and
+        # the JAX package's fp32-accumulated products do
         torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+            False
+        torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = \
             False
     cfg = build_config(args)
     model = GPTModel(cfg, device=dev, seed=args.seed)

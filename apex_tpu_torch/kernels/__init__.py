@@ -22,6 +22,10 @@ _strides = ctypes.POINTER(ctypes.c_int64)
 
 #: the element types every kernel is built for, as its ``dtype`` argument
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+#: fp16 (amp's half), taken only by the instances of K3, K4, K6 and K7 that
+#: carry ``_f16`` in their names (their ``dtype`` argument, where they have
+#: one, is this code); every other kernel refuses it
+FP16_CODE = 2
 
 #: flash_fwd.cu — flash attention forward (the prefill's attention and the
 #: generic ``flash_attention``)
@@ -178,6 +182,13 @@ FLASH_QKV_FWD_SM90 = Kernel("flash_qkv_fwd_sm90.cu", "flash_qkv_fwd_sm90",
 FLASH_QKV_FWD_SM90_D64 = Kernel("flash_qkv_fwd_sm90.cu",
                                 "flash_qkv_fwd_sm90_d64",
                                 _FLASH_QKV_FWD_SM90_ARGS)
+#: the same forward's fp16 instances (amp's half), head dims 128 and 64
+FLASH_QKV_FWD_SM90_F16 = Kernel("flash_qkv_fwd_sm90.cu",
+                                "flash_qkv_fwd_sm90_f16",
+                                _FLASH_QKV_FWD_SM90_ARGS)
+FLASH_QKV_FWD_SM90_D64_F16 = Kernel("flash_qkv_fwd_sm90.cu",
+                                    "flash_qkv_fwd_sm90_d64_f16",
+                                    _FLASH_QKV_FWD_SM90_ARGS)
 
 #: flash_qkv_bwd_sm90.cu — its backward on the tensor cores: the bf16
 #: route, head dims 128 and 64 as the forward
@@ -196,41 +207,52 @@ FLASH_QKV_BWD_SM90 = Kernel("flash_qkv_bwd_sm90.cu", "flash_qkv_bwd_sm90",
 FLASH_QKV_BWD_SM90_D64 = Kernel("flash_qkv_bwd_sm90.cu",
                                 "flash_qkv_bwd_sm90_d64",
                                 _FLASH_QKV_BWD_SM90_ARGS)
+#: its fp16 instances, head dims 128 and 64
+FLASH_QKV_BWD_SM90_F16 = Kernel("flash_qkv_bwd_sm90.cu",
+                                "flash_qkv_bwd_sm90_f16",
+                                _FLASH_QKV_BWD_SM90_ARGS)
+FLASH_QKV_BWD_SM90_D64_F16 = Kernel("flash_qkv_bwd_sm90.cu",
+                                    "flash_qkv_bwd_sm90_d64_f16",
+                                    _FLASH_QKV_BWD_SM90_ARGS)
 
 #: layer_norm.cu — row LayerNorm forward (y, mean, invvar)
-LAYER_NORM_FWD = Kernel("layer_norm.cu", "layer_norm_fwd", [
+_LN_FWD_ARGS = [
     _i, _i,                     # dtype, device
     _p, _p, _p,                 # x, weight, bias
     _p, _p, _p,                 # y, mean, invvar
     _i, _i, _f, _p,             # rows, cols, eps, stream
-])
+]
+LAYER_NORM_FWD = Kernel("layer_norm.cu", "layer_norm_fwd", _LN_FWD_ARGS)
 
 #: layer_norm.cu — its backward (dx; dweight, dbias by ordered partials)
-LAYER_NORM_BWD = Kernel("layer_norm.cu", "layer_norm_bwd", [
+_LN_BWD_ARGS = [
     _i, _i,                     # dtype, device
     _p, _p, _p, _p, _p,         # x, dy, mean, invvar, weight
     _p, _p, _p, _p,             # dx, dweight, dbias, partials (scratch)
     _i, _i, _p,                 # rows, cols, stream
-])
+]
+LAYER_NORM_BWD = Kernel("layer_norm.cu", "layer_norm_bwd", _LN_BWD_ARGS)
+#: layer_norm.cu's fp16 instances (dtype FP16_CODE)
+LAYER_NORM_FWD_F16 = Kernel("layer_norm.cu", "layer_norm_fwd_f16",
+                            _LN_FWD_ARGS)
+LAYER_NORM_BWD_F16 = Kernel("layer_norm.cu", "layer_norm_bwd_f16",
+                            _LN_BWD_ARGS)
 
 #: layer_norm_sm90.cu — the same forward with each row read once into
 #: registers: the route for fp32 and bf16 at 1024, 2048 and 4096 columns
 #: (layer_norm.cu keeps every other width)
-LAYER_NORM_FWD_SM90 = Kernel("layer_norm_sm90.cu", "layer_norm_fwd_sm90", [
-    _i, _i,                     # dtype, device
-    _p, _p, _p,                 # x, weight, bias
-    _p, _p, _p,                 # y, mean, invvar
-    _i, _i, _f, _p,             # rows, cols, eps, stream
-])
+LAYER_NORM_FWD_SM90 = Kernel("layer_norm_sm90.cu", "layer_norm_fwd_sm90",
+                             _LN_FWD_ARGS)
 
 #: layer_norm_sm90.cu — its backward (one pass over x and dy; dweight,
 #: dbias summed on chip a block, then over the blocks in a fixed order)
-LAYER_NORM_BWD_SM90 = Kernel("layer_norm_sm90.cu", "layer_norm_bwd_sm90", [
-    _i, _i,                     # dtype, device
-    _p, _p, _p, _p, _p,         # x, dy, mean, invvar, weight
-    _p, _p, _p, _p,             # dx, dweight, dbias, partials (scratch)
-    _i, _i, _p,                 # rows, cols, stream
-])
+LAYER_NORM_BWD_SM90 = Kernel("layer_norm_sm90.cu", "layer_norm_bwd_sm90",
+                             _LN_BWD_ARGS)
+#: layer_norm_sm90.cu's fp16 instances (dtype FP16_CODE)
+LAYER_NORM_FWD_SM90_F16 = Kernel("layer_norm_sm90.cu",
+                                 "layer_norm_fwd_sm90_f16", _LN_FWD_ARGS)
+LAYER_NORM_BWD_SM90_F16 = Kernel("layer_norm_sm90.cu",
+                                 "layer_norm_bwd_sm90_f16", _LN_BWD_ARGS)
 
 #: flat_adam.cu — Adam / AdamW over one span of a flat fp32 superblock
 FLAT_ADAM = Kernel("flat_adam.cu", "flat_adam", [
@@ -271,10 +293,13 @@ KERNELS = (FLASH_FWD, FLASH_FWD_SM90, FLASH_BWD, FLASH_BWD_SM90, FLASH_DECODE,
            FLASH_DECODE_SM90, FLASH_DECODE_SM90_INT8, FLASH_DECODE_SM90_FP8,
            FLASH_QKV_FWD, FLASH_QKV_BWD, FLASH_QKV_FWD_SM90, FLASH_QKV_BWD_SM90,
            FLASH_QKV_FWD_D64, FLASH_QKV_BWD_D64, FLASH_QKV_FWD_SM90_D64,
-           FLASH_QKV_BWD_SM90_D64,
+           FLASH_QKV_BWD_SM90_D64, FLASH_QKV_FWD_SM90_F16,
+           FLASH_QKV_BWD_SM90_F16, FLASH_QKV_FWD_SM90_D64_F16,
+           FLASH_QKV_BWD_SM90_D64_F16,
            LAYER_NORM_FWD, LAYER_NORM_BWD, LAYER_NORM_FWD_SM90,
-           LAYER_NORM_BWD_SM90, FLAT_ADAM, HBM_COPY, ATTENTION_DOTS,
-           ATTENTION_DOTS_SM90)
+           LAYER_NORM_BWD_SM90, LAYER_NORM_FWD_F16, LAYER_NORM_BWD_F16,
+           LAYER_NORM_FWD_SM90_F16, LAYER_NORM_BWD_SM90_F16, FLAT_ADAM,
+           HBM_COPY, ATTENTION_DOTS, ATTENTION_DOTS_SM90)
 
 
 def reset_launch_counts() -> None:
@@ -283,6 +308,10 @@ def reset_launch_counts() -> None:
 
 
 __all__ = ["NvccError", "Kernel", "build_all", "build_log", "DTYPE_CODES",
+           "FP16_CODE", "FLASH_QKV_FWD_SM90_F16", "FLASH_QKV_BWD_SM90_F16",
+           "FLASH_QKV_FWD_SM90_D64_F16", "FLASH_QKV_BWD_SM90_D64_F16",
+           "LAYER_NORM_FWD_F16", "LAYER_NORM_BWD_F16",
+           "LAYER_NORM_FWD_SM90_F16", "LAYER_NORM_BWD_SM90_F16",
            "FLASH_FWD", "FLASH_FWD_SM90", "FLASH_BWD", "FLASH_BWD_SM90",
            "FLASH_DECODE", "FLASH_DECODE_SM90", "FLASH_DECODE_SM90_INT8",
            "FLASH_DECODE_SM90_FP8", "FLASH_QKV_FWD", "FLASH_QKV_BWD",

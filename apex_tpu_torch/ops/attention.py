@@ -17,9 +17,11 @@ public function has two implementations of one contract:
   quantized int8 and fp8 pools) and ``csrc/flash_decode.cu`` (the fp32
   pool, head dim 8) in place of ``_flash_decode_pallas``,
   ``csrc/flash_qkv_fwd_sm90.cu`` and ``csrc/flash_qkv_bwd_sm90.cu``
-  (bf16, on the tensor cores) and ``csrc/flash_qkv_fwd.cu`` and
+  (bf16 and fp16, on the tensor cores) and ``csrc/flash_qkv_fwd.cu`` and
   ``csrc/flash_qkv_bwd.cu`` (fp32), each at head dims 64 and 128, in
-  place of ``_flash_qkv_fwd_pallas`` and ``_flash_qkv_bwd_pallas``;
+  place of ``_flash_qkv_fwd_pallas`` and ``_flash_qkv_bwd_pallas``.
+  fp16 (amp's half) reaches only these two; every other kernel refuses
+  it with a ``TypeError``;
 * a plain PyTorch version with the JAX package's math
   (:func:`_blockwise_fwd` for ``_blockwise_fwd_xla``,
   :func:`_blockwise_bwd` for ``_blockwise_bwd_xla``,
@@ -57,9 +59,13 @@ from apex_tpu_torch.kernels import (DTYPE_CODES, FLASH_BWD, FLASH_BWD_SM90,
                                     FLASH_DECODE_SM90_INT8, FLASH_FWD,
                                     FLASH_FWD_SM90, FLASH_QKV_BWD,
                                     FLASH_QKV_BWD_D64, FLASH_QKV_BWD_SM90,
-                                    FLASH_QKV_BWD_SM90_D64, FLASH_QKV_FWD,
+                                    FLASH_QKV_BWD_SM90_D64,
+                                    FLASH_QKV_BWD_SM90_D64_F16,
+                                    FLASH_QKV_BWD_SM90_F16, FLASH_QKV_FWD,
                                     FLASH_QKV_FWD_D64, FLASH_QKV_FWD_SM90,
-                                    FLASH_QKV_FWD_SM90_D64)
+                                    FLASH_QKV_FWD_SM90_D64,
+                                    FLASH_QKV_FWD_SM90_D64_F16,
+                                    FLASH_QKV_FWD_SM90_F16)
 
 _NEG_INF = -1e30
 
@@ -1092,20 +1098,29 @@ def _flash_qkv_bwd_plain(qkv, dctx, ctx, lse, seg_q, seg_k, num_heads,
 
 
 #: the packed kernels' instances, (forward, backward) by (route, head
-#: dim): bf16 runs the tensor-core sources, fp32 the scalar ones; each
-#: instance is an entry point of its own, so its launches count apart
+#: dim): bf16 and fp16 (amp's half) run the tensor-core sources, fp32 the
+#: scalar ones; each instance is an entry point of its own, so its
+#: launches count apart
 QKV_KERNELS = {("sm90", 128): (FLASH_QKV_FWD_SM90, FLASH_QKV_BWD_SM90),
                ("sm90", 64): (FLASH_QKV_FWD_SM90_D64, FLASH_QKV_BWD_SM90_D64),
+               ("sm90_f16", 128): (FLASH_QKV_FWD_SM90_F16,
+                                   FLASH_QKV_BWD_SM90_F16),
+               ("sm90_f16", 64): (FLASH_QKV_FWD_SM90_D64_F16,
+                                  FLASH_QKV_BWD_SM90_D64_F16),
                ("scalar", 128): (FLASH_QKV_FWD, FLASH_QKV_BWD),
                ("scalar", 64): (FLASH_QKV_FWD_D64, FLASH_QKV_BWD_D64)}
 QKV_HEAD_DIMS = tuple(sorted({hn for _, hn in QKV_KERNELS}))
+#: the dtypes the packed kernels take: fp32 and bf16 as every kernel, and
+#: fp16, which only these (and the LayerNorms) take
+QKV_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 
 
 def _qkv_route(dtype: torch.dtype) -> str:
-    """bf16 on the tensor cores; fp32 on the scalar kernels (the tensor
-    cores take no fp32 operands, and TF32 would not meet the fp32
-    contract)."""
-    return "sm90" if dtype == torch.bfloat16 else "scalar"
+    """bf16 and fp16 on the tensor cores (``"sm90"``, ``"sm90_f16"``);
+    fp32 on the scalar kernels (the tensor cores take no fp32 operands,
+    and TF32 would not meet the fp32 contract)."""
+    return {torch.bfloat16: "sm90", torch.float16: "sm90_f16"}.get(
+        dtype, "scalar")
 
 
 def _qkv_kernel_args(qkv, seg_q, seg_k, num_heads):
@@ -1113,9 +1128,9 @@ def _qkv_kernel_args(qkv, seg_q, seg_k, num_heads):
     pointers, seg_div)."""
     b, s, w = qkv.shape
     hn = w // (3 * num_heads)
-    if qkv.dtype not in _KERNEL_DTYPES:
-        raise TypeError(f"the packed-QKV kernels take float32 or bfloat16, "
-                        f"got {qkv.dtype}")
+    if qkv.dtype not in QKV_DTYPES:
+        raise TypeError(f"the packed-QKV kernels take float32, bfloat16 or "
+                        f"float16, got {qkv.dtype}")
     if hn not in QKV_HEAD_DIMS:
         raise ValueError(f"the packed-QKV kernels are built for head dims "
                          f"{QKV_HEAD_DIMS}, got {hn}")
@@ -1131,19 +1146,20 @@ def _qkv_kernel_args(qkv, seg_q, seg_k, num_heads):
     return hn, (seg_q, seg_k), (b * num_heads) // seg_q.shape[0]
 
 
-#: the tiles the bf16 packed backward walks (csrc/flash_qkv_bwd_sm90.cu):
-#: (query rows, key columns) of its dk/dv pass and of its dq pass, the
-#: same at head dims 64 and 128
+#: the tiles the tensor-core packed backward walks
+#: (csrc/flash_qkv_bwd_sm90.cu): (query rows, key columns) of its dk/dv
+#: pass and of its dq pass, the same at head dims 64 and 128, bf16 and
+#: fp16
 QKV_SM90_BWD_TILES = {"dkdv": (32, 128), "dq": (128, 64)}
 
 
 def _flash_qkv_fwd_cuda(qkv, seg_q, seg_k, num_heads, scale, causal,
                         dropout_rate, dropout_seed):
     """Launch the packed forward; same contract as
-    :func:`_flash_qkv_fwd_plain`.  A bf16 qkv runs
+    :func:`_flash_qkv_fwd_plain`.  A bf16 or fp16 qkv runs
     ``flash_qkv_fwd_sm90.cu`` (wgmma and TMA), an fp32 one
-    ``flash_qkv_fwd.cu`` (scalar FMAs), each at its head dim's instance
-    (:data:`QKV_KERNELS`)."""
+    ``flash_qkv_fwd.cu`` (scalar FMAs), each at its dtype's and head
+    dim's instance (:data:`QKV_KERNELS`)."""
     b, s, _ = qkv.shape
     hn, segs, seg_div = _qkv_kernel_args(qkv, seg_q, seg_k, num_heads)
     seed, thresh, keep, _ = _dropout_launch_args(dropout_rate, dropout_seed)
@@ -1157,7 +1173,7 @@ def _flash_qkv_fwd_cuda(qkv, seg_q, seg_k, num_heads, scale, causal,
             torch.cuda.current_stream(qkv.device).cuda_stream)
     route = _qkv_route(qkv.dtype)
     kernel = QKV_KERNELS[route, hn][0]
-    if route == "sm90":
+    if route != "scalar":
         kernel(hn, qkv.device.index, *head)
     else:
         kernel(_KERNEL_DTYPES[qkv.dtype], hn, qkv.device.index, *head)
@@ -1168,10 +1184,10 @@ def _flash_qkv_bwd_cuda(qkv, dctx, ctx, lse, seg_q, seg_k, num_heads,
                         scale, causal, dropout_rate, dropout_seed,
                         visits=None):
     """Launch the packed backward; same contract as
-    :func:`_flash_qkv_bwd_plain`.  A bf16 qkv runs
+    :func:`_flash_qkv_bwd_plain`.  A bf16 or fp16 qkv runs
     ``flash_qkv_bwd_sm90.cu``, an fp32 one ``flash_qkv_bwd.cu`` (as the
     forward).  ``visits`` (int32 on the card, or None) takes the tiles each
-    block of the bf16 kernel walked: [b*np*ceil(s/128)] for its dk/dv pass,
+    block of the tensor-core kernel walked: [b*np*ceil(s/128)] for its dk/dv pass,
     then [b*np*ceil(s/128)] for its dq pass (tiles of
     :data:`QKV_SM90_BWD_TILES`)."""
     b, s, _ = qkv.shape
@@ -1193,7 +1209,7 @@ def _flash_qkv_bwd_cuda(qkv, dctx, ctx, lse, seg_q, seg_k, num_heads,
             torch.cuda.current_stream(qkv.device).cuda_stream)
     route = _qkv_route(qkv.dtype)
     kernel = QKV_KERNELS[route, hn][1]
-    if route == "sm90":
+    if route != "scalar":
         if visits is not None:
             n = -(-s // QKV_SM90_BWD_TILES["dkdv"][1])
             n += -(-s // QKV_SM90_BWD_TILES["dq"][0])
@@ -1205,7 +1221,8 @@ def _flash_qkv_bwd_cuda(qkv, dctx, ctx, lse, seg_q, seg_k, num_heads,
                None if visits is None else visits.data_ptr(), *tail)
     else:
         if visits is not None:
-            raise ValueError("visits are counted by the bf16 kernel only")
+            raise ValueError("visits are counted by the tensor-core kernel "
+                             "only")
         kernel(_KERNEL_DTYPES[qkv.dtype], hn, qkv.device.index, *ptrs, *tail)
     return dqkv
 
@@ -1291,8 +1308,8 @@ def flash_attention_qkv(
     ``b*num_heads + head``.  ``segment_ids``: int [s] or [b, s] packing
     ids, or a ``(seg_q, seg_k)`` pair of those; scores across segments are
     masked.  CUDA tensors run the kernels (head dims 64 and 128): bf16
-    ones ``csrc/flash_qkv_fwd_sm90.cu`` and ``csrc/flash_qkv_bwd_sm90.cu``
-    on the tensor cores, fp32 ones ``csrc/flash_qkv_fwd.cu`` and
+    and fp16 ones ``csrc/flash_qkv_fwd_sm90.cu`` and
+    ``csrc/flash_qkv_bwd_sm90.cu`` on the tensor cores, fp32 ones ``csrc/flash_qkv_fwd.cu`` and
     ``csrc/flash_qkv_bwd.cu``; CPU tensors run the plain versions."""
     b, s, three_h = qkv.shape
     hn = three_h // (3 * num_heads)

@@ -7,12 +7,13 @@ invvar)`` for the backward and returns the output in x's dtype (the
 dweight/dbias).  Each direction has two implementations of one contract:
 
 * kernels written by hand for Hopper, for CUDA tensors, in place of the
-  TPU kernels ``_pallas_ln_fwd`` and ``_pallas_ln_bwd``: fp32 and bf16
-  rows at :data:`SM90_WIDTHS` columns run ``csrc/layer_norm_sm90.cu``
+  TPU kernels ``_pallas_ln_fwd`` and ``_pallas_ln_bwd``: fp32, bf16 and
+  fp16 rows at :data:`SM90_WIDTHS` columns run ``csrc/layer_norm_sm90.cu``
   (``layer_norm_fwd_sm90``, ``layer_norm_bwd_sm90``: each row read once
   into registers), every other width ``csrc/layer_norm.cu``
-  (``layer_norm_fwd``, ``layer_norm_bwd``); :func:`_ln_route` names the
-  route from the dtype and the width alone;
+  (``layer_norm_fwd``, ``layer_norm_bwd``); fp16 (amp's half) has entry
+  points of its own in both (``..._f16``), so its launches count apart;
+  :func:`_ln_route` names the route from the dtype and the width alone;
 * a plain PyTorch version with the JAX package's math
   (:func:`_ln_fwd_plain` for ``_xla_ln_fwd``, :func:`_ln_bwd_plain` for
   the XLA backward of ``_layer_norm_bwd``), for CPU tensors.
@@ -28,11 +29,17 @@ from typing import Optional
 import torch
 from torch import nn
 
-from apex_tpu_torch.kernels import DTYPE_CODES as _KERNEL_DTYPES
-from apex_tpu_torch.kernels import (LAYER_NORM_BWD, LAYER_NORM_BWD_SM90,
-                                    LAYER_NORM_FWD, LAYER_NORM_FWD_SM90)
+from apex_tpu_torch.kernels import DTYPE_CODES, FP16_CODE
+from apex_tpu_torch.kernels import (LAYER_NORM_BWD, LAYER_NORM_BWD_F16,
+                                    LAYER_NORM_BWD_SM90,
+                                    LAYER_NORM_BWD_SM90_F16, LAYER_NORM_FWD,
+                                    LAYER_NORM_FWD_F16, LAYER_NORM_FWD_SM90,
+                                    LAYER_NORM_FWD_SM90_F16)
 
-#: the widths ``layer_norm_sm90.cu`` has instances of, for fp32 and bf16 x
+#: the dtypes the LayerNorm kernels take, as their ``dtype`` argument
+_KERNEL_DTYPES = {**DTYPE_CODES, torch.float16: FP16_CODE}
+#: the widths ``layer_norm_sm90.cu`` has instances of, for fp32, bf16 and
+#: fp16 x
 SM90_WIDTHS = (1024, 2048, 4096)
 #: rows per dgamma/dbeta partial of either backward (``layer_norm.cu``'s
 #: kRowsPerBlock, ``layer_norm_sm90.cu``'s kBwdRowsPerBlock)
@@ -42,12 +49,23 @@ _SM90_LANE_COLS = 16     # its backward's columns a lane (kBwdLaneCols)
 
 
 def _ln_route(dtype: torch.dtype, cols: int) -> str:
-    """``"sm90"`` (``layer_norm_sm90.cu``) for fp32 and bf16 at
+    """``"sm90"`` (``layer_norm_sm90.cu``) for fp32, bf16 and fp16 at
     :data:`SM90_WIDTHS` columns, else ``"rows"`` (``layer_norm.cu``,
     which :func:`_check_rows` holds to its own limits)."""
     if dtype in _KERNEL_DTYPES and cols in SM90_WIDTHS:
         return "sm90"
     return "rows"
+
+
+def _ln_kernels(x2d: torch.Tensor) -> tuple:
+    """(forward, backward) kernels of x's route; fp16 has entry points of
+    its own in both sources."""
+    f16 = x2d.dtype == torch.float16
+    if _ln_route(x2d.dtype, x2d.shape[1]) == "sm90":
+        return ((LAYER_NORM_FWD_SM90_F16, LAYER_NORM_BWD_SM90_F16) if f16
+                else (LAYER_NORM_FWD_SM90, LAYER_NORM_BWD_SM90))
+    return ((LAYER_NORM_FWD_F16, LAYER_NORM_BWD_F16) if f16
+            else (LAYER_NORM_FWD, LAYER_NORM_BWD))
 
 
 def ln_bwd_partition(rows: int, dtype: torch.dtype, cols: int) -> list:
@@ -104,11 +122,11 @@ def _ln_bwd_plain(x2d, dy, mean, invvar, weight, has_bias):
 
 
 def _check_rows(x2d: torch.Tensor, name: str = "x") -> None:
-    """What both kernels take: fp32 or bf16 rows of whole 16-byte
+    """What both kernels take: fp32, bf16 or fp16 rows of whole 16-byte
     vectors, 16-byte aligned."""
     if x2d.dtype not in _KERNEL_DTYPES:
-        raise TypeError(f"the LayerNorm kernels take float32 or bfloat16 "
-                        f"{name}, got {x2d.dtype}")
+        raise TypeError(f"the LayerNorm kernels take float32, bfloat16 or "
+                        f"float16 {name}, got {x2d.dtype}")
     if x2d.shape[1] % (16 // x2d.element_size()):
         raise ValueError(f"the LayerNorm kernels read 16-byte vectors: cols "
                          f"{x2d.shape[1]} must be a multiple of "
@@ -144,8 +162,7 @@ def _ln_fwd_cuda(x2d, weight, bias, eps):
     y = torch.empty_like(x2d)
     mean = torch.empty(rows, dtype=torch.float32, device=x2d.device)
     invvar = torch.empty_like(mean)
-    kernel = (LAYER_NORM_FWD_SM90 if _ln_route(x2d.dtype, cols) == "sm90"
-              else LAYER_NORM_FWD)
+    kernel = _ln_kernels(x2d)[0]
     kernel(_KERNEL_DTYPES[x2d.dtype], x2d.device.index, x2d.data_ptr(),
            _ptr(w), _ptr(b), y.data_ptr(), mean.data_ptr(), invvar.data_ptr(),
            rows, cols, eps, _stream(x2d.device))
@@ -167,8 +184,7 @@ def _ln_bwd_cuda(x2d, dy, mean, invvar, weight, has_bias):
           if has_bias else None)
     part = torch.empty(ln_bwd_workspace(rows, cols), dtype=torch.float32,
                        device=x2d.device)
-    kernel = (LAYER_NORM_BWD_SM90 if _ln_route(x2d.dtype, cols) == "sm90"
-              else LAYER_NORM_BWD)
+    kernel = _ln_kernels(x2d)[1]
     kernel(_KERNEL_DTYPES[x2d.dtype], x2d.device.index, x2d.data_ptr(),
            dy.data_ptr(), mean.data_ptr(), invvar.data_ptr(), _ptr(w),
            dx.data_ptr(), _ptr(dw), _ptr(db), part.data_ptr(), rows, cols,

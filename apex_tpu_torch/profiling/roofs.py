@@ -37,10 +37,11 @@ from apex_tpu_torch.ops._gemm import mm_f32
 from apex_tpu_torch.profiling.timing import ROOF_STEPS, device_time_ms
 
 #: H100 SXM peaks (NVIDIA data sheet, dense, at the full 700 W): HBM
-#: bytes/s, and flop/s by input type (bf16 on the tensor cores, fp32 on
-#: the FMA units)
+#: bytes/s, and flop/s by input type (bf16 and fp16 on the tensor cores,
+#: fp32 on the FMA units)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float16: 989e12,
+              torch.float32: 67e12}
 
 Device = Optional[Union[str, torch.device]]
 

@@ -31,7 +31,9 @@ re-creates its generator, so the recompute redraws the same masks.
 Not ported (raise ``NotImplementedError``): tensor parallelism above 1,
 the non-flash attention path, the MoE MLP, remat policies other than
 ``attn_res`` and ``full``, attention masks other than key padding (the
-fused-softmax path), fp16 on the card.
+fused-softmax path).  fp16 (``cfg.fp16``, amp's half) runs on the card
+through the fp16 instances of the packed-attention and LayerNorm
+kernels.
 """
 
 from __future__ import annotations
@@ -111,8 +113,6 @@ def _refuse_unported(cfg: GPTConfig, device: torch.device) -> None:
         unported.append(f"num_experts={cfg.num_experts} (the MoE MLP)")
     if cfg.remat and cfg.remat_policy not in REMAT_POLICIES:
         unported.append(f"remat_policy={cfg.remat_policy!r}")
-    if cfg.fp16 and device.type == "cuda":
-        unported.append("fp16 on the card (the kernels take fp32 or bf16)")
     if unported:
         raise NotImplementedError(
             "not ported to apex_tpu_torch (ROADMAP.md): " + ", ".join(unported))

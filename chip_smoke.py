@@ -7,7 +7,8 @@ Drives the port only (it imports neither ``jax`` nor ``apex_tpu``).
 It covers the six ported paths: the serving engine (phases 4-5, its
 speculative, chunked and prefix-sharing modes in phases 4 and 15, and its
 state, page integrity and telemetry in phase 16), the GPT
-training step of ``pretrain_gpt`` (phases 6-7), the contrib multi-head
+training step of ``pretrain_gpt`` (phases 6-7; under amp, O0 and O2 in
+bf16 and fp16 with the fused optimizers, in phase 17), the contrib multi-head
 attention training path (phases 8-9), GPT training on the flat
 superblock with ``FlatFusedAdam`` (phases 10-11), the kernel
 microbenches with their HBM roof and attention dot floor (phase 12) and
@@ -26,8 +27,9 @@ Phases, each of which fails the run (non-zero exit) on error:
    ``layer_norm_sm90.cu``, whose rows and dgamma/dbeta sums live in
    registers, must show no spill or stack either, nor K5's
    ``flash_decode_sm90.cu``, whose SASS must hold 16-byte global loads
-   (``LDG.E.128``); K3/K4's head-dim-64 instances (BERT-large) must all
-   be built, four of each kernel, each with ``HGMMA`` and ``UTMALDG`` in
+   (``LDG.E.128``); K3/K4's head-dim-64 instances (BERT-large) and their
+   fp16 instances (amp's half) at head dims 128 and 64 must all be built,
+   four of each kernel at each, each with ``HGMMA`` and ``UTMALDG`` in
    its own SASS;
 3. kernels — each kernel against its plain PyTorch version on the card,
    at its main path's shapes (bf16; the training kernels with and without
@@ -55,7 +57,11 @@ Phases, each of which fails the run (non-zero exit) on error:
    bf16 to the tensor-core kernels, held to their plain versions causal
    and not, with segment ids, and at a ragged s = 1000, run twice
    (bitwise), with K4's tiles walked against :func:`flash_bwd_tiles` at
-   its own tiles; fp32 to the scalar kernels.  The scalar kernels' bf16
+   its own tiles; fp32 to the scalar kernels; fp16 to the tensor-core
+   kernels' own instances, held to the fp16 bar (2^-10 x max|ref|) causal
+   with and without dropout, with segment ids at a ragged s = 1000 and at
+   the padded BERT-large batch, run twice (bitwise) with their tiles
+   walked, and timed beside SDPA at fp16.  The scalar kernels' bf16
    instances are timed against the tensor-core ones, cold and in turns
    (``timed_pair``).  Each case names the instance that ran: head dim 128
    (GPT) or 64 (BERT-large), one entry point each.  At head dim 64, not
@@ -93,7 +99,10 @@ Phases, each of which fails the run (non-zero exit) on error:
    the MHA decoder's rows, a ragged row count, no weight or bias, fp32 at
    4096 with ragged rows and bf16 at 1536 (the old route), the new route's
    cases run twice (bitwise); the two routes are timed against each
-   other at the GPT-1.3B shape, cold and in turns.  K8 (``flat_adam``) runs
+   other at the GPT-1.3B shape, cold and in turns; fp16 takes each
+   route's own instances (the GPT-1.3B shape, ragged rows, no weight, and
+   1536 on ``layer_norm.cu``), timed the same way beside ``F.layer_norm``
+   at fp16.  K8 (``flat_adam``) runs
    over the GPT-1.3B superblock (its init weights) and must give its plain version's bits for p, m and v over 3
    steps in four variants (AdamW decay 0.01, L2 decay 0.05, decay 0, no
    bias correction); a ``plan_buckets`` walk and a hand-built 3-span walk
@@ -273,6 +282,31 @@ Phases, each of which fails the run (non-zero exit) on error:
     and int8 pools, bitwise equal to the colocated engine, K1 only on the
     prefill side and K5 only on the decode side, a flipped byte refused
     with the engine unchanged, export and import ms a page.
+17. GPT training under amp — a toy GPT (2 layers, hidden 128, 2 heads of
+    64, so K3/K4 take their head-dim-64 instances) trained four steps on
+    one batch by ``AmpTrainer`` (``amp.initialize``, ``master_params``,
+    ``cast_model``, ``scaled_value_and_grad``, ``step_if_finite``,
+    ``copy_masters``, ``scaler.update``) at O0 fp32, O2 bf16 and O2 fp16
+    with ``FusedAdam``, ``FusedLAMB`` and ``FusedSGD``, on the card and
+    on the CPU from the same weights: losses within ``AMP_TOY_TOL``, the
+    finite flags and loss scales equal, the dtype's instances launched
+    exactly, the loss falling; and an fp16 run from a loss scale of 2^40
+    whose skipped steps and scales equal the CPU's.  Then GPT-1.3B
+    (``gpt1p3b_config``: 24 layers, hidden 2048, 16 heads of 128, batch 4
+    x 2048, remat ``attn_res``) under O2 with dynamic loss scaling from
+    2^16: 10 steps each with fp16 ``FusedLAMB``, fp16 ``FusedAdam`` and
+    bf16 ``FusedAdam``, every step under
+    ``torch.cuda.set_sync_debug_mode("error")``; each step's loss, scale
+    and skipped count, step p50, tokens/s, peak memory, host enqueue vs
+    device done, exact launch counts of the dtype's K3/K4/K6/K7 (a
+    skipped step launches too), the losses of the steps not skipped
+    falling; an inf planted in one gradient at step 6 of the FusedLAMB
+    run is skipped with every parameter, master, moment and the step
+    count bitwise unchanged, the scale halved and ``skipped`` up by one;
+    one fp16 step's device time by kind under ``torch.profiler``; one
+    fp16 step through the kernels within ``AMP_PLAIN_*`` of the same step
+    through the plain versions, and with head 0's dK dropped in K4
+    outside them.
 
 The last three lines of standard output are the kernels' JSON record,
 the ``nvidia-smi`` name/power line, and ``{"ok": true, "device": ...}``.
@@ -319,8 +353,10 @@ from apex_tpu_torch.profiling.bert_large import bert_lengths  # noqa: E402
 from apex_tpu_torch.profiling.roofs import (HBM_BYTES_PER_S,  # noqa: E402
                                             PEAK_FLOPS, bound)
 from apex_tpu_torch.profiling.timing import cold_ms  # noqa: E402
+from apex_tpu_torch import amp  # noqa: E402
+from apex_tpu_torch.optimizers import FusedLAMB, FusedSGD  # noqa: E402
 from apex_tpu_torch.transformer.testing import (  # noqa: E402
-    BertModel, gpt_param_count)
+    BertModel, GPTConfig, GPTModel, gpt1p3b_config, gpt_param_count)
 from apex_tpu_torch.transformer.testing.standalone_gpt import (  # noqa: E402
     attention_segments)
 from apex_tpu_torch.resilience import (CorruptLivePage,  # noqa: E402
@@ -340,6 +376,11 @@ from apex_tpu_torch.telemetry import (TTFT_SUM_TOLERANCE_MS,  # noqa: E402
                                       validate_trace)
 
 BF16_TOL = 2.0 ** -7    # x max|ref|: one bf16 ulp at the output's scale
+# x max|ref|: the same rule at fp16's spacing (10 fraction bits to bf16's
+# 7), one fp16 ulp at the output's scale; the fp16 instances of K3/K4/K6/K7
+# round where their bf16 ones do, so their gaps to the plain versions are
+# the bf16 gaps scaled by the spacing
+FP16_TOL = 2.0 ** -10
 FP32_TOL = 1e-5         # x max(1, max|ref|)
 
 # the serving main path's geometry (GPT-1.3B width, bench.py's serving cell)
@@ -393,6 +434,8 @@ def tolerance(ref: torch.Tensor) -> float:
     scale = ref.float().abs().max().item()
     if ref.dtype == torch.bfloat16:
         return BF16_TOL * scale
+    if ref.dtype == torch.float16:
+        return FP16_TOL * scale
     return FP32_TOL * max(1.0, scale)
 
 
@@ -863,7 +906,7 @@ def flash_qkv_case(gen, name, dtype, rate, b=TRAIN["b"], s=TRAIN["s"],
     check_lse(f"flash_qkv_fwd {name} lse", lse, rlse)
     del rctx, rlse
     visits = None
-    if dtype == torch.bfloat16:
+    if dtype != torch.float32:      # the tensor-core instances
         tiles = sm90_visits_want(seg, b, s, causal, h)
         visits = torch.full((tiles.numel(),), -1, dtype=torch.int32,
                             device="cuda")
@@ -927,23 +970,28 @@ def time_flash_qkv(qkv, dctx, ctx, lse, rate) -> tuple:
     """K3 and K4 (the tensor-core kernels, through the wrappers) timed cold
     beside their plain versions, SDPA and the scalar kernels they replace
     on bf16 (cold too); then the scalar and the tensor-core kernel of each
-    in turns (a, b, b, a) in this one call (``timing.timed_pair``)."""
+    in turns (a, b, b, a) in this one call (``timing.timed_pair``).  The
+    scalar kernels have no fp16 instance: an fp16 qkv is timed without
+    them (the third element is then None)."""
     b, s, _ = qkv.shape
     h, d = TRAIN["heads"], TRAIN["d"]
     args = (None, None, h, d ** -0.5, True, rate, RATE_SEED)
     new_fwd = lambda: att._flash_qkv_fwd_cuda(qkv, *args)  # noqa: E731
     new_bwd = lambda: att._flash_qkv_bwd_cuda(  # noqa: E731
         qkv, dctx, ctx, lse, *args)
-    old_fwd, old_bwd = scalar_qkv(qkv, dctx, ctx, lse, rate)
+    old = qkv.dtype in kernels.DTYPE_CODES
+    if old:
+        old_fwd, old_bwd = scalar_qkv(qkv, dctx, ctx, lse, rate)
     fwd_ms = cold_ms(new_fwd, 10)
-    fwd_old = cold_ms(old_fwd, 5, 1)
+    fwd_old = cold_ms(old_fwd, 5, 1) if old else None
     fwd_plain = cold_ms(lambda: att._flash_qkv_fwd_plain(qkv, *args), 5, 1)
     bwd_ms = cold_ms(new_bwd, 10)
-    bwd_old = cold_ms(old_bwd, 5, 1)
+    bwd_old = cold_ms(old_bwd, 5, 1) if old else None
     bwd_plain = cold_ms(lambda: att._flash_qkv_bwd_plain(
         qkv, dctx, ctx, lse, *args), 5, 1)
-    pair_fwd = timing.timed_pair(old_fwd, new_fwd, (), ())
-    pair_bwd = timing.timed_pair(old_bwd, new_bwd, (), ())
+    if old:
+        pair_fwd = timing.timed_pair(old_fwd, new_fwd, (), ())
+        pair_bwd = timing.timed_pair(old_bwd, new_bwd, (), ())
     # the library yardstick: SDPA on the same strided per-head views
     q, k, v = (t.detach().requires_grad_() for t in
                qkv.view(b, s, h, 3, d).permute(3, 0, 2, 1, 4))
@@ -961,20 +1009,23 @@ def time_flash_qkv(qkv, dctx, ctx, lse, rate) -> tuple:
     bb, bby = attention_bound(qkv.dtype, d, rows, rows, False, rows, rows,
                               pairs)
     log(f"  flash_qkv timing [{b},{s},{h}x3x{d}] {qkv.dtype} dropout {rate}:"
-        f" fwd kernel {fwd_ms:.4f} ms (scalar {fwd_old:.4f}: "
-        f"{fwd_old / fwd_ms:.2f}x), plain {fwd_plain:.4f}, sdpa "
-        f"{fwd_lib:.4f}, bound {fb:.4f} ({fby}); bwd kernel {bwd_ms:.4f} ms "
-        f"(scalar {bwd_old:.4f}: {bwd_old / bwd_ms:.2f}x), plain "
-        f"{bwd_plain:.4f}, sdpa backward {bwd_lib:.4f}, bound {bb:.4f} "
-        f"({bby})")
-    log(f"  in turns (timed_pair, warm): fwd scalar {pair_fwd[0]:.4f} ms vs "
-        f"tensor-core {pair_fwd[1]:.4f} ms ({pair_fwd[0] / pair_fwd[1]:.2f}x);"
-        f" bwd scalar {pair_bwd[0]:.4f} vs {pair_bwd[1]:.4f} "
-        f"({pair_bwd[0] / pair_bwd[1]:.2f}x)")
+        f" fwd kernel {fwd_ms:.4f} ms"
+        + (f" (scalar {fwd_old:.4f}: {fwd_old / fwd_ms:.2f}x)" if old else "")
+        + f", plain {fwd_plain:.4f}, sdpa {fwd_lib:.4f}, bound {fb:.4f} "
+        f"({fby}, {fb / fwd_ms:.1%} of it); bwd kernel {bwd_ms:.4f} ms"
+        + (f" (scalar {bwd_old:.4f}: {bwd_old / bwd_ms:.2f}x)" if old else "")
+        + f", plain {bwd_plain:.4f}, sdpa backward {bwd_lib:.4f}, bound "
+        f"{bb:.4f} ({bby}, {bb / bwd_ms:.1%} of it)")
     fwd = dict(ms=fwd_ms, plain_ms=fwd_plain, library_ms=fwd_lib,
                bound_ms=fb, bound_by=fby, flops=4 * d * pairs)
     bwd = dict(ms=bwd_ms, plain_ms=bwd_plain, library_ms=bwd_lib,
                bound_ms=bb, bound_by=bby, flops=10 * d * pairs)
+    if not old:
+        return fwd, bwd, None
+    log(f"  in turns (timed_pair, warm): fwd scalar {pair_fwd[0]:.4f} ms vs "
+        f"tensor-core {pair_fwd[1]:.4f} ms ({pair_fwd[0] / pair_fwd[1]:.2f}x);"
+        f" bwd scalar {pair_bwd[0]:.4f} vs {pair_bwd[1]:.4f} "
+        f"({pair_bwd[0] / pair_bwd[1]:.2f}x)")
     scalar = ({**fwd, "ms": fwd_old, "warm_pair_ms": pair_fwd[0]},
               {**bwd, "ms": bwd_old, "warm_pair_ms": pair_bwd[0]})
     fwd["warm_pair_ms"], bwd["warm_pair_ms"] = pair_fwd[1], pair_bwd[1]
@@ -997,8 +1048,7 @@ def layer_norm_case(gen, name, dtype, rows=TRAIN["b"] * TRAIN["s"],
     ry, rmean, rinvvar = ln._ln_fwd_plain(x, w, b, 1e-5)
     torch.cuda.synchronize()
     route = ln._ln_route(dtype, cols)
-    want = (["layer_norm_fwd_sm90"] if route == "sm90"
-            else ["layer_norm_fwd"])
+    want = [ln._ln_kernels(x)[0].symbol]
     log(f"  {name} [{rows}, {cols}]: route {route}, ran {ran6}")
     if ran6 != want:
         raise AssertionError(f"layer_norm {name}: ran {ran6}, expected "
@@ -1037,7 +1087,7 @@ def ln_kernel_calls(kernel_fwd, kernel_bwd, x, dy, w, b, mean, invvar):
     out_mean, out_inv = torch.empty_like(mean), torch.empty_like(invvar)
     dw, db = torch.empty_like(w), torch.empty_like(b)
     part = torch.empty(ln.ln_bwd_workspace(rows, cols), device="cuda")
-    code, dev = kernels.DTYPE_CODES[x.dtype], x.device.index
+    code, dev = ln._KERNEL_DTYPES[x.dtype], x.device.index
 
     def fwd():
         kernel_fwd(code, dev, x.data_ptr(), w.data_ptr(), b.data_ptr(),
@@ -1056,8 +1106,9 @@ def ln_kernel_calls(kernel_fwd, kernel_bwd, x, dy, w, b, mean, invvar):
 def time_layer_norm(x, dy, w, b, mean, invvar) -> tuple:
     """K6 and K7 on ``layer_norm_sm90.cu`` (through the wrappers) timed
     cold beside their plain versions, ``F.layer_norm`` and the kernels of
-    ``layer_norm.cu`` they replace at this width (cold too); then the old
-    and the new kernel of each in turns (a, b, b, a) in this one call
+    ``layer_norm.cu`` they replace at this width (cold too), x's dtype's
+    instances of each (fp16 has its own); then the old and the new kernel
+    of each in turns (a, b, b, a) in this one call
     (``timing.timed_pair``, both straight through their ``Kernel``
     objects).  Returns (new forward, new backward, old forward, old
     backward) rows."""
@@ -1068,12 +1119,14 @@ def time_layer_norm(x, dy, w, b, mean, invvar) -> tuple:
                      50)
     bwd_plain = cold_ms(lambda: ln._ln_bwd_plain(x, dy, mean, invvar, w,
                                                  True), 20)
-    new_fwd, new_bwd = ln_kernel_calls(kernels.LAYER_NORM_FWD_SM90,
-                                       kernels.LAYER_NORM_BWD_SM90, x, dy, w,
-                                       b, mean, invvar)
-    old_fwd, old_bwd = ln_kernel_calls(kernels.LAYER_NORM_FWD,
-                                       kernels.LAYER_NORM_BWD, x, dy, w, b,
-                                       mean, invvar)
+    f16 = "_F16" if x.dtype == torch.float16 else ""
+    new_fwd, new_bwd = ln_kernel_calls(
+        getattr(kernels, f"LAYER_NORM_FWD_SM90{f16}"),
+        getattr(kernels, f"LAYER_NORM_BWD_SM90{f16}"), x, dy, w, b, mean,
+        invvar)
+    old_fwd, old_bwd = ln_kernel_calls(
+        getattr(kernels, f"LAYER_NORM_FWD{f16}"),
+        getattr(kernels, f"LAYER_NORM_BWD{f16}"), x, dy, w, b, mean, invvar)
     fwd_old, bwd_old = cold_ms(old_fwd, 50), cold_ms(old_bwd, 50)
     pair_fwd = timing.timed_pair(old_fwd, new_fwd, (), ())
     pair_bwd = timing.timed_pair(old_bwd, new_bwd, (), ())
@@ -1132,6 +1185,19 @@ def phase_training_kernels() -> dict:
     fwd, bwd, (sfwd, sbwd) = time_flash_qkv(*ops, ATT_DROPOUT)
     del ops
     torch.cuda.empty_cache()
+    # fp16 (amp's half): the tensor-core K3/K4's own instances, on a
+    # generator of their own (the bf16 and fp32 cases draw as before)
+    f16, gh = torch.float16, torch.Generator(device="cuda").manual_seed(17)
+    flash_qkv_case(gh, "fp16 causal, no dropout", f16, 0.0)
+    h3, h4, hops = flash_qkv_case(gh, f"fp16 causal, dropout {ATT_DROPOUT}",
+                                  f16, ATT_DROPOUT)
+    seg = torch.stack([seg_row(1000, [300, 450]),
+                       seg_row(1000, [1000])]).cuda()
+    flash_qkv_case(gh, "fp16 causal + segment ids, dropout, b=2 ragged "
+                   "s=1000", f16, ATT_DROPOUT, b=2, s=1000, seg=seg)
+    hfwd, hbwd, _ = time_flash_qkv(*hops, ATT_DROPOUT)
+    del hops
+    torch.cuda.empty_cache()
     e6, e7, lops = layer_norm_case(gen, "bf16 x", bf16)
     layer_norm_case(gen, "fp32 x", fp32)
     layer_norm_case(gen, "bf16 x, the MHA decoder's rows", bf16,
@@ -1145,6 +1211,18 @@ def phase_training_kernels() -> dict:
     o6, o7, _ = layer_norm_case(gen, "bf16 x at 1536", bf16, rows=4096,
                                 cols=1536)
     lfwd, lbwd, ofwd, obwd = time_layer_norm(*lops)
+    del lops
+    h6, h7, hlops = layer_norm_case(gh, "fp16 x", f16)
+    layer_norm_case(gh, "fp16 x, ragged rows", f16, rows=8191)
+    layer_norm_case(gh, "fp16 x, no weight or bias", f16, rows=37,
+                    affine=False)
+    p6, p7, _ = layer_norm_case(gh, "fp16 x at 1536", f16, rows=4096,
+                                cols=1536)
+    hlfwd, hlbwd, hofwd, hobwd = time_layer_norm(*hlops)
+    del hlops
+    hfwd["max_abs_err"], hbwd["max_abs_err"] = h3, h4
+    hlfwd["max_abs_err"], hlbwd["max_abs_err"] = h6, h7
+    hofwd["max_abs_err"], hobwd["max_abs_err"] = p6, p7  # their route
     fwd["max_abs_err"], bwd["max_abs_err"] = e3, e4
     sfwd["max_abs_err"], sbwd["max_abs_err"] = s3, s4  # their fp32 route
     lfwd["max_abs_err"], lbwd["max_abs_err"] = e6, e7
@@ -1152,7 +1230,11 @@ def phase_training_kernels() -> dict:
     return {"flash_qkv_fwd_sm90": fwd, "flash_qkv_bwd_sm90": bwd,
             "flash_qkv_fwd": sfwd, "flash_qkv_bwd": sbwd,
             "layer_norm_fwd_sm90": lfwd, "layer_norm_bwd_sm90": lbwd,
-            "layer_norm_fwd": ofwd, "layer_norm_bwd": obwd}
+            "layer_norm_fwd": ofwd, "layer_norm_bwd": obwd,
+            "flash_qkv_fwd_sm90_f16": hfwd, "flash_qkv_bwd_sm90_f16": hbwd,
+            "layer_norm_fwd_sm90_f16": hlfwd,
+            "layer_norm_bwd_sm90_f16": hlbwd,
+            "layer_norm_fwd_f16": hofwd, "layer_norm_bwd_f16": hobwd}
 
 
 # -- phase 3, slice 12: K3/K4 at BERT-large's shape (head dim 64, not
@@ -1255,10 +1337,23 @@ def phase_bert_kernels() -> dict:
                                   b=padded["tokens"].shape[0],
                                   s=bert_large.BERT_SEQ,
                                   seg=segs["padded"], **kw)
+    # fp16 (amp's half) at head dim 64: its own instances, on a generator
+    # of their own
+    gh = torch.Generator(device="cuda").manual_seed(18)
+    h3, h4, hops = flash_qkv_case(gh, "fp16 BERT-large padded",
+                                  torch.float16, 0.0,
+                                  b=padded["tokens"].shape[0],
+                                  s=bert_large.BERT_SEQ, seg=segs["padded"],
+                                  **kw)
+    flash_qkv_case(gh, f"fp16 key padding, dropout {ATT_DROPOUT}",
+                   torch.float16, ATT_DROPOUT, b=4, s=bert_large.BERT_SEQ,
+                   seg=bert_attention_ids(pad4, "padded"), **kw)
     fwd, bwd = time_bert_qkv(*ops["padded"], segs["padded"], "padded")
     pfwd, pbwd = time_bert_qkv(*ops["packed"], segs["packed"], "packed")
     sfwd, sbwd = time_bert_qkv(*sops, segs["padded"], "padded")
-    del ops, sops
+    hfwd, hbwd = time_bert_qkv(*hops, segs["padded"], "padded")
+    hfwd["max_abs_err"], hbwd["max_abs_err"] = h3, h4
+    del ops, sops, hops
     torch.cuda.empty_cache()
     fwd["max_abs_err"], bwd["max_abs_err"] = errs["padded"]
     pfwd["max_abs_err"], pbwd["max_abs_err"] = errs["packed"]
@@ -1266,7 +1361,9 @@ def phase_bert_kernels() -> dict:
     fwd["max_abs_err_folded"], bwd["max_abs_err_folded"] = errs["folded"]
     sfwd["max_abs_err"], sbwd["max_abs_err"] = s3, s4
     return {"flash_qkv_fwd_sm90_d64": fwd, "flash_qkv_bwd_sm90_d64": bwd,
-            "flash_qkv_fwd_d64": sfwd, "flash_qkv_bwd_d64": sbwd}
+            "flash_qkv_fwd_d64": sfwd, "flash_qkv_bwd_d64": sbwd,
+            "flash_qkv_fwd_sm90_d64_f16": hfwd,
+            "flash_qkv_bwd_sm90_d64_f16": hbwd}
 
 
 # -- phase 3, slice 3: the generic attention kernels K1 (mask, dropout,
@@ -4327,15 +4424,15 @@ def leaf_gaps(grads, ref) -> dict:
             for n, g in ref.items()}
 
 
-def drop_head_dk():
+def drop_head_dk(d=BERT_D):
     """A planted K4 fault, the checks' control: head 0's dK zeroed in
-    every layer's backward."""
+    every layer's backward (head dim ``d``)."""
     real = att._flash_qkv_bwd_cuda
 
     def faulty(qkv, *args, **kw):
         dqkv = real(qkv, *args, **kw)
         b, s, _ = qkv.shape
-        dqkv.view(b, s, -1, 3, BERT_D)[:, :, 0, 1] = 0  # head, (q k v), d
+        dqkv.view(b, s, -1, 3, d)[:, :, 0, 1] = 0  # head, (q k v), d
         return dqkv
     return mock.patch.object(att, "_flash_qkv_bwd_cuda", faulty)
 
@@ -4731,47 +4828,63 @@ def sass_functions(source: str) -> dict:
     return out
 
 
-#: the instances each packed source builds at head dim 64 (BERT-large),
-#: by kernel name, with the tensor-core products: causal and not, dropout
-#: and not (K4's delta pass has no product)
+#: the kernels of each packed tensor-core source with the tensor-core
+#: products (K4's delta pass has none), each built causal and not, with
+#: dropout and without, at every (head dim, 16-bit type) of
+#: QKV_INSTANCE_TYPES
 D64_INSTANCES = {"flash_qkv_fwd_sm90.cu": ("qkv_fwd_sm90",),
                  "flash_qkv_bwd_sm90.cu": ("qkv_bwd_dkdv_sm90",
                                            "qkv_bwd_dq_sm90")}
+#: (head dim, template type, label): BERT-large's head dim 64 in bf16, and
+#: amp's fp16 at head dims 128 (GPT) and 64
+QKV_INSTANCE_TYPES = ((64, "__nv_bfloat16", "d64"), (128, "__half", "f16"),
+                      (64, "__half", "d64_f16"))
 
 
-def is_d64(name: str, kernel: str) -> bool:
+def is_instance(name: str, kernel: str, d: int, type_: str) -> bool:
     """``name`` (demangled, or mangled where c++filt is missing) is an
-    instance of ``kernel`` at head dim 64."""
-    return (name.startswith(f"{kernel}<64,")
-            or f"{len(kernel)}{kernel}ILi64E" in name)
+    instance of ``kernel`` at head dim ``d`` and 16-bit type ``type_``
+    (the template's last argument)."""
+    if name.startswith(f"{kernel}<{d},"):
+        return name.rstrip().endswith(f"{type_}>")
+    return (f"{len(kernel)}{kernel}ILi{d}E" in name
+            and f"{len(type_)}{type_}" in name)
 
 
-def d64_instance_checks(src: str, report: list) -> dict:
-    """The head-dim-64 instances of a packed tensor-core source: all four
-    of each kernel built (causal and not, dropout and not), and each one's
-    own SASS holding wgmma (``HGMMA``) and TMA loads (``UTMALDG``); their
-    spills are held by the source-wide check."""
+def typed_instance_checks(src: str, report: list) -> dict:
+    """The head-dim-64 bf16 instances and the fp16 instances of a packed
+    tensor-core source: all four of each kernel built at each
+    :data:`QKV_INSTANCE_TYPES` entry (causal and not, dropout and not),
+    and each one's own SASS holding wgmma (``HGMMA``) and TMA loads
+    (``UTMALDG``); their spills are held by the source-wide check."""
     sass = sass_functions(src)
     out = {}
-    for kernel in D64_INSTANCES[src]:
-        regs = [r for fn, r, _, _ in report if is_d64(demangle(fn), kernel)]
-        ops = {n: {op: sum(re.search(rf"\b{op}\b", line) is not None
-                           for line in text.splitlines())
-                   for op in ("HGMMA", "UTMALDG")}
-               for n, text in sass.items() if is_d64(n, kernel)}
-        log(f"    {kernel} at head dim 64: {len(regs)} instances, registers "
-            f"{min(regs or [0])}..{max(regs or [0])}; SASS " + "; ".join(
-                f"{n} HGMMA {c['HGMMA']} UTMALDG {c['UTMALDG']}"
-                for n, c in sorted(ops.items())))
-        if len(regs) != 4 or len(ops) != 4:
-            raise AssertionError(f"{src}: {kernel} has {len(regs)} head-dim"
-                                 f"-64 instances in ptxas's report and "
-                                 f"{len(ops)} in the SASS, expected 4")
-        if not all(c["HGMMA"] and c["UTMALDG"] for c in ops.values()):
-            raise AssertionError(f"{src}: a head-dim-64 instance of {kernel}"
-                                 f" lacks HGMMA or UTMALDG ({ops})")
-        out[kernel] = dict(instances=len(regs), max_registers=max(regs),
-                           sass=ops)
+    for d, type_, label in QKV_INSTANCE_TYPES:
+        out[label] = {}
+        for kernel in D64_INSTANCES[src]:
+            regs = [r for fn, r, _, _ in report
+                    if is_instance(demangle(fn), kernel, d, type_)]
+            ops = {n: {op: sum(re.search(rf"\b{op}\b", line) is not None
+                               for line in text.splitlines())
+                       for op in ("HGMMA", "UTMALDG")}
+                   for n, text in sass.items()
+                   if is_instance(n, kernel, d, type_)}
+            log(f"    {kernel} at head dim {d}, {type_}: {len(regs)} "
+                f"instances, registers {min(regs or [0])}..{max(regs or [0])}"
+                "; SASS " + "; ".join(
+                    f"{n} HGMMA {c['HGMMA']} UTMALDG {c['UTMALDG']}"
+                    for n, c in sorted(ops.items())))
+            if len(regs) != 4 or len(ops) != 4:
+                raise AssertionError(
+                    f"{src}: {kernel} has {len(regs)} instances at head dim "
+                    f"{d}, {type_} in ptxas's report and {len(ops)} in the "
+                    "SASS, expected 4")
+            if not all(c["HGMMA"] and c["UTMALDG"] for c in ops.values()):
+                raise AssertionError(f"{src}: an instance of {kernel} at "
+                                     f"head dim {d}, {type_} lacks HGMMA or "
+                                     f"UTMALDG ({ops})")
+            out[label][kernel] = dict(instances=len(regs),
+                                      max_registers=max(regs), sass=ops)
     return out
 
 
@@ -4828,7 +4941,7 @@ def sm90_build_checks() -> dict:
                                  f"{list(counts)} ({counts})")
         out[src] = dict(counts, instances=len(report), max_registers=max(regs))
         if src in D64_INSTANCES:
-            out[src]["d64"] = d64_instance_checks(src, report)
+            out[src].update(typed_instance_checks(src, report))
     return out
 
 
@@ -4975,6 +5088,8 @@ FLOOR_OF = {"flash_qkv_fwd_sm90": "GPT-1.3B (K3/K4)",
             "flash_qkv_bwd_sm90": "GPT-1.3B (K3/K4)",
             "flash_qkv_fwd": "GPT-1.3B (K3/K4)",
             "flash_qkv_bwd": "GPT-1.3B (K3/K4)",
+            "flash_qkv_fwd_sm90_f16": "GPT-1.3B (K3/K4)",
+            "flash_qkv_bwd_sm90_f16": "GPT-1.3B (K3/K4)",
             "flash_fwd_sm90_mha": "Transformer-big encoder (K1/K2)",
             "flash_fwd_mha": "Transformer-big encoder (K1/K2)",
             "flash_bwd_sm90": "Transformer-big encoder (K1/K2)",
@@ -5026,6 +5141,399 @@ def demonstrated(timings: dict, probes: dict) -> dict:
             log(f"    over 100 % of K10's floor: the wgmma floor is still "
                 f"stale for {name} at this shape (the kernel outruns the "
                 f"two products alone), not a limit")
+    return out
+
+
+# -- phase 17: GPT training under amp (O0, O2 in bf16 and fp16, dynamic
+# loss scaling): the toy card vs CPU, then GPT-1.3B on the card ------------
+
+
+def make_optimizer(name: str, params, lr: float):
+    """The JAX harness's optimizers (``tests/L1/common/harness.py``):
+    FusedAdam with weight decay 1e-4, FusedLAMB with its default 0.01,
+    FusedSGD with momentum 0.9."""
+    if name == "adam":
+        return FusedAdam(params, lr=lr, weight_decay=1e-4)
+    if name == "lamb":
+        return FusedLAMB(params, lr=lr, weight_decay=0.01)
+    return FusedSGD(params, lr=lr, momentum=0.9)
+
+
+class AmpTrainer:
+    """A GPT trained under amp as a user composes it (the JAX harness's
+    ``run_trajectory`` recipe in the port's idiom): ``amp.initialize``;
+    fp32 masters taken, then the model cast in place (O2: half but the
+    LayerNorms); ``scaled_value_and_grad`` over the model's parameters;
+    the optimizer's ``step_if_finite`` on the masters; ``copy_masters``
+    back into the half parameters; ``scaler.update``.  Nothing in
+    :meth:`step` reads the device on the host."""
+
+    def __init__(self, cfg, level, half, opt_name, lr, device, seed=0,
+                 state=None, scaler=None):
+        self.amp = amp.initialize(level, half_dtype=half)
+        self.scaler = scaler or self.amp.scaler
+        self.model = GPTModel(cfg, device=device, seed=seed)
+        if state is not None:
+            self.model.load_state_dict(state)
+        self.masters = self.amp.master_params(self.model)
+        self.amp.cast_model(self.model)
+        self.params = list(self.model.parameters())
+        self.opt = make_optimizer(opt_name, self.masters, lr)
+        self.ss = self.scaler.init(device)
+        model = self.model   # not self: no reference cycle keeps a trainer
+        self.grad_fn = amp.scaled_value_and_grad(
+            lambda t, l: model(t, labels=l).mean(), self.scaler, self.params)
+
+    def step(self, tokens, labels):
+        """One step; returns (loss, finite), device tensors."""
+        loss, grads, finite = self.grad_fn(self.ss, tokens, labels)
+        self.opt.step_if_finite(finite, grads)
+        del grads
+        amp.copy_masters(self.params, self.masters)
+        self.ss = self.scaler.update(self.ss, finite)
+        return loss, finite
+
+    def written(self) -> list:
+        """(name, tensor) of every tensor a step writes: the half
+        parameters, the fp32 masters, the optimizer's moments and its
+        step count."""
+        out = [(f"param {n}", p) for n, p in self.model.named_parameters()]
+        names = [n for n, _ in self.model.named_parameters()]
+        out += [(f"master {n}", m) for n, m in zip(names, self.masters)]
+        for n, m in zip(names, self.masters):
+            st = self.opt.state.get(m, {})
+            out += [(f"{k} {n}", v) for k, v in st.items()
+                    if k != "step" and isinstance(v, torch.Tensor)]
+        step = self.opt.state.get(self.masters[0], {}).get("step")
+        if isinstance(step, torch.Tensor):
+            out.append(("step", step))
+        return out
+
+
+AMP_TOY = dict(num_layers=2, hidden_size=128, num_attention_heads=2,
+               vocab_size=256, max_position_embeddings=64,
+               use_flash_attention=True)
+AMP_TOY_BATCH, AMP_TOY_SEQ, AMP_TOY_STEPS = 4, 64, 4
+AMP_LR = {"adam": 1e-3, "lamb": 1e-3, "sgd": 1e-2}
+AMP_LEVELS = (("O0 fp32", "O0", torch.float32),
+              ("O2 bf16", "O2", torch.bfloat16),
+              ("O2 fp16", "O2", torch.float16))
+# card vs CPU, each step's loss over four steps: O0 relative (fp32
+# throughout, sums in another order; phase 6's bar, read 9.9e-8); O2
+# absolute on a loss near 5.6 (the kernels round P, dS and the outputs to
+# the half type where the plain versions keep fp32), ten times the
+# largest gap read on an NVIDIA H100 80GB HBM3 at 700 W over the three
+# optimizers: bf16 4.57e-4, fp16 2.48e-5
+AMP_TOY_TOL = {"O0 fp32": 1e-5, "O2 bf16": 5e-3, "O2 fp16": 2.5e-4}
+AMP_2_40_STEPS = 36      # from 2^40 down past 2^16, then finite steps
+
+
+def amp_toy_batches(n):
+    gen = torch.Generator().manual_seed(21)
+    out = []
+    for _ in range(n):
+        ids = torch.randint(0, AMP_TOY["vocab_size"],
+                            (AMP_TOY_BATCH, AMP_TOY_SEQ + 1), generator=gen)
+        out.append((ids[:, :-1], ids[:, 1:]))
+    return out
+
+
+def amp_toy_run(device, level, half, opt_name, state, batches, scaler=None):
+    """Per step (loss, finite, loss scale after the update)."""
+    flags = ({} if level == "O0" else
+             {"bf16": half == torch.bfloat16, "fp16": half == torch.float16})
+    tr = AmpTrainer(GPTConfig(**AMP_TOY, **flags), level, half, opt_name,
+                    AMP_LR[opt_name], device, state=state, scaler=scaler)
+    out = []
+    for tokens, labels in batches:
+        loss, finite = tr.step(tokens.to(device), labels.to(device))
+        out.append((loss, finite, tr.ss.loss_scale))
+    return [(float(a), bool(b), float(c)) for a, b, c in out]
+
+
+def amp_toy_want(half) -> dict:
+    """The toy step's exact launches (no remat): K3 and K4 once a layer,
+    K6 and K7 2L + 1 (two LayerNorms a layer and the final one), the
+    head-dim-64 instance of the dtype's route; LayerNorm width 128 takes
+    layer_norm.cu."""
+    L = AMP_TOY["num_layers"]
+    qkv = {torch.float32: "flash_qkv_{}_d64",
+           torch.bfloat16: "flash_qkv_{}_sm90_d64",
+           torch.float16: "flash_qkv_{}_sm90_d64_f16"}[half]
+    lnf = "_f16" if half == torch.float16 else ""
+    return {qkv.format("fwd"): L, qkv.format("bwd"): L,
+            f"layer_norm_fwd{lnf}": 2 * L + 1,
+            f"layer_norm_bwd{lnf}": 2 * L + 1}
+
+
+def phase_amp_toy() -> dict:
+    state = GPTModel(GPTConfig(**AMP_TOY), device="cpu", seed=3).state_dict()
+    # one batch, every step: the loss falls on it
+    batches = amp_toy_batches(1) * AMP_TOY_STEPS
+    out = {"launches": {}, "gaps": {}}
+    for label, level, half in AMP_LEVELS:
+        for opt_name in ("adam", "lamb", "sgd"):
+            kernels.reset_launch_counts()
+            card = amp_toy_run("cuda", level, half, opt_name, state, batches)
+            launches = {k.symbol: k.launches for k in kernels.KERNELS
+                        if k.launches}
+            cpu = amp_toy_run("cpu", level, half, opt_name, state, batches)
+            want = {k: v * AMP_TOY_STEPS for k, v in amp_toy_want(
+                half).items()}
+            gaps = [abs(a[0] - b[0]) / (abs(b[0]) if level == "O0" else 1.0)
+                    for a, b in zip(card, cpu)]
+            ok = (max(gaps) <= AMP_TOY_TOL[label]
+                  and [a[1:] for a in card] == [b[1:] for b in cpu]
+                  and launches == want and all(a[1] for a in card)
+                  and card[-1][0] < card[0][0])
+            log(f"  toy {label} {opt_name}: losses card "
+                f"{[round(a[0], 5) for a in card]}, cpu "
+                f"{[round(b[0], 5) for b in cpu]}; max "
+                f"{'rel ' if level == 'O0' else ''}gap {max(gaps):.3e} (tol "
+                f"{AMP_TOY_TOL[label]:.1e}); scales "
+                f"{[a[2] for a in card]}; launches {launches}: "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"amp toy {label} {opt_name}: card and "
+                                     f"CPU disagree, or the wrong kernels "
+                                     f"ran (want {want})")
+            out["launches"][f"{label} {opt_name}"] = launches
+            out["gaps"][f"{label} {opt_name}"] = max(gaps)
+    # from 2^40: every step skips until the scale has halved far enough
+    many = amp_toy_batches(4) * (AMP_2_40_STEPS // 4)
+    kernels.reset_launch_counts()
+    card = amp_toy_run("cuda", "O2", torch.float16, "adam", state, many,
+                       scaler=amp.LossScaler(init_scale=2.0 ** 40))
+    launches = {k.symbol: k.launches for k in kernels.KERNELS if k.launches}
+    cpu = amp_toy_run("cpu", "O2", torch.float16, "adam", state, many,
+                      scaler=amp.LossScaler(init_scale=2.0 ** 40))
+    skipped = [i for i, a in enumerate(card) if not a[1]]
+    same = [a[1:] for a in card] == [b[1:] for b in cpu]
+    log(f"  toy O2 fp16 adam from 2^40: skipped steps {skipped}; scales "
+        f"{[a[2] for a in card]}; card == cpu (skips and scales): {same}")
+    # every step skips from 2^40 down to 2^20 at least; below that the
+    # four batches part (one overflows at a scale another does not)
+    if not (same and skipped[:20] == list(range(20))
+            and card[-1][1] and len(skipped) < len(card)):
+        raise AssertionError("amp toy from 2^40: the skips or scales differ "
+                             "between card and CPU, or it never recovers")
+    out["from_2_40"] = {"skipped": skipped, "launches": launches,
+                        "scales": [a[2] for a in card]}
+    return out
+
+
+AMP_FULL_STEPS = 10
+AMP_FULL_LR = {"adam": 1.5e-4, "lamb": 1e-3}
+AMP_FULL_RUNS = (("fp16 FusedLAMB", torch.float16, "lamb"),
+                 ("fp16 FusedAdam", torch.float16, "adam"),
+                 ("bf16 FusedAdam", torch.bfloat16, "adam"))
+AMP_PLANT_AT = 6     # the fp16 FusedLAMB run's step with an inf planted
+# kernel vs plain fp16 step from the seeded weights (dropout-free, the
+# unscaled fp32 gradients of the scaled backward at 2^16; the step is
+# bitwise deterministic, so the readings repeat): each bar ten times its
+# reading on an NVIDIA H100 80GB HBM3 at 700 W; head 0's dK dropped in K4
+# read grad norm 7.63e-4 and worst leaf 1.14e-1 (the qkv weight of layer
+# 0), outside both
+AMP_PLAIN_LOSS_TOL = 1e-4        # absolute, on a loss near 11.26 (read 9.5e-6)
+AMP_PLAIN_NORM_TOL = 2e-4        # relative, global grad norm (read 1.6e-5)
+# relative, the worst leaf (read 2.3e-3, layer 0's input LayerNorm
+# weight; the median leaf 1.6e-3)
+AMP_PLAIN_LEAF_TOL = 2.5e-2
+AMP_KINDS = STEP_KINDS + (("where", "amp: skip select (where)"),)
+
+
+def plant_inf(param):
+    """A gradient hook that writes one inf into ``param``'s gradient (the
+    overflow the scaler must see)."""
+    def hook(g):
+        g = g.clone()
+        g.view(-1)[:1].fill_(float("inf"))  # a fill: no host-to-device copy
+        return g
+    return param.register_hook(hook)
+
+
+def amp_full_run(label, half, opt_name, batches, smi) -> dict:
+    L = 24
+    f16 = "_f16" if half == torch.float16 else ""
+    want = {f"flash_qkv_fwd_sm90{f16}": L, f"flash_qkv_bwd_sm90{f16}": L,
+            f"layer_norm_fwd_sm90{f16}": 4 * L + 1,
+            f"layer_norm_bwd_sm90{f16}": 2 * L + 1}
+    cfg = gpt1p3b_config(bf16=half == torch.bfloat16,
+                         fp16=half == torch.float16)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tr = AmpTrainer(cfg, "O2", half, opt_name, AMP_FULL_LR[opt_name], "cuda")
+    plant = opt_name == "lamb"
+    kernels.reset_launch_counts()
+    rec, enqueue, done, bitwise = [], [], [], None
+    for it, (tokens, labels) in enumerate(batches):
+        snap = hook = None
+        if plant and it == AMP_PLANT_AT:
+            snap = [(n, t.cpu()) for n, t in tr.written()]
+            before = (tr.ss.loss_scale.item(), tr.ss.skipped.item())
+            hook = plant_inf(tr.params[5])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            loss, finite = tr.step(tokens, labels)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        enqueue.append((t1 - t0) * 1e3)
+        done.append((t2 - t0) * 1e3)
+        rec.append((loss, finite, tr.ss.loss_scale.clone(),
+                    tr.ss.skipped.clone()))
+        if hook is not None:
+            hook.remove()
+            now = dict(tr.written())
+            changed = [n for n, t in snap
+                       if not torch.equal(now[n].cpu(), t)]
+            after = (tr.ss.loss_scale.item(), tr.ss.skipped.item())
+            bitwise = dict(tensors=len(snap), changed=changed,
+                           scale=(before[0], after[0]),
+                           skipped=(before[1], after[1]),
+                           finite=bool(finite))
+            log(f"  {label}: step {it} with an inf planted in "
+                f"{tr.written()[5][0]}'s gradient: finite {bool(finite)}; "
+                f"{len(snap)} tensors (parameters, masters, moments, step "
+                f"count), {len(changed)} changed; scale {before[0]:g} -> "
+                f"{after[0]:g}; skipped {before[1]} -> {after[1]}")
+            del snap, now
+    launches = {k.symbol: k.launches for k in kernels.KERNELS if k.launches}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    steps = [(float(a), bool(b), float(c), int(d)) for a, b, c, d in rec]
+    for it, (loss, fin, scale, skipped) in enumerate(steps):
+        log(f"    step {it}: loss {loss:.5f} scale {scale:g} skipped "
+            f"{skipped}{'' if fin else ' (overflow: skipped)'}")
+    n = len(batches)
+    per_step = {k: v / n for k, v in launches.items()}
+    finite = [loss for loss, fin, _, _ in steps if fin]
+    step_ms = statistics.median(done[1:])
+    tokens_per_step = tokens.numel()
+    m = {"losses": [x[0] for x in steps], "finite": [x[1] for x in steps],
+         "scales": [x[2] for x in steps], "skipped": [x[3] for x in steps],
+         "step_ms_p50": step_ms,
+         "tok_per_s": tokens_per_step / step_ms * 1e3, "peak_mem_gib": peak,
+         "enqueue_ms_p50": statistics.median(enqueue[1:]),
+         "done_ms_p50": step_ms, "launches_per_step": per_step,
+         "launches": launches, "card": smi}
+    log(f"  {label}: " + json.dumps({k: v for k, v in m.items()
+                                     if k not in ("losses", "finite",
+                                                  "scales", "skipped",
+                                                  "launches")}))
+    log(f"  {label}: launches over {n} steps {launches}; per step "
+        f"{per_step}, expected {want} (remat attn_res; the skipped step "
+        "launches too)")
+    if per_step != want:
+        raise AssertionError(f"{label}: launch counts do not match")
+    if not (finite and finite[-1] < finite[0] and all(map(math.isfinite,
+                                                          finite))):
+        raise AssertionError(f"{label}: the losses of the steps that were "
+                             "not skipped do not fall")
+    if plant:
+        ok = (not bitwise["finite"] and not bitwise["changed"]
+              and bitwise["scale"][1] == bitwise["scale"][0] / 2
+              and bitwise["skipped"][1] == bitwise["skipped"][0] + 1)
+        if not ok:
+            raise AssertionError(f"{label}: the planted overflow was not "
+                                 f"skipped bitwise ({bitwise})")
+        m["planted_overflow"] = bitwise
+    m["trainer"] = tr
+    return m
+
+
+def amp_step_gaps(tr, tokens, labels) -> dict:
+    """One fp16 step's loss and unscaled gradients through the kernels,
+    and with head 0's dK dropped in K4, against the same step through
+    the plain versions, from the same weights and scale."""
+    names = [n for n, _ in tr.model.named_parameters()]
+
+    def run():
+        loss, grads, _ = tr.grad_fn(tr.ss, tokens, labels)
+        return float(loss), dict(zip(names, grads))
+
+    patches = plain_kernels()
+    with patches[0], patches[1]:
+        ref_loss, ref = run()
+    out = {}
+    for what, fault in (("kernels", None),
+                        ("head 0's dK dropped", lambda: drop_head_dk(128))):
+        if fault is None:
+            loss, grads = run()
+        else:
+            with fault():
+                loss, grads = run()
+        norm = multi_tensor_l2norm(list(grads.values())).item()
+        ref_norm = multi_tensor_l2norm(list(ref.values())).item()
+        leaf = leaf_gaps(grads, ref)
+        worst = max(leaf, key=leaf.get)
+        g = {"loss_diff": abs(loss - ref_loss),
+             "grad_norm_rel_diff": abs(norm - ref_norm) / ref_norm,
+             "worst_leaf": worst, "worst_leaf_rel_diff": leaf[worst],
+             "median_leaf_rel_diff": statistics.median(leaf.values())}
+        g["failed"] = [name for name, key, tol in (
+            ("loss", "loss_diff", AMP_PLAIN_LOSS_TOL),
+            ("grad norm", "grad_norm_rel_diff", AMP_PLAIN_NORM_TOL),
+            ("worst leaf", "worst_leaf_rel_diff", AMP_PLAIN_LEAF_TOL))
+            if not g[key] <= tol]
+        log(f"  fp16 step, {what} vs plain: loss diff {g['loss_diff']:.3e} "
+            f"(tol {AMP_PLAIN_LOSS_TOL:.1e}); grad norm rel diff "
+            f"{g['grad_norm_rel_diff']:.3e} (tol {AMP_PLAIN_NORM_TOL:.0e}); "
+            f"worst leaf {worst} {leaf[worst]:.3e} (tol "
+            f"{AMP_PLAIN_LEAF_TOL:.0e}), median leaf "
+            f"{g['median_leaf_rel_diff']:.3e}; bars missed: "
+            f"{g['failed'] or 'none'}")
+        out[what] = g
+        del grads
+    if out["kernels"]["failed"]:
+        raise AssertionError("fp16 GPT-1.3B step: kernel path disagrees "
+                             "with the plain path")
+    if not out["head 0's dK dropped"]["failed"]:
+        raise AssertionError("fp16 GPT-1.3B step: the planted K4 fault "
+                             "passes the kernel-vs-plain bars")
+    return out
+
+
+def phase_amp_full(smi: str) -> dict:
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    batches = []
+    for _ in range(AMP_FULL_STEPS):
+        ids = torch.randint(0, 51200, (4, 2049), generator=gen,
+                            device="cuda")
+        batches.append((ids[:, :-1], ids[:, 1:]))
+    out = {}
+    for label, half, opt_name in AMP_FULL_RUNS:
+        m = amp_full_run(label, half, opt_name, batches, smi)
+        tr = m.pop("trainer")
+        if label == "fp16 FusedAdam":
+            tokens, labels = batches[0]
+            prof = step_profile(lambda: tr.step(tokens, labels), AMP_KINDS)
+            m["step_profile"] = prof
+            if prof["device_busy_ms"] > 0:
+                log(f"  {label}, one step under torch.profiler: " + ", ".join(
+                    f"{k} {v:.1f} ms" for k, v in prof["by_kind_ms"].items())
+                    + f"; wall {prof['wall_ms']:.1f} ms, device busy "
+                    f"{prof['device_busy_ms']:.1f} ms, idle "
+                    f"{prof['idle_share']:.1%}")
+                for name, n, t in prof["top_kernels"]:
+                    log(f"    {t:8.1f} ms  x{n:<5d} {name}")
+                log_other_ops(prof)
+            else:
+                log("  one step under torch.profiler: no device time "
+                    "recorded (breakdown not measured)")
+            del tr
+            torch.cuda.empty_cache()
+            # the kernel-vs-plain step from fresh seeded weights
+            tr = AmpTrainer(gpt1p3b_config(bf16=False, fp16=True), "O2",
+                            torch.float16, "adam", AMP_FULL_LR["adam"],
+                            "cuda")
+            m["kernel_vs_plain"] = amp_step_gaps(tr, *batches[1])
+        del tr
+        torch.cuda.empty_cache()
+        out[label] = m
     return out
 
 
@@ -5127,9 +5635,20 @@ def main() -> int:
           "(GPT-1.3B width, 24 layers, bf16; the fp32 toy)")
     state = phase_state(smi)
     torch.cuda.empty_cache()
-    log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
-    PHASE.update(n=17, name="record")
 
+    begin(17, "GPT training under amp: the toy card vs CPU (O0 fp32, O2 "
+          "bf16 and fp16; FusedAdam, FusedLAMB, FusedSGD; from a loss scale "
+          "of 2^40), then GPT-1.3B under O2 (fp16 FusedLAMB and FusedAdam, "
+          "bf16 FusedAdam; dynamic loss scaling from 2^16)")
+    t17 = time.perf_counter()
+    amp_toy = phase_amp_toy()
+    amp_full = phase_amp_full(smi)
+    log(f"  phase 17 took {time.perf_counter() - t17:.1f} s")
+    torch.cuda.empty_cache()
+    log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
+    PHASE.update(n=18, name="record")
+
+    amp_toy_adam16 = {"launches": amp_toy["launches"]["O2 fp16 adam"]}
     record = {"kernels": [
         # K1: the bf16 route at head dims 64 and 128 on the tensor cores
         # runs the serving prefill (phase 5), the multi-head attention step
@@ -5269,6 +5788,37 @@ def main() -> int:
              "apex_tpu/ops/fused_layer_norm.py:75", toy_train),
             ("layer_norm_bwd", "layer_norm.cu",
              "apex_tpu/ops/fused_layer_norm.py:150", toy_train))
+    ] + [
+        # the fp16 instances (amp's half, phase 17): K3/K4 at head dim 128
+        # and K6/K7 on layer_norm_sm90.cu run the GPT-1.3B fp16 steps (the
+        # FusedAdam run's launches; the FusedLAMB run's beside them); K3/K4
+        # at head dim 64 and K6/K7 on layer_norm.cu (width 128) the fp16
+        # toy (its FusedAdam run); times from phase 3 at GPT-1.3B's, the
+        # padded BERT-large batch's and [8192, 2048]
+        dict(name=name, route="cuda", source=f"apex_tpu_torch/csrc/{src}",
+             replaces=where, launches=runs["launches"][name],
+             **({"launches_lamb": amp_full["fp16 FusedLAMB"]["launches"][
+                 name]} if runs is amp_full["fp16 FusedAdam"] else {}),
+             **timings[name])
+        for name, src, where, runs in (
+            ("flash_qkv_fwd_sm90_f16", "flash_qkv_fwd_sm90.cu",
+             "apex_tpu/ops/attention.py:1766", amp_full["fp16 FusedAdam"]),
+            ("flash_qkv_bwd_sm90_f16", "flash_qkv_bwd_sm90.cu",
+             "apex_tpu/ops/attention.py:1800", amp_full["fp16 FusedAdam"]),
+            ("flash_qkv_fwd_sm90_d64_f16", "flash_qkv_fwd_sm90.cu",
+             "apex_tpu/ops/attention.py:1766", amp_toy_adam16),
+            ("flash_qkv_bwd_sm90_d64_f16", "flash_qkv_bwd_sm90.cu",
+             "apex_tpu/ops/attention.py:1800", amp_toy_adam16),
+            ("layer_norm_fwd_sm90_f16", "layer_norm_sm90.cu",
+             "apex_tpu/ops/fused_layer_norm.py:75",
+             amp_full["fp16 FusedAdam"]),
+            ("layer_norm_bwd_sm90_f16", "layer_norm_sm90.cu",
+             "apex_tpu/ops/fused_layer_norm.py:150",
+             amp_full["fp16 FusedAdam"]),
+            ("layer_norm_fwd_f16", "layer_norm.cu",
+             "apex_tpu/ops/fused_layer_norm.py:75", amp_toy_adam16),
+            ("layer_norm_bwd_f16", "layer_norm.cu",
+             "apex_tpu/ops/fused_layer_norm.py:150", amp_toy_adam16))
     ] + [
         dict(name="flat_adam", route="cuda",
              source="apex_tpu_torch/csrc/flat_adam.cu",

@@ -227,7 +227,7 @@ def test_flash_attention_qkv_refuses_bad_arguments(kwargs, error):
 
 
 @pytest.mark.parametrize("dtype,hn,error", [
-    (torch.float16, 128, TypeError),
+    (torch.float64, 128, TypeError),    # fp16 has its own _f16 instances
     (torch.float32, 96, ValueError),    # instances are built for hn 64, 128
 ])
 def test_kernel_wrapper_refuses_what_the_kernels_do_not_take(dtype, hn,
@@ -237,13 +237,18 @@ def test_kernel_wrapper_refuses_what_the_kernels_do_not_take(dtype, hn,
         tatt._qkv_kernel_args(qkv, None, None, 2)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 @pytest.mark.parametrize("hn", [64, 128])
 def test_kernel_wrapper_takes_head_dims_64_and_128(dtype, hn):
     qkv = torch.zeros(1, 4, 2 * 3 * hn, dtype=dtype)
     assert tatt._qkv_kernel_args(qkv, None, None, 2) == (hn, (None, None), 1)
-    route = "sm90" if dtype == torch.bfloat16 else "scalar"
+    route = {torch.bfloat16: "sm90", torch.float16: "sm90_f16"}.get(
+        dtype, "scalar")
+    assert tatt._qkv_route(dtype) == route
     fwd, bwd = tatt.QKV_KERNELS[route, hn]
-    suffix = "_d64" if hn == 64 else ""
-    assert fwd.symbol == f"flash_qkv_fwd{'_sm90' * (route == 'sm90')}{suffix}"
-    assert bwd.symbol == f"flash_qkv_bwd{'_sm90' * (route == 'sm90')}{suffix}"
+    suffix = ("_d64" if hn == 64 else "") + (
+        "_f16" if dtype == torch.float16 else "")
+    sm90 = "_sm90" * (route != "scalar")
+    assert fwd.symbol == f"flash_qkv_fwd{sm90}{suffix}"
+    assert bwd.symbol == f"flash_qkv_bwd{sm90}{suffix}"

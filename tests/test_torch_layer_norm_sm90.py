@@ -35,7 +35,8 @@ SOURCE = (Path(tln.__file__).resolve().parent.parent / "csrc"
           / "layer_norm_sm90.cu").read_text()
 FP32_TOL = 1e-5
 BF16_TOL = 2.0 ** -7
-DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+          "float16": torch.float16}
 
 
 class _Recorder:
@@ -52,7 +53,8 @@ class _Recorder:
 def recorders(monkeypatch):
     rec = {name: _Recorder() for name in (
         "LAYER_NORM_FWD", "LAYER_NORM_BWD", "LAYER_NORM_FWD_SM90",
-        "LAYER_NORM_BWD_SM90")}
+        "LAYER_NORM_BWD_SM90", "LAYER_NORM_FWD_F16", "LAYER_NORM_BWD_F16",
+        "LAYER_NORM_FWD_SM90_F16", "LAYER_NORM_BWD_SM90_F16")}
     for name, r in rec.items():
         monkeypatch.setattr(tln, name, r)
     monkeypatch.setattr(tln, "_stream", lambda device: None)
@@ -65,8 +67,9 @@ def _source_constant(name):
 
 def _instances(direction):
     """{(dtype, cols): (V, W)} of ``layer_norm_{direction}_sm90``'s
-    launcher, read from the source."""
-    entry = SOURCE[SOURCE.index(f"int layer_norm_{direction}_sm90"):]
+    launcher and of its fp16 entry point ``..._f16``, read from the
+    source."""
+    entry = SOURCE[SOURCE.index(f"int layer_norm_{direction}_sm90("):]
     entry = entry[:entry.index("return cudaErrorInvalidValue")]
     out = {}
     for dtype, code in (("bfloat16", 1), ("float32", 0)):
@@ -76,6 +79,12 @@ def _instances(direction):
                 rf"cols == (\d+)\)\s*return launch_{direction}<[\w:]+, "
                 r"(\d+), (\d+)>", block):
             out[(dtype, int(cols))] = (int(v), int(w))
+    f16 = SOURCE[SOURCE.index(f"int layer_norm_{direction}_sm90_f16("):]
+    f16 = f16[:f16.index("return cudaErrorInvalidValue;\n}")]
+    for cols, v, w in re.findall(
+            rf"cols == (\d+)\)\s*return launch_{direction}<__half, "
+            r"(\d+), (\d+)>", f16):
+        out[("float16", int(cols))] = (int(v), int(w))
     return out
 
 
@@ -83,12 +92,14 @@ def _instances(direction):
 @pytest.mark.parametrize("cols", [256, 512, 1024, 1536, 2048, 3072, 4096,
                                   8192])
 def test_route_is_sm90_for_fp32_and_bf16_at_its_widths(dtype, cols):
-    want = ("sm90" if dtype != "float16" and cols in (1024, 2048, 4096)
-            else "rows")
+    # fp16 (amp's half) takes the same route by width, on entry points of
+    # its own; float64 has no kernel at all
+    want = "sm90" if cols in (1024, 2048, 4096) else "rows"
     assert tln._ln_route(getattr(torch, dtype), cols) == want
+    assert tln._ln_route(torch.float64, cols) == "rows"
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("cols", [256, 1024, 1536, 2048, 4096])
 def test_wrappers_launch_the_routes_kernel_with_its_workspace(recorders,
                                                               dtype, cols):
@@ -99,14 +110,14 @@ def test_wrappers_launch_the_routes_kernel_with_its_workspace(recorders,
     dx, dw, db = tln._ln_bwd_cuda(x, torch.zeros_like(x), mean, invvar, w,
                                   True)
     sm90 = tln._ln_route(x.dtype, cols) == "sm90"
-    fwd, other_fwd = (recorders["LAYER_NORM_FWD_SM90"],
-                      recorders["LAYER_NORM_FWD"])
-    bwd, other_bwd = (recorders["LAYER_NORM_BWD_SM90"],
-                      recorders["LAYER_NORM_BWD"])
-    if not sm90:
-        fwd, other_fwd, bwd, other_bwd = other_fwd, fwd, other_bwd, bwd
-    assert (len(fwd.calls), len(other_fwd.calls)) == (1, 0)
-    assert (len(bwd.calls), len(other_bwd.calls)) == (1, 0)
+    suffix = ("_SM90" if sm90 else "") + (
+        "_F16" if dtype == "float16" else "")
+    fwd, bwd = (recorders[f"LAYER_NORM_{d}{suffix}"] for d in ("FWD", "BWD"))
+    others = [r for n, r in recorders.items()
+              if n not in (f"LAYER_NORM_FWD{suffix}",
+                           f"LAYER_NORM_BWD{suffix}")]
+    assert (len(fwd.calls), len(bwd.calls)) == (1, 1)
+    assert not any(r.calls for r in others)
     code = tln._KERNEL_DTYPES[x.dtype]
     f = fwd.calls[0]
     assert f[:3] == (code, None, x.data_ptr())      # CPU: device index None

@@ -398,7 +398,8 @@ def test_scheduler_decisions_match_jax():
 def test_import_pulls_in_neither_jax_nor_apex_tpu():
     code = ("import sys, apex_tpu_torch, apex_tpu_torch.ops, "
             "apex_tpu_torch.serving, apex_tpu_torch.serving.spec, "
-            "apex_tpu_torch.kernels\n"
+            "apex_tpu_torch.kernels, apex_tpu_torch.amp, "
+            "apex_tpu_torch.utils, apex_tpu_torch.optimizers\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'apex_tpu'))\n"
             "print(bad)\nsys.exit(1 if bad else 0)\n")
@@ -416,6 +417,12 @@ def test_source_never_imports_jax_or_apex_tpu():
     spec = REPO / "apex_tpu_torch" / "serving" / "spec"
     assert {spec / f"{m}.py" for m in ("__init__", "proposer",
                                        "verify")} <= set(files)
+    pkg = REPO / "apex_tpu_torch"
+    assert {pkg / "amp" / f"{m}.py" for m in (
+        "__init__", "scaler", "properties", "handle", "lists", "opt")} | {
+        pkg / "utils" / "tree.py"} | {pkg / "optimizers" / f"{m}.py" for m in (
+            "base", "fused_sgd", "fused_lamb", "fused_novograd",
+            "fused_adagrad", "larc")} <= set(files)
     for path in files:
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):
