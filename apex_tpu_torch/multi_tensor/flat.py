@@ -18,9 +18,13 @@ included), since there is no JAX ``PyTreeDef`` here.  ``unflatten`` gives views 
 dtype is unchanged, so a model whose parameters are rebound to those
 views trains on the superblock itself.
 
-Not ported yet (ROADMAP.md): ``repartition_flat``, ``reshard_stack*``,
-``reshard_tree``, ``spec_lead_axes`` and ``is_replicated_stack``, which
-serve checkpoint resharding across a mesh.
+:func:`repartition_flat` and :func:`reshard_stack` (numpy, host only)
+re-partition a sharded checkpoint's stacked leaves for a new shard count,
+as the JAX package's do; the checkpoint restore uses them to bring a
+sharded save onto one card.  Not ported yet (ROADMAP.md):
+``reshard_stack_device``, ``reshard_tree``, ``spec_lead_axes`` and
+``is_replicated_stack``, which serve sharded saves and live resharding
+across a mesh.
 """
 
 from __future__ import annotations
@@ -30,9 +34,11 @@ import functools
 from collections import OrderedDict, defaultdict
 from typing import Any, List, Optional, Tuple
 
+import numpy as np
 import torch
 
-__all__ = ["FlatSchema", "make_schema", "flatten", "unflatten"]
+__all__ = ["FlatSchema", "make_schema", "flatten", "unflatten",
+           "repartition_flat", "reshard_stack"]
 
 # treedef nodes: ("leaf",), ("none",), ("dict", type, default_factory,
 # keys, children), ("seq", type, children); nested tuples, so hashable
@@ -174,3 +180,62 @@ def unflatten(flat: torch.Tensor, schema: FlatSchema, *,
     leaves = [flat[schema.leaf_slice(i)].reshape(schema.shapes[i]).to(
         dtype or schema.dtypes[i]) for i in range(schema.num_tensors)]
     return _tree_unflatten(schema.treedef, leaves)
+
+
+def repartition_flat(flat: np.ndarray, new_size: int, *,
+                     label: str = "flat buffer") -> np.ndarray:
+    """Resize a 1-D flat superblock for a new shard topology.
+
+    Only the ``total_multiple_of`` tail padding depends on the shard
+    count, so an N->M re-partition is concat -> resize -> re-split, and
+    the only legal size change is in the padding tail: growth
+    zero-fills; shrinkage requires the dropped tail to be all zeros —
+    anything else is real state and raises."""
+    flat = np.ascontiguousarray(flat).reshape(-1)
+    if new_size > flat.size:
+        out = np.zeros((new_size,), flat.dtype)
+        out[: flat.size] = flat
+        return out
+    if new_size < flat.size:
+        if np.any(flat[new_size:] != 0):
+            raise ValueError(
+                f"cannot repartition {label} from {flat.size} to "
+                f"{new_size} elements: the {flat.size - new_size} dropped "
+                "trailing elements are not all zero — that region holds "
+                "real state, not flat-schema padding (schema mismatch?)")
+        return flat[:new_size]
+    return flat
+
+
+def reshard_stack(val: np.ndarray, n_lead: int, want_shape, *,
+                  replicated: bool = False,
+                  label: str = "sharded stack") -> np.ndarray:
+    """Re-partition one stacked sharded leaf across topologies.
+
+    ``val`` is a ``[n_a, n_b, ..., *content]`` stack whose first
+    ``n_lead`` dims are per-rank stack axes; ``want_shape`` is the
+    target's stacked shape.  ``replicated`` (broadcast step counters):
+    coordinate (0, ..., 0) speaks for the whole new topology and the
+    content shape must match.  Otherwise the leaf's logical value is its
+    C-order flatten, re-partitioned under :func:`repartition_flat`'s
+    pad/trim contract and reshaped to ``want_shape``."""
+    val = np.asarray(val)
+    want_shape = tuple(int(x) for x in want_shape)
+    if n_lead >= val.ndim + 1 and not replicated:
+        raise ValueError(
+            f"cannot reshard {label}: {n_lead} stack axes on a "
+            f"{val.ndim}-D array")
+    if replicated:
+        n_lead = min(n_lead, val.ndim)
+        content = val[(0,) * n_lead]
+        tail = want_shape[len(want_shape) - content.ndim:] if content.ndim \
+            else ()
+        if content.shape != tuple(tail):
+            raise ValueError(
+                f"cannot reshard replicated {label}: per-rank shape "
+                f"{content.shape} != target per-rank shape {tuple(tail)}")
+        # contiguous: callers may .view() raw-bits stored dtypes
+        return np.ascontiguousarray(np.broadcast_to(content, want_shape))
+    out = repartition_flat(val, int(np.prod(want_shape, dtype=np.int64)),
+                           label=label)
+    return out.reshape(want_shape)

@@ -8,6 +8,9 @@ tracing and offline summaries (port of the JAX package's
   run id, step, monotonic time, and mesh topology;
 - **flight recorder** — :class:`FlightRecorder` ring of the last N
   events, flushed to ``postmortem_*.jsonl`` (``bus.flush_postmortem``);
+- **accounting** — :class:`StepAccountant` (``bus.accountant()``): the
+  per-step wall split, windowed scalar reads and the goodput ledger of
+  ``run_end``;
 - **schema** — :func:`validate_event` / :func:`validate_jsonl`, the
   contract every producer is tested against (the JAX package's table);
 - **tracing** — request-scoped causal spans (``span`` events; trace id
@@ -17,11 +20,15 @@ tracing and offline summaries (port of the JAX package's
 - **CLI** — ``python -m apex_tpu_torch.telemetry summarize run.jsonl``
   (``--diff`` A/B), ``validate``, and ``trace STREAM.jsonl...``.
 
-Not ported yet (ROADMAP.md): the goodput accountant, the profile
-sampler and the benchmark-record ``regress`` gate; the JAX package's XLA
-recompile listener has no counterpart in eager PyTorch.
+Not ported yet (ROADMAP.md): the profile sampler and the
+benchmark-record ``regress`` gate; the JAX package's XLA recompile
+listener has no counterpart in eager PyTorch.
 """
 
+from apex_tpu_torch.telemetry.accounting import (  # noqa: F401
+    PAUSE_KINDS,
+    StepAccountant,
+)
 from apex_tpu_torch.telemetry.bus import (  # noqa: F401
     EVENT_TYPES,
     JsonlSink,
@@ -79,8 +86,10 @@ __all__ = [
     "validate_trace",
     "JsonlSink",
     "MemorySink",
+    "PAUSE_KINDS",
     "SchemaError",
     "StdoutSink",
+    "StepAccountant",
     "TelemetryBus",
     "TelemetryError",
     "default_mesh_topology",

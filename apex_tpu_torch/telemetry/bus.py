@@ -140,6 +140,7 @@ class TelemetryBus:
         self._postmortem_dir = postmortem_dir
         self._postmortems = 0
         self._watchdog = None
+        self._accountant = None
         self._lock = threading.Lock()
 
     # -- emission --------------------------------------------------------
@@ -188,7 +189,18 @@ class TelemetryBus:
         with self._lock:
             self.mesh = dict(mesh)
 
-    # -- watchdog attachment ---------------------------------------------
+    # -- shared accounting / watchdog attachment -------------------------
+
+    def accountant(self, window: int = 10):
+        """The bus's shared
+        :class:`~apex_tpu_torch.telemetry.accounting.StepAccountant`
+        (created on first call), so every loop over this bus keeps one
+        goodput ledger."""
+        if self._accountant is None:
+            from apex_tpu_torch.telemetry.accounting import StepAccountant
+
+            self._accountant = StepAccountant(self, window=window)
+        return self._accountant
 
     def attach_watchdog(self, watchdog) -> None:
         """Remember the run's watchdog so postmortems include its

@@ -62,6 +62,12 @@ def jax_tree_from_state_dict(sd: Mapping[str, torch.Tensor]) -> dict:
     for leaf, per_layer in stacks.items():
         flat[f"{_LAYERS}.{leaf}"] = np.stack(
             [per_layer[i] for i in range(len(per_layer))])
+    return nest(flat)
+
+
+def nest(flat: Mapping[str, object]) -> dict:
+    """The nested dict of a ``{"a.b.c": leaf}`` mapping (the inverse of
+    joining a JAX tree's path with dots)."""
     tree: dict = {}
     for name, a in flat.items():
         node = tree

@@ -8,7 +8,8 @@ It covers the six ported paths: the serving engine (phases 4-5, its
 speculative, chunked and prefix-sharing modes in phases 4 and 15, and its
 state, page integrity and telemetry in phase 16), the GPT
 training step of ``pretrain_gpt`` (phases 6-7; under amp, O0 and O2 in
-bf16 and fp16 with the fused optimizers, in phase 17), the contrib multi-head
+bf16 and fp16 with the fused optimizers, in phase 17; on real token
+shards through a checkpoint, a preemption and a resume in phase 18), the contrib multi-head
 attention training path (phases 8-9), GPT training on the flat
 superblock with ``FlatFusedAdam`` (phases 10-11), the kernel
 microbenches with their HBM roof and attention dot floor (phase 12) and
@@ -307,6 +308,28 @@ Phases, each of which fails the run (non-zero exit) on error:
     fp16 step through the kernels within ``AMP_PLAIN_*`` of the same step
     through the plain versions, and with head 0's dK dropped in K4
     outside them.
+18. GPT-1.3B training: checkpoint, preempt, resume — phase 7's flags
+    with ``--data-dir`` over four checksummed shards of seeded tokens
+    (``write_checksummed_records``, 24 records of 2049 ids) written into
+    a temp dir (its free bytes printed first; the dir is removed at the
+    end, pass or fail): run A trains 6 steps uninterrupted; run B adds
+    ``--save``, ``--save-interval 2``, ``--telemetry-dir`` and
+    ``--watchdog-timeout 120`` and a ``SimulatedPreemption`` (a real
+    SIGTERM) after step 3, so an async save at 2 and a blocking save at
+    3, then a clean exit; run C loads step 3 (``--load``) and runs to 6; run D
+    loads after ``corrupt_arrays`` flipped a byte of step 3's
+    arrays, must warn ``CheckpointFallbackWarning`` and resume from step
+    2.  B's losses and state to step 3, C's from step 4 and D's from step
+    3 equal A's bit for bit (each loss, and a digest of every parameter
+    and both Adam moments, taken on the card, after steps 3 and 6); both
+    checkpoints hold the iterator's ``data_state``; B's stream validates
+    and holds the two ``ckpt_save`` events with ``wall_ms``, the
+    accountant's ``ckpt_fence`` pause and the SIGTERM's postmortem; K3,
+    K4, K6 and K7 launch phase 7's counts a step times the 16 steps of
+    the four runs, exactly.  Each save's seconds and GB (the async one's
+    time to return against its time to commit, with its fence, snapshot,
+    CRC32 and write split), each restore's seconds and GB and run A's
+    step time against run B's are printed beside the card.
 
 The last three lines of standard output are the kernels' JSON record,
 the ``nvidia-smi`` name/power line, and ``{"ok": true, "device": ...}``.
@@ -323,10 +346,13 @@ import math
 import os
 import re
 import statistics
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
+import warnings
 from unittest import mock
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -359,6 +385,13 @@ from apex_tpu_torch.transformer.testing import (  # noqa: E402
     BertModel, GPTConfig, GPTModel, gpt1p3b_config, gpt_param_count)
 from apex_tpu_torch.transformer.testing.standalone_gpt import (  # noqa: E402
     attention_segments)
+from apex_tpu_torch import checkpoint as ckpt  # noqa: E402
+from apex_tpu_torch import resilience  # noqa: E402
+from apex_tpu_torch.checkpoint import checkpoint as ckpt_mod  # noqa: E402
+from apex_tpu_torch.data import write_checksummed_records  # noqa: E402
+from apex_tpu_torch.resilience import CheckpointFallbackWarning  # noqa: E402
+from apex_tpu_torch.resilience.chaos import (  # noqa: E402
+    SimulatedPreemption, corrupt_arrays)
 from apex_tpu_torch.resilience import (CorruptLivePage,  # noqa: E402
                                        ServingDeviceLoss, SlowDecode,
                                        Watchdog)
@@ -371,8 +404,9 @@ from apex_tpu_torch.serving import (NgramProposer,  # noqa: E402
                                     quantize_tokens, verify_page_payload)
 from apex_tpu_torch.telemetry import (TTFT_SUM_TOLERANCE_MS,  # noqa: E402
                                       MemorySink, TelemetryBus, build_traces,
-                                      format_summary, summarize_events,
-                                      ttft_decomposition, validate_event,
+                                      format_summary, load_jsonl,
+                                      summarize_events, ttft_decomposition,
+                                      validate_event, validate_events,
                                       validate_trace)
 
 BF16_TOL = 2.0 ** -7    # x max|ref|: one bf16 ulp at the output's scale
@@ -3591,12 +3625,17 @@ def loss_and_grads(model, tokens, labels):
     return loss.detach().item(), grads
 
 
+# a GPT-1.3B bf16 step's launches (remat attn_res, L = 24 layers): the
+# tensor-core K3/K4 L each, layer_norm_sm90.cu's K6 4L + 1 and K7 2L + 1,
+# and not one launch of the scalar K3/K4 or of layer_norm.cu
+GPT_STEP_LAUNCHES = {"flash_qkv_fwd_sm90": 24, "flash_qkv_bwd_sm90": 24,
+                     "layer_norm_fwd_sm90": 4 * 24 + 1,
+                     "layer_norm_bwd_sm90": 2 * 24 + 1}
+
+
 def phase_full_training(smi: str) -> dict:
     L = 24
-    # bf16: the tensor-core K3/K4 and layer_norm_sm90.cu's K6/K7, and not
-    # one launch of the scalar K3/K4 or of layer_norm.cu
-    want = {"flash_qkv_fwd_sm90": L, "flash_qkv_bwd_sm90": L,
-            "layer_norm_fwd_sm90": 4 * L + 1, "layer_norm_bwd_sm90": 2 * L + 1}
+    want = GPT_STEP_LAUNCHES
     steps, losses, times = 10, [], []
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -5537,6 +5576,281 @@ def phase_amp_full(smi: str) -> dict:
     return out
 
 
+# -- phase 18: GPT-1.3B training through a checkpoint, a preemption and a
+# resume ------------------------------------------------------------------
+
+RESUME_STEPS = 6        # Run A's steps, and where C and D stop
+PREEMPT_AT = 3          # Run B is preempted after this step
+SAVE_EVERY = 2          # Run B's --save-interval: an async save at step 2
+TOKEN_SHARDS = 4
+RESUME_TRAIN = FULL_TRAIN + ["--train-iters", str(RESUME_STEPS),
+                             "--log-interval", str(RESUME_STEPS)]
+
+
+def write_token_shards(d: str, b: int = 4, s: int = 2048,
+                       vocab: int = FULL["vocab_size"], seed: int = 18) -> int:
+    """``TOKEN_SHARDS`` shards of checksummed records, each s + 1 seeded
+    uint32 ids below the vocab: the records of ``RESUME_STEPS`` steps of
+    b rows.  Returns the payload bytes."""
+    rng = np.random.RandomState(seed)
+    ids = rng.randint(0, vocab, (RESUME_STEPS * b, s + 1)).astype(np.uint32)
+    for k, part in enumerate(np.array_split(ids, TOKEN_SHARDS)):
+        write_checksummed_records(
+            os.path.join(d, f"tokens_{k}.bin"),
+            part.view(np.uint8).reshape(len(part), -1))
+    return ids.nbytes
+
+
+def state_digest(model, opt) -> list:
+    """A bitwise fingerprint of every parameter and both Adam moments,
+    taken on the card: for each tensor the int64 sums of its 32-bit
+    words, plain and weighted by position (any changed word changes the
+    plain sum), and the step count."""
+    sums = []
+    for p in model.parameters():
+        st = opt.state[p]
+        for t in (p, st["exp_avg"], st["exp_avg_sq"]):
+            w = t.detach().reshape(-1).view(torch.int32).long()
+            pos = torch.arange(w.numel(), device=w.device) % 8191 + 1
+            sums += [w.sum(), (w * pos).sum()]
+    return torch.stack(sums).tolist() + [
+        opt.state[next(model.parameters())]["step"]]
+
+
+def dir_gb(path: str) -> float:
+    return sum(os.path.getsize(os.path.join(r, f))
+               for r, _, fs in os.walk(path) for f in fs) / 1e9
+
+
+def resume_run(what: str, flags, preempt=None) -> dict:
+    """``pretrain_gpt.main`` on the card with ``flags``: each step's loss
+    and its time since the previous step's end, the state digest after
+    steps ``PREEMPT_AT`` and ``RESUME_STEPS``, and (``preempt``, a
+    ``SimulatedPreemption``) a poll at every step boundary."""
+    losses, times, digests, held = {}, {}, {}, {}
+    t_last = [None]
+    setup = pretrain_gpt.setup
+
+    def keep_setup(*a, **kw):
+        out = setup(*a, **kw)
+        held["opt"] = out[2]
+        return out
+
+    def record(it, loss, model):
+        losses[it + 1] = float(loss)     # synchronises: the step is done
+        now = time.perf_counter()
+        if t_last[0] is not None:
+            times[it + 1] = (now - t_last[0]) * 1e3
+        if it + 1 in (PREEMPT_AT, RESUME_STEPS):
+            digests[it + 1] = state_digest(model, held["opt"])
+        if preempt is not None:
+            preempt.poll()
+        t_last[0] = time.perf_counter()
+
+    torch.cuda.empty_cache()
+    with mock.patch.object(pretrain_gpt, "setup", keep_setup):
+        pretrain_gpt.main(flags, device="cuda", on_step=record)
+    held.clear()
+    torch.cuda.empty_cache()
+    log(f"  run {what}: losses {losses}")
+    return {"losses": losses, "times": times, "digests": digests}
+
+
+def same_as_a(what: str, run: dict, a: dict, first: int) -> None:
+    """Run ``what``'s losses from step ``first`` and its digests equal Run
+    A's, bit for bit."""
+    want = {s: a["losses"][s] for s in range(first, RESUME_STEPS + 1)}
+    if run["losses"] != want:
+        raise AssertionError(f"run {what}: losses {run['losses']} != run "
+                             f"A's {want}")
+    for s, dig in run["digests"].items():
+        if dig != a["digests"][s]:
+            bad = sum(x != y for x, y in zip(dig, a["digests"][s]))
+            raise AssertionError(f"run {what}: parameters and moments after "
+                                 f"step {s} differ from run A's ({bad} of "
+                                 f"{len(dig)} sums)")
+    log(f"  run {what}: losses of steps {first}-{RESUME_STEPS} and the "
+        f"parameters and moments after steps {sorted(run['digests'])} equal "
+        "run A's bit for bit")
+
+
+def observed_saves(snaps: list, events: list, stream: list) -> list:
+    """Each save's split, from the wrapped snapshot and save calls
+    (``snaps``) and the checkpoint layer's storage events (``events``),
+    in perf_counter seconds; a save fences the one before, so each
+    save's events fall between its snapshot and the next one's."""
+    saves = []
+    evs = [e for e in stream if e["type"] == "ckpt_save"]
+    for i, (ev, sn) in enumerate(zip(evs, snaps)):
+        end = snaps[i + 1]["t0"] if i + 1 < len(snaps) else math.inf
+        at = {k: t for t, k in events if sn["t1"] <= t < end}
+        start = sn["ret"] - ev["wall_ms"] / 1e3
+        saves.append({"step": ev["step"], "blocking": ev["blocking"],
+                      "return_s": ev["wall_ms"] / 1e3,
+                      "fence_s": sn["t0"] - start,
+                      "snapshot_s": sn["t1"] - sn["t0"],
+                      "crc_s": at["write_arrays"] - sn["t1"],
+                      "write_s": at["write_manifest"] - at["write_arrays"],
+                      "commit_s": at["commit"] - start})
+    return saves
+
+
+def phase_resume(smi: str) -> dict:
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_resume_")
+    try:
+        return resume_runs(tmp, smi)
+    finally:
+        try:
+            resilience.wait_for_save()
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+
+
+def resume_runs(tmp: str, smi: str) -> dict:
+    free = shutil.disk_usage(tmp).free
+    log(f"  temp dir {tmp}: {free:,} bytes free before the phase")
+    data, ck = os.path.join(tmp, "tokens"), os.path.join(tmp, "ckpt")
+    os.makedirs(data)
+    log(f"  {write_token_shards(data):,} bytes of seeded tokens in "
+        f"{TOKEN_SHARDS} checksummed shards")
+    flags = RESUME_TRAIN + ["--data-dir", data]
+    kernels.reset_launch_counts()
+
+    # A: uninterrupted
+    a = resume_run("A (uninterrupted)", flags)
+    if not all(math.isfinite(x) for x in a["losses"].values()):
+        raise AssertionError("run A: non-finite loss")
+
+    # B: async save at 2, a SIGTERM after 3, the blocking save, clean exit
+    tele_b = os.path.join(tmp, "tele_b")
+    snaps, events = [], []
+    tree_fn, save_fn = pretrain_gpt.checkpoint_tree, ckpt.save_checkpoint
+
+    def timed_tree(*args):
+        t0 = time.perf_counter()
+        out = tree_fn(*args)
+        snaps.append({"t0": t0, "t1": time.perf_counter()})
+        return out
+
+    def timed_save(*args, **kw):
+        out = save_fn(*args, **kw)
+        snaps[-1]["ret"] = time.perf_counter()
+        return out
+
+    prev = ckpt_mod.set_fault_hook(
+        lambda ev, path: events.append((time.perf_counter(), ev)))
+    try:
+        with mock.patch.object(pretrain_gpt, "checkpoint_tree", timed_tree), \
+                mock.patch.object(ckpt, "save_checkpoint", timed_save):
+            b = resume_run("B (save every 2, preempted after 3)", flags + [
+                "--save", ck, "--save-interval", str(SAVE_EVERY),
+                "--telemetry-dir", tele_b, "--watchdog-timeout", "120"],
+                preempt=SimulatedPreemption(at_poll=PREEMPT_AT))
+    finally:
+        ckpt_mod.set_fault_hook(prev)
+    want_b = {s: a["losses"][s] for s in range(1, PREEMPT_AT + 1)}
+    if b["losses"] != want_b or b["digests"] != {
+            PREEMPT_AT: a["digests"][PREEMPT_AT]}:
+        raise AssertionError(f"run B: losses {b['losses']} or its state "
+                             f"after step {PREEMPT_AT} differ from run A's")
+    steps_saved = sorted(s for s in range(RESUME_STEPS + 1)
+                         if os.path.isdir(ckpt.step_dir(ck, s)))
+    if steps_saved != [SAVE_EVERY, PREEMPT_AT] or \
+            ckpt.latest_step(ck) != PREEMPT_AT:
+        raise AssertionError(f"run B saved steps {steps_saved}, want "
+                             f"{[SAVE_EVERY, PREEMPT_AT]}")
+    for s in steps_saved:   # (C and D verify the CRCs of 3 and 2)
+        if ckpt.load_data_state(ck, s) is None:
+            raise AssertionError(f"checkpoint {s} holds no data_state")
+    gb = {s: dir_gb(ckpt.step_dir(ck, s)) for s in steps_saved}
+
+    # the telemetry stream
+    stream = load_jsonl(os.path.join(tele_b, "pretrain_gpt.jsonl"))
+    validate_events(stream)
+    kinds = [e["type"] for e in stream]
+    saves_ev = [e for e in stream if e["type"] == "ckpt_save"]
+    run_end = [e for e in stream if e["type"] == "run_end"]
+    post = [e for e in stream if e["type"] == "postmortem"]
+    if ([(e["step"], e["blocking"]) for e in saves_ev]
+            != [(SAVE_EVERY, False), (PREEMPT_AT, True)]
+            or not all("wall_ms" in e for e in saves_ev)):
+        raise AssertionError(f"telemetry: ckpt_save events {saves_ev}")
+    if not (len(run_end) == 1
+            and run_end[0].get("buckets_s", {}).get("ckpt_fence", 0) > 0
+            and run_end[0]["reason"] == "SIGTERM"):
+        raise AssertionError(f"telemetry: run_end {run_end}")
+    if not (len(post) == 1 and post[0]["reason"] == "SIGTERM"
+            and os.path.isfile(post[0]["path"])):
+        raise AssertionError(f"telemetry: postmortem {post}")
+    log(f"  run B's stream: {len(stream)} valid events {kinds}; run_end "
+        f"goodput {run_end[0]['goodput']}, buckets {run_end[0]['buckets_s']}; "
+        f"postmortem {os.path.basename(post[0]['path'])} "
+        f"({post[0]['ring_events']} events)")
+    saves = observed_saves(snaps, events, stream)
+    for sv in saves:
+        sv["gb"] = gb[sv["step"]]
+        kind = "blocking" if sv["blocking"] else "async"
+        log(f"  save of step {sv['step']} ({kind}, {sv['gb']:.3f} GB): "
+            f"returned after {sv['return_s']:.3f} s "
+            f"(fence {sv['fence_s']:.3f}, snapshot {sv['snapshot_s']:.3f}), "
+            f"committed after {sv['commit_s']:.3f} s (CRC32 "
+            f"{sv['crc_s']:.3f}, npz write {sv['write_s']:.3f}); {smi}")
+
+    # C: resume from step 3
+    tele_c = os.path.join(tmp, "tele_c")
+    c = resume_run("C (--load, from step 3)", flags + [
+        "--load", ck, "--telemetry-dir", tele_c])
+    same_as_a("C", c, a, PREEMPT_AT + 1)
+
+    # D: step 3's arrays corrupt: a warned fallback to step 2
+    path = corrupt_arrays(ck, PREEMPT_AT)
+    log(f"  flipped a byte of {os.path.relpath(path, tmp)}")
+    tele_d = os.path.join(tmp, "tele_d")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        d = resume_run("D (--load, step 3 corrupt)", flags + [
+            "--load", ck, "--telemetry-dir", tele_d])
+    fallbacks = [w for w in caught
+                 if issubclass(w.category, CheckpointFallbackWarning)]
+    if not fallbacks:
+        raise AssertionError("run D: no CheckpointFallbackWarning")
+    log(f"  run D warned: {str(fallbacks[-1].message)[:160]}")
+    same_as_a("D", d, a, SAVE_EVERY + 1)
+
+    restores = {}
+    for what, tele, step in (("C", tele_c, PREEMPT_AT),
+                             ("D", tele_d, SAVE_EVERY)):
+        evs = load_jsonl(os.path.join(tele, "pretrain_gpt.jsonl"))
+        validate_events(evs)
+        r = [e for e in evs if e["type"] == "ckpt_restore"]
+        if [e["step"] for e in r] != [step]:
+            raise AssertionError(f"run {what}: ckpt_restore events {r}")
+        restores[what] = {"step": step, "s": r[0]["wall_ms"] / 1e3,
+                          "gb": gb[step]}
+        log(f"  restore in run {what} (step {step}, {gb[step]:.3f} GB"
+            f"{', after the corrupt step 3' if what == 'D' else ''}): "
+            f"{restores[what]['s']:.3f} s; {smi}")
+
+    steps_run = RESUME_STEPS + PREEMPT_AT + (RESUME_STEPS - PREEMPT_AT) + (
+        RESUME_STEPS - SAVE_EVERY)
+    launches = {k.symbol: k.launches for k in kernels.KERNELS if k.launches}
+    want = {k: v * steps_run for k, v in GPT_STEP_LAUNCHES.items()}
+    log(f"  launches over the {steps_run} steps of runs A-D {launches}, "
+        f"expected {want}")
+    if launches != want:
+        raise AssertionError("phase 18 launch counts do not match the main "
+                             "path")
+    step_a = statistics.median(list(a["times"].values()))
+    step_b = [e["step_ms"] for e in stream if e["type"] == "step"]
+    log(f"  step time: run A {step_a:.1f} ms (median of steps 2-6, step end "
+        f"to step end), run B {statistics.median(step_b):.1f} ms (median of "
+        f"its synced step_ms {step_b}); {smi}")
+    return {"launches": launches, "steps_run": steps_run, "saves": saves,
+            "restores": restores, "step_ms_a": step_a,
+            "step_ms_b": statistics.median(step_b), "free_bytes": free,
+            "card": smi}
+
+
 #: the phase running now, named in the failure line
 PHASE = {"n": 0, "name": "start"}
 
@@ -5645,8 +5959,16 @@ def main() -> int:
     amp_full = phase_amp_full(smi)
     log(f"  phase 17 took {time.perf_counter() - t17:.1f} s")
     torch.cuda.empty_cache()
+
+    begin(18, "GPT-1.3B training: checkpoint, preempt, resume (--data-dir "
+          "shards, an async save at 2, a SIGTERM after 3, resumed to 6 from "
+          "3 and, past a corrupt step 3, from 2)")
+    t18 = time.perf_counter()
+    resume = phase_resume(smi)
+    log(f"  phase 18 took {time.perf_counter() - t18:.1f} s")
+    torch.cuda.empty_cache()
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
-    PHASE.update(n=18, name="record")
+    PHASE.update(n=19, name="record")
 
     amp_toy_adam16 = {"launches": amp_toy["launches"]["O2 fp16 adam"]}
     record = {"kernels": [
@@ -5722,10 +6044,13 @@ def main() -> int:
              **timings["flash_decode"]),
     ] + [
         # K3/K4: the bf16 route on the tensor cores runs the GPT-1.3B step
-        # (phase 7); the scalar kernels are the fp32 route (phase 6's toy
-        # step) and are timed on bf16 as the kernels they replaced there
+        # (phase 7, and phase 18's runs); the scalar kernels are the fp32
+        # route (phase 6's toy step) and are timed on bf16 as the kernels
+        # they replaced there
         dict(name=name, route="cuda", source=f"apex_tpu_torch/csrc/{src}",
              replaces=where, launches=runs["launches"][name],
+             **({} if runs is toy_train else dict(
+                 launches_resume=resume["launches"][name])),
              **timings[name])
         for name, src, where, runs in (
             ("flash_qkv_fwd_sm90", "flash_qkv_fwd_sm90.cu",
@@ -5767,7 +6092,7 @@ def main() -> int:
              "apex_tpu/ops/attention.py:1800"))
     ] + [
         # K6/K7: layer_norm_sm90.cu is the route at 1024, 2048 and 4096
-        # columns: the GPT-1.3B steps (phases 7 and 11), the multi-head
+        # columns: the GPT-1.3B steps (phases 7, 11 and 18), the multi-head
         # attention step (phase 9) and the LayerNorm microbench (phase 12);
         # layer_norm.cu takes every other width (the toys' 256 and 32,
         # phases 6, 8 and 10) and is timed at 2048 as the kernel it replaced
@@ -5777,7 +6102,8 @@ def main() -> int:
                  launches_mha=mha["launches"][name],
                  launches_flat=flat["launches"][name],
                  launches_microbench=probes["launches"][name],
-                 launches_bert=bert["padded"]["launches"][name])),
+                 launches_bert=bert["padded"]["launches"][name],
+                 launches_resume=resume["launches"][name])),
              **timings[name])
         for name, src, where, runs in (
             ("layer_norm_fwd_sm90", "layer_norm_sm90.cu",

@@ -375,12 +375,6 @@ TOY_ARGV = ["--num-layers", "2", "--hidden-size", "64",
 @pytest.mark.parametrize("flags", [
     ["--tensor-model-parallel-size", "2"],
     ["--world-size", "2"],
-    ["--data-dir", "shards"],
-    ["--data-path", "a.bin"],
-    ["--save", "ckpt"],
-    ["--load", "ckpt"],
-    ["--telemetry-dir", "tele"],
-    ["--watchdog-timeout", "5"],
     ["--profile-every", "2"],
     ["--num-layers", "12", "--remat-policy", "dots"],
 ], ids=lambda f: f[-2].lstrip("-") if len(f) == 4 else f[0].lstrip("-"))
@@ -414,9 +408,14 @@ def test_training_modules_import_neither_jax_nor_apex_tpu():
     code = ("import sys, apex_tpu_torch.examples.gpt.pretrain_gpt, "
             "apex_tpu_torch.transformer.testing.convert, "
             "apex_tpu_torch.transformer.testing.arguments, "
+            "apex_tpu_torch.transformer.testing.train_loop, "
             "apex_tpu_torch.optimizers, apex_tpu_torch.multi_tensor, "
             "apex_tpu_torch.ops.fused_layer_norm, "
-            "apex_tpu_torch.ops.fused_linear_xent\n"
+            "apex_tpu_torch.ops.fused_linear_xent, "
+            "apex_tpu_torch.checkpoint, apex_tpu_torch.data, "
+            "apex_tpu_torch._native, apex_tpu_torch.resilience, "
+            "apex_tpu_torch.resilience.chaos, "
+            "apex_tpu_torch.telemetry.accounting\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'apex_tpu'))\n"
             "print(bad)\nsys.exit(1 if bad else 0)\n")

@@ -423,6 +423,15 @@ def test_source_never_imports_jax_or_apex_tpu():
         pkg / "utils" / "tree.py"} | {pkg / "optimizers" / f"{m}.py" for m in (
             "base", "fused_sgd", "fused_lamb", "fused_novograd",
             "fused_adagrad", "larc")} <= set(files)
+    assert {pkg / "checkpoint" / f"{m}.py" for m in (
+        "__init__", "checkpoint", "train_state")} | {
+        pkg / "data" / f"{m}.py" for m in (
+            "__init__", "records", "iterator", "native", "prefetch")} | {
+        pkg / "resilience" / f"{m}.py" for m in (
+            "async_checkpoint", "guards", "preemption", "restore")} | {
+        pkg / "_native" / "__init__.py",
+        pkg / "telemetry" / "accounting.py",
+        pkg / "transformer" / "testing" / "train_loop.py"} <= set(files)
     for path in files:
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):
