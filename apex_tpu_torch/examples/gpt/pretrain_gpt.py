@@ -1,7 +1,7 @@
-"""Megatron-style GPT pretraining on one card.
+"""Megatron-style GPT pretraining, tensor- and data-parallel.
 
-PyTorch port of the JAX package's ``examples/gpt/pretrain_gpt.py`` at
-tensor- and data-parallel size 1: the same Megatron flags
+PyTorch port of the JAX package's ``examples/gpt/pretrain_gpt.py``: the
+same Megatron flags
 (:mod:`apex_tpu_torch.transformer.testing.arguments`), the same model
 (:class:`~apex_tpu_torch.transformer.testing.GPTModel`, built on the
 card), ``FusedAdam``, global-norm clipping::
@@ -12,6 +12,25 @@ card), ``FusedAdam``, global-norm clipping::
         --max-position-embeddings 2048 --micro-batch-size 4 --bf16 \\
         --train-iters 20 --log-interval 5 --data-dir shards/ \\
         --save ckpt/ --save-interval 10 --load ckpt/
+
+    # tp 2 x dp 2: four ranks, one process each
+    python -m apex_tpu_torch.parallel.multiproc --nproc 4 \
+        -m apex_tpu_torch.examples.gpt.pretrain_gpt \
+        --tensor-model-parallel-size 2 --distributed-backend nccl ...
+
+Each rank is a process (``torchrun`` or :mod:`apex_tpu_torch.parallel.
+multiproc` sets ``RANK``/``WORLD_SIZE``; a caller may also join the
+process group itself before :func:`main`).  The world is the process
+group's, dp = world / tp, and the global batch is micro x dp, as the JAX
+example derives it: every rank draws (or reads) the whole global batch
+and keeps its dp rows, so the sample stream and the iterator position
+are the JAX example's.  The gradients are averaged over dp with
+:func:`~apex_tpu_torch.parallel.all_reduce_grads`, the reported loss is
+the dp mean, and the clip's norm is the norm of the whole model's
+gradient (each tensor-parallel shard once, each replicated parameter
+once), so tp ranks train as tp = 1 does.  ``--distributed-backend``
+names the transport and is never switched: ranks that share a card need
+``gloo`` (NCCL refuses them, and the launch says so).
 
 Each step: forward, backward, ``clip_grad_norm``, optimizer step; every
 ``--log-interval`` steps it prints ``iter i/n loss x ms/iter tok/s``.
@@ -30,8 +49,11 @@ and at the end) with the iterator's position in the same manifest;
 (:func:`~apex_tpu_torch.resilience.restore_resilient`).  The checkpoint
 is the JAX example's tree, ``(params, AdamState(step, exp_avg,
 exp_avg_sq))`` with the layers stacked and a leading tensor-parallel axis
-of 1, in the JAX package's format: a run started by either example
-resumes in the other at the same step and data position.
+of tp, in the JAX package's format: a run started by either example
+resumes in the other at the same step and data position.  At tp above 1
+the tp ranks of data-parallel rank 0 gather their shards to global rank
+0, which writes; on restore each rank reads the tree and keeps its own
+index.  Telemetry and the log lines come from global rank 0.
 ``--telemetry-dir`` writes the event stream (``run_start``, ``step``
 events through the goodput accountant, ``ckpt_save``, ``ckpt_restore``,
 ``run_end``) and a postmortem on every abnormal exit;
@@ -44,8 +66,7 @@ same stream.  ``--remat-policy`` takes the JAX example's five policies
 (remat is on from 12 layers).
 
 Options the port does not have yet raise ``NotImplementedError``
-(ROADMAP.md): tensor or pipeline parallelism above 1 and more than one
-process.
+(ROADMAP.md): pipeline parallelism above 1.
 """
 
 from __future__ import annotations
@@ -60,12 +81,16 @@ from typing import (Callable, Iterable, Iterator, Mapping, NamedTuple,
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from apex_tpu_torch import checkpoint as ckpt
 from apex_tpu_torch import resilience
 from apex_tpu_torch._device import resolve_device
-from apex_tpu_torch.multi_tensor import clip_grad_norm
+from apex_tpu_torch.multi_tensor import clip_grad_norm, multi_tensor_l2norm
 from apex_tpu_torch.optimizers import FusedAdam
+from apex_tpu_torch.parallel import all_reduce_grads, comm
+from apex_tpu_torch.parallel.multiproc import initialize_distributed
+from apex_tpu_torch.transformer import parallel_state
 from apex_tpu_torch.transformer.tensor_parallel.random import fold_in
 from apex_tpu_torch.transformer.testing import GPTConfig, GPTModel
 from apex_tpu_torch.transformer.testing.arguments import parse_args
@@ -122,18 +147,11 @@ def _extra_args(parser):
 
 
 def _refuse_unported(args) -> None:
-    unported = []
-    if args.tensor_model_parallel_size != 1:
-        unported.append(
-            f"--tensor-model-parallel-size {args.tensor_model_parallel_size}")
     if args.pipeline_model_parallel_size != 1:
-        unported.append(f"--pipeline-model-parallel-size "
-                        f"{args.pipeline_model_parallel_size}")
-    if args.world_size != 1:
-        unported.append(f"--world-size {args.world_size}")
-    if unported:
         raise NotImplementedError(
-            "not ported to apex_tpu_torch (ROADMAP.md): " + ", ".join(unported))
+            "not ported to apex_tpu_torch (ROADMAP.md): "
+            f"--pipeline-model-parallel-size "
+            f"{args.pipeline_model_parallel_size}")
 
 
 def build_config(args) -> GPTConfig:
@@ -165,7 +183,8 @@ def build_config(args) -> GPTConfig:
 
 def synthetic_batches(args, generator: torch.Generator) -> Iterator[Batch]:
     """(tokens, labels) int64 [global_batch, seq] forever, drawn on the
-    generator's device (the reference test loop's synthetic data)."""
+    generator's device (the reference test loop's synthetic data); every
+    rank draws the whole global batch."""
     b, s = args.global_batch_size, args.seq_length
     while True:
         ids = torch.randint(0, args.padded_vocab_size, (b, s + 1),
@@ -212,15 +231,26 @@ def build_data_iter(args, device, telemetry=None):
 
 
 def setup(argv=None, device=None):
-    """Parse the flags and build (args, model, optimizer) on ``device``."""
+    """Parse the flags, join the process group when the world is above one
+    and none is joined yet (from the launcher's environment, on
+    ``--distributed-backend``), register the tensor x data layout and
+    build (args, model, optimizer) on ``device``."""
     args = parse_args(extra_args_provider=_extra_args, args=argv,
                       defaults={"train_iters": 100, "lr": 1.5e-4})
     _refuse_unported(args)
-    if args.global_batch_size != args.micro_batch_size:
+    derived = args.micro_batch_size * args.data_parallel_size
+    if args.global_batch_size != derived:
         raise SystemExit(
             f"--global-batch-size {args.global_batch_size} != "
-            f"--micro-batch-size {args.micro_batch_size}: one process, and "
-            "gradient accumulation is not wired in this example")
+            f"micro-batch-size x dp = {derived}: gradient accumulation is "
+            "not wired in this example")
+    if args.world_size > 1 and not dist.is_initialized():
+        card = initialize_distributed(args.distributed_backend)
+        if device is None and card.type == "cuda":
+            device = card
+    parallel_state.destroy_model_parallel()
+    parallel_state.initialize_model_parallel(
+        args.tensor_model_parallel_size, args.pipeline_model_parallel_size)
     dev = resolve_device(device)
     if dev.type == "cuda":
         # bf16 and fp16 GEMMs reduce in fp32, as the TPU's MXU passes and
@@ -245,17 +275,57 @@ def step_seed(args, it: int) -> Optional[int]:
     return fold_in(args.seed + 2, it)
 
 
+def dp_rows(batch: Batch) -> Batch:
+    """This data-parallel rank's rows of a global batch (rows [i m, (i +
+    1) m) of dp rank i, as the JAX example's ``P("data")`` shards it)."""
+    dp = parallel_state.get_data_parallel_world_size()
+    if dp == 1:
+        return batch
+    i, m = parallel_state.get_data_parallel_rank(), batch[0].shape[0] // dp
+    return tuple(t[i * m:(i + 1) * m] for t in batch)
+
+
+def clip_grads(model: GPTModel, max_norm: float,
+               eps: float = 1e-6) -> torch.Tensor:
+    """Clip every ``.grad`` in place by min(1, max_norm / (norm + eps)),
+    the norm that of the whole model's gradient: at tp above 1 the
+    tensor-parallel shards' squares are summed over the tensor group and
+    each replicated parameter counts once (its gradient is the same on
+    every rank), so the clip is tp = 1's.  Returns the norm."""
+    grads = [p.grad for p in model.parameters()]
+    group = parallel_state.get_tensor_model_parallel_group()
+    if comm.group_size(group) == 1:
+        return clip_grad_norm(grads, max_norm, eps=eps)
+    sharded = [p.grad for p in model.parameters()
+               if getattr(p, "tensor_model_parallel", False)]
+    replicated = [p.grad for p in model.parameters()
+                  if not getattr(p, "tensor_model_parallel", False)]
+    sq = comm.all_reduce(multi_tensor_l2norm(sharded) ** 2, group)
+    norm = torch.sqrt(sq + multi_tensor_l2norm(replicated) ** 2)
+    torch._foreach_mul_(grads, torch.clamp(max_norm / (norm + eps), max=1.0))
+    return norm
+
+
 def forward_backward(args, model: GPTModel, tokens: torch.Tensor,
                      labels: torch.Tensor, it: int) -> torch.Tensor:
-    """Forward, backward (accumulating into each parameter's ``.grad``)
-    and the global-norm clip of step ``it`` (in place, over every
-    ``.grad``), before any optimizer.  Returns the loss (a device scalar;
-    nothing here synchronises)."""
+    """Forward and backward of this rank's rows (accumulating into each
+    parameter's ``.grad``), the gradients' mean over dp and the
+    global-norm clip of step ``it`` (in place, over every ``.grad``),
+    before any optimizer.  Returns the loss, the dp mean (a device
+    scalar; at dp = 1 nothing here synchronises)."""
     loss = model(tokens, labels=labels, dropout_seed=step_seed(args, it)
                  ).mean()
     loss.backward()
+    dp_group = parallel_state.get_data_parallel_group()
+    params = list(model.parameters())
+    if comm.group_size(dp_group) > 1:
+        for p, g in zip(params, all_reduce_grads([p.grad for p in params],
+                                                 dp_group)):
+            p.grad = g
+        loss = comm.all_reduce(loss.detach(), dp_group) / comm.group_size(
+            dp_group)
     if args.clip_grad and args.clip_grad > 0:
-        clip_grad_norm([p.grad for p in model.parameters()], args.clip_grad)
+        clip_grads(model, args.clip_grad)
     return loss.detach()
 
 
@@ -285,9 +355,10 @@ def _stack_names(model: GPTModel) -> dict:
     return {k: [n for _, n in sorted(v)] for k, v in groups.items()}
 
 
-def _leaf_shape(key: str, names: list, t: torch.Tensor) -> tuple:
-    # the leading tensor-parallel axis of 1, then the layer axis
-    return ((1,) + ((len(names),) if key.startswith(_LAYERS) else ())
+def _leaf_shape(key: str, names: list, t: torch.Tensor, tp: int = 1
+                ) -> tuple:
+    # the leading tensor-parallel axis, then the layer axis
+    return ((tp,) + ((len(names),) if key.startswith(_LAYERS) else ())
             + tuple(t.shape))
 
 
@@ -304,10 +375,16 @@ def _host_stack(key: str, names: list, tensors: Mapping[str, torch.Tensor]
     return out
 
 
-def checkpoint_tree(model: GPTModel, opt: FusedAdam) -> tuple:
+def checkpoint_tree(model: GPTModel, opt: FusedAdam) -> Optional[tuple]:
     """``(params, AdamState(step, exp_avg, exp_avg_sq))`` as the JAX
     example checkpoints them, as new host arrays: the layers stacked, a
-    leading tensor-parallel axis of 1, the step count int32."""
+    leading tensor-parallel axis of tp, the step count int32.  At tp above
+    1 the ranks of the tensor group of data-parallel rank 0 gather their
+    shards to its tp rank 0, which gets the tree; every other rank gets
+    None (and the ranks of other dp ranks take part in nothing)."""
+    if parallel_state.get_data_parallel_rank() != 0:
+        return None
+    group = parallel_state.get_tensor_model_parallel_group()
     groups = _stack_names(model)
     named = dict(model.named_parameters())
     states = [opt.state[p] for p in named.values()]
@@ -321,12 +398,21 @@ def checkpoint_tree(model: GPTModel, opt: FusedAdam) -> tuple:
                  for n, p in named.items()}
 
     def tree(tensors):
-        return nest({k: _host_stack(k, ns, tensors)
-                     for k, ns in groups.items()})
+        out = {}
+        for k, ns in groups.items():
+            leaf = _host_stack(k, ns, tensors)
+            if comm.group_size(group) > 1:
+                leaf = comm.gather(torch.from_numpy(leaf), group)
+                leaf = None if leaf is None else leaf.numpy()
+            out[k] = leaf
+        return nest(out)
 
-    return (tree(named),
+    trees = (tree(named), tree(m), tree(v))
+    if parallel_state.get_tensor_model_parallel_rank() != 0:
+        return None
+    return (trees[0],
             AdamState(step=np.asarray(int(step), np.int32),
-                      exp_avg=tree(m), exp_avg_sq=tree(v)))
+                      exp_avg=trees[1], exp_avg_sq=trees[2]))
 
 
 def checkpoint_target(model: GPTModel) -> tuple:
@@ -334,9 +420,10 @@ def checkpoint_target(model: GPTModel) -> tuple:
     with ``meta`` tensors (shapes and dtypes only)."""
     groups = _stack_names(model)
     named = dict(model.named_parameters())
+    tp = model.cfg.tp_size
 
     def tree(dtype=None):
-        return nest({k: torch.empty(_leaf_shape(k, ns, named[ns[0]]),
+        return nest({k: torch.empty(_leaf_shape(k, ns, named[ns[0]], tp),
                                     dtype=dtype or named[ns[0]].dtype,
                                     device="meta")
                      for k, ns in groups.items()})
@@ -349,14 +436,16 @@ def checkpoint_target(model: GPTModel) -> tuple:
 @torch.no_grad()
 def load_checkpoint_tree(model: GPTModel, opt: FusedAdam, tree) -> None:
     """Put a restored :func:`checkpoint_tree` (host tensors) into the
-    model's parameters and the optimizer's state."""
+    model's parameters and the optimizer's state (this tp rank's index of
+    the leading axis)."""
     params, adam = tree
     named = dict(model.named_parameters())
+    r = model.embedding.tp_rank
     leaves = [_flatten(params), _flatten(adam.exp_avg),
               _flatten(adam.exp_avg_sq)]
     step = int(adam.step)
     for key, names in _stack_names(model).items():
-        got = [torch.from_numpy(leaf[key]).reshape(
+        got = [torch.from_numpy(leaf[key][r]).reshape(
             (len(names),) + tuple(named[names[0]].shape)) for leaf in leaves]
         for i, n in enumerate(names):
             p = named[n]
@@ -383,12 +472,36 @@ def main(argv=None, device=None, *,
     when a resumed run had nothing to do).
 
     ``device`` defaults to the card.  ``state_dict`` replaces the seeded
-    initial weights (``--load`` then replaces both), ``batches`` the
-    synthetic data, and ``on_step(it, loss, model)`` is called after each
+    initial weights (at tp above 1, this rank's shard; ``--load`` then
+    replaces both), ``batches`` the synthetic data (global batches), and
+    ``on_step(it, loss, model)`` is called on every rank after each
     step, before the preemption check (tests and the smoke run hold the
-    port against references, and inject preemptions, through these)."""
+    port against references, and inject preemptions, through these).
+    The model-parallel state is registered for the run and forgotten at
+    its end, and a process group this call joined is left at its end."""
+    owns_group = not dist.is_initialized()
     args, model, opt = setup(argv, device)
+    owns_group = owns_group and dist.is_initialized()
+    try:
+        return _train(args, model, opt, state_dict, batches, on_step)
+    finally:
+        parallel_state.destroy_model_parallel()
+        if owns_group:
+            dist.destroy_process_group()
+
+
+def _stop_agreed(flag: bool, dev: torch.device) -> bool:
+    """Whether any rank asks to stop (a max over the world; one rank that
+    stopped alone would leave the others waiting in a collective)."""
+    if not dist.is_initialized() or dist.get_world_size() == 1:
+        return flag
+    t = torch.full((), int(flag), dtype=torch.int32, device=dev)
+    return bool(comm.all_reduce(t, dist.group.WORLD, op="max"))
+
+
+def _train(args, model, opt, state_dict, batches, on_step):
     dev = next(model.parameters()).device
+    lead = args.rank == 0
     use_pipeline = bool(args.data_dir or args.data_path)
     if use_pipeline and batches is not None:
         raise ValueError("batches replaces the synthetic data; it cannot "
@@ -399,14 +512,16 @@ def main(argv=None, device=None, *,
     # telemetry: structured stream + crash flight recorder; step events
     # carry the data-wait/step wall split, the loss rides the windowed read
     bus = acct = sampler = None
-    if args.telemetry_dir:
+    if args.telemetry_dir and lead:
         from apex_tpu_torch import telemetry as tele
 
         bus = tele.TelemetryBus(
             run_id=f"pretrain-gpt-{os.getpid()}",
             sinks=[tele.JsonlSink(os.path.join(args.telemetry_dir,
                                                "pretrain_gpt.jsonl"))],
-            mesh={"n_devices": 1, "tp": 1, "dp": 1,
+            mesh={"n_devices": args.world_size,
+                  "tp": args.tensor_model_parallel_size,
+                  "dp": args.data_parallel_size,
                   "platform": "gpu" if dev.type == "cuda" else "cpu"})
         acct = bus.accountant(window=args.log_interval)
         if args.profile_every > 0:
@@ -426,14 +541,16 @@ def main(argv=None, device=None, *,
         del tree
         _sync(dev)
         dt = time.perf_counter() - t_restore
-        print(f"resumed from step {step0} ({dt:.3f} s)", flush=True)
+        if lead:
+            print(f"resumed from step {step0} ({dt:.3f} s)", flush=True)
         if bus is not None:
             acct.pause(dt, "restore")
             bus.emit("ckpt_restore", step=step0, wall_ms=round(dt * 1e3, 3))
 
     if step0 >= args.train_iters:
-        print(f"nothing to do: resumed step {step0} >= --train-iters "
-              f"{args.train_iters}")
+        if lead:
+            print(f"nothing to do: resumed step {step0} >= --train-iters "
+                  f"{args.train_iters}")
         if bus is not None:
             bus.close()
         return None
@@ -480,10 +597,13 @@ def main(argv=None, device=None, *,
         # fence the previous write before taking the next snapshot, so at
         # most one copy of the state is held on the host
         resilience.wait_for_save()
-        ckpt.save_checkpoint(args.save, checkpoint_tree(model, opt),
-                             step=step, blocking=blocking,
-                             data_state=(batches.state_dict()
-                                         if use_pipeline else None))
+        tree = checkpoint_tree(model, opt)   # None but on the writer
+        if tree is not None:
+            ckpt.save_checkpoint(args.save, tree, step=step,
+                                 blocking=blocking,
+                                 data_state=(batches.state_dict()
+                                             if use_pipeline else None))
+        del tree
         if bus is not None:
             dt_save = time.perf_counter() - t_save
             acct.pause(dt_save, "ckpt_fence")
@@ -504,7 +624,8 @@ def main(argv=None, device=None, *,
 
             for it in range(step0, args.train_iters):
                 t_data = time.perf_counter()
-                tokens, labels = (t.to(dev) for t in next(batches))
+                tokens, labels = dp_rows(tuple(t.to(dev)
+                                               for t in next(batches)))
                 t_step = time.perf_counter()
                 if watchdog is not None:
                     with watchdog.step(it):
@@ -526,14 +647,14 @@ def main(argv=None, device=None, *,
                     sampler.on_step(it + 1)  # never raises into the run
                 if on_step is not None:
                     on_step(it, loss, model)
-                if (it + 1) % args.log_interval == 0:
+                if lead and (it + 1) % args.log_interval == 0:
                     value = float(loss)   # synchronises: the window is done
                     dt = (time.perf_counter() - t0) / args.log_interval
                     print(f"iter {it + 1}/{args.train_iters} loss "
                           f"{value:.4f} {dt * 1e3:.0f} ms/iter "
                           f"{tokens_per_step / dt:,.0f} tok/s", flush=True)
                     t0 = time.perf_counter()
-                if preempt.should_stop:
+                if _stop_agreed(preempt.should_stop, dev):
                     # grace period: make the finished step durable, exit
                     # clean
                     preempted = True
@@ -541,8 +662,9 @@ def main(argv=None, device=None, *,
                         _save(it + 1, blocking=True)
                     outcome = ("checkpoint written" if args.save
                                else "no --save dir, progress lost")
-                    print(f"preempted ({preempt.reason}) at iter {it + 1}: "
-                          f"{outcome}, exiting", flush=True)
+                    if lead:
+                        print(f"preempted ({preempt.reason}) at iter "
+                              f"{it + 1}: {outcome}, exiting", flush=True)
                     if bus is not None:
                         bus.flush_postmortem(preempt.reason or "preempted",
                                              step=it + 1, watchdog=watchdog)
@@ -589,12 +711,14 @@ def main(argv=None, device=None, *,
         return final
     if not math.isfinite(final):
         raise FloatingPointError(f"diverged: final loss {final}")
-    print(f"done: final loss {final:.4f}")
+    if lead:
+        print(f"done: final loss {final:.4f}")
     return final
 
 
 __all__ = ["AdamState", "build_config", "synthetic_batches",
-           "build_data_iter", "setup", "step_seed", "forward_backward",
+           "build_data_iter", "setup", "step_seed", "dp_rows", "clip_grads",
+           "forward_backward",
            "train_step", "checkpoint_tree", "checkpoint_target",
            "load_checkpoint_tree", "main"]
 

@@ -1,12 +1,22 @@
-"""apex_tpu_torch.parallel — the one-card names of the JAX package's
-``apex_tpu.parallel``: SyncBatchNorm's local path and ``LARC``.
+"""apex_tpu_torch.parallel: data parallelism over ``torch.distributed``.
 
-``DistributedDataParallel``, the reducer and the multi-process launcher
-(``distributed.py``, ``multiproc.py``) wait for multi-GPU (ROADMAP.md
-queue A, item 2), as do batch-norm statistics across ranks.
+The port of the JAX package's ``apex_tpu.parallel``: the gradient
+all-reduce with the reference DDP's numerics options
+(:mod:`.distributed`), the launcher and process-group set-up
+(:mod:`.multiproc`), the collectives every model-parallel module runs
+(:mod:`.comm`), SyncBatchNorm's local path and ``LARC``.  Batch-norm
+statistics across ranks wait for a later slice (ROADMAP.md queue A,
+item 2).
 """
 
 from apex_tpu_torch.optimizers.larc import LARC  # noqa: F401
+from apex_tpu_torch.parallel.distributed import (  # noqa: F401
+    DistributedDataParallel,
+    Reducer,
+    all_reduce_grads,
+    broadcast_params,
+)
+from apex_tpu_torch.parallel.multiproc import initialize_distributed  # noqa: F401
 from apex_tpu_torch.parallel.sync_batchnorm import (  # noqa: F401
     SyncBatchNorm,
     bn_state_dict_from_jax,
@@ -17,7 +27,8 @@ from apex_tpu_torch.parallel.sync_batchnorm import (  # noqa: F401
     update_running_stats,
 )
 
-__all__ = ["LARC", "SyncBatchNorm", "bn_state_dict_from_jax",
-           "convert_syncbn_model",
+__all__ = ["LARC", "DistributedDataParallel", "Reducer", "all_reduce_grads",
+           "broadcast_params", "initialize_distributed", "SyncBatchNorm",
+           "bn_state_dict_from_jax", "convert_syncbn_model",
            "create_syncbn_process_group", "sync_batch_norm",
            "sync_batch_norm_stats", "update_running_stats"]

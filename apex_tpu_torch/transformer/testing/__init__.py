@@ -16,6 +16,7 @@ from apex_tpu_torch.transformer.testing.standalone_gpt import (  # noqa: F401
     GPTConfig,
     GPTModel,
     ParallelAttention,
+    gpt_model_provider,
     ParallelMLP,
     ParallelTransformer,
     ParallelTransformerLayer,
@@ -27,6 +28,6 @@ from apex_tpu_torch.transformer.testing.train_loop import (  # noqa: F401
 
 __all__ = ["BertConfig", "BertModel", "bert_model_provider", "GPT1P3B_KW",
            "gpt1p3b_config", "gpt_param_count", "GPTConfig",
-           "GPTModel", "LoopResult", "ParallelAttention", "ParallelMLP",
+           "GPTModel", "gpt_model_provider", "LoopResult", "ParallelAttention", "ParallelMLP",
            "ParallelTransformer", "ParallelTransformerLayer",
            "run_resilient_training"]

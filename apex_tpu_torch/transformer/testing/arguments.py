@@ -5,9 +5,9 @@ PyTorch port of the JAX package's
 ``apex_tpu/transformer/testing/arguments.py``, flag for flag, so the same
 command lines parse.  Deltas from the JAX file, each deliberate:
 
-- world size is ``--world-size`` when given, else tp x pp (the JAX file
-  takes the device count); the port's training path runs one process on
-  one card and refuses more (its entry point says so);
+- world size is the joined process group's (one process is one rank),
+  else the launcher's ``WORLD_SIZE``, else ``--world-size``, else tp x
+  pp (the JAX file takes the device count);
 - ``params_dtype`` is a torch dtype; bf16 forces fp32 grad accumulation
   exactly as the reference does (arguments.py:149-158);
 - DDP_impl/contiguous-buffer knobs are accepted but have no effect
@@ -28,6 +28,7 @@ import os
 from typing import Callable, Optional
 
 import torch
+import torch.distributed as dist
 
 
 def parse_args(extra_args_provider: Optional[Callable] = None, defaults: dict = {},
@@ -61,12 +62,23 @@ def parse_args(extra_args_provider: Optional[Callable] = None, defaults: dict = 
 
 def _validate_and_derive(args, defaults):
     """The consistency-check block (reference arguments.py:55-280)."""
-    # world size: explicit flag, else as many processes as the parallel
-    # sizes ask for (a tp or pp flag is never clamped away silently)
-    if args.world_size is None:
-        args.world_size = (args.tensor_model_parallel_size
-                           * args.pipeline_model_parallel_size)
-    args.rank = int(os.getenv("RANK", "0"))
+    # world size: the process group's when one is joined (a --world-size
+    # that disagrees raises), else the launcher's WORLD_SIZE, else the
+    # flag, else as many processes as the parallel sizes ask for (a tp or
+    # pp flag is never clamped away silently)
+    if dist.is_available() and dist.is_initialized():
+        if args.world_size not in (None, dist.get_world_size()):
+            raise ValueError(
+                f"--world-size {args.world_size} but the process group has "
+                f"{dist.get_world_size()} ranks")
+        args.world_size = dist.get_world_size()
+        args.rank = dist.get_rank()
+    else:
+        if args.world_size is None:
+            args.world_size = int(os.getenv(
+                "WORLD_SIZE", args.tensor_model_parallel_size
+                * args.pipeline_model_parallel_size))
+        args.rank = int(os.getenv("RANK", "0"))
 
     assert args.tensor_model_parallel_size >= 1, (
         f"tensor model parallel size "
@@ -266,11 +278,14 @@ def _add_distributed_args(parser):
     group.add_argument("--num-layers-per-virtual-pipeline-stage", type=int,
                        default=None)
     group.add_argument("--world-size", type=int, default=None,
-                       help="number of processes (default 1: one card)")
+                       help="number of processes (default: the process "
+                            "group's, else WORLD_SIZE, else tp x pp)")
     group.add_argument("--distributed-backend", default="nccl",
                        choices=["xla", "nccl", "gloo"],
-                       help="accepted for script parity; one process runs "
-                            "no collectives")
+                       help="the transport of the collectives: nccl across "
+                            "cards; gloo where ranks share a card (NCCL "
+                            "refuses that), its CUDA tensors staged "
+                            "through the host")
     group.add_argument("--DDP-impl", default="local",
                        choices=["local", "torch"],
                        help="accepted for script parity; no effect")

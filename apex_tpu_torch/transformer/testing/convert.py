@@ -14,6 +14,12 @@ embedding), so nothing is transposed.  Arrays travel as numpy.
 ``FusedDense`` / ``FusedDenseGeluDense`` (a dict) and ``MLP`` (a list of
 layer dicts) ``init`` onto the port's modules of :mod:`apex_tpu_torch.ops.
 fused_dense` and :mod:`apex_tpu_torch.ops.mlp`.
+
+Tensor-parallel trees: the JAX example stacks the ``shard_master`` trees
+of its tp ranks on a leading axis (``examples/gpt/pretrain_gpt.py``);
+:func:`rank_state_dict_from_jax` takes tp rank r's ``state_dict`` out of
+such a tree and :func:`stacked_jax_tree` stacks the ranks' state dicts
+back into it.
 """
 
 from __future__ import annotations
@@ -49,6 +55,22 @@ def state_dict_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
         else:
             sd[name] = torch.from_numpy(np.array(arr))
     return sd
+
+
+def rank_state_dict_from_jax(stacked: Mapping, rank: int
+                             ) -> Dict[str, torch.Tensor]:
+    """Tensor-parallel rank ``rank``'s ``state_dict`` from a JAX tree whose
+    every leaf has a leading tp axis."""
+    return state_dict_from_jax(
+        nest({k: a[rank] for k, a in _flatten(stacked).items()}))
+
+
+def stacked_jax_tree(state_dicts: Sequence[Mapping[str, torch.Tensor]]
+                     ) -> dict:
+    """The JAX tree with a leading tp axis from the tp ranks' state dicts
+    (rank order)."""
+    flats = [_flatten(jax_tree_from_state_dict(sd)) for sd in state_dicts]
+    return nest({k: np.stack([f[k] for f in flats]) for k in flats[0]})
 
 
 def dense_state_dict_from_jax(params: Union[Mapping, Sequence[Mapping]]

@@ -23,6 +23,14 @@ in JAX promotes the whole head to fp32 (dense, GELU, LayerNorm and the
 logits), so here it runs in fp32 too, and the loss is the plain
 vocab-parallel cross entropy over fp32 logits (not the GPT path's fused
 bf16 head).  Parameter names are the JAX tree's paths (see :mod:`.convert`).
+
+At ``cfg.tp_size`` above 1 the body and the word embedding are
+tensor-parallel as in the GPT (:mod:`.standalone_gpt`), the MLM head's
+vocab-length bias is sharded with the vocab (rank r keeps [r n, (r + 1)
+n), as the JAX ``shard_master`` shards it), its logits are this rank's
+vocab shard and the loss is the vocab-parallel cross entropy; the
+pooler, the binary head and the head's dense layer and LayerNorm are
+replicated.
 """
 
 from __future__ import annotations
@@ -36,7 +44,9 @@ from torch import nn
 from apex_tpu_torch._device import resolve_device
 from apex_tpu_torch.ops.fused_layer_norm import FusedLayerNorm
 from apex_tpu_torch.transformer.tensor_parallel import (
-    VocabParallelEmbedding, normal_init, vocab_parallel_cross_entropy)
+    VocabParallelEmbedding, copy_to_tensor_model_parallel_region,
+    normal_init, set_tensor_model_parallel_attributes,
+    vocab_parallel_cross_entropy)
 from apex_tpu_torch.transformer.testing.standalone_gpt import (
     GPTConfig, ParallelTransformer, _refuse_unported, embedding_dropout)
 
@@ -67,18 +77,23 @@ class BertLMHead(nn.Module):
     """dense -> tanh GELU -> LayerNorm, then the tied projection plus a
     vocab-length bias; fp32 throughout (reference BertLmHead)."""
 
-    def __init__(self, cfg: BertConfig, init, generator, device):
+    def __init__(self, cfg: BertConfig, init, generator, device,
+                 tp_group=None):
         super().__init__()
         h = cfg.hidden_size
+        self.tp_group = tp_group
         self.dense = _Dense(h, init, generator, device)
         self.layernorm = FusedLayerNorm(h, cfg.layernorm_epsilon,
                                         device=device)
-        self.bias = nn.Parameter(torch.zeros(cfg.vocab_size, device=device))
+        self.bias = nn.Parameter(torch.zeros(
+            cfg.vocab_size // cfg.tp_size, device=device))
+        set_tensor_model_parallel_attributes(self.bias, True, 0)
 
     def forward(self, h: torch.Tensor, word: torch.Tensor) -> torch.Tensor:
         h = self.dense(h.float())
         h = torch.nn.functional.gelu(h, approximate="tanh")
-        h = self.layernorm(h)
+        h = copy_to_tensor_model_parallel_region(self.layernorm(h),
+                                                 self.tp_group)
         return torch.nn.functional.linear(h, word, self.bias)
 
 
@@ -111,7 +126,8 @@ class BertModel(nn.Module):
                 _weight=init((cfg.num_tokentypes, h), gen, dev))
         self.transformer = ParallelTransformer(cfg, num_layers, causal=False,
                                                device=dev, generator=gen)
-        self.lm_head = BertLMHead(cfg, init, gen, dev)
+        self.lm_head = BertLMHead(cfg, init, gen, dev,
+                                  self.embedding.tp_group)
         if cfg.add_binary_head:
             self.pooler = _Dense(h, init, gen, dev)
             self.binary_head = nn.Linear(h, 2, device=dev)
@@ -160,7 +176,9 @@ class BertModel(nn.Module):
         logits = self.lm_head(h, self.embedding.weight)
         if lm_labels is None:
             return logits, binary_logits
-        return vocab_parallel_cross_entropy(logits, lm_labels), binary_logits
+        return (vocab_parallel_cross_entropy(logits, lm_labels,
+                                             self.embedding.tp_group),
+                binary_logits)
 
 
 def bert_model_provider(cfg: BertConfig, *, device=None,

@@ -25,8 +25,9 @@ path's two products, which it leaves to XLA as the port leaves them to
 the library.  The GEMMs are fp32-accumulated library products.  The body
 is shared with BERT (:mod:`.standalone_bert`):
 ``ParallelAttention(causal=False)``.
-With labels, a bf16 model takes the fused LM-head cross-entropy and an
-fp32 model the plain vocab-parallel one (the JAX package's choice).
+With labels, a bf16 model at tp = 1 takes the fused LM-head
+cross-entropy and every other model the plain vocab-parallel one (the
+JAX package's choice).
 
 Remat (``cfg.remat``) checkpoints each layer with
 ``torch.utils.checkpoint`` (non-reentrant); ``remat_policy`` picks what a
@@ -47,10 +48,23 @@ unknown policy raises ``ValueError``, as in JAX.  Dropout seeds are
 integers fixed by (step seed, layer, site) and each site re-creates its
 generator, so the recompute redraws the same masks.
 
-Not ported (raise ``NotImplementedError``): tensor parallelism above 1
-and the MoE MLP.  fp16 (``cfg.fp16``, amp's half) runs on the card
-through the fp16 instances of the packed-attention and LayerNorm
-kernels.
+Tensor parallelism (``cfg.tp_size`` above 1, in each rank of a
+registered tensor group of that size, :mod:`apex_tpu_torch.transformer.
+parallel_state`) follows the JAX model: each rank holds heads / tp heads
+(the QKV projection's rows sliced as the JAX ``shard_master`` slices
+them, whole heads of the packed q | k | v layout), the projections are
+column- then row-parallel, the word embedding and the tied head are
+vocab-parallel, and the loss is the vocab-parallel cross entropy over
+fp32 sharded logits (the fused LM-head cross entropy is the tp = 1 head
+only, as in JAX).  Attention-probability dropout draws from the per-rank
+stream (``model_parallel_dropout_seed(seed, tp_rank)``), hidden dropout
+from the replicated one, so every rank holds the same hidden state.
+Every rank draws the whole master weights from ``seed`` and keeps its
+shard, so tp ranks start from the tp = 1 model.
+
+Not ported (raises ``NotImplementedError``): the MoE MLP.  fp16
+(``cfg.fp16``, amp's half) runs on the card through the fp16 instances
+of the packed-attention and LayerNorm kernels.
 """
 
 from __future__ import annotations
@@ -79,6 +93,8 @@ from apex_tpu_torch.transformer.tensor_parallel import (
     normal_init, vocab_parallel_cross_entropy)
 from apex_tpu_torch.transformer.tensor_parallel.layers import (
     PARALLEL_LINEAR_OP)
+from apex_tpu_torch.transformer.tensor_parallel.mappings import (
+    copy_to_tensor_model_parallel_region)
 from apex_tpu_torch.transformer.tensor_parallel.random import (
     checkpoint, dropout, fold_in, model_parallel_dropout_seed)
 
@@ -128,15 +144,13 @@ class GPTConfig:
 
 
 def _refuse_unported(cfg: GPTConfig, device: torch.device) -> None:
-    unported = []
-    if cfg.tp_size != 1:
-        unported.append(f"tp_size={cfg.tp_size}")
     if cfg.num_experts > 0:
-        unported.append(f"num_experts={cfg.num_experts} (the MoE MLP)")
-    if unported:
         raise NotImplementedError(
             "not ported to apex_tpu_torch (ROADMAP.md): "
-            + ", ".join(unported))
+            f"num_experts={cfg.num_experts} (the MoE MLP)")
+    if cfg.num_attention_heads % cfg.tp_size:
+        raise ValueError(f"{cfg.num_attention_heads} heads do not divide "
+                         f"over tp_size={cfg.tp_size}")
     if cfg.remat and cfg.remat_policy not in REMAT_POLICIES:
         # a misspelled policy must not silently degrade to full recompute
         raise ValueError(
@@ -232,14 +246,14 @@ class ParallelAttention(nn.Module):
         self.causal = causal
         init = normal_init(cfg.init_method_std)
         self.qkv = ColumnParallelLinear(
-            cfg.hidden_size, 3 * cfg.hidden_size, init_method=init,
-            tp_size=cfg.tp_size, device=device, generator=generator,
-            name="qkv")
+            cfg.hidden_size, 3 * cfg.hidden_size, gather_output=False,
+            init_method=init, tp_size=cfg.tp_size, device=device,
+            generator=generator, name="qkv")
         # named for remat_policy="attn_out": the attention block's output
         self.proj = RowParallelLinear(
-            cfg.hidden_size, cfg.hidden_size, init_method=init,
-            tp_size=cfg.tp_size, device=device, generator=generator,
-            name="attn_out")
+            cfg.hidden_size, cfg.hidden_size, input_is_parallel=True,
+            init_method=init, tp_size=cfg.tp_size, device=device,
+            generator=generator, name="attn_out")
         self.softmax = FusedScaleMaskSoftmax(
             input_in_fp16=cfg.fp16, input_in_bf16=cfg.bf16,
             attn_mask_type=(AttnMaskType.causal if causal
@@ -259,15 +273,17 @@ class ParallelAttention(nn.Module):
         path under the boolean ``attention_mask`` (True = masked;
         :func:`softmax_mask` folds packing ids into it)."""
         cfg = self.cfg
-        qkv = self.qkv(h)  # [b, s, 3 * hidden], per head q | k | v
+        qkv = self.qkv(h)  # [b, s, 3 * hidden / tp], per head q | k | v
         drop = (dropout_seed is not None and cfg.attention_dropout > 0)
+        if drop:
+            # the probs are head-sharded over TP: per-rank stream
+            drop_seed = model_parallel_dropout_seed(dropout_seed,
+                                                    self.qkv.tp_rank)
         if cfg.use_flash_attention and attention_mask is None:
             kw = {}
             if drop:
-                # the probs are head-sharded over TP: per-rank stream
                 kw = dict(dropout_rate=cfg.attention_dropout,
-                          dropout_seed=model_parallel_dropout_seed(
-                              dropout_seed) & 0xFFFFFFFF)
+                          dropout_seed=drop_seed & 0xFFFFFFFF)
             ctx = flash_attention_qkv(qkv, self.np_local, causal=self.causal,
                                       segment_ids=segment_ids, **kw)
             return self.proj(ctx.to(h.dtype))
@@ -281,8 +297,7 @@ class ParallelAttention(nn.Module):
         scores = (scores * scale).to(h.dtype).view(b, n, s, s)
         probs = self.softmax(scores, attention_mask)
         if drop:
-            probs = dropout(probs, cfg.attention_dropout,
-                            model_parallel_dropout_seed(dropout_seed))
+            probs = dropout(probs, cfg.attention_dropout, drop_seed)
         ctx = bmm_f32(probs.reshape(b * n, s, s),
                       v.transpose(1, 2).reshape(b * n, s, hn))
         ctx = ctx.view(b, n, s, hn).transpose(1, 2).reshape(b, s, n * hn)
@@ -297,11 +312,13 @@ class ParallelMLP(nn.Module):
         init = normal_init(cfg.init_method_std)
         # named for remat_policy="attn_res_mlp": the pre-GELU h->4h output
         self.dense_h_to_4h = ColumnParallelLinear(
-            cfg.hidden_size, cfg.ffn, init_method=init, tp_size=cfg.tp_size,
-            device=device, generator=generator, name="mlp_4h")
+            cfg.hidden_size, cfg.ffn, gather_output=False, init_method=init,
+            tp_size=cfg.tp_size, device=device, generator=generator,
+            name="mlp_4h")
         self.dense_4h_to_h = RowParallelLinear(
-            cfg.ffn, cfg.hidden_size, init_method=init, tp_size=cfg.tp_size,
-            device=device, generator=generator, name="mlp_out")
+            cfg.ffn, cfg.hidden_size, input_is_parallel=True,
+            init_method=init, tp_size=cfg.tp_size, device=device,
+            generator=generator, name="mlp_out")
 
     def forward(self, h: torch.Tensor) -> torch.Tensor:
         inter = F.gelu(self.dense_h_to_4h(h), approximate="tanh")
@@ -430,8 +447,12 @@ class GPTModel(nn.Module):
         return (h + pos[None]).to(self.cfg.compute_dtype)
 
     def head_logits_local(self, h: torch.Tensor) -> torch.Tensor:
-        """fp32 logits [b, s, vocab] through the tied embedding."""
-        return linear_f32(self.final_layernorm(h), self.embedding.weight)
+        """fp32 logits [b, s, vocab / tp] through this rank's shard of the
+        tied embedding (the final LayerNorm's output enters the copy
+        region: its gradient is summed over the tp ranks)."""
+        hn = copy_to_tensor_model_parallel_region(
+            self.final_layernorm(h), self.embedding.tp_group)
+        return linear_f32(hn, self.embedding.weight)
 
     def forward(self, tokens: torch.Tensor,
                 labels: Optional[torch.Tensor] = None,
@@ -448,7 +469,7 @@ class GPTModel(nn.Module):
         h = self.transformer(h, dropout_seed, attention_mask)
         if labels is None:
             return self.head_logits_local(h)
-        if self.cfg.compute_dtype != torch.float32:
+        if self.cfg.tp_size == 1 and self.cfg.compute_dtype != torch.float32:
             # half-precision single-shard head: projection and loss fused,
             # only bf16 logits + fp32 lse kept for the backward
             hn = self.final_layernorm(h)
@@ -456,10 +477,17 @@ class GPTModel(nn.Module):
             return fused_linear_cross_entropy(
                 hn.reshape(b * s, hid), self.embedding.weight,
                 labels.reshape(b * s)).reshape(b, s)
-        return vocab_parallel_cross_entropy(self.head_logits_local(h), labels)
+        return vocab_parallel_cross_entropy(self.head_logits_local(h), labels,
+                                            self.embedding.tp_group)
 
 
-__all__ = ["GPTConfig", "GPTModel", "ParallelAttention", "ParallelMLP",
+def gpt_model_provider(cfg: GPTConfig, *, device=None,
+                       seed: int = 0) -> GPTModel:
+    """Reference gpt_model_provider (standalone_gpt.py:1502)."""
+    return GPTModel(cfg, device=device, seed=seed)
+
+
+__all__ = ["GPTConfig", "GPTModel", "gpt_model_provider", "ParallelAttention", "ParallelMLP",
            "ParallelTransformerLayer", "ParallelTransformer",
            "attention_segments", "embedding_dropout", "is_key_padding",
            "remat_context_fn", "softmax_mask", "REMAT_POLICIES"]

@@ -16,8 +16,10 @@ microbenches with their HBM roof and attention dot floor (phase 12),
 BERT-large training, padded and packed (phases 13-14), and GPT training on
 the fused-softmax path and under the other remat policies, with the in-run
 profile sampler and the apex ops (phase 19), ResNet-50 ImageNet training
-under amp with its example, ``FP16_Optimizer`` and ASP (phase 20), and
-DCGAN, the RNNs, RNN-T and weight norm (phase 21).
+under amp with its example, ``FP16_Optimizer`` and ASP (phase 20),
+DCGAN, the RNNs, RNN-T and weight norm (phase 21), and tensor- and
+data-parallel GPT training on ``torch.distributed``, its ranks sharing
+the card over gloo (phase 22).
 Phases, each of which fails the run (non-zero exit) on error:
 
 1. device — a CUDA card is required; its name and power limit are read
@@ -389,6 +391,36 @@ Phases, each of which fails the run (non-zero exit) on error:
     the dense ones; a toy's loss and gradient against autograd through the
     DP.  (i) Weight norm on DCGAN's discriminator, card vs CPU.  Each of
     phases 20 and 21 prints a JSON summary line.
+22. tensor- and data-parallel GPT training on ``torch.distributed`` —
+    ranks are processes (``parallel.multiproc.spawn``) that share this
+    card over ``--distributed-backend gloo``: the machine has one card
+    and NCCL refuses two ranks on one GPU, so every collective is staged
+    through the host, and the wall times are of ranks time-slicing one
+    card.  First K3/K4 at a rank's tp 2 shape [4, 2048, 8 x 3 x 128] bf16,
+    phase 3's way (the plain versions, bitwise twice, timed cold beside
+    SDPA and the bound); a probe of what gloo takes directly (CUDA sum and
+    max all-reduce, all-gather, broadcast, a host bf16 sum).  (e) NCCL at
+    world 1: ``all_reduce_grads`` and NCCL's own all-reduce, broadcast
+    and all-gather of bf16 and fp32 CUDA tensors equal their inputs bit
+    for bit.  (a) The fp32 toy (hidden 512, 4 heads of 128: the scalar
+    K3/K4) through ``pretrain_gpt``, tp 2 against tp 1 from the same
+    seeded master, within JAX's bar (rtol 2e-4, atol 1e-5).  (b)
+    GPT-1.3B width cut to ``TP22_LAYERS`` = 12 (the depth where remat
+    ``attn_res`` starts; bf16, ``FusedAdam``, micro-batch 4 x 2048,
+    dropout off so that tp 1 and tp 2 differ only in their arithmetic):
+    three steps at tp 2 against tp 1 (``TP22_LOSS_TOL``); the replicated
+    leaves bitwise equal across the tp ranks after every step; a re-run
+    of two steps with ``--save`` bitwise the run's first two; (d) its
+    resume from the step-2 checkpoint (the JAX example's tree, a leading
+    tp axis of 2) bitwise the run's step 3 in every parameter; after the
+    last step, both ranks' hidden state of a seeded sequence with dropout
+    0.1/0.1 bitwise equal.  (c) tp 2 x dp 2 (four ranks, micro-batch 2,
+    the same global batch) within ``TP22_DP_LOSS_TOL`` of (b), the dp
+    replicas bitwise equal after every step.  (f) Every rank's exact K3,
+    K4, K6 and K7 launches (L, L, 4L + 1, 2L + 1 a step) go into the
+    ``kernels`` record.  (g) A JSON line: each rank's step seconds, the
+    collectives' share of them, bytes and calls a step, peak memory,
+    beside the card's name and power limit.
 
 The last three lines of standard output are the kernels' JSON record,
 the ``nvidia-smi`` name/power line, and ``{"ok": true, "device": ...}``.
@@ -401,6 +433,7 @@ from __future__ import annotations
 
 import base64
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -1083,20 +1116,21 @@ def scalar_qkv(qkv, dctx, ctx, lse, rate):
     return fwd, bwd
 
 
-def time_flash_qkv(qkv, dctx, ctx, lse, rate) -> tuple:
+def time_flash_qkv(qkv, dctx, ctx, lse, rate, h=TRAIN["heads"]) -> tuple:
     """K3 and K4 (the tensor-core kernels, through the wrappers) timed cold
     beside their plain versions, SDPA and the scalar kernels they replace
     on bf16 (cold too); then the scalar and the tensor-core kernel of each
     in turns (a, b, b, a) in this one call (``timing.timed_pair``).  The
     scalar kernels have no fp16 instance: an fp16 qkv is timed without
-    them (the third element is then None)."""
+    them (the third element is then None), as is a head count ``h`` other
+    than GPT-1.3B's 16 (a rank's heads at tp 2)."""
     b, s, _ = qkv.shape
-    h, d = TRAIN["heads"], TRAIN["d"]
+    d = TRAIN["d"]
     args = (None, None, h, d ** -0.5, True, rate, RATE_SEED)
     new_fwd = lambda: att._flash_qkv_fwd_cuda(qkv, *args)  # noqa: E731
     new_bwd = lambda: att._flash_qkv_bwd_cuda(  # noqa: E731
         qkv, dctx, ctx, lse, *args)
-    old = qkv.dtype in kernels.DTYPE_CODES
+    old = qkv.dtype in kernels.DTYPE_CODES and h == TRAIN["heads"]
     if old:
         old_fwd, old_bwd = scalar_qkv(qkv, dctx, ctx, lse, rate)
     fwd_ms = cold_ms(new_fwd, 10)
@@ -7369,6 +7403,452 @@ def phase_families(smi: str) -> dict:
 
 
 #: the phase running now, named in the failure line
+# -- phase 22: tensor- and data-parallel GPT training on torch.distributed ---
+#
+# One card: NCCL refuses two ranks on one GPU, so the ranks share cuda:0 and
+# run their collectives over gloo, which stages every CUDA tensor through the
+# host.  The numbers and the kernels are checked on the card; NVLink and NCCL
+# between ranks are not, and the wall times of ranks that time-slice one card
+# say nothing of a run over several.
+
+GLOO_WHY = ("ranks share cuda:0 over --distributed-backend gloo: this machine "
+            "has one card and NCCL refuses two ranks on one GPU; every "
+            "collective is staged through the host")
+TP22_LAYERS = 12           # remat attn_res from 12 layers, as phase 7's path
+TP22_STEPS = 3
+# dropout off: tp 1 and tp 2 draw the attention masks from other streams
+# (tp 2: one stream a rank over its heads), so their losses would part by
+# the masks, not by the arithmetic; the dropout property is probed apart
+TP22_TRAIN = (FULL_TRAIN[:1] + [str(TP22_LAYERS)] + FULL_TRAIN[2:]
+              + ["--log-interval", "1", "--attention-dropout", "0",
+                 "--hidden-dropout", "0"])
+TP22_DP = ["--micro-batch-size", "2", "--global-batch-size", "4"]
+# the fp32 toy of (a): head dim 128 (the packed kernels' scalar fp32 route),
+# two heads a rank at tp = 2; JAX's own bar (tests/L0/test_megatron_models.py)
+TOY22 = ["--num-layers", "2", "--hidden-size", "512", "--num-attention-heads",
+         "4", "--seq-length", "256", "--max-position-embeddings", "256",
+         "--micro-batch-size", "2", "--vocab-size", "1024",
+         "--train-iters", "3", "--log-interval", "1",
+         "--attention-dropout", "0", "--hidden-dropout", "0"]
+TOY22_RTOL, TOY22_ATOL = 2e-4, 1e-5
+TP22_KERNELS = ("flash_qkv_fwd_sm90", "flash_qkv_bwd_sm90",
+                "layer_norm_fwd_sm90", "layer_norm_bwd_sm90")
+# bars of (b) and (c), absolute on losses near 11.25, each ten times the
+# largest gap of the three steps read on an H100 (phase 7's convention).
+# (b): tp 1 takes the fused LM-head CE over bf16 logits, tp 2 the
+# vocab-parallel CE over fp32 logits, and tp 2's row-parallel partials are
+# rounded to bf16 before their sum: read 1.46e-4.  (c): each dp rank's
+# backward sums over 2 rows, and the gradients' mean is taken across
+# ranks: read 2.06e-4
+TP22_LOSS_TOL = 1.5e-3
+TP22_DP_LOSS_TOL = 2e-3
+
+
+def tp22_launches(layers: int, steps: int) -> dict:
+    """A rank's launches of a run (remat attn_res): phase 7's counts a
+    step (K3 L, K4 L, K6 4L + 1, K7 2L + 1) on each rank's heads."""
+    return dict(zip(TP22_KERNELS, (layers * steps, layers * steps,
+                                   (4 * layers + 1) * steps,
+                                   (2 * layers + 1) * steps)))
+
+
+def digest(t: torch.Tensor) -> tuple:
+    """A position-sensitive sum of ``t``'s bits (two int64s): equal
+    tensors give equal digests, one flipped bit changes both."""
+    bits = t.detach().contiguous().view(-1)
+    bits = bits.view(torch.int16 if bits.element_size() == 2 else
+                     torch.int32).to(torch.int64)
+    w = torch.arange(bits.numel(), device=bits.device) % 1021 + 1
+    return int(bits.sum()), int((bits * w).sum())
+
+
+def tp22_probe(device) -> dict:
+    """What gloo takes directly, tried on this rank's tensors: sum and max
+    all-reduce, all-gather and broadcast of CUDA tensors, and a bf16 sum on
+    the host (the port's collectives stage and widen either way)."""
+    import torch.distributed as dist
+
+    world, rank = dist.get_world_size(), dist.get_rank()
+    out = {}
+
+    def attempt(name, fn):
+        try:
+            out[name] = bool(fn())
+        except (RuntimeError, ValueError) as e:
+            out[name] = f"refused: {type(e).__name__}: {str(e)[:120]}"
+
+    def reduce_(op, dtype=torch.float32, dev=device):
+        t = torch.full((4,), float(rank + 1), dtype=dtype, device=dev)
+        dist.all_reduce(t, op=op)
+        want = (sum(range(1, world + 1)) if op == dist.ReduceOp.SUM
+                else world)
+        return torch.equal(t.float().cpu(), torch.full((4,), float(want)))
+
+    def gather_():
+        t = torch.full((2,), float(rank), device=device)
+        parts = [torch.empty_like(t) for _ in range(world)]
+        dist.all_gather(parts, t)
+        return all(float(p[0]) == r for r, p in enumerate(parts))
+
+    def bcast_():
+        t = torch.full((3,), float(rank + 7), device=device)
+        dist.broadcast(t, src=0)
+        return float(t[0]) == 7.0
+
+    attempt("cuda_all_reduce_sum", lambda: reduce_(dist.ReduceOp.SUM))
+    attempt("cuda_all_reduce_max", lambda: reduce_(dist.ReduceOp.MAX))
+    attempt("cuda_all_gather", gather_)
+    attempt("cuda_broadcast", bcast_)
+    attempt("host_bf16_sum", lambda: reduce_(dist.ReduceOp.SUM,
+                                             torch.bfloat16, "cpu"))
+    return out
+
+
+def tp22_toy(argv, device) -> list:
+    """Losses of the fp32 toy's three steps through pretrain_gpt."""
+    losses = []
+    pretrain_gpt.main(argv, device=device,
+                      on_step=lambda it, loss, m: losses.append(float(loss)))
+    return losses
+
+
+def tp22_dropout_probe(model, device) -> tuple:
+    """Digests of the hidden state of one seeded sequence through the
+    model's layers with dropout on (at the Megatron default rates, in K3
+    on the per-rank stream and on the replicated one after each block)
+    and with it off: both ranks must hold the same bits."""
+    held = model.cfg
+    cfg = dataclasses.replace(held, attention_dropout=0.1,
+                              hidden_dropout=0.1)
+    for mod in model.modules():
+        if hasattr(mod, "cfg"):
+            mod.cfg = cfg
+    gen = torch.Generator(device=device).manual_seed(23)
+    ids = torch.randint(0, cfg.vocab_size, (1, cfg.max_position_embeddings),
+                        generator=gen, device=device)
+    try:
+        with torch.no_grad():
+            h = model.transformer(model.embed(ids), dropout_seed=29)
+            h0 = model.transformer(model.embed(ids))
+    finally:
+        for mod in model.modules():
+            if hasattr(mod, "cfg"):
+                mod.cfg = held
+    return digest(h), digest(h0)
+
+
+def tp22_train(argv, device, dropout_probe_at=None) -> dict:
+    """One pretrain_gpt run on this rank: per-step losses, digests of every
+    parameter, wall and collective seconds; the rank's launches of the
+    main path's kernels over the run, its peak memory; at step
+    ``dropout_probe_at`` (after the step, its launches not counted) the
+    dropout probe (:func:`tp22_dropout_probe`)."""
+    from apex_tpu_torch.parallel import comm
+
+    card = device.type == "cuda"
+    steps, out = [], {}
+    if card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = [time.perf_counter()]
+
+    def on_step(it, loss, model):
+        value = float(loss)
+        if card:
+            torch.cuda.synchronize()
+        now = time.perf_counter()
+        steps.append(dict(step=it + 1, loss=value,
+                          wall_s=now - t0[0],
+                          comm=comm.STATS.as_dict(),
+                          digests={n: digest(p) for n, p in
+                                   model.named_parameters()}))
+        if it + 1 == dropout_probe_at:
+            out["launches"] = launch_counts()
+            out["dropout_hidden"] = tp22_dropout_probe(model, device)
+        comm.STATS.reset()
+        t0[0] = time.perf_counter()
+
+    comm.STATS.reset()
+    pretrain_gpt.main(argv, device=device, on_step=on_step)
+    launches = out.pop("launches", None) or launch_counts()
+    out.update(steps=steps,
+               launches={k: launches.get(k, 0) for k in TP22_KERNELS},
+               peak_gib=(torch.cuda.max_memory_allocated() / 2 ** 30
+                         if card else 0.0))
+    return out
+
+
+def phase22_rank(rank, world, init_file, out, jobs):
+    """A rank of phase 22 (spawned): joins the process group on the jobs'
+    backend, runs each job in order (a barrier after each, so a
+    checkpoint is whole before the next run reads it) and writes the
+    results to ``<out>/rank<r>.pt``."""
+    import gc
+
+    import torch.distributed as dist
+
+    from apex_tpu_torch.parallel import multiproc
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = multiproc.init_file_group(jobs[0]["backend"], rank, world,
+                                       init_file)
+    results = {}
+    for job in jobs:
+        kind = job["kind"]
+        if kind == "probe":
+            results[job["name"]] = tp22_probe(device)
+        elif kind == "nccl":
+            results[job["name"]] = tp22_nccl(device)
+        elif kind == "toy":
+            results[job["name"]] = tp22_toy(job["argv"], device)
+        else:
+            results[job["name"]] = tp22_train(job["argv"], device,
+                                              job.get("dropout_probe_at"))
+        gc.collect()
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        dist.barrier()
+    torch.save(results, os.path.join(out, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def tp22_nccl(device) -> dict:
+    """NCCL at world 1: ``all_reduce_grads`` (no collective at one rank)
+    and NCCL's own all-reduce, broadcast and all-gather of bf16 and fp32
+    CUDA tensors, each equal to its input bit for bit."""
+    import torch.distributed as dist
+
+    from apex_tpu_torch.parallel import all_reduce_grads
+
+    gen = torch.Generator(device=device).manual_seed(31)
+    grads = [torch.randn(1024, 2048, generator=gen, device=device),
+             torch.randn(2048, generator=gen, device=device).bfloat16()]
+    got = all_reduce_grads(grads, dist.group.WORLD)
+    same = [torch.equal(a, b) for a, b in zip(got, grads)]
+    for g in grads:
+        t = g.clone()
+        dist.all_reduce(t)
+        same.append(torch.equal(t, g))
+        t = g.clone()
+        dist.broadcast(t, src=0)
+        same.append(torch.equal(t, g))
+        t = torch.empty_like(g)
+        dist.all_gather_into_tensor(t, g)
+        same.append(torch.equal(t, g))
+    torch.cuda.synchronize()
+    return {"backend": dist.get_backend(), "bitwise": same}
+
+
+def tp22_spawn(world: int, jobs: list, tmp: str, what: str) -> list:
+    """Run ``jobs`` in ``world`` spawned ranks; the ranks' results."""
+    from apex_tpu_torch.parallel.multiproc import spawn
+
+    out = tempfile.mkdtemp(dir=tmp, prefix=what)
+    t0 = time.perf_counter()
+    spawn(phase22_rank, world, os.path.join(out, "store"), out, jobs,
+          timeout=900)
+    log(f"  {what}: {world} rank(s) done in {time.perf_counter() - t0:.1f} s "
+        "(process start, weights, steps)")
+    return [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
+            for r in range(world)]
+
+
+def tp22_replicas(name, runs, pairs, only=None) -> None:
+    """Each pair of ranks holds the same bits after every step, in every
+    parameter (``only``: in the parameters it selects)."""
+    for a, b in pairs:
+        for sa, sb in zip(runs[a]["steps"], runs[b]["steps"]):
+            for n, dg in sa["digests"].items():
+                if only is not None and not only(n):
+                    continue
+                if dg != sb["digests"][n]:
+                    raise AssertionError(
+                        f"{name}: ranks {a} and {b} differ in {n} after "
+                        f"step {sa['step']}")
+    log(f"  {name}: bitwise equal after each of {len(runs[0]['steps'])} "
+        f"steps (rank pairs {pairs})")
+
+
+def is_replicated(name: str) -> bool:
+    """The leaves every tp rank holds whole: the LayerNorms, the
+    row-parallel biases and the position embedding."""
+    return any(k in name for k in ("layernorm", "position_embeddings",
+                                   "proj.bias", "dense_4h_to_h.bias"))
+
+
+def tp22_losses(what, got, want, tol) -> float:
+    gap = max(abs(a - b) for a, b in zip(got, want))
+    log(f"  {what}: {got} against {want}: max gap {gap:.3e} (bar {tol:.1e})")
+    if len(got) != len(want) or not gap <= tol:
+        raise AssertionError(f"{what}: losses differ by {gap:.3e} > {tol}")
+    return gap
+
+
+def tp22_kernel_rows(seed: int) -> dict:
+    """K3/K4 at the tp = 2 shape [4, 2048, 8 x 3 x 128] bf16 (a rank's
+    heads), phase 3's way: against the plain versions with phase 3's bars,
+    run twice bitwise, then timed cold beside the plain versions, SDPA and
+    the bound."""
+    h = FULL_HEADS_TP2
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    e3, e4, ops = flash_qkv_case(gen, f"bf16 causal, dropout {ATT_DROPOUT}, "
+                                 f"{h} heads (a rank's at tp 2)", torch.bfloat16,
+                                 ATT_DROPOUT, h=h)
+    fwd, bwd, _ = time_flash_qkv(*ops, ATT_DROPOUT, h=h)
+    fwd["max_abs_err"], bwd["max_abs_err"] = e3, e4
+    del ops
+    torch.cuda.empty_cache()
+    return {"flash_qkv_fwd_sm90_tp2": fwd, "flash_qkv_bwd_sm90_tp2": bwd}
+
+
+FULL_HEADS_TP2 = TRAIN["heads"] // 2
+
+
+def phase_tp_dp(smi: str) -> dict:
+    """Phase 22 (see the module docstring)."""
+    log(f"  {GLOO_WHY}")
+    t_phase = time.perf_counter()
+    rows = tp22_kernel_rows(41)
+    tmp = tempfile.mkdtemp(prefix="tp22_")
+    try:
+        gloo = {"backend": "gloo"}
+        # the gloo probe and (a) the fp32 toy at tp 2 in one launch
+        toy2 = tp22_spawn(2, [dict(gloo, kind="probe", name="probe"),
+                              dict(gloo, kind="toy", name="toy",
+                                   argv=TOY22 + [
+                                       "--tensor-model-parallel-size", "2"])],
+                          tmp, "gloo probe, (a) fp32 toy at tp 2")
+        probe = toy2
+        log(f"  gloo on this card (rank 0): {probe[0]['probe']}")
+        nccl = tp22_spawn(1, [dict(kind="nccl", name="nccl",
+                                   backend="nccl")], tmp, "nccl")[0]["nccl"]
+        log(f"  (e) NCCL at world 1: backend {nccl['backend']}, bitwise "
+            f"{nccl['bitwise']}")
+        if nccl["backend"] != "nccl" or not all(nccl["bitwise"]):
+            raise AssertionError("(e) NCCL at world 1 is not the identity")
+
+        # (a) the fp32 toy, tp 2 against tp 1 from the same master weights
+        toy1 = tp22_toy(TOY22, CARD)
+        for r, res in enumerate(toy2):
+            for a, b in zip(res["toy"], toy1):
+                if not abs(a - b) <= TOY22_ATOL + TOY22_RTOL * abs(b):
+                    raise AssertionError(f"(a) rank {r}: {res['toy']} vs "
+                                         f"tp 1 {toy1}")
+        log(f"  (a) fp32 toy: tp 2 {toy2[0]['toy']}, tp 1 {toy1} (rtol "
+            f"{TOY22_RTOL}, atol {TOY22_ATOL}): ok")
+
+        # (b) GPT-1.3B width at tp 2 against tp 1, three steps
+        steps = ["--train-iters", str(TP22_STEPS)]
+        ref = []
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        pretrain_gpt.main(TP22_TRAIN + steps, device=CARD,
+                          on_step=lambda it, loss, m: ref.append(float(loss)))
+        ref_s = time.perf_counter() - t0
+        log(f"  (b) tp 1 reference (one process): losses {ref}, "
+            f"{ref_s:.1f} s, peak "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+        torch.cuda.empty_cache()
+        ck = os.path.join(tmp, "ckpt")
+        tp2 = ["--tensor-model-parallel-size", "2"]
+        runs = tp22_spawn(2, [
+            dict(gloo, kind="train", name="run",
+                 dropout_probe_at=TP22_STEPS, argv=TP22_TRAIN + tp2 + steps),
+            dict(gloo, kind="train", name="saved",
+                 argv=TP22_TRAIN + tp2 + ["--train-iters", "2", "--save",
+                                           ck]),
+            dict(gloo, kind="train", name="resumed",
+                 argv=TP22_TRAIN + tp2 + steps + ["--load", ck])],
+            tmp, "(b) GPT-1.3B width at tp 2")
+        run = [r["run"] for r in runs]
+        losses = [s["loss"] for s in run[0]["steps"]]
+        if [s["loss"] for s in run[1]["steps"]] != losses:
+            raise AssertionError("(b) the tp ranks report different losses")
+        gap_b = tp22_losses("(b) tp 2 against tp 1", losses, ref,
+                            TP22_LOSS_TOL)
+        tp22_replicas("(b) replicated leaves across the tp ranks", run,
+                      [(0, 1)], only=is_replicated)
+        for r, res in enumerate(runs):
+            saved, resumed = res["saved"]["steps"], res["resumed"]["steps"]
+            if [s["digests"] for s in saved] != [
+                    s["digests"] for s in res["run"]["steps"][:2]] or [
+                    s["loss"] for s in saved] != losses[:2]:
+                raise AssertionError(f"(b) rank {r}: the re-run is not "
+                                     "bitwise the run")
+            if [s["step"] for s in resumed] != [3] or \
+                    resumed[0]["loss"] != losses[2] or \
+                    resumed[0]["digests"] != res["run"]["steps"][2]["digests"]:
+                raise AssertionError(f"(d) rank {r}: the resume from step 2 "
+                                     "is not bitwise the uninterrupted run")
+        log("  (b) re-run (2 steps, saved) bitwise the run's first two; "
+            "(d) resumed from its step-2 checkpoint (a leading tp axis of "
+            "2) bitwise the run's step 3, every parameter, both ranks")
+        h = [res["run"]["dropout_hidden"] for res in runs]
+        if h[0][0] != h[1][0] or h[0][0] == h[0][1]:
+            raise AssertionError("(b) with dropout on, the tp ranks' hidden "
+                                 "states differ (or dropout did nothing)")
+        log("  (b) dropout 0.1/0.1: both ranks' hidden state bitwise equal, "
+            "and not the dropout-free one")
+
+        # (c) tp 2 x dp 2 on the same global batch
+        dp_runs = tp22_spawn(4, [dict(gloo, kind="train", name="run",
+                                      argv=TP22_TRAIN + tp2 + TP22_DP
+                                      + steps)],
+                             tmp, "(c) GPT-1.3B width at tp 2 x dp 2")
+        dp = [r["run"] for r in dp_runs]
+        gap_c = tp22_losses("(c) tp 2 x dp 2 against (b)",
+                            [s["loss"] for s in dp[0]["steps"]], losses,
+                            TP22_DP_LOSS_TOL)
+        tp22_replicas("(c) dp replicas", dp, [(0, 2), (1, 3)])
+        tp22_replicas("(c) replicated leaves across the tp ranks", dp,
+                      [(0, 1), (2, 3)], only=is_replicated)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # (f) each rank's launches, exactly
+    want = tp22_launches(TP22_LAYERS, TP22_STEPS)
+    for what, rr in (("(b)", run), ("(c)", dp)):
+        for r, res in enumerate(rr):
+            if res["launches"] != want:
+                raise AssertionError(f"(f) {what} rank {r} launched "
+                                     f"{res['launches']}, expected {want}")
+    log(f"  (f) launches of every rank of (b) and (c): {want} (K3 L, K4 L, "
+        f"K6 4L+1, K7 2L+1 a step, L = {TP22_LAYERS}, {TP22_STEPS} steps)")
+
+    # (g) the record: wall time, the collectives' share, each rank's peak
+    def summary(rr):
+        out = []
+        for res in rr:
+            st = res["steps"][1:]          # after the first step's warm-up
+            wall = sum(s["wall_s"] for s in st)
+            coll = sum(s["comm"]["seconds"] for s in st)
+            out.append(dict(step_s=[round(s["wall_s"], 4) for s in
+                                    res["steps"]],
+                            comm_share=coll / wall,
+                            comm_gb_per_step=statistics.mean(
+                                s["comm"]["bytes"] for s in st) / 1e9,
+                            comm_calls_per_step=statistics.mean(
+                                s["comm"]["calls"] for s in st),
+                            peak_gib=res["peak_gib"]))
+        return out
+
+    record = {"card": smi, "shared_card": True, "layers": TP22_LAYERS,
+              "tp2": summary(run), "tp2_dp2": summary(dp),
+              "tp1_reference_s": ref_s, "loss_gap_tp2_vs_tp1": gap_b,
+              "loss_gap_dp2_vs_tp2": gap_c, "gloo_probe": probe[0]["probe"],
+              "launches_per_rank": want}
+    log("  (g) wall times are of ranks time-slicing ONE card over gloo "
+        "(host-staged collectives); they say nothing of a run over several "
+        "cards")
+    log("  phase 22 " + json.dumps(record))
+    log(f"  phase 22 took {time.perf_counter() - t_phase:.1f} s")
+    return {"rows": rows, "launches": want, "ranks_tp2": [
+        r["launches"] for r in run], "ranks_tp2_dp2": [
+        r["launches"] for r in dp], "record": record}
+
+
 PHASE = {"n": 0, "name": "start"}
 
 
@@ -7504,8 +7984,15 @@ def main() -> int:
           "1024, weight norm")
     phase_families(smi)
     torch.cuda.empty_cache()
+
+    begin(22, "tensor- and data-parallel GPT training on torch.distributed "
+          f"(GPT-1.3B width, {TP22_LAYERS} layers, bf16, remat attn_res: tp "
+          "2, tp 2 x dp 2, a tp 2 save and resume; the fp32 toy tp 2 vs tp "
+          "1; NCCL at world 1), the ranks sharing this card over gloo")
+    tpdp = phase_tp_dp(smi)
+    torch.cuda.empty_cache()
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
-    PHASE.update(n=22, name="record")
+    PHASE.update(n=23, name="record")
     policies = rest["policies"]
 
     amp_toy_adam16 = {"launches": amp_toy["launches"]["O2 fp16 adam"]}
@@ -7632,6 +8119,19 @@ def main() -> int:
             ("flash_qkv_bwd_d64", "flash_qkv_bwd.cu",
              "apex_tpu/ops/attention.py:1800"))
     ] + [
+        # K3/K4 at a rank's shape at tp 2 ([4, 2048, 8 x 3 x 128]): the
+        # main path of phase 22, each rank's exact launches of (b) and (c)
+        dict(name=f"{name}_tp2", route="cuda",
+             source=f"apex_tpu_torch/csrc/{name}.cu", replaces=where,
+             launches=tpdp["launches"][name],
+             launches_ranks_tp2=[r[name] for r in tpdp["ranks_tp2"]],
+             launches_ranks_tp2_dp2=[r[name] for r in tpdp["ranks_tp2_dp2"]],
+             **tpdp["rows"][f"{name}_tp2"])
+        for name, where in (("flash_qkv_fwd_sm90",
+                             "apex_tpu/ops/attention.py:1766"),
+                            ("flash_qkv_bwd_sm90",
+                             "apex_tpu/ops/attention.py:1800"))
+    ] + [
         # K6/K7: layer_norm_sm90.cu is the route at 1024, 2048 and 4096
         # columns: the GPT-1.3B steps (phases 7, 11 and 18), the multi-head
         # attention step (phase 9) and the LayerNorm microbench (phase 12);
@@ -7650,7 +8150,11 @@ def main() -> int:
                  # pretrain_gpt under each remat policy
                  launches_softmax_gpt=rest["softmax_gpt"]["launches"][name],
                  launches_policies={p: r["launches"][name]
-                                    for p, r in policies.items()})),
+                                    for p, r in policies.items()},
+                 # phase 22: each rank of the tp 2 and tp 2 x dp 2 runs
+                 launches_ranks_tp2=[r[name] for r in tpdp["ranks_tp2"]],
+                 launches_ranks_tp2_dp2=[
+                     r[name] for r in tpdp["ranks_tp2_dp2"]])),
              **timings[name])
         for name, src, where, runs in (
             ("layer_norm_fwd_sm90", "layer_norm_sm90.cu",

@@ -377,6 +377,23 @@ def test_default_device_is_the_card(monkeypatch):
 TOY_ARGV = ["--num-layers", "2", "--hidden-size", "64",
             "--num-attention-heads", "2", "--seq-length", "16",
             "--micro-batch-size", "2", "--vocab-size", "128"]
+TP2_FLAGS = (("tensor-model-parallel-size",
+              ["--tensor-model-parallel-size", "2"]),
+             ("world-size", ["--world-size", "2"]))
+
+
+@pytest.fixture(scope="module")
+def tp2_runs(tmp_path_factory):
+    """Two gloo ranks (tests/torch_ranks.py): the toy GPT at tp_size 2,
+    pretrain_gpt's setup and one step under each of TP2_FLAGS, the three
+    tensor-parallel layers at tp_size 2."""
+    import torch_ranks
+    from apex_tpu_torch.parallel.multiproc import spawn
+
+    out = tmp_path_factory.mktemp("tp2")
+    spawn(torch_ranks.gpt_runs_at_tp2, 2, str(out / "store"), str(out),
+          {"toy": TOY, "argv": TOY_ARGV, "flags": TP2_FLAGS})
+    return torch_ranks.load_ranks(str(out), 2)
 
 
 @pytest.mark.parametrize("flags", [
@@ -384,10 +401,24 @@ TOY_ARGV = ["--num-layers", "2", "--hidden-size", "64",
     ["--world-size", "2"],
     ["--profile-every", "2"],
     ["--num-layers", "12", "--remat-policy", "dots"],
+    ["--pipeline-model-parallel-size", "2"],
 ], ids=lambda f: f[-2].lstrip("-") if len(f) == 4 else f[0].lstrip("-"))
-def test_pretrain_gpt_refuses_unported_options(flags):
-    """Tensor parallelism and more than one process are refused; the
-    profile sampler and the remat policies are ported."""
+def test_pretrain_gpt_refuses_unported_options(flags, request):
+    """Pipeline parallelism is refused; tensor parallelism and more than
+    one process run (two gloo ranks: tp 2 x dp 1, and tp 1 x dp 2 whose
+    replicas stay equal after a step), as do the profile sampler and the
+    remat policies."""
+    if flags[0] in ("--tensor-model-parallel-size", "--world-size"):
+        ranks = request.getfixturevalue("tp2_runs")
+        name = flags[0].lstrip("-")
+        want = (2, 1) if name.startswith("tensor") else (1, 2)
+        for res in ranks:
+            tp, dp, loss, params = res[name]
+            assert (tp, dp) == want and np.isfinite(loss)
+        if want == (1, 2):
+            for a, b in zip(ranks[0][name][3], ranks[1][name][3]):
+                assert torch.equal(a, b)
+        return
     if flags[0] in ("--profile-every", "--num-layers"):
         args, model, _ = pretrain_gpt.setup(TOY_ARGV + flags, device="cpu")
         assert args.profile_every == (2 if flags[0] == "--profile-every"
@@ -403,11 +434,16 @@ def test_pretrain_gpt_refuses_unported_options(flags):
     dict(num_experts=2), dict(use_flash_attention=False), dict(tp_size=2),
     dict(remat=True, remat_policy="attn_out"),
 ], ids=["moe", "no_flash", "tp2", "remat_attn_out"])
-def test_gpt_model_refuses_unported_configs(overrides):
-    """MoE and tensor parallelism are refused; the fused-softmax path and
-    every remat policy construct and run."""
+def test_gpt_model_refuses_unported_configs(overrides, request):
+    """MoE is refused; tensor parallelism (in two gloo ranks), the
+    fused-softmax path and every remat policy construct and run."""
     cfg = GPTConfig(**dict(TOY, **overrides))
-    if "num_experts" in overrides or "tp_size" in overrides:
+    if "tp_size" in overrides:
+        for res in request.getfixturevalue("tp2_runs"):
+            loss, all_grads = res["model"]
+            assert torch.isfinite(loss) and all_grads
+        return
+    if "num_experts" in overrides:
         with pytest.raises(NotImplementedError):
             GPTModel(cfg, device="cpu")
         return
@@ -422,11 +458,12 @@ def test_gpt_model_refuses_unported_configs(overrides):
                  device="cpu")
 
 
-def test_unported_masks_and_tensor_parallel_layers_raise():
+def test_unported_masks_and_tensor_parallel_layers_raise(tp2_runs):
     """A full [b, 1, s, s] mask, which the packed kernels cannot take,
     runs the fused-softmax path on a flash config too, as in JAX (the
-    same numbers as the non-flash config); the tensor-parallel layers
-    still refuse tp_size 2."""
+    same numbers as the non-flash config); the tensor-parallel layers run
+    at tp_size 2 in two ranks and raise without a registered tensor group
+    of that size."""
     flash = GPTModel(GPTConfig(**TOY), device="cpu")
     soft = GPTModel(GPTConfig(**dict(TOY, use_flash_attention=False)),
                     device="cpu")
@@ -442,8 +479,10 @@ def test_unported_masks_and_tensor_parallel_layers_raise():
     init = normal_init(0.02)
     for cls in (ColumnParallelLinear, RowParallelLinear,
                 VocabParallelEmbedding):
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(RuntimeError, match="initialize_model_parallel"):
             cls(8, 8, init_method=init, tp_size=2)
+    for res in tp2_runs:
+        assert res["layers"] == [(3, 8), (3, 8), (8, 8)]
 
 
 def test_training_modules_import_neither_jax_nor_apex_tpu():

@@ -1,0 +1,312 @@
+"""Rank bodies of the port's multi-process CPU tests.
+
+Each function runs in one process of a :func:`apex_tpu_torch.parallel.
+multiproc.spawn` launch (a gloo process group on a ``file://`` store, one
+CPU thread), computes what its test file checks, and writes it with
+``torch.save`` to ``<out>/rank<r>.pt``; the test process loads the ranks'
+results and holds them against JAX.  Spawned ranks import this module by
+name, so it imports neither ``jax`` nor the JAX package (a test pins
+that): inputs arrive as numpy arrays or tensors in the ``case`` dict.
+"""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from apex_tpu_torch.parallel.multiproc import init_file_group
+from apex_tpu_torch.transformer import parallel_state, tensor_parallel as tpl
+
+
+def _join(rank, world, init_file, tp=1, pp=1):
+    init_file_group("gloo", rank, world, init_file)
+    parallel_state.initialize_model_parallel(tp, pp)
+
+
+def _write(out, rank, res):
+    torch.save(res, os.path.join(out, f"rank{rank}.pt"))
+
+
+def load_ranks(out, world):
+    return [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
+            for r in range(world)]
+
+
+def _fixed(master):
+    """An init_method returning the given master weight."""
+    def init(shape, generator, device):
+        assert tuple(shape) == tuple(master.shape)
+        return torch.from_numpy(np.array(master, np.float32))
+    return init
+
+
+def _t(a, grad=False):
+    t = torch.from_numpy(np.array(a))
+    return t.requires_grad_() if grad else t
+
+
+# -- tests/test_torch_tensor_parallel.py --------------------------------------
+
+def tensor_parallel_checks(rank, world, init_file, out, case):
+    """Every check of the tensor-parallel regions, layers, cross entropy,
+    broadcast and RNG at tp = world (one tensor group)."""
+    tp = world
+    _join(rank, world, init_file, tp)
+    res = {"sizes": (parallel_state.get_tensor_model_parallel_world_size(),
+                     parallel_state.get_pipeline_model_parallel_world_size(),
+                     parallel_state.get_data_parallel_world_size(),
+                     parallel_state.get_tensor_model_parallel_rank(),
+                     parallel_state.get_tensor_model_parallel_src_rank(),
+                     parallel_state.get_rank_info())}
+    try:
+        parallel_state.initialize_model_parallel(3)
+    except RuntimeError:
+        res["invalid_raises"] = True
+    parallel_state.destroy_model_parallel()
+    try:
+        parallel_state.get_tensor_model_parallel_world_size()
+    except RuntimeError:
+        res["uninitialized_raises"] = True
+    parallel_state.initialize_model_parallel(tp)
+
+    # copy: identity forward, the ranks' cotangents summed backward
+    x = _t(case["x86"], grad=True)
+    y = tpl.copy_to_tensor_model_parallel_region(x)
+    loss = tpl.reduce_from_tensor_model_parallel_region(
+        y.sum() * (rank + 1.0))
+    loss.backward()
+    res["copy"] = (y.detach(), loss.detach(), x.grad)
+    # scatter / gather round trip, reduce
+    z = _t(case["x_roundtrip"])
+    s = tpl.scatter_to_tensor_model_parallel_region(z)
+    res["roundtrip"] = (tuple(s.shape),
+                        tpl.gather_from_tensor_model_parallel_region(s))
+    res["reduce"] = tpl.reduce_from_tensor_model_parallel_region(
+        torch.ones(4, 4))
+
+    # column-parallel (gather_output) and row-parallel (scatter) layers
+    def layer_case(cls, m, xin, **kw):
+        layer = cls(m["weight"].shape[1], m["weight"].shape[0],
+                    init_method=_fixed(m["weight"]), tp_size=tp, **kw)
+        with torch.no_grad():
+            b = torch.from_numpy(np.array(m["bias"], np.float32))
+            layer.bias.copy_(b if layer.bias.numel() == b.numel()
+                             else tpl.split_tensor_along_last_dim(
+                                 b, tp)[rank])
+        xi = _t(xin, grad=True)
+        o = layer(xi)
+        (o ** 2).sum().backward()
+        return o.detach(), xi.grad, layer.weight.grad, layer.bias.grad
+
+    res["column"] = layer_case(tpl.ColumnParallelLinear, case["col"],
+                               case["x_col"], gather_output=True)
+    res["row"] = layer_case(tpl.RowParallelLinear, case["row"],
+                            case["x_row"], input_is_parallel=False)
+    # the Megatron MLP pair: column (no gather) -> gelu -> row
+    col = tpl.ColumnParallelLinear(8, 16, gather_output=False, tp_size=tp,
+                                   init_method=_fixed(case["pair_c"]))
+    row = tpl.RowParallelLinear(16, 8, input_is_parallel=True, tp_size=tp,
+                                init_method=_fixed(case["pair_r"]))
+    xp = _t(case["x_pair"], grad=True)
+    yp = row(F.gelu(col(xp), approximate="tanh"))
+    lp = (yp ** 2).sum()
+    lp.backward()
+    res["pair"] = (lp.detach(), xp.grad, col.weight.grad, row.weight.grad)
+    # vocab-parallel embedding
+    emb = tpl.VocabParallelEmbedding(32, 12, tp_size=tp,
+                                     init_method=_fixed(case["emb"]))
+    e = emb(_t(case["ids"]))
+    (e * _t(case["emb_dy"])).sum().backward()
+    res["embedding"] = (e.detach(), emb.weight.grad)
+    # vocab-parallel cross entropy and its gradient
+    logits = _t(case["logits"], grad=True)
+    local = tpl.scatter_to_tensor_model_parallel_region(logits)
+    ce = tpl.vocab_parallel_cross_entropy(local, _t(case["target"]))
+    ce.mean().backward()
+    res["ce"] = (ce.detach(), logits.grad)
+    # broadcast_data: only tp rank 0 holds the payload
+    tok = _t(case["tokens"]) if rank == 0 else torch.full((3, 4), -1,
+                                                         dtype=torch.int32)
+    res["broadcast"] = tpl.broadcast_data(["tokens"], {"tokens": tok},
+                                          torch.int32)["tokens"]
+    try:
+        tpl.broadcast_data(["x"], {"x": torch.ones(2)}, torch.int32)
+    except ValueError:
+        res["broadcast_dtype_raises"] = True
+    # the model-parallel stream differs per rank, the default does not
+    tpl.model_parallel_cuda_manual_seed(1234)
+    tracker = tpl.get_cuda_rng_tracker()
+    res["seeds"] = (tracker.fork("default"), tracker.fork())
+    tpl.model_parallel_cuda_manual_seed(1234)
+    res["seeds_again"] = tracker.fork()
+    # 1-D split and gather
+    flat = _t(case["x_1d"])
+    c = tpl.split_tensor_into_1d_equal_chunks(flat)
+    res["split_1d"] = (c, tpl.gather_split_1d_tensor(c))
+    _write(out, rank, res)
+
+
+# -- tests/test_torch_distributed.py ------------------------------------------
+
+def distributed_checks(rank, world, init_file, out, case):
+    """all_reduce_grads under each option set, broadcast_params, DDP and
+    Reducer over the data group (dp = world), and the model-parallel
+    GradScaler over a tensor group of world ranks."""
+    from apex_tpu_torch.parallel import (DistributedDataParallel, Reducer,
+                                         all_reduce_grads, broadcast_params)
+    from apex_tpu_torch.transformer.amp import GradScaler
+
+    _join(rank, world, init_file)     # tp 1: dp = world
+    grads = {k: _t(v[rank]).to(getattr(torch, case["dtypes"][k]))
+             for k, v in case["grads"].items()}
+    res = {"table": {name: all_reduce_grads(grads, **kw)
+                     for name, kw in case["options"]}}
+    params = [torch.full((3,), float(rank + 1)), torch.arange(4.) * (rank + 1)]
+    broadcast_params(params)
+    res["broadcast"] = params
+    ddp = DistributedDataParallel(gradient_predivide_factor=2.0,
+                                  allreduce_always_fp32=True)
+    res["ddp"] = (ddp(grads), ddp.reduce(grads))
+    res["reducer"] = Reducer().reduce(grads)
+    parallel_state.destroy_model_parallel()
+    parallel_state.initialize_model_parallel(world)   # one tensor group
+    scaler = GradScaler()
+    ok = [torch.ones(3), torch.ones(2, 2)]
+    bad = [torch.ones(3), torch.tensor([[1.0, float("inf")], [0.0, 0.0]])]
+    res["found_inf"] = (scaler.found_inf(ok),
+                        scaler.found_inf(bad if rank == world - 1 else ok))
+    _write(out, rank, res)
+
+
+def ddp_example(rank, world, init_file, out, case):
+    """The port of examples/simple/distributed/distributed_data_parallel.py
+    on the given weights and global batch."""
+    from apex_tpu_torch.examples.simple.distributed import (
+        distributed_data_parallel as ex)
+
+    init_file_group("gloo", rank, world, init_file)
+    loss = ex.main([], device="cpu",
+                   params={k: _t(v) for k, v in case["params"].items()},
+                   data=(_t(case["x"]), _t(case["y"])))
+    _write(out, rank, {"loss": loss})
+
+
+# -- tests/test_torch_parallel_gpt.py -----------------------------------------
+
+def _gpt_grads(model):
+    return {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+
+
+def parallel_models(rank, world, init_file, out, case):
+    """The toy GPT and BERT at tp = world on rank r's shard of the JAX
+    masters: losses and gradients; the GPT's hidden state with dropout on;
+    the clip norm of pretrain_gpt over the GPT's gradients."""
+    from apex_tpu_torch.examples.gpt import pretrain_gpt
+    from apex_tpu_torch.transformer.testing import (BertConfig, BertModel,
+                                                    GPTConfig, GPTModel)
+    from apex_tpu_torch.transformer.testing.convert import (
+        rank_state_dict_from_jax)
+
+    tp = world
+    _join(rank, world, init_file, tp)
+    res = {}
+    for name, over in case["gpt_variants"]:
+        m = GPTModel(GPTConfig(**case["gpt_cfg"], tp_size=tp, **over),
+                     device="cpu")
+        m.load_state_dict(rank_state_dict_from_jax(case["gpt_master"], rank))
+        loss = m(_t(case["tokens"]), labels=_t(case["labels"])).mean()
+        loss.backward()
+        res[name] = (loss.detach(), _gpt_grads(m))
+        if name == "plain":
+            res["clip_norm"] = pretrain_gpt.clip_grads(m, 1e9)
+    drop = GPTModel(GPTConfig(**case["gpt_cfg"], tp_size=tp,
+                              attention_dropout=0.3, hidden_dropout=0.25),
+                    device="cpu")
+    drop.load_state_dict(rank_state_dict_from_jax(case["gpt_master"], rank))
+    with torch.no_grad():
+        h = drop.transformer(drop.embed(_t(case["tokens"])), dropout_seed=11)
+        h0 = drop.transformer(drop.embed(_t(case["tokens"])))
+    res["dropout_hidden"] = (h, h0)
+    bert = BertModel(BertConfig(**case["bert_cfg"], tp_size=tp), device="cpu")
+    bert.load_state_dict(rank_state_dict_from_jax(case["bert_master"], rank))
+    lm, binary = bert(_t(case["tokens"]),
+                      attention_mask=_t(case["bert_mask"]),
+                      tokentype_ids=_t(case["tokentypes"]),
+                      lm_labels=_t(case["labels"]))
+    bl = lm.mean() + binary.float().pow(2).mean()
+    bl.backward()
+    res["bert"] = (lm.detach(), binary.detach(), _gpt_grads(bert))
+    _write(out, rank, res)
+
+
+def pretrain_runs(rank, world, init_file, out, case):
+    """pretrain_gpt at tp x dp on shards of the JAX master: an
+    uninterrupted run, a run that saves, its resume, and a resume of the
+    JAX example's checkpoint; per-step losses and, for the uninterrupted
+    run, the replicated and dp-replicated parameters after each step."""
+    from apex_tpu_torch.examples.gpt import pretrain_gpt
+    from apex_tpu_torch.transformer.testing.convert import (
+        rank_state_dict_from_jax)
+
+    init_file_group("gloo", rank, world, init_file)
+    res = {}
+    for name, argv, inject in case["runs"]:
+        losses, params = {}, {}
+
+        def on_step(it, loss, model):
+            losses[it + 1] = float(loss)
+            params[it + 1] = {n: p.detach().clone()
+                              for n, p in model.named_parameters()}
+
+        sd = None
+        if inject:
+            tp_rank = parallel_state.coordinates(
+                rank, world, case["tp"])[0]
+            sd = rank_state_dict_from_jax(case["master"], tp_rank)
+        pretrain_gpt.main(case["base"] + argv, device="cpu", state_dict=sd,
+                          on_step=on_step)
+        res[name] = (losses, params if name == "uninterrupted" else None)
+    _write(out, rank, res)
+
+
+# -- tests/test_torch_gpt.py: the tp and world cases that now run -----------
+
+def gpt_runs_at_tp2(rank, world, init_file, out, case):
+    """The toy GPT at tp_size 2, pretrain_gpt's setup at
+    --tensor-model-parallel-size 2 and at --world-size 2 (one step each),
+    and the three layers at tp_size 2."""
+    from apex_tpu_torch.examples.gpt import pretrain_gpt
+    from apex_tpu_torch.transformer.testing import GPTConfig, GPTModel
+
+    init_file_group("gloo", rank, world, init_file)
+    parallel_state.initialize_model_parallel(2)
+    res = {}
+    m = GPTModel(GPTConfig(**case["toy"], tp_size=2), device="cpu")
+    tokens = torch.arange(2 * 8).reshape(2, 8) % case["toy"]["vocab_size"]
+    loss = m(tokens, labels=tokens).mean()
+    loss.backward()
+    res["model"] = (loss.detach(),
+                    all(p.grad is not None for p in m.parameters()))
+    for name, flags in case["flags"]:
+        args, model, opt = pretrain_gpt.setup(case["argv"] + flags,
+                                              device="cpu")
+        b = args.global_batch_size
+        ids = torch.arange(b * (args.seq_length + 1)).reshape(b, -1) % 97
+        toks, labs = pretrain_gpt.dp_rows((ids[:, :-1], ids[:, 1:]))
+        step = pretrain_gpt.train_step(args, model, opt, toks, labs, 0)
+        res[name] = (args.tensor_model_parallel_size,
+                     args.data_parallel_size, float(step),
+                     [p.detach().clone() for p in model.parameters()])
+    parallel_state.destroy_model_parallel()
+    parallel_state.initialize_model_parallel(2)
+    init = tpl.normal_init(0.02)
+    x = torch.ones(3, 8)
+    layers = (tpl.ColumnParallelLinear(8, 8, init_method=init, tp_size=2),
+              tpl.RowParallelLinear(8, 8, init_method=init, tp_size=2))
+    res["layers"] = [tuple(lay(x).shape) for lay in layers] + [
+        tuple(tpl.VocabParallelEmbedding(8, 8, init_method=init, tp_size=2)(
+            torch.arange(8)).shape)]
+    _write(out, rank, res)
