@@ -65,8 +65,11 @@ writes its ``profile`` (device ms by phase) and ``memory`` events into the
 same stream.  ``--remat-policy`` takes the JAX example's five policies
 (remat is on from 12 layers).
 
-Options the port does not have yet raise ``NotImplementedError``
-(ROADMAP.md): pipeline parallelism above 1.
+``--pipeline-model-parallel-size`` above 1 raises
+``NotImplementedError``: the JAX example runs no pipeline (it builds its
+mesh at pipeline size 1 whatever the flag), so neither does this one;
+pipelined training is :mod:`apex_tpu_torch.transformer.pipeline_parallel`'s
+schedules over ``make_gpt_stage_fns``.
 """
 
 from __future__ import annotations
@@ -149,9 +152,12 @@ def _extra_args(parser):
 def _refuse_unported(args) -> None:
     if args.pipeline_model_parallel_size != 1:
         raise NotImplementedError(
-            "not ported to apex_tpu_torch (ROADMAP.md): "
             f"--pipeline-model-parallel-size "
-            f"{args.pipeline_model_parallel_size}")
+            f"{args.pipeline_model_parallel_size}: the JAX example this "
+            "script ports runs no pipeline (its mesh has pipeline size 1), "
+            "so neither does this script; train a pipeline with the "
+            "schedules of apex_tpu_torch.transformer.pipeline_parallel and "
+            "make_gpt_stage_fns")
 
 
 def build_config(args) -> GPTConfig:

@@ -14,8 +14,12 @@ from apex_tpu_torch.ops.attention import (  # noqa: F401
     flash_attention,
     flash_attention_fwd,
     flash_attention_qkv,
+    flash_attention_qkv_route,
+    flash_attention_route,
     flash_attention_varlen,
     flash_decode,
+    flash_decode_route,
+    routing_override,
 )
 from apex_tpu_torch.ops.fused_dense import (  # noqa: F401
     FusedDense,
@@ -47,7 +51,8 @@ from apex_tpu_torch.ops.xentropy import (  # noqa: F401
     softmax_cross_entropy_loss,
 )
 
-__all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_qkv",
+__all__ = ["flash_attention_route", "flash_attention_qkv_route",
+           "flash_decode_route", "routing_override", "flash_attention", "flash_attention_fwd", "flash_attention_qkv",
            "flash_attention_varlen", "flash_decode", "layer_norm", "rms_norm", "FusedLayerNorm",
            "MixedFusedLayerNorm", "FastLayerNorm", "fast_layer_norm",
            "fused_linear_cross_entropy", "_blockwise_fwd", "_blockwise_bwd",

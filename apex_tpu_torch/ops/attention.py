@@ -47,6 +47,7 @@ and are not taken.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import math
 from typing import Optional, Tuple, Union
@@ -334,12 +335,43 @@ FLASH_FWD_SM90_TILES = (128, 128)
 _SM90_HEAD_DIMS = (64, 128)
 
 
+#: the routes :func:`routing_override` forces (None: the automatic route)
+_ROUTE_OVERRIDE = {"fwd": None, "bwd": None, "decode": None}
+_ROUTES = (None, "sm90", "scalar")
+
+
+@contextlib.contextmanager
+def routing_override(fwd=None, bwd=None, decode=None):
+    """Force the kernel route of K1 (``fwd``), K2 (``bwd``) or K5
+    (``decode``) inside the block: ``"sm90"`` (the tensor-core kernels) or
+    ``"scalar"`` (``flash_fwd.cu``, ``flash_bwd.cu``, ``flash_decode.cu``);
+    None leaves a route automatic.  The port's form of the JAX package's
+    ``routing_override`` (an A/B switch between the fast and the generic
+    route): here both routes are kernels, so outputs move within the
+    kernels' tolerances only.  A forced ``"sm90"`` where the operands do
+    not qualify (fp32, head dim 8, an fp32 pool) takes ``"scalar"``, and
+    an int8 or fp8 pool stays on ``"sm90"`` (``flash_decode.cu`` reads no
+    codes), as a forced JAX route degrades to one the shape allows.  CPU
+    tensors take the plain versions whatever is forced."""
+    for v in (fwd, bwd, decode):
+        if v not in _ROUTES:
+            raise ValueError(f"route {v!r}: expected one of {_ROUTES}")
+    prev = dict(_ROUTE_OVERRIDE)
+    _ROUTE_OVERRIDE.update(fwd=fwd, bwd=bwd, decode=decode)
+    try:
+        yield
+    finally:
+        _ROUTE_OVERRIDE.update(prev)
+
+
 def _fwd_on_tensor_cores(q: torch.Tensor) -> bool:
     """The route of :func:`_flash_fwd_cuda`: bf16 at head dims 64 and 128
     runs ``flash_fwd_sm90.cu`` (wgmma and TMA), everything else the scalar
     ``flash_fwd.cu`` (the tensor cores take no fp32 operands, and TF32
-    would not meet the fp32 contract)."""
-    return q.dtype == torch.bfloat16 and q.shape[-1] in _SM90_HEAD_DIMS
+    would not meet the fp32 contract); :func:`routing_override` may force
+    the scalar kernel."""
+    return (q.dtype == torch.bfloat16 and q.shape[-1] in _SM90_HEAD_DIMS
+            and _ROUTE_OVERRIDE["fwd"] != "scalar")
 
 
 def flash_fwd_tiles_of(q: torch.Tensor) -> tuple:
@@ -414,8 +446,10 @@ def _bwd_on_tensor_cores(q: torch.Tensor) -> bool:
     """The route of :func:`_flash_bwd_cuda`: bf16 at head dims 64 and 128
     runs ``flash_bwd_sm90.cu`` (wgmma and TMA), everything else the scalar
     ``flash_bwd.cu`` (the tensor cores take no fp32 operands, and TF32
-    would not meet the fp32 contract)."""
-    return q.dtype == torch.bfloat16 and q.shape[-1] in _SM90_HEAD_DIMS
+    would not meet the fp32 contract); :func:`routing_override` may force
+    the scalar kernel."""
+    return (q.dtype == torch.bfloat16 and q.shape[-1] in _SM90_HEAD_DIMS
+            and _ROUTE_OVERRIDE["bwd"] != "scalar")
 
 
 def flash_bwd_tiles_of(q: torch.Tensor) -> dict:
@@ -858,11 +892,50 @@ def decode_max_splits(p_max: int, page_size: int, d: int) -> int:
 def _decode_route(q: torch.Tensor, k_pages: torch.Tensor) -> str:
     """``"sm90"`` (``flash_decode_sm90.cu``) for a bf16, int8 or fp8 pool
     at head dim 128 with an fp32 or bf16 q, else ``"scalar"``
-    (``flash_decode.cu``: the fp32 pool, head dim 8)."""
+    (``flash_decode.cu``: the fp32 pool, head dim 8);
+    :func:`routing_override` may force the bf16 pool to the scalar
+    kernel."""
     if (k_pages.dtype in _DECODE_SM90_KERNELS and q.dtype in _KERNEL_DTYPES
             and q.shape[-1] in _DECODE_SM90_HEAD_DIMS):
+        if (_ROUTE_OVERRIDE["decode"] == "scalar"
+                and k_pages.dtype == torch.bfloat16):
+            return "scalar"
         return "sm90"
     return "scalar"
+
+
+def _on_card(t: torch.Tensor, device) -> bool:
+    return (torch.device(device) if device is not None else t.device
+            ).type == "cuda"
+
+
+def flash_attention_route(q: torch.Tensor, k: Optional[torch.Tensor] = None,
+                          *, mask_bias=None, segment_ids=None,
+                          device=None) -> dict:
+    """``{"fwd": ..., "bwd": ...}``: the kernels :func:`flash_attention`
+    runs for ``q`` ([B, H, s, d]): ``"sm90"`` or ``"scalar"`` on the card,
+    ``"plain"`` (the PyTorch versions) on the CPU.  ``device`` asks about
+    another device than ``q``'s (``"cuda"`` answers for the card without
+    one).  ``k``, the mask and the segment ids take no part in the choice
+    (the JAX function's signature; its routes are Pallas kernels or
+    XLA)."""
+    if not _on_card(q, device):
+        return {"fwd": "plain", "bwd": "plain"}
+    return {"fwd": "sm90" if _fwd_on_tensor_cores(q) else "scalar",
+            "bwd": "sm90" if _bwd_on_tensor_cores(q) else "scalar"}
+
+
+def flash_decode_route(q: torch.Tensor, k_pages: Optional[torch.Tensor] = None,
+                       *, device=None) -> str:
+    """The route :func:`flash_decode` takes: ``"sm90"``
+    (``flash_decode_sm90.cu``), ``"scalar"`` (``flash_decode.cu``) or
+    ``"plain"`` on the CPU; without ``k_pages`` a bf16 pool is
+    assumed."""
+    if not _on_card(q, device):
+        return "plain"
+    if k_pages is None:
+        k_pages = torch.empty(0, dtype=torch.bfloat16)
+    return _decode_route(q, k_pages)
 
 
 def _check_decode_tables(page_table, kv_len, B, device):
@@ -1121,6 +1194,25 @@ def _qkv_route(dtype: torch.dtype) -> str:
     and TF32 would not meet the fp32 contract)."""
     return {torch.bfloat16: "sm90", torch.float16: "sm90_f16"}.get(
         dtype, "scalar")
+
+
+def flash_attention_qkv_route(b: int, s: int, num_heads: int, hn: int, *,
+                              dtype: torch.dtype = torch.bfloat16,
+                              causal: bool = True, dropout_rate: float = 0.0,
+                              has_segments: bool = False,
+                              device="cuda") -> str:
+    """The route :func:`flash_attention_qkv` takes for this shape:
+    ``"sm90"`` (bf16) or ``"sm90_f16"`` (fp16) on the tensor-core kernels,
+    ``"scalar"`` (fp32) on the card, ``"plain"`` on the CPU.  A head dim
+    the kernels are not built for raises ``ValueError`` on the card, as
+    the kernels refuse it (the JAX function routes such a shape to its
+    generic path)."""
+    if torch.device(device).type != "cuda":
+        return "plain"
+    if hn not in QKV_HEAD_DIMS:
+        raise ValueError(f"the packed-QKV kernels are built for head dims "
+                         f"{QKV_HEAD_DIMS}, not {hn}")
+    return _qkv_route(dtype)
 
 
 def _qkv_kernel_args(qkv, seg_q, seg_k, num_heads):

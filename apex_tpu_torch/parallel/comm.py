@@ -22,12 +22,22 @@ backend:
 seconds of the synchronous ones: everything under gloo, from after the
 stream synchronisation to the copy back) so that a run can report what
 share of its wall time the transport took.
+
+Point to point (:func:`send`, :func:`recv`, :func:`exchange`) follows
+the same rules, peers named by their rank in the group.
+:func:`exchange` posts every send and receive of a step before it waits
+on any (``dist.batch_isend_irecv`` under NCCL; gloo's ``isend`` /
+``irecv`` of host tensors, each tagged, under gloo), so two neighbours
+that send to each other at once do not deadlock, as the reference's
+``_run_p2pops`` (p2p_communication.py:31-69) posts its ops.  A message
+to this rank itself is handed over without a transfer.  Each message
+counts as one call in :data:`STATS`, its bytes those on the wire.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Optional
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -178,5 +188,101 @@ def split(t: torch.Tensor, group, dim: int = -1) -> torch.Tensor:
     return t.narrow(dim, group_rank(group) * chunk, chunk).contiguous()
 
 
-__all__ = ["CommStats", "STATS", "all_gather", "all_reduce", "broadcast",
-           "gather", "group_rank", "group_size", "split"]
+# -- point to point ----------------------------------------------------------
+
+class Recv(NamedTuple):
+    """A receive of :func:`exchange`: a tensor of ``shape`` and ``dtype``
+    from group rank ``peer``, to lie on ``device``, matched to the send
+    of the same ``tag``."""
+
+    peer: int
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+    device: torch.device
+    tag: int = 0
+
+
+def exchange(sends: Sequence[Tuple[torch.Tensor, int, int]],
+             recvs: Sequence[Recv], group) -> List[torch.Tensor]:
+    """Every ``(tensor, peer, tag)`` of ``sends`` sent and every receive
+    of ``recvs`` taken, all posted before any is waited on; returns the
+    received tensors in the order of ``recvs``.  Messages between two
+    ranks match by tag (under NCCL, which has no tags, by their order:
+    both sides post them sorted by tag).  A peer equal to this rank takes
+    the send of its tag directly (a pipeline of one rank)."""
+    me = group_rank(group)
+    local = {tag: t for t, peer, tag in sends if peer == me}
+    sends = sorted(((t, p, g) for t, p, g in sends if p != me),
+                   key=lambda s: s[2])
+    order = sorted((i for i, r in enumerate(recvs) if r.peer != me),
+                   key=lambda i: recvs[i].tag)
+    out: List[Optional[torch.Tensor]] = [None] * len(recvs)
+    for i, r in enumerate(recvs):
+        if r.peer == me:
+            out[i] = local[r.tag].to(r.device, r.dtype)
+    if not sends and not order:
+        return out
+    nccl = dist.get_backend(group) == "nccl"
+    wire_s = []
+    for t, peer, tag in sends:
+        c = t.detach()
+        if c.is_cuda and not nccl:
+            torch.cuda.current_stream(c.device).synchronize()
+            c = c.to("cpu")
+        elif not c.is_cuda and nccl:
+            c = c.cuda()
+        wire_s.append((c.contiguous(), dist.get_global_rank(group, peer),
+                       tag))
+    wire_r = []
+    for i in order:
+        r = recvs[i]
+        wire_r.append((i, torch.empty(r.shape, dtype=r.dtype,
+                                      device="cuda" if nccl else "cpu"),
+                       dist.get_global_rank(group, r.peer), r.tag))
+    t0 = time.perf_counter()
+    if nccl:
+        ops = ([dist.P2POp(dist.isend, c, peer, group) for c, peer, _ in
+                wire_s]
+               + [dist.P2POp(dist.irecv, b, peer, group) for _, b, peer, _
+                  in wire_r])
+        works = dist.batch_isend_irecv(ops)
+    else:
+        works = ([dist.isend(c, peer, group=group, tag=tag)
+                  for c, peer, tag in wire_s]
+                 + [dist.irecv(b, peer, group=group, tag=tag)
+                    for _, b, peer, tag in wire_r])
+    for w in works:
+        w.wait()
+    for i, b, _, _ in wire_r:
+        out[i] = b.to(recvs[i].device)
+    if not nccl:     # synchronous: the host waited
+        STATS.seconds += time.perf_counter() - t0
+    for c, _, _ in wire_s:
+        STATS.calls += 1
+        STATS.bytes += c.numel() * c.element_size()
+    for _, b, _, _ in wire_r:
+        STATS.calls += 1
+        STATS.bytes += b.numel() * b.element_size()
+    return out
+
+
+def send(t: torch.Tensor, peer: int, group, tag: int = 0) -> None:
+    """``t`` to group rank ``peer`` (blocking until it is taken)."""
+    if peer == group_rank(group):
+        raise ValueError("send to this rank itself: use exchange")
+    exchange([(t, peer, tag)], [], group)
+
+
+def recv(shape, dtype: torch.dtype, device, peer: int, group,
+         tag: int = 0) -> torch.Tensor:
+    """A tensor of ``shape`` and ``dtype`` from group rank ``peer``, on
+    ``device``."""
+    if peer == group_rank(group):
+        raise ValueError("receive from this rank itself: use exchange")
+    return exchange([], [Recv(peer, tuple(shape), dtype,
+                              torch.device(device), tag)], group)[0]
+
+
+__all__ = ["CommStats", "STATS", "Recv", "all_gather", "all_reduce",
+           "broadcast", "exchange", "gather", "group_rank", "group_size",
+           "recv", "send", "split"]

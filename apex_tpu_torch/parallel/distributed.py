@@ -95,7 +95,11 @@ def broadcast_params(params: Any, group=DATA) -> Any:
 class DistributedDataParallel:
     """Callable gradient reducer with the reference's constructor
     (distributed.py:162-189): ``ddp(grads)`` is :func:`all_reduce_grads`
-    with the instance's options."""
+    with the instance's options.  Built with ``module=`` (as
+    ``pipeline_parallel.build_model`` wraps each chunk), it holds the
+    module at ``.module`` and reads every other attribute through to it
+    (``ddp.parameters()``, a stage's ``pre_process``); calling it still
+    reduces gradients."""
 
     def __init__(self, group=DATA, message_size: int = 10_000_000,
                  delay_allreduce: bool = False,
@@ -108,7 +112,8 @@ class DistributedDataParallel:
                  gradient_average: bool = True,
                  gradient_predivide_factor: float = 1.0,
                  gradient_average_split_factor: Optional[float] = None,
-                 prof: bool = False):
+                 prof: bool = False, *, module=None):
+        self.module = module
         self.group = group
         self.gradient_average = gradient_average
         self.gradient_predivide_factor = gradient_predivide_factor
@@ -118,6 +123,12 @@ class DistributedDataParallel:
                              delay_allreduce=delay_allreduce,
                              num_allreduce_streams=num_allreduce_streams,
                              prof=prof)
+
+    def __getattr__(self, name):
+        module = self.__dict__.get("module")
+        if module is None:
+            raise AttributeError(name)
+        return getattr(module, name)
 
     def __call__(self, grads: Any) -> Any:
         return all_reduce_grads(

@@ -17,6 +17,7 @@ from apex_tpu_torch.transformer.testing.standalone_gpt import (  # noqa: F401
     GPTModel,
     ParallelAttention,
     gpt_model_provider,
+    make_gpt_stage_fns,
     ParallelMLP,
     ParallelTransformer,
     ParallelTransformerLayer,
@@ -28,6 +29,7 @@ from apex_tpu_torch.transformer.testing.train_loop import (  # noqa: F401
 
 __all__ = ["BertConfig", "BertModel", "bert_model_provider", "GPT1P3B_KW",
            "gpt1p3b_config", "gpt_param_count", "GPTConfig",
-           "GPTModel", "gpt_model_provider", "LoopResult", "ParallelAttention", "ParallelMLP",
+           "GPTModel", "gpt_model_provider", "LoopResult",
+           "make_gpt_stage_fns", "ParallelAttention", "ParallelMLP",
            "ParallelTransformer", "ParallelTransformerLayer",
            "run_resilient_training"]

@@ -15,6 +15,13 @@ embedding), so nothing is transposed.  Arrays travel as numpy.
 layer dicts) ``init`` onto the port's modules of :mod:`apex_tpu_torch.ops.
 fused_dense` and :mod:`apex_tpu_torch.ops.mlp`.
 
+Pipeline stages: :func:`stage_state_dict` cuts a whole model's
+``state_dict`` to one stage's (its layer slice, renumbered from 0; the
+word and position embeddings on the first stage; the final LayerNorm and
+a copy of the word embedding on the last), as the JAX tests and bench.py
+slice a master for ``make_gpt_stage_fns``; :func:`stage_state_dict_from_jax`
+does so from a JAX master.
+
 Tensor-parallel trees: the JAX example stacks the ``shard_master`` trees
 of its tp ranks on a leading axis (``examples/gpt/pretrain_gpt.py``);
 :func:`rank_state_dict_from_jax` takes tp rank r's ``state_dict`` out of
@@ -24,7 +31,7 @@ back into it.
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Sequence, Union
+from typing import Dict, Mapping, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -55,6 +62,55 @@ def state_dict_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
         else:
             sd[name] = torch.from_numpy(np.array(arr))
     return sd
+
+
+def stage_state_dict(sd: Mapping[str, torch.Tensor], stage: int, pp: int,
+                     *, chunk: int = 0, vpp: int = 1
+                     ) -> Dict[str, torch.Tensor]:
+    """Virtual stage ``stage + pp * chunk``'s ``state_dict`` out of a whole
+    GPT's (the port's names; any tp rank's shard): layers ``[v n, (v + 1)
+    n)`` renumbered from 0 (``n = layers / (pp * vpp)``), plus the word
+    and position embeddings on the first virtual stage and the final
+    LayerNorm and the word embedding (the head's own copy) on the
+    last."""
+    n_layers = 1 + max(int(k[len(_LAYERS) + 1:].split(".", 1)[0])
+                       for k in sd if k.startswith(_LAYERS + "."))
+    V = pp * vpp
+    if n_layers % V:
+        raise ValueError(f"{n_layers} layers do not split into {V} stages")
+    n = n_layers // V
+    v = stage + pp * chunk
+    out = {}
+    for name, t in sd.items():
+        if name.startswith(_LAYERS + "."):
+            i, leaf = name[len(_LAYERS) + 1:].split(".", 1)
+            if v * n <= int(i) < (v + 1) * n:
+                out[f"{_LAYERS}.{int(i) - v * n}.{leaf}"] = t
+        elif name.startswith("embedding."):
+            if v == 0 or v == V - 1:
+                out[name] = t
+        elif name.startswith("position_embeddings."):
+            if v == 0:
+                out[name] = t
+        elif name.startswith("final_layernorm."):
+            if v == V - 1:
+                out[name] = t
+        else:
+            raise ValueError(f"{name}: not a GPT parameter")
+    return out
+
+
+def stage_state_dict_from_jax(master: Mapping, stage: int, pp: int,
+                              tp_rank: Optional[int] = None, *,
+                              chunk: int = 0, vpp: int = 1
+                              ) -> Dict[str, torch.Tensor]:
+    """:func:`stage_state_dict` of a JAX GPT master: an ``init_master`` /
+    ``shard_master(..., 0)`` tree, or with ``tp_rank`` a tree whose leaves
+    carry a leading tp axis (the ranks' ``shard_master`` trees
+    stacked)."""
+    sd = (state_dict_from_jax(master) if tp_rank is None
+          else rank_state_dict_from_jax(master, tp_rank))
+    return stage_state_dict(sd, stage, pp, chunk=chunk, vpp=vpp)
 
 
 def rank_state_dict_from_jax(stacked: Mapping, rank: int

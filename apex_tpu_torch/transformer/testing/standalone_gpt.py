@@ -418,28 +418,44 @@ class GPTModel(nn.Module):
     standalone_gpt.py:1426).  Built on ``device`` (``None``: the card,
     raising without one; ``"cpu"`` runs the plain versions of the
     kernels), weights drawn from ``seed`` with a generator on that
-    device, fp32 masters."""
+    device, fp32 masters.
+
+    ``pre_process`` / ``post_process`` (the JAX model's flags) build a
+    pipeline stage: without ``pre_process`` no word or position
+    embedding; without ``post_process`` no final LayerNorm and no head.
+    A stage with the head but not the embedding (the last of a pipeline)
+    keeps its own copy of the word embedding for the head, drawn first
+    from ``seed`` as the first stage draws its embedding, so the two
+    start equal; nothing ties them in training (the JAX model's untied
+    stage).  A stage runs through :func:`make_gpt_stage_fns`;
+    :meth:`forward` takes the whole model."""
 
     def __init__(self, cfg: GPTConfig, num_layers: Optional[int] = None, *,
-                 device=None, seed: int = 0):
+                 device=None, seed: int = 0, pre_process: bool = True,
+                 post_process: bool = True):
         super().__init__()
         dev = resolve_device(device)
         _refuse_unported(cfg, dev)
         self.cfg = cfg
+        self.pre_process = pre_process
+        self.post_process = post_process
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
         init = normal_init(cfg.init_method_std)
-        self.embedding = VocabParallelEmbedding(
-            cfg.vocab_size, cfg.hidden_size, init_method=init,
-            tp_size=cfg.tp_size, device=dev, generator=gen)
-        self.position_embeddings = nn.Embedding(
-            cfg.max_position_embeddings, cfg.hidden_size, device=dev,
-            _weight=init((cfg.max_position_embeddings, cfg.hidden_size),
-                         gen, dev))
+        if pre_process or post_process:
+            self.embedding = VocabParallelEmbedding(
+                cfg.vocab_size, cfg.hidden_size, init_method=init,
+                tp_size=cfg.tp_size, device=dev, generator=gen)
+        if pre_process:
+            self.position_embeddings = nn.Embedding(
+                cfg.max_position_embeddings, cfg.hidden_size, device=dev,
+                _weight=init((cfg.max_position_embeddings, cfg.hidden_size),
+                             gen, dev))
         self.transformer = ParallelTransformer(cfg, num_layers, device=dev,
                                                generator=gen)
-        self.final_layernorm = FusedLayerNorm(
-            cfg.hidden_size, cfg.layernorm_epsilon, device=dev)
+        if post_process:
+            self.final_layernorm = FusedLayerNorm(
+                cfg.hidden_size, cfg.layernorm_epsilon, device=dev)
 
     def embed(self, tokens: torch.Tensor) -> torch.Tensor:
         h = self.embedding(tokens)
@@ -465,6 +481,9 @@ class GPTModel(nn.Module):
         applied on top of the causal mask; on the flash path a key-padding
         mask [b, 1, 1, s] stays on the packed kernels and any other mask
         takes the fused-softmax path, as in the JAX model."""
+        if not (self.pre_process and self.post_process):
+            raise ValueError("a pipeline stage (pre_process or post_process "
+                             "False) runs through make_gpt_stage_fns")
         h = embedding_dropout(self.embed(tokens), self.cfg, dropout_seed)
         h = self.transformer(h, dropout_seed, attention_mask)
         if labels is None:
@@ -481,13 +500,55 @@ class GPTModel(nn.Module):
                                             self.embedding.tp_group)
 
 
-def gpt_model_provider(cfg: GPTConfig, *, device=None,
+def gpt_model_provider(cfg: GPTConfig, pre_process: bool = True,
+                       post_process: bool = True, *,
+                       num_layers: Optional[int] = None, device=None,
                        seed: int = 0) -> GPTModel:
-    """Reference gpt_model_provider (standalone_gpt.py:1502)."""
-    return GPTModel(cfg, device=device, seed=seed)
+    """Reference gpt_model_provider (standalone_gpt.py:1502);
+    ``num_layers`` sizes a pipeline chunk."""
+    return GPTModel(cfg, num_layers, device=device, seed=seed,
+                    pre_process=pre_process, post_process=post_process)
 
 
-__all__ = ["GPTConfig", "GPTModel", "gpt_model_provider", "ParallelAttention", "ParallelMLP",
+# -- pipeline adaptation -----------------------------------------------------
+
+def make_gpt_stage_fns(cfg: GPTConfig, n_stages: int):
+    """``(stage_fn, loss_fn)`` of a GPT split into ``n_stages`` pipeline
+    stages (virtual stages with interleaving), for the schedules of
+    :mod:`apex_tpu_torch.transformer.pipeline_parallel` (the JAX
+    package's ``make_gpt_stage_fns``).  Each stage is a :class:`GPTModel`
+    of ``cfg.num_layers / n_stages`` layers (``build_model`` with
+    :func:`gpt_model_provider`, or ``convert.stage_state_dict`` for
+    weights); microbatches are dicts of ``"tokens"`` and ``"labels"``.
+
+    ``stage_fn(stage, h_in, mb[, k])``: the first stage embeds word and
+    position, every other takes ``h_in`` in the compute dtype; then the
+    stage's layers, **without dropout** whatever the config's rates (the
+    JAX stage passes no dropout key, so its stages are deterministic).
+    ``loss_fn(stage, h, mb)``: the last stage's mean vocab-parallel cross
+    entropy over fp32 logits through its final LayerNorm and its own copy
+    of the word embedding (not the fused bf16 head of
+    :meth:`GPTModel.forward` at tp = 1)."""
+    if cfg.num_layers % n_stages != 0:
+        raise ValueError("num_layers must divide evenly into stages")
+
+    def stage_fn(stage, h_in, mb, k=0):
+        if stage.pre_process:
+            h = stage.embed(mb["tokens"])
+        else:
+            h = h_in.to(cfg.compute_dtype)
+        return stage.transformer(h)
+
+    def loss_fn(stage, h_out, mb):
+        return vocab_parallel_cross_entropy(
+            stage.head_logits_local(h_out), mb["labels"],
+            stage.embedding.tp_group).mean()
+
+    return stage_fn, loss_fn
+
+
+__all__ = ["GPTConfig", "GPTModel", "gpt_model_provider",
+           "make_gpt_stage_fns", "ParallelAttention", "ParallelMLP",
            "ParallelTransformerLayer", "ParallelTransformer",
            "attention_segments", "embedding_dropout", "is_key_padding",
            "remat_context_fn", "softmax_mask", "REMAT_POLICIES"]

@@ -51,6 +51,23 @@ def tree_cast(tree, dtype: torch.dtype, *,
     return _map(cast, tree)
 
 
+def _leaves(tree) -> List[torch.Tensor]:
+    out = []
+    _map(lambda _, t: out.append(t), tree)
+    return out
+
+
+def tree_size(tree) -> int:
+    """The number of elements of every tensor of ``tree``."""
+    return sum(t.numel() for t in _leaves(tree))
+
+
+def tree_zeros_like(tree):
+    """``tree`` with every tensor replaced by zeros of its shape, dtype and
+    device."""
+    return _map(lambda _, t: torch.zeros_like(t), tree)
+
+
 def tree_select(pred: torch.Tensor, on_true: Iterable[torch.Tensor],
                 on_false: Iterable[torch.Tensor]) -> List[torch.Tensor]:
     """Branchless select, tensor by tensor: ``where(pred, a, b)`` (the
@@ -171,4 +188,5 @@ def path_parts(path: Path) -> List[str]:
 
 __all__ = ["tree_flatten_with_path", "tree_unflatten", "keystr",
            "path_parts", "tree_cast", "tree_select", "tree_select_",
+           "tree_size", "tree_zeros_like",
            "tree_isfinite", "tree_global_norm"]

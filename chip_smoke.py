@@ -19,7 +19,8 @@ profile sampler and the apex ops (phase 19), ResNet-50 ImageNet training
 under amp with its example, ``FP16_Optimizer`` and ASP (phase 20),
 DCGAN, the RNNs, RNN-T and weight norm (phase 21), and tensor- and
 data-parallel GPT training on ``torch.distributed``, its ranks sharing
-the card over gloo (phase 22).
+the card over gloo (phase 22), and pipeline-parallel GPT training, its
+stages sharing the card the same way (phase 23).
 Phases, each of which fails the run (non-zero exit) on error:
 
 1. device — a CUDA card is required; its name and power limit are read
@@ -421,6 +422,30 @@ Phases, each of which fails the run (non-zero exit) on error:
     ``kernels`` record.  (g) A JSON line: each rank's step seconds, the
     collectives' share of them, bytes and calls a step, peak memory,
     beside the card's name and power limit.
+23. pipeline-parallel GPT training on ``torch.distributed`` — the stages
+    are ranks sharing this card over gloo as in phase 22, each a
+    ``build_model`` chunk of ``gpt_model_provider`` cut from the whole
+    model drawn from one seed, driven by ``make_gpt_stage_fns`` and the
+    schedules of ``transformer.pipeline_parallel`` (GPT-1.3B width, bf16,
+    remat ``attn_res``, FusedAdam lr 1.5e-4, dropout off, phase 7's
+    seeded 4 x 2048 batch as 4 microbatches of 1).  First K3/K4 at the
+    stages' shapes, phase 3's way: bf16 [1, 2048, 16 x 3 x 128] and fp16
+    [1, 2048, 8 x 3 x 128].  (a) 1F1B at pp 2, all 24 layers, 3 steps,
+    against tp 1 / pp 1 on the same batch and master
+    (``forward_backward_no_pipelining``), step by step within the
+    ``PP23_*_TOL`` bars, with step 1's gradient statistics (each leaf's
+    norm and its dot with a seeded random vector); a re-run bitwise; each
+    rank's exact launches a step, derived from the slots
+    (:func:`pp23_launches`); each rank's peak at m = 4 and m = 8 (one
+    forward-backward each) within one stage input.  (b) the interleaved
+    schedule at pp 4 x vpp 2 (3 layers a chunk), 2 steps, step 1 within
+    (a)'s bars of (a)'s step 1, launches exact.  (c) bench.py's amp pp leg
+    at tp 2 x pp 2, 12 layers, O2 fp16 from a scale of 2^16, 3 steps, on
+    the ``_f16`` entries: an overflow planted on one rank at step 2 makes
+    every rank skip it bitwise and halve its scale; the replicated leaves
+    bitwise equal across the tp ranks after each step; launches exact.  A
+    JSON line: losses, gaps, bubbles, each rank's step wall and stream
+    time, transfers and peak.
 
 The last three lines of standard output are the kernels' JSON record,
 the ``nvidia-smi`` name/power line, and ``{"ok": true, "device": ...}``.
@@ -434,6 +459,7 @@ from __future__ import annotations
 import base64
 import contextlib
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -474,8 +500,10 @@ from apex_tpu_torch.profiling.roofs import (HBM_BYTES_PER_S,  # noqa: E402
 from apex_tpu_torch.profiling.timing import cold_ms  # noqa: E402
 from apex_tpu_torch import amp  # noqa: E402
 from apex_tpu_torch.optimizers import FusedLAMB, FusedSGD  # noqa: E402
+from apex_tpu_torch.transformer import parallel_state  # noqa: E402
 from apex_tpu_torch.transformer.testing import (  # noqa: E402
-    BertModel, GPTConfig, GPTModel, gpt1p3b_config, gpt_param_count)
+    GPT1P3B_KW, BertModel, GPTConfig, GPTModel, gpt1p3b_config,
+    gpt_param_count)
 from apex_tpu_torch.transformer.testing.standalone_gpt import (  # noqa: E402
     attention_segments)
 from apex_tpu_torch import checkpoint as ckpt  # noqa: E402
@@ -7641,13 +7669,15 @@ def tp22_nccl(device) -> dict:
     return {"backend": dist.get_backend(), "bitwise": same}
 
 
-def tp22_spawn(world: int, jobs: list, tmp: str, what: str) -> list:
-    """Run ``jobs`` in ``world`` spawned ranks; the ranks' results."""
+def tp22_spawn(world: int, jobs: list, tmp: str, what: str,
+               body=None) -> list:
+    """Run ``jobs`` in ``world`` spawned ranks of ``body`` (default
+    :func:`phase22_rank`); the ranks' results."""
     from apex_tpu_torch.parallel.multiproc import spawn
 
     out = tempfile.mkdtemp(dir=tmp, prefix=what)
     t0 = time.perf_counter()
-    spawn(phase22_rank, world, os.path.join(out, "store"), out, jobs,
+    spawn(body or phase22_rank, world, os.path.join(out, "store"), out, jobs,
           timeout=900)
     log(f"  {what}: {world} rank(s) done in {time.perf_counter() - t0:.1f} s "
         "(process start, weights, steps)")
@@ -7849,6 +7879,577 @@ def phase_tp_dp(smi: str) -> dict:
         r["launches"] for r in dp], "record": record}
 
 
+# -- phase 23: pipeline-parallel GPT training on torch.distributed ----------
+#
+# The stages are ranks sharing cuda:0 over gloo, as in phase 22: every
+# stage-to-stage transfer and collective is staged through the host.  The
+# schedules' numbers, kernels and memory are checked on the card; their
+# speed over several cards is not.
+
+PP23_KW = dict(GPT1P3B_KW, attention_dropout=0.0, hidden_dropout=0.0)
+PP23_M, PP23_SEQ = 4, 2048            # micro-batch 1: phase 7's 4 x 2048
+PP23_STEPS, PP23_VPP_STEPS, PP23_AMP_STEPS = 3, 2, 3
+PP23_LR = 1.5e-4
+PP23_SEED = 0
+PP23_AMP_LAYERS = 12                  # (c) cut as phase 22 is
+PP23_PLANT_AT = 2
+# a stage's input, [1, 2048, 2048] bf16: the m = 8 peak may pass the m = 4
+# peak by less than this (the saved inputs do not grow with m)
+PP23_STAGE_INPUT_BYTES = 1 * 2048 * 2048 * 2
+# bars, from the predictions written in PERF.md before the chip runs.
+# Step 1 is the same arithmetic in every layout (predicted bitwise, read
+# bitwise on an H100): the loss within 1e-4, each leaf's gradient
+# statistics within 1e-3 of its norm.  After step 1, (a) parts from tp 1 /
+# pp 1 by its tied word embedding (the pipeline's two copies are untied):
+# predicted within 5e-3, read 1.76e-2 and 5.18e-2 on losses falling 0.58
+# and 0.67 a step, so the bar is the tie's size, 0.2; against the same two
+# halves chained in one process (untied, no schedule) every step is the
+# same arithmetic (predicted bitwise): 1e-4
+PP23_STEP1_LOSS_TOL = 1e-4
+PP23_STEP1_GRAD_TOL = 1e-3
+PP23_TIED_LOSS_TOL = 0.2
+PP23_LOSS_TOL = 1e-4
+PP23_F16 = tuple(k + "_f16" for k in TP22_KERNELS)
+
+
+def pp23_batch(m: int, device) -> dict:
+    """Phase 7's seeded batch (its generator's first draw) as ``m``
+    microbatches of one sequence: tokens and labels [m, 1, 2048] on
+    ``device``."""
+    gen = torch.Generator(device=device).manual_seed(11)
+    ids = torch.randint(0, PP23_KW["vocab_size"], (m, PP23_SEQ + 1),
+                        generator=gen, device=device)
+    return {"tokens": ids[:, None, :-1], "labels": ids[:, None, 1:]}
+
+
+def pp23_launches(kernel_names, layers: int, v: int, V: int, m: int) -> dict:
+    """A rank's launches of one training step at virtual stage ``v``
+    (remat attn_res, ``layers`` a chunk), from the schedule's slots: m
+    graph-free forward slots (none on the last virtual stage, whose
+    backward slot runs it), m backward slots each a forward with a graph
+    and a backward whose layer recompute re-runs K6 but not K3; the last
+    stage's head adds a K6 and a K7 a backward slot."""
+    f = 0 if v == V - 1 else m
+    post = int(v == V - 1)
+    k3, k4, k6, k7 = kernel_names
+    return {k3: layers * (f + m), k4: layers * m,
+            k6: 2 * layers * f + (4 * layers + post) * m,
+            k7: (2 * layers + post) * m}
+
+
+def pp23_global(name: str, v: int, per: int) -> str:
+    """A stage parameter's name in the whole model (layer i of virtual
+    stage v is layer v * per + i); the last stage's word embedding is the
+    head's copy."""
+    if name.startswith("transformer.layers."):
+        i, leaf = name[len("transformer.layers."):].split(".", 1)
+        return f"transformer.layers.{v * per + int(i)}.{leaf}"
+    if name.startswith("embedding.") and v > 0:
+        return name + "@head"
+    return name
+
+
+def pp23_stats(named_grads) -> dict:
+    """Each gradient's fp32 norm and its dot with a random vector seeded by
+    its whole-model name (the head's embedding copy shares the embedding's
+    vector, so the two copies' dots add up to a tied model's)."""
+    import zlib
+
+    out = {}
+    for key, g in named_grads:
+        base = key.split("@")[0]
+        gen = torch.Generator(device=g.device).manual_seed(
+            zlib.crc32(base.encode()))
+        r = torch.randn(g.shape, generator=gen, device=g.device)
+        out[key] = (float(g.float().norm()), float((g.float() * r).sum()))
+        del r
+    return out
+
+
+def pp23_grad_gap(got: dict, want: dict) -> float:
+    """The largest gap between two layouts' gradient statistics, each
+    relative to the reference leaf's norm; a tied reference embedding is
+    held to the sum of the copies' dots."""
+    gap = 0.0
+    for key, (n, d) in want.items():
+        head = key + "@head"
+        if head in got and head not in want:   # tied: the dots add up
+            gap = max(gap, abs(got[key][1] + got[head][1] - d) / n)
+        else:
+            gn, gd = got[key]
+            gap = max(gap, abs(gn - n) / n, abs(gd - d) / n)
+    return gap
+
+
+def pp23_reference(batch, tied: bool) -> dict:
+    """One process, no pipeline, on the same batch from the same seed
+    (``forward_backward_no_pipelining`` over ``make_gpt_stage_fns``,
+    FusedAdam): ``tied``, the whole model (tp 1 / pp 1: one word embedding
+    for the input and the head); untied, the two halves of (a) chained
+    (the first 12 layers with the embeddings, the last 12 with the final
+    LayerNorm and the head's own copy of the word embedding), which is
+    (a)'s arithmetic without its schedule.  Losses and step 1's gradient
+    statistics."""
+    from apex_tpu_torch.transformer.pipeline_parallel import (
+        forward_backward_no_pipelining)
+    from apex_tpu_torch.transformer.testing import make_gpt_stage_fns
+    from apex_tpu_torch.transformer.testing.convert import stage_state_dict
+
+    cfg = GPTConfig(**PP23_KW)
+    model = GPTModel(cfg, device=CARD, seed=PP23_SEED)
+    half = cfg.num_layers // 2
+    if tied:
+        names = [n for n, _ in model.named_parameters()]
+        stage_fn, loss_fn = make_gpt_stage_fns(cfg, 1)
+        fns = (stage_fn, loss_fn)
+    else:
+        sd = model.state_dict()
+        halves = []
+        for s in range(2):
+            m = GPTModel(cfg, half, device=CARD, seed=PP23_SEED,
+                         pre_process=s == 0, post_process=s == 1)
+            m.load_state_dict(stage_state_dict(sd, s, 2))
+            halves.append(m)
+        del sd
+        model = torch.nn.ModuleList(halves)
+        names = [pp23_global(n, s, half) for s, m in enumerate(halves)
+                 for n, _ in m.named_parameters()]
+        stage_fn, loss_fn = make_gpt_stage_fns(cfg, 2)
+
+        def chained(ml, h, mb):
+            return stage_fn(ml[1], stage_fn(ml[0], h, mb), mb)
+
+        fns = (chained, lambda ml, y, mb: loss_fn(ml[1], y, mb))
+    opt = FusedAdam(list(model.parameters()), lr=PP23_LR)
+    out = {"losses": []}
+    t0 = time.perf_counter()
+    for step in range(1, PP23_STEPS + 1):
+        loss, grads = forward_backward_no_pipelining(
+            *fns, model, batch, n_microbatches=PP23_M,
+            tensor_shape=(1, PP23_SEQ, cfg.hidden_size),
+            dtype=cfg.compute_dtype)
+        if step == 1:
+            out["stats"] = pp23_stats(zip(names, grads))
+        opt.step(grads=grads)
+        out["losses"].append(float(loss))
+        del grads
+    out["wall_s"] = time.perf_counter() - t0
+    del model, opt
+    torch.cuda.empty_cache()
+    return out
+
+
+def pp23_chunks(cfg, pp: int, vpp: int, device):
+    """This rank's chunks: ``build_model`` over ``gpt_model_provider`` (the
+    flags from the rank's place), their weights cut from the whole model
+    drawn from the seed (``convert.stage_state_dict``), so every layout
+    starts from the same master."""
+    from apex_tpu_torch.transformer.pipeline_parallel import build_model
+    from apex_tpu_torch.transformer.testing import gpt_model_provider
+    from apex_tpu_torch.transformer.testing.convert import stage_state_dict
+
+    rank = parallel_state.get_pipeline_model_parallel_rank()
+    full = GPTModel(cfg, device=device, seed=PP23_SEED)
+    sd = full.state_dict()
+    del full
+    chunks = build_model(gpt_model_provider, False,
+                         vpp if vpp > 1 else None, cfg,
+                         num_layers=cfg.num_layers // (pp * vpp),
+                         device=device, seed=PP23_SEED)
+    for k, c in enumerate(chunks):
+        c.load_state_dict(stage_state_dict(sd, rank, pp, chunk=k, vpp=vpp))
+    del sd
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return chunks
+
+
+def pp23_train(job: dict, device) -> dict:
+    """One layout's steps on this rank (see :func:`phase_pipeline`): per
+    step the loss, wall and stream time, transfers, launches and parameter
+    digests; step 1's gradient statistics; with ``memory`` each rank's
+    peak at m = 4 and m = 8; with ``amp`` the O2 fp16 recipe of bench.py's
+    pp leg and an overflow planted at ``plant_at`` on one rank."""
+    from apex_tpu_torch.parallel import all_reduce_grads, comm
+    from apex_tpu_torch.transformer.amp import GradScaler
+    from apex_tpu_torch.transformer.pipeline_parallel import (
+        forward_backward_pipelining_with_interleaving,
+        forward_backward_pipelining_without_interleaving, schedules)
+    from apex_tpu_torch.transformer.testing import make_gpt_stage_fns
+
+    tp, pp, vpp = job["tp"], job["pp"], job.get("vpp", 1)
+    parallel_state.initialize_model_parallel(tp, pp,
+                                             vpp if vpp > 1 else None)
+    rank = parallel_state.get_pipeline_model_parallel_rank()
+    cfg = GPTConfig(**{**PP23_KW, **job.get("cfg", {}), "tp_size": tp})
+    chunks = pp23_chunks(cfg, pp, vpp, device)
+    card = device.type == "cuda"
+    V, per = pp * vpp, cfg.num_layers // (pp * vpp)
+    names = [[pp23_global(n, rank + pp * k, per)
+              for n, _ in c.named_parameters()] for k, c in enumerate(chunks)]
+    stage_fn, loss_fn = make_gpt_stage_fns(cfg, V)
+    params = [p for c in chunks for p in c.parameters()]
+    dtype = cfg.compute_dtype
+    scaler = plant = None
+    if job.get("amp"):
+        a = amp.initialize("O2", half_dtype=torch.float16)
+        masters = [m for c in chunks for m in a.master_params(c)]
+        for c in chunks:
+            a.cast_model(c)
+        params = [p for c in chunks for p in c.parameters()]
+        opt = make_optimizer("adam", masters, PP23_LR)
+        scaler = GradScaler()
+        ss = scaler.init(device)
+        plant = (job["plant_at"] if rank == pp - 1 and
+                 parallel_state.get_tensor_model_parallel_rank() == 0
+                 else None)
+    else:
+        opt = FusedAdam(params, lr=PP23_LR)
+    batch = {k: v.to(device) for k, v in job["batch"].items()}
+    shape = (1, PP23_SEQ, cfg.hidden_size)
+
+    def schedule(mb, m, lf):
+        if vpp > 1:
+            loss, grads = forward_backward_pipelining_with_interleaving(
+                stage_fn, lf, chunks, mb, n_microbatches=m,
+                num_model_chunks=vpp, tensor_shape=shape, dtype=dtype)
+            return loss, [g for gs in grads for g in gs]
+        return forward_backward_pipelining_without_interleaving(
+            stage_fn, lf, chunks[0], mb,
+            n_microbatches=m, tensor_shape=shape, dtype=dtype)
+
+    out = {"steps": [], "scales": [], "skipped": []}
+    for step in range(1, job["steps"] + 1):
+        if card:
+            torch.cuda.synchronize()
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+        comm.STATS.reset()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        lf = loss_fn
+        if scaler is not None:
+            def lf(st, y, b, ss=ss):
+                return scaler.scale(loss_fn(st, y, b), ss)
+        loss, grads = schedule(batch, PP23_M, lf)
+        sched = dict(peak_saved=list(schedules.STATS.peak_saved_inputs),
+                     forward_slots=list(schedules.STATS.forward_slots),
+                     backward_slots=list(schedules.STATS.backward_slots))
+        if scaler is not None:
+            loss = loss / ss.loss_scale
+            grads = list(scaler.unscale(grads, ss)[0])
+            if step == plant:
+                grads[-1] = grads[-1].clone()
+                grads[-1].view(-1)[:1].fill_(float("inf"))
+        grads = all_reduce_grads(grads)      # dp 1 here: the recipe's mean
+        if step == 1:
+            flat = [n for ns in names for n in ns]
+            out["stats"] = pp23_stats(zip(flat, grads))
+        if scaler is not None:
+            found = scaler.found_inf(grads)
+            opt.step_if_finite(~found, grads)
+            amp.copy_masters(params, masters)
+            ss = scaler.update(ss, ~found)
+            out["scales"].append(float(ss.loss_scale))
+            out["skipped"].append(bool(found))
+        else:
+            opt.step(grads=grads)
+        del grads
+        if card:
+            end.record()
+        value = float(loss)
+        if card:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        out["steps"].append(dict(
+            step=step, loss=value, wall_s=wall,
+            stream_ms=start.elapsed_time(end) if card else 0.0,
+            comm=comm.STATS.as_dict(),
+            launches=launch_counts(), schedule=sched,
+            digests={n: digest(p) for ns, c in zip(names, chunks)
+                     for n, p in zip(ns, c.parameters())}))
+    out["peak_gib"] = (torch.cuda.max_memory_allocated() / 2 ** 30
+                       if card else 0.0)
+    if job.get("memory"):
+        del opt
+        gc.collect()
+        peaks = {}
+        for m in (PP23_M, 2 * PP23_M):
+            mb = pp23_batch(m, device)
+            if card:
+                torch.cuda.empty_cache()
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+            res = schedule(mb, m, loss_fn)
+            if card:
+                torch.cuda.synchronize()
+            peaks[m] = (torch.cuda.max_memory_allocated() if card else 0,
+                        list(schedules.STATS.peak_saved_inputs))
+            del res, mb
+        out["memory"] = peaks
+    parallel_state.destroy_model_parallel()
+    return out
+
+
+def phase23_rank(rank, world, init_file, out, jobs):
+    """A rank of phase 23 (spawned): joins the gloo group, runs each job
+    (a barrier after each) and writes the results to
+    ``<out>/rank<r>.pt``."""
+    import torch.distributed as dist
+
+    from apex_tpu_torch.parallel import multiproc
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = multiproc.init_file_group("gloo", rank, world, init_file)
+    results = {}
+    for job in jobs:
+        results[job["name"]] = pp23_train(job, device)
+        gc.collect()
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        dist.barrier()
+    torch.save(results, os.path.join(out, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def pp23_kernel_rows(seed: int) -> dict:
+    """K3/K4 at a stage's shapes, phase 3's way (against the plain versions,
+    twice bitwise, then timed cold beside the plain versions, SDPA and the
+    bound): bf16 [1, 2048, 16 x 3 x 128] ((a), (b): micro-batch 1) and
+    fp16 [1, 2048, 8 x 3 x 128] ((c): a tp rank's heads); no dropout, as
+    the stages run."""
+    rows = {}
+    gen = torch.Generator(device=CARD).manual_seed(seed)
+    for tag, h, dtype in (("pp", 16, torch.bfloat16),
+                          ("tp2pp2", 8, torch.float16)):
+        e3, e4, ops = flash_qkv_case(
+            gen, f"{dtype} causal, no dropout, micro-batch 1, {h} heads "
+            f"({tag} stage)", dtype, 0.0, b=1, h=h)
+        fwd, bwd, _ = time_flash_qkv(*ops, 0.0, h=h)
+        fwd["max_abs_err"], bwd["max_abs_err"] = e3, e4
+        suffix = "_f16" if dtype == torch.float16 else ""
+        rows[f"flash_qkv_fwd_sm90{suffix}_{tag}"] = fwd
+        rows[f"flash_qkv_bwd_sm90{suffix}_{tag}"] = bwd
+        del ops
+        torch.cuda.empty_cache()
+    return rows
+
+
+def pp23_same_losses(what: str, runs: list) -> list:
+    losses = [[s["loss"] for s in r["steps"]] for r in runs]
+    if any(lo != losses[0] for lo in losses):
+        raise AssertionError(f"{what}: the ranks report different losses "
+                             f"{losses}")
+    return losses[0]
+
+
+def pp23_check_launches(what, runs, kernel_names, layers, pp, vpp, coords):
+    """Each rank's launches of each step against :func:`pp23_launches`
+    summed over its chunks, and its schedule's slots."""
+    V = pp * vpp
+    for r, res in enumerate(runs):
+        p = coords[r]
+        want = {k: 0 for k in kernel_names}
+        for k in range(vpp):
+            for n, c in pp23_launches(kernel_names, layers, p + pp * k, V,
+                                      PP23_M).items():
+                want[n] += c
+        for st in res["steps"]:
+            got = {k: st["launches"].get(k, 0) for k in kernel_names}
+            if got != want:
+                raise AssertionError(f"{what} rank {r} step {st['step']} "
+                                     f"launched {got}, expected {want}")
+            sched = st["schedule"]
+            if sched["backward_slots"] != [PP23_M] * vpp or \
+                    sched["forward_slots"] != [
+                        0 if p + pp * k == V - 1 else PP23_M
+                        for k in range(vpp)] or \
+                    sched["peak_saved"] != [min(PP23_M, 2 * (V - 1 - p - pp * k)
+                                                + 1) for k in range(vpp)]:
+                raise AssertionError(f"{what} rank {r}: slots {sched}")
+        res["launches_per_step"] = want
+    log(f"  {what}: each rank's launches every step as its slots give them: "
+        + "; ".join(f"rank {r} {res['launches_per_step']}"
+                    for r, res in enumerate(runs)))
+
+
+def pp23_summary(runs: list) -> list:
+    """Per rank: step wall and stream time, the transfers (calls, GB, host
+    seconds and their share of the step), the peak; after step 1."""
+    out = []
+    for res in runs:
+        st = res["steps"][1:]
+        wall = sum(s["wall_s"] for s in st)
+        out.append(dict(
+            step_s=[round(s["wall_s"], 4) for s in res["steps"]],
+            stream_ms=[round(s["stream_ms"], 1) for s in res["steps"]],
+            comm_calls_per_step=statistics.mean(s["comm"]["calls"]
+                                                for s in st),
+            comm_gb_per_step=statistics.mean(s["comm"]["bytes"]
+                                             for s in st) / 1e9,
+            comm_share=sum(s["comm"]["seconds"] for s in st) / wall,
+            peak_gib=res["peak_gib"]))
+    return out
+
+
+def phase_pipeline(smi: str) -> dict:
+    """Phase 23 (see the module docstring)."""
+    log(f"  {GLOO_WHY}")
+    t_phase = time.perf_counter()
+    rows = pp23_kernel_rows(43)
+    batch = pp23_batch(PP23_M, CARD)
+    ref = pp23_reference(batch, tied=True)
+    log(f"  tp 1 / pp 1 reference (this process, 24 layers, 4 microbatches "
+        f"of 1): losses {ref['losses']}, {ref['wall_s']:.1f} s")
+    chain = pp23_reference(batch, tied=False)
+    log(f"  the two halves chained in this process (untied, no schedule): "
+        f"losses {chain['losses']}, {chain['wall_s']:.1f} s")
+    host = {k: v.cpu() for k, v in batch.items()}
+    del batch
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="pp23_")
+    try:
+        base = dict(batch=host, steps=PP23_STEPS)
+        a = tp22_spawn(2, [dict(base, name="run", tp=1, pp=2, memory=True),
+                           dict(base, name="rerun", tp=1, pp=2)],
+                       tmp, "(a) 1F1B at pp 2, 24 layers", body=phase23_rank)
+        bc = tp22_spawn(4, [dict(base, name="vpp", tp=1, pp=4, vpp=2,
+                                 steps=PP23_VPP_STEPS),
+                            dict(base, name="amp", tp=2, pp=2, amp=True,
+                                 plant_at=PP23_PLANT_AT,
+                                 steps=PP23_AMP_STEPS,
+                                 cfg=dict(num_layers=PP23_AMP_LAYERS,
+                                          bf16=False, fp16=True))],
+                        tmp, "(b) pp 4 x vpp 2 and (c) amp at tp 2 x pp 2",
+                        body=phase23_rank)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # (a) 1F1B at pp 2 against tp 1 / pp 1
+    run = [r["run"] for r in a]
+    losses = pp23_same_losses("(a)", run)
+    stats_a = {**run[0]["stats"], **run[1]["stats"]}
+    gaps = [abs(x - y) for x, y in zip(losses, ref["losses"])]
+    gap_g = pp23_grad_gap(stats_a, ref["stats"])
+    cgaps = [abs(x - y) for x, y in zip(losses, chain["losses"])]
+    cgap_g = pp23_grad_gap(stats_a, chain["stats"])
+    log(f"  (a) pp 2 losses {losses}; tp 1 / pp 1 {ref['losses']}: gaps "
+        f"{gaps} (bars {PP23_STEP1_LOSS_TOL} at step 1, then "
+        f"{PP23_TIED_LOSS_TOL}: the tied embedding), step-1 gradient "
+        f"statistics gap {gap_g:.3e} (bar {PP23_STEP1_GRAD_TOL}); the chained "
+        f"halves {chain['losses']}: gaps {cgaps} (bar {PP23_LOSS_TOL} every "
+        f"step), gradient statistics gap {cgap_g:.3e}")
+    if not (gaps[0] <= PP23_STEP1_LOSS_TOL
+            and max(gaps) <= PP23_TIED_LOSS_TOL
+            and gap_g <= PP23_STEP1_GRAD_TOL
+            and max(cgaps) <= PP23_LOSS_TOL
+            and cgap_g <= PP23_STEP1_GRAD_TOL):
+        raise AssertionError("(a) pp 2 is not within its bars of tp 1 / pp 1 "
+                             "and of the chained halves")
+    for r, res in enumerate(a):
+        if [s["digests"] for s in res["rerun"]["steps"]] != [
+                s["digests"] for s in res["run"]["steps"]] or [
+                s["loss"] for s in res["rerun"]["steps"]] != losses:
+            raise AssertionError(f"(a) rank {r}: the re-run is not bitwise "
+                                 "the run")
+    log("  (a) re-run bitwise the run: every loss and parameter, each step, "
+        "both ranks")
+    L = PP23_KW["num_layers"]
+    pp23_check_launches("(a)", run, TP22_KERNELS, L // 2, 2, 1, [0, 1])
+    mem = []
+    for r, res in enumerate(run):
+        (p4, s4), (p8, s8) = (res["memory"][m] for m in (PP23_M, 2 * PP23_M))
+        mem.append(dict(peak_m4_gib=p4 / 2 ** 30, peak_m8_gib=p8 / 2 ** 30,
+                        growth_mib=(p8 - p4) / 2 ** 20, saved=(s4, s8)))
+        if not p8 - p4 < PP23_STAGE_INPUT_BYTES or s4 != s8:
+            raise AssertionError(f"(a) rank {r}: the peak grew from "
+                                 f"{p4} at m = 4 to {p8} at m = 8 (saved "
+                                 f"inputs {s4}, {s8})")
+    log(f"  (a) memory, one forward-backward at m = 4 and m = 8: {mem} (the "
+        f"m = 8 peak within one stage input, {PP23_STAGE_INPUT_BYTES / 2 ** 20:.0f}"
+        " MiB, of the m = 4 peak)")
+
+    # (b) interleaved at pp 4 x vpp 2 against (a)'s step 1
+    vpp = [r["vpp"] for r in bc]
+    vlosses = pp23_same_losses("(b)", vpp)
+    stats_b = {}
+    for res in vpp:
+        stats_b.update(res["stats"])
+    gap_bl = abs(vlosses[0] - losses[0])
+    gap_bg = pp23_grad_gap(stats_b, stats_a)
+    log(f"  (b) pp 4 x vpp 2 losses {vlosses}; step 1 against (a): loss gap "
+        f"{gap_bl:.3e} (bar {PP23_STEP1_LOSS_TOL}), gradient statistics gap "
+        f"{gap_bg:.3e} (bar {PP23_STEP1_GRAD_TOL})")
+    if not (gap_bl <= PP23_STEP1_LOSS_TOL and gap_bg <= PP23_STEP1_GRAD_TOL
+            and set(stats_b) == set(stats_a)):
+        raise AssertionError("(b) pp 4 x vpp 2 is not within (a)'s bars")
+    pp23_check_launches("(b)", vpp, TP22_KERNELS, L // 8, 4, 2,
+                        [0, 1, 2, 3])
+
+    # (c) bench.py's amp pp leg at tp 2 x pp 2: the planted overflow
+    ampr = [r["amp"] for r in bc]
+    clos = pp23_same_losses("(c)", ampr)
+    scales = [res["scales"] for res in ampr]
+    for r, res in enumerate(ampr):
+        i = PP23_PLANT_AT - 1
+        before = res["scales"][i - 1] if i else float(2 ** 16)
+        if not res["skipped"][i] or res["scales"][i] != before / 2 or \
+                res["steps"][i]["digests"] != res["steps"][i - 1]["digests"]:
+            raise AssertionError(f"(c) rank {r}: step {PP23_PLANT_AT} was "
+                                 f"not skipped bitwise with the scale halved "
+                                 f"({res['skipped']}, {res['scales']})")
+        if res["skipped"] != ampr[0]["skipped"] or \
+                res["scales"] != ampr[0]["scales"]:
+            raise AssertionError("(c) the ranks disagree on the skips")
+    coords = [parallel_state.coordinates(r, 4, 2, 2) for r in range(4)]
+    for x in range(4):
+        for y in range(x + 1, 4):
+            if coords[x][1] != coords[y][1]:
+                continue       # another stage
+            for sa, sb in zip(ampr[x]["steps"], ampr[y]["steps"]):
+                for n, dg in sa["digests"].items():
+                    if is_replicated(n) and dg != sb["digests"][n]:
+                        raise AssertionError(f"(c) tp ranks {x}, {y} differ "
+                                             f"in {n} after step {sa['step']}")
+    log(f"  (c) amp O2 fp16 at tp 2 x pp 2, 12 layers: losses {clos}, "
+        f"skipped {ampr[0]['skipped']}, scales {scales[0]}: the overflow "
+        f"planted on one rank at step {PP23_PLANT_AT} skipped bitwise on "
+        "every rank, every scale halved; the replicated leaves bitwise equal "
+        "across the tp ranks after each step")
+    pp23_check_launches("(c)", ampr, PP23_F16, PP23_AMP_LAYERS // 2, 2, 1,
+                        [c[1] for c in coords])
+
+    record = {"card": smi, "shared_card": True, "micro_batch": 1,
+              "microbatches": PP23_M,
+              "pp2": dict(losses=losses, reference_losses=ref["losses"],
+                          loss_gaps=gaps, grad_gap=gap_g,
+                          chained_losses=chain["losses"],
+                          chained_loss_gaps=cgaps, chained_grad_gap=cgap_g,
+                          memory=mem,
+                          bubble=1 / (PP23_M + 1),
+                          ranks=pp23_summary(run)),
+              "pp4_vpp2": dict(losses=vlosses, loss_gap=gap_bl,
+                               grad_gap=gap_bg, bubble=7 / (PP23_M + 7),
+                               ranks=pp23_summary(vpp)),
+              "tp2_pp2_amp": dict(losses=clos, scales=scales[0],
+                                  skipped=ampr[0]["skipped"],
+                                  bubble=1 / (PP23_M + 1),
+                                  ranks=pp23_summary(ampr))}
+    log("  wall times are of ranks time-slicing ONE card over gloo "
+        "(host-staged transfers); they say nothing of a pipeline over "
+        "several cards")
+    log("  phase 23 " + json.dumps(record))
+    log(f"  phase 23 took {time.perf_counter() - t_phase:.1f} s")
+    return {"rows": rows, "record": record,
+            "launches": {"pp2": [r["launches_per_step"] for r in run],
+                         "pp4_vpp2": [r["launches_per_step"] for r in vpp],
+                         "tp2_pp2": [r["launches_per_step"] for r in ampr]},
+            "steps": {"pp2": PP23_STEPS, "pp4_vpp2": PP23_VPP_STEPS,
+                      "tp2_pp2": PP23_AMP_STEPS}}
+
+
 PHASE = {"n": 0, "name": "start"}
 
 
@@ -7991,8 +8592,16 @@ def main() -> int:
           "1; NCCL at world 1), the ranks sharing this card over gloo")
     tpdp = phase_tp_dp(smi)
     torch.cuda.empty_cache()
+
+    begin(23, "pipeline-parallel GPT training on torch.distributed "
+          "(GPT-1.3B width, bf16, remat attn_res, micro-batch 1 x 4: 1F1B at "
+          "pp 2 with 24 layers against tp 1 / pp 1, interleaved at pp 4 x vpp "
+          "2, bench.py's amp leg at tp 2 x pp 2 with 12 layers in fp16 and a "
+          "planted overflow), the stages sharing this card over gloo")
+    pipe = phase_pipeline(smi)
+    torch.cuda.empty_cache()
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
-    PHASE.update(n=23, name="record")
+    PHASE.update(n=24, name="record")
     policies = rest["policies"]
 
     amp_toy_adam16 = {"launches": amp_toy["launches"]["O2 fp16 adam"]}
@@ -8132,6 +8741,28 @@ def main() -> int:
                             ("flash_qkv_bwd_sm90",
                              "apex_tpu/ops/attention.py:1800"))
     ] + [
+        # K3/K4 at a pipeline stage's shapes (phase 23): bf16 [1, 2048, 16 x
+        # 3 x 128] on the ranks of 1F1B at pp 2 and of pp 4 x vpp 2, fp16
+        # [1, 2048, 8 x 3 x 128] on the ranks of the amp leg at tp 2 x pp 2;
+        # launches: rank 0's over its run, every rank's a step beside
+        dict(name=f"{name}_{tag}", route="cuda",
+             source=f"apex_tpu_torch/csrc/{name.replace('_f16', '')}.cu",
+             replaces=where,
+             launches=pipe["launches"][runs][0][entry] * pipe["steps"][runs],
+             **{f"launches_per_step_ranks_{r}": [
+                 lp[entry] for lp in pipe["launches"][r]] for r in (
+                 ("pp2", "pp4_vpp2") if tag == "pp" else ("tp2_pp2",))},
+             **pipe["rows"][f"{name}_{tag}"])
+        for name, entry, where, tag, runs in (
+            ("flash_qkv_fwd_sm90", "flash_qkv_fwd_sm90",
+             "apex_tpu/ops/attention.py:1766", "pp", "pp2"),
+            ("flash_qkv_bwd_sm90", "flash_qkv_bwd_sm90",
+             "apex_tpu/ops/attention.py:1800", "pp", "pp2"),
+            ("flash_qkv_fwd_sm90_f16", "flash_qkv_fwd_sm90_f16",
+             "apex_tpu/ops/attention.py:1766", "tp2pp2", "tp2_pp2"),
+            ("flash_qkv_bwd_sm90_f16", "flash_qkv_bwd_sm90_f16",
+             "apex_tpu/ops/attention.py:1800", "tp2pp2", "tp2_pp2"))
+    ] + [
         # K6/K7: layer_norm_sm90.cu is the route at 1024, 2048 and 4096
         # columns: the GPT-1.3B steps (phases 7, 11 and 18), the multi-head
         # attention step (phase 9) and the LayerNorm microbench (phase 12);
@@ -8154,7 +8785,13 @@ def main() -> int:
                  # phase 22: each rank of the tp 2 and tp 2 x dp 2 runs
                  launches_ranks_tp2=[r[name] for r in tpdp["ranks_tp2"]],
                  launches_ranks_tp2_dp2=[
-                     r[name] for r in tpdp["ranks_tp2_dp2"]])),
+                     r[name] for r in tpdp["ranks_tp2_dp2"]],
+                 # phase 23: each rank's a step, 1F1B at pp 2 and pp 4 x
+                 # vpp 2
+                 launches_per_step_ranks_pp2=[
+                     lp[name] for lp in pipe["launches"]["pp2"]],
+                 launches_per_step_ranks_pp4_vpp2=[
+                     lp[name] for lp in pipe["launches"]["pp4_vpp2"]])),
              **timings[name])
         for name, src, where, runs in (
             ("layer_norm_fwd_sm90", "layer_norm_sm90.cu",

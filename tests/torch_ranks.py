@@ -310,3 +310,224 @@ def gpt_runs_at_tp2(rank, world, init_file, out, case):
         tuple(tpl.VocabParallelEmbedding(8, 8, init_method=init, tp_size=2)(
             torch.arange(8)).shape)]
     _write(out, rank, res)
+
+
+# -- tests/test_torch_pipeline.py ---------------------------------------------
+
+class _Toy(torch.nn.Module):
+    """A toy stage (or chunk): one dense layer of the given weights."""
+
+    def __init__(self, w, b=None):
+        super().__init__()
+        self.w = torch.nn.Parameter(_t(w).float())
+        self.b = None if b is None else torch.nn.Parameter(_t(b).float())
+
+    def forward(self, x):
+        y = x @ self.w
+        return torch.tanh(y if self.b is None else y + self.b)
+
+
+def _toy_stage_fn(stage, h, mb):
+    first = parallel_state.get_rank_info()[1] == 0
+    return stage(mb["x"] if first else h)
+
+
+def _toy_chunk_fn(stage, h, mb, k):
+    first = parallel_state.get_pipeline_model_parallel_rank() == 0 and k == 0
+    return stage(mb["x"] if first else h)
+
+
+def _toy_loss_fn(stage, y, mb):
+    return ((y - mb["y"]) ** 2).mean()
+
+
+def _p2p_checks(case, dtype):
+    """The eight wrappers on this rank's tensors: what each received, and
+    the transfers counted."""
+    from apex_tpu_torch.parallel import comm
+    from apex_tpu_torch.transformer.pipeline_parallel import (
+        p2p_communication as p2p)
+
+    r = parallel_state.get_pipeline_model_parallel_rank()
+    x = _t(case["p2p_x"][r]).to(dtype)
+    g = _t(case["p2p_g"][r]).to(dtype)
+    shape = tuple(x.shape)
+    kw = dict(dtype=dtype)
+    got = {}
+    comm.STATS.reset()
+    p2p.send_forward(x)
+    got["recv_forward"] = p2p.recv_forward(shape, device="cpu", **kw)
+    p2p.send_backward(g)
+    got["recv_backward"] = p2p.recv_backward(shape, device="cpu", **kw)
+    got["send_forward_recv_backward"] = p2p.send_forward_recv_backward(
+        x, shape, **kw)
+    got["send_backward_recv_forward"] = p2p.send_backward_recv_forward(
+        g, shape, **kw)
+    got["send_forward_recv_forward"] = p2p.send_forward_recv_forward(
+        x, True, shape, **kw)
+    got["send_backward_recv_backward"] = p2p.send_backward_recv_backward(
+        g, True, shape, **kw)
+    return got, comm.STATS.as_dict()
+
+
+def _saved_peaks(run, ms):
+    from apex_tpu_torch.transformer.pipeline_parallel import schedules
+
+    out = {}
+    for m in ms:
+        run(m)
+        out[m] = list(schedules.STATS.peak_saved_inputs)
+    return out
+
+
+def _gpt_stage(case, tp, pp, cfg_kw, vpp=1, chunk=0):
+    from apex_tpu_torch.transformer.testing import GPTConfig, GPTModel
+    from apex_tpu_torch.transformer.testing.convert import (
+        stage_state_dict_from_jax)
+
+    rank = parallel_state.get_pipeline_model_parallel_rank()
+    v = rank + pp * chunk
+    V = pp * vpp
+    cfg = GPTConfig(**cfg_kw, tp_size=tp)
+    m = GPTModel(cfg, cfg.num_layers // V, device="cpu",
+                 pre_process=v == 0, post_process=v == V - 1)
+    master = case["gpt_master"] if tp == 1 else case["gpt_stacked"]
+    m.load_state_dict(stage_state_dict_from_jax(
+        master, rank, pp, None if tp == 1 else
+        parallel_state.get_tensor_model_parallel_rank(), chunk=chunk,
+        vpp=vpp))
+    return cfg, m
+
+
+def _gpt_pipeline_run(case, tp, pp, steps, plant_at=None):
+    """The toy GPT at tp x pp through 1F1B: FusedAdam steps on this rank's
+    stage (the amp recipe with a dynamic scaler when ``plant_at`` is set:
+    an inf planted in the last stage's gradients at that step); per step
+    the loss, and after step 1 the gradients; the parameters after every
+    step."""
+    from apex_tpu_torch.optimizers import FusedAdam
+    from apex_tpu_torch.parallel import all_reduce_grads
+    from apex_tpu_torch.transformer.amp import GradScaler
+    from apex_tpu_torch.transformer.pipeline_parallel import (
+        forward_backward_pipelining_without_interleaving)
+    from apex_tpu_torch.transformer.testing import make_gpt_stage_fns
+
+    cfg, model = _gpt_stage(case, tp, pp, case["gpt_cfg"])
+    stage_fn, loss_fn = make_gpt_stage_fns(cfg, pp)
+    opt = FusedAdam(list(model.parameters()), lr=case["lr"])
+    mb = {"tokens": _t(case["tokens"]), "labels": _t(case["labels"])}
+    shape = (case["mbs"], case["seq"], cfg.hidden_size)
+    scaler = GradScaler() if plant_at else None
+    ss = scaler.init() if scaler else None
+    out = {"losses": [], "params": [], "scales": [], "names": [
+        n for n, _ in model.named_parameters()]}
+    last = parallel_state.is_pipeline_last_stage()
+    for step in range(1, steps + 1):
+        lf = loss_fn
+        if scaler:
+            def lf(st, y, b, ss=ss):
+                return scaler.scale(loss_fn(st, y, b), ss)
+        loss, grads = forward_backward_pipelining_without_interleaving(
+            stage_fn, lf, model, mb, n_microbatches=case["n_micro"],
+            tensor_shape=shape)
+        if scaler:
+            loss = loss / ss.loss_scale
+            grads = list(scaler.unscale(grads, ss)[0])
+            if step == plant_at and last:
+                grads[0] = grads[0].clone()
+                grads[0].view(-1)[0] = float("inf")
+        grads = all_reduce_grads(grads)
+        if step == 1:
+            out["grads"] = [g.clone() for g in grads]
+        if scaler:
+            found = scaler.found_inf(grads)
+            opt.step_if_finite(~found, grads)
+            ss = scaler.update(ss, ~found)
+            out["scales"].append(float(ss.loss_scale))
+        else:
+            opt.step(grads=grads)
+        out["losses"].append(float(loss))
+        out["params"].append([p.detach().clone()
+                              for p in model.parameters()])
+    return out
+
+
+def pipeline_checks(rank, world, init_file, out, case):
+    """Every rank-side check of tests/test_torch_pipeline.py in one launch
+    of four gloo ranks: the p2p wrappers at pp 4 and pp 2 (dp 2), the toy
+    1F1B at pp 4 and the toy interleaved schedule at pp 4 x vpp 2 (loss,
+    gradients, forward-only, the saved inputs held), build_model's flags,
+    and the toy GPT at pp 2 (dp 2) and tp 2 x pp 2 (step-1 loss and
+    gradients, three FusedAdam steps, the amp skip of a planted
+    overflow)."""
+    from apex_tpu_torch.transformer.pipeline_parallel import (
+        build_model, forward_backward_pipelining_with_interleaving,
+        forward_backward_pipelining_without_interleaving)
+
+    init_file_group("gloo", rank, world, init_file)
+    res = {}
+    data = {k: _t(v).float() for k, v in case["toy_data"].items()}
+
+    # pp 4: the wrappers, 1F1B, the saved inputs
+    parallel_state.initialize_model_parallel(1, 4)
+    for dt in (torch.float32, torch.bfloat16):
+        res[f"p2p4_{dt}"] = _p2p_checks(case, dt)
+    stage = _Toy(case["toy_w"][rank], case["toy_b"][rank])
+    shape = case["toy_shape"]
+
+    def one_f_one_b(m, d=data, fwd_only=False):
+        return forward_backward_pipelining_without_interleaving(
+            _toy_stage_fn, _toy_loss_fn, stage, d, n_microbatches=m,
+            tensor_shape=shape, forward_only=fwd_only)
+
+    res["1f1b"] = one_f_one_b(case["n_toy"])
+    res["1f1b_fwd"] = one_f_one_b(case["n_toy"], fwd_only=True)
+    zeros = {k: torch.zeros(32, *v.shape[1:]) for k, v in data.items()}
+    res["1f1b_peaks"] = _saved_peaks(
+        lambda m: one_f_one_b(m, {k: v[:m] for k, v in zeros.items()}),
+        case["peak_ms"])
+
+    def flags(pre_process=False, post_process=False, tag=None):
+        m = torch.nn.Linear(1, 1)
+        m.flags = (pre_process, post_process, tag,
+                   parallel_state.get_virtual_pipeline_model_parallel_rank())
+        return m
+
+    res["build_pp4"] = [m.flags for m in build_model(flags, False, tag="m")]
+    parallel_state.destroy_model_parallel()
+
+    # pp 4 x vpp 2: the interleaved schedule, build_model's chunks
+    parallel_state.initialize_model_parallel(1, 4, 2)
+    built = build_model(flags, True, 2, tag="v")
+    res["build_vpp"] = ([m.flags for m in built],
+                        [type(m).__name__ for m in built],
+                        parallel_state.get_virtual_pipeline_model_parallel_rank())
+    chunks = [_Toy(case["toy_full_w"][rank + 4 * k]) for k in range(2)]
+
+    def interleaved(m, d=data, fwd_only=False):
+        return forward_backward_pipelining_with_interleaving(
+            _toy_chunk_fn, _toy_loss_fn, chunks, d, n_microbatches=m,
+            num_model_chunks=2, tensor_shape=shape, forward_only=fwd_only)
+
+    res["vpp"] = interleaved(case["n_toy"])
+    res["vpp_fwd"] = interleaved(case["n_toy"], fwd_only=True)
+    res["vpp_peaks"] = _saved_peaks(
+        lambda m: interleaved(m, {k: v[:m] for k, v in zeros.items()}),
+        case["peak_ms"])
+    parallel_state.destroy_model_parallel()
+
+    # pp 2 (dp 2): the wrappers between two ranks, the toy GPT
+    parallel_state.initialize_model_parallel(1, 2)
+    for dt in (torch.float32, torch.bfloat16):
+        res[f"p2p2_{dt}"] = _p2p_checks(case, dt)
+    res["gpt_pp2"] = _gpt_pipeline_run(case, 1, 2, case["steps"])
+    parallel_state.destroy_model_parallel()
+
+    # tp 2 x pp 2: the toy GPT, and the amp skip of a planted overflow
+    parallel_state.initialize_model_parallel(2, 2)
+    res["gpt_tp2pp2"] = _gpt_pipeline_run(case, 2, 2, case["steps"])
+    res["amp_tp2pp2"] = _gpt_pipeline_run(case, 2, 2, case["steps"],
+                                          plant_at=2)
+    res["coords"] = parallel_state.get_rank_info()
+    parallel_state.destroy_model_parallel()
+    _write(out, rank, res)
