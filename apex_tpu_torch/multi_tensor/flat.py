@@ -20,11 +20,15 @@ views trains on the superblock itself.
 
 :func:`repartition_flat` and :func:`reshard_stack` (numpy, host only)
 re-partition a sharded checkpoint's stacked leaves for a new shard count,
-as the JAX package's do; the checkpoint restore uses them to bring a
-sharded save onto one card.  Not ported yet (ROADMAP.md):
-``reshard_stack_device``, ``reshard_tree``, ``spec_lead_axes`` and
-``is_replicated_stack``, which serve sharded saves and live resharding
-across a mesh.
+as the JAX package's do; the checkpoint restore and
+:func:`reshard_tree` (the in-memory twin, over structure-prefix
+:class:`PartitionSpec` trees) share them.  :func:`reshard_stack_device`
+is the on-device grow-or-keep form.
+
+There is no JAX ``PartitionSpec`` here: :class:`PartitionSpec` is a plain
+tuple (one entry per leading dim: an axis name, a tuple of names, or
+``None``), marked by its type so that a tree of specs can be a structure
+prefix of a state tree, as in JAX (``None`` in a spec tree: no spec).
 """
 
 from __future__ import annotations
@@ -37,8 +41,10 @@ from typing import Any, List, Optional, Tuple
 import numpy as np
 import torch
 
-__all__ = ["FlatSchema", "make_schema", "flatten", "unflatten",
-           "repartition_flat", "reshard_stack"]
+__all__ = ["FlatSchema", "PartitionSpec", "P", "make_schema", "flatten",
+           "unflatten", "repartition_flat", "reshard_stack",
+           "reshard_stack_device", "spec_lead_axes", "is_replicated_stack",
+           "expand_specs", "reshard_tree"]
 
 # treedef nodes: ("leaf",), ("none",), ("dict", type, default_factory,
 # keys, children), ("seq", type, children); nested tuples, so hashable
@@ -239,3 +245,158 @@ def reshard_stack(val: np.ndarray, n_lead: int, want_shape, *,
     out = repartition_flat(val, int(np.prod(want_shape, dtype=np.int64)),
                            label=label)
     return out.reshape(want_shape)
+
+
+class PartitionSpec(tuple):
+    """A leaf's partition spec: one entry per leading dim (a mesh axis
+    name, a tuple of names, or ``None``), as ``jax.sharding.
+    PartitionSpec(*parts)``; ``PartitionSpec()`` is replicated."""
+
+    def __new__(cls, *parts):
+        return super().__new__(cls, parts)
+
+    def __repr__(self) -> str:
+        return f"PartitionSpec{tuple(self)!r}"
+
+    def __reduce__(self):
+        # rebuilt from its parts (a tuple subclass would otherwise come
+        # back as one entry holding them all)
+        return (type(self), tuple(self))
+
+
+P = PartitionSpec
+
+
+def _is_spec_leaf(x) -> bool:
+    return x is None or isinstance(x, PartitionSpec)
+
+
+def expand_specs(spec_tree, tree) -> list:
+    """One spec (or None) per leaf of ``tree``, in its leaf order, from a
+    ``spec_tree`` that is a structure prefix of it: a spec leaf covers
+    every leaf of the subtree it stands over (the ``pjit`` rule)."""
+    out: list = []
+
+    def walk(spec, node):
+        if _is_spec_leaf(spec):
+            out.extend([spec] * len(_tree_flatten(node)[0]))
+            return
+        kind = type(node)
+        if kind in (dict, defaultdict, OrderedDict):
+            keys = tuple(node) if kind is OrderedDict else tuple(sorted(node))
+            if set(spec) != set(keys):
+                raise ValueError("shardings tree is not a structure prefix "
+                                 f"of the state tree: keys {sorted(spec)} "
+                                 f"vs {list(keys)}")
+            for k in keys:
+                walk(spec[k], node[k])
+            return
+        if node is None:
+            return
+        if isinstance(node, (list, tuple)) and len(spec) == len(node):
+            for s_, n_ in zip(spec, node):
+                walk(s_, n_)
+            return
+        raise ValueError("shardings tree is not a structure prefix of the "
+                         f"state tree at a {kind.__name__}")
+
+    walk(spec_tree, tree)
+    return out
+
+
+def reshard_stack_device(val: torch.Tensor, want_shape) -> torch.Tensor:
+    """On-device twin of :func:`reshard_stack`'s non-replicated branch for
+    the grow/equal cases: C-order flatten, zero-pad the schema tail,
+    reshape.  Trims stay host-side: the all-zero-tail check
+    (:func:`repartition_flat`) is a data-dependent host decision."""
+    want_shape = tuple(int(x) for x in want_shape)
+    new_size = int(np.prod(want_shape, dtype=np.int64))
+    flat = torch.as_tensor(val).reshape(-1)
+    if new_size < flat.numel():
+        raise ValueError(
+            f"reshard_stack_device only grows or keeps size "
+            f"({flat.numel()} -> {new_size} shrinks): trims need the "
+            "host-side reshard_stack, whose all-zero-tail check is a "
+            "data-dependent decision")
+    if new_size > flat.numel():
+        flat = torch.cat([flat, flat.new_zeros(new_size - flat.numel())])
+    return flat.reshape(want_shape)
+
+
+def spec_lead_axes(spec, axes) -> list:
+    """Leading mesh-axis names of a spec: walk entries from dim 0 while
+    each names exactly one axis in ``axes`` (str, or a 1-tuple); stop at
+    the first entry that does not."""
+    lead = []
+    for part in (spec or ()):
+        if isinstance(part, (tuple, list)):
+            part = part[0] if len(part) == 1 else None
+        if part in axes:
+            lead.append(part)
+        else:
+            break
+    return lead
+
+
+def is_replicated_stack(val, n_lead: int) -> bool:
+    """Per-rank replicated broadcast value: scalar content (ndim ==
+    n_lead) with every coordinate equal.  A content stack of one or more
+    dims is by contract a data partition even when rank-identical (fresh
+    all-zero moments must reshard by concat)."""
+    val = np.asarray(val)
+    if val.ndim != n_lead:
+        return False
+    flat = val.reshape(-1)
+    return bool(np.all(flat == flat[0]))
+
+
+def _host(leaf) -> np.ndarray:
+    if isinstance(leaf, torch.Tensor):
+        t = leaf.detach().cpu()
+        if t.dtype in (torch.bfloat16, torch.float16):
+            return t.view(torch.int16).numpy()     # raw bits: moved, not cast
+        return t.numpy()
+    return np.asarray(leaf)
+
+
+def reshard_tree(tree, spec_from, spec_to, *, target, axes_from,
+                 axes_to=None, label: str = "state"):
+    """Re-stack every leaf of ``tree`` whose ``spec_from`` spec leads with
+    mesh-axis names to the shape of the matching ``target`` leaf (an N->M
+    reshape of the (dp, pp, tp) topology; the in-memory twin of the
+    format-4 checkpoint reshard, sharing :func:`reshard_stack`).
+
+    ``spec_from`` / ``spec_to`` — structure-prefix spec trees of the
+    source and target states; ``axes_from`` / ``axes_to`` — axis name ->
+    size of the two topologies.  Leaves with no leading axis names pass
+    through unchanged; the others come back as tensors of the source
+    leaf's dtype on its device, bit for bit (a host pass, once per mesh
+    rebuild)."""
+    axes_to = dict(axes_to if axes_to is not None else axes_from)
+    leaves, treedef = _tree_flatten(tree)
+    tgt_leaves = _tree_flatten(target)[0]
+    specs_f = expand_specs(spec_from, tree)
+    specs_t = expand_specs(spec_to, target)
+    if not (len(leaves) == len(tgt_leaves) == len(specs_f) == len(specs_t)):
+        raise ValueError(
+            f"reshard_tree({label}): tree/target/spec leaf counts "
+            f"disagree ({len(leaves)}/{len(tgt_leaves)}/{len(specs_f)}/"
+            f"{len(specs_t)})")
+    out = []
+    for i, (leaf, tgt) in enumerate(zip(leaves, tgt_leaves)):
+        lead_f = spec_lead_axes(specs_f[i], axes_from)
+        lead_t = spec_lead_axes(specs_t[i], axes_to)
+        if not lead_f and not lead_t:
+            out.append(leaf)
+            continue
+        val = _host(leaf)
+        res = reshard_stack(val, len(lead_f), tuple(tgt.shape),
+                            replicated=is_replicated_stack(val, len(lead_f)),
+                            label=f"{label} leaf {i}")
+        t = torch.from_numpy(np.ascontiguousarray(res))
+        if isinstance(leaf, torch.Tensor):
+            if leaf.dtype in (torch.bfloat16, torch.float16):
+                t = t.view(leaf.dtype)
+            t = t.to(leaf.device)
+        out.append(t)
+    return _tree_unflatten(treedef, out)

@@ -23,6 +23,16 @@ seconds of the synchronous ones: everything under gloo, from after the
 stream synchronisation to the copy back) so that a run can report what
 share of its wall time the transport took.
 
+The ZeRO pair, :func:`reduce_scatter` and :func:`all_gather_tiled`
+(``lax.psum_scatter`` and ``lax.all_gather`` with ``tiled=True`` over
+dim 0), carry raw bytes (a ``uint8`` view: gloo takes neither
+``float8_e5m2`` nor ``int16``) and are exact transports.  The
+reduce-scatter's sum is taken on the caller's device, each element
+summed in rank order 0, 1, ..., world - 1 (in fp32 for a half or 8-bit
+float dtype, rounded once), so it does not depend on how a caller cuts
+a buffer into buckets: a bucketed step and a serialized one give the
+same bits.
+
 Point to point (:func:`send`, :func:`recv`, :func:`exchange`) follows
 the same rules, peers named by their rank in the group.
 :func:`exchange` posts every send and receive of a step before it waits
@@ -55,10 +65,14 @@ class CommStats:
         self.calls = 0
         self.bytes = 0
         self.seconds = 0.0
+        self.by_op = {}     # calls by collective name
+
+    def count(self, op: str) -> None:
+        self.by_op[op] = self.by_op.get(op, 0) + 1
 
     def as_dict(self) -> dict:
         return {"calls": self.calls, "bytes": self.bytes,
-                "seconds": self.seconds}
+                "seconds": self.seconds, "by_op": dict(self.by_op)}
 
 
 STATS = CommStats()
@@ -94,7 +108,8 @@ def _carrier(t: torch.Tensor, group, widen: bool) -> torch.Tensor:
     return c.contiguous()
 
 
-def _run(t: torch.Tensor, group, fn, widen: bool = False) -> torch.Tensor:
+def _run(t: torch.Tensor, group, fn, widen: bool = False,
+         op: str = "") -> torch.Tensor:
     """``fn(carrier) -> result`` on the carrier of ``t``, the result
     brought back to ``t``'s device and dtype, counted in :data:`STATS`."""
     c = _carrier(t, group, widen)
@@ -104,6 +119,8 @@ def _run(t: torch.Tensor, group, fn, widen: bool = False) -> torch.Tensor:
         STATS.seconds += time.perf_counter() - t0
     STATS.calls += 1
     STATS.bytes += c.numel() * c.element_size()
+    if op:
+        STATS.count(op)
     return out
 
 
@@ -122,7 +139,7 @@ def all_reduce(t: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
         dist.all_reduce(c, op=_OPS[op], group=group)
         return c
 
-    return _run(t, group, fn, widen=op == "sum" and n > 2)
+    return _run(t, group, fn, widen=op == "sum" and n > 2, op="all_reduce")
 
 
 def all_gather(t: torch.Tensor, group, dim: int = -1) -> torch.Tensor:
@@ -143,6 +160,85 @@ def all_gather(t: torch.Tensor, group, dim: int = -1) -> torch.Tensor:
         return buf
 
     return _run(t, group, fn)
+
+
+def _bytes_of(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as a flat ``uint8`` tensor of its bytes (contiguous)."""
+    return t.contiguous().reshape(-1).view(torch.uint8)
+
+
+def _dim0_chunks(t: torch.Tensor, n: int) -> int:
+    if t.dim() == 0 or t.shape[0] % n:
+        raise ValueError(f"dim 0 of a {tuple(t.shape)} tensor does not split "
+                         f"into {n} equal chunks")
+    return t.shape[0] // n
+
+
+_EXACT_SUM = (torch.float32, torch.float64)
+
+
+def reduce_scatter(t: torch.Tensor, group) -> torch.Tensor:
+    """This rank's dim-0 chunk of the sum of the ranks' ``t`` (``lax.
+    psum_scatter(..., tiled=True)``): rank r gets ``sum_j t_j[r k : (r +
+    1) k]`` with ``k = t.shape[0] / world``, in ``t``'s dtype and on its
+    device.  The chunks travel as raw bytes (one all-to-all) and each
+    element is summed here in rank order, in fp32 for a narrower float
+    dtype (one rounding), so the result does not depend on how a caller
+    cut the buffer it came from."""
+    n = group_size(group)
+    if n == 1:
+        return t
+    k = _dim0_chunks(t, n)
+    src = _bytes_of(t)
+    staged = _staged(t, group)
+    nccl = dist.get_backend(group) == "nccl"
+    if staged:
+        torch.cuda.current_stream(t.device).synchronize()
+        src = src.to("cpu")
+    elif not t.is_cuda and nccl:
+        src = src.cuda()
+    recv = torch.empty_like(src)
+    t0 = time.perf_counter()
+    dist.all_to_all_single(recv, src, group=group)
+    if not t.is_cuda or staged:
+        STATS.seconds += time.perf_counter() - t0
+    parts = recv.to(t.device).view(t.dtype).reshape(n, k, *t.shape[1:])
+    acc_dtype = t.dtype if t.dtype in _EXACT_SUM or not \
+        t.is_floating_point() else torch.float32
+    acc = parts[0].to(acc_dtype)
+    for j in range(1, n):
+        acc = acc + parts[j].to(acc_dtype)
+    STATS.calls += 1
+    STATS.bytes += src.numel()
+    STATS.count("reduce_scatter")
+    return acc.to(t.dtype)
+
+
+def all_gather_tiled(t: torch.Tensor, group) -> torch.Tensor:
+    """The ranks' ``t`` concatenated along dim 0 in rank order (``lax.
+    all_gather(..., axis=0, tiled=True)``), carried as raw bytes: exact
+    in every dtype, ``float8_e5m2`` included."""
+    n = group_size(group)
+    if n == 1:
+        return t
+    src = _bytes_of(t)
+    staged = _staged(t, group)
+    nccl = dist.get_backend(group) == "nccl"
+    if staged:
+        torch.cuda.current_stream(t.device).synchronize()
+        src = src.to("cpu")
+    elif not t.is_cuda and nccl:
+        src = src.cuda()
+    parts = [torch.empty_like(src) for _ in range(n)]
+    t0 = time.perf_counter()
+    dist.all_gather(parts, src, group=group)
+    if not t.is_cuda or staged:
+        STATS.seconds += time.perf_counter() - t0
+    out = torch.cat(parts).to(t.device).view(t.dtype)
+    STATS.calls += 1
+    STATS.bytes += src.numel()
+    STATS.count("all_gather")
+    return out.reshape(n * t.shape[0] if t.dim() else n, *t.shape[1:])
 
 
 def broadcast(t: torch.Tensor, src: int, group) -> torch.Tensor:
@@ -283,6 +379,6 @@ def recv(shape, dtype: torch.dtype, device, peer: int, group,
                               torch.device(device), tag)], group)[0]
 
 
-__all__ = ["CommStats", "STATS", "Recv", "all_gather", "all_reduce",
-           "broadcast", "exchange", "gather", "group_rank", "group_size",
-           "recv", "send", "split"]
+__all__ = ["CommStats", "STATS", "Recv", "all_gather", "all_gather_tiled",
+           "all_reduce", "broadcast", "exchange", "gather", "group_rank",
+           "group_size", "recv", "reduce_scatter", "send", "split"]

@@ -20,14 +20,20 @@
 - **the step watchdog** — :class:`Watchdog`, a deadline armed around each
   step that escalates on overrun, and :class:`WatchdogTimeout`
   (:mod:`~apex_tpu_torch.resilience.elastic`);
+- **sharded ZeRO checkpoints and elastic recovery** —
+  :func:`save_zero_checkpoint` / :func:`restore_zero_checkpoint`
+  (formats 3 and 4, cross-topology, each rank its own shard), and
+  :func:`run_elastic_training`, which survives the loss of ranks by
+  restoring the newest intact shard set on the survivors' world
+  (:func:`largest_divisor_submesh`, :func:`best_surviving_submesh`);
 - **fault injection** — :mod:`~apex_tpu_torch.resilience.chaos`: storage,
   data and preemption faults for training, and the serving engine's
   (:class:`SlowDecode`, :class:`ServingDeviceLoss` raising
   :class:`DeviceLossError`, :func:`corrupt_page`,
-  :class:`CorruptLivePage`).
+  :class:`CorruptLivePage`), and the mesh faults (:class:`DeviceLoss`,
+  :func:`corrupt_shard`, :func:`slow_collective`).
 
-Not ported yet (ROADMAP.md): sharded ZeRO checkpoints, the elastic
-training loop, the mesh-aware and fleet faults.
+Not ported yet (ROADMAP.md): the fleet faults.
 """
 
 from apex_tpu_torch.checkpoint.checkpoint import (  # noqa: F401
@@ -42,14 +48,23 @@ from apex_tpu_torch.resilience.async_checkpoint import (  # noqa: F401
 )
 from apex_tpu_torch.resilience.chaos import (  # noqa: F401
     CorruptLivePage,
+    DeviceLoss,
     DeviceLossError,
     ServingDeviceLoss,
     SlowDecode,
     corrupt_page,
+    corrupt_shard,
+    slow_collective,
 )
 from apex_tpu_torch.resilience.elastic import (  # noqa: F401
+    ElasticResult,
     Watchdog,
     WatchdogTimeout,
+    best_surviving_submesh,
+    largest_divisor_submesh,
+    restore_zero_checkpoint,
+    run_elastic_training,
+    save_zero_checkpoint,
 )
 from apex_tpu_torch.resilience.guards import (  # noqa: F401
     DivergenceError,
@@ -70,7 +85,9 @@ __all__ = [
     "CheckpointCorruptionError",
     "CheckpointFallbackWarning",
     "CorruptLivePage",
+    "DeviceLoss",
     "DeviceLossError",
+    "ElasticResult",
     "DivergenceError",
     "GracePeriodHandler",
     "RetryPolicy",
@@ -79,11 +96,18 @@ __all__ = [
     "StepGuard",
     "Watchdog",
     "WatchdogTimeout",
+    "best_surviving_submesh",
     "corrupt_page",
+    "corrupt_shard",
     "first_nonfinite_leaf",
     "global_grad_norm",
     "in_flight",
+    "largest_divisor_submesh",
     "restore_resilient",
+    "restore_zero_checkpoint",
+    "run_elastic_training",
+    "save_zero_checkpoint",
+    "slow_collective",
     "verify_checkpoint",
     "wait_for_save",
 ]

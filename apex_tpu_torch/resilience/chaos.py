@@ -42,9 +42,21 @@ Serving faults, through the engine's fault hook,
 
 Test-only by design: nothing here is imported by production modules at
 module scope, and the hook slot is cleared by the context managers even
-when the simulated crash propagates.  The mesh-aware faults
-(``DeviceLoss``, ``corrupt_shard``, ``slow_collective``) and the fleet
-faults are not ported yet (ROADMAP.md).
+when the simulated crash propagates.
+
+Mesh faults, for the ZeRO world of
+:func:`apex_tpu_torch.resilience.run_elastic_training` (a "device" is a
+rank there):
+
+- :class:`DeviceLoss` — raise :class:`DeviceLossError` naming chosen
+  ranks at a chosen step boundary, once (it is picklable: each spawned
+  rank polls its copy, and the launcher marks it fired);
+- :func:`corrupt_shard` — flip one byte inside the data of one shard
+  file of a sharded checkpoint (format 3 rank or format 4 coordinate);
+- :func:`slow_collective` — stall a chosen step (a straggling or hung
+  collective seen from the host), so an armed watchdog must escalate.
+
+The fleet faults are not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -280,6 +292,98 @@ class FaultyStore:
     def __exit__(self, *exc) -> None:
         _ckpt.set_fault_hook(self._prev_hook)
         self._prev_hook = None
+
+
+class DeviceLoss:
+    """Deterministically lose rank(s) at a chosen step boundary.
+
+    Hook :meth:`poll` into the train loop's ``on_step``; on the
+    ``at_step``-th poll it raises :class:`DeviceLossError` naming
+    ``device_ids`` — once, so the rebuilt run sails past the same global
+    step (the elastic launcher sets ``fired`` on its copy before it
+    hands the hook to the survivors)."""
+
+    def __init__(self, at_step: int, device_ids, *, telemetry=None):
+        self.at_step = at_step
+        self.device_ids = list(device_ids)
+        self.telemetry = telemetry
+        self.fired = False
+        self.polls = 0
+
+    def poll(self, *_args) -> None:
+        self.polls += 1
+        if not self.fired and self.polls >= self.at_step:
+            self.fired = True
+            if self.telemetry is not None:
+                self.telemetry.emit(
+                    "fault_injected", kind="device_loss",
+                    device_ids=[getattr(d, "id", d)
+                                for d in self.device_ids],
+                    at_poll=self.polls)
+            raise DeviceLossError(self.device_ids,
+                                  detail=f"injected at poll {self.polls}")
+
+
+def corrupt_shard(ckpt_dir: str, step: int, rank) -> str:
+    """Flip one byte in one partition file of a sharded checkpoint —
+    exactly that shard's CRC32 verification must fail while every other
+    shard file stays intact.  ``rank`` is an int for a format-3 save, or
+    a mesh-coordinate tuple like ``(d, p, t)`` for a format-4 one.  The
+    flip lands inside the largest entry's DATA span, not in the zip
+    framing between entries (which nothing validates).  Returns the
+    damaged path."""
+    import zipfile
+
+    name = (_ckpt.shard_file_coords(rank) if isinstance(rank, (tuple, list))
+            else _ckpt.shard_file(rank))
+    path = os.path.join(_ckpt.step_dir(ckpt_dir, step), name)
+    with zipfile.ZipFile(path) as z:
+        info = max(z.infolist(), key=lambda i: i.compress_size)
+    with open(path, "rb") as f:
+        f.seek(info.header_offset)
+        hdr = f.read(30)
+    n_name = int.from_bytes(hdr[26:28], "little")
+    n_extra = int.from_bytes(hdr[28:30], "little")
+    data_off = info.header_offset + 30 + n_name + n_extra
+    _flip_byte(path, data_off + max(0, info.compress_size // 2))
+    return path
+
+
+def slow_collective(step_fn, *, at_step: int, delay: float,
+                    axis: Optional[str] = None,
+                    stale_devices=None, watchdog=None,
+                    telemetry=None):
+    """Wrap ``step_fn`` so its ``at_step``-th call stalls ``delay`` seconds
+    before stepping — a straggling (or, for a large ``delay``, hung)
+    collective as the host sees it; a watchdog armed around the step
+    must overrun and escalate.  ``axis`` names the mesh axis whose
+    collective stalls (in the ``fault_injected`` event).
+    ``stale_devices`` + ``watchdog``: while the stall runs every device
+    but the stale ones gets a fresh ``watchdog.beat``, so the hang report
+    points at the stalled group."""
+    calls = {"n": 0}
+
+    def wrapped(state, batch):
+        calls["n"] += 1
+        if calls["n"] == at_step:
+            if telemetry is not None:
+                telemetry.emit("fault_injected", kind="slow_collective",
+                               axis=axis, at_step=calls["n"],
+                               delay_s=float(delay))
+            if watchdog is not None and stale_devices is not None:
+                stale = {getattr(d, "id", d) for d in stale_devices}
+                deadline = time.monotonic() + delay
+                while time.monotonic() < deadline:
+                    for d in watchdog.device_ids:
+                        if d not in stale:
+                            watchdog.beat(d)
+                    time.sleep(min(0.02, delay / 10))
+            else:
+                time.sleep(delay)
+        return step_fn(state, batch)
+
+    wrapped.calls = calls
+    return wrapped
 
 
 def slow_writer(delay: float) -> FaultyStore:

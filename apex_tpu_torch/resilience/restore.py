@@ -26,12 +26,56 @@ from apex_tpu_torch.checkpoint.checkpoint import (
     latest_step,
     restore_checkpoint,
     step_dir,
+    verify_checkpoint,
 )
 
 
 class CheckpointFallbackWarning(UserWarning):
     """Emitted when the newest checkpoint was corrupt and an older intact
     one was restored instead."""
+
+
+def _candidates(ckpt_dir: str, max_fallbacks: Optional[int]) -> list:
+    """Complete steps newest-first by WRITE RECENCY, the marker step first
+    (the semantics of latest_step and keep-GC: a rollback-resume may have
+    written a LOWER step more recently than a higher one still on disk,
+    and that rolled-back state must not be resurrected because its step
+    number is bigger)."""
+    steps = _complete_steps(ckpt_dir)
+    if not steps:
+        raise FileNotFoundError(f"no checkpoint found under {ckpt_dir}")
+    marked = latest_step(ckpt_dir)
+    candidates = sorted(
+        steps,
+        key=lambda s: (s == marked,
+                       os.path.getmtime(step_dir(ckpt_dir, s)), s),
+        reverse=True)
+    if max_fallbacks is not None:
+        candidates = candidates[: max_fallbacks + 1]
+    return candidates
+
+
+def newest_intact_step(ckpt_dir: str,
+                       max_fallbacks: Optional[int] = None) -> int:
+    """The step :func:`restore_resilient` would restore: the newest
+    candidate whose every file verifies, each corrupt one skipped with a
+    :class:`CheckpointFallbackWarning` (no tree is materialized)."""
+    failures = []
+    for s in _candidates(ckpt_dir, max_fallbacks):
+        try:
+            verify_checkpoint(ckpt_dir, s)
+        except CheckpointCorruptionError as e:
+            failures.append((s, str(e)))
+            warnings.warn(
+                f"checkpoint step {s} at {step_dir(ckpt_dir, s)} is corrupt "
+                f"({e}); falling back to the next older checkpoint",
+                CheckpointFallbackWarning, stacklevel=2)
+            continue
+        return s
+    detail = "; ".join(f"step {s}: {msg}" for s, msg in failures)
+    raise CheckpointCorruptionError(
+        f"no intact checkpoint under {ckpt_dir} — all {len(failures)} "
+        f"candidate(s) failed verification: {detail}")
 
 
 def restore_resilient(
@@ -54,22 +98,7 @@ def restore_resilient(
     Returns ``(tree, step)`` like ``restore_checkpoint``.  Raises
     :class:`CheckpointCorruptionError` when checkpoints exist but none are
     intact, :class:`FileNotFoundError` when none exist at all."""
-    steps = _complete_steps(ckpt_dir)
-    if not steps:
-        raise FileNotFoundError(f"no checkpoint found under {ckpt_dir}")
-    # Walk by WRITE RECENCY, marker step first — same semantics as
-    # latest_step/keep-GC: a rollback-resume may legitimately have written a
-    # LOWER step more recently than a higher one still on disk, and that
-    # rolled-back state must not be resurrected just because its step number
-    # is bigger.
-    marked = latest_step(ckpt_dir)
-    candidates = sorted(
-        steps,
-        key=lambda s: (s == marked,
-                       os.path.getmtime(step_dir(ckpt_dir, s)), s),
-        reverse=True)
-    if max_fallbacks is not None:
-        candidates = candidates[: max_fallbacks + 1]
+    candidates = _candidates(ckpt_dir, max_fallbacks)
     failures = []
     for s in candidates:
         try:

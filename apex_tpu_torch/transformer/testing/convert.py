@@ -27,6 +27,14 @@ of its tp ranks on a leading axis (``examples/gpt/pretrain_gpt.py``);
 :func:`rank_state_dict_from_jax` takes tp rank r's ``state_dict`` out of
 such a tree and :func:`stacked_jax_tree` stacks the ranks' state dicts
 back into it.
+
+The ZeRO flagship: its ``params`` are JAX's master tree itself (nested
+dicts, layers stacked), carried by :func:`master_from_jax` and
+:func:`master_to_jax`; its optimizer state is JAX's
+``ShardedOptState`` with leading stack axes (``[n]`` or ``[dp, pp, tp]``)
+of which each port rank holds its block: :func:`zero_state_from_jax`
+takes rank r's block (leading dims of 1) out of JAX's stacks and
+:func:`zero_state_to_jax` stacks the ranks' blocks back.
 """
 
 from __future__ import annotations
@@ -172,3 +180,81 @@ def nest(flat: Mapping[str, object]) -> dict:
             node = node.setdefault(p, {})
         node[last] = a
     return tree
+
+
+def _np32(a) -> np.ndarray:
+    """An array as numpy, a bf16 (ml_dtypes) one as fp32 (exact)."""
+    a = np.asarray(a)
+    if a.dtype.kind == "V" or str(a.dtype) == "bfloat16":
+        a = a.astype(np.float32)
+    return a
+
+
+def master_from_jax(tree, *, device="cpu", dtype: Optional[torch.dtype]
+                    = None):
+    """A JAX master tree (nested dicts of arrays) as the same tree of
+    tensors on ``device`` (in ``dtype``, default the arrays' own, bf16
+    kept bf16)."""
+    if isinstance(tree, Mapping):
+        return {k: master_from_jax(v, device=device, dtype=dtype)
+                for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device=device, dtype=dtype or tree.dtype)
+    bf16 = str(np.asarray(tree).dtype) == "bfloat16"
+    t = torch.from_numpy(np.array(_np32(tree)))
+    return t.to(device=device, dtype=dtype or (torch.bfloat16 if bf16
+                                               else t.dtype))
+
+
+def _bits_np(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    return t.float().numpy() if t.dtype == torch.bfloat16 else t.numpy()
+
+
+def master_to_jax(params) -> dict:
+    """The port flagship's master tree as nested dicts of numpy arrays
+    (bf16 leaves as fp32, exact; cast with the JAX plan's dtype)."""
+    if isinstance(params, Mapping):
+        return {k: master_to_jax(v) for k, v in params.items()}
+    return _bits_np(params)
+
+
+def zero_state_from_jax(opt_state, rank: int, *, device="cpu"):
+    """Rank ``rank``'s block of a JAX ``ShardedOptState`` whose leaves
+    carry leading stack axes (``step`` is ``[n]`` or ``[dp, pp, tp]``):
+    each leaf indexed at the rank's coordinate (C order over the stack
+    axes, the ``parallel_state`` layout) keeping a dim of 1 per axis."""
+    from apex_tpu_torch.contrib.optimizers import ShardedOptState
+
+    step = _np32(opt_state.step)
+    lead = step.shape
+    c = np.unravel_index(rank, lead)
+    idx = tuple(slice(int(i), int(i) + 1) for i in c)
+
+    def take(leaf, dtype=None):
+        raw = np.asarray(leaf)
+        t = torch.from_numpy(np.array(_np32(raw)[idx]))
+        if str(raw.dtype) == "bfloat16":
+            t = t.to(torch.bfloat16)
+        return t.to(device=device, dtype=dtype or t.dtype)
+
+    return ShardedOptState(take(opt_state.step, torch.int32),
+                           take(opt_state.exp_avg),
+                           take(opt_state.exp_avg_sq))
+
+
+def zero_state_to_jax(states: Sequence, lead_shape) -> tuple:
+    """The ranks' ``ShardedOptState`` blocks (rank order) stacked into
+    JAX's ``[*lead_shape, ...]`` leaves: a ``ShardedOptState`` of numpy
+    arrays (bf16 moments as fp32, exact)."""
+    from apex_tpu_torch.contrib.optimizers import ShardedOptState
+
+    lead_shape = tuple(int(x) for x in lead_shape)
+    n = len(lead_shape)
+
+    def stack(field):
+        blocks = [_bits_np(getattr(s, field)).reshape(
+            getattr(s, field).shape[n:]) for s in states]
+        return np.stack(blocks).reshape(lead_shape + blocks[0].shape)
+
+    return ShardedOptState(*(stack(f) for f in ShardedOptState._fields))

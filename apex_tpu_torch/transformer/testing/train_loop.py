@@ -71,6 +71,10 @@ def run_resilient_training(
     save_every: int = 0,
     keep: Optional[int] = None,
     async_saves: bool = True,
+    shardings: Any = None,
+    shard_axis: Optional[str] = None,
+    shard_axes: Optional[Any] = None,
+    group: Any = None,
     handler: Optional[GracePeriodHandler] = None,
     guard: Optional[StepGuard] = None,
     watchdog: Any = None,
@@ -85,7 +89,12 @@ def run_resilient_training(
     """Run ``step_fn`` over ``batches`` with the full resilience wiring.
 
     - every ``save_every`` steps: checkpoint (async by default — the loop
-      keeps stepping while the write is in flight; the next save fences);
+      keeps stepping while the write is in flight; the next save fences).
+      ``shardings`` with ``shard_axis`` (format 3) or ``shard_axes``
+      (format 4) make every save sharded (per-rank partition files,
+      :func:`apex_tpu_torch.checkpoint.save_checkpoint`); with ``group``
+      (the ranks of a ZeRO world, each holding its block) each rank
+      writes its own shard files and the save is blocking;
     - after every step: poll ``handler.should_stop``; on preemption write a
       final BLOCKING checkpoint (itself fencing any in-flight async write)
       and return with ``preempted=True`` — the caller restarts later via
@@ -170,7 +179,8 @@ def run_resilient_training(
         telemetry.emit(
             "run_start", step=start_step,
             save_every=save_every, async_saves=bool(async_saves),
-            sharded=False, watchdog=watchdog is not None,
+            sharded=shard_axis is not None or shard_axes is not None,
+            watchdog=watchdog is not None,
             guarded=guard is not None)
 
     def _save(blocking: bool) -> None:
@@ -185,7 +195,9 @@ def run_resilient_training(
                       if data_iter is not None
                       and hasattr(data_iter, "state_dict") else None)
         ckpt.save_checkpoint(ckpt_dir, state, step=step, keep=keep,
-                             data_state=data_state,
+                             data_state=data_state, shardings=shardings,
+                             shard_axis=shard_axis, shard_axes=shard_axes,
+                             group=group,
                              blocking=blocking or not async_saves)
         dt = time.monotonic() - t0
         last_saved = step

@@ -19,8 +19,10 @@ profile sampler and the apex ops (phase 19), ResNet-50 ImageNet training
 under amp with its example, ``FP16_Optimizer`` and ASP (phase 20),
 DCGAN, the RNNs, RNN-T and weight norm (phase 21), and tensor- and
 data-parallel GPT training on ``torch.distributed``, its ranks sharing
-the card over gloo (phase 22), and pipeline-parallel GPT training, its
-stages sharing the card the same way (phase 23).
+the card over gloo (phase 22), pipeline-parallel GPT training, its
+stages sharing the card the same way (phase 23), and ZeRO: bench.py's
+GPT-1.3B flagship train step, its sharded checkpoints and elastic
+recovery (phase 24).
 Phases, each of which fails the run (non-zero exit) on error:
 
 1. device — a CUDA card is required; its name and power limit are read
@@ -316,7 +318,8 @@ Phases, each of which fails the run (non-zero exit) on error:
     through the plain versions, and with head 0's dK dropped in K4
     outside them.
 18. GPT-1.3B training: checkpoint, preempt, resume — phase 7's flags
-    with ``--data-dir`` over four checksummed shards of seeded tokens
+    cut to ``RESUME_LAYERS`` = 4 layers (no remat below 12), with
+    ``--data-dir`` over four checksummed shards of seeded tokens
     (``write_checksummed_records``, 24 records of 2049 ids) written into
     a temp dir (its free bytes printed first; the dir is removed at the
     end, pass or fail): run A trains 6 steps uninterrupted; run B adds
@@ -332,8 +335,8 @@ Phases, each of which fails the run (non-zero exit) on error:
     checkpoints hold the iterator's ``data_state``; B's stream validates
     and holds the two ``ckpt_save`` events with ``wall_ms``, the
     accountant's ``ckpt_fence`` pause and the SIGTERM's postmortem; K3,
-    K4, K6 and K7 launch phase 7's counts a step times the 16 steps of
-    the four runs, exactly.  Each save's seconds and GB (the async one's
+    K4, K6 and K7 launch L, L, 2L + 1 and 2L + 1 a step times the 16
+    steps of the four runs, exactly.  Each save's seconds and GB (the async one's
     time to return against its time to commit, with its fence, snapshot,
     CRC32 and write split), each restore's seconds and GB and run A's
     step time against run B's are printed beside the card.
@@ -374,7 +377,7 @@ Phases, each of which fails the run (non-zero exit) on error:
     ``RESNET_O2_*`` of the O0 fp32 step's.  (b) The ImageNet example in
     subprocesses: 2 epochs of 5 steps saving a checkpoint, ``--resume`` to
     epoch 3 (it must resume from epoch 1), one pass over 256 seeded
-    ``train*.rec`` records.  (c) ``FP16_Optimizer`` around ``FusedSGD``,
+    ``train*.rec`` records beside those two.  (c) ``FP16_Optimizer`` around ``FusedSGD``,
     three steps bitwise equal to amp O2 + ``FusedSGD`` (every tensor half,
     as the JAX ``FP16_Optimizer`` casts them).  (d) ASP's masks of
     ResNet-50's weights, card equal to CPU bit for bit, 2:4, kept through
@@ -406,8 +409,9 @@ Phases, each of which fails the run (non-zero exit) on error:
     for bit.  (a) The fp32 toy (hidden 512, 4 heads of 128: the scalar
     K3/K4) through ``pretrain_gpt``, tp 2 against tp 1 from the same
     seeded master, within JAX's bar (rtol 2e-4, atol 1e-5).  (b)
-    GPT-1.3B width cut to ``TP22_LAYERS`` = 12 (the depth where remat
-    ``attn_res`` starts; bf16, ``FusedAdam``, micro-batch 4 x 2048,
+    GPT-1.3B width cut to ``TP22_LAYERS`` = 4 (below 12 layers
+    ``pretrain_gpt`` runs no remat; tp 2 under remat ``attn_res`` runs in
+    phases 23 (c) and 24 (c); bf16, ``FusedAdam``, micro-batch 4 x 2048,
     dropout off so that tp 1 and tp 2 differ only in their arithmetic):
     three steps at tp 2 against tp 1 (``TP22_LOSS_TOL``); the replicated
     leaves bitwise equal across the tp ranks after every step; a re-run
@@ -418,10 +422,11 @@ Phases, each of which fails the run (non-zero exit) on error:
     0.1/0.1 bitwise equal.  (c) tp 2 x dp 2 (four ranks, micro-batch 2,
     the same global batch) within ``TP22_DP_LOSS_TOL`` of (b), the dp
     replicas bitwise equal after every step.  (f) Every rank's exact K3,
-    K4, K6 and K7 launches (L, L, 4L + 1, 2L + 1 a step) go into the
+    K4, K6 and K7 launches (L, L, 2L + 1, 2L + 1 a step) go into the
     ``kernels`` record.  (g) A JSON line: each rank's step seconds, the
     collectives' share of them, bytes and calls a step, peak memory,
-    beside the card's name and power limit.
+    beside the card's name and power limit.  NCCL at world 1, the two
+    ranks of (a) and (b) and the four of (c) run side by side.
 23. pipeline-parallel GPT training on ``torch.distributed`` — the stages
     are ranks sharing this card over gloo as in phase 22, each a
     ``build_model`` chunk of ``gpt_model_provider`` cut from the whole
@@ -430,7 +435,8 @@ Phases, each of which fails the run (non-zero exit) on error:
     remat ``attn_res``, FusedAdam lr 1.5e-4, dropout off, phase 7's
     seeded 4 x 2048 batch as 4 microbatches of 1).  First K3/K4 at the
     stages' shapes, phase 3's way: bf16 [1, 2048, 16 x 3 x 128] and fp16
-    [1, 2048, 8 x 3 x 128].  (a) 1F1B at pp 2, all 24 layers, 3 steps,
+    [1, 2048, 8 x 3 x 128].  (a) 1F1B at pp 2, ``PP23_LAYERS`` = 8
+    layers (the depth cut for the script's time), 3 steps,
     against tp 1 / pp 1 on the same batch and master
     (``forward_backward_no_pipelining``), step by step within the
     ``PP23_*_TOL`` bars, with step 1's gradient statistics (each leaf's
@@ -438,14 +444,43 @@ Phases, each of which fails the run (non-zero exit) on error:
     rank's exact launches a step, derived from the slots
     (:func:`pp23_launches`); each rank's peak at m = 4 and m = 8 (one
     forward-backward each) within one stage input.  (b) the interleaved
-    schedule at pp 4 x vpp 2 (3 layers a chunk), 2 steps, step 1 within
+    schedule at pp 4 x vpp 2 (1 layer a chunk), 2 steps, step 1 within
     (a)'s bars of (a)'s step 1, launches exact.  (c) bench.py's amp pp leg
-    at tp 2 x pp 2, 12 layers, O2 fp16 from a scale of 2^16, 3 steps, on
+    at tp 2 x pp 2, 4 layers, O2 fp16 from a scale of 2^16, 3 steps, on
     the ``_f16`` entries: an overflow planted on one rank at step 2 makes
     every rank skip it bitwise and halve its scale; the replicated leaves
     bitwise equal across the tp ranks after each step; launches exact.  A
     JSON line: losses, gaps, bubbles, each rank's step wall and stream
     time, transfers and peak.
+24. ZeRO — ``transformer.testing.build_flagship_train_step``, the
+    flagship step of bench.py's headline (``bench_gpt1p3b``):
+    ``DistributedFusedAdam`` (reduce-scatter, the shard's update, all-gather)
+    over the flat superblock of the JAX master tree.  (a) world 1, no
+    process group: ``gpt1p3b_config()`` at ``bf16_fit``, lr 1e-4, a seeded 4
+    x 2048 batch, 1 + 4 steps: the loss finite and falling, K3, K4, K6 and
+    K7 a step exactly phase 7's tree step's, a re-build from the seed
+    bitwise at step 1, step ms, host enqueue, one step under
+    ``torch.profiler``, the steps' peak beside ``flagship_state_bytes``.
+    (b) the fp32 toy (TOY_KW of ``tests/L0/test_flagship.py``) card vs CPU
+    from one master: losses within 1e-6 relative, weights 1e-4; the
+    scalar routes' launches exact.  (c) ranks sharing this card over gloo
+    (GPT-1.3B width cut to 4 layers): (dp, tp, pp) = (2, 2, 1) bucketed at
+    ``DEFAULT_BUCKET_BYTES`` and serialized, 2 steps each, bitwise equal
+    (losses, parameters, moments), parameters bitwise across the ranks
+    after each step, one reduce-scatter and one all-gather a bucket a
+    step; dp 2 on the single-axis path; each rank's exact launches, step
+    seconds and collective share, its peak beside ``flagship_state_bytes(
+    ..., n_shards=world)``.  (d) 2 layers at (2, 2, 1): a format-4 save
+    each step, each rank its own shard; step 2 restored onto (2, 1, 1) and
+    onto world 1, each bitwise the re-partitioned stacks; ``corrupt_shard``
+    at (1, 0, 1): ``verify_checkpoint`` names the file, and
+    ``restore_zero_checkpoint`` falls back to step 1, bitwise.  (e) 2
+    layers: ``run_elastic_training`` at (2, 2, 1) loses rank 3 at step 2
+    (``DeviceLoss``), resumes on ``best_surviving_submesh``'s (1, 2, 1)
+    and ends bitwise the golden run restored from the same checkpoint on
+    that shape.  The four ranks of (c) and (d) run beside (e), the two of
+    dp 2, (d)'s restore onto (2, 1, 1) and (e)'s golden beside (d)'s
+    restore onto world 1.
 
 The last three lines of standard output are the kernels' JSON record,
 the ``nvidia-smi`` name/power line, and ``{"ok": true, "device": ...}``.
@@ -469,6 +504,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import traceback
 import warnings
@@ -597,15 +633,34 @@ def ptxas_report(text: str) -> list:
     return out
 
 
+_DEMANGLED: dict = {}
+
+
+def demangle_all(names) -> None:
+    """Demangle ``names`` with one ``c++filt`` (a name a line), into the
+    cache :func:`demangle` reads; a name c++filt cannot read stays as it
+    is."""
+    todo = [n for n in dict.fromkeys(names) if n not in _DEMANGLED]
+    if not todo:
+        return
+    try:
+        full = subprocess.run(["c++filt"], input="\n".join(todo) + "\n",
+                              capture_output=True, text=True,
+                              check=True).stdout.splitlines()
+    except (OSError, subprocess.CalledProcessError):
+        full = None
+    if full is None or len(full) != len(todo):
+        _DEMANGLED.update((n, n) for n in todo)
+        return
+    for n, f in zip(todo, full):
+        found = re.search(r"\w+<[^()]*>", f)
+        _DEMANGLED[n] = found.group(0) if found else f.strip()
+
+
 def demangle(name: str) -> str:
     """``flash_decode_kernel<float, 128>`` from its mangled name."""
-    try:
-        full = subprocess.run(["c++filt", name], capture_output=True,
-                              text=True, check=True).stdout
-    except (OSError, subprocess.CalledProcessError):
-        return name
-    found = re.search(r"\w+<[^()]*>", full)
-    return found.group(0) if found else full.strip()
+    demangle_all([name])
+    return _DEMANGLED[name]
 
 
 def tolerance(ref: torch.Tensor) -> float:
@@ -3770,12 +3825,19 @@ def loss_and_grads(model, tokens, labels):
     return loss.detach().item(), grads
 
 
-# a GPT-1.3B bf16 step's launches (remat attn_res, L = 24 layers): the
-# tensor-core K3/K4 L each, layer_norm_sm90.cu's K6 4L + 1 and K7 2L + 1,
-# and not one launch of the scalar K3/K4 or of layer_norm.cu
-GPT_STEP_LAUNCHES = {"flash_qkv_fwd_sm90": 24, "flash_qkv_bwd_sm90": 24,
-                     "layer_norm_fwd_sm90": 4 * 24 + 1,
-                     "layer_norm_bwd_sm90": 2 * 24 + 1}
+def gpt_step_launches(layers: int = 24) -> dict:
+    """A ``pretrain_gpt`` bf16 step's launches at GPT-1.3B width: the
+    tensor-core K3/K4 L each, layer_norm_sm90.cu's K6 4L + 1 under remat
+    attn_res (the JAX example's rule: remat from 12 layers; the
+    LayerNorms run again in the recompute) and 2L + 1 below 12 layers,
+    K7 2L + 1, and not one launch of the scalar K3/K4 or of
+    layer_norm.cu."""
+    return {"flash_qkv_fwd_sm90": layers, "flash_qkv_bwd_sm90": layers,
+            "layer_norm_fwd_sm90": (4 if layers >= 12 else 2) * layers + 1,
+            "layer_norm_bwd_sm90": 2 * layers + 1}
+
+
+GPT_STEP_LAUNCHES = gpt_step_launches(24)
 
 
 def phase_full_training(smi: str) -> dict:
@@ -4983,28 +5045,37 @@ def dots_case(gen, what, shape, old=True) -> tuple:
     return err, err_old, (q, k, v)
 
 
+_SASS: dict = {}
+
+
+def sass_text(source: str) -> str:
+    """``cuobjdump -sass`` of a built source's library, run once a source
+    (the libraries do not change within a run)."""
+    if source not in _SASS:
+        tool = kernels._build.cuda_tool("cuobjdump")
+        _SASS[source] = subprocess.run(
+            [tool, "-sass", str(kernels._build.library_path(source))],
+            capture_output=True, text=True, check=True).stdout
+    return _SASS[source]
+
+
 def sass_count(source: str, opcode: str) -> int:
     """Lines of one instruction (``HMMA``: ``mma.sync`` on the tensor cores,
     ``HGMMA``: ``wgmma``, ``UTMALDG``: a TMA load; a regular expression,
     matched as a word) in the SASS of a built source's library, from
     ``cuobjdump -sass``."""
-    tool = kernels._build.cuda_tool("cuobjdump")
-    sass = subprocess.run([tool, "-sass",
-                           str(kernels._build.library_path(source))],
-                          capture_output=True, text=True, check=True).stdout
     return sum(re.search(rf"\b{opcode}\b", line) is not None
-               for line in sass.splitlines())
+               for line in sass_text(source).splitlines())
 
 
 def sass_functions(source: str) -> dict:
     """The SASS of a built source's library split by kernel instance:
     {demangled name: its SASS text} (``cuobjdump -sass``)."""
-    tool = kernels._build.cuda_tool("cuobjdump")
-    sass = subprocess.run([tool, "-sass",
-                           str(kernels._build.library_path(source))],
-                          capture_output=True, text=True, check=True).stdout
+    lines = sass_text(source).splitlines()
+    demangle_all(line.split("Function :")[1].strip() for line in lines
+                 if "Function :" in line)
     out, name = {}, None
-    for line in sass.splitlines():
+    for line in lines:
         if "Function :" in line:
             name = demangle(line.split("Function :")[1].strip())
             out[name] = ""
@@ -5043,6 +5114,7 @@ def typed_instance_checks(src: str, report: list) -> dict:
     and each one's own SASS holding wgmma (``HGMMA``) and TMA loads
     (``UTMALDG``); their spills are held by the source-wide check."""
     sass = sass_functions(src)
+    demangle_all(fn for fn, _, _, _ in report)
     out = {}
     for d, type_, label in QKV_INSTANCE_TYPES:
         out[label] = {}
@@ -5096,6 +5168,8 @@ def sm90_build_checks() -> dict:
     built: every instance free of spills and stack in ``ptxas -v``'s
     report, and each source's SASS holding the instructions of
     :data:`SASS_WANT`."""
+    # each library's cuobjdump at once, one thread a source
+    concurrently(*(lambda src=src: sass_text(src) for src in SASS_WANT))
     out = {}
     for src in SPILL_FREE_SOURCES:
         text = kernels.build_log.get(src)
@@ -5729,8 +5803,15 @@ RESUME_STEPS = 6        # Run A's steps, and where C and D stop
 PREEMPT_AT = 3          # Run B is preempted after this step
 SAVE_EVERY = 2          # Run B's --save-interval: an async save at step 2
 TOKEN_SHARDS = 4
-RESUME_TRAIN = FULL_TRAIN + ["--train-iters", str(RESUME_STEPS),
-                             "--log-interval", str(RESUME_STEPS)]
+# GPT-1.3B width cut to 4 layers: the phase checks the checkpoint's
+# bits and its restore, not the depth; at 24 layers (two 15.8 GB saves,
+# two restores) the phase took 140.5-183.6 s of the script's 1200 s on an
+# NVIDIA H100 80GB HBM3 at 700.00 W.  Below 12 layers pretrain_gpt runs
+# no remat
+RESUME_LAYERS = 4
+RESUME_TRAIN = (FULL_TRAIN[:1] + [str(RESUME_LAYERS)] + FULL_TRAIN[2:]
+                + ["--train-iters", str(RESUME_STEPS),
+                   "--log-interval", str(RESUME_STEPS)])
 
 
 def write_token_shards(d: str, b: int = 4, s: int = 2048,
@@ -5980,7 +6061,8 @@ def resume_runs(tmp: str, smi: str) -> dict:
     steps_run = RESUME_STEPS + PREEMPT_AT + (RESUME_STEPS - PREEMPT_AT) + (
         RESUME_STEPS - SAVE_EVERY)
     launches = {k.symbol: k.launches for k in kernels.KERNELS if k.launches}
-    want = {k: v * steps_run for k, v in GPT_STEP_LAUNCHES.items()}
+    want = {k: v * steps_run
+            for k, v in gpt_step_launches(RESUME_LAYERS).items()}
     log(f"  launches over the {steps_run} steps of runs A-D {launches}, "
         f"expected {want}")
     if launches != want:
@@ -6817,36 +6899,76 @@ def phase_resnet50_step(smi: str) -> dict:
     return out
 
 
-def imagenet_run(args, what: str) -> dict:
+def imagenet_start(args):
     """``python -m apex_tpu_torch.examples.imagenet.main_amp`` as users
-    run it, in a subprocess; its output and wall seconds."""
+    run it, started in a subprocess: (the process, its start time, the
+    files its standard output and error go to)."""
     env = dict(os.environ, PYTHONPATH=os.path.dirname(
         os.path.abspath(__file__)))
+    # its output goes to files, so that no pipe fills while it runs
+    out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
     t0 = time.perf_counter()
-    res = subprocess.run(
+    proc = subprocess.Popen(
         [sys.executable, "-m", "apex_tpu_torch.examples.imagenet.main_amp"]
-        + args, capture_output=True, text=True, env=env, timeout=600,
+        + args, stdout=out, stderr=err, text=True, env=env,
         cwd=os.path.dirname(os.path.abspath(__file__)))
+    return proc, t0, out, err
+
+
+def imagenet_finish(started, what: str) -> dict:
+    """The end of an :func:`imagenet_start` run: its output and wall
+    seconds."""
+    proc, t0, out, err = started
+    try:
+        proc.wait(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
     wall = time.perf_counter() - t0
-    if res.returncode != 0:
+    with out, err:
+        out.seek(0)
+        err.seek(0)
+        stdout, stderr = out.read(), err.read()
+    if proc.returncode != 0:
         raise AssertionError(f"the ImageNet example ({what}) exited "
-                             f"{res.returncode}: {res.stderr[-2000:]}")
-    speeds = [float(v) for v in re.findall(r"Speed (\S+) img/s", res.stdout)]
-    prec = re.findall(r"\* Prec@1 (\S+) Prec@5 (\S+)", res.stdout)
+                             f"{proc.returncode}: {stderr[-2000:]}")
+    speeds = [float(v) for v in re.findall(r"Speed (\S+) img/s", stdout)]
+    prec = re.findall(r"\* Prec@1 (\S+) Prec@5 (\S+)", stdout)
     if not speeds or not prec:
         raise AssertionError(f"the ImageNet example ({what}) printed no "
-                             f"Speed or Prec@1 line: {res.stdout[-1000:]}")
+                             f"Speed or Prec@1 line: {stdout[-1000:]}")
     log(f"  main_amp {what}: {wall:.1f} s; Speed "
         + ", ".join(f"{v:.0f}" for v in speeds) + " img/s; Prec@1/Prec@5 "
         + ", ".join(f"{a}/{b}" for a, b in prec))
-    return {"stdout": res.stdout, "wall_s": wall, "speeds": speeds,
+    return {"stdout": stdout, "wall_s": wall, "speeds": speeds,
             "prec": prec}
 
 
+def imagenet_run(args, what: str) -> dict:
+    """:func:`imagenet_start` and :func:`imagenet_finish`."""
+    return imagenet_finish(imagenet_start(args), what)
+
+
 def phase_imagenet_example(smi: str) -> dict:
-    """(b) the ImageNet example: train and save, resume, the records."""
+    """(b) the ImageNet example: train and save, resume, the records (the
+    records' run beside the other two: their speeds are of a shared
+    card)."""
     tmp = tempfile.mkdtemp(prefix="imagenet_")
+    records = None
     try:
+        data = os.path.join(tmp, "records")
+        os.makedirs(data)
+        rng = np.random.default_rng(20)
+        n = RECORDS
+        imgs = rng.integers(0, 256, (n, RESNET_IMG * RESNET_IMG * 3),
+                            dtype=np.uint8)
+        labels = rng.integers(0, 1000, (n,)).astype(np.int32)
+        write_records(os.path.join(data, "train0.rec"), np.concatenate(
+            [imgs, labels.view(np.uint8).reshape(n, 4)], axis=1))
+        records = imagenet_start(IMAGENET_FLAGS + [
+            "--epochs", "1", "--steps-per-epoch", str(RECORD_STEPS),
+            "--eval-steps", "2", "--data", data])
         ck = os.path.join(tmp, "ckpt")
         first = imagenet_run(IMAGENET_FLAGS + [
             "--epochs", "2", "--steps-per-epoch", "5", "--eval-steps", "2",
@@ -6862,19 +6984,11 @@ def phase_imagenet_example(smi: str) -> dict:
                 "Epoch: [1]" in second["stdout"]:
             raise AssertionError("the resumed run did not continue after "
                                  "epoch 1")
-        data = os.path.join(tmp, "records")
-        os.makedirs(data)
-        rng = np.random.default_rng(20)
-        n = RECORDS
-        imgs = rng.integers(0, 256, (n, RESNET_IMG * RESNET_IMG * 3),
-                            dtype=np.uint8)
-        labels = rng.integers(0, 1000, (n,)).astype(np.int32)
-        write_records(os.path.join(data, "train0.rec"), np.concatenate(
-            [imgs, labels.view(np.uint8).reshape(n, 4)], axis=1))
-        rec = imagenet_run(IMAGENET_FLAGS + [
-            "--epochs", "1", "--steps-per-epoch", str(RECORD_STEPS),
-            "--eval-steps", "2", "--data", data], "train*.rec records")
+        rec = imagenet_finish(records, "train*.rec records")
     finally:
+        if records is not None and records[0].poll() is None:
+            records[0].kill()
+            records[0].wait()
         shutil.rmtree(tmp, ignore_errors=True)
     return {k: {"wall_s": v["wall_s"], "speeds": v["speeds"],
                 "prec": v["prec"]}
@@ -7442,7 +7556,11 @@ def phase_families(smi: str) -> dict:
 GLOO_WHY = ("ranks share cuda:0 over --distributed-backend gloo: this machine "
             "has one card and NCCL refuses two ranks on one GPU; every "
             "collective is staged through the host")
-TP22_LAYERS = 12           # remat attn_res from 12 layers, as phase 7's path
+# GPT-1.3B width cut to 4 layers (pretrain_gpt runs no remat below 12;
+# tp 2 under remat attn_res runs in phases 23 (c) and 24 (c)): at 12 layers
+# the phase took 166.2-178.2 s of the script's 1200 s on an NVIDIA H100
+# 80GB HBM3 at 700.00 W, 71-85 % of each step in host-staged collectives
+TP22_LAYERS = 4
 TP22_STEPS = 3
 # dropout off: tp 1 and tp 2 draw the attention masks from other streams
 # (tp 2: one stream a rank over its heads), so their losses would part by
@@ -7473,11 +7591,9 @@ TP22_DP_LOSS_TOL = 2e-3
 
 
 def tp22_launches(layers: int, steps: int) -> dict:
-    """A rank's launches of a run (remat attn_res): phase 7's counts a
-    step (K3 L, K4 L, K6 4L + 1, K7 2L + 1) on each rank's heads."""
-    return dict(zip(TP22_KERNELS, (layers * steps, layers * steps,
-                                   (4 * layers + 1) * steps,
-                                   (2 * layers + 1) * steps)))
+    """A rank's launches of a pretrain_gpt run: :func:`gpt_step_launches`
+    a step on each rank's heads."""
+    return {k: v * steps for k, v in gpt_step_launches(layers).items()}
 
 
 def digest(t: torch.Tensor) -> tuple:
@@ -7685,6 +7801,31 @@ def tp22_spawn(world: int, jobs: list, tmp: str, what: str,
             for r in range(world)]
 
 
+def concurrently(*fns) -> list:
+    """Each no-argument callable in a thread of its own, all at once (the
+    launches of ranks a phase holds apart: their processes share the card
+    and the host, so their wall times are of a busier card); their results
+    in order.  Every thread is joined before the first error is raised."""
+    results, errors = [None] * len(fns), [None] * len(fns)
+
+    def run(i, fn):
+        try:
+            results[i] = fn()
+        except BaseException as e:  # raised below, once all have ended
+            errors[i] = e
+
+    threads = [threading.Thread(target=run, args=(i, fn))
+               for i, fn in enumerate(fns)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    for e in errors:
+        if e is not None:
+            raise e
+    return results
+
+
 def tp22_replicas(name, runs, pairs, only=None) -> None:
     """Each pair of ranks holds the same bits after every step, in every
     parameter (``only``: in the parameters it selects)."""
@@ -7744,32 +7885,8 @@ def phase_tp_dp(smi: str) -> dict:
     tmp = tempfile.mkdtemp(prefix="tp22_")
     try:
         gloo = {"backend": "gloo"}
-        # the gloo probe and (a) the fp32 toy at tp 2 in one launch
-        toy2 = tp22_spawn(2, [dict(gloo, kind="probe", name="probe"),
-                              dict(gloo, kind="toy", name="toy",
-                                   argv=TOY22 + [
-                                       "--tensor-model-parallel-size", "2"])],
-                          tmp, "gloo probe, (a) fp32 toy at tp 2")
-        probe = toy2
-        log(f"  gloo on this card (rank 0): {probe[0]['probe']}")
-        nccl = tp22_spawn(1, [dict(kind="nccl", name="nccl",
-                                   backend="nccl")], tmp, "nccl")[0]["nccl"]
-        log(f"  (e) NCCL at world 1: backend {nccl['backend']}, bitwise "
-            f"{nccl['bitwise']}")
-        if nccl["backend"] != "nccl" or not all(nccl["bitwise"]):
-            raise AssertionError("(e) NCCL at world 1 is not the identity")
-
-        # (a) the fp32 toy, tp 2 against tp 1 from the same master weights
+        # the references of (a) and (b) on this process, at tp 1
         toy1 = tp22_toy(TOY22, CARD)
-        for r, res in enumerate(toy2):
-            for a, b in zip(res["toy"], toy1):
-                if not abs(a - b) <= TOY22_ATOL + TOY22_RTOL * abs(b):
-                    raise AssertionError(f"(a) rank {r}: {res['toy']} vs "
-                                         f"tp 1 {toy1}")
-        log(f"  (a) fp32 toy: tp 2 {toy2[0]['toy']}, tp 1 {toy1} (rtol "
-            f"{TOY22_RTOL}, atol {TOY22_ATOL}): ok")
-
-        # (b) GPT-1.3B width at tp 2 against tp 1, three steps
         steps = ["--train-iters", str(TP22_STEPS)]
         ref = []
         torch.cuda.reset_peak_memory_stats()
@@ -7781,17 +7898,52 @@ def phase_tp_dp(smi: str) -> dict:
             f"{ref_s:.1f} s, peak "
             f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
         torch.cuda.empty_cache()
+
+        # three launches side by side: NCCL at world 1; two ranks for the
+        # gloo probe, (a) the fp32 toy at tp 2 and (b) GPT-1.3B width at
+        # tp 2 (run, re-run with a save, resume); four for (c) tp 2 x dp 2
         ck = os.path.join(tmp, "ckpt")
         tp2 = ["--tensor-model-parallel-size", "2"]
-        runs = tp22_spawn(2, [
-            dict(gloo, kind="train", name="run",
-                 dropout_probe_at=TP22_STEPS, argv=TP22_TRAIN + tp2 + steps),
-            dict(gloo, kind="train", name="saved",
-                 argv=TP22_TRAIN + tp2 + ["--train-iters", "2", "--save",
-                                           ck]),
-            dict(gloo, kind="train", name="resumed",
-                 argv=TP22_TRAIN + tp2 + steps + ["--load", ck])],
-            tmp, "(b) GPT-1.3B width at tp 2")
+        log("  the three launches below run side by side: their wall times "
+            "are of a card shared by seven ranks")
+        nccl, runs, dp_runs = concurrently(
+            lambda: tp22_spawn(1, [dict(kind="nccl", name="nccl",
+                                        backend="nccl")], tmp, "nccl"),
+            lambda: tp22_spawn(2, [
+                dict(gloo, kind="probe", name="probe"),
+                dict(gloo, kind="toy", name="toy", argv=TOY22 + tp2),
+                dict(gloo, kind="train", name="run",
+                     dropout_probe_at=TP22_STEPS,
+                     argv=TP22_TRAIN + tp2 + steps),
+                dict(gloo, kind="train", name="saved",
+                     argv=TP22_TRAIN + tp2 + ["--train-iters", "2",
+                                               "--save", ck]),
+                dict(gloo, kind="train", name="resumed",
+                     argv=TP22_TRAIN + tp2 + steps + ["--load", ck])],
+                tmp, "gloo probe, (a) fp32 toy and (b) GPT-1.3B width at "
+                "tp 2"),
+            lambda: tp22_spawn(4, [dict(gloo, kind="train", name="run",
+                                        argv=TP22_TRAIN + tp2 + TP22_DP
+                                        + steps)],
+                               tmp, "(c) GPT-1.3B width at tp 2 x dp 2"))
+        nccl = nccl[0]["nccl"]
+        log(f"  (e) NCCL at world 1: backend {nccl['backend']}, bitwise "
+            f"{nccl['bitwise']}")
+        if nccl["backend"] != "nccl" or not all(nccl["bitwise"]):
+            raise AssertionError("(e) NCCL at world 1 is not the identity")
+        probe = runs
+        log(f"  gloo on this card (rank 0): {probe[0]['probe']}")
+
+        # (a) the fp32 toy, tp 2 against tp 1 from the same master weights
+        for r, res in enumerate(runs):
+            for a, b in zip(res["toy"], toy1):
+                if not abs(a - b) <= TOY22_ATOL + TOY22_RTOL * abs(b):
+                    raise AssertionError(f"(a) rank {r}: {res['toy']} vs "
+                                         f"tp 1 {toy1}")
+        log(f"  (a) fp32 toy: tp 2 {runs[0]['toy']}, tp 1 {toy1} (rtol "
+            f"{TOY22_RTOL}, atol {TOY22_ATOL}): ok")
+
+        # (b) GPT-1.3B width at tp 2 against tp 1, three steps
         run = [r["run"] for r in runs]
         losses = [s["loss"] for s in run[0]["steps"]]
         if [s["loss"] for s in run[1]["steps"]] != losses:
@@ -7823,10 +7975,6 @@ def phase_tp_dp(smi: str) -> dict:
             "and not the dropout-free one")
 
         # (c) tp 2 x dp 2 on the same global batch
-        dp_runs = tp22_spawn(4, [dict(gloo, kind="train", name="run",
-                                      argv=TP22_TRAIN + tp2 + TP22_DP
-                                      + steps)],
-                             tmp, "(c) GPT-1.3B width at tp 2 x dp 2")
         dp = [r["run"] for r in dp_runs]
         gap_c = tp22_losses("(c) tp 2 x dp 2 against (b)",
                             [s["loss"] for s in dp[0]["steps"]], losses,
@@ -7845,7 +7993,8 @@ def phase_tp_dp(smi: str) -> dict:
                 raise AssertionError(f"(f) {what} rank {r} launched "
                                      f"{res['launches']}, expected {want}")
     log(f"  (f) launches of every rank of (b) and (c): {want} (K3 L, K4 L, "
-        f"K6 4L+1, K7 2L+1 a step, L = {TP22_LAYERS}, {TP22_STEPS} steps)")
+        f"K6 2L+1 (no remat below 12 layers), K7 2L+1 a step, L = "
+        f"{TP22_LAYERS}, {TP22_STEPS} steps)")
 
     # (g) the record: wall time, the collectives' share, each rank's peak
     def summary(rr):
@@ -7886,12 +8035,18 @@ def phase_tp_dp(smi: str) -> dict:
 # schedules' numbers, kernels and memory are checked on the card; their
 # speed over several cards is not.
 
-PP23_KW = dict(GPT1P3B_KW, attention_dropout=0.0, hidden_dropout=0.0)
+# GPT-1.3B width cut to 8 layers (4 a stage at pp 2, 1 a chunk at pp 4 x
+# vpp 2): the phase checks the schedules' numbers, kernels and memory, not
+# the depth; at 24 layers it took 72.1-104.3 s of the script's 1200 s on
+# an NVIDIA H100 80GB HBM3 at 700.00 W, its launches one after the other
+PP23_LAYERS = 8
+PP23_KW = dict(GPT1P3B_KW, num_layers=PP23_LAYERS, attention_dropout=0.0,
+               hidden_dropout=0.0)
 PP23_M, PP23_SEQ = 4, 2048            # micro-batch 1: phase 7's 4 x 2048
 PP23_STEPS, PP23_VPP_STEPS, PP23_AMP_STEPS = 3, 2, 3
 PP23_LR = 1.5e-4
 PP23_SEED = 0
-PP23_AMP_LAYERS = 12                  # (c) cut as phase 22 is
+PP23_AMP_LAYERS = 4                   # (c) cut as phase 22 is
 PP23_PLANT_AT = 2
 # a stage's input, [1, 2048, 2048] bf16: the m = 8 peak may pass the m = 4
 # peak by less than this (the saved inputs do not grow with m)
@@ -7986,8 +8141,8 @@ def pp23_reference(batch, tied: bool) -> dict:
     (``forward_backward_no_pipelining`` over ``make_gpt_stage_fns``,
     FusedAdam): ``tied``, the whole model (tp 1 / pp 1: one word embedding
     for the input and the head); untied, the two halves of (a) chained
-    (the first 12 layers with the embeddings, the last 12 with the final
-    LayerNorm and the head's own copy of the word embedding), which is
+    (the first half of the layers with the embeddings, the second with the
+    final LayerNorm and the head's own copy of the word embedding), which is
     (a)'s arithmetic without its schedule.  Losses and step 1's gradient
     statistics."""
     from apex_tpu_torch.transformer.pipeline_parallel import (
@@ -8301,8 +8456,8 @@ def phase_pipeline(smi: str) -> dict:
     rows = pp23_kernel_rows(43)
     batch = pp23_batch(PP23_M, CARD)
     ref = pp23_reference(batch, tied=True)
-    log(f"  tp 1 / pp 1 reference (this process, 24 layers, 4 microbatches "
-        f"of 1): losses {ref['losses']}, {ref['wall_s']:.1f} s")
+    log(f"  tp 1 / pp 1 reference (this process, {PP23_LAYERS} layers, 4 "
+        f"microbatches of 1): losses {ref['losses']}, {ref['wall_s']:.1f} s")
     chain = pp23_reference(batch, tied=False)
     log(f"  the two halves chained in this process (untied, no schedule): "
         f"losses {chain['losses']}, {chain['wall_s']:.1f} s")
@@ -8312,18 +8467,23 @@ def phase_pipeline(smi: str) -> dict:
     tmp = tempfile.mkdtemp(prefix="pp23_")
     try:
         base = dict(batch=host, steps=PP23_STEPS)
-        a = tp22_spawn(2, [dict(base, name="run", tp=1, pp=2, memory=True),
-                           dict(base, name="rerun", tp=1, pp=2)],
-                       tmp, "(a) 1F1B at pp 2, 24 layers", body=phase23_rank)
-        bc = tp22_spawn(4, [dict(base, name="vpp", tp=1, pp=4, vpp=2,
-                                 steps=PP23_VPP_STEPS),
-                            dict(base, name="amp", tp=2, pp=2, amp=True,
-                                 plant_at=PP23_PLANT_AT,
-                                 steps=PP23_AMP_STEPS,
-                                 cfg=dict(num_layers=PP23_AMP_LAYERS,
-                                          bf16=False, fp16=True))],
-                        tmp, "(b) pp 4 x vpp 2 and (c) amp at tp 2 x pp 2",
-                        body=phase23_rank)
+        log("  the launches of (a) and of (b)-(c) run side by side: their "
+            "wall times are of a card shared by six ranks")
+        a, bc = concurrently(
+            lambda: tp22_spawn(
+                2, [dict(base, name="run", tp=1, pp=2, memory=True),
+                    dict(base, name="rerun", tp=1, pp=2)],
+                tmp, f"(a) 1F1B at pp 2, {PP23_LAYERS} layers",
+                body=phase23_rank),
+            lambda: tp22_spawn(
+                4, [dict(base, name="vpp", tp=1, pp=4, vpp=2,
+                         steps=PP23_VPP_STEPS),
+                    dict(base, name="amp", tp=2, pp=2, amp=True,
+                         plant_at=PP23_PLANT_AT, steps=PP23_AMP_STEPS,
+                         cfg=dict(num_layers=PP23_AMP_LAYERS, bf16=False,
+                                  fp16=True))],
+                tmp, "(b) pp 4 x vpp 2 and (c) amp at tp 2 x pp 2",
+                body=phase23_rank))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -8413,7 +8573,8 @@ def phase_pipeline(smi: str) -> dict:
                     if is_replicated(n) and dg != sb["digests"][n]:
                         raise AssertionError(f"(c) tp ranks {x}, {y} differ "
                                              f"in {n} after step {sa['step']}")
-    log(f"  (c) amp O2 fp16 at tp 2 x pp 2, 12 layers: losses {clos}, "
+    log(f"  (c) amp O2 fp16 at tp 2 x pp 2, {PP23_AMP_LAYERS} layers: "
+        f"losses {clos}, "
         f"skipped {ampr[0]['skipped']}, scales {scales[0]}: the overflow "
         f"planted on one rank at step {PP23_PLANT_AT} skipped bitwise on "
         "every rank, every scale halved; the replicated leaves bitwise equal "
@@ -8450,10 +8611,667 @@ def phase_pipeline(smi: str) -> dict:
                       "tp2_pp2": PP23_AMP_STEPS}}
 
 
-PHASE = {"n": 0, "name": "start"}
+# -- phase 24: ZeRO — the GPT-1.3B flagship train step (bench.py's headline),
+# over dp x tp ranks, sharded checkpoints and elastic recovery --------------
+#
+# (a) runs on this process with no process group (world 1: the collectives
+# are the identity); (c)-(e) run ranks sharing cuda:0 over gloo, as phases
+# 22-23 do, at GPT-1.3B width with the depth cut (they check layouts and
+# bits, not speed): 4 layers in (c), as phase 22 cuts it, 2 in (d)-(e),
+# whose checkpoints are written and read whole.
+
+ZERO24_OVER: dict = {}          # a CPU rehearsal shrinks the width here
+ZERO24_BATCH = (4, 2048)        # bench.py's flagship batch
+ZERO24_SEQ = 2048
+ZERO24_LR = 1e-4                # bench.py's flagship lr
+ZERO24_STEPS = 4                # timed, after one warm step
+# (c) cut to 4 layers, as phase 22 is: at 12 a (2, 2, 1) step took
+# 7.9-9.1 s a rank and the phase 249-312 s on an NVIDIA H100 80GB HBM3 at
+# 700.00 W, more than the script's 1200 s leave it; the layouts checked do
+# not change with the depth
+ZERO24_RANK_LAYERS = 4
+ZERO24_RANK_STEPS = 2
+ZERO24_SAVE_LAYERS = 2          # (d) and (e)
+ZERO24_ELASTIC_STEPS, ZERO24_LOSE_AT, ZERO24_LOST = 3, 2, [3]
+# (b): TOY_KW of tests/L0/test_flagship.py at fp32, plan fp32, lr 1e-3
+ZERO24_TOY = dict(num_layers=2, hidden_size=256, num_attention_heads=2,
+                  vocab_size=256, max_position_embeddings=64, bf16=False)
+ZERO24_TOY_LOSS_TOL = 1e-6      # relative, card vs CPU (read 9.5e-8)
+# absolute, ten times the largest gap read on an NVIDIA H100 80GB HBM3 at
+# 700.00 W (8.09e-5, in three runs: Adam's first steps move a weight whose
+# gradient is near eps by up to lr either way); two steps at lr 1e-3
+# move a weight by up to 2e-3, so a skipped update fails it
+ZERO24_TOY_WEIGHT_TOL = 8e-4
+ZERO24_SCALAR = ("flash_qkv_fwd", "flash_qkv_bwd", "layer_norm_fwd",
+                 "layer_norm_bwd")
+
+
+def zero24_cfg(layers=None, **over):
+    kw = dict(ZERO24_OVER, **over)
+    if layers is not None:
+        kw["num_layers"] = layers
+    return gpt1p3b_config(**kw)
+
+
+def zero24_batch(cfg, seed=24, device="cpu"):
+    """A seeded token batch [4, 2048] and its labels rolled by one."""
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    b, s = ZERO24_BATCH[0], min(ZERO24_SEQ, cfg.max_position_embeddings)
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen)
+    return tokens.to(device), tokens.roll(-1, -1).to(device)
+
+
+def tree_digests(tree, chunk=1 << 26) -> list:
+    """:func:`digest` of every leaf of a nested dict / tuple of tensors,
+    taken ``chunk`` elements at a time (the same two int64 sums, modulo
+    2^64, with int64 temporaries of ``chunk`` elements)."""
+    from apex_tpu_torch.multi_tensor.flat import _tree_flatten
+
+    out = []
+    for t in _tree_flatten(tree)[0]:
+        bits = t.detach().contiguous().view(-1)
+        bits = bits.view(torch.int16 if bits.element_size() == 2 else
+                         torch.int32)
+        s0 = s1 = 0
+        for a in range(0, bits.numel(), chunk):
+            b = bits[a:a + chunk].to(torch.int64)
+            w = torch.arange(a, a + b.numel(), device=b.device) % 1021 + 1
+            s0 += int(b.sum())
+            s1 += int((b * w).sum())
+        out.append(((s0 + 2 ** 63) % 2 ** 64 - 2 ** 63,
+                    (s1 + 2 ** 63) % 2 ** 64 - 2 ** 63))
+    return out
+
+
+def zero24_launches(layers: int, steps: int, names=TP22_KERNELS) -> dict:
+    """A step's launches under remat attn_res (phase 7's counts)."""
+    return dict(zip(names, (layers * steps, layers * steps,
+                            (4 * layers + 1) * steps,
+                            (2 * layers + 1) * steps)))
+
+
+def zero24_flagship(smi: str) -> dict:
+    """(a): bench.py's recipe on this card at world 1."""
+    from apex_tpu_torch.transformer.testing import (
+        FIT_PLANS, build_flagship_train_step, flagship_state_bytes)
+
+    cfg = zero24_cfg()
+    L = cfg.num_layers
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    fs = build_flagship_train_step(cfg, plan="bf16_fit", lr=ZERO24_LR,
+                                   device=CARD)
+    build_s = time.perf_counter() - t0
+    build_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    tokens, labels = zero24_batch(cfg, device=CARD)
+    p, s, loss = fs.step(fs.params, fs.opt_state, tokens, labels)
+    losses = [float(loss)]
+    after1 = (tree_digests(p), tree_digests(s))
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    enqueue, done = [], []
+    for _ in range(ZERO24_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p, s, loss = fs.step(p, s, tokens, labels)
+        enqueue.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        done.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    per_step = {k: launches.get(k, 0) / ZERO24_STEPS for k in TP22_KERNELS}
+    want = zero24_launches(L, 1)
+    log(f"  (a) world 1, no process group: build {build_s:.1f} s; losses "
+        f"{losses}; launches over {ZERO24_STEPS} steps {launches}, per step "
+        f"{per_step} (phase 7's tree step: {want})")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError("(a): non-finite loss")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"(a): the loss does not fall: {losses}")
+    expect = math.log(cfg.vocab_size) + 0.02 ** 2 * cfg.hidden_size / 2
+    if abs(losses[0] - expect) > STEP_LOSS_TOL:
+        raise AssertionError(f"(a): step 1 loss {losses[0]} is not within "
+                             f"{STEP_LOSS_TOL} of {expect:.3f}")
+    if per_step != {k: float(v) for k, v in want.items()} or any(
+            launches.get(k, 0) for k in ZERO24_SCALAR):
+        raise AssertionError("(a): launches a step are not phase 7's tree "
+                             "step's")
+    sb = flagship_state_bytes(cfg, FIT_PLANS["bf16_fit"])
+    prof = step_profile(lambda: fs.step(p, s, tokens, labels))
+    if prof["device_busy_ms"] > 0:
+        log("  (a) one step under torch.profiler: " + ", ".join(
+            f"{k} {v:.1f} ms ({v / prof['wall_ms']:.1%})"
+            for k, v in prof["by_kind_ms"].items())
+            + f"; wall {prof['wall_ms']:.1f} ms, device busy "
+              f"{prof['device_busy_ms']:.1f} ms, idle {prof['idle_share']:.1%}")
+        log_other_ops(prof)
+    del fs, p, s
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the same build from the same seed, its first step bitwise
+    fs = build_flagship_train_step(cfg, plan="bf16_fit", lr=ZERO24_LR,
+                                   device=CARD)
+    p, s, loss = fs.step(fs.params, fs.opt_state, tokens, labels)
+    same = float(loss) == losses[0] and (tree_digests(p),
+                                         tree_digests(s)) == after1
+    log(f"  (a) a re-build from the same seed, step 1: loss {float(loss)!r} "
+        f"vs {losses[0]!r}, params and moments bitwise equal: {same}")
+    if not same:
+        raise AssertionError("(a): the re-build is not bitwise the build")
+    n = gpt_param_count(cfg)
+    step_ms = statistics.median(done)
+    out = dict(params=n, build_s=build_s, losses=losses,
+               step_ms=step_ms, step_ms_all=done,
+               step_enqueue_ms=statistics.median(enqueue),
+               tok_per_s=ZERO24_BATCH[0] * tokens.shape[1] / step_ms * 1e3,
+               peak_gib=peak / 2 ** 30, build_peak_gib=build_peak / 2 ** 30,
+               state_bytes={k: v / 2 ** 30 for k, v in sb.items()},
+               launches=launches, launches_per_step=per_step,
+               deterministic=same, step_profile=prof, card=smi)
+    log(f"  (a) step {step_ms:.1f} ms (median of {ZERO24_STEPS}; host "
+        f"enqueue {out['step_enqueue_ms']:.1f} ms), {out['tok_per_s']:.0f} "
+        f"tok/s; build peak {out['build_peak_gib']:.2f} GiB; steps' peak "
+        f"{out['peak_gib']:.2f} GiB beside the step_peak "
+        f"{out['state_bytes']['step_peak']:.2f} GiB of flagship_state_bytes "
+        f"(+ activations), on {smi}")
+    del fs, p, s
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def zero24_toy() -> dict:
+    """(b): the fp32 toy, card against CPU, from one master."""
+    from apex_tpu_torch.transformer.testing import build_flagship_train_step
+
+    cfg = gpt1p3b_config(**ZERO24_TOY)
+    runs = {}
+    cpu = build_flagship_train_step(cfg, plan="fp32", lr=1e-3, device="cpu",
+                                    donate=False)
+    card = build_flagship_train_step(cfg, plan="fp32", lr=1e-3, device=CARD,
+                                     master=cpu.params)
+    gen = np.random.RandomState(1)
+    tokens = torch.from_numpy(gen.randint(0, cfg.vocab_size, (8, 64)))
+    labels = tokens.roll(-1, -1)
+    for name, fs in (("cpu", cpu), ("card", card)):
+        if name == "card":
+            kernels.reset_launch_counts()
+        p, s, losses = fs.params, fs.opt_state, []
+        for _ in range(2):
+            p, s, loss = fs.step(p, s, tokens, labels)
+            losses.append(float(loss))
+        runs[name] = (losses, [v.float().cpu() for v in _flat_leaves(p)])
+    launches = launch_counts()
+    dl = max(abs(a - b) / abs(b) for a, b in zip(runs["card"][0],
+                                                 runs["cpu"][0]))
+    dw = max(float((a - b).abs().max())
+             for a, b in zip(runs["card"][1], runs["cpu"][1]))
+    want = zero24_launches(cfg.num_layers, 2, ZERO24_SCALAR)
+    got = {k: launches.get(k, 0) for k in ZERO24_SCALAR}
+    log(f"  (b) the fp32 toy card vs CPU: losses {runs['card'][0]} vs "
+        f"{runs['cpu'][0]} (max rel gap {dl:.3e}, bar "
+        f"{ZERO24_TOY_LOSS_TOL:.0e}); weights max |gap| {dw:.3e} (bar "
+        f"{ZERO24_TOY_WEIGHT_TOL:.0e}); launches {got} (want {want})")
+    if not (dl <= ZERO24_TOY_LOSS_TOL and dw <= ZERO24_TOY_WEIGHT_TOL):
+        raise AssertionError("(b): the card's toy is not the CPU's")
+    if got != want:
+        raise AssertionError("(b): the toy's scalar-route launches differ")
+    return dict(loss_rel_gap=dl, weight_gap=dw, launches=got)
+
+
+def _flat_leaves(tree) -> list:
+    from apex_tpu_torch.multi_tensor.flat import _tree_flatten
+
+    return _tree_flatten(tree)[0]
+
+
+def zero24_train(job) -> dict:
+    """One flagship trajectory on this rank (a job of (c))."""
+    from apex_tpu_torch.parallel import comm
+    from apex_tpu_torch.transformer.testing import build_flagship_train_step
+
+    cfg = zero24_cfg(job["layers"])
+    kw = ({} if job["shape"] is None
+          else dict(mesh_shape=job["shape"], bucket_bytes=job["bucket"]))
+    t0 = time.perf_counter()
+    fs = build_flagship_train_step(cfg, plan="bf16_fit", lr=ZERO24_LR,
+                                   device=CARD, **kw)
+    build_s = time.perf_counter() - t0
+    if CARD == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    tokens, labels = job["batch"]
+    p, s = fs.params, fs.opt_state
+    steps = []
+    peak = 0
+    for i in range(job["steps"]):
+        comm.STATS.reset()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        p, s, loss = fs.step(p, s, tokens, labels)
+        loss = float(loss)
+        wall = time.perf_counter() - t0
+        if CARD == "cuda":      # the step's peak, not the digests'
+            peak = max(peak, torch.cuda.max_memory_allocated())
+        steps.append(dict(loss=loss, wall_s=wall, params=tree_digests(p),
+                          opt=tree_digests(s),
+                          ops=dict(comm.STATS.by_op),
+                          comm_s=comm.STATS.seconds,
+                          comm_bytes=comm.STATS.bytes,
+                          launches={k: v for k, v in launch_counts().items()}))
+        if CARD == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+    return dict(steps=steps, build_s=build_s,
+                n_buckets=(fs.bucket_plan.num_buckets
+                           if fs.bucket_plan else 1),
+                schema_total=fs.schema.total,
+                peak_gib=peak / 2 ** 30)
+
+
+def zero24_save(job) -> dict:
+    """(d): a (2, 2, 1) run saving each step sharded (format 4, each rank
+    its own shard); this rank's blocks after each step, on the host."""
+    import torch.distributed as dist
+
+    from apex_tpu_torch.resilience import save_zero_checkpoint
+    from apex_tpu_torch.resilience.elastic import _host_tree
+    from apex_tpu_torch.transformer.testing import build_flagship_train_step
+
+    cfg = zero24_cfg(job["layers"])
+    fs = build_flagship_train_step(cfg, plan="bf16_fit", lr=ZERO24_LR,
+                                   device=CARD, mesh_shape=job["shape"])
+    tokens, labels = job["batch"]
+    p, s = fs.params, fs.opt_state
+    states = {}
+    for step in (1, 2):
+        p, s, _ = fs.step(p, s, tokens, labels)
+        save_zero_checkpoint(job["dir"], (p, s), step=step,
+                             shardings=fs.shardings,
+                             shard_axes=fs.mesh_axes,
+                             group=dist.group.WORLD)
+        states[step] = _host_tree((p, s))
+    return dict(states=states, shardings=fs.shardings,
+                axes=fs.mesh_axes)
+
+
+def zero24_restore(job) -> dict:
+    """(d): the step's checkpoint restored onto this world's blocks."""
+    import torch.distributed as dist
+
+    from apex_tpu_torch.resilience import restore_zero_checkpoint
+    from apex_tpu_torch.resilience.elastic import _host_tree
+    from apex_tpu_torch.transformer.testing import build_flagship_train_step
+
+    fs = build_flagship_train_step(zero24_cfg(job["layers"]),
+                                   plan="bf16_fit", lr=ZERO24_LR,
+                                   device=CARD, mesh_shape=job["shape"])
+    state, step = restore_zero_checkpoint(
+        job["dir"], (fs.params, fs.opt_state), shardings=fs.shardings,
+        shard_axes=fs.mesh_axes, group=dist.group.WORLD, step=job["step"])
+    return dict(state=_host_tree(state), step=step)
+
+
+def zero24_golden(job) -> dict:
+    """(e): the recovery's checkpoint restored on the survivors' shape,
+    then the rest of the batches without interruption."""
+    import torch.distributed as dist
+
+    from apex_tpu_torch.resilience import restore_zero_checkpoint
+    from apex_tpu_torch.resilience.elastic import _host_tree
+
+    step_fn, state, shardings = job["build"](mesh_shape=job["shape"])
+    dp, tp, pp = job["shape"]
+    state, step = restore_zero_checkpoint(
+        job["dir"], state, shardings=shardings,
+        shard_axes={"data": dp, "pipeline": pp, "tensor": tp},
+        group=dist.group.WORLD, step=job["step"])
+    for batch in job["batches"][step:]:
+        state, _ = step_fn(state, batch)
+    return dict(losses=list(step_fn.losses), state=_host_tree(state),
+                shardings=shardings)
+
+
+def phase24_rank(rank, world, init_file, out, jobs):
+    """A rank of phase 24 (spawned): joins the gloo group, runs each job
+    (a barrier after each, so a checkpoint is whole before the next job
+    reads it) and writes the results to ``<out>/rank<r>.pt``."""
+    import torch.distributed as dist
+
+    from apex_tpu_torch.parallel import multiproc
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    multiproc.init_file_group("gloo", rank, world, init_file)
+    results = {}
+    for job in jobs:
+        fn = {"train": zero24_train, "save": zero24_save,
+              "restore": zero24_restore, "golden": zero24_golden}[job["kind"]]
+        results[job["name"]] = fn(job)
+        gc.collect()
+        if CARD == "cuda":
+            torch.cuda.empty_cache()
+        dist.barrier()
+    torch.save(results, os.path.join(out, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def zero24_ranks_same(what, runs) -> None:
+    """Every rank's parameters the same bits after every step."""
+    for i, st in enumerate(runs[0]["steps"]):
+        for r, run in enumerate(runs[1:], 1):
+            if run["steps"][i]["params"] != st["params"] or \
+                    run["steps"][i]["loss"] != st["loss"]:
+                raise AssertionError(f"{what}: rank {r} differs from rank 0 "
+                                     f"after step {i + 1}")
+
+
+def zero24_check_ranks(what, runs, layers) -> dict:
+    """(c)'s checks of one trajectory: parameters bitwise across ranks,
+    one reduce-scatter and one all-gather a bucket a step, each rank's
+    exact K3/K4/K6/K7 launches; its summary."""
+    zero24_ranks_same(what, runs)
+    nb = runs[0]["n_buckets"]
+    want = zero24_launches(layers, 1)
+    for r, run in enumerate(runs):
+        for i, st in enumerate(run["steps"]):
+            ops = st["ops"]
+            if ops.get("reduce_scatter") != nb or ops.get("all_gather") != nb:
+                raise AssertionError(f"{what}: rank {r} step {i + 1} ran "
+                                     f"{ops}, want {nb} reduce-scatters and "
+                                     f"all-gathers")
+            got = {k: st["launches"].get(k, 0) for k in TP22_KERNELS}
+            if got != want:
+                raise AssertionError(f"{what}: rank {r} step {i + 1} "
+                                     f"launched {got}, want {want}")
+    walls = [st["wall_s"] for run in runs for st in run["steps"]]
+    comm_s = [st["comm_s"] for run in runs for st in run["steps"]]
+    summary = dict(losses=[st["loss"] for st in runs[0]["steps"]],
+                   buckets=nb, ops_per_step=runs[0]["steps"][0]["ops"],
+                   comm_bytes_per_step=runs[0]["steps"][0]["comm_bytes"],
+                   step_s_per_rank=[[st["wall_s"] for st in run["steps"]]
+                                    for run in runs],
+                   build_s_per_rank=[run["build_s"] for run in runs],
+                   comm_share=sum(comm_s) / sum(walls),
+                   peak_gib_per_rank=[run["peak_gib"] for run in runs],
+                   launches_per_step=[{k: run["steps"][0]["launches"].get(
+                       k, 0) for k in TP22_KERNELS} for run in runs])
+    log(f"  {what}: losses {summary['losses']}, {nb} bucket(s), a step's "
+        f"collectives {summary['ops_per_step']}, "
+        f"{summary['comm_bytes_per_step'] / 2 ** 30:.2f} GiB carried by rank "
+        f"0; build s per rank {summary['build_s_per_rank']}; step s per rank "
+        f"{summary['step_s_per_rank']} (collectives "
+        f"{summary['comm_share']:.1%} of it); peak GiB per rank "
+        f"{[round(x, 2) for x in summary['peak_gib_per_rank']]}; parameters "
+        "bitwise equal on every rank after every step")
+    return summary
+
+
+def zero24_same_bits(what, a, b) -> None:
+    from apex_tpu_torch.utils.tree import keystr, tree_flatten_with_path
+
+    la, lb = tree_flatten_with_path(a)[0], tree_flatten_with_path(b)[0]
+    if len(la) != len(lb):
+        raise AssertionError(f"{what}: {len(la)} leaves vs {len(lb)}")
+    for (path, x), (_, y) in zip(la, lb):
+        bx = x.view(torch.int16) if x.element_size() == 2 else x
+        by = y.view(torch.int16) if y.element_size() == 2 else y
+        if x.dtype != y.dtype or x.shape != y.shape or not torch.equal(
+                bx.cpu(), by.cpu()):
+            raise AssertionError(
+                f"{what}: {keystr(path)} differs ({x.dtype} {tuple(x.shape)}"
+                f" vs {y.dtype} {tuple(y.shape)})")
+
+
+def zero24_expected_blocks(save_runs, step, axes_to, shard) -> list:
+    """The whole (2, 2, 1) stacks of a step re-partitioned onto ``axes_to``
+    (``shard`` elements a rank), one state per target rank (rank order):
+    what a restore there must give bitwise.  A leaf's flat value is its
+    C-order flatten; growth reads zeros, a shrink drops only zeros."""
+    from apex_tpu_torch.multi_tensor.flat import (_tree_flatten,
+                                                  _tree_unflatten,
+                                                  expand_specs,
+                                                  spec_lead_axes)
+    from apex_tpu_torch.resilience.elastic import stack_rank_states
+
+    sh, axes = save_runs[0]["shardings"], save_runs[0]["axes"]
+    whole = stack_rank_states([r["states"][step] for r in save_runs], sh,
+                              axes)
+    leaves, treedef = _tree_flatten(whole)
+    specs = expand_specs(sh, whole)
+    n_to, ones = int(np.prod(list(axes_to.values()))), (1,) * len(axes_to)
+    out = []
+    for r in range(n_to):
+        blk = []
+        for leaf, spec in zip(leaves, specs):
+            lead = spec_lead_axes(spec, axes)
+            if not lead:
+                blk.append(leaf)
+            elif leaf.dim() == len(lead):        # the step counter
+                blk.append(leaf.reshape(-1)[0].reshape(ones))
+            else:
+                flat = leaf.reshape(-1)
+                n = n_to * shard
+                if n > flat.numel():
+                    flat = torch.cat([flat, flat.new_zeros(n - flat.numel())])
+                elif n < flat.numel():
+                    if torch.any(flat[n:] != 0):
+                        raise AssertionError("(d): the stack's tail is real "
+                                             "state")
+                    flat = flat[:n]
+                blk.append(flat[r * shard:(r + 1) * shard].reshape(
+                    ones + (shard,)))
+        out.append(_tree_unflatten(treedef, blk))
+    return out
+
+
+def phase_zero(smi: str) -> dict:
+    """Phase 24 (see the module docstring)."""
+    from apex_tpu_torch.contrib.optimizers import DistributedFusedAdam
+    from apex_tpu_torch.resilience import (DeviceLoss,
+                                           restore_zero_checkpoint,
+                                           run_elastic_training)
+    from apex_tpu_torch.resilience.chaos import corrupt_shard
+    from apex_tpu_torch.resilience.elastic import stack_rank_states
+    from apex_tpu_torch.transformer.testing import (
+        FIT_PLANS, build_flagship_train_step, flagship_elastic_build,
+        flagship_state_bytes)
+    from apex_tpu_torch.transformer.testing.flagship import master_shapes
+
+    t_phase = time.perf_counter()
+
+    def lap(what):
+        log(f"  [{time.perf_counter() - t_phase:6.1f} s] {what}")
+
+    record = {"flagship": zero24_flagship(smi)}
+    lap("(a) done")
+    record["toy"] = zero24_toy()
+    lap("(b) done")
+    log(f"  {GLOO_WHY}")
+    tmp = tempfile.mkdtemp(prefix="zero24_")
+    try:
+        cfg_r = zero24_cfg(ZERO24_RANK_LAYERS)
+        batch_r = zero24_batch(cfg_r)
+        cfg_s = zero24_cfg(ZERO24_SAVE_LAYERS)
+        batch_s = zero24_batch(cfg_s, seed=25)
+        save_dir = os.path.join(tmp, "ckpt221")
+        base = dict(layers=ZERO24_RANK_LAYERS, steps=ZERO24_RANK_STEPS,
+                    batch=batch_r)
+        # (e) elastic: four ranks at (2, 2, 1) lose rank 3 at step 2
+        edir = os.path.join(tmp, "elastic")
+        build = flagship_elastic_build(cfg_s, plan="bf16_fit", lr=ZERO24_LR,
+                                       device=CARD)
+        batches = [zero24_batch(cfg_s, seed=30 + i % 2)
+                   for i in range(ZERO24_ELASTIC_STEPS)]
+        dl = DeviceLoss(at_step=ZERO24_LOSE_AT, device_ids=ZERO24_LOST)
+
+        def elastic():
+            t0 = time.perf_counter()
+            res = run_elastic_training(
+                build, list(range(4)), batches, ckpt_dir=edir, save_every=1,
+                on_step=dl.poll, max_restarts=1, mesh_shape=(2, 2, 1),
+                batch_size=ZERO24_BATCH[0],
+                work_dir=os.path.join(tmp, "ework"), log_fn=log)
+            return res, time.perf_counter() - t0
+
+        log("  (c)-(d)'s launch of four ranks and (e)'s recovery run side by "
+            "side, then the two-rank launch beside (d)'s restores on this "
+            "process: their wall times are of a shared card")
+        a, (res, elastic_s) = concurrently(
+            lambda: tp22_spawn(4, [
+                dict(base, kind="train", name="bucketed", shape=(2, 2, 1),
+                     bucket="auto"),
+                dict(base, kind="train", name="serialized", shape=(2, 2, 1),
+                     bucket=None),
+                dict(kind="save", name="save", layers=ZERO24_SAVE_LAYERS,
+                     shape=(2, 2, 1), batch=batch_s, dir=save_dir)],
+                tmp, "(c) (2, 2, 1) bucketed and serialized, (d) a sharded "
+                "save", body=phase24_rank),
+            elastic)
+        lap("(c) at (2, 2, 1), (d)'s save and (e)'s recovery done")
+        plan = FIT_PLANS["bf16_fit"]
+        ranks = {}
+        for name in ("bucketed", "serialized"):
+            ranks[name] = zero24_check_ranks(
+                f"(c) (2, 2, 1) {name}, {ZERO24_RANK_LAYERS} layers",
+                [r[name] for r in a], ZERO24_RANK_LAYERS)
+        for r, run in enumerate(a):
+            x, y = run["bucketed"]["steps"], run["serialized"]["steps"]
+            if [(s["loss"], s["params"], s["opt"]) for s in x] != \
+                    [(s["loss"], s["params"], s["opt"]) for s in y]:
+                raise AssertionError(f"(c) rank {r}: bucketed and "
+                                     "serialized are not bitwise equal")
+        log("  (c) bucketed == serialized: losses, parameters and moments "
+            "bitwise on every rank after every step")
+        log(f"  (e) elastic: lost {res.lost_devices}, resumed on "
+            f"{res.mesh_shape} ({len(res.devices)} ranks), step {res.step}, "
+            f"restarts {res.restarts}, losses {res.losses}, "
+            f"{elastic_s:.1f} s")
+        if not (res.restarts == 1 and res.mesh_shape == (1, 2, 1)
+                and res.step == ZERO24_ELASTIC_STEPS):
+            raise AssertionError("(e): the recovery is not the expected one")
+
+        # (d): the restores, each bitwise the re-partitioned stacks; onto
+        # world 1 on this process while the two ranks run
+        saves = [r["save"] for r in a]
+        adam = DistributedFusedAdam()
+        totals = {n: adam.make_schema(master_shapes(cfg_s), n).total
+                  for n in (1, 2)}
+        held = {}
+
+        def restore_world1():
+            fs1 = build_flagship_train_step(cfg_s, plan="bf16_fit",
+                                            lr=ZERO24_LR, device=CARD)
+            held["target"] = (fs1.params, fs1.opt_state)
+            one, _ = restore_zero_checkpoint(save_dir, held["target"])
+            want1 = zero24_expected_blocks(saves, 2, {"data": 1},
+                                           totals[1])[0]
+            zero24_same_bits("(d) restore onto world 1", one, want1)
+
+        b, _ = concurrently(
+            lambda: tp22_spawn(2, [
+                dict(kind="train", name="dp2", layers=ZERO24_RANK_LAYERS,
+                     steps=ZERO24_RANK_STEPS, batch=batch_r, shape=None,
+                     bucket="auto"),
+                dict(kind="restore", name="restore211",
+                     layers=ZERO24_SAVE_LAYERS, shape=(2, 1, 1),
+                     dir=save_dir, step=2),
+                dict(kind="golden", name="golden", build=build,
+                     shape=res.mesh_shape, dir=edir, step=ZERO24_LOSE_AT - 1,
+                     batches=batches)],
+                tmp, "(c) dp 2, (d) restore onto (2, 1, 1), (e) the golden",
+                body=phase24_rank),
+            restore_world1)
+        lap("the two-rank launch and (d)'s restore onto world 1 done")
+        ranks["dp2"] = zero24_check_ranks(
+            f"(c) dp 2 single-axis, {ZERO24_RANK_LAYERS} layers",
+            [r["dp2"] for r in b], ZERO24_RANK_LAYERS)
+        for name, n in (("bucketed", 4), ("serialized", 4), ("dp2", 2)):
+            ranks[name]["state_bytes_gib"] = {
+                k: v / 2 ** 30 for k, v in flagship_state_bytes(
+                    cfg_r, plan, n_shards=n).items()}
+        want211 = zero24_expected_blocks(saves, 2, {"data": 2, "pipeline": 1,
+                                                    "tensor": 1},
+                                         totals[2] // 2)
+        for r, run in enumerate(b):
+            got = run["restore211"]
+            if got["step"] != 2:
+                raise AssertionError("(d): the (2, 1, 1) restore's step")
+            zero24_same_bits(f"(d) restore onto (2, 1, 1), rank {r}",
+                             got["state"], want211[r])
+        log("  (d) format 4 at (2, 2, 1) restored onto (2, 1, 1) and onto "
+            "world 1: bitwise the re-partitioned stacks")
+        # the corruption only once no rank reads the checkpoint
+        bad = corrupt_shard(save_dir, 2, (1, 0, 1))
+        try:
+            ckpt.verify_checkpoint(save_dir, 2)
+            raise AssertionError("(d): a corrupt shard verified")
+        except ckpt.CheckpointCorruptionError as e:
+            if os.path.basename(bad) not in str(e):
+                raise AssertionError(f"(d): verify did not name "
+                                     f"{os.path.basename(bad)}: {e}")
+            log(f"  (d) corrupt_shard(step 2, (1, 0, 1)): verify names it: "
+                f"{str(e)[:160]}")
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            back, step = restore_zero_checkpoint(save_dir, held["target"])
+        want_back = zero24_expected_blocks(saves, 1, {"data": 1},
+                                           totals[1])[0]
+        zero24_same_bits("(d) fallback to step 1", back, want_back)
+        if step != 1 or not any(issubclass(w.category,
+                                           CheckpointFallbackWarning)
+                                for w in seen):
+            raise AssertionError("(d): no fallback to the intact step 1")
+        log("  (d) restore_zero_checkpoint fell back to step 1 (warned), "
+            "bitwise step 1's state")
+        lap("(d)'s fallback done")
+        del held, back
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        gold = [r["golden"] for r in b]
+        if res.losses[ZERO24_LOSE_AT:] != gold[0]["losses"]:
+            raise AssertionError(f"(e): losses {res.losses} vs the golden "
+                                 f"{gold[0]['losses']}")
+        want_e = stack_rank_states([g["state"] for g in gold],
+                                   gold[0]["shardings"],
+                                   {"data": 1, "pipeline": 1, "tensor": 2})
+        zero24_same_bits("(e) the recovery vs its golden", res.state, want_e)
+        log("  (e) the recovery ends bitwise the golden run from the same "
+            "checkpoint on (1, 2, 1)")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    record.update(ranks=ranks, elastic=dict(
+        lost=res.lost_devices, shape=res.mesh_shape, losses=res.losses,
+        wall_s=elastic_s))
+    record["wall_s"] = time.perf_counter() - t_phase
+    log("  phase 24 " + json.dumps({k: v for k, v in record.items()
+                                    if k not in ("flagship",)}, default=str))
+    log(f"  phase 24 took {record['wall_s']:.1f} s")
+    return record
+
+
+PHASE = {"n": 0, "name": "start", "t": None, "t0": None}
+
+
+def phase_lap() -> None:
+    """The phase that ends now: its seconds and the script's so far, on
+    standard output and standard error (where a run cut at its time limit
+    still shows how far it got)."""
+    now = time.perf_counter()
+    if PHASE["t"] is not None:
+        line = (f"  [phase {PHASE['n']} took {now - PHASE['t']:.1f} s; "
+                f"script at {now - PHASE['t0']:.1f} s]")
+        log(line)
+        print(line.strip(), file=sys.stderr, flush=True)
+    PHASE["t"] = now
+    if PHASE["t0"] is None:
+        PHASE["t0"] = now
 
 
 def begin(n: int, name: str, detail: str = "") -> None:
+    phase_lap()
     PHASE.update(n=n, name=name)
     log(f"phase {n} {name}{detail}")
 
@@ -8558,7 +9376,8 @@ def main() -> int:
     log(f"  phase 17 took {time.perf_counter() - t17:.1f} s")
     torch.cuda.empty_cache()
 
-    begin(18, "GPT-1.3B training: checkpoint, preempt, resume (--data-dir "
+    begin(18, f"GPT-1.3B training ({RESUME_LAYERS} layers): checkpoint, "
+          "preempt, resume (--data-dir "
           "shards, an async save at 2, a SIGTERM after 3, resumed to 6 from "
           "3 and, past a corrupt step 3, from 2)")
     t18 = time.perf_counter()
@@ -8587,7 +9406,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     begin(22, "tensor- and data-parallel GPT training on torch.distributed "
-          f"(GPT-1.3B width, {TP22_LAYERS} layers, bf16, remat attn_res: tp "
+          f"(GPT-1.3B width, {TP22_LAYERS} layers, bf16, no remat: tp "
           "2, tp 2 x dp 2, a tp 2 save and resume; the fp32 toy tp 2 vs tp "
           "1; NCCL at world 1), the ranks sharing this card over gloo")
     tpdp = phase_tp_dp(smi)
@@ -8595,13 +9414,26 @@ def main() -> int:
 
     begin(23, "pipeline-parallel GPT training on torch.distributed "
           "(GPT-1.3B width, bf16, remat attn_res, micro-batch 1 x 4: 1F1B at "
-          "pp 2 with 24 layers against tp 1 / pp 1, interleaved at pp 4 x vpp "
-          "2, bench.py's amp leg at tp 2 x pp 2 with 12 layers in fp16 and a "
+          f"pp 2 with {PP23_LAYERS} layers against tp 1 / pp 1, interleaved "
+          "at pp 4 x vpp "
+          f"2, bench.py's amp leg at tp 2 x pp 2 with {PP23_AMP_LAYERS} "
+          "layers in fp16 and a "
           "planted overflow), the stages sharing this card over gloo")
     pipe = phase_pipeline(smi)
     torch.cuda.empty_cache()
+
+    begin(24, "ZeRO: the GPT-1.3B flagship train step (bench.py's headline: "
+          "DistributedFusedAdam, bf16_fit, batch 4 x 2048) at world 1, the "
+          "fp32 toy card vs CPU, dp 2 and (dp, tp, pp) = (2, 2, 1) bucketed "
+          f"and serialized ({ZERO24_RANK_LAYERS} layers), a format-4 save "
+          "restored onto (2, 1, 1) and world 1 past a corrupt shard, elastic "
+          f"recovery from the loss of a rank ({ZERO24_SAVE_LAYERS} layers), "
+          "the ranks sharing this card over gloo")
+    zero = phase_zero(smi)
+    torch.cuda.empty_cache()
+    phase_lap()
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
-    PHASE.update(n=24, name="record")
+    PHASE.update(n=25, name="record")
     policies = rest["policies"]
 
     amp_toy_adam16 = {"launches": amp_toy["launches"]["O2 fp16 adam"]}
@@ -8683,11 +9515,18 @@ def main() -> int:
         # they replaced there
         dict(name=name, route="cuda", source=f"apex_tpu_torch/csrc/{src}",
              replaces=where, launches=runs["launches"][name],
-             **({} if runs is toy_train else dict(
+             **(dict(launches_zero_toy=zero["toy"]["launches"][name])
+                if runs is toy_train else dict(
                  launches_resume=resume["launches"][name],
                  # phase 19: pretrain_gpt under each remat policy
                  launches_policies={p: r["launches"][name]
-                                    for p, r in policies.items()})),
+                                    for p, r in policies.items()},
+                 # phase 24: the ZeRO flagship step's (world 1, its timed
+                 # steps) and each dp 2 rank's a step
+                 launches_zero_flagship=zero["flagship"]["launches"][name],
+                 launches_zero_per_step_ranks_dp2=[
+                     r[name] for r in zero["ranks"]["dp2"][
+                         "launches_per_step"]])),
              **timings[name])
         for name, src, where, runs in (
             ("flash_qkv_fwd_sm90", "flash_qkv_fwd_sm90.cu",
@@ -8735,6 +9574,10 @@ def main() -> int:
              launches=tpdp["launches"][name],
              launches_ranks_tp2=[r[name] for r in tpdp["ranks_tp2"]],
              launches_ranks_tp2_dp2=[r[name] for r in tpdp["ranks_tp2_dp2"]],
+             # phase 24: each (2, 2, 1) rank's a step, bucketed
+             launches_zero_per_step_ranks_221=[
+                 r[name] for r in zero["ranks"]["bucketed"][
+                     "launches_per_step"]],
              **tpdp["rows"][f"{name}_tp2"])
         for name, where in (("flash_qkv_fwd_sm90",
                              "apex_tpu/ops/attention.py:1766"),
@@ -8771,7 +9614,9 @@ def main() -> int:
         dict(name=name, route="cuda", source=f"apex_tpu_torch/csrc/{src}",
              replaces=where, launches=runs["launches"][name],
              **(dict(launches_softmax_toy=rest["softmax_gpt"]["toy_mask"][
-                 "launches"][name]) if runs is toy_train else dict(
+                 "launches"][name],
+                 launches_zero_toy=zero["toy"]["launches"][name])
+                if runs is toy_train else dict(
                  launches_mha=mha["launches"][name],
                  launches_flat=flat["launches"][name],
                  launches_microbench=probes["launches"][name],
@@ -8791,7 +9636,16 @@ def main() -> int:
                  launches_per_step_ranks_pp2=[
                      lp[name] for lp in pipe["launches"]["pp2"]],
                  launches_per_step_ranks_pp4_vpp2=[
-                     lp[name] for lp in pipe["launches"]["pp4_vpp2"]])),
+                     lp[name] for lp in pipe["launches"]["pp4_vpp2"]],
+                 # phase 24: the ZeRO flagship step's, and each rank's a
+                 # step at dp 2 and at (2, 2, 1)
+                 launches_zero_flagship=zero["flagship"]["launches"][name],
+                 launches_zero_per_step_ranks_dp2=[
+                     r[name] for r in zero["ranks"]["dp2"][
+                         "launches_per_step"]],
+                 launches_zero_per_step_ranks_221=[
+                     r[name] for r in zero["ranks"]["bucketed"][
+                         "launches_per_step"]])),
              **timings[name])
         for name, src, where, runs in (
             ("layer_norm_fwd_sm90", "layer_norm_sm90.cu",

@@ -32,6 +32,7 @@ from apex_tpu.resilience import chaos as jchaos
 from apex_tpu.resilience import restore as jrestore
 from apex_tpu_torch import checkpoint as tckpt
 from apex_tpu_torch.checkpoint import checkpoint as tckpt_mod
+from apex_tpu_torch.multi_tensor.flat import PartitionSpec as TP
 from apex_tpu_torch.resilience import async_checkpoint as tasync
 from apex_tpu_torch.resilience import chaos as tchaos
 from apex_tpu_torch.resilience import restore as trestore
@@ -431,7 +432,12 @@ def test_keep_prunes_and_collisions_and_sharded_saves_refuse(tmp_path):
         tckpt.save_checkpoint(d, OrderedDict([(0, torch.ones(1)),
                                               ("0", torch.ones(1))]),
                               step=4)
-    with pytest.raises(NotImplementedError):
+    # a sharded save names its per-rank leaves through shardings (JAX's
+    # refusal); sharded saves themselves are tests/test_torch_elastic.py's
+    with pytest.raises(ValueError, match="requires shardings"):
         tckpt.save_checkpoint(d, tree, step=5, shard_axis="data")
+    with pytest.raises(ValueError, match="npz-only"):
+        tckpt.save_checkpoint(d, tree, step=5, shard_axis="data",
+                              shardings=TP(), packed=True)
     with pytest.raises(ValueError, match="JSON"):
         tckpt.save_checkpoint(d, tree, step=6, data_state={"x": object()})

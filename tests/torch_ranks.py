@@ -531,3 +531,231 @@ def pipeline_checks(rank, world, init_file, out, case):
     res["coords"] = parallel_state.get_rank_info()
     parallel_state.destroy_model_parallel()
     _write(out, rank, res)
+
+
+# -- tests/test_torch_zero.py ---------------------------------------------------
+
+def _tree_t(tree, dtype=None):
+    """A nested dict of numpy arrays as tensors (``dtype`` if given)."""
+    if isinstance(tree, dict):
+        return {k: _tree_t(v, dtype) for k, v in tree.items()}
+    t = torch.from_numpy(np.array(tree))
+    return t if dtype is None else t.to(dtype)
+
+
+def _np_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _np_tree(v) for k, v in tree.items()}
+    return tree.detach().float().numpy().copy() if tree.dtype in (
+        torch.bfloat16, torch.float16) else tree.detach().numpy().copy()
+
+
+def _opt_runs(group, world, rank, case):
+    """Every optimizer case of ``case["opt_cases"]`` at this world: three
+    (or the case's) steps from fresh state over per-rank gradients."""
+    from apex_tpu_torch.contrib.optimizers import (DistributedFusedAdam,
+                                                   DistributedFusedLAMB)
+    out = {}
+    for name, kind, kw, steps, dtype in case["opt_cases"]:
+        kw = dict(kw)
+        for k in ("scatter_dtype", "gather_dtype", "exp_avg_dtype"):
+            if k in kw:
+                kw[k] = getattr(torch, kw[k])
+        cls = DistributedFusedAdam if kind == "adam" else DistributedFusedLAMB
+        opt = cls(**kw)
+        dt = getattr(torch, dtype)
+        p = _tree_t(case["params"], dt)
+        schema = opt.make_schema(p, world)
+        state = opt.init(p, schema, world)
+        for s in range(steps):
+            g = _tree_t(case["grads"][world][s][rank], dt)
+            p, state = opt.step(g, state, p, schema, group)
+        out[name] = (_np_tree(p), tuple(
+            (a.float() if a.dtype == torch.bfloat16 else a).numpy().copy()
+            for a in state))
+    return out
+
+
+def _flagship_run(case, run):
+    """One flagship trajectory of ``case``: losses, final params (this
+    rank's), opt block, bucket count, and the collectives a step ran."""
+    from apex_tpu_torch.parallel import comm
+    from apex_tpu_torch.transformer.testing import (build_flagship_train_step,
+                                                    gpt1p3b_config)
+    name, shape, bb, plan, steps = run[:5]
+    switch = run[5] if len(run) > 5 else None
+    cfg = gpt1p3b_config(**case["toy_kw"])
+    kw = {} if shape is None else dict(mesh_shape=shape, bucket_bytes=bb)
+    fs = build_flagship_train_step(cfg, plan=plan, lr=case["lr"],
+                                   device="cpu", master=case["master"], **kw)
+    fs2 = None
+    if switch is not None:   # the plan B of a cross-plan resume
+        fs2 = build_flagship_train_step(cfg, plan=plan, lr=case["lr"],
+                                        device="cpu", master=case["master"],
+                                        mesh_shape=shape, bucket_bytes=switch)
+    tokens = torch.from_numpy(case["tokens"]).long()
+    labels = torch.from_numpy(case["labels"]).long()
+    p, s = fs.params, fs.opt_state
+    losses, ops = [], []
+    for i in range(steps):
+        comm.STATS.reset()
+        stepper = fs2 if (fs2 is not None and i >= steps // 2) else fs
+        p, s, loss = stepper.step(p, s, tokens, labels)
+        losses.append(float(loss))
+        ops.append(dict(comm.STATS.by_op))
+    return dict(losses=losses, params=_np_tree(p), opt=tuple(
+        (a.float() if a.dtype == torch.bfloat16 else a).numpy().copy()
+        for a in s), n_buckets=(fs.bucket_plan.num_buckets
+                                if fs.bucket_plan is not None else None),
+        ops=ops, schema_total=fs.schema.total)
+
+
+def zero_checks(rank, world, init_file, out, case):
+    """The optimizers at world 2 (ranks 0-1 in a subgroup) and 4, the
+    comm pair, and the flagship runs of ``case["runs"]``."""
+    import torch.distributed as dist
+
+    from apex_tpu_torch.parallel import comm
+    init_file_group("gloo", rank, world, init_file)
+    pair = dist.new_group([0, 1])
+    res = {"opt": {}}
+    res["opt"][world] = _opt_runs(None if world == 1 else dist.group.WORLD,
+                                  world, rank, case)
+    if rank < 2:
+        res["opt"][2] = _opt_runs(pair, 2, rank, case)
+    # the comm pair over the world: every dtype, bucket-cut independence
+    x = torch.from_numpy(case["rs_x"][rank])
+    res["rs"] = {name: comm.reduce_scatter(x.to(getattr(torch, name)),
+                                           dist.group.WORLD)
+                 for name in ("float32", "bfloat16", "float16")}
+    n = x.numel() // world
+    cut = [comm.reduce_scatter(x.reshape(world, n)[:, a:b].reshape(-1),
+                               dist.group.WORLD)
+           for a, b in ((0, 3), (3, n))]
+    res["rs_cut"] = torch.cat(cut)
+    res["ag"] = {name: comm.all_gather_tiled(
+        x[:4].to(getattr(torch, name)), dist.group.WORLD)
+        for name in ("float32", "bfloat16", "float8_e5m2", "int32")}
+    res["flagship"] = {run[0] + (f"_{run[5]}" if len(run) > 5 else ""):
+                       _flagship_run(case, run) for run in case["runs"]}
+    parallel_state.destroy_model_parallel()
+    _write(out, rank, res)
+
+
+# -- tests/test_torch_flagship.py ----------------------------------------------
+
+def flagship_runs(rank, world, init_file, out, case):
+    """The flagship toy at each of ``case["runs"]`` on this world."""
+    init_file_group("gloo", rank, world, init_file)
+    res = {run[0]: _flagship_run(case, run) for run in case["runs"]}
+    if case.get("resume") is not None:
+        # JAX's state after its first step, carried in: this rank's block
+        from apex_tpu_torch.transformer.testing import (
+            build_flagship_train_step, gpt1p3b_config)
+        from apex_tpu_torch.transformer.testing.convert import (
+            master_from_jax, zero_state_from_jax)
+        shape, jp, js = case["resume"]
+        fs = build_flagship_train_step(
+            gpt1p3b_config(**case["toy_kw"]), plan="fp32", lr=case["lr"],
+            device="cpu", master=case["master"], mesh_shape=shape)
+        p, s, loss = fs.step(master_from_jax(jp), zero_state_from_jax(js, rank),
+                             torch.from_numpy(case["tokens"]).long(),
+                             torch.from_numpy(case["labels"]).long())
+        res["resume"] = dict(loss=float(loss), params=_np_tree(p), opt=s)
+    parallel_state.destroy_model_parallel()
+    _write(out, rank, res)
+
+
+# -- tests/test_torch_elastic.py -----------------------------------------------
+
+def sharded_saves(rank, world, init_file, out, case):
+    """Each rank saves its block of the synthetic states of ``case`` (format
+    3 and 4), then restores blocks of JAX's and its own saves onto the
+    targets of ``case["restores"]``."""
+    import torch.distributed as dist
+
+    from apex_tpu_torch import checkpoint as ckpt
+    from apex_tpu_torch.multi_tensor.flat import PartitionSpec as P
+
+    init_file_group("gloo", rank, world, init_file)
+    g = dist.group.WORLD
+    res = {"wrote": {}}
+    cur = []
+    ckpt.checkpoint.set_fault_hook(
+        lambda event, path: cur.append(os.path.basename(path))
+        if event == "write_shard" else None)
+    for name, state, fmt, axes in case["saves"]:
+        cur = res["wrote"][name] = []
+        lead = tuple(axes.values())
+        c = np.unravel_index(rank, lead)
+        idx = tuple(slice(int(i), int(i) + 1) for i in c)
+        params, opt = state
+        block = ({"w": torch.from_numpy(params["w"])},
+                 {k: torch.from_numpy(np.ascontiguousarray(v[idx]))
+                  for k, v in opt.items()})
+        specs = (P(), P(*axes)) if fmt == 4 else (P(), P("data"))
+        kw = dict(shard_axes=axes) if fmt == 4 else dict(shard_axis="data")
+        ckpt.save_checkpoint(os.path.join(case["root"], name), block, step=3,
+                             shardings=specs, group=g, **kw)
+    for name, src, axes, shard in case["restores"]:
+        lead = tuple(axes.values())
+        tgt = ({"w": torch.zeros(16)},
+               {"step": torch.zeros((1,) * len(lead), dtype=torch.int32),
+                "exp_avg": torch.zeros((1,) * len(lead) + (shard,)),
+                "exp_avg_sq": torch.zeros((1,) * len(lead) + (shard,))})
+        try:
+            got, step = ckpt.restore_checkpoint(
+                os.path.join(case["root"], src), tgt, verify=True,
+                shardings=(P(), P(*axes)), shard_axes=axes, group=g)
+            res[name] = (got, step)
+        except Exception as e:
+            res[name] = (type(e).__name__, str(e))
+    ckpt.checkpoint.set_fault_hook(None)
+    _write(out, rank, res)
+
+
+class ListIterator:
+    """A picklable checkpointable iterator over a list of batches (the
+    protocol of ``apex_tpu_torch.data``: ``state_dict`` /
+    ``load_state_dict``), for the elastic loop's ``data_iter``."""
+
+    def __init__(self, batches):
+        self.batches = list(batches)
+        self.pos = 0
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        if self.pos >= len(self.batches):
+            raise StopIteration
+        self.pos += 1
+        return self.batches[self.pos - 1]
+
+    def state_dict(self):
+        return {"pos": self.pos}
+
+    def load_state_dict(self, state):
+        self.pos = int(state["pos"])
+
+
+def elastic_golden(rank, world, init_file, out, case):
+    """The golden of a recovery: the flagship built on ``case["shape"]``,
+    the checkpoint of ``case["step"]`` restored across the ranks, then the
+    remaining batches without interruption (losses and final state)."""
+    import torch.distributed as dist
+
+    from apex_tpu_torch.resilience import restore_zero_checkpoint
+    from apex_tpu_torch.resilience.elastic import _host_tree
+
+    init_file_group("gloo", rank, world, init_file)
+    step_fn, state, shardings = case["build"](mesh_shape=case["shape"])
+    dp, tp, pp = case["shape"]
+    state, step = restore_zero_checkpoint(
+        case["ckpt_dir"], state, shardings=shardings,
+        shard_axes={"data": dp, "pipeline": pp, "tensor": tp},
+        group=dist.group.WORLD, step=case["step"])
+    for batch in case["batches"][step:]:
+        state, _ = step_fn(state, batch)
+    _write(out, rank, {"losses": step_fn.losses, "state": _host_tree(state),
+                       "shardings": shardings})
