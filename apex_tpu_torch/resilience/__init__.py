@@ -31,9 +31,9 @@
   (:class:`SlowDecode`, :class:`ServingDeviceLoss` raising
   :class:`DeviceLossError`, :func:`corrupt_page`,
   :class:`CorruptLivePage`), and the mesh faults (:class:`DeviceLoss`,
-  :func:`corrupt_shard`, :func:`slow_collective`).
-
-Not ported yet (ROADMAP.md): the fleet faults.
+  :func:`corrupt_shard`, :func:`slow_collective`), and the serving
+  fleet's (``KillReplica``, ``SlowReplica``, ``BlackholeReplica``, in
+  the chaos module).
 """
 
 from apex_tpu_torch.checkpoint.checkpoint import (  # noqa: F401

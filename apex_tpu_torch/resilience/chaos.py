@@ -56,7 +56,20 @@ rank there):
 - :func:`slow_collective` — stall a chosen step (a straggling or hung
   collective seen from the host), so an armed watchdog must escalate.
 
-The fleet faults are not ported yet (ROADMAP.md).
+Fleet faults, through the fleet's fault hook,
+:func:`apex_tpu_torch.serving.fleet.set_fleet_fault_hook` (they model
+the REPLICA failing — its process, its link — which the engine inside
+it cannot see):
+
+- :class:`KillReplica` — every step of one replica raises
+  :class:`DeviceLossError` from a chosen step on; the engine's recovery
+  budget burns, then the router's retries, then the fence and the
+  migration;
+- :class:`SlowReplica` — inflate one replica's health-probe latency
+  (virtual: nothing sleeps); below the router's budget it is tolerated,
+  past it the replica is fenced;
+- :class:`BlackholeReplica` — one replica's probes report infinite
+  latency and its steps raise; the router must fence it on the probe.
 """
 
 from __future__ import annotations
@@ -597,3 +610,140 @@ class SimulatedPreemption:
             raise RuntimeError(
                 "SimulatedPreemption off the main thread needs a handler "
                 "to call request_stop() on")
+
+
+# ---------------------------------------------------------------------------
+# Fleet faults
+# ---------------------------------------------------------------------------
+
+
+class _FleetFault:
+    """Base for fleet-tier fault injectors: installs itself on
+    :func:`apex_tpu_torch.serving.fleet.replica.set_fleet_fault_hook` as a
+    context manager, chaining to any previously-installed hook.  These
+    model the REPLICA failing (its process, its link) — the serving
+    fault hook above keeps modeling the device inside one engine.
+    Subclasses implement ``_on_event(event, replica, info)``; ``event``
+    is ``"step"`` (info = the engine's step count) or ``"ping"`` (info
+    = a mutable ``{"latency_s": float}`` probe the injector inflates —
+    detection is virtual-latency, so a blackholed replica never hangs
+    the suite).  ``replica`` selects the target by name."""
+
+    def __init__(self, replica: str, *, telemetry=None):
+        self.replica = replica
+        self.telemetry = telemetry
+        self.events = 0
+        self._prev_hook = None
+
+    def _hook(self, event: str, replica: str, info) -> None:
+        if self._prev_hook is not None:
+            self._prev_hook(event, replica, info)
+        if replica != self.replica:
+            return
+        self.events += 1
+        self._on_event(event, replica, info)
+
+    def _on_event(self, event: str, replica: str, info) -> None:
+        raise NotImplementedError
+
+    def __enter__(self):
+        from apex_tpu_torch.serving.fleet import replica as _rep
+
+        self._prev_hook = _rep.set_fleet_fault_hook(self._hook)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        from apex_tpu_torch.serving.fleet import replica as _rep
+
+        _rep.set_fleet_fault_hook(self._prev_hook)
+        self._prev_hook = None
+
+
+class KillReplica(_FleetFault):
+    """From the ``at_step``-th step attempt on (1-based over this
+    injector's lifetime), EVERY step of the target replica raises
+    :class:`DeviceLossError` — a dead process, not a transient fault.
+    The engine's own recovery budget burns first (each retry hits the
+    same wall), then the router's retry-with-backoff, then the fence +
+    migration path.  Persistence is the point: a transient would be
+    absorbed and prove nothing about fencing."""
+
+    def __init__(self, replica: str, *, at_step: int = 1, telemetry=None):
+        super().__init__(replica, telemetry=telemetry)
+        self.at_step = at_step
+        self.steps = 0
+        self.fired = False
+
+    def _on_event(self, event: str, replica: str, info) -> None:
+        if event != "step":
+            return
+        self.steps += 1
+        if self.steps < self.at_step:
+            return
+        if not self.fired:
+            self.fired = True
+            if self.telemetry is not None:
+                self.telemetry.emit("fault_injected", kind="kill_replica",
+                                    replica=replica, at_step=self.steps)
+        raise DeviceLossError(
+            [0], detail=f"injected replica kill: {replica} is gone")
+
+
+class SlowReplica(_FleetFault):
+    """From the ``at_ping``-th health probe on, inflate the target's
+    probe latency by ``latency_s`` — a straggling replica.  Below the
+    router's health budget it degrades quietly; above it the router
+    must fence and reroute (never wait it out: the latency is virtual,
+    detection must be too)."""
+
+    def __init__(self, replica: str, *, latency_s: float, at_ping: int = 1,
+                 telemetry=None):
+        super().__init__(replica, telemetry=telemetry)
+        self.latency_s = float(latency_s)
+        self.at_ping = at_ping
+        self.pings = 0
+        self.fired = False
+
+    def _on_event(self, event: str, replica: str, info) -> None:
+        if event != "ping":
+            return
+        self.pings += 1
+        if self.pings < self.at_ping:
+            return
+        if not self.fired:
+            self.fired = True
+            if self.telemetry is not None:
+                self.telemetry.emit("fault_injected", kind="slow_replica",
+                                    replica=replica, delay_s=self.latency_s)
+        info["latency_s"] += self.latency_s
+
+
+class BlackholeReplica(_FleetFault):
+    """From the ``at_ping``-th health probe on, the target's probes
+    report infinite latency — an unreachable host (link down, process
+    wedged pre-accept).  The router must detect via health-check
+    timeout and migrate; as a backstop, a step routed to a blackholed
+    replica raises (a real RPC would never return — silently stepping
+    would mask a router that forgot to health-check)."""
+
+    def __init__(self, replica: str, *, at_ping: int = 1, telemetry=None):
+        super().__init__(replica, telemetry=telemetry)
+        self.at_ping = at_ping
+        self.pings = 0
+        self.fired = False
+
+    def _on_event(self, event: str, replica: str, info) -> None:
+        if event == "ping":
+            self.pings += 1
+            if self.pings < self.at_ping:
+                return
+            if not self.fired:
+                self.fired = True
+                if self.telemetry is not None:
+                    self.telemetry.emit("fault_injected",
+                                        kind="blackhole_replica",
+                                        replica=replica)
+            info["latency_s"] = float("inf")
+        elif event == "step" and self.fired:
+            raise DeviceLossError(
+                [0], detail=f"injected blackhole: {replica} unreachable")

@@ -22,7 +22,8 @@ data-parallel GPT training on ``torch.distributed``, its ranks sharing
 the card over gloo (phase 22), pipeline-parallel GPT training, its
 stages sharing the card the same way (phase 23), and ZeRO: bench.py's
 GPT-1.3B flagship train step, its sharded checkpoints and elastic
-recovery (phase 24).
+recovery (phase 24), and the serving fleet: several GPT-1.3B engines
+behind the router, sharing the card (phase 25).
 Phases, each of which fails the run (non-zero exit) on error:
 
 1. device — a CUDA card is required; its name and power limit are read
@@ -481,6 +482,35 @@ Phases, each of which fails the run (non-zero exit) on error:
     that shape.  The four ranks of (c) and (d) run beside (e), the two of
     dp 2, (d)'s restore onto (2, 1, 1) and (e)'s golden beside (d)'s
     restore onto world 1.
+25. the serving fleet — ``serving.fleet`` over phase 5's model and pool
+    (GPT-1.3B width, 24 layers, bf16, page 64, batch 8, 61 pages a
+    replica), the replicas sharing the card, one parameter tree and one
+    virtual clock ticked once a round (``bench.py::bench_fleet``'s).  (a)
+    3 mixed replicas, 24 requests of ``trace(25, 24)`` from two tenants
+    (``SLOClass``), drained, then submitted again with ``rolling_restart``
+    3 rounds in: zero drops, every request never migrated bitwise the
+    single engine's stream at the same ``max_batch``, the migrated ones
+    recorded with their first divergent token and top-2 margin (a
+    re-prefill runs the prefill products).  (b) ``KillReplica`` on r0 past
+    its engine's recoveries (retries with backoff, fence, migration),
+    ``BlackholeReplica`` on r1 (fenced at its ping), ``SlowReplica`` on r2
+    under the budget (kept): zero drops.  (c) ``DisaggRouter``, 2 prefill
+    and 2 decode replicas, the first 8 requests, on the bf16 and int8
+    pools: over ``LocalTransport`` no retry, no fallback, every stream
+    bitwise the single engine's; over ``ChaosTransport`` (drop, duplicate,
+    reorder and corrupt on ``kv_page``, drops on ``kv_commit``) zero
+    drops, shipped streams bitwise, retries and fallbacks counted; every
+    adopted page the exporter's, byte for byte.  Throughout, K1's and
+    K5's launches are read around each replica's step and restart:
+    exactly 24 a prefill and 24 a decode step, nothing launched outside a
+    replica, so K1 only on the prefill replicas and K5 only on the decode
+    ones over ``LocalTransport``.  (d) the fp32 toy on the card through
+    (a)-(c) (its own pool): every stream bitwise the single engine's,
+    migrated and fallen-back requests included, each scenario's events
+    and streams those of the same run on the CPU from the same weights.  Rounds, wall seconds, ms a round,
+    fences, migrations, pages shipped, retries, fallbacks, export and
+    import ms a page, a request's wire bytes, TTFT and TPOT p50 / p99 on
+    the virtual clock and each replica's launches are printed.
 
 The last three lines of standard output are the kernels' JSON record,
 the ``nvidia-smi`` name/power line, and ``{"ok": true, "device": ...}``.
@@ -548,7 +578,8 @@ from apex_tpu_torch.checkpoint import checkpoint as ckpt_mod  # noqa: E402
 from apex_tpu_torch.data import write_checksummed_records  # noqa: E402
 from apex_tpu_torch.resilience import CheckpointFallbackWarning  # noqa: E402
 from apex_tpu_torch.resilience.chaos import (  # noqa: E402
-    SimulatedPreemption, corrupt_arrays)
+    BlackholeReplica, KillReplica, SimulatedPreemption, SlowReplica,
+    corrupt_arrays)
 from apex_tpu_torch.resilience import (CorruptLivePage,  # noqa: E402
                                        ServingDeviceLoss, SlowDecode,
                                        Watchdog)
@@ -557,9 +588,12 @@ from apex_tpu_torch.serving import (NgramProposer,  # noqa: E402
                                     PagedKVCache, PagePoolCorruption,
                                     ServingEngine, ServingModelConfig,
                                     SimClock, SpecConfig, init_params,
-                                    poisson_trace, quant_pool_dtype,
+                                    params_to, poisson_trace,
+                                    quant_pool_dtype,
                                     quantize_tokens, verify_page_payload)
 from apex_tpu_torch import telemetry  # noqa: E402
+from apex_tpu_torch.serving import fleet as fleet_mod  # noqa: E402
+from apex_tpu_torch.telemetry.summarize import percentile  # noqa: E402
 from apex_tpu_torch.ops import fused_softmax as fsm  # noqa: E402
 from apex_tpu_torch.ops import xentropy as xent  # noqa: E402
 from apex_tpu_torch.ops.fused_dense import (  # noqa: E402
@@ -9252,6 +9286,539 @@ def phase_zero(smi: str) -> dict:
     return record
 
 
+# -- phase 25: the serving fleet ---------------------------------------------
+
+FLEET25_OVER: dict = {}     # a CPU rehearsal narrows the model here
+FLEET25_REQS = 24           # (a): a segment's requests, two tenants
+FLEET25_FAULT_REQS = 12     # (b): (a)'s first 12, cut for time
+FLEET25_SHIP_REQS = 8       # (c): (a)'s first 8, each pool and transport
+FLEET25_ROUND_S = 0.01      # virtual seconds a fleet round (bench_fleet's)
+FLEET25_PRE_ROUNDS = 3      # segment 2's rounds before the rolling restart
+FLEET25_DOWNTIME = 3        # rounds a replica sits out (bench_fleet: 25)
+FLEET25_KILL_AT = 5         # (b): r0's step from which every step raises
+FLEET25_BLACKHOLE_AT = 9    # (b): r1's ping from which none is answered
+FLEET25_SLOW_S = 0.1        # (b): r2's probe latency, under the 0.25 s budget
+# (c) over ChaosTransport: (message class, fault) -> the class's message
+# numbers it hits.  The first 16 commits drop: on the toy the earliest
+# transfer spends its budget (3 attempts) and falls back to a re-prefill
+# on its decode replica, the others land after retries
+FLEET25_CHAOS = {("kv_page", "drop"): {2}, ("kv_page", "duplicate"): {4},
+                 ("kv_page", "reorder"): {6}, ("kv_page", "corrupt"): {3, 9},
+                 ("kv_commit", "drop"): set(range(1, 17))}
+FLEET25_TENANTS = (fleet_mod.SLOClass("interactive", deadline_s=30.0),
+                   fleet_mod.SLOClass("batch"))
+TOY_FLEET = dict(num_pages=64, page_size=8, max_batch=4, prefill_budget=96)
+
+
+class RoundClock:
+    """The fleet's virtual time, ticked once a round by the router's
+    ``on_round`` (``bench.py::bench_fleet``'s clock): the replicas step one
+    after another here but at once in a real fleet, so a round costs one
+    tick however many stepped.  A plain callable, so the engines' own
+    ``SimClock`` advance does not apply."""
+
+    def __init__(self, dt: float = FLEET25_ROUND_S):
+        self.t, self.dt = 0.0, dt
+
+    def __call__(self) -> float:
+        return self.t
+
+    def tick(self) -> None:
+        self.t += self.dt
+
+
+class MeteredTransport(fleet_mod.LocalTransport):
+    """The in-process transport, counting each shipment's wire bytes (its
+    ``kv_page`` and ``kv_commit`` messages, by transfer id)."""
+
+    def __init__(self):
+        super().__init__()
+        self.wire_bytes: dict = {}
+
+    def serialize(self, dst, msg_class, payload, trace=None):
+        wire = super().serialize(dst, msg_class, payload, trace)
+        if msg_class in ("kv_page", "kv_commit"):
+            tid = payload["transfer_id"]
+            self.wire_bytes[tid] = self.wire_bytes.get(tid, 0) + len(wire)
+        return wire
+
+
+class ReplicaMeter:
+    """K1's and K5's launches read around each replica's steps and
+    restarts (the counters are global to the process, the replicas share
+    the card): each step's exactly ``L`` x its engine's new prefills (K1)
+    and decode steps (K5), a restart's one warm-up of each, and nothing
+    launched anywhere else.  ``names`` is None on the CPU (no kernel)."""
+
+    def __init__(self, reps, layers: int, names):
+        self.L, self.names = layers, names
+        self.by_replica = {r.name: {} for r in reps}
+        self.wrong: list = []
+        kernels.reset_launch_counts()
+        for rep in reps:
+            rep.step = self._wrap(rep, rep.step, "step")
+            rep.restart = self._wrap(rep, rep.restart, "restart")
+
+    def _wrap(self, rep, fn, what):
+        def call():
+            eng = rep.engine
+            before = launch_counts()
+            p0, d0 = eng.prefills, eng.decode_steps
+            try:
+                return fn()
+            finally:
+                after = launch_counts()
+                got = {k: after[k] - before.get(k, 0) for k in after
+                       if after[k] != before.get(k, 0)}
+                if self.names is not None:
+                    k1, k5 = self.names
+                    n1, n5 = ((1, 1) if what == "restart" else
+                              (eng.prefills - p0, eng.decode_steps - d0))
+                    want = {k: self.L * n for k, n in ((k1, n1), (k5, n5))
+                            if n}
+                    if got != want:
+                        self.wrong.append((rep.name, what, got, want))
+                mine = self.by_replica[rep.name]
+                for k, n in got.items():
+                    mine[k] = mine.get(k, 0) + n
+        return call
+
+    def check(self, what: str) -> dict:
+        total = launch_counts()
+        summed: dict = {}
+        for counts in self.by_replica.values():
+            for k, n in counts.items():
+                summed[k] = summed.get(k, 0) + n
+        if self.wrong or total != summed:
+            raise AssertionError(
+                f"{what}: launches not exactly the replicas' prefills and "
+                f"decode steps ({self.wrong[:3]}), or launched outside a "
+                f"replica's step ({total} against {summed})")
+        return dict(self.by_replica)
+
+
+def fleet_reps(setup, clock, bus, roles=("mixed",) * 3, **kw):
+    """Replicas over one shared parameter tree and one clock; ``prefill``
+    ones are ``prefill_only`` engines, ``decode`` ones ``kv_import``."""
+    role_kw = {"mixed": {}, "prefill": {"prefill_only": True},
+               "decode": {"kv_import": True}}
+    reps, seen = [], {}
+    for role in roles:
+        tag = "r" if role == "mixed" else role[0]
+        name = f"{tag}{seen.get(tag, 0)}"
+        seen[tag] = seen.get(tag, 0) + 1
+
+        def build(role=role):
+            return ServingEngine(setup["cfg"], setup["params"], clock=clock,
+                                 telemetry=bus, device=setup["device"],
+                                 **setup["engine"], **role_kw[role], **kw)
+        reps.append(fleet_mod.ReplicaProxy(name, build, role=role))
+    return reps
+
+
+def fleet_bus(name: str):
+    mem = MemorySink()
+    return TelemetryBus(run_id=f"fleet-{name}", sinks=[mem]), mem
+
+
+def fleet_events(mem) -> list:
+    """The recorded events without the bus's own stamps (run id, mesh,
+    wall time): what a card run and a CPU run must share."""
+    return [{k: v for k, v in e.items() if k not in ("run_id", "mesh", "t",
+                                                     "ts")}
+            for e in mem.events]
+
+
+def fleet_counts(mem) -> dict:
+    n = {}
+    for e in mem.events:
+        n[e["type"]] = n.get(e["type"], 0) + 1
+    return {k: n.get(k, 0) for k in (
+        "replica_fence", "request_migrate", "kv_ship", "kv_ship_retry",
+        "kv_ship_fallback", "migrate_refused", "fault_injected")}
+
+
+def fleet_latency(mem) -> dict:
+    """TTFT and TPOT p50 / p99 over the retired requests, on the virtual
+    clock (ms)."""
+    out = {}
+    for key in ("ttft_ms", "tpot_ms"):
+        vals = sorted(e[key] for e in mem.events
+                      if e["type"] == "request_retire" and e.get(key)
+                      is not None)
+        out[key] = dict(p50=percentile(vals, 0.5),
+                        p99=percentile(vals, 0.99))
+    return out
+
+
+def fleet_drive(fleet, fn) -> dict:
+    """Run ``fn`` on ``fleet``: its rounds, wall seconds and ms a round."""
+    t0, r0 = time.perf_counter(), fleet.round
+    fn()
+    if fleet.replicas[0].engine.device.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rounds = fleet.round - r0
+    return dict(rounds=rounds, wall_s=wall,
+                ms_a_round=wall * 1e3 / max(1, rounds))
+
+
+def fleet_submit(fleet, reqs) -> list:
+    return [fleet.submit(r.prompt, r.max_new_tokens,
+                         slo=FLEET25_TENANTS[i % 2].name)
+            for i, r in enumerate(reqs)]
+
+
+def fleet_check_served(what, fleet, reqs, rids, control, migrated,
+                       required_all, margins_engine) -> dict:
+    """Zero drops; each request never migrated (nor re-prefilled by a
+    fallback) bitwise the control's stream; the others bitwise too when
+    ``required_all`` (the fp32 toy), else recorded with their first
+    divergent token and the control's top-2 margin there."""
+    done = [fleet.handles[r] for r in rids]
+    dropped = [h.rid for h in done if h.finish_reason not in ("eos",
+                                                              "length")]
+    if dropped or len(done) != len(reqs):
+        raise AssertionError(f"{what}: requests dropped {dropped}")
+    got = {rid: list(fleet.handles[rid].generated) for rid in rids}
+    ref = {rid: control[i] for i, rid in enumerate(rids)}
+    prompts = {rid: reqs[i].prompt for i, rid in enumerate(rids)}
+    stay = [rid for rid in rids if rid not in migrated]
+    if any(got[r] != ref[r] for r in stay):
+        raise AssertionError(f"{what}: a request never moved differs from "
+                             "the single engine's stream")
+    moved = [rid for rid in rids if rid in migrated]
+    held = dict(never_moved=len(stay), moved=len(moved))
+    if moved:
+        held["moved_streams"] = held_streams(
+            f"{what}, moved requests", {r: got[r] for r in moved},
+            {r: ref[r] for r in moved}, prompts, margins_engine,
+            required_all)
+    return held
+
+
+def fleet_colocated(setup, reqs, control, required_all, margins) -> dict:
+    """(a): 3 mixed replicas, the requests of two tenants drained, then
+    submitted again with a rolling restart ``FLEET25_PRE_ROUNDS`` in."""
+    clock = RoundClock()
+    bus, mem = fleet_bus("colocated")
+    reps = fleet_reps(setup, clock, bus)
+    fleet = fleet_mod.FleetRouter(reps, telemetry=bus, on_round=clock.tick,
+                                  slo_classes=FLEET25_TENANTS)
+    fleet.warmup()
+    meter = ReplicaMeter(reps, setup["cfg"].num_layers, setup["names"])
+    seg1 = fleet_submit(fleet, reqs)
+    steady = fleet_drive(fleet, fleet.run)
+    fleet.emit_scale_hint()
+    seg2 = fleet_submit(fleet, reqs)
+
+    def restart():
+        for _ in range(FLEET25_PRE_ROUNDS):
+            fleet.step()
+        fleet_mod.rolling_restart(fleet, serve_between=FLEET25_DOWNTIME)
+        fleet.run()
+    rolled = fleet_drive(fleet, restart)
+    hint = fleet.emit_scale_hint()
+    launches = meter.check("(a) colocated")
+    migrated = {e["rid"] for e in mem.events
+                if e["type"] == "request_migrate"}
+    fences = [e["cause"] for e in mem.events
+              if e["type"] == "replica_fence"]
+    if fences != ["rolling_restart"] * 3 or not all(
+            r.restarts == 1 and r.healthy for r in reps):
+        raise AssertionError(f"(a): the rolling restart fenced {fences}")
+    out = dict(steady=steady, restart=rolled, counts=fleet_counts(mem),
+               latency=fleet_latency(mem), launches=launches,
+               hint=hint, events=fleet_events(mem),
+               tokens=by_rid(fleet.handles.values()))
+    out["steady_streams"] = fleet_check_served(
+        "(a) steady", fleet, reqs, seg1, control, migrated, required_all,
+        margins)
+    out["restart_streams"] = fleet_check_served(
+        "(a) rolling restart", fleet, reqs, seg2, control, migrated,
+        required_all, margins)
+    return out
+
+
+def fleet_faults(setup, reqs, control, required_all, margins) -> dict:
+    """(b): ``KillReplica`` on r0 past its engine's recoveries (retries
+    with backoff, fence, migration), ``BlackholeReplica`` on r1 (its ping
+    times out virtually: fenced), ``SlowReplica`` on r2 under the budget
+    (tolerated)."""
+    clock = RoundClock()
+    bus, mem = fleet_bus("faults")
+    reps = fleet_reps(setup, clock, bus)
+    fleet = fleet_mod.FleetRouter(reps, telemetry=bus, on_round=clock.tick,
+                                  slo_classes=FLEET25_TENANTS,
+                                  health_timeout_s=0.25)
+    fleet.warmup()
+    meter = ReplicaMeter(reps, setup["cfg"].num_layers, setup["names"])
+    rids = fleet_submit(fleet, reqs)
+
+    def serve():
+        with KillReplica("r0", at_step=FLEET25_KILL_AT, telemetry=bus), \
+                BlackholeReplica("r1", at_ping=FLEET25_BLACKHOLE_AT,
+                                 telemetry=bus), \
+                SlowReplica("r2", latency_s=FLEET25_SLOW_S, telemetry=bus):
+            fleet.run()
+    drive = fleet_drive(fleet, serve)
+    launches = meter.check("(b) faults")
+    fences = {e["replica"]: e["cause"] for e in mem.events
+              if e["type"] == "replica_fence"}
+    if fences != {"r0": "DeviceLossError", "r1": "health_check_timeout"} \
+            or not reps[2].healthy \
+            or reps[0].engine.recoveries != reps[0].engine.max_recoveries:
+        raise AssertionError(f"(b): fences {fences}, r2 healthy "
+                             f"{reps[2].healthy}, r0's recoveries "
+                             f"{reps[0].engine.recoveries}")
+    migrated = {e["rid"] for e in mem.events
+                if e["type"] == "request_migrate"}
+    out = dict(drive=drive, counts=fleet_counts(mem), fences=fences,
+               latency=fleet_latency(mem), launches=launches,
+               events=fleet_events(mem),
+               tokens=by_rid(fleet.handles.values()))
+    out["streams"] = fleet_check_served("(b) faults", fleet, reqs, rids,
+                                        control, migrated, required_all,
+                                        margins)
+    return out
+
+
+def fleet_disagg(setup, reqs, control, quant, chaos, required_all,
+                 margins) -> dict:
+    """(c): ``DisaggRouter`` over 2 prefill and 2 decode replicas on the
+    ``quant`` pool, over ``LocalTransport`` (``chaos`` False: no retry, no
+    fallback, K1 only on the prefill replicas and K5 only on the decode
+    ones) or under ``FLEET25_CHAOS`` (retries and fallbacks counted).
+    Every adopted page is the exporter's, byte for byte."""
+    clock = RoundClock()
+    bus, mem = fleet_bus("disagg")
+    wire = MeteredTransport()
+    transport = (fleet_mod.ChaosTransport(wire, schedule=FLEET25_CHAOS,
+                                          telemetry=bus) if chaos else wire)
+    reps = fleet_reps(setup, clock, bus, ("prefill", "prefill", "decode",
+                                          "decode"), kv_quant=quant)
+    fleet = fleet_mod.DisaggRouter(reps, telemetry=bus, transport=transport,
+                                   on_round=clock.tick,
+                                   slo_classes=FLEET25_TENANTS)
+    fleet.warmup()
+    exported, adopted, timing = {}, [], dict(export_s=0.0, import_s=0.0,
+                                             pages=0)
+    on_card = setup["device"] == "cuda"
+
+    def export(eng):
+        def call(rid):
+            t0 = time.perf_counter()
+            shipped = type(eng).export_request(eng, rid)
+            timing["export_s"] += time.perf_counter() - t0
+            timing["pages"] += len(shipped[1])
+            exported[rid] = shipped[1]
+            return shipped
+        return call
+
+    def land(eng):
+        def call(record, pages, kv_len):
+            t0 = time.perf_counter()
+            req = type(eng).adopt_prefilled(eng, record, pages, kv_len)
+            if on_card:
+                torch.cuda.synchronize()
+            timing["import_s"] += time.perf_counter() - t0
+            adopted.append((req.rid, pages == exported[req.rid]))
+            return req
+        return call
+
+    for rep in reps:
+        if rep.role == "prefill":
+            rep.engine.export_request = export(rep.engine)
+        else:
+            rep.engine.adopt_prefilled = land(rep.engine)
+    meter = ReplicaMeter(reps, setup["cfg"].num_layers, setup["names"])
+    rids = fleet_submit(fleet, reqs)
+    drive = fleet_drive(fleet, fleet.run)
+    launches = meter.check(f"(c) {quant or 'default'} pool")
+    counts = fleet_counts(mem)
+    if not all(same for _, same in adopted):
+        raise AssertionError("(c): a page was adopted that the prefill "
+                             "replica did not export")
+    shipped = {e["rid"] for e in mem.events if e["type"] == "kv_ship"}
+    fallen = {e["rid"] for e in mem.events if e["type"] == "kv_ship_fallback"}
+    if not chaos:
+        k1, k5 = setup["names"] or (None, None)
+        pre = {n: v for n, v in launches.items() if n.startswith("p")}
+        dec = {n: v for n, v in launches.items() if n.startswith("d")}
+        if (counts["kv_ship_retry"] or counts["kv_ship_fallback"]
+                or shipped != set(rids)
+                or any(k5 in v for v in pre.values())
+                or any(k1 in v for v in dec.values())
+                or any(r.engine.prefills for r in reps[2:])):
+            raise AssertionError(
+                f"(c) over LocalTransport: retries {counts['kv_ship_retry']}"
+                f", fallbacks {counts['kv_ship_fallback']}, or not K1 only "
+                f"on the prefill replicas and K5 only on the decode ones "
+                f"({launches})")
+    pages = max(1, timing["pages"])
+    out = dict(pool=quant or str(setup["cfg"].dtype).replace("torch.", ""),
+               transport="chaos" if chaos else "local",
+               drive=drive, counts=counts, launches=launches,
+               latency=fleet_latency(mem), shipped=len(shipped),
+               fallbacks=sorted(fallen), adopted=len(adopted),
+               pages_shipped=timing["pages"],
+               export_ms_a_page=timing["export_s"] * 1e3 / pages,
+               import_ms_a_page=timing["import_s"] * 1e3 / pages,
+               wire_bytes_one_request=wire.wire_bytes.get(f"t{rids[0]}"),
+               events=fleet_events(mem),
+               tokens=by_rid(fleet.handles.values()))
+    if chaos:
+        out["injected"] = dict(transport.injected)
+    # a fallback re-prefills on the decode replica: recorded at bf16
+    out["streams"] = fleet_check_served(
+        f"(c) {out['pool']} over {out['transport']}", fleet, reqs, rids,
+        control, fallen, required_all, margins)
+    return out
+
+
+def fleet_scenarios(setup, reqs, controls, pools, required_all,
+                    margins) -> dict:
+    """(a)-(c) on one setup.  ``pools`` lists ``(kv_quant, K5's entry
+    point)``, the default pool first ((a) and (b) run on it);
+    ``controls`` maps a pool to the single engine's streams of ``reqs``
+    by index."""
+    k1 = setup["k1"]
+    setup["names"] = (k1, pools[0][1]) if k1 else None
+    out = dict(colocated=fleet_colocated(setup, reqs, controls[None],
+                                         required_all, margins))
+    gc.collect()    # a scenario's replicas hold their pools in cycles
+    out["faults"] = fleet_faults(setup, reqs[:FLEET25_FAULT_REQS],
+                                 controls[None], required_all, margins)
+    for quant, k5 in pools:
+        setup["names"] = (k1, k5) if k1 else None
+        for chaos in (False, True):
+            gc.collect()
+            out[f"disagg_{quant or 'default'}_"
+                f"{'chaos' if chaos else 'local'}"] = fleet_disagg(
+                setup, reqs[:FLEET25_SHIP_REQS], controls[quant], quant,
+                chaos, required_all, margins)
+    gc.collect()
+    return out
+
+
+def fleet_control(setup, reqs, quant=None):
+    """The single engine at the same ``max_batch``: its streams by index,
+    and the engine (whose prefill gives the top-2 margins)."""
+    eng = ServingEngine(setup["cfg"], setup["params"], clock=SimClock(),
+                        device=setup["device"], kv_quant=quant,
+                        **setup["engine"])
+    eng.warmup()
+    handles = [eng.submit(r.prompt, r.max_new_tokens) for r in reqs]
+    eng.run()
+    return [list(h.generated) for h in handles], eng
+
+
+def fleet_launches(runs: dict) -> dict:
+    """Each kernel's launches summed over the scenarios' replicas."""
+    total: dict = {}
+    for run in runs.values():
+        for counts in run["launches"].values():
+            for k, n in counts.items():
+                total[k] = total.get(k, 0) + n
+    return total
+
+
+def fleet_log(what: str, runs: dict, smi: str) -> None:
+    """The numbers each scenario is read by, one line each."""
+    for key, run in runs.items():
+        drives = {k: run[k] for k in ("steady", "restart", "drive")
+                  if k in run}
+        row = dict(drives=drives, counts=run["counts"],
+                   latency_virtual_ms=run["latency"],
+                   launches=run["launches"])
+        for k in ("pages_shipped", "export_ms_a_page", "import_ms_a_page",
+                  "wire_bytes_one_request", "fallbacks", "injected",
+                  "fences", "hint"):
+            if k in run:
+                row[k] = run[k]
+        row["streams"] = {k: v for k, v in run.items()
+                          if k.endswith("streams")}
+        log(f"  {what} {key}: {json.dumps(row, default=str)}; {smi}")
+
+
+def fleet_toy(smi: str) -> dict:
+    """(d): the fp32 toy on the card through (a)-(c)'s scenarios (its own
+    pool only: a quantized pool at head dim 8 has no kernel), every
+    stream bitwise the single engine's, moved and fallen-back requests
+    too, and each scenario's events and streams those of the port's run
+    of it on the CPU from the same weights."""
+    cfg = ServingModelConfig(**TOY_SERVE)
+    reqs = poisson_trace(5, FLEET25_REQS, rate=2.0, prompt_len=(4, 20),
+                         max_new=(3, 12), vocab_size=TOY_SERVE["vocab_size"])
+    runs = {}
+    params = init_params(cfg, seed=0, device="cpu")   # one draw, both runs
+    for device in dict.fromkeys((CARD, "cpu")):
+        on_card = device != "cpu"
+        setup = dict(cfg=cfg, params=params_to(params, device),
+                     device=device, engine=TOY_FLEET,
+                     k1="flash_fwd" if on_card else None)
+        control, eng = fleet_control(setup, reqs)
+        runs[device] = fleet_scenarios(
+            setup, reqs, {None: control},
+            ((None, "flash_decode" if on_card else None),), True, eng)
+    card, cpu = runs[CARD], runs["cpu"]
+    for key in card:
+        for what in ("events", "tokens"):
+            if card[key][what] != cpu[key][what]:
+                raise AssertionError(f"(d) toy {key}: the card's {what} "
+                                     "differ from the CPU's")
+    chaos = card["disagg_default_chaos"]
+    if not chaos["fallbacks"] or not chaos["counts"]["kv_ship_retry"]:
+        raise AssertionError("(d) toy: the chaos schedule made no retry or "
+                             "no fallback")
+    fleet_log("(d) toy", card, smi)
+    out = {k: {n: v for n, v in r.items() if n not in ("events", "tokens")}
+           for k, r in card.items()}
+    out["launches"] = fleet_launches(card)
+    return out
+
+
+def phase_fleet(smi: str) -> dict:
+    """Phase 25: the serving fleet at GPT-1.3B width (phase 5's model and
+    pool; the replicas share the card, one parameter tree and one virtual
+    clock) and the fp32 toy on the card against the CPU."""
+    t0 = time.perf_counter()
+    cfg = ServingModelConfig(**{"dtype": torch.bfloat16, **FULL,
+                                **FLEET25_OVER})
+    on_card = CARD != "cpu"
+    setup = dict(cfg=cfg, params=init_params(cfg, seed=0, device=CARD),
+                 device=CARD, k1="flash_fwd_sm90" if on_card else None,
+                 engine=dict(num_pages=NUM_PAGES, page_size=PAGE,
+                             max_batch=BATCH,
+                             max_pages_per_request=PAGES_PER_REQ,
+                             prefill_budget=cfg.max_position))
+    reqs = (poisson_trace(25, FLEET25_REQS, rate=8.0, prompt_len=(4, 60),
+                          max_new=(3, 16), vocab_size=cfg.vocab_size)
+            if FLEET25_OVER else trace(25, FLEET25_REQS))
+    control, margins = fleet_control(setup, reqs)
+    int8, _ = fleet_control(setup, reqs[:FLEET25_SHIP_REQS], "int8")
+    pools = ((None, "flash_decode_sm90" if on_card else None),
+             ("int8", "flash_decode_sm90_int8" if on_card else None))
+    out = fleet_scenarios(setup, reqs, {None: control, "int8": int8}, pools,
+                          False, margins)
+    fleet_log("full width", out, smi)
+    out = {k: {n: v for n, v in r.items() if n not in ("events", "tokens")}
+           for k, r in out.items()}
+    out["launches"] = fleet_launches(out)
+    out["launches_disaggregated"] = {
+        pool: out[f"disagg_{pool}_local"]["launches"]
+        for pool in ("default", "int8")}
+    del margins, setup
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    out["toy"] = fleet_toy(smi)
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"  phase 25 took {out['wall_s']:.1f} s; launches {out['launches']}"
+        f"; toy {out['toy']['launches']}; {smi}")
+    return out
+
+
 PHASE = {"n": 0, "name": "start", "t": None, "t0": None}
 
 
@@ -9431,9 +9998,18 @@ def main() -> int:
           "the ranks sharing this card over gloo")
     zero = phase_zero(smi)
     torch.cuda.empty_cache()
+
+    begin(25, "the serving fleet (GPT-1.3B width, 24 layers, bf16; replicas "
+          "sharing this card and one parameter tree): 3 mixed replicas "
+          "through a rolling restart, KillReplica / BlackholeReplica / "
+          "SlowReplica, DisaggRouter with 2 prefill and 2 decode replicas "
+          "on the bf16 and int8 pools over LocalTransport and "
+          "ChaosTransport; the fp32 toy card vs CPU")
+    fleet = phase_fleet(smi)
+    torch.cuda.empty_cache()
     phase_lap()
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
-    PHASE.update(n=25, name="record")
+    PHASE.update(n=26, name="record")
     policies = rest["policies"]
 
     amp_toy_adam16 = {"launches": amp_toy["launches"]["O2 fp16 adam"]}
@@ -9450,12 +10026,18 @@ def main() -> int:
              launches_mha=mha["launches"]["flash_fwd_sm90"],
              launches_microbench=probes["launches"]["flash_fwd_sm90"],
              launches_state=state["telemetry"]["launches"]["flash_fwd_sm90"],
+             # phase 25: every replica of (a)-(c), and each replica of (c)
+             # over LocalTransport (K1 on the prefill replicas alone)
+             launches_fleet=fleet["launches"]["flash_fwd_sm90"],
+             launches_fleet_disaggregated=fleet["launches_disaggregated"][
+                 "default"],
              **timings["flash_fwd_sm90"]),
         dict(name="flash_fwd", route="cuda",
              source="apex_tpu_torch/csrc/flash_fwd.cu",
              replaces="apex_tpu/ops/attention.py:738",
              launches=toy_mha["launches"]["flash_fwd"],
              launches_toy_engine=toy["launches"]["flash_fwd"],
+             launches_fleet_toy=fleet["toy"]["launches"]["flash_fwd"],
              **timings["flash_fwd"]),
         # K2: the bf16 route on the tensor cores runs the multi-head
         # attention step (phase 9); the scalar kernel is the fp32 and head
@@ -9487,6 +10069,9 @@ def main() -> int:
              **({"launches_disaggregated": state["disaggregated"][pool][
                  "decode_launches"][name]}
                 if pool in state["disaggregated"] else {}),
+             # phase 25: every replica of (a)-(c) on this pool
+             **({"launches_fleet": fleet["launches"][name]}
+                if name in fleet["launches"] else {}),
              **timings[name])
         for pool, _, name in DECODE_POOLS
     ] + [
@@ -9507,6 +10092,7 @@ def main() -> int:
              replaces="apex_tpu/ops/attention.py:2239",
              launches=toy["launches"]["flash_decode"],
              launches_toy_modes=toy["modes"]["launches"]["flash_decode"],
+             launches_fleet_toy=fleet["toy"]["launches"]["flash_decode"],
              **timings["flash_decode"]),
     ] + [
         # K3/K4: the bf16 route on the tensor cores runs the GPT-1.3B step

@@ -398,6 +398,7 @@ def test_scheduler_decisions_match_jax():
 def test_import_pulls_in_neither_jax_nor_apex_tpu():
     code = ("import sys, apex_tpu_torch, apex_tpu_torch.ops, "
             "apex_tpu_torch.serving, apex_tpu_torch.serving.spec, "
+            "apex_tpu_torch.serving.fleet, apex_tpu_torch.resilience.chaos, "
             "apex_tpu_torch.kernels, apex_tpu_torch.amp, "
             "apex_tpu_torch.utils, apex_tpu_torch.optimizers, "
             "apex_tpu_torch.models, apex_tpu_torch.parallel, "
@@ -423,6 +424,10 @@ def test_source_never_imports_jax_or_apex_tpu():
     spec = REPO / "apex_tpu_torch" / "serving" / "spec"
     assert {spec / f"{m}.py" for m in ("__init__", "proposer",
                                        "verify")} <= set(files)
+    fleet = REPO / "apex_tpu_torch" / "serving" / "fleet"
+    assert {fleet / f"{m}.py" for m in (
+        "__init__", "transport", "replica", "migrate", "router",
+        "disagg")} <= set(files)
     pkg = REPO / "apex_tpu_torch"
     assert {pkg / "amp" / f"{m}.py" for m in (
         "__init__", "scaler", "properties", "handle", "lists", "opt")} | {
