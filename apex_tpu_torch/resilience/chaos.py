@@ -171,7 +171,13 @@ class ServingDeviceLoss(_ServingFault):
     """Raise :class:`DeviceLossError` at the ``at_step``-th decode
     launch — a chip disappearing MID-DECODE, after requests are
     admitted and holding pool pages.  Fires once: the engine's
-    rebuild + restore must sail past the same point on the retry."""
+    rebuild + restore must sail past the same point on the retry.
+
+    Under tensor parallelism (``ServingEngine(tp=N)``, one process a
+    rank) ``device_ids`` names tensor ranks, and the injector fires in
+    the process it is installed in: installed on one rank only, its
+    fault still reaches every rank (the engine's ranks agree on each
+    step's fault verdict), so the group recovers once, together."""
 
     def __init__(self, *, at_step: int, device_ids=(0,), telemetry=None):
         super().__init__(telemetry=telemetry)

@@ -3,8 +3,9 @@ the continuous-batching scheduler and the engine (port of the JAX
 package's ``apex_tpu/serving``: the default mode, the quantized KV pool
 (``kv_quant="int8"`` / ``"fp8"``), speculative decoding and chunked
 prefill (``spec=SpecConfig(...)``), prefix sharing
-(``prefix_sharing=True``), snapshot/restore/recover, per-page CRCs, the
-export and adoption of prefilled pages, and the telemetry events).
+(``prefix_sharing=True``), tensor parallelism over ``torch.distributed``
+ranks (``tp=N``), snapshot/restore/recover, per-page CRCs, the export and
+adoption of prefilled pages, and the telemetry events).
 
 Layers, bottom-up:
 
@@ -26,7 +27,8 @@ Layers, bottom-up:
   (:mod:`apex_tpu_torch.resilience.chaos`) injects faults through.
 """
 
-from apex_tpu_torch.serving.convert import params_from_jax  # noqa: F401
+from apex_tpu_torch.serving.convert import (  # noqa: F401
+    params_from_jax, rank_params_from_jax)
 from apex_tpu_torch.serving.engine import (  # noqa: F401
     AdmissionRefused,
     ServingEngine,
@@ -49,6 +51,8 @@ from apex_tpu_torch.serving.model import (  # noqa: F401
     init_params,
     params_to,
     quant_qmax,
+    shard_params_tp,
+    tp_rank_params,
 )
 from apex_tpu_torch.serving.scheduler import (  # noqa: F401
     FINISHED,
@@ -83,7 +87,10 @@ __all__ = [
     "init_params",
     "params_to",
     "quant_qmax",
+    "shard_params_tp",
+    "tp_rank_params",
     "params_from_jax",
+    "rank_params_from_jax",
     "ContinuousBatchingScheduler",
     "QueueFullError",
     "Request",

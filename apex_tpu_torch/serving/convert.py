@@ -1,7 +1,8 @@
 """Carry weights across from the JAX package.
 
 The port keeps the JAX parameter tree and its ``[in, out]`` weight layout
-(``x @ W``, no transpose), so conversion is a leaf-by-leaf copy.
+(``x @ W``, no transpose), so conversion is a leaf-by-leaf copy;
+:func:`rank_params_from_jax` also cuts out one tensor rank's part.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ import numpy as np
 import torch
 
 from apex_tpu_torch._device import resolve_device
+from apex_tpu_torch.serving.model import shard_params_tp, tp_rank_params
 
 
 def _leaf(a, device, dtype) -> torch.Tensor:
@@ -42,3 +44,15 @@ def params_from_jax(tree, device=None, dtype: Optional[torch.dtype] = None):
         return _leaf(node, device, dtype)
 
     return conv(tree)
+
+
+def rank_params_from_jax(tree, tp: int, rank: int, device=None,
+                         dtype: Optional[torch.dtype] = None):
+    """Rank ``rank``'s parameters at ``tp`` tensor ranks from a JAX
+    ``init_params`` tree: :func:`params_from_jax`, the shard-major
+    ``wqkv`` reorder (:func:`~apex_tpu_torch.serving.model.
+    shard_params_tp`) and the rank's slice (:func:`~apex_tpu_torch.
+    serving.model.tp_rank_params`), as each rank of the JAX engine's
+    ``shard_map`` holds them."""
+    return tp_rank_params(
+        shard_params_tp(params_from_jax(tree, device, dtype), tp), tp, rank)

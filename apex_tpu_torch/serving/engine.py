@@ -1,7 +1,7 @@
 """The serving engine: the device-facing half of continuous batching
 (port of the JAX package's ``apex_tpu/serving/engine.py``: the default
-mode, the quantized pool, speculative decoding, chunked prefill and
-prefix sharing).
+mode, the quantized pool, speculative decoding, chunked prefill, prefix
+sharing and tensor parallelism).
 
 :class:`ServingEngine` turns the :class:`~apex_tpu_torch.serving.
 scheduler.ContinuousBatchingScheduler`'s host-side decisions into device
@@ -114,8 +114,47 @@ ships a prefilled request as a record and its pages' bytes
 and a ``kv_import`` engine's :meth:`~ServingEngine.adopt_prefilled`
 verifies the bytes, lands them verbatim and decodes on.
 
-Not ported yet (ROADMAP.md), and refused when asked for: tensor
-parallelism (``tp``).
+**Tensor parallelism** (``tp=N``).  One process is one tensor rank, as
+in the rest of the port: start ``N`` processes, join ``torch.distributed``,
+call ``parallel_state.initialize_model_parallel(N)`` on each, and make
+the same calls on every rank — construct the engine with the same
+arguments (the whole parameter tree, or the same ``seed``), submit the
+same requests, step or run it.  Each rank holds its head slice of the
+attention and MLP weights (:func:`~apex_tpu_torch.serving.model.
+shard_params_tp`, :func:`~apex_tpu_torch.serving.model.tp_rank_params`)
+and of the paged pool; each block's partial residual is summed over the
+tensor group (two ``all_reduce`` a layer, where the JAX engine's
+``shard_map`` body has its ``lax.psum``), so every rank samples its
+tokens from the same hidden state and the ranks' streams are the same.
+tp > 1 without an initialized group, with a group of another size or
+with ``num_heads % tp`` raises; it never falls back to one rank.
+
+Every host decision the JAX engine takes once in its one process must
+come out the same on every rank, or the ranks' collectives stop pairing:
+
+* **One clock.**  Every clock read of the engine (deadlines, shedding,
+  arrivals, TTFT) is the group's first rank's reading, broadcast.
+* **One fault verdict.**  Before each device step the ranks run their
+  fault hook and their page-CRC check, then compare outcomes (one small
+  collective).  A :class:`~apex_tpu_torch.resilience.chaos.
+  DeviceLossError` or :class:`~apex_tpu_torch.serving.kv_cache.
+  PagePoolCorruption` on any rank — an injector installed on one rank
+  only, a corrupt page in one rank's slice — raises the same fault on
+  every rank (the lowest such rank's), so every rank recovers at the
+  same step boundary; any other error there raises on every rank too.
+  An error elsewhere in a step (a CUDA error, a kernel's refusal) leaves
+  the other ranks waiting in their next collective until the group's
+  timeout (``initialize_model_parallel(..., timeout=)``) stops them.
+* **One token.**  Nothing is broadcast: the ranks' argmax is taken from
+  the same all-reduced logits.
+
+Page accounting, snapshots, ``restore``/``adopt`` and the prefix index
+are host state that every rank builds alike; ``export_request`` ships the
+whole page (the ranks' head slices gathered) and ``adopt_prefilled``
+lands each rank's slice of one, so engines at different ``tp`` ship to
+each other.  Telemetry: only the tensor group's first rank emits events
+(a ``telemetry`` bus handed to another rank stays silent), so a tp
+engine's stream is one stream, the JAX tp engine's.
 """
 
 from __future__ import annotations
@@ -127,22 +166,19 @@ import numpy as np
 import torch
 
 from apex_tpu_torch._device import resolve_device
+from apex_tpu_torch.parallel import comm
 from apex_tpu_torch.resilience.chaos import DeviceLossError
 from apex_tpu_torch.serving.kv_cache import (PagedKVCache, PagePoolCorruption,
                                              PagePoolExhausted, PrefixIndex,
                                              verify_page_payload)
 from apex_tpu_torch.serving.model import (PagedDecoder, ServingModelConfig,
-                                          init_params, params_to)
+                                          init_params, params_to,
+                                          shard_params_tp, tp_rank_params)
 from apex_tpu_torch.serving.scheduler import (FINISHED, RUNNING, WAITING,
                                               ContinuousBatchingScheduler,
                                               QueueFullError, Request)
 from apex_tpu_torch.serving.spec import (NgramProposer, SpecConfig,
                                          commit_tokens)
-
-#: JAX engine options that have no port yet, with the value that means
-#: "off"; any other value is refused.
-_UNPORTED_OPTIONS = {"tp": 1}
-
 
 class AdmissionRefused(RuntimeError):
     """A shipped-prefill admission (:meth:`ServingEngine.adopt_prefilled`)
@@ -252,10 +288,13 @@ class ServingEngine:
     :meth:`export_request`); ``kv_import`` warms the page import that
     :meth:`adopt_prefilled` lands shipped pages through.
 
+    ``tp`` shards the heads over that many ranks (module docstring).
+
     ``device=None`` means the card; without one the constructor raises
     instead of falling back.  ``device="cpu"`` runs the plain PyTorch
     versions of the kernels.  ``params`` (as :func:`init_params` makes
-    them) are moved to ``device``; ``None`` draws them from ``seed``."""
+    them: the whole model, also under ``tp``) are moved to ``device``;
+    ``None`` draws them from ``seed``."""
 
     def __init__(self, cfg: ServingModelConfig, params=None, *,
                  num_pages: int, page_size: int = 64,
@@ -274,27 +313,39 @@ class ServingEngine:
                  max_recoveries: int = 3,
                  reject_unservable: bool = False,
                  spec: Optional[SpecConfig] = None,
+                 tp: int = 1,
                  kv_quant: Optional[str] = None,
                  prefix_sharing: bool = False,
                  prefix_entries: int = 8,
                  prefill_only: bool = False,
                  kv_import: bool = False,
-                 device=None,
-                 **options):
-        for name, value in options.items():
-            if name not in _UNPORTED_OPTIONS:
-                raise TypeError(f"unexpected keyword argument {name!r}")
-            if value != _UNPORTED_OPTIONS[name]:
-                raise NotImplementedError(
-                    f"ServingEngine option {name}={value!r} is not ported "
-                    "yet (ROADMAP.md, queue A)")
+                 device=None):
+        self.tp = int(tp)
+        self.tp_group = None
+        self.tp_rank = 0
+        if self.tp > 1:
+            from apex_tpu_torch.transformer.parallel_state import \
+                tensor_parallel_group
+            if cfg.num_heads % self.tp:
+                raise ValueError(
+                    f"num_heads {cfg.num_heads} not divisible by "
+                    f"tp={self.tp}")
+            self.tp_group = tensor_parallel_group(self.tp)
+            self.tp_rank = comm.group_rank(self.tp_group)
+            # the clock's and the fault verdicts' source
+            self._tp_src = torch.distributed.get_global_rank(
+                self.tp_group, 0)
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             torch.backends.cuda.matmul.\
                 allow_bf16_reduced_precision_reduction = False
         self.cfg = cfg
-        self.params = (init_params(cfg, seed, self.device) if params is None
-                       else params_to(params, self.device))
+        full = (init_params(cfg, seed, self.device) if params is None
+                else params)
+        self.params = params_to(tp_rank_params(
+            shard_params_tp(full, self.tp), self.tp, self.tp_rank),
+            self.device)
+        del full
         self.prefill_budget = (cfg.max_position if prefill_budget is None
                                else prefill_budget)
         self.spec = spec
@@ -317,11 +368,11 @@ class ServingEngine:
                                         max(1, num_pages - 1))
         self.cache = PagedKVCache(
             num_layers=cfg.num_layers, num_pages=num_pages,
-            page_size=page_size, num_heads=cfg.num_heads,
+            page_size=page_size, num_heads=cfg.num_heads // self.tp,
             head_dim=cfg.head_dim,
             max_pages_per_request=max_pages_per_request,
             dtype=cfg.dtype, device=self.device, crc_pages=validate_pages,
-            quantize=kv_quant)
+            quantize=kv_quant, tp_group=self.tp_group)
         self.kv_quant = kv_quant
         self.prefix_index = (
             PrefixIndex(self.cache, max_entries=self.prefix_entries)
@@ -334,7 +385,8 @@ class ServingEngine:
             chunk_size=self.chunk_size, prefix_index=self.prefix_index)
         self.decoder = PagedDecoder(cfg)
         self.max_batch = max_batch
-        self.telemetry = telemetry
+        # under tp the group's first rank alone emits (module docstring)
+        self.telemetry = telemetry if self.tp_rank == 0 else None
         self.clock = clock if clock is not None else time.monotonic
         self.shed_min_service_s = float(shed_min_service_s)
         self.watchdog = watchdog
@@ -384,7 +436,7 @@ class ServingEngine:
             raise ValueError("empty prompt")
         req = Request(rid=self._next_rid, prompt=list(prompt),
                       max_new_tokens=max_new_tokens, eos_id=eos_id,
-                      arrival_t=(self.clock() if arrival_t is None
+                      arrival_t=(self._now() if arrival_t is None
                                  else arrival_t),
                       deadline_s=deadline_s)
         self._next_rid += 1
@@ -413,11 +465,64 @@ class ServingEngine:
 
     def _reject(self, req: Request, reason: str) -> None:
         req.state = FINISHED
-        req.finish_t = self.clock()
+        req.finish_t = self._now()
         req.finish_reason = "rejected"
         self.rejected.append(req)
         self._emit("request_reject", rid=req.rid, reason=reason,
                    queue_depth=len(self.sched.waiting))
+
+    # -- agreement across tensor ranks ------------------------------------
+
+    def _now(self) -> float:
+        """The engine clock's reading: under tp, the group's first rank's
+        (broadcast; every rank reads the clock at the same points)."""
+        t = self.clock()
+        if self.tp == 1:
+            return t
+        got = comm.broadcast(torch.tensor([t], dtype=torch.float64),
+                             self._tp_src, self.tp_group)
+        return float(got[0])
+
+    def _fault_check(self, event: str, info: int,
+                     page_lists: Optional[List[List[int]]] = None) -> None:
+        """A device step's fault point: the fault hook, then (with
+        ``page_lists``) the CRC check of the pages the step reads.  Under
+        tp the ranks then agree on one verdict (module docstring): a
+        fault on any rank raises on every rank."""
+        fault = None
+        try:
+            _fault_point(event, info)
+            if page_lists is not None:
+                self.cache.verify_pages(page_lists)
+        except Exception as e:  # noqa: BLE001 (agreed on below)
+            if self.tp == 1:
+                raise
+            fault = e
+        if self.tp == 1:
+            return
+        code = (0 if fault is None else 1 if isinstance(fault, DeviceLossError)
+                else 2 if isinstance(fault, PagePoolCorruption) else 3)
+        codes = comm.all_gather(torch.tensor([code], dtype=torch.int64),
+                                self.tp_group, dim=0).tolist()
+        if not any(codes):
+            return
+        src = next(r for r, c in enumerate(codes) if c)
+        what = [None]
+        if src == self.tp_rank:
+            what = [(getattr(fault, "device_ids", None), str(fault),
+                     type(fault).__name__)]
+        torch.distributed.broadcast_object_list(
+            what, src=torch.distributed.get_global_rank(self.tp_group, src),
+            group=self.tp_group)
+        if src == self.tp_rank:
+            raise fault
+        ids, msg, name = what[0]
+        detail = f"on tensor rank {src}: {msg}"
+        if codes[src] == 1:
+            raise DeviceLossError(ids, detail=detail)
+        if codes[src] == 2:
+            raise PagePoolCorruption(detail)
+        raise RuntimeError(f"{name} {detail}")
 
     # -- device steps ------------------------------------------------------
 
@@ -432,7 +537,8 @@ class ServingEngine:
         return self.decoder.decode(
             self.params, self.cache.k, self.cache.v, dev[:b], dev[b:2 * b],
             dev[3 * b:].view(b, p_max), dev[2 * b:3 * b],
-            k_scale=self.cache.k_scale, v_scale=self.cache.v_scale)
+            k_scale=self.cache.k_scale, v_scale=self.cache.v_scale,
+            tp_group=self.tp_group)
 
     def _extend_host(self, b: int, q: int):
         """The host operand row of an extend step (verify or chunk), all
@@ -458,7 +564,7 @@ class ServingEngine:
             self.params, self.cache.k, self.cache.v, tok, pos, wp, wo,
             dev[4 * n + b:].view(b, p_max), dev[4 * n:4 * n + b],
             last_only=last_only, k_scale=self.cache.k_scale,
-            v_scale=self.cache.v_scale)
+            v_scale=self.cache.v_scale, tp_group=self.tp_group)
 
     @torch.no_grad()
     def warmup(self) -> float:
@@ -472,7 +578,8 @@ class ServingEngine:
         t0 = time.perf_counter()
         S, b = self.prefill_budget, self.max_batch
         z = self._to_device(np.zeros((1, S), np.int32))
-        _, k, v = self.decoder.prefill(self.params, z, z, z, 0)
+        _, k, v = self.decoder.prefill(self.params, z, z, z, 0,
+                                       tp_group=self.tp_group, live=1)
         zs = z[0]
         self.cache.write_tokens(k[:, 0], v[:, 0], zs, zs)
         p_max, rows = self.cache.max_pages_per_request, self.decode_rows
@@ -515,8 +622,8 @@ class ServingEngine:
                 f"request {req.rid}: prefill found {len(req.pages)} "
                 f"reserved pages, context needs {need} — pages must be "
                 "reserved at admission")
-        _fault_point("prefill", req.rid)
-        prefill_t0 = self.clock()
+        self._fault_check("prefill", req.rid)
+        prefill_t0 = self._now()
         # rows: tokens, segment ids, positions, then each packed
         # position's (page, offset); padding -> scratch page 0
         host = np.zeros((5, S), np.int32)
@@ -527,15 +634,17 @@ class ServingEngine:
         host[3, :C] = np.asarray(req.pages, np.int32)[idx // ps]
         host[4, :C] = idx % ps
         dev = self._to_device(host)
+        # under tp the ranks sum the C real positions' partials only
         logits, k, v = self.decoder.prefill(self.params, dev[0:1], dev[1:2],
-                                            dev[2:3], C - 1)
+                                            dev[2:3], C - 1,
+                                            tp_group=self.tp_group, live=C)
         self.cache.write_tokens(k[:, 0], v[:, 0], dev[3], dev[4])
         self.prefills += 1
         req.kv_len = C
         self._register_prefix(ctx, req.pages)
         req.generated.append(int(logits[0, 0].argmax()))
         if req.first_token_t is None:
-            req.first_token_t = self.clock()
+            req.first_token_t = self._now()
             # colocated: the token is streamable the instant it is
             # sampled (a shipped request's stream_t is its adoption)
             req.stream_t = req.first_token_t
@@ -545,7 +654,7 @@ class ServingEngine:
                    span_id=f"{req.rid}:prefill_chunk:{life}:0",
                    parent_id=f"{req.rid}:admit:{life}",
                    kind="prefill_chunk", t_start=prefill_t0,
-                   t_end=self.clock())
+                   t_end=self._now())
 
     def _register_prefix(self, ctx: Sequence[int],
                          pages: List[int]) -> None:
@@ -577,10 +686,10 @@ class ServingEngine:
     def _decode_batch(self, rows: List[Request]) -> None:
         """One decode step for ``rows`` (<= max_batch), idle-padded to
         the fixed width ``decode_rows``."""
-        _fault_point("decode", self.decode_steps)
         # opt-in read-back validation: the pages this step attends over
         # must still match their recorded CRCs
-        self.cache.verify_pages([req.pages for req in rows])
+        self._fault_check("decode", self.decode_steps,
+                          [req.pages for req in rows])
         b = self.decode_rows
         ps = self.cache.page_size
         p_max = self.cache.max_pages_per_request
@@ -618,8 +727,8 @@ class ServingEngine:
         for rejected rows go back to the pool (``free_tail``).  Returns
         ``(drafted, accepted, committed)`` token counts for the
         ``decode_step`` event."""
-        _fault_point("decode", self.decode_steps)
-        self.cache.verify_pages([req.pages for req in rows])
+        self._fault_check("decode", self.decode_steps,
+                          [req.pages for req in rows])
         b, qw = self.max_batch, self.spec_k + 1
         ps = self.cache.page_size
         host, (tokens, positions, wpages, woffs, kv_len,
@@ -678,12 +787,11 @@ class ServingEngine:
         fixed ``[1, chunk_size]`` extend step, front-padded.  The last
         chunk's last row gives the request's first token; earlier chunks
         read nothing back."""
-        _fault_point("prefill", req.rid)
-        t0 = self.clock()
         # this chunk attends over the pages earlier chunks filled: a
         # corrupted one must raise here, before the last chunk samples
         # the first token from it (pages not yet filled have no CRC)
-        self.cache.verify_pages([req.pages])
+        self._fault_check("prefill", req.rid, [req.pages])
+        t0 = self._now()
         cs, ps = self.chunk_size, self.cache.page_size
         ctx = req.context
         need = self.cache.pages_needed(start + n)
@@ -715,13 +823,13 @@ class ServingEngine:
             self._register_prefix(ctx, req.pages)
             req.generated.append(int(logits[0, 0].argmax()))
             if req.first_token_t is None:
-                req.first_token_t = self.clock()
+                req.first_token_t = self._now()
                 req.stream_t = req.first_token_t
         life = self._life(req)
         self._emit("span", rid=req.rid,
                    span_id=f"{req.rid}:prefill_chunk:{life}:{start}",
                    parent_id=f"{req.rid}:admit:{life}",
-                   kind="prefill_chunk", t_start=t0, t_end=self.clock())
+                   kind="prefill_chunk", t_start=t0, t_end=self._now())
 
     # -- the engine step ---------------------------------------------------
 
@@ -833,7 +941,7 @@ class ServingEngine:
             return self._step_body()
 
     def _step_body(self) -> bool:
-        now = self.clock()
+        now = self._now()
         progress = self._expire(now)
         progress = bool(self._retire(now)) or progress
         if self.chunk_size is not None:
@@ -864,7 +972,7 @@ class ServingEngine:
             self._emit("span", rid=req.rid,
                        span_id=f"{req.rid}:admit:{life}",
                        parent_id=qid, kind="admit", t_start=now,
-                       t_end=self.clock())
+                       t_end=self._now())
             progress = True
         for req, start, n in chunk_plan:
             self._chunk_step(req, start, n)
@@ -885,7 +993,7 @@ class ServingEngine:
         rows = ([] if self.prefill_only else
                 [r for r in self.sched.running if r.prefill_pos is None])
         if rows:
-            t0 = self.clock()
+            t0 = self._now()
             fields: Dict[str, Any] = {}
             if any(r.rid in drafts for r in rows):
                 drafted, accepted, committed = self._verify_batch(rows,
@@ -904,7 +1012,7 @@ class ServingEngine:
                        pool_used=self.cache.pages_used,
                        pool_pages=self.cache.num_pages - 1,
                        evicted=[r.rid for r in evicted],
-                       step_ms=round((self.clock() - t0) * 1e3, 3),
+                       step_ms=round((self._now() - t0) * 1e3, 3),
                        **fields)
             progress = True
         elif evicted or chunk_plan:
@@ -1056,7 +1164,7 @@ class ServingEngine:
         if req.prefill_pos is not None or not req.generated:
             raise ValueError(
                 f"export_request: rid {rid} has not finished prefill")
-        t0 = self.clock()
+        t0 = self._now()
         pages_payload = [self.cache.export_page_bytes(p) for p in req.pages]
         # the export span opens the ship segment of the TTFT
         # decomposition; export_t/export_span ride the record so the
@@ -1065,7 +1173,7 @@ class ServingEngine:
         export_span = f"{req.rid}:kv_export:{life}"
         self._emit("span", rid=req.rid, span_id=export_span,
                    parent_id=f"{req.rid}:admit:{life}",
-                   kind="kv_export", t_start=t0, t_end=self.clock())
+                   kind="kv_export", t_start=t0, t_end=self._now())
         record = dict(self._record(req, True), export_t=t0,
                       export_span=export_span)
         kv_len = req.kv_len
@@ -1133,7 +1241,7 @@ class ServingEngine:
         # the first token was sampled at export but is streamable only
         # now that its KV landed: adoption is stream_t, and the
         # export -> adopt wall is the request's ship time
-        now = self.clock()
+        now = self._now()
         req.stream_t = now
         export_t = record.get("export_t")
         if export_t is not None:
@@ -1176,11 +1284,12 @@ class ServingEngine:
         self.cache = None      # the dropped pool's memory goes first
         geometry = dict(num_layers=self.cfg.num_layers,
                         num_pages=old.num_pages, page_size=old.page_size,
-                        num_heads=self.cfg.num_heads,
+                        num_heads=old.num_heads,
                         head_dim=self.cfg.head_dim,
                         max_pages_per_request=old.max_pages_per_request,
                         dtype=self.cfg.dtype, device=self.device,
-                        crc_pages=old.crc_pages, quantize=self.kv_quant)
+                        crc_pages=old.crc_pages, quantize=self.kv_quant,
+                        tp_group=self.tp_group)
         del old
         self.cache = PagedKVCache(**geometry)
         if self.prefix_index is not None:
@@ -1263,7 +1372,7 @@ class ServingEngine:
             if raise_on_stall:
                 raise RuntimeError(
                     f"engine did not drain in {max_steps} steps")
-        self._retire(self.clock())
+        self._retire(self._now())
         return self.sched.finished
 
     def serve(self, trace: Sequence[Request], *,
@@ -1283,12 +1392,12 @@ class ServingEngine:
                     f"request {req.rid} is not fresh "
                     f"(state={req.state!r}) — trace requests are "
                     "single-use; regenerate the trace")
-        t_base = self.clock()
+        t_base = self._now()
         for req in pending:
             req.arrival_t += t_base
         i = 0
         for _ in range(max_steps):
-            now = self.clock()
+            now = self._now()
             while i < len(pending) and pending[i].arrival_t <= now:
                 self.submit_request(pending[i])
                 i += 1
@@ -1308,5 +1417,5 @@ class ServingEngine:
             if raise_on_stall:
                 raise RuntimeError(
                     f"trace did not drain in {max_steps} steps")
-        self._retire(self.clock())
+        self._retire(self._now())
         return self.sched.finished

@@ -51,6 +51,18 @@ plane — so a payload exported by either package verifies
 (:func:`verify_page_payload`) and lands (:meth:`PagedKVCache.
 import_page_bytes`) in the other, byte for byte.
 :meth:`PagedKVCache.defrag` compacts the live pages to the lowest ids.
+
+**Under tensor parallelism** (``tp_group``, a group of ``tp`` ranks) each
+rank's pool holds its slice of the heads, ``num_heads`` of them, the
+rank's ``tp_rank``-th block of the model's ``num_heads * tp``.  Page
+accounting is the same on every rank (the ranks make the same calls).  A
+shipped page is the whole page on the wire: :meth:`PagedKVCache.
+export_page_bytes` gathers the ranks' slices along the head axis (one
+collective a page) and stamps the whole page's CRCs, and
+:meth:`PagedKVCache.import_page_bytes` lands each rank's slice of a whole
+payload, so engines at any two tensor-parallel sizes ship to each other.
+The per-page CRCs that ``crc_pages`` keeps cover the rank's own slice:
+they never leave the rank.
 """
 
 from __future__ import annotations
@@ -66,6 +78,7 @@ import torch
 
 from apex_tpu_torch._device import resolve_device
 from apex_tpu_torch.ops.attention import code_bytes
+from apex_tpu_torch.parallel import comm
 
 
 #: qmax per quantization mode: int8 symmetric [-127, 127] (the -128 code is
@@ -157,12 +170,14 @@ class PagedKVCache:
     means the card.  ``dtype`` is the compute dtype of the tokens fed to
     :meth:`write_tokens`; ``quantize`` (None, ``"int8"`` or ``"fp8"``)
     stores them as codes plus fp32 scales.  ``crc_pages`` turns on the
-    per-page CRC read-back validation (module docstring)."""
+    per-page CRC read-back validation; ``tp_group`` makes the pool one
+    rank's head slice (module docstring)."""
 
     def __init__(self, *, num_layers: int, num_pages: int, page_size: int,
                  num_heads: int, head_dim: int, max_pages_per_request: int,
                  dtype: torch.dtype = torch.float32, device=None,
-                 crc_pages: bool = False, quantize: Optional[str] = None):
+                 crc_pages: bool = False, quantize: Optional[str] = None,
+                 tp_group=None):
         if num_pages < 2:
             raise ValueError("num_pages must be >= 2 (page 0 is the "
                              "reserved scratch page)")
@@ -178,6 +193,9 @@ class PagedKVCache:
         self.max_pages_per_request = max_pages_per_request
         self.dtype = dtype
         self.quantize = quantize
+        self.tp_group = tp_group
+        self.tp = comm.group_size(tp_group)
+        self.tp_rank = comm.group_rank(tp_group)
         pool_dtype = quant_pool_dtype(quantize) if quantize else dtype
         self.device = resolve_device(device)
         shape = (num_layers, num_pages, page_size, num_heads, head_dim)
@@ -362,6 +380,31 @@ class PagedKVCache:
         return [t[:, page] for t in (self.k, self.v, self.k_scale,
                                      self.v_scale) if t is not None]
 
+    def _whole_planes_bytes(self, page: int) -> List[bytes]:
+        """The C-order bytes of page ``page``'s planes across every head
+        of the model: the rank's own planes at one rank, else the ranks'
+        head slices gathered in rank order (one collective; every rank
+        gets the same bytes)."""
+        planes = self._planes(page)
+        if self.tp == 1:
+            return _planes_bytes(planes)
+        # each plane as [L, ps, heads, bytes of a head's entry], head axis
+        # first, all planes side by side in one [heads, bytes] buffer
+        raw = [(p if p.dim() == 4 else p.unsqueeze(-1)).contiguous()
+               .view(torch.uint8) for p in planes]
+        mine = torch.cat([r.movedim(2, 0).reshape(self.num_heads, -1)
+                          for r in raw], dim=1)
+        whole = comm.all_gather_tiled(mine, self.tp_group).cpu()
+        out, at = [], 0
+        for r in raw:
+            n = r.shape[0] * r.shape[1] * r.shape[3]   # bytes a head
+            part = whole[:, at:at + n].reshape(-1, r.shape[0], r.shape[1],
+                                               r.shape[3])
+            out.append(part.permute(1, 2, 0, 3).contiguous().numpy()
+                       .tobytes())
+            at += n
+        return out
+
     def export_page_bytes(self, page: int) -> Dict[str, int]:
         """Serialize one page for shipping: the C-order K/V page slices
         (quantized: the narrow codes, plus the fp32 scale planes as
@@ -369,8 +412,9 @@ class PagedKVCache:
         export using the :meth:`_page_digest` recipe — the receiver
         verifies them host-side (:func:`verify_page_payload`) before its
         pool ever sees the bytes, and records them as the imported page's
-        read-back digest."""
-        planes = _planes_bytes(self._planes(page))
+        read-back digest.  Under tensor parallelism the payload is the
+        whole page's (module docstring), the same on every rank."""
+        planes = self._whole_planes_bytes(page)
         kb, vb = planes[0], planes[1]
         out = {"k": base64.b64encode(kb).decode("ascii"),
                "v": base64.b64encode(vb).decode("ascii")}
@@ -391,21 +435,40 @@ class PagedKVCache:
         decode over an imported page is decode over a locally prefilled
         one.  Callers verify the payload first
         (:func:`verify_page_payload`); this method trusts it and records
-        the shipped CRCs as the page's read-back digest."""
+        the shipped CRCs as the page's read-back digest.  Under tensor
+        parallelism each rank lands its head slice of the whole payload
+        and records its slice's CRCs."""
         keys = ("k", "v", "k_scale", "v_scale")
+        mine = []
         for key, t in zip(keys, (self.k, self.v, self.k_scale,
                                  self.v_scale)):
             if t is None:
                 continue
-            raw = bytearray(base64.b64decode(data[key]))
-            src = torch.frombuffer(raw, dtype=torch.uint8).to(self.device)
             dst = t[:, page]
-            dst.view(torch.uint8).copy_(
-                src.view(dst.view(torch.uint8).shape))
+            dst = (dst if dst.dim() == 4 else dst.unsqueeze(-1)) \
+                .view(torch.uint8)
+            src = np.frombuffer(bytearray(base64.b64decode(data[key])),
+                                np.uint8)
+            if self.tp > 1:
+                # [L, ps, all heads, bytes a head] -> the rank's heads
+                h0 = self.tp_rank * self.num_heads
+                src = src.reshape(dst.shape[0], dst.shape[1], -1,
+                                  dst.shape[3])[:, :, h0:h0 + self.num_heads]
+            src = np.ascontiguousarray(src)
+            mine.append(src.tobytes())
+            dst.copy_(torch.from_numpy(src).reshape(dst.shape))
         if self.crc_pages:
             # shipped bytes land verbatim, so the export digest IS the
-            # imported page's digest — no device read-back needed
-            self._crc[page] = (data["crc_k"], data["crc_v"])
+            # imported page's digest (under tp: the digest of the slice
+            # landed here) — no device read-back needed
+            if self.tp == 1:
+                self._crc[page] = (data["crc_k"], data["crc_v"])
+            else:
+                kb, vb = mine[0], mine[1]
+                if self.quantize:
+                    kb += mine[2]
+                    vb += mine[3]
+                self._crc[page] = (zlib.crc32(kb), zlib.crc32(vb))
 
     def warm_import(self) -> None:
         """Move an all-zero page through :meth:`import_page_bytes`'s

@@ -28,13 +28,24 @@ over the row's own page list), which is what makes batched continuous
 decoding produce bit-identical tokens to one-request-at-a-time decoding
 at the same batch width.
 
+**Tensor parallelism.**  With ``tp_group`` (a ``torch.distributed`` group
+of ``tp`` ranks) the three methods run as one rank's part of the model,
+Megatron-style: the rank holds its head slice of ``wqkv`` (columns, in
+the shard-major order :func:`shard_params_tp` makes) and of ``w1``
+(columns), the matching rows of ``wo`` and ``w2``, and the embeddings and
+LayerNorms whole (:func:`tp_rank_params`).  The head count is read off
+the rank's own ``wqkv`` block, the pool holds the rank's heads, and each
+block's partial residual (attention, then MLP) is summed over the group
+by one ``comm.all_reduce``: two a layer, where the JAX package's
+``shard_map`` body has its ``lax.psum``.  Every rank ends a step with the
+same summed hidden state and so the same logits.
+
 Parameters are a plain dict of tensors (:func:`init_params`) with tied
 embeddings, weights kept in the JAX package's ``[in, out]`` layout so
 ``x @ W`` needs no transpose and JAX weights load unchanged
 (:func:`~apex_tpu_torch.serving.convert.params_from_jax`).  The GEMMs are
 ``torch.matmul``, as the JAX package leaves them to XLA.
 
-Not ported yet (ROADMAP.md): tensor parallelism.
 """
 
 from __future__ import annotations
@@ -49,6 +60,7 @@ import torch.nn.functional as F
 from apex_tpu_torch._device import resolve_device
 from apex_tpu_torch.ops import flash_attention, flash_decode
 from apex_tpu_torch.ops.attention import code_bytes
+from apex_tpu_torch.parallel import comm
 from apex_tpu_torch.serving.kv_cache import quantize_tokens
 
 
@@ -110,6 +122,53 @@ def init_params(cfg: ServingModelConfig, seed: int = 0, device=None) -> Dict:
     return params
 
 
+def shard_params_tp(params, tp: int):
+    """Reorder each layer's fused ``wqkv`` ``[h, 3h]`` into shard-major
+    column blocks ``[q_0|k_0|v_0 | q_1|k_1|v_1 | ...]``, so that rank
+    ``j``'s ``j``-th column block holds exactly its head slice of all
+    three projections and ``chunk(3, dim=-1)`` splits it as at one rank
+    (the JAX package's ``shard_params_tp``, bit for bit: a column
+    permutation).  Returns a new tree sharing every other leaf; ``tp=1``
+    returns ``params`` as it is."""
+    if tp == 1:
+        return params
+    out = dict(params)
+    out["layers"] = []
+    for layer in params["layers"]:
+        w = layer["wqkv"]
+        h = w.shape[0]
+        if h % tp:
+            raise ValueError(f"hidden_size {h} not divisible by tp={tp}")
+        wq, wk, wv = w.chunk(3, dim=1)
+        n = h // tp
+        blocks = []
+        for j in range(tp):
+            blocks += [t[:, j * n:(j + 1) * n] for t in (wq, wk, wv)]
+        out["layers"].append(dict(layer, wqkv=torch.cat(blocks, dim=1)))
+    return out
+
+
+def tp_rank_params(params, tp: int, rank: int):
+    """Rank ``rank``'s part of a :func:`shard_params_tp` tree at ``tp``
+    ranks (the JAX engine's ``_param_specs``): the ``rank``-th column
+    block of ``wqkv`` and ``w1``, the ``rank``-th row block of ``wo`` and
+    ``w2`` (each a contiguous copy), the embeddings, positions and
+    LayerNorms as they are."""
+    if tp == 1:
+        return params
+
+    def block(w, dim):
+        n = w.shape[dim] // tp
+        return w.narrow(dim, rank * n, n).contiguous()
+
+    out = dict(params)
+    out["layers"] = [dict(layer, wqkv=block(layer["wqkv"], 1),
+                          w1=block(layer["w1"], 1), wo=block(layer["wo"], 0),
+                          w2=block(layer["w2"], 0))
+                     for layer in params["layers"]]
+    return out
+
+
 def params_to(params, device):
     """The same parameter tree with every tensor on ``device`` (tensors
     already there are returned as they are, not copied)."""
@@ -133,6 +192,16 @@ def _mlp(x, layer):
     return F.gelu(x @ layer["w1"], approximate="tanh") @ layer["w2"]
 
 
+def _sum_rows(part: torch.Tensor, group, live: Optional[int]):
+    """``part`` ``[b, s, h]`` summed over ``group``: every row, or with
+    ``live`` the first ``live`` rows alone (in place; the rest keep this
+    rank's partial)."""
+    if live is None or live >= part.shape[1] or comm.group_size(group) == 1:
+        return comm.all_reduce(part, group)
+    part[:, :live] = comm.all_reduce(part[:, :live], group)
+    return part
+
+
 class PagedDecoder:
     """The decoder model over the cache layout the engine owns (the
     engine holds params and pool; this class is functions of them)."""
@@ -141,16 +210,19 @@ class PagedDecoder:
         self.cfg = cfg
 
     def _heads(self, t: torch.Tensor) -> torch.Tensor:
-        """[b, s, H*hd] view -> [b, H, s, hd] view (no copy)."""
+        """[b, s, H*hd] view -> [b, H, s, hd] view (no copy); ``H`` is read
+        off the width, so a rank's slice of ``H / tp`` heads views as
+        such."""
         b, s = t.shape[:2]
-        return t.view(b, s, self.cfg.num_heads,
-                      self.cfg.head_dim).transpose(1, 2)
+        hd = self.cfg.head_dim
+        return t.view(b, s, t.shape[-1] // hd, hd).transpose(1, 2)
 
     # -- admission: packed varlen prefill --------------------------------
 
     def prefill(self, params, tokens: torch.Tensor, seg: torch.Tensor,
                 positions: torch.Tensor,
-                last_index: Optional[int] = None,
+                last_index: Optional[int] = None, *, tp_group=None,
+                live: Optional[int] = None,
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """tokens/seg/positions ``[1, S]`` int (one packed row; seg 0 =
         padding, real segments 1..n; positions restart per segment).
@@ -159,7 +231,15 @@ class PagedDecoder:
 
         ``last_index``: compute logits ``[1, 1, vocab]`` for that single
         position only (admission needs one next-token distribution);
-        ``None`` returns the full ``[1, S, vocab]`` logits."""
+        ``None`` returns the full ``[1, S, vocab]`` logits.
+
+        ``tp_group``: run as one rank of that group (module docstring);
+        the returned K/V are the rank's head slice.  ``live``: the row's
+        first ``live`` positions are its real ones and the rest padding
+        (segment 0, which no real position attends to); the ranks then
+        sum only the real positions' partials, and the padding rows carry
+        this rank's partial alone (their K/V and logits are never read).
+        The real rows' values are the same either way."""
         x = params["embed"][tokens] + params["pos"][positions]
         b, s = tokens.shape
         hd = self.cfg.head_dim
@@ -170,8 +250,11 @@ class PagedDecoder:
             ctx = flash_attention(self._heads(q), self._heads(k),
                                   self._heads(v), causal=True,
                                   segment_ids=seg)
-            x = x + ctx.transpose(1, 2).reshape(b, s, -1) @ layer["wo"]
-            x = x + _mlp(_ln(x, layer["ln2"]), layer)
+            x = x + _sum_rows(
+                ctx.transpose(1, 2).reshape(b, s, -1) @ layer["wo"],
+                tp_group, live)
+            x = x + _sum_rows(_mlp(_ln(x, layer["ln2"]), layer), tp_group,
+                              live)
             ks.append(k.view(b, s, -1, hd))
             vs.append(v.view(b, s, -1, hd))
         x = _ln(x, params["ln_f"])
@@ -186,7 +269,8 @@ class PagedDecoder:
                tokens: torch.Tensor, positions: torch.Tensor,
                page_table: torch.Tensor, kv_len: torch.Tensor, *,
                k_scale: Optional[torch.Tensor] = None,
-               v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+               v_scale: Optional[torch.Tensor] = None,
+               tp_group=None) -> torch.Tensor:
         """One decode step for a fixed-width batch; returns logits
         ``[b, vocab]``.
 
@@ -203,7 +287,8 @@ class PagedDecoder:
         pools instead.  With ``k_scale``/``v_scale`` (a quantized pool's
         ``[L, n_pages, page_size, H]`` fp32 scale planes) the new K/V are
         quantized on write, their scales written in place beside the
-        codes, and ``flash_decode`` dequantizes on read."""
+        codes, and ``flash_decode`` dequantizes on read.  ``tp_group``:
+        as in :meth:`prefill` (the pools hold the rank's heads)."""
         page_size = k_pool.shape[2]
         b = tokens.shape[0]
         hd = self.cfg.head_dim
@@ -215,8 +300,9 @@ class PagedDecoder:
               positions % page_size)
         for li, layer in enumerate(params["layers"]):
             qkv = _ln(x, layer["ln1"]) @ layer["wqkv"]
-            q = qkv[:, None, :self.cfg.hidden_size]   # [b, 1, h]
-            kv = qkv[:, self.cfg.hidden_size:].view(b, 2, -1, hd)  # K, V
+            width = qkv.shape[-1] // 3        # the rank's heads x hd
+            q = qkv[:, None, :width]          # [b, 1, width]
+            kv = qkv[:, width:].view(b, 2, -1, hd)  # K, V
             if quantized:
                 # one pass for K and V: the scale is a per-(token, head)
                 # function, so this is quantize_tokens of each alone
@@ -229,8 +315,10 @@ class PagedDecoder:
                 self._heads(q), k_pool[li], v_pool[li], page_table, kv_len,
                 k_scale=k_scale[li] if quantized else None,
                 v_scale=v_scale[li] if quantized else None)
-            x = x + ctx.transpose(1, 2).reshape(b, -1) @ layer["wo"]
-            x = x + _mlp(_ln(x, layer["ln2"]), layer)
+            x = x + comm.all_reduce(
+                ctx.transpose(1, 2).reshape(b, -1) @ layer["wo"], tp_group)
+            x = x + comm.all_reduce(_mlp(_ln(x, layer["ln2"]), layer),
+                                    tp_group)
         return _ln(x, params["ln_f"]) @ params["embed"].T
 
     # -- draft-verify / chunked prefill: several tokens a row -------------
@@ -241,7 +329,8 @@ class PagedDecoder:
                page_table: torch.Tensor, kv_len: torch.Tensor, *,
                last_only: bool = False,
                k_scale: Optional[torch.Tensor] = None,
-               v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+               v_scale: Optional[torch.Tensor] = None,
+               tp_group=None) -> torch.Tensor:
         """Append ``q`` tokens a row to the paged cache and score them in
         one ``flash_decode`` call a layer; returns logits ``[b, q, vocab]``
         (``[b, 1, vocab]`` with ``last_only``).
@@ -260,17 +349,18 @@ class PagedDecoder:
         step, which wants one next-token distribution).  The pools (and
         a quantized pool's ``k_scale``/``v_scale``) are updated IN PLACE,
         each layer's K/V written before that layer's attention reads
-        them, quantized on write as in :meth:`decode`."""
+        them, quantized on write as in :meth:`decode`.  ``tp_group``: as
+        in :meth:`prefill`."""
         b, q = tokens.shape
         hd = self.cfg.head_dim
-        hidden = self.cfg.hidden_size
         quantized = k_scale is not None
         qmax = quant_qmax(k_pool.dtype) if quantized else None
         x = params["embed"][tokens] + params["pos"][positions]  # [b, q, h]
         at = (write_pages, write_offsets)
         for li, layer in enumerate(params["layers"]):
             qkv = _ln(x, layer["ln1"]) @ layer["wqkv"]
-            kv = qkv[..., hidden:].view(b, q, 2, -1, hd)      # K, V
+            width = qkv.shape[-1] // 3        # the rank's heads x hd
+            kv = qkv[..., width:].view(b, q, 2, -1, hd)       # K, V
             if quantized:
                 kv, s = quantize_tokens(kv, k_pool.dtype, qmax)
                 k_scale[li].index_put_(at, s[:, :, 0])
@@ -278,12 +368,15 @@ class PagedDecoder:
             code_bytes(k_pool[li]).index_put_(at, code_bytes(kv[:, :, 0]))
             code_bytes(v_pool[li]).index_put_(at, code_bytes(kv[:, :, 1]))
             ctx = flash_decode(
-                self._heads(qkv[..., :hidden]), k_pool[li], v_pool[li],
+                self._heads(qkv[..., :width]), k_pool[li], v_pool[li],
                 page_table, kv_len,
                 k_scale=k_scale[li] if quantized else None,
                 v_scale=v_scale[li] if quantized else None)
-            x = x + ctx.transpose(1, 2).reshape(b, q, -1) @ layer["wo"]
-            x = x + _mlp(_ln(x, layer["ln2"]), layer)
+            x = x + comm.all_reduce(
+                ctx.transpose(1, 2).reshape(b, q, -1) @ layer["wo"],
+                tp_group)
+            x = x + comm.all_reduce(_mlp(_ln(x, layer["ln2"]), layer),
+                                    tp_group)
         x = _ln(x, params["ln_f"])
         if last_only:
             x = x[:, -1:]

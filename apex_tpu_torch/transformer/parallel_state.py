@@ -80,13 +80,13 @@ class _ParallelState:
 _STATE: Optional[_ParallelState] = None
 
 
-def _new_groups(rank_lists: List[List[int]]):
+def _new_groups(rank_lists: List[List[int]], timeout=None):
     """One process group per list, created on every rank in the same
     order (``torch.distributed.new_group`` must be called by all); the
     group holding this rank."""
     mine = None
     for ranks in rank_lists:
-        g = dist.new_group(ranks=ranks)
+        g = dist.new_group(ranks=ranks, timeout=timeout)
         if dist.get_rank() in ranks:
             mine = g
     return mine
@@ -95,12 +95,14 @@ def _new_groups(rank_lists: List[List[int]]):
 def initialize_model_parallel(
         tensor_model_parallel_size_: int = 1,
         pipeline_model_parallel_size_: int = 1,
-        virtual_pipeline_model_parallel_size_: Optional[int] = None
-) -> np.ndarray:
+        virtual_pipeline_model_parallel_size_: Optional[int] = None,
+        *, timeout=None) -> np.ndarray:
     """Build and register the groups (reference parallel_state.py:58) on
     the default group's backend; returns :func:`rank_grid`.  dp = world /
     (tp x pp), the world being the default process group's (1 without
-    one)."""
+    one).  ``timeout`` (a ``datetime.timedelta``; None is the backend's
+    default) bounds how long a collective of these groups waits for a
+    rank that never joins it."""
     global _STATE
     tp, pp = tensor_model_parallel_size_, pipeline_model_parallel_size_
     on = dist.is_available() and dist.is_initialized()
@@ -114,7 +116,7 @@ def initialize_model_parallel(
     groups: Dict[str, object] = {}
     if on:
         for kind, lists in group_ranks(world, tp, pp).items():
-            groups[kind] = _new_groups(lists)
+            groups[kind] = _new_groups(lists, timeout)
     _STATE = _ParallelState(
         tensor_model_parallel_size=tp, pipeline_model_parallel_size=pp,
         data_parallel_size=grid.shape[0],
@@ -208,6 +210,25 @@ def group_of(group):
     return group
 
 
+def tensor_parallel_group(tp: int):
+    """The tensor group a ``tp``-way serving engine runs over (the JAX
+    module's ``tensor_parallel_mesh``): this rank's tensor group of the
+    initialized state, whose size must be ``tp``.  One process is one
+    rank here, so with the state uninitialized, or initialized without a
+    process group, there is no group to return and ``tp > 1`` raises."""
+    if not model_parallel_is_initialized():
+        raise RuntimeError(
+            f"tp={tp} needs an initialized tensor-parallel group: start "
+            "one process per rank, join torch.distributed and call "
+            f"initialize_model_parallel({tp}) on every rank first")
+    world = get_tensor_model_parallel_world_size()
+    if tp != world:
+        raise ValueError(
+            f"tp={tp} does not match the initialized tensor-"
+            f"parallel world size {world}")
+    return get_tensor_model_parallel_group()
+
+
 # -- ranks -------------------------------------------------------------------
 
 def get_tensor_model_parallel_rank() -> int:
@@ -298,6 +319,7 @@ __all__ = [
     "get_virtual_pipeline_model_parallel_world_size",
     "get_tensor_model_parallel_group", "get_pipeline_model_parallel_group",
     "get_data_parallel_group", "get_model_parallel_group",
+    "tensor_parallel_group",
     "get_model_parallel_groups", "get_embedding_group", "group_of",
     "get_tensor_model_parallel_rank", "get_pipeline_model_parallel_rank",
     "get_data_parallel_rank", "is_pipeline_first_stage",

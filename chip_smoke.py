@@ -23,7 +23,8 @@ the card over gloo (phase 22), pipeline-parallel GPT training, its
 stages sharing the card the same way (phase 23), and ZeRO: bench.py's
 GPT-1.3B flagship train step, its sharded checkpoints and elastic
 recovery (phase 24), and the serving fleet: several GPT-1.3B engines
-behind the router, sharing the card (phase 25).
+behind the router, sharing the card (phase 25), and tensor-parallel
+serving, ``ServingEngine(tp=N)`` over ranks sharing the card (phase 26).
 Phases, each of which fails the run (non-zero exit) on error:
 
 1. device — a CUDA card is required; its name and power limit are read
@@ -511,6 +512,37 @@ Phases, each of which fails the run (non-zero exit) on error:
     fences, migrations, pages shipped, retries, fallbacks, export and
     import ms a page, a request's wire bytes, TTFT and TPOT p50 / p99 on
     the virtual clock and each replica's launches are printed.
+26. tensor-parallel serving — ``ServingEngine(tp=N)``, one process a
+    tensor rank, the ranks sharing cuda:0 over gloo (three launches side
+    by side, with the tp 1 fp32 controls on this process).  (a) the main
+    path: phase 5's model (GPT-1.3B width, 24 layers, bf16, its seed),
+    pool geometry and three requests (``trace(1, 3)``, their budgets cut
+    to :data:`TP26_NEW` tokens) at tp 2:
+    ``warmup()`` and the three served together, again, and one at a
+    time: the two ranks' streams identical, batched == again == one at a
+    time bitwise, each rank's K1 (``flash_fwd_sm90`` at 8 heads) and K5
+    (``flash_decode_sm90``) launches exactly 24 x (its prefills + 1) and
+    24 x (its decode steps + 1); against phase 5's tp 1 streams the count
+    of bitwise ones and the top-2 margin where one parts are printed (a
+    reading: the sums are grouped otherwise); the full-batch decode step
+    timed a rank with its collectives' share.  (b) the same on the int8
+    pool (``flash_decode_sm90_int8``).  (c) :data:`FP32_MODES` (4 heads
+    of 128) at tp 2 and tp 4 on the scalar routes (``flash_fwd.cu``,
+    ``flash_decode.cu``): the streams bitwise the tp 1 engine's (the JAX
+    package's contract), the launches exact; speculation (k 4) plus
+    chunking (128) at tp 2 bitwise its tp 1 control.  (d) at tp 2 on an
+    int8 pool of :data:`FP32_MODES`: ``ServingDeviceLoss`` installed on
+    rank 0 only (both ranks recover once, the streams the control's), a
+    snapshot through JSON restored into pools poisoned with sentinels (the
+    control's streams), and a prefill-only engine's export, the whole
+    page on every rank, landed in a tp 1 ``kv_import`` engine here that
+    exports the same bytes and CRCs back and decodes the tp 2 stream.
+    (e) K1 (``[1, h, 1024, 128]``, causal, segment ids) and K5
+    (``[8, h, 1, 128]`` over the ragged batch, bf16 and int8 pools) at
+    h = 8, 4, 2 and 1 against their plain versions at phase 3's
+    tolerances, each run twice bitwise, K1's tiles walked as the rule;
+    at 8 heads timed cold beside the plain versions, SDPA (page gather +
+    SDPA) and the bound, and read against phase 3's 16-head rows.
 
 The last three lines of standard output are the kernels' JSON record,
 the ``nvidia-smi`` name/power line, and ``{"ok": true, "device": ...}``.
@@ -748,13 +780,13 @@ def launched(fn):
                  if k.launches != before[k.symbol]]
 
 
-def flash_fwd_case(gen, name, dtype, lengths):
+def flash_fwd_case(gen, name, dtype, lengths, h=16):
     """K1 at the prefill's shape through ``flash_attention_fwd`` against
     its plain version, naming the kernel that ran (bf16 at head dim 128:
     ``flash_fwd_sm90``; fp32: the scalar ``flash_fwd``); on the tensor
     cores also run again (bitwise) counting its tiles walked, against
     :func:`flash_fwd_tiles`."""
-    q, k, v, seg = prefill_operands(gen, dtype, lengths)
+    q, k, v, seg = prefill_operands(gen, dtype, lengths, h=h)
     b, h, s, d = q.shape
     (o, lse), ran = launched(lambda: att.flash_attention_fwd(
         q, k, v, causal=True, segment_ids=seg))
@@ -879,13 +911,13 @@ def decode_plain(q, kp, vp, table, kv_len, ks, vs):
 
 
 def flash_decode_case(gen, name, dtype, q_len, lengths, quant=None,
-                      scalar=False):
+                      scalar=False, h=16):
     """K5 through ``flash_decode`` (with ``scalar``, ``flash_decode.cu``
     called directly, as on a bf16 pool before ``flash_decode_sm90.cu``)
     against its plain version, naming the entry point that ran;
     ``flash_decode_sm90.cu``'s run again (bitwise).  Returns (max error,
     operands, the entry point)."""
-    ops = decode_operands(gen, dtype, q_len, lengths, quant=quant)
+    ops = decode_operands(gen, dtype, q_len, lengths, h=h, quant=quant)
     q, kp, vp, table, kv_len, ks, vs = ops
 
     def run():
@@ -2640,7 +2672,8 @@ def serve_full(params, cfg, pool, kv_quant, decode_kernel, smi) -> dict:
     if not (same and rerun):
         raise AssertionError(f"{pool} pool: batched, sequential and re-run "
                              "streams differ")
-    metrics.update(launches=launches, batched_eq_sequential=same,
+    metrics.update(launches=launches, streams=s["together"],
+                   batched_eq_sequential=same,
                    rerun_eq=rerun, batch8_eq_batch1=same_b1)
     return metrics
 
@@ -9819,6 +9852,433 @@ def phase_fleet(smi: str) -> dict:
     return out
 
 
+# -- phase 26: tensor-parallel serving on torch.distributed -----------------
+#
+# The tensor ranks are processes sharing cuda:0 over gloo, as in phases
+# 22-24: every block's partial residual (two a layer) and every agreement
+# (the clock, the fault verdict) is staged through the host.  The streams,
+# the kernels at a rank's shapes and the launch counts are checked on the
+# card; a tp engine's speed over several cards is not.
+
+TP26_HEADS = FULL["num_heads"] // 2       # a rank's heads at tp 2
+# K1 and K5 held to their plain versions at every head count a rank of
+# FULL or FP32_MODES can hold: the grids and K1's TMA descriptors
+TP26_HEAD_COUNTS = (8, 4, 2, 1)
+TP26_LOSS_AT = 6      # (d): the decode boundary the device loss hits
+TP26_SNAP_AT = 5      # (d): engine steps before the snapshot
+TP26_SPLIT_STEPS = 6   # (a): full-batch decode steps timed a rank
+# every request of the phase: phase 5's three (trace(1, 3)) with their
+# budgets (16-64 tokens) cut to 12 new tokens: a decode step of ranks that
+# time-slice the card takes ~0.3 s (measured on one H100), and at the full
+# budgets the phase took 160.7 s
+TP26_NEW = 12
+# (c)'s speculative engine: phase 15's draft width and chunk
+TP26_SPEC = dict(k=SPEC_K, chunk_size=CHUNK)
+
+
+def tp26_engine(params, cfg, tp, prefill=None, **kw) -> ServingEngine:
+    """Phase 5's pool geometry (pages of 64, batch 8, 5 pages a request)
+    at ``tp`` ranks on the card."""
+    return ServingEngine(cfg, params, num_pages=NUM_PAGES, page_size=PAGE,
+                         max_batch=BATCH, max_pages_per_request=PAGES_PER_REQ,
+                         prefill_budget=prefill or cfg.max_position,
+                         device="cuda", tp=tp, **kw)
+
+
+def tp26_requests() -> list:
+    """Phase 5's three requests with their budgets cut to
+    :data:`TP26_NEW` tokens (a greedy stream's first tokens do not depend
+    on its budget)."""
+    reqs = trace(1, 3)
+    for r in reqs:
+        r.max_new_tokens = min(r.max_new_tokens, TP26_NEW)
+    return reqs
+
+
+def tp26_cfg(job) -> ServingModelConfig:
+    return ServingModelConfig(**job["cfg"], dtype=getattr(torch, job["dtype"]))
+
+
+def tp26_step_split(eng, steps=TP26_SPLIT_STEPS) -> dict:
+    """Full-batch decode steps of a tp engine (every rank at once): the
+    median wall to the device's end, and the share of it the host spent
+    in the staged all-reduces (``comm.STATS``)."""
+    from apex_tpu_torch.parallel import comm
+
+    dev = full_batch_operands(eng)
+    eng._decode(dev)
+    torch.cuda.synchronize()
+    walls = []
+    comm.STATS.reset()
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        eng._decode(dev)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    st = comm.STATS.as_dict()
+    return dict(step_ms_p50=statistics.median(walls), step_ms=walls,
+                collectives_per_step=st["calls"] / steps,
+                collective_bytes_per_step=st["bytes"] / steps,
+                collective_share=st["seconds"] * 1e3 / sum(walls))
+
+
+@torch.no_grad()
+def tp26_streams(job) -> dict:
+    """One pool at this launch's tp: ``warmup()`` and the three requests
+    served together, metered (each rank's exact K1 and K5 launches, its
+    collectives, wall and peak), then again and one at a time; with
+    ``split``, the full-batch decode step timed."""
+    from apex_tpu_torch.parallel import comm
+
+    cfg = tp26_cfg(job)
+    params = init_params(cfg, seed=0, device="cuda")
+    tp = parallel_state.get_tensor_model_parallel_world_size()
+    spec = SpecConfig(**job["spec"]) if job.get("spec") else None
+    reqs = tp26_requests()
+
+    def engine():
+        return tp26_engine(params, cfg, tp, job.get("prefill"),
+                           kv_quant=job.get("quant"), spec=spec)
+
+    eng = engine()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    comm.STATS.reset()
+    t0 = time.perf_counter()
+    eng.warmup()
+    together = streams_of(eng, reqs)
+    torch.cuda.synchronize()
+    out = dict(together=together, wall_s=time.perf_counter() - t0,
+               launches=launch_counts(), comm=comm.STATS.as_dict(),
+               prefills=eng.prefills, decode_steps=eng.decode_steps,
+               verify_steps=eng.verify_steps, chunk_steps=eng.chunk_steps,
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               pool=tuple(eng.cache.k.shape))
+    if spec is None:
+        L = cfg.num_layers
+        out["want"] = {job["k1"]: L * (eng.prefills + 1),
+                       job["k5"]: L * (eng.decode_steps + 1)}
+    if job.get("split"):
+        out["split"] = tp26_step_split(eng)
+    del eng
+    if not job.get("together_only"):
+        out["again"] = streams_of(engine(), reqs)
+        out["one_at_a_time"] = streams_of(engine(), reqs, one_at_a_time=True)
+    return out
+
+
+@torch.no_grad()
+def tp26_resilience(job) -> dict:
+    """(d) at tp 2 on an int8 pool: a device loss injected on the group's
+    first rank only, a snapshot restored into pools poisoned with
+    sentinels, and a prefill-only engine's export of one request."""
+    cfg = tp26_cfg(job)
+    params = init_params(cfg, seed=0, device="cuda")
+    reqs = tp26_requests()
+    rank = parallel_state.get_tensor_model_parallel_rank()
+
+    def engine(**kw):
+        return tp26_engine(params, cfg, 2, job["prefill"], kv_quant="int8",
+                           clock=SimClock(), **kw)
+
+    out = {"control": streams_of(engine(), reqs)}
+    eng = engine()
+    if rank == 0:
+        with ServingDeviceLoss(at_step=TP26_LOSS_AT, device_ids=[0]) as dl:
+            out["lost"] = streams_of(eng, reqs)
+        out["fired"] = dl.fired
+    else:
+        out["lost"] = streams_of(eng, reqs)
+    out["recoveries"] = eng.recoveries
+    src = engine()
+    for r in reqs:
+        src.submit(r.prompt, r.max_new_tokens)
+    for _ in range(TP26_SNAP_AT):
+        src.step()
+    snap = json.loads(json.dumps(src.snapshot()))
+    dst = engine()
+    for t, fill in ((dst.cache.k, 101), (dst.cache.v, 102),
+                    (dst.cache.k_scale, 1e3), (dst.cache.v_scale, 1e3)):
+        t.fill_(fill)
+    restored = dst.restore(snap)
+    dst.run()
+    out["restored"] = {r.rid: list(r.generated) for r in restored}
+    pre = engine(prefill_only=True)
+    pre.warmup()
+    r = pre.submit(reqs[0].prompt, reqs[0].max_new_tokens)
+    pre.step()
+    out["export"] = pre.export_request(r.rid)
+    return out
+
+
+TP26_JOBS = {"streams": tp26_streams, "resilience": tp26_resilience}
+
+
+def phase26_rank(rank, world, init_file, out, jobs):
+    """A rank of phase 26 (spawned): joins the gloo group and the tensor
+    group of ``world`` ranks, runs each job in order (a barrier after
+    each) and writes the results to ``<out>/rank<r>.pt``."""
+    import torch.distributed as dist
+
+    from apex_tpu_torch.parallel import multiproc
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    multiproc.init_file_group("gloo", rank, world, init_file)
+    parallel_state.initialize_model_parallel(world)
+    results = {}
+    for job in jobs:
+        t0 = time.perf_counter()
+        results[job["name"]] = TP26_JOBS[job["kind"]](job)
+        results[job["name"]]["job_s"] = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+        dist.barrier()
+    torch.save(results, os.path.join(out, f"rank{rank}.pt"))
+    parallel_state.destroy_model_parallel()
+    dist.destroy_process_group()
+
+
+def tp26_kernel_rows(seed: int, timings: dict) -> dict:
+    """(e) K1 and K5 at a rank's shapes: held to their plain versions at
+    every head count of :data:`TP26_HEAD_COUNTS` (each run twice bitwise,
+    K1's tiles walked as the rule), then timed at tp 2's 8 heads beside
+    the plain versions, the library calls and the bound, and read against
+    phase 3's 16-head rows."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    bf16 = torch.bfloat16
+    errs: dict = {}
+    ops = {}
+    for h in TP26_HEAD_COUNTS:
+        err, o = flash_fwd_case(gen, f"bf16 one segment C=700 + pad, {h} "
+                                f"head(s)", bf16, [700], h=h)
+        errs.setdefault("flash_fwd_sm90", []).append(err)
+        if h == TP26_HEADS:
+            ops["flash_fwd_sm90"] = o
+        for pool, quant, name in DECODE_POOLS[:2]:
+            err, o, ran = flash_decode_case(
+                gen, f"{pool} pool q_len=1, {h} head(s)", bf16, 1,
+                DECODE_RAGGED, quant, h=h)
+            if ran != name:
+                raise AssertionError(f"(e) the {pool} pool at {h} heads ran "
+                                     f"{ran}, not {name}")
+            errs.setdefault(name, []).append(err)
+            if h == TP26_HEADS:
+                ops[name] = o
+    fwd, _ = time_flash_fwd(bf16, *ops.pop("flash_fwd_sm90"))
+    rows = {"flash_fwd_sm90_tp2": fwd}
+    for name, o in ops.items():
+        rows[f"{name}_tp2"] = time_flash_decode(f"{name} ragged, "
+                                                f"{TP26_HEADS} heads", o)
+    for name, row in rows.items():
+        base = name[:-len("_tp2")]
+        row["max_abs_err"] = max(errs[base])
+        row["max_abs_err_by_heads"] = dict(zip(TP26_HEAD_COUNTS, errs[base]))
+        row["ms_16_heads"] = timings[base]["ms"]
+        log(f"  (e) {name}: {row['ms']:.4f} ms at {TP26_HEADS} heads against "
+            f"{row['ms_16_heads']:.4f} at 16 (phase 3): "
+            f"{row['ms'] / row['ms_16_heads']:.2f}x")
+    torch.cuda.empty_cache()
+    return rows
+
+
+def tp26_same(what: str, runs: list, key: str) -> None:
+    """Every rank's ``key`` equal to rank 0's (the one-token contract)."""
+    for r, res in enumerate(runs[1:], 1):
+        if res[key] != runs[0][key]:
+            raise AssertionError(f"{what}: rank {r}'s {key} streams differ "
+                                 "from rank 0's")
+
+
+def tp26_check_streams(what: str, runs: list, launch_bar: bool = True
+                       ) -> dict:
+    """A streams job on every rank: identical streams across ranks,
+    batched == one at a time == again bitwise, each rank's launches the
+    exact count of its own prefills and decode steps."""
+    for key in ("together", "again", "one_at_a_time"):
+        tp26_same(what, runs, key)
+    r0 = runs[0]
+    if not r0["together"] == r0["again"] == r0["one_at_a_time"]:
+        raise AssertionError(f"{what}: batched, re-run and one-at-a-time "
+                             "streams differ")
+    if launch_bar:
+        for r, res in enumerate(runs):
+            if res["launches"] != res["want"]:
+                raise AssertionError(f"{what}: rank {r} launched "
+                                     f"{res['launches']}, expected "
+                                     f"{res['want']}")
+    log(f"  {what}: {len(runs)} ranks' streams identical; batched == "
+        f"again == one at a time at max_batch {BATCH}; rank 0: "
+        f"{r0['prefills']} prefills, {r0['decode_steps']} decode steps, "
+        f"launches {r0['launches']} a rank (exact), pool {r0['pool']}, "
+        f"{r0['comm']['calls']} collectives ({r0['comm']['seconds']:.2f} s "
+        f"of {r0['wall_s']:.2f} s), peak {r0['peak_gib']:.2f} GiB")
+    return r0
+
+
+def tp26_controls(job_fp32: dict) -> dict:
+    """The tp 1 fp32 controls of (c) on this process: the plain engine's
+    streams and the speculative engine's."""
+    cfg = tp26_cfg(job_fp32)
+    params = init_params(cfg, seed=0, device="cuda")
+    out = {}
+    for key, spec in (("plain", None), ("spec", SpecConfig(**TP26_SPEC))):
+        eng = tp26_engine(params, cfg, 1, FP32_PREFILL, spec=spec)
+        out[key] = streams_of(eng, tp26_requests())
+        del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_tp_serving(smi: str, timings: dict, serving: dict) -> dict:
+    """Phase 26 (see the module docstring)."""
+    log(f"  {GLOO_WHY}")
+    t_phase = time.perf_counter()
+    rows = tp26_kernel_rows(43, timings)
+    full = dict(cfg=FULL, dtype="bfloat16", kind="streams",
+                k1="flash_fwd_sm90")
+    fp32 = dict(cfg=FP32_MODES, dtype="float32", kind="streams",
+                prefill=FP32_PREFILL, k1="flash_fwd", k5="flash_decode")
+    tmp = tempfile.mkdtemp(prefix="tp26_")
+    try:
+        log("  the launches below run side by side, with the tp 1 fp32 "
+            "controls on this process: their wall times are of a card "
+            "shared by eight ranks")
+        a, b, tp4, ctrl = concurrently(
+            lambda: tp22_spawn(2, [
+                dict(full, name="a", split=True, k5="flash_decode_sm90"),
+                dict(fp32, name="c"),
+                dict(fp32, name="c_spec", spec=TP26_SPEC,
+                     together_only=True)], tmp,
+                "(a) GPT-1.3B width, bf16, and (c) fp32 at tp 2",
+                body=phase26_rank),
+            lambda: tp22_spawn(2, [
+                dict(full, name="b", quant="int8",
+                     k5="flash_decode_sm90_int8"),
+                dict(cfg=FP32_MODES, dtype="float32", kind="resilience",
+                     name="d", prefill=FP32_PREFILL)], tmp,
+                "(b) int8 at full width and (d) resilience at tp 2",
+                body=phase26_rank),
+            lambda: tp22_spawn(4, [dict(fp32, name="c")], tmp,
+                               "(c) fp32 at tp 4", body=phase26_rank),
+            lambda: tp26_controls(fp32))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # (a) the main path: GPT-1.3B width at tp 2
+    ra = [r["a"] for r in a]
+    a0 = tp26_check_streams("(a) bf16 at tp 2", ra)
+    tp1 = [st[:TP26_NEW] for st in serving["bf16"]["streams"]]
+    reqs = tp26_requests()
+    got = dict(enumerate(a0["together"]))
+    ref = dict(enumerate(tp1))
+    n_same = sum(got[i] == ref[i] for i in ref)
+    div = {"diverged": len(ref) - n_same, "divergences": []}
+    if n_same != len(ref):
+        cfg = ServingModelConfig(**FULL, dtype=torch.bfloat16)
+        eng = full_engine(init_params(cfg, seed=0, device="cuda"), cfg)
+        div = divergences(got, ref, [r.prompt for r in reqs], eng)
+        del eng
+        torch.cuda.empty_cache()
+    log(f"  (a) against phase 5's tp 1 streams: {n_same} of {len(ref)} "
+        f"bitwise (a reading, not a bar: the tp 2 sums are grouped "
+        f"otherwise); divergences {div['divergences']}")
+    split = [r["split"] for r in ra]
+    log(f"  (a) full-batch decode step at tp 2: "
+        f"{[round(s['step_ms_p50'], 3) for s in split]} ms p50 a rank, "
+        f"{split[0]['collectives_per_step']:.0f} collectives a step "
+        f"({split[0]['collective_bytes_per_step'] / 1e6:.3f} MB), "
+        f"{[round(s['collective_share'], 3) for s in split]} of the step in "
+        f"them; phase 5's tp 1 step: host enqueue "
+        f"{serving['bf16']['decode_enqueue_ms_p50']:.3f} ms, device done "
+        f"{serving['bf16']['decode_done_ms_p50']:.3f} ms")
+
+    # (b) the int8 pool at full width
+    rb = [r["b"] for r in b]
+    b0 = tp26_check_streams("(b) int8 at tp 2", rb)
+
+    # (c) fp32 at tp 2 and tp 4: JAX's bitwise contracts
+    rc2, rc4 = [r["c"] for r in a], [r["c"] for r in tp4]
+    c2 = tp26_check_streams("(c) fp32 at tp 2", rc2)
+    c4 = tp26_check_streams("(c) fp32 at tp 4", rc4)
+    for what, c in (("tp 2", c2), ("tp 4", c4)):
+        if c["together"] != ctrl["plain"]:
+            raise AssertionError(f"(c) fp32 at {what}: the streams are not "
+                                 "tp 1's")
+    spec = [r["c_spec"] for r in a]
+    tp26_same("(c) speculative fp32 at tp 2", spec, "together")
+    if spec[0]["together"] != ctrl["spec"]:
+        raise AssertionError("(c) speculation + chunking at tp 2 differs "
+                             "from its tp 1 control")
+    log(f"  (c) fp32 at {FP32_MODES['hidden_size']} x "
+        f"{FP32_MODES['num_layers']} layers, {FP32_MODES['num_heads']} heads: "
+        f"tp 2 and tp 4 streams bitwise tp 1's; speculation (k {SPEC_K}) + "
+        f"chunking ({CHUNK}) at tp 2 bitwise its tp 1 control "
+        f"({spec[0]['verify_steps']} verify, {spec[0]['chunk_steps']} chunk "
+        "steps)")
+
+    # (d) resilience at tp 2 + int8
+    rd = [r["d"] for r in b]
+    d0 = rd[0]
+    if not d0.get("fired") or "fired" in rd[1]:
+        raise AssertionError("(d) the injector did not fire on rank 0 alone")
+    for r, res in enumerate(rd):
+        if res["recoveries"] != 1 or res["lost"] != res["control"]:
+            raise AssertionError(f"(d) rank {r}: {res['recoveries']} "
+                                 "recoveries, or the streams after the "
+                                 "device loss are not the control's")
+        want = dict(enumerate(res["control"]))
+        if not res["restored"] or any(s != want[rid] for rid, s in
+                                      res["restored"].items()):
+            raise AssertionError(f"(d) rank {r}: the restored streams are "
+                                 "not the control's")
+    tp26_same("(d)", rd, "control")
+    record, pages, kv_len = d0["export"]
+    if rd[1]["export"][1] != pages:
+        raise AssertionError("(d) the ranks exported different payloads")
+    cfg = tp26_cfg(dict(cfg=FP32_MODES, dtype="float32"))
+    one = tp26_engine(init_params(cfg, seed=0, device="cuda"), cfg, 1,
+                      FP32_PREFILL, kv_quant="int8", kv_import=True,
+                      validate_pages=True, clock=SimClock())
+    landed = one.adopt_prefilled(record, pages, kv_len)
+    back = [one.cache.export_page_bytes(p) for p in landed.pages]
+    one.run()
+    if back != pages or not all(verify_page_payload(p) for p in pages):
+        raise AssertionError("(d) the tp 1 engine's export of the landed "
+                             "pages is not the tp 2 engine's bytes and CRCs")
+    if list(landed.generated) != d0["control"][0]:
+        raise AssertionError("(d) the tp 1 engine did not decode the tp 2 "
+                             "engine's stream from its pages")
+    del one
+    torch.cuda.empty_cache()
+    log(f"  (d) int8 at tp 2: a device loss on rank 0 only at decode "
+        f"boundary {TP26_LOSS_AT}: both ranks recovered once, streams the "
+        f"control's; a snapshot after {TP26_SNAP_AT} steps restored into "
+        f"poisoned pools: {len(d0['restored'])} requests, the control's; "
+        f"{len(pages)} pages exported at tp 2 (whole pages, "
+        f"{len(base64.b64decode(pages[0]['k']))} bytes of K a page), landed "
+        "in a tp 1 engine that exported the same bytes and CRCs back and "
+        "decoded the tp 2 stream")
+
+    secs = time.perf_counter() - t_phase
+    record = {"card": smi, "shared_card": True,
+              "a": {k: a0[k] for k in ("wall_s", "prefills", "decode_steps",
+                                       "launches", "comm", "peak_gib",
+                                       "job_s")},
+              "a_split": split, "a_vs_tp1_bitwise": n_same,
+              "a_divergences": div["divergences"],
+              "b": {k: b0[k] for k in ("wall_s", "decode_steps", "launches",
+                                       "peak_gib", "job_s")},
+              "c_tp2_launches": c2["launches"],
+              "c_tp4_launches": c4["launches"],
+              "phase_s": secs}
+    log("  phase 26 " + json.dumps(record))
+    log(f"  phase 26 took {secs:.1f} s; {smi}")
+    return {"rows": rows, "a": ra, "b": rb, "c_tp2": rc2, "c_tp4": rc4,
+            "record": record}
+
+
 PHASE = {"n": 0, "name": "start", "t": None, "t0": None}
 
 
@@ -10007,9 +10467,18 @@ def main() -> int:
           "ChaosTransport; the fp32 toy card vs CPU")
     fleet = phase_fleet(smi)
     torch.cuda.empty_cache()
+
+    begin(26, "tensor-parallel serving on torch.distributed (GPT-1.3B width, "
+          "24 layers: bf16 and int8 at tp 2; the fp32 legs at tp 2 and 4, "
+          "speculation and chunking at tp 2; a device loss on one rank, a "
+          "restore into poisoned pools and a page shipped from tp 2 to tp 1 "
+          "on int8; K1 and K5 at a rank's 8, 4, 2 and 1 heads), the ranks "
+          "sharing this card over gloo")
+    tps = phase_tp_serving(smi, timings, serving)
+    torch.cuda.empty_cache()
     phase_lap()
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
-    PHASE.update(n=26, name="record")
+    PHASE.update(n=27, name="record")
     policies = rest["policies"]
 
     amp_toy_adam16 = {"launches": amp_toy["launches"]["O2 fp16 adam"]}
@@ -10038,6 +10507,11 @@ def main() -> int:
              launches=toy_mha["launches"]["flash_fwd"],
              launches_toy_engine=toy["launches"]["flash_fwd"],
              launches_fleet_toy=fleet["toy"]["launches"]["flash_fwd"],
+             # phase 26 (c): each rank of the fp32 engine at tp 2 and tp 4
+             launches_ranks_tp2=[r["launches"]["flash_fwd"]
+                                 for r in tps["c_tp2"]],
+             launches_ranks_tp4=[r["launches"]["flash_fwd"]
+                                 for r in tps["c_tp4"]],
              **timings["flash_fwd"]),
         # K2: the bf16 route on the tensor cores runs the multi-head
         # attention step (phase 9); the scalar kernel is the fp32 and head
@@ -10093,7 +10567,27 @@ def main() -> int:
              launches=toy["launches"]["flash_decode"],
              launches_toy_modes=toy["modes"]["launches"]["flash_decode"],
              launches_fleet_toy=fleet["toy"]["launches"]["flash_decode"],
+             launches_ranks_tp2=[r["launches"]["flash_decode"]
+                                 for r in tps["c_tp2"]],
+             launches_ranks_tp4=[r["launches"]["flash_decode"]
+                                 for r in tps["c_tp4"]],
              **timings["flash_decode"]),
+    ] + [
+        # K1 and K5 at a rank's head slice (phase 26): [1, 8, 1024, 128]
+        # and [8, 8, 1, 128]; launches: rank 0's over (a) (bf16) and (b)
+        # (int8), each rank's beside; the rows' numbers are (e)'s
+        dict(name=f"{name}_tp2", route="cuda",
+             source=f"apex_tpu_torch/csrc/{src}", replaces=where,
+             launches=runs[0]["launches"][name],
+             launches_ranks_tp2=[r["launches"][name] for r in runs],
+             **tps["rows"][f"{name}_tp2"])
+        for name, src, where, runs in (
+            ("flash_fwd_sm90", "flash_fwd_sm90.cu",
+             "apex_tpu/ops/attention.py:738", tps["a"]),
+            ("flash_decode_sm90", "flash_decode_sm90.cu",
+             "apex_tpu/ops/attention.py:2239", tps["a"]),
+            ("flash_decode_sm90_int8", "flash_decode_sm90.cu",
+             "apex_tpu/ops/attention.py:2239", tps["b"]))
     ] + [
         # K3/K4: the bf16 route on the tensor cores runs the GPT-1.3B step
         # (phase 7, and phase 18's runs); the scalar kernels are the fp32

@@ -245,9 +245,13 @@ def test_default_device_is_the_card_and_never_falls_back(tparams,
 
 
 def test_unported_options_are_refused(tparams):
-    # only tensor parallelism is left unported: tp=2 is refused, tp=1 (the
-    # JAX engine's default) accepted
-    with pytest.raises(NotImplementedError, match="tp"):
+    # tensor parallelism runs over torch.distributed ranks: tp=2 in one
+    # process without a tensor group (whatever state an earlier test left
+    # registered) is refused, never served at tp 1 (test_torch_serving_tp.py
+    # runs it); tp=1, the JAX engine's default, is accepted
+    from apex_tpu_torch.transformer import parallel_state
+    with parallel_state.uninitialized_scope(), \
+            pytest.raises(RuntimeError, match="tp=2"):
         tsv.ServingEngine(TCFG, tparams, num_pages=8, device="cpu", tp=2)
     # the JAX engine's rule: prefix sharing prefills a hit's suffix in
     # chunks, so it needs a chunk size

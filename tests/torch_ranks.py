@@ -12,6 +12,7 @@ that): inputs arrive as numpy arrays or tensors in the ``case`` dict.
 from __future__ import annotations
 
 import os
+import time
 
 import numpy as np
 import torch
@@ -759,3 +760,307 @@ def elastic_golden(rank, world, init_file, out, case):
         state, _ = step_fn(state, batch)
     _write(out, rank, {"losses": step_fn.losses, "state": _host_tree(state),
                        "shardings": shardings})
+
+
+# -- tests/test_torch_serving_tp.py ---------------------------------------------
+
+def _tp_engine(case, params, **kw):
+    """The serving toy engine of test_serving_modes.py (pages of 8, batch
+    4, the whole prefill row, a SimClock) on the CPU."""
+    from apex_tpu_torch import serving as tsv
+
+    kw.setdefault("num_pages", 64)
+    kw.setdefault("page_size", 8)
+    kw.setdefault("max_batch", 4)
+    kw.setdefault("prefill_budget", case["cfg"]["max_position"])
+    kw.setdefault("clock", tsv.SimClock())
+    return tsv.ServingEngine(tsv.ServingModelConfig(**case["cfg"]), params,
+                             device="cpu", **kw)
+
+
+def _tp_streams(eng, prompts, budget=3):
+    reqs = [eng.submit(p, max_new_tokens=budget + i)
+            for i, p in enumerate(prompts)]
+    eng.run()
+    return [list(r.generated) for r in reqs]
+
+
+def _tp_sequential(case, params, prompts, **kw):
+    out = []
+    for i, p in enumerate(prompts):
+        eng = _tp_engine(case, params, **kw)
+        r = eng.submit(p, max_new_tokens=3 + i)
+        eng.run()
+        out.append(list(r.generated))
+    return out
+
+
+def _raised(fn):
+    """The type name and message of what ``fn()`` raised (None if it
+    returned)."""
+    try:
+        fn()
+    except Exception as e:  # noqa: BLE001 (reported to the test)
+        return type(e).__name__, str(e)
+    return None
+
+
+def _tp_model_steps(case, tp, rank, group):
+    """One prefill, decode and extend of rank ``rank``'s part, on the
+    rank's head slice of the given pools; K/V and pools gathered over the
+    heads."""
+    from apex_tpu_torch import serving as tsv
+    from apex_tpu_torch.parallel import comm
+
+    m = case["model"]
+    params = tsv.rank_params_from_jax(case["jparams"], tp, rank, "cpu")
+    dec = tsv.PagedDecoder(tsv.ServingModelConfig(**case["cfg"]))
+    hl = case["cfg"]["num_heads"] // tp
+
+    def mine(a):   # [L, pages, ps, H, D] -> the rank's heads
+        return torch.from_numpy(
+            np.array(a[:, :, :, rank * hl:(rank + 1) * hl]))
+
+    def whole(t):
+        return comm.all_gather(t, group, dim=3)
+
+    out = {}
+    logits, k, v = dec.prefill(params, *(_t(a) for a in m["prefill"]),
+                               tp_group=group)
+    out["prefill"] = (logits, whole(k), whole(v))
+    kp, vp = mine(m["k0"]), mine(m["v0"])
+    logits = dec.decode(params, kp, vp, *(_t(a) for a in m["decode"]),
+                        tp_group=group)
+    out["decode"] = (logits, whole(kp), whole(vp))
+    kp, vp = mine(m["k0"]), mine(m["v0"])
+    logits = dec.extend(params, kp, vp, *(_t(a) for a in m["extend"]),
+                        tp_group=group)
+    out["extend"] = (logits, whole(kp), whole(vp))
+    return out
+
+
+def _tp_replica0(case, rank, group, params):
+    """Replica 0 of the tp 2 launch: the model steps, the fp32 streams
+    (telemetry on), batched == sequential, int8, kill-mid-decode with the
+    injector on the group's first rank only, and snapshot/restore."""
+    import json
+
+    from apex_tpu_torch import serving as tsv
+    from apex_tpu_torch import telemetry as ttel
+    from apex_tpu_torch.resilience import chaos
+
+    prompts = case["prompts"]
+    res = {"model": _tp_model_steps(case, 2, rank, group)}
+    mem = ttel.MemorySink()
+    bus = ttel.TelemetryBus(run_id="tp", sinks=[mem])
+    eng = _tp_engine(case, params, tp=2, telemetry=bus)
+    res["fp"] = _tp_streams(eng, prompts)
+    res["events"] = mem.events
+    res["tp1"] = _tp_streams(_tp_engine(case, params), prompts)
+    res["pool"] = (tuple(eng.cache.k.shape), eng.cache.num_heads)
+    res["seq"] = _tp_sequential(case, params, prompts, tp=2)
+    modes = dict(tp=2, kv_quant="int8")
+    ctrl = _tp_streams(_tp_engine(case, params, **modes), prompts)
+    res["int8"] = ctrl
+    cache = _tp_engine(case, params, **modes).cache
+    res["int8_pool"] = (str(cache.k.dtype), tuple(cache.k.shape),
+                        tuple(cache.k_scale.shape))
+    # the injector lives in the group's first rank alone
+    if rank == 0:
+        with chaos.ServingDeviceLoss(at_step=3, device_ids=[0]) as dl:
+            eng = _tp_engine(case, params, **modes)
+            got = _tp_streams(eng, prompts)
+        fired = dl.fired
+    else:
+        eng = _tp_engine(case, params, **modes)
+        got = _tp_streams(eng, prompts)
+        fired = None
+    res["kill"] = dict(streams=got, recoveries=eng.recoveries, fired=fired,
+                       ctrl=ctrl)
+    # snapshot -> JSON -> restore into sentinel-poisoned pools
+    src = _tp_engine(case, params, **modes)
+    for i, p in enumerate(prompts):
+        src.submit(p, max_new_tokens=3 + i)
+    for _ in range(4):
+        src.step()
+    snap = json.loads(json.dumps(src.snapshot()))
+    dst = _tp_engine(case, params, **modes)
+    dst.cache.k.fill_(101)
+    dst.cache.v.fill_(102)
+    dst.cache.k_scale.fill_(1e3)
+    dst.cache.v_scale.fill_(1e3)
+    restored = dst.restore(snap)
+    dst.run()
+    res["snap"] = dict(snapshot=snap, streams={
+        r.rid: list(r.generated) for r in restored})
+    return res
+
+
+def _jax_shipments(case, timeout_s=120.0):
+    """JAX's payloads, which the test process writes while the ranks run
+    (waited for, up to ``timeout_s``)."""
+    path = case["jax_ship_file"]
+    deadline = time.monotonic() + timeout_s
+    while not os.path.exists(path):
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"{path} was not written")
+        time.sleep(0.05)
+    return torch.load(path, weights_only=False)
+
+
+def _tp_replica1(case, rank, params):
+    """Replica 1 of the tp 2 launch: speculation plus chunking against
+    its tp 1 control, prefix sharing with int8, page shipping across
+    packages and tp sizes, a rank-dependent clock, and one rank's faults
+    at the agreement point."""
+    from apex_tpu_torch import serving as tsv
+    from apex_tpu_torch.resilience import chaos
+
+    prompts = case["prompts"]
+    res = {}
+    spec = tsv.SpecConfig(k=2, chunk_size=8)
+    res["spec"] = (_tp_streams(_tp_engine(case, params, spec=spec, tp=2),
+                               prompts),
+                   _tp_streams(_tp_engine(case, params, spec=spec), prompts))
+
+    # prefix sharing composed with tp 2 and int8, against its unshared
+    # control (test_serving_modes.py's TestPrefixSharingEngine)
+    pfx = tsv.SpecConfig(k=0, chunk_size=8)
+    prompt = case["prefix_prompt"]
+
+    def twice(**kw):
+        eng = _tp_engine(case, params, spec=pfx, tp=2, kv_quant="int8", **kw)
+        r1 = eng.submit(list(prompt), max_new_tokens=6)
+        eng.run()
+        r2 = eng.submit(list(prompt), max_new_tokens=6)
+        eng.run()
+        return [list(r1.generated), list(r2.generated)], [
+            r1.prefix_hit, r2.prefix_hit]
+
+    res["prefix"] = (twice(prefix_sharing=True), twice())
+
+    # page shipping: a tp 2 prefill's export, landed in a tp 1 engine that
+    # decodes on and exports the page back; JAX's tp 2 payload landed in
+    # a tp 2 engine and exported again
+    for quant in (None, "int8"):
+        col = _tp_engine(case, params, tp=2, kv_quant=quant)
+        want = col.submit(case["ship_prompt"], 9)
+        col.run()
+        src = _tp_engine(case, params, tp=2, kv_quant=quant,
+                         prefill_only=True)
+        src.warmup()
+        r = src.submit(case["ship_prompt"], 9)
+        src.step()
+        record, pages, kv_len = src.export_request(r.rid)
+        one = _tp_engine(case, params, kv_quant=quant, kv_import=True,
+                         validate_pages=True)
+        got = one.adopt_prefilled(record, pages, kv_len)
+        back = [one.cache.export_page_bytes(p) for p in got.pages]
+        one.run()
+        jrec, jpages, jlen = _jax_shipments(case)[quant]
+        dec = _tp_engine(case, params, tp=2, kv_quant=quant, kv_import=True,
+                         validate_pages=True)
+        landed = dec.adopt_prefilled(jrec, jpages, jlen)
+        again = [dec.cache.export_page_bytes(p) for p in landed.pages]
+        crc_ok = _raised(lambda: dec.cache.verify_pages([landed.pages]))
+        dec.run()
+        res[f"ship_{quant}"] = dict(
+            pages=pages, back=back, want=list(want.generated),
+            tp1_stream=list(got.generated), jax_again=again,
+            jax_landed_stream=list(landed.generated), crc=crc_ok)
+
+    # a rank-dependent clock: rank r's SimClock ticks 1 + 4 r a step, the
+    # deadlines shed and time requests out; the decisions are rank 0's
+    def clocked(clock, tp=2):
+        eng = _tp_engine(case, params, tp=tp, clock=clock, max_batch=2,
+                         shed_min_service_s=2.0)
+        reqs = [eng.submit(q, max_new_tokens=6, deadline_s=dl)
+                for q, dl in zip(prompts, (3.5, 9.0, 4.0, 12.0))]
+        eng.run()
+        return [(list(r.generated), r.finish_reason) for r in reqs]
+
+    res["clock"] = (clocked(tsv.SimClock(tick=1.0 + 4 * (rank % 2))),
+                    clocked(tsv.SimClock(tick=1.0), tp=1),
+                    clocked(tsv.SimClock(tick=5.0), tp=1))
+
+    # one rank's fault at the agreement point: a page corrupted in one
+    # rank's slice makes the group recover once; any other error there
+    # stops every rank
+    ctrl = _tp_streams(_tp_engine(case, params, tp=2), prompts)
+    eng = _tp_engine(case, params, tp=2, validate_pages=True)
+    if rank % 2 == 1:
+        with chaos.CorruptLivePage(eng.cache, at_step=2):
+            got = _tp_streams(eng, prompts)
+    else:
+        got = _tp_streams(eng, prompts)
+    res["corrupt"] = dict(streams=got, ctrl=ctrl, recoveries=eng.recoveries)
+
+    def boom(event, info):
+        if event == "decode" and info == 1:
+            raise ValueError("injected")
+
+    eng = _tp_engine(case, params, tp=2)
+    prev = None
+    if rank % 2 == 1:
+        prev = tsv.set_fault_hook(boom)
+    try:
+        res["other_error"] = _raised(lambda: _tp_streams(eng, prompts))
+    finally:
+        if rank % 2 == 1:
+            tsv.set_fault_hook(prev)
+    res["after_error"] = _tp_streams(_tp_engine(case, params, tp=2), prompts)
+    return res
+
+
+def serving_tp_checks(rank, world, init_file, out, case):
+    """Every check of the port's tensor-parallel serving in one launch of
+    four ranks: two tp 2 replicas (groups [0, 1] and [2, 3]) that split
+    the checks between them, then tp 4 over all four, then a tp 2 group
+    with a short timeout whose ranks part ways."""
+    import datetime
+
+    from apex_tpu_torch import serving as tsv
+
+    init_file_group("gloo", rank, world, init_file)
+    full = tsv.params_from_jax(case["jparams"], device="cpu")
+    res = {}
+    parallel_state.initialize_model_parallel(2)
+    group = parallel_state.get_tensor_model_parallel_group()
+    res["refused"] = [_raised(lambda: _tp_engine(case, full, tp=tp))
+                      for tp in (3, 4)]
+    if rank < 2:
+        res.update(_tp_replica0(case, rank, group, full))
+    else:
+        res.update(_tp_replica1(case, rank, full))
+    parallel_state.destroy_model_parallel()
+
+    parallel_state.initialize_model_parallel(4)
+    eng = _tp_engine(case, full, tp=4)
+    res["tp4"] = _tp_streams(eng, case["prompts"])
+    res["tp4_pool"] = tuple(eng.cache.k.shape)
+    parallel_state.destroy_model_parallel()
+
+    # an error outside the agreement point: rank 1's second decode step
+    # raises before its all-reduce, and rank 0 waits in its all-reduce
+    # until the group's timeout stops it
+    parallel_state.initialize_model_parallel(
+        2, timeout=datetime.timedelta(seconds=case["timeout_s"]))
+    if rank < 2:
+        eng = _tp_engine(case, full, tp=2)
+        if rank == 1:
+            real, calls = eng.decoder.decode, [0]
+
+            def failing(*a, **kw):
+                calls[0] += 1
+                if calls[0] == 2:
+                    raise RuntimeError("injected device error")
+                return real(*a, **kw)
+
+            eng.decoder.decode = failing
+        t0 = time.perf_counter()
+        res["timeout"] = (_raised(lambda: _tp_streams(eng, case["prompts"])),
+                          time.perf_counter() - t0)
+        if rank == 1:
+            # a server that carries on: its peer must not wait on it
+            time.sleep(case["timeout_s"] + 0.5)
+    _write(out, rank, res)
