@@ -3,7 +3,8 @@ plain PyTorch version for CPU tensors: flash attention with its backward
 (prefill, the multi-head attention modules, varlen), paged decode
 attention, packed-QKV self-attention with its backward (training) and
 LayerNorm; plus ops that are plain PyTorch on both, as the JAX package's
-are XLA formulations (no Pallas kernel): the fused LM-head cross-entropy,
+are XLA formulations (no Pallas kernel): ring attention over a group of
+ranks, the fused LM-head cross-entropy,
 the fused scaled masked softmax, the softmax cross-entropy with label
 smoothing, the fused dense layers and the MLP."""
 
@@ -19,6 +20,7 @@ from apex_tpu_torch.ops.attention import (  # noqa: F401
     flash_attention_varlen,
     flash_decode,
     flash_decode_route,
+    ring_attention,
     routing_override,
 )
 from apex_tpu_torch.ops.fused_dense import (  # noqa: F401
@@ -53,7 +55,7 @@ from apex_tpu_torch.ops.xentropy import (  # noqa: F401
 
 __all__ = ["flash_attention_route", "flash_attention_qkv_route",
            "flash_decode_route", "routing_override", "flash_attention", "flash_attention_fwd", "flash_attention_qkv",
-           "flash_attention_varlen", "flash_decode", "layer_norm", "rms_norm", "FusedLayerNorm",
+           "flash_attention_varlen", "flash_decode", "ring_attention", "layer_norm", "rms_norm", "FusedLayerNorm",
            "MixedFusedLayerNorm", "FastLayerNorm", "fast_layer_norm",
            "fused_linear_cross_entropy", "_blockwise_fwd", "_blockwise_bwd",
            "_paged_attention", "AttnMaskType", "FusedScaleMaskSoftmax",

@@ -1419,3 +1419,126 @@ def flash_attention_qkv(
                                bool(causal), rate,
                                0 if dropout_seed is None else int(dropout_seed))
     return ctx
+
+
+# ---------------------------------------------------------------------------
+# Ring attention: the sequence sharded over a group of ranks
+# ---------------------------------------------------------------------------
+
+
+def _ring_hop(ts, group):
+    """Each tensor of ``ts`` to the next rank of the ring, the previous
+    rank's in its place: one :func:`~apex_tpu_torch.parallel.comm.
+    exchange` (the JAX ``ppermute`` to ``(r + 1) % w``)."""
+    from apex_tpu_torch.parallel import comm
+
+    w, r = comm.group_size(group), comm.group_rank(group)
+    nxt, prv = (r + 1) % w, (r - 1) % w
+    return comm.exchange(
+        [(t, nxt, i) for i, t in enumerate(ts)],
+        [comm.Recv(prv, tuple(t.shape), t.dtype, t.device, i)
+         for i, t in enumerate(ts)], group)
+
+
+def _ring_scores(q32, kc, src, q_start, causal, scale=None):
+    """fp32 scores of the local queries against the chunk from rank
+    ``src`` (times ``scale`` when given), causal by global position."""
+    s = torch.matmul(q32, kc.float().transpose(-1, -2))
+    if scale is not None:
+        s = s * scale
+    if causal:
+        n = q32.shape[-2]
+        rows = q_start + torch.arange(n, device=s.device)[:, None]
+        cols = src * n + torch.arange(n, device=s.device)[None, :]
+        s = torch.where(rows >= cols, s, _NEG_INF)
+    return s
+
+
+class _RingAttention(torch.autograd.Function):
+    """JAX's two ring passes (``_ring_fwd_pass``, ``_ring_bwd_rule``) in
+    fp32.  Only the local q, k, v, o and lse are saved: the backward's
+    K/V chunks travel the ring again with their dK/dV accumulators, so
+    its memory does not grow with the group."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, group, causal, scale):
+        from apex_tpu_torch.parallel import comm
+
+        w, rank = comm.group_size(group), comm.group_rank(group)
+        bh, n, d = q.shape
+        q32 = q.float() * scale
+        m = torch.full((bh, n), _NEG_INF, dtype=torch.float32,
+                       device=q.device)
+        l = torch.zeros((bh, n), dtype=torch.float32, device=q.device)
+        acc = torch.zeros((bh, n, d), dtype=torch.float32, device=q.device)
+        kc, vc, src = k, v, rank
+        for hop in range(w):
+            s = _ring_scores(q32, kc, src, rank * n, causal)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = _masked_exp(s, m_new[..., None])
+            alpha = torch.exp(m - m_new)
+            l = alpha * l + p.sum(dim=-1)
+            acc = acc * alpha[..., None] + torch.matmul(p, vc.float())
+            m = m_new
+            if hop < w - 1:      # the last hop's chunks would go unused
+                kc, vc = _ring_hop([kc, vc], group)
+                src = (src - 1) % w
+        l_safe = torch.where(l == 0, 1.0, l)
+        o = (acc / l_safe[..., None]).to(q.dtype)
+        lse = torch.where(l == 0, _NEG_INF, m + torch.log(l_safe))
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.group, ctx.causal, ctx.scale = group, causal, scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        from apex_tpu_torch.parallel import comm
+
+        q, k, v, o, lse = ctx.saved_tensors
+        group, causal, scale = ctx.group, ctx.causal, ctx.scale
+        w, rank = comm.group_size(group), comm.group_rank(group)
+        n = q.shape[1]
+        q32, do32 = q.float(), do.float()
+        delta = (do32 * o.float()).sum(dim=-1)
+        dq = torch.zeros_like(q32)
+        dkc, dvc = torch.zeros_like(q32), torch.zeros_like(q32)
+        kc, vc, src = k, v, rank
+        for hop in range(w):
+            kc32 = kc.float()
+            s = _ring_scores(q32, kc32, src, rank * n, causal, scale)
+            p = _masked_exp(s, lse[..., None])
+            dvc = dvc + torch.matmul(p.transpose(-1, -2), do32)
+            dp = torch.matmul(do32, vc.float().transpose(-1, -2))
+            ds = p * (dp - delta[..., None]) * scale
+            dkc = dkc + torch.matmul(ds.transpose(-1, -2), q32)
+            dq = dq + torch.matmul(ds, kc32)
+            if w > 1:            # after w hops the gradients are home
+                if hop < w - 1:
+                    kc, vc, dkc, dvc = _ring_hop([kc, vc, dkc, dvc], group)
+                else:
+                    dkc, dvc = _ring_hop([dkc, dvc], group)
+                src = (src - 1) % w
+        return (dq.to(q.dtype), dkc.to(k.dtype), dvc.to(v.dtype), None, None,
+                None)
+
+
+def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   group, *, causal: bool = False,
+                   scale: Optional[float] = None) -> torch.Tensor:
+    """Attention with the sequence axis sharded over the ranks of ``group``
+    (the JAX ``ring_attention`` over a mesh axis).
+
+    Each rank holds its local chunk ``q``, ``k``, ``v`` [bh, s_local, d];
+    the K/V chunks go round the ring (one :func:`~apex_tpu_torch.parallel.
+    comm.exchange` a hop: to rank ``(r + 1) % w``, from ``(r - 1) % w``)
+    while every rank folds each arriving chunk into its queries' online
+    softmax, in fp32; after ``w`` hops every query has seen the whole
+    sequence.  Causal masking uses global positions: rank r's queries are
+    rows ``[r·s_local, (r+1)·s_local)``.  Differentiable: the backward is
+    a second ring pass (each chunk travels with its dK/dV accumulators
+    and comes home complete) that saves nothing per hop.  ``group`` None
+    or of one rank: plain attention.  The products are library GEMMs in
+    fp32 on either device, as the JAX package leaves them to XLA."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    return _RingAttention.apply(q, k, v, group, bool(causal), float(scale))

@@ -42,6 +42,15 @@ that send to each other at once do not deadlock, as the reference's
 ``_run_p2pops`` (p2p_communication.py:31-69) posts its ops.  A message
 to this rank itself is handed over without a transfer.  Each message
 counts as one call in :data:`STATS`, its bytes those on the wire.
+
+:func:`all_to_all` (``lax.all_to_all`` tiled over dim 0, the
+expert-parallel exchange of :mod:`apex_tpu_torch.transformer.moe`)
+carries raw bytes as the ZeRO pair does, and is differentiable: its
+backward is the same exchange.
+
+``STATS.by_op`` names every call: ``all_reduce``, ``all_gather`` (both
+gathers), ``reduce_scatter``, ``all_to_all``, ``broadcast``, ``gather``,
+and each message of :func:`exchange` as ``send`` or ``recv``.
 """
 
 from __future__ import annotations
@@ -159,7 +168,7 @@ def all_gather(t: torch.Tensor, group, dim: int = -1) -> torch.Tensor:
         dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group)
         return buf
 
-    return _run(t, group, fn)
+    return _run(t, group, fn, op="all_gather")
 
 
 def _bytes_of(t: torch.Tensor) -> torch.Tensor:
@@ -241,6 +250,55 @@ def all_gather_tiled(t: torch.Tensor, group) -> torch.Tensor:
     return out.reshape(n * t.shape[0] if t.dim() else n, *t.shape[1:])
 
 
+def _all_to_all(t: torch.Tensor, group) -> torch.Tensor:
+    n = group_size(group)
+    if n == 1:
+        return t
+    _dim0_chunks(t, n)
+    src = _bytes_of(t)
+    staged = _staged(t, group)
+    if staged:
+        torch.cuda.current_stream(t.device).synchronize()
+        src = src.to("cpu")
+    elif not t.is_cuda and dist.get_backend(group) == "nccl":
+        src = src.cuda()
+    recv = torch.empty_like(src)
+    t0 = time.perf_counter()
+    dist.all_to_all_single(recv, src, group=group)
+    if not t.is_cuda or staged:
+        STATS.seconds += time.perf_counter() - t0
+    STATS.calls += 1
+    STATS.bytes += src.numel()
+    STATS.count("all_to_all")
+    return recv.to(t.device).view(t.dtype).reshape(t.shape)
+
+
+class _AllToAll(torch.autograd.Function):
+    """The tiled all-to-all; its transpose is the same exchange (chunk j of
+    rank r goes to rank j as chunk r, and back)."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return _all_to_all(t, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_to_all(g.contiguous(), ctx.group), None
+
+
+def all_to_all(t: torch.Tensor, group) -> torch.Tensor:
+    """The tiled all-to-all over dim 0 (``lax.all_to_all(t, axis,
+    split_axis=0, concat_axis=0, tiled=True)``): ``t`` cut into ``world``
+    equal chunks along dim 0, chunk j sent to group rank j, and the chunks
+    received from ranks 0, 1, ..., world - 1 concatenated in that order.
+    Carried as raw bytes, so exact in every dtype; differentiable (the
+    backward is the same exchange of the cotangent)."""
+    if group_size(group) == 1:
+        return t
+    return _AllToAll.apply(t, group)
+
+
 def broadcast(t: torch.Tensor, src: int, group) -> torch.Tensor:
     """Rank ``src``'s ``t`` (a global rank) on every rank of ``group``."""
     if group_size(group) == 1:
@@ -250,7 +308,7 @@ def broadcast(t: torch.Tensor, src: int, group) -> torch.Tensor:
         dist.broadcast(c, src=src, group=group)
         return c
 
-    return _run(t, group, fn)
+    return _run(t, group, fn, op="broadcast")
 
 
 def gather(t: torch.Tensor, group, dim: int = 0) -> Optional[torch.Tensor]:
@@ -267,7 +325,7 @@ def gather(t: torch.Tensor, group, dim: int = 0) -> Optional[torch.Tensor]:
         dist.gather(c, parts, dst=dst, group=group)
         return torch.cat(parts, dim=dim) if mine else c
 
-    got = _run(t, group, fn)
+    got = _run(t, group, fn, op="gather")
     return got if mine else None
 
 
@@ -356,9 +414,11 @@ def exchange(sends: Sequence[Tuple[torch.Tensor, int, int]],
     for c, _, _ in wire_s:
         STATS.calls += 1
         STATS.bytes += c.numel() * c.element_size()
+        STATS.count("send")
     for _, b, _, _ in wire_r:
         STATS.calls += 1
         STATS.bytes += b.numel() * b.element_size()
+        STATS.count("recv")
     return out
 
 
@@ -380,5 +440,5 @@ def recv(shape, dtype: torch.dtype, device, peer: int, group,
 
 
 __all__ = ["CommStats", "STATS", "Recv", "all_gather", "all_gather_tiled",
-           "all_reduce", "broadcast", "exchange", "gather", "group_rank",
+           "all_reduce", "all_to_all", "broadcast", "exchange", "gather", "group_rank",
            "group_size", "recv", "reduce_scatter", "send", "split"]

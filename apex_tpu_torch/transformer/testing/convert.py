@@ -28,6 +28,16 @@ of its tp ranks on a leading axis (``examples/gpt/pretrain_gpt.py``);
 such a tree and :func:`stacked_jax_tree` stacks the ranks' state dicts
 back into it.
 
+Mixture-of-Experts leaves travel as any other: the JAX stacked
+``transformer.layers.mlp.gate.weight`` [L, H, E] and
+``transformer.layers.mlp.experts.{w1, b1, w2, b2}`` [L, E, ...] are the
+port's ``transformer.layers.<i>.mlp.gate.weight`` and
+``...mlp.experts.w1`` per layer (a bare ``SwitchMLP``'s tree is its
+``state_dict`` under the same names).  :func:`expert_state_dict_from_jax`
+cuts an expert rank's experts out of such a tree (the JAX
+``SwitchMLP.shard_master``) and :func:`jax_tree_from_expert_ranks` puts
+the ranks' back together.
+
 The ZeRO flagship: its ``params`` are JAX's master tree itself (nested
 dicts, layers stacked), carried by :func:`master_from_jax` and
 :func:`master_to_jax`; its optimizer state is JAX's
@@ -167,6 +177,28 @@ def jax_tree_from_state_dict(sd: Mapping[str, torch.Tensor]) -> dict:
         flat[f"{_LAYERS}.{leaf}"] = np.stack(
             [per_layer[i] for i in range(len(per_layer))])
     return nest(flat)
+
+
+def expert_state_dict_from_jax(tree: Mapping, rank: int, world: int
+                               ) -> Dict[str, torch.Tensor]:
+    """Expert rank ``rank``'s ``state_dict`` (of ``world``) from a JAX MoE
+    GPT or ``SwitchMLP`` tree: each layer's experts ``[rank·E/w,
+    (rank+1)·E/w)``, the gate and every other leaf whole."""
+    from apex_tpu_torch.transformer.moe import shard_master
+
+    return shard_master(state_dict_from_jax(tree), rank, world)
+
+
+def jax_tree_from_expert_ranks(state_dicts: Sequence[Mapping[str,
+                                                             torch.Tensor]]
+                               ) -> dict:
+    """The JAX tree (numpy leaves, layers stacked) from the expert ranks'
+    state dicts or gradients (rank order): the experts concatenated, the
+    other leaves rank 0's."""
+    from apex_tpu_torch.transformer.moe import unshard_master
+
+    return jax_tree_from_state_dict(unshard_master(
+        [dict(sd) for sd in state_dicts]))
 
 
 def nest(flat: Mapping[str, object]) -> dict:

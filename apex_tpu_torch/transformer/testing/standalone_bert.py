@@ -168,7 +168,7 @@ class BertModel(nn.Module):
         am = None
         if attention_mask is not None:   # [b, s] -> [b, 1, 1, s], True = pad
             am = ~attention_mask[:, None, None, :].bool()
-        h = self.transformer(h, dropout_seed, am, segment_ids)
+        h, _aux = self.transformer(h, dropout_seed, am, segment_ids)
         binary_logits = None
         if self.cfg.add_binary_head:
             pooled = torch.tanh(self.pooler(h[:, 0].float()))

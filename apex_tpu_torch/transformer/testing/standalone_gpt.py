@@ -62,15 +62,24 @@ from the replicated one, so every rank holds the same hidden state.
 Every rank draws the whole master weights from ``seed`` and keeps its
 shard, so tp ranks start from the tp = 1 model.
 
-Not ported (raises ``NotImplementedError``): the MoE MLP.  fp16
-(``cfg.fp16``, amp's half) runs on the card through the fp16 instances
-of the packed-attention and LayerNorm kernels.
+Mixture-of-Experts (``cfg.num_experts > 0``, the JAX model's): every
+layer's MLP is a :class:`~apex_tpu_torch.transformer.moe.SwitchMLP` over
+the layer's tokens (``[b, s, h]`` flattened), its experts replicated
+across tp as JAX's ``shard_master`` leaves them (shard them over an
+expert group with ``SwitchMLP`` directly); each layer returns its
+load-balancing loss beside its output, the stack sums them (through the
+checkpoint under every remat policy: the MoE names no value, so only
+``"full"`` and ``"dots"`` treat it as they treat any op) and
+:meth:`GPTModel.forward` adds ``moe_aux_loss_coeff · aux`` to every
+token's loss.  fp16 (``cfg.fp16``, amp's half) runs on the card through
+the fp16 instances of the packed-attention and LayerNorm kernels.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import warnings
 from typing import Optional
 
 import numpy as np
@@ -88,6 +97,7 @@ from apex_tpu_torch.ops.fused_linear_xent import fused_linear_cross_entropy
 from apex_tpu_torch.ops._gemm import bmm_f32, linear_f32
 from apex_tpu_torch.ops.fused_softmax import (AttnMaskType,
                                               FusedScaleMaskSoftmax)
+from apex_tpu_torch.transformer.moe import MoEConfig, SwitchMLP
 from apex_tpu_torch.transformer.tensor_parallel import (
     ColumnParallelLinear, RowParallelLinear, VocabParallelEmbedding,
     normal_init, vocab_parallel_cross_entropy)
@@ -104,9 +114,10 @@ REMAT_POLICIES = ("full", "dots", "attn_res", "attn_res_mlp", "attn_out")
 @dataclasses.dataclass(frozen=True)
 class GPTConfig:
     """Network-size args (the JAX ``GPTConfig`` without its TPU tiling
-    knobs ``flash_block_q``/``flash_block_k`` and its MoE knobs
-    ``moe_capacity_factor``/``moe_aux_loss_coeff``; ``num_experts`` stays
-    so that a MoE config is refused, not silently run dense)."""
+    knobs ``flash_block_q``/``flash_block_k``).  ``num_experts > 0``
+    replaces every layer's MLP with a Switch-routed expert MLP of
+    ``moe_capacity_factor``, whose load-balancing loss, times
+    ``moe_aux_loss_coeff``, is folded into every token's loss."""
 
     num_layers: int = 2
     hidden_size: int = 64
@@ -125,6 +136,8 @@ class GPTConfig:
     remat: bool = False
     remat_policy: str = "full"
     num_experts: int = 0
+    moe_capacity_factor: float = 1.25
+    moe_aux_loss_coeff: float = 1e-2
 
     @property
     def ffn(self) -> int:
@@ -144,10 +157,6 @@ class GPTConfig:
 
 
 def _refuse_unported(cfg: GPTConfig, device: torch.device) -> None:
-    if cfg.num_experts > 0:
-        raise NotImplementedError(
-            "not ported to apex_tpu_torch (ROADMAP.md): "
-            f"num_experts={cfg.num_experts} (the MoE MLP)")
     if cfg.num_attention_heads % cfg.tp_size:
         raise ValueError(f"{cfg.num_attention_heads} heads do not divide "
                          f"over tp_size={cfg.tp_size}")
@@ -343,7 +352,8 @@ def _hidden_dropout(x: torch.Tensor, cfg: GPTConfig,
 
 
 class ParallelTransformerLayer(nn.Module):
-    """Pre-LN block (reference standalone_gpt.py:575)."""
+    """Pre-LN block (reference standalone_gpt.py:575); with
+    ``cfg.num_experts > 0`` the MLP is a Switch-routed expert MLP."""
 
     def __init__(self, cfg: GPTConfig, *, causal: bool = True, device=None,
                  generator=None):
@@ -355,22 +365,38 @@ class ParallelTransformerLayer(nn.Module):
         self.attention = ParallelAttention(cfg, causal=causal, device=device,
                                            generator=generator)
         self.post_attention_layernorm = FusedLayerNorm(h, eps, device=device)
-        self.mlp = ParallelMLP(cfg, device=device, generator=generator)
+        if cfg.num_experts > 0:
+            # experts replicated across tp (JAX's shard_master leaves the
+            # MoE MLP whole)
+            self.mlp = SwitchMLP(MoEConfig(
+                hidden_size=h, ffn_hidden_size=cfg.ffn,
+                num_experts=cfg.num_experts,
+                capacity_factor=cfg.moe_capacity_factor,
+                init_method_std=cfg.init_method_std), device=device,
+                generator=generator)
+        else:
+            self.mlp = ParallelMLP(cfg, device=device, generator=generator)
 
     def forward(self, h: torch.Tensor, dropout_seed: Optional[int] = None,
                 segment_ids=None,
-                attention_mask: Optional[torch.Tensor] = None
-                ) -> torch.Tensor:
-        """``segment_ids``, ``attention_mask``: as
-        :meth:`ParallelAttention.forward` takes them."""
+                attention_mask: Optional[torch.Tensor] = None):
+        """``(h, aux)``: the block's output and the MoE load-balancing loss
+        (``0.0`` for the dense MLP).  ``segment_ids``, ``attention_mask``:
+        as :meth:`ParallelAttention.forward` takes them."""
         s_attn = s_h1 = s_h2 = None
         if dropout_seed is not None:
             s_attn, s_h1, s_h2 = (fold_in(dropout_seed, i) for i in range(3))
         attn = self.attention(self.input_layernorm(h), s_attn, segment_ids,
                               attention_mask)
         h = h + _hidden_dropout(attn, self.cfg, s_h1)
-        out = self.mlp(self.post_attention_layernorm(h))
-        return h + _hidden_dropout(out, self.cfg, s_h2)
+        ln2 = self.post_attention_layernorm(h)
+        if self.cfg.num_experts > 0:
+            b, s, hid = ln2.shape
+            out, aux = self.mlp(ln2.reshape(b * s, hid))
+            out = out.reshape(b, s, hid).to(h.dtype)
+        else:
+            out, aux = self.mlp(ln2), 0.0
+        return h + _hidden_dropout(out, self.cfg, s_h2), aux
 
 
 class ParallelTransformer(nn.Module):
@@ -389,8 +415,10 @@ class ParallelTransformer(nn.Module):
 
     def forward(self, h: torch.Tensor, dropout_seed: Optional[int] = None,
                 attention_mask: Optional[torch.Tensor] = None,
-                segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """``attention_mask`` (boolean, True = masked) and ``segment_ids``
+                segment_ids: Optional[torch.Tensor] = None):
+        """``(h, aux)``: the stack's output and the sum of its layers' MoE
+        load-balancing losses (``0.0`` for dense MLPs).
+        ``attention_mask`` (boolean, True = masked) and ``segment_ids``
         (packing ids [b, s]), folded once for every layer: into the packed
         kernels' segment ids (:func:`attention_segments`) on the flash
         path, which takes no mask or a key-padding mask; into one boolean
@@ -403,14 +431,16 @@ class ParallelTransformer(nn.Module):
             seg, mask = None, softmax_mask(attention_mask, segment_ids)
         remat = self.cfg.remat and torch.is_grad_enabled()
         context_fn = remat_context_fn(self.cfg.remat_policy)
+        aux_sum = 0.0
         for i, layer in enumerate(self.layers):
             seed = None if dropout_seed is None else fold_in(dropout_seed, i)
             if remat:
-                h = checkpoint(layer, h, seed, seg, mask,
-                               context_fn=context_fn)
+                h, aux = checkpoint(layer, h, seed, seg, mask,
+                                    context_fn=context_fn)
             else:
-                h = layer(h, seed, seg, mask)
-        return h
+                h, aux = layer(h, seed, seg, mask)
+            aux_sum = aux_sum + aux
+        return h, aux_sum
 
 
 class GPTModel(nn.Module):
@@ -485,7 +515,7 @@ class GPTModel(nn.Module):
             raise ValueError("a pipeline stage (pre_process or post_process "
                              "False) runs through make_gpt_stage_fns")
         h = embedding_dropout(self.embed(tokens), self.cfg, dropout_seed)
-        h = self.transformer(h, dropout_seed, attention_mask)
+        h, aux = self.transformer(h, dropout_seed, attention_mask)
         if labels is None:
             return self.head_logits_local(h)
         if self.cfg.tp_size == 1 and self.cfg.compute_dtype != torch.float32:
@@ -493,11 +523,18 @@ class GPTModel(nn.Module):
             # only bf16 logits + fp32 lse kept for the backward
             hn = self.final_layernorm(h)
             b, s, hid = hn.shape
-            return fused_linear_cross_entropy(
+            losses = fused_linear_cross_entropy(
                 hn.reshape(b * s, hid), self.embedding.weight,
                 labels.reshape(b * s)).reshape(b, s)
-        return vocab_parallel_cross_entropy(self.head_logits_local(h), labels,
-                                            self.embedding.tp_group)
+        else:
+            losses = vocab_parallel_cross_entropy(
+                self.head_logits_local(h), labels, self.embedding.tp_group)
+        if self.cfg.num_experts > 0:
+            # the load-balancing term per token, so that mean(losses) is
+            # the mean cross entropy + coeff x aux (the JAX model's rule)
+            losses = losses + (self.cfg.moe_aux_loss_coeff * aux
+                               ).to(losses.dtype)
+        return losses
 
 
 def gpt_model_provider(cfg: GPTConfig, pre_process: bool = True,
@@ -528,16 +565,26 @@ def make_gpt_stage_fns(cfg: GPTConfig, n_stages: int):
     ``loss_fn(stage, h, mb)``: the last stage's mean vocab-parallel cross
     entropy over fp32 logits through its final LayerNorm and its own copy
     of the word embedding (not the fused bf16 head of
-    :meth:`GPTModel.forward` at tp = 1)."""
+    :meth:`GPTModel.forward` at tp = 1).  A MoE config warns, as JAX's
+    does: a stage's output is one hidden tensor, so the load-balancing
+    loss is dropped at every stage boundary."""
     if cfg.num_layers % n_stages != 0:
         raise ValueError("num_layers must divide evenly into stages")
+    if cfg.num_experts:
+        warnings.warn(
+            "MoE under pipeline parallelism drops the load-balancing aux "
+            "loss (stage outputs are a single hidden tensor) — routing "
+            "can silently collapse. Use MoE with TP/DP, or thread a "
+            "custom stage contract that carries the aux loss.",
+            stacklevel=2)
 
     def stage_fn(stage, h_in, mb, k=0):
         if stage.pre_process:
             h = stage.embed(mb["tokens"])
         else:
             h = h_in.to(cfg.compute_dtype)
-        return stage.transformer(h)
+        h, _aux = stage.transformer(h)    # aux dropped, as in JAX
+        return h
 
     def loss_fn(stage, h_out, mb):
         return vocab_parallel_cross_entropy(

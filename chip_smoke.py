@@ -23,8 +23,10 @@ the card over gloo (phase 22), pipeline-parallel GPT training, its
 stages sharing the card the same way (phase 23), and ZeRO: bench.py's
 GPT-1.3B flagship train step, its sharded checkpoints and elastic
 recovery (phase 24), and the serving fleet: several GPT-1.3B engines
-behind the router, sharing the card (phase 25), and tensor-parallel
-serving, ``ServingEngine(tp=N)`` over ranks sharing the card (phase 26).
+behind the router, sharing the card (phase 25), tensor-parallel
+serving, ``ServingEngine(tp=N)`` over ranks sharing the card (phase 26),
+and the Mixture-of-Experts GPT with its expert axis and ring attention
+over a sequence group (phase 27).
 Phases, each of which fails the run (non-zero exit) on error:
 
 1. device — a CUDA card is required; its name and power limit are read
@@ -279,7 +281,8 @@ Phases, each of which fails the run (non-zero exit) on error:
     caught by ``validate_pages``, and a snapshot restored into a fresh
     engine, each bitwise equal to the uninterrupted run, and a
     ``Watchdog`` escalating on a ``SlowDecode``; at GPT-1.3B width in
-    bf16 (phase 5's engine on a ``SimClock``): ``trace(0, 16)`` served
+    bf16 (phase 5's engine on a ``SimClock``, cut to
+    :data:`SERVE_CUT_LAYERS` = 8 layers): ``trace(0, 16)`` served
     with a ``TelemetryBus`` and without gives the same streams and launch
     counts, every event valid, 16 valid traces whose TTFT parts sum to
     the retire event's TTFT; a device loss at decode boundary 12 and a
@@ -411,7 +414,7 @@ Phases, each of which fails the run (non-zero exit) on error:
     for bit.  (a) The fp32 toy (hidden 512, 4 heads of 128: the scalar
     K3/K4) through ``pretrain_gpt``, tp 2 against tp 1 from the same
     seeded master, within JAX's bar (rtol 2e-4, atol 1e-5).  (b)
-    GPT-1.3B width cut to ``TP22_LAYERS`` = 4 (below 12 layers
+    GPT-1.3B width cut to ``TP22_LAYERS`` = 2 (below 12 layers
     ``pretrain_gpt`` runs no remat; tp 2 under remat ``attn_res`` runs in
     phases 23 (c) and 24 (c); bf16, ``FusedAdam``, micro-batch 4 x 2048,
     dropout off so that tp 1 and tp 2 differ only in their arithmetic):
@@ -466,7 +469,7 @@ Phases, each of which fails the run (non-zero exit) on error:
     (b) the fp32 toy (TOY_KW of ``tests/L0/test_flagship.py``) card vs CPU
     from one master: losses within 1e-6 relative, weights 1e-4; the
     scalar routes' launches exact.  (c) ranks sharing this card over gloo
-    (GPT-1.3B width cut to 4 layers): (dp, tp, pp) = (2, 2, 1) bucketed at
+    (GPT-1.3B width cut to 2 layers): (dp, tp, pp) = (2, 2, 1) bucketed at
     ``DEFAULT_BUCKET_BYTES`` and serialized, 2 steps each, bitwise equal
     (losses, parameters, moments), parameters bitwise across the ranks
     after each step, one reduce-scatter and one all-gather a bucket a
@@ -480,12 +483,13 @@ Phases, each of which fails the run (non-zero exit) on error:
     layers: ``run_elastic_training`` at (2, 2, 1) loses rank 3 at step 2
     (``DeviceLoss``), resumes on ``best_surviving_submesh``'s (1, 2, 1)
     and ends bitwise the golden run restored from the same checkpoint on
-    that shape.  The four ranks of (c) and (d) run beside (e), the two of
-    dp 2, (d)'s restore onto (2, 1, 1) and (e)'s golden beside (d)'s
-    restore onto world 1.
+    that shape.  (e) runs beside (c)-(d): the four ranks of (c) and (d),
+    then the two of dp 2, (d)'s restore onto (2, 1, 1) and (e)'s golden
+    (once (e) has committed its step-1 checkpoint) beside (d)'s restore
+    onto world 1.
 25. the serving fleet — ``serving.fleet`` over phase 5's model and pool
-    (GPT-1.3B width, 24 layers, bf16, page 64, batch 8, 61 pages a
-    replica), the replicas sharing the card, one parameter tree and one
+    (GPT-1.3B width cut to :data:`SERVE_CUT_LAYERS` = 8 layers, bf16, page
+    64, batch 8, 61 pages a replica), the replicas sharing the card, one parameter tree and one
     virtual clock ticked once a round (``bench.py::bench_fleet``'s).  (a)
     3 mixed replicas, 24 requests of ``trace(25, 24)`` from two tenants
     (``SLOClass``), drained, then submitted again with ``rolling_restart``
@@ -543,6 +547,29 @@ Phases, each of which fails the run (non-zero exit) on error:
     tolerances, each run twice bitwise, K1's tiles walked as the rule;
     at 8 heads timed cold beside the plain versions, SDPA (page gather +
     SDPA) and the bound, and read against phase 3's 16-head rows.
+27. the Mixture-of-Experts GPT and ring attention — (a) ``GPT1P3B_KW``'s
+    widths with a ``SwitchMLP`` of 8 experts a layer (Switch-Base-8;
+    capacity factor 1.25, aux coefficient 1e-2), cut to
+    :data:`MOE27_LAYERS` = 8 layers (2.39 B parameters: the depth the
+    card's memory forces), bf16, remat ``attn_res``, phase 7's flags,
+    seeded 4 x 2048 batch and tree ``FusedAdam``: one warm-up and 3 timed
+    steps, each under ``set_sync_debug_mode("error")``, the loss finite
+    and falling, K3, K4, K6 and K7 exactly L, L, 4L + 1 and 2L + 1 a step;
+    a step under ``torch.profiler``; the dropout-free step against the
+    plain-version step (``MOE27_*_TOL``), the tokens routed elsewhere
+    between the two and their top-2 margins printed; the same step twice
+    from the seed, bitwise; step ms and the peak.  (b) the fp32 toy MoE
+    GPT card vs CPU from one init, three FusedAdam steps on one batch, on
+    the flash path (the scalar K3/K4) and the fused-softmax path.  (c)
+    one launch of four ranks sharing the card over gloo, beside (b):
+    ``SwitchMLP`` at GPT-1.3B width (E 8, F 8192, 2048 tokens a rank) at
+    ep 4 and ep 2 (pairs), bf16 and fp32 tokens, forward and backward,
+    each rank's outputs, input, gate and expert gradients bitwise the
+    expert axis replayed op for op on one device, aux the same bits on
+    every rank; bench.py's tp 2 x ep 2 leg at that width (fp32) held to
+    ep 1 on one device; ring attention at sp 4 and 2 at bench.py's shape
+    and at sp 2 at a GPT-1.3B rank's [64, 1024, 128] bf16, causal and
+    not, output and gradients held to full attention on one device.
 
 The last three lines of standard output are the kernels' JSON record,
 the ``nvidia-smi`` name/power line, and ``{"ok": true, "device": ...}``.
@@ -556,6 +583,7 @@ from __future__ import annotations
 import base64
 import contextlib
 import dataclasses
+import functools
 import gc
 import json
 import math
@@ -3216,6 +3244,11 @@ def phase_modes(smi: str, serving: dict) -> dict:
 
 TOY_SERVE = dict(vocab_size=64, hidden_size=32, num_heads=4, num_layers=2,
                  max_position=96)
+# phases 16 and 25 serve phase 5's model cut to this depth: the state,
+# recovery, fleet and wire they check do not change with it, and at 24
+# layers the two took 42.8-60.1 s and 70.9-84.3 s of the script's time on
+# an NVIDIA H100 80GB HBM3 at 700.00 W (cut for phase 27's time)
+SERVE_CUT_LAYERS = 8
 LOSS_AT = 12       # the decode boundary the full-width device loss hits
 SNAP_AT = 10       # steps before the full-width snapshot
 CRC_AT = 6         # the decode boundary the corrupted page is found at
@@ -3695,7 +3728,8 @@ def phase_state(smi: str) -> dict:
     toy)."""
     t0 = time.perf_counter()
     out = {"toy": toy_state_checks()}
-    cfg = ServingModelConfig(**FULL, dtype=torch.bfloat16)
+    cfg = ServingModelConfig(**dict(FULL, num_layers=SERVE_CUT_LAYERS),
+                             dtype=torch.bfloat16)
     params = init_params(cfg, seed=0, device="cuda")
     tel = telemetry_inert(params, cfg, smi)
     ref, prompts = tel.pop("reference"), tel.pop("prompts")
@@ -7623,11 +7657,13 @@ def phase_families(smi: str) -> dict:
 GLOO_WHY = ("ranks share cuda:0 over --distributed-backend gloo: this machine "
             "has one card and NCCL refuses two ranks on one GPU; every "
             "collective is staged through the host")
-# GPT-1.3B width cut to 4 layers (pretrain_gpt runs no remat below 12;
+# GPT-1.3B width cut to 2 layers (pretrain_gpt runs no remat below 12;
 # tp 2 under remat attn_res runs in phases 23 (c) and 24 (c)): at 12 layers
 # the phase took 166.2-178.2 s of the script's 1200 s on an NVIDIA H100
-# 80GB HBM3 at 700.00 W, 71-85 % of each step in host-staged collectives
-TP22_LAYERS = 4
+# 80GB HBM3 at 700.00 W, 71-85 % of each step in host-staged collectives;
+# at 4 layers 62.1 s, cut again to 2 to make room for phase 27 (the
+# layouts, launches and bitwise checks do not change with the depth)
+TP22_LAYERS = 2
 TP22_STEPS = 3
 # dropout off: tp 1 and tp 2 draw the attention masks from other streams
 # (tp 2: one stream a rank over its heads), so their losses would part by
@@ -7739,8 +7775,8 @@ def tp22_dropout_probe(model, device) -> tuple:
                         generator=gen, device=device)
     try:
         with torch.no_grad():
-            h = model.transformer(model.embed(ids), dropout_seed=29)
-            h0 = model.transformer(model.embed(ids))
+            h, _ = model.transformer(model.embed(ids), dropout_seed=29)
+            h0, _ = model.transformer(model.embed(ids))
     finally:
         for mod in model.modules():
             if hasattr(mod, "cfg"):
@@ -8684,7 +8720,7 @@ def phase_pipeline(smi: str) -> dict:
 # (a) runs on this process with no process group (world 1: the collectives
 # are the identity); (c)-(e) run ranks sharing cuda:0 over gloo, as phases
 # 22-23 do, at GPT-1.3B width with the depth cut (they check layouts and
-# bits, not speed): 4 layers in (c), as phase 22 cuts it, 2 in (d)-(e),
+# bits, not speed): 2 layers in (c), as phase 22 cuts it, and in (d)-(e),
 # whose checkpoints are written and read whole.
 
 ZERO24_OVER: dict = {}          # a CPU rehearsal shrinks the width here
@@ -8692,11 +8728,12 @@ ZERO24_BATCH = (4, 2048)        # bench.py's flagship batch
 ZERO24_SEQ = 2048
 ZERO24_LR = 1e-4                # bench.py's flagship lr
 ZERO24_STEPS = 4                # timed, after one warm step
-# (c) cut to 4 layers, as phase 22 is: at 12 a (2, 2, 1) step took
+# (c) cut to 2 layers, as phase 22 is: at 12 a (2, 2, 1) step took
 # 7.9-9.1 s a rank and the phase 249-312 s on an NVIDIA H100 80GB HBM3 at
-# 700.00 W, more than the script's 1200 s leave it; the layouts checked do
-# not change with the depth
-ZERO24_RANK_LAYERS = 4
+# 700.00 W, more than the script's 1200 s leave it; at 4 layers the phase
+# took 186.1 s, cut again to make room for phase 27; the layouts checked
+# do not change with the depth
+ZERO24_RANK_LAYERS = 2
 ZERO24_RANK_STEPS = 2
 ZERO24_SAVE_LAYERS = 2          # (d) and (e)
 ZERO24_ELASTIC_STEPS, ZERO24_LOSE_AT, ZERO24_LOST = 3, 2, [3]
@@ -9173,20 +9210,50 @@ def phase_zero(smi: str) -> dict:
                    for i in range(ZERO24_ELASTIC_STEPS)]
         dl = DeviceLoss(at_step=ZERO24_LOSE_AT, device_ids=ZERO24_LOST)
 
+        elastic_done = threading.Event()
+
         def elastic():
             t0 = time.perf_counter()
-            res = run_elastic_training(
-                build, list(range(4)), batches, ckpt_dir=edir, save_every=1,
-                on_step=dl.poll, max_restarts=1, mesh_shape=(2, 2, 1),
-                batch_size=ZERO24_BATCH[0],
-                work_dir=os.path.join(tmp, "ework"), log_fn=log)
+            try:
+                res = run_elastic_training(
+                    build, list(range(4)), batches, ckpt_dir=edir,
+                    save_every=1, on_step=dl.poll, max_restarts=1,
+                    mesh_shape=(2, 2, 1), batch_size=ZERO24_BATCH[0],
+                    work_dir=os.path.join(tmp, "ework"), log_fn=log)
+            finally:
+                elastic_done.set()
             return res, time.perf_counter() - t0
 
-        log("  (c)-(d)'s launch of four ranks and (e)'s recovery run side by "
-            "side, then the two-rank launch beside (d)'s restores on this "
-            "process: their wall times are of a shared card")
-        a, (res, elastic_s) = concurrently(
-            lambda: tp22_spawn(4, [
+        def golden_ready():
+            """(e)'s checkpoint of the step before the loss is committed
+            (an atomic rename; (e) writes no step twice and prunes none),
+            so the golden may restore it while (e) runs on."""
+            while (ckpt.latest_step(edir) or 0) < ZERO24_LOSE_AT - 1:
+                if elastic_done.is_set():
+                    raise AssertionError("(e) ended before its step "
+                                         f"{ZERO24_LOSE_AT - 1} checkpoint")
+                time.sleep(0.5)
+
+        log("  (e)'s recovery runs beside (c)-(d): the launch of four ranks, "
+            "then the two-rank launch (with (e)'s golden, from (e)'s "
+            "checkpoint before the loss) beside (d)'s restore onto world 1 "
+            "on this process: their wall times are of a shared card")
+        adam = DistributedFusedAdam()
+        totals = {n: adam.make_schema(master_shapes(cfg_s), n).total
+                  for n in (1, 2)}
+        held = {}
+
+        def restore_world1(saves):
+            fs1 = build_flagship_train_step(cfg_s, plan="bf16_fit",
+                                            lr=ZERO24_LR, device=CARD)
+            held["target"] = (fs1.params, fs1.opt_state)
+            one, _ = restore_zero_checkpoint(save_dir, held["target"])
+            want1 = zero24_expected_blocks(saves, 2, {"data": 1},
+                                           totals[1])[0]
+            zero24_same_bits("(d) restore onto world 1", one, want1)
+
+        def c_and_d():
+            a = tp22_spawn(4, [
                 dict(base, kind="train", name="bucketed", shape=(2, 2, 1),
                      bucket="auto"),
                 dict(base, kind="train", name="serialized", shape=(2, 2, 1),
@@ -9194,9 +9261,29 @@ def phase_zero(smi: str) -> dict:
                 dict(kind="save", name="save", layers=ZERO24_SAVE_LAYERS,
                      shape=(2, 2, 1), batch=batch_s, dir=save_dir)],
                 tmp, "(c) (2, 2, 1) bucketed and serialized, (d) a sharded "
-                "save", body=phase24_rank),
-            elastic)
-        lap("(c) at (2, 2, 1), (d)'s save and (e)'s recovery done")
+                "save", body=phase24_rank)
+            lap("(c) at (2, 2, 1) and (d)'s save done")
+            saves = [r["save"] for r in a]
+            golden_ready()
+            b, _ = concurrently(
+                lambda: tp22_spawn(2, [
+                    dict(kind="train", name="dp2",
+                         layers=ZERO24_RANK_LAYERS, steps=ZERO24_RANK_STEPS,
+                         batch=batch_r, shape=None, bucket="auto"),
+                    dict(kind="restore", name="restore211",
+                         layers=ZERO24_SAVE_LAYERS, shape=(2, 1, 1),
+                         dir=save_dir, step=2),
+                    dict(kind="golden", name="golden", build=build,
+                         shape=(1, 2, 1), dir=edir, step=ZERO24_LOSE_AT - 1,
+                         batches=batches)],
+                    tmp, "(c) dp 2, (d) restore onto (2, 1, 1), (e) the "
+                    "golden", body=phase24_rank),
+                lambda: restore_world1(saves))
+            lap("the two-rank launch and (d)'s restore onto world 1 done")
+            return a, saves, b
+
+        (a, saves, b), (res, elastic_s) = concurrently(c_and_d, elastic)
+        lap("(c)-(d) and (e)'s recovery done")
         plan = FIT_PLANS["bf16_fit"]
         ranks = {}
         for name in ("bucketed", "serialized"):
@@ -9218,39 +9305,6 @@ def phase_zero(smi: str) -> dict:
         if not (res.restarts == 1 and res.mesh_shape == (1, 2, 1)
                 and res.step == ZERO24_ELASTIC_STEPS):
             raise AssertionError("(e): the recovery is not the expected one")
-
-        # (d): the restores, each bitwise the re-partitioned stacks; onto
-        # world 1 on this process while the two ranks run
-        saves = [r["save"] for r in a]
-        adam = DistributedFusedAdam()
-        totals = {n: adam.make_schema(master_shapes(cfg_s), n).total
-                  for n in (1, 2)}
-        held = {}
-
-        def restore_world1():
-            fs1 = build_flagship_train_step(cfg_s, plan="bf16_fit",
-                                            lr=ZERO24_LR, device=CARD)
-            held["target"] = (fs1.params, fs1.opt_state)
-            one, _ = restore_zero_checkpoint(save_dir, held["target"])
-            want1 = zero24_expected_blocks(saves, 2, {"data": 1},
-                                           totals[1])[0]
-            zero24_same_bits("(d) restore onto world 1", one, want1)
-
-        b, _ = concurrently(
-            lambda: tp22_spawn(2, [
-                dict(kind="train", name="dp2", layers=ZERO24_RANK_LAYERS,
-                     steps=ZERO24_RANK_STEPS, batch=batch_r, shape=None,
-                     bucket="auto"),
-                dict(kind="restore", name="restore211",
-                     layers=ZERO24_SAVE_LAYERS, shape=(2, 1, 1),
-                     dir=save_dir, step=2),
-                dict(kind="golden", name="golden", build=build,
-                     shape=res.mesh_shape, dir=edir, step=ZERO24_LOSE_AT - 1,
-                     batches=batches)],
-                tmp, "(c) dp 2, (d) restore onto (2, 1, 1), (e) the golden",
-                body=phase24_rank),
-            restore_world1)
-        lap("the two-rank launch and (d)'s restore onto world 1 done")
         ranks["dp2"] = zero24_check_ranks(
             f"(c) dp 2 single-axis, {ZERO24_RANK_LAYERS} layers",
             [r["dp2"] for r in b], ZERO24_RANK_LAYERS)
@@ -9269,6 +9323,7 @@ def phase_zero(smi: str) -> dict:
                              got["state"], want211[r])
         log("  (d) format 4 at (2, 2, 1) restored onto (2, 1, 1) and onto "
             "world 1: bitwise the re-partitioned stacks")
+
         # the corruption only once no rank reads the checkpoint
         bad = corrupt_shard(save_dir, 2, (1, 0, 1))
         try:
@@ -9817,6 +9872,7 @@ def phase_fleet(smi: str) -> dict:
     clock) and the fp32 toy on the card against the CPU."""
     t0 = time.perf_counter()
     cfg = ServingModelConfig(**{"dtype": torch.bfloat16, **FULL,
+                                "num_layers": SERVE_CUT_LAYERS,
                                 **FLEET25_OVER})
     on_card = CARD != "cpu"
     setup = dict(cfg=cfg, params=init_params(cfg, seed=0, device=CARD),
@@ -10108,12 +10164,18 @@ def tp26_check_streams(what: str, runs: list, launch_bar: bool = True
                 raise AssertionError(f"{what}: rank {r} launched "
                                      f"{res['launches']}, expected "
                                      f"{res['want']}")
+    by_op = r0["comm"]["by_op"]
     log(f"  {what}: {len(runs)} ranks' streams identical; batched == "
         f"again == one at a time at max_batch {BATCH}; rank 0: "
         f"{r0['prefills']} prefills, {r0['decode_steps']} decode steps, "
         f"launches {r0['launches']} a rank (exact), pool {r0['pool']}, "
-        f"{r0['comm']['calls']} collectives ({r0['comm']['seconds']:.2f} s "
-        f"of {r0['wall_s']:.2f} s), peak {r0['peak_gib']:.2f} GiB")
+        f"{r0['comm']['calls']} collectives {by_op} "
+        f"({r0['comm']['seconds']:.2f} s of {r0['wall_s']:.2f} s), peak "
+        f"{r0['peak_gib']:.2f} GiB")
+    if sum(by_op.values()) != r0["comm"]["calls"]:
+        raise AssertionError(f"{what}: comm.STATS.by_op names "
+                             f"{sum(by_op.values())} of "
+                             f"{r0['comm']['calls']} calls")
     return r0
 
 
@@ -10279,6 +10341,707 @@ def phase_tp_serving(smi: str, timings: dict, serving: dict) -> dict:
             "record": record}
 
 
+# -- phase 27: the Mixture-of-Experts GPT and ring attention ------------------
+
+MOE27_OVER: dict = {}           # a CPU rehearsal narrows the model here
+# GPT1P3B_KW's widths with Switch-Base-8's experts (Fedus et al. 2021) at
+# JAX's defaults; depth cut to 8 layers, a cut the card forces: a layer
+# holds 16.8 M attention and 8 x 2 x 2048 x 8192 = 268.4 M expert
+# parameters, so 24 layers are 6.95 B parameters, ~111 GB of fp32
+# masters, gradients and Adam moments, and 8 layers 2.39 B, ~38 GB
+MOE27_LAYERS = 8
+MOE27_MOE = dict(num_experts=8, moe_capacity_factor=1.25,
+                 moe_aux_loss_coeff=1e-2)
+MOE27_TRAIN = (FULL_TRAIN[:1] + [str(MOE27_LAYERS)] + FULL_TRAIN[2:]
+               + ["--log-interval", "1"])
+MOE27_STEPS = 3                 # timed, after one warm-up step
+# kernel vs plain step (dropout off, bf16), the plain step routed as the
+# kernel step was (RouteTap): ten times the gaps read on an NVIDIA H100
+# 80GB HBM3 at 700.00 W.  Unpinned, a bf16 difference flips 6-24 near-ties
+# a layer (top-2 margins 3e-5 to 6e-3) and each moves a token's expert
+# output wholesale: the same step read 1.7e-3 on the grad norm and 7.6e-2
+# on the worst leaf (layer 5's experts.w1), so the routing is pinned and
+# the reroutes are printed as a reading.  Absolute on a loss near 9.7
+# (read 5.6e-5):
+MOE27_LOSS_TOL = 6e-4
+MOE27_NORM_TOL = 1e-3       # relative, global grad norm (read 9.7e-5)
+# relative, the worst leaf (read 6.7e-3, layer 5's experts.w1; the median
+# leaf 2.6e-3)
+MOE27_LEAF_TOL = 7e-2
+# (b): the fp32 toy card vs CPU, flash and fused-softmax paths
+MOE27_TOY = dict(num_layers=2, hidden_size=256, num_attention_heads=2,
+                 vocab_size=256, max_position_embeddings=128, num_experts=4,
+                 moe_capacity_factor=1.25)
+MOE27_TOY_STEPS = 3
+# final weights, card vs CPU, absolute: ten times the largest gap read on
+# an H100 (5.7e-5 on the flash path, 4.4e-5 on the fused-softmax one; the
+# fp32 toy of phase 6 reads 9.6e-6, but this one takes three Adam steps at
+# lr 1e-3 on one batch); three steps move a weight by up to 3e-3, so a
+# skipped update fails it.  Losses within TOY_LOSS_TOL (read 1.7e-7)
+MOE27_TOY_WEIGHT_TOL = 6e-4
+# (c): SwitchMLP at GPT-1.3B width on each rank's 2048 tokens
+MOE27_EP = dict(hidden_size=2048, ffn_hidden_size=8192, num_experts=8,
+                capacity_factor=1.25)
+MOE27_EP_TOKENS = 2048
+# tp 2 x ep 2 held to ep 1 (fp32), relative: ten times the gaps read on
+# an H100 (outputs 2.0e-6 and the loss 0; the dense block's and the gate's
+# gradients 1.3e-6, the experts' statistics 2.4e-6): the tp sum and the
+# experts' doubled rows are summed in another order
+MOE27_TPEP_OUT_TOL = 2e-5
+MOE27_TPEP_GRAD_TOL = 2.5e-5
+# ring attention: bench.py's shape (bh 2, s 8 x sp, d 8, fp32) and a
+# GPT-1.3B rank's at sp 2 ([4 x 16, 1024, 128] bf16)
+RING27_BENCH = (2, 8, 8)
+RING27_GPT = (64, 1024, 128)
+
+
+def moe27_setup(device, over=None):
+    """(args, model, opt): phase 7's flags at :data:`MOE27_LAYERS` layers,
+    its config made MoE under remat attn_res, tree ``FusedAdam``."""
+    args, model, opt = pretrain_gpt.setup(MOE27_TRAIN, device)
+    cfg = dataclasses.replace(model.cfg, remat=True, remat_policy="attn_res",
+                              **MOE27_MOE, **(over or MOE27_OVER))
+    del model, opt
+    gc.collect()
+    model = GPTModel(cfg, device=device, seed=args.seed)
+    opt = FusedAdam(model.parameters(), lr=args.lr,
+                    weight_decay=args.weight_decay,
+                    betas=(args.adam_beta1, args.adam_beta2),
+                    eps=args.adam_eps)
+    return args, model, opt
+
+
+class RouteTap:
+    """Each layer's ``SwitchMLP`` routing over one forward: ``record``
+    keeps, by module, its input and its experts, slots and token shares
+    at its first call (the remat recompute calls it again);
+    ``pinned()`` then makes a later run route every token as recorded
+    (its gate weight the probability of that expert, recomputed), so that
+    two runs' arithmetic can be compared without a near-tie's flip moving
+    a token to another expert wholesale."""
+
+    def __init__(self):
+        from apex_tpu_torch.transformer import moe as tmoe
+
+        self.cls = tmoe.SwitchMLP
+        self.route = tmoe.SwitchMLP.route
+        self.seen, self.kept = {}, {}
+
+    def record(self):
+        tap = self
+
+        def route(mod, h):
+            got = tap.route(mod, h)
+            tap.seen.setdefault(id(mod), (mod, h.detach()))
+            tap.kept.setdefault(id(mod), (got[0], got[2], got[3]))
+            return got
+
+        return mock.patch.object(self.cls, "route", route)
+
+    def pinned(self):
+        tap = self
+
+        def route(mod, h):
+            tap.seen.setdefault(id(mod), (mod, h.detach()))
+            expert, slot, frac = tap.kept[id(mod)]
+            probs = torch.softmax(h.float() @ mod.gate.weight.float(), -1)
+            return (expert, probs.gather(1, expert[:, None])[:, 0], slot,
+                    frac, probs.mean(dim=0))
+
+        return mock.patch.object(self.cls, "route", route)
+
+    def routes(self) -> list:
+        """Each layer's expert ids and top-2 gate margins at its recorded
+        input (where that run would have routed it), in layer order."""
+        out = []
+        with torch.no_grad():
+            for mod, h in self.seen.values():
+                probs = torch.softmax(h.float() @ mod.gate.weight.float(), -1)
+                top = probs.topk(2, dim=-1).values
+                out.append((probs.argmax(-1), top[:, 0] - top[:, 1]))
+        self.seen = {}
+        return out
+
+
+def moe27_rerouted(got: list, ref: list) -> list:
+    """The tokens whose expert differs between two runs' routings, by
+    layer, with the reference's top-2 margins at the first eight."""
+    out = []
+    for (ids, _), (ref_ids, margin) in zip(got, ref):
+        moved = (ids != ref_ids).nonzero().flatten()
+        out.append(dict(n=int(moved.numel()),
+                        margins=[float(m) for m in margin[moved][:8]]))
+    return out
+
+
+def moe27_train(smi: str) -> dict:
+    """(a): the MoE GPT step at GPT-1.3B width."""
+    L = MOE27_LAYERS
+    want = zero24_launches(L, 1)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    args, model, opt = moe27_setup(CARD)
+    build_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    gen = torch.Generator(device=CARD).manual_seed(11)
+    tokens, labels = next(pretrain_gpt.synthetic_batches(args, gen))
+    losses = [float(pretrain_gpt.train_step(args, model, opt, tokens, labels,
+                                            0))]
+    kernels.reset_launch_counts()
+    enqueue, done = [], []
+    for it in range(1, 1 + MOE27_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            loss = pretrain_gpt.train_step(args, model, opt, tokens, labels,
+                                           it)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        enqueue.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        done.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+    launches = launch_counts()
+    per_step = {k: launches.get(k, 0) / MOE27_STEPS for k in TP22_KERNELS}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    expect = (math.log(model.cfg.vocab_size)
+              + 0.02 ** 2 * model.cfg.hidden_size / 2
+              + model.cfg.moe_aux_loss_coeff * L)  # aux ~1 a layer at init
+    log(f"  (a) {n_params} parameters ({L} layers, 8 experts a layer), built "
+        f"in {build_s:.1f} s; losses {losses} (step 1 expected near "
+        f"{expect:.3f}); launches over {MOE27_STEPS} steps {launches}, per "
+        f"step {per_step} (remat attn_res: {want}); the timed steps under "
+        "set_sync_debug_mode('error'): no host sync")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError("(a): non-finite loss")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"(a): the loss does not fall: {losses}")
+    if abs(losses[0] - expect) > STEP_LOSS_TOL:
+        raise AssertionError(f"(a): step 1 loss {losses[0]} is not within "
+                             f"{STEP_LOSS_TOL} of {expect:.3f}")
+    if per_step != {k: float(v) for k, v in want.items()} or any(
+            launches.get(k, 0) for k in ZERO24_SCALAR):
+        raise AssertionError("(a): launches a step are not the main path's")
+    step_ms = statistics.median(done)
+    prof = step_profile(lambda: pretrain_gpt.train_step(
+        args, model, opt, tokens, labels, 9))
+    if prof["device_busy_ms"] > 0:
+        log("  (a) one step under torch.profiler: " + ", ".join(
+            f"{k} {v:.1f} ms ({v / prof['wall_ms']:.1%})"
+            for k, v in prof["by_kind_ms"].items())
+            + f"; wall {prof['wall_ms']:.1f} ms, device busy "
+              f"{prof['device_busy_ms']:.1f} ms, idle {prof['idle_share']:.1%}")
+        for name, n, t in prof["top_kernels"]:
+            log(f"    {t:8.1f} ms  x{n:<5d} {name}")
+        log_other_ops(prof)
+    del opt
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # kernels vs plain versions, one dropout-free step from the same
+    # weights, the plain step routed as the kernel step was
+    tap = RouteTap()
+    with tap.record():
+        loss, grads = loss_and_grads(model, tokens, labels)
+    kr = tap.routes()
+    patches = plain_kernels()
+    with patches[0], patches[1], tap.pinned():
+        ref_loss, ref_grads = loss_and_grads(model, tokens, labels)
+    rerouted = moe27_rerouted(kr, tap.routes())
+    norm = multi_tensor_l2norm(list(grads.values())).item()
+    ref_norm = multi_tensor_l2norm(list(ref_grads.values())).item()
+    dl, dn = abs(loss - ref_loss), abs(norm - ref_norm) / ref_norm
+    leaf = {n: ((grads[n] - g).norm() / g.norm()).item()
+            for n, g in ref_grads.items() if g.norm() > 0}
+    worst = max(leaf, key=leaf.get)
+    log(f"  (a) dropout-free step, kernels vs plain (the plain step routed "
+        f"as the kernel step): loss {loss:.6f} vs {ref_loss:.6f} (diff "
+        f"{dl:.3e}, tol {MOE27_LOSS_TOL:.1e}); grad norm rel diff {dn:.3e} "
+        f"(tol {MOE27_NORM_TOL:.0e}); worst leaf {worst} {leaf[worst]:.3e} "
+        f"(tol {MOE27_LEAF_TOL:.0e}), median over {len(leaf)} leaves "
+        f"{statistics.median(leaf.values()):.3e}; tokens the plain step "
+        f"would have routed elsewhere, by layer (a reading: a bf16 "
+        f"difference flips a near-tie), with its top-2 margins there: "
+        f"{rerouted}")
+    if not (dl <= MOE27_LOSS_TOL and dn <= MOE27_NORM_TOL
+            and leaf[worst] <= MOE27_LEAF_TOL):
+        raise AssertionError("(a): the kernel step disagrees with the plain "
+                             "step")
+    del model, grads, ref_grads, tap
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # determinism: the same step (dropout on) twice from the same seed
+    def one_step():
+        a, m, o = moe27_setup(CARD)
+        loss = float(pretrain_gpt.train_step(a, m, o, tokens, labels, 0))
+        d = tree_digests([p for p in m.parameters()])
+        del a, m, o
+        gc.collect()
+        torch.cuda.empty_cache()
+        return loss, d
+
+    run1, run2 = one_step(), one_step()
+    same = run1 == run2
+    log(f"  (a) the same step twice from the same seed (dropout on): losses "
+        f"{run1[0]!r} / {run2[0]!r}, parameters bitwise equal: {same}")
+    if not same:
+        raise AssertionError("(a): the MoE step is not deterministic")
+    out = dict(params=n_params, build_s=build_s, losses=losses,
+               step_ms=step_ms, step_ms_all=done,
+               step_enqueue_ms=statistics.median(enqueue),
+               tok_per_s=tokens.numel() / step_ms * 1e3, peak_gib=peak,
+               launches=launches, launches_per_step=per_step,
+               kernel_vs_plain=dict(loss=dl, norm=dn, worst_leaf=leaf[worst],
+                                    worst=worst, rerouted=rerouted),
+               deterministic=same, step_profile=prof, card=smi)
+    log(f"  (a) step {step_ms:.1f} ms (median of {MOE27_STEPS}; host enqueue "
+        f"{out['step_enqueue_ms']:.1f} ms), {out['tok_per_s']:.0f} tok/s, "
+        f"peak {peak:.2f} GiB (max_memory_allocated), on {smi}")
+    return out
+
+
+def moe27_toy_run(device, state, batches, flash):
+    cfg = GPTConfig(**MOE27_TOY, use_flash_attention=flash)
+    model = GPTModel(cfg, device=device)
+    model.load_state_dict(state)
+    opt = FusedAdam(model.parameters(), lr=1e-3)
+    losses = []
+    for tokens, labels in batches:
+        loss = model(tokens.to(device), labels=labels.to(device)).mean()
+        loss.backward()
+        opt.step()
+        opt.zero_grad(set_to_none=True)
+        losses.append(float(loss.detach()))
+    return losses, {k: v.detach().cpu() for k, v in
+                    model.state_dict().items()}
+
+
+def moe27_toy() -> dict:
+    """(b): the fp32 toy MoE GPT, card against CPU, from one init, through
+    the flash path (the scalar K3/K4) and the fused-softmax path."""
+    state = GPTModel(GPTConfig(**MOE27_TOY), device="cpu").state_dict()
+    gen = torch.Generator().manual_seed(27)
+    ids = torch.randint(0, MOE27_TOY["vocab_size"], (2, 129), generator=gen)
+    batches = [(ids[:, :-1], ids[:, 1:])] * MOE27_TOY_STEPS   # it must fall
+    out = {}
+    for flash in (True, False):
+        kernels.reset_launch_counts()
+        on_card, w_card = moe27_toy_run(CARD, state, batches, flash)
+        launches = launch_counts()
+        on_cpu, w_cpu = moe27_toy_run("cpu", state, batches, flash)
+        loss_err = max(abs(a - b) / abs(b) for a, b in zip(on_card, on_cpu))
+        w_err = max((w_card[k] - w_cpu[k]).abs().max().item() for k in w_cpu)
+        path = "flash" if flash else "fused softmax"
+        moved = max((w_cpu[k] - state[k]).abs().max().item() for k in w_cpu)
+        log(f"  (b) toy {path}: losses card {on_card}, CPU {on_cpu}; loss rel "
+            f"diff {loss_err:.3e} (tol {TOY_LOSS_TOL:.0e}), weights max diff "
+            f"{w_err:.3e} (tol {MOE27_TOY_WEIGHT_TOL:.0e}), the largest update "
+            f"on the CPU {moved:.3e}; launches {launches}")
+        want_k3 = MOE27_TOY["num_layers"] * MOE27_TOY_STEPS if flash else 0
+        if CARD == "cuda" and (launches.get("flash_qkv_fwd", 0) != want_k3
+                               or launches.get("flash_qkv_bwd", 0) != want_k3
+                               or not launches.get("layer_norm_fwd")):
+            raise AssertionError(f"(b) {path}: not the scalar routes")
+        if not (loss_err <= TOY_LOSS_TOL and w_err <= MOE27_TOY_WEIGHT_TOL
+                and moved > 2 * MOE27_TOY_WEIGHT_TOL
+                and on_cpu[-1] < on_cpu[0]):
+            raise AssertionError(f"(b) {path}: card and CPU disagree")
+        out[path] = dict(losses=on_card, loss_rel_diff=loss_err,
+                         weight_max_diff=w_err, launches=launches)
+    return out
+
+
+def ep27_tokens(i: int, dtype) -> torch.Tensor:
+    """Rank ``i``'s seeded tokens [2048, 2048] on the card."""
+    gen = torch.Generator().manual_seed(2700 + i)
+    return torch.randn(MOE27_EP_TOKENS, MOE27_EP["hidden_size"],
+                       generator=gen).to(CARD, dtype)
+
+
+def ep27_master() -> dict:
+    """The one-rank SwitchMLP's weights (seeded, on the card)."""
+    from apex_tpu_torch.transformer import moe as tmoe
+
+    gen = torch.Generator(device=CARD).manual_seed(27)
+    return tmoe.SwitchMLP(tmoe.MoEConfig(**MOE27_EP), device=CARD,
+                          generator=gen).state_dict()
+
+
+def ep27_module(master, group=None, rank=0, world=1):
+    from apex_tpu_torch.transformer import moe as tmoe
+
+    m = tmoe.SwitchMLP(tmoe.MoEConfig(**MOE27_EP), group=group, device=CARD)
+    m.load_state_dict(tmoe.shard_master(master, rank, world))
+    return m
+
+
+def ep27_record(outs, hs, aux, mods, gate_mods) -> list:
+    """Per rank: digests of its outputs, input gradients, expert
+    gradients (its own experts) and gate gradient, and aux's bits."""
+    recs = []
+    for r, (out, h) in enumerate(zip(outs, hs)):
+        ex = mods[r].experts
+        recs.append(dict(out=digest(out), dh=digest(h.grad),
+                         aux=float(aux.detach()), gate=digest(gate_mods[r].gate.weight
+                                                     .grad),
+                         experts={k: digest(getattr(ex, k).grad)
+                                  for k in ("w1", "b1", "w2", "b2")}))
+    return recs
+
+
+def ep27_rank_leg(group, idx: int, dtype, master) -> dict:
+    """SwitchMLP over the expert ``group`` on rank ``idx``'s tokens:
+    forward and backward of sum(out^2) + 0.01 aux."""
+    from apex_tpu_torch.parallel import comm
+
+    g_rank, g_world = comm.group_rank(group), comm.group_size(group)
+    m = ep27_module(master, group, g_rank, g_world)
+    h = ep27_tokens(idx, dtype).requires_grad_()
+    comm.STATS.reset()
+    t0 = time.perf_counter()
+    out, aux = m(h)
+    (out.float().pow(2).sum() + 0.01 * aux).backward()
+    if CARD == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rec = ep27_record([out], [h], aux, [m], [m])[0]
+    rec["experts_owned"] = [g_rank * m.e_local, (g_rank + 1) * m.e_local]
+    rec.update(wall_s=wall, comm=comm.STATS.as_dict())
+    return rec
+
+
+def ep27_replay(world: int, idxs, dtype, master) -> list:
+    """Expert parallelism over ``world`` ranks replayed on one device, op
+    for op: each rank's routing on a module of its own (its gate
+    gradient apart), the statistics' fp64 mean, the slabs the all-to-all
+    would carry, each owner's experts on every rank's tokens at the
+    owner's shapes, and the combine; the loss the sum of every rank's.
+    Per rank what :func:`ep27_rank_leg` records."""
+    from apex_tpu_torch.transformer import moe as tmoe
+
+    mods = [ep27_module(master) for _ in range(world)]
+    E, el = MOE27_EP["num_experts"], MOE27_EP["num_experts"] // world
+    H = MOE27_EP["hidden_size"]
+    hs = [ep27_tokens(i, dtype).requires_grad_() for i in idxs]
+    C = mods[0].capacity(hs[0].shape[0])
+    routes = [m.route(h) for m, h in zip(mods, hs)]
+    frac, mean_p = ((torch.stack([r[k] for r in routes]).double().sum(0)
+                     / world).float() for k in (3, 4))
+    aux = E * torch.sum(frac * mean_p)
+    disp = torch.stack([m.dispatch(h, r[2])[0] for m, h, r in
+                        zip(mods, hs, routes)]).view(world, world, el, C, H)
+    ex = mods[0].experts
+    backs = []
+    for o in range(world):
+        x = disp[:, o].transpose(0, 1).reshape(el, world * C, H)
+        sl = slice(o * el, (o + 1) * el)
+        y = tmoe.expert_ffn(x, ex.w1[sl], ex.b1[sl], ex.w2[sl], ex.b2[sl])
+        backs.append(y.to(dtype).view(el, world, C, H).transpose(0, 1))
+    back = torch.stack(backs, 1)
+    outs = [m.combine(back[r].reshape(E, C, H), route[2], route[1])
+            for r, (m, route) in enumerate(zip(mods, routes))]
+    loss = sum(o.float().pow(2).sum() for o in outs) + world * (0.01 * aux)
+    loss.backward()
+    recs = ep27_record(outs, hs, aux, [mods[0]] * world, mods)
+    for r, rec in enumerate(recs):   # each owner's slice of the experts
+        sl = slice(r * el, (r + 1) * el)
+        rec["experts"] = {k: digest(getattr(ex, k).grad[sl])
+                          for k in ("w1", "b1", "w2", "b2")}
+    return recs
+
+
+def tpep27_case():
+    """bench.py:1444-1502's composition at GPT-1.3B width (fp32): a dense
+    block [2048 -> 4096 -> 2048] sharded column/row over tp, feeding the
+    Switch MLP of :data:`MOE27_EP` on 2048 tokens every rank shares."""
+    gen = torch.Generator().manual_seed(2701)
+    H = MOE27_EP["hidden_size"]
+    col = torch.randn(H, 2 * H, generator=gen) * 0.02
+    row = torch.randn(2 * H, H, generator=gen) * 0.02
+    h = torch.randn(MOE27_EP_TOKENS, H, generator=gen)
+    return col.to(CARD), row.to(CARD), h.to(CARD)
+
+
+def tpep27_run(master, tp_group=None, ep_group=None) -> dict:
+    """The leg on this rank (tensor rank t, expert rank e), or on one
+    device with both groups None (the dense block whole, all eight
+    experts local): outputs, expert ids, the loss sum(out^2) + 0.01 aux,
+    each leaf's gradient statistics (:func:`pp23_stats`) and the
+    gradients of the leaves that are not experts."""
+    from apex_tpu_torch.parallel import comm
+    from apex_tpu_torch.transformer import tensor_parallel as tpl
+
+    tp, t = comm.group_size(tp_group), comm.group_rank(tp_group)
+    ep, e = comm.group_size(ep_group), comm.group_rank(ep_group)
+    col, row, h = tpep27_case()
+    H = h.shape[1]
+    col = col.view(H, tp, -1)[:, t].contiguous().requires_grad_()
+    row = row.view(tp, -1, H)[t].contiguous().requires_grad_()
+    m = ep27_module(master, ep_group, e, ep)
+    a = F.gelu(h @ col, approximate="tanh")
+    y = tpl.reduce_from_tensor_model_parallel_region(a @ row, tp_group)
+    out, aux = m(y)
+    loss = out.pow(2).sum() + 0.01 * aux
+    loss.backward()
+    leaves = {"col_w": col, "row_w": row,
+              **{f"moe.{k}": p for k, p in m.named_parameters()}}
+    res = dict(out=out.detach(), loss=float(loss.detach()),
+               expert=m.route(y.detach())[0],
+               grads={k: p.grad for k, p in leaves.items()
+                      if not k.startswith("moe.experts")})
+    if tp_group is None:
+        res["experts"] = {k: p.grad for k, p in leaves.items()
+                          if k.startswith("moe.experts")}
+    else:
+        res["stats"] = pp23_stats((k, p.grad) for k, p in leaves.items()
+                                  if k.startswith("moe.experts"))
+    return res
+
+
+def ring27_inputs(shape, sp, seed, dtype):
+    """The whole sequence's q, k, v [bh, s_local x sp, d] (seeded)."""
+    bh, n, d = shape
+    gen = torch.Generator().manual_seed(seed)
+    return [torch.randn(bh, n * sp, d, generator=gen).to(CARD, dtype)
+            for _ in range(3)]
+
+
+def ring27_full(q, k, v, causal):
+    """Full attention on one device in fp32 from the same inputs, and
+    the gradients of sum(o^2) (plain autograd), in the inputs' dtype."""
+    q, k, v = (t.detach().float().requires_grad_() for t in (q, k, v))
+    s = (q @ k.transpose(-1, -2)) / math.sqrt(q.shape[-1])
+    if causal:
+        n = s.shape[-1]
+        s = s.masked_fill(torch.ones(n, n, dtype=torch.bool,
+                                     device=s.device).triu(1), float("-inf"))
+    o = torch.softmax(s, -1) @ v
+    o.pow(2).sum().backward()
+    return [o.detach(), q.grad, k.grad, v.grad]
+
+
+def ring27_rank(group, shape, seed, dtype) -> dict:
+    """Ring attention on this rank's chunk, causal and not, forward and
+    backward of sum(o^2), held here to full attention on the whole
+    sequence (recomputed from the seed on this rank's device): each
+    tensor's max |diff| and its bar."""
+    from apex_tpu_torch.ops import ring_attention
+    from apex_tpu_torch.parallel import comm
+
+    sp, r = comm.group_size(group), comm.group_rank(group)
+    n = shape[1]
+    out = {}
+    for causal in (False, True):
+        whole = ring27_inputs(shape, sp, seed, dtype)
+        q, k, v = (t[:, r * n:(r + 1) * n].clone().requires_grad_()
+                   for t in whole)
+        comm.STATS.reset()
+        t0 = time.perf_counter()
+        o = ring_attention(q, k, v, group, causal=causal)
+        o.float().pow(2).sum().backward()
+        if CARD == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        ref = [t[:, r * n:(r + 1) * n].to(dtype)
+               for t in ring27_full(*whole, causal)]
+        errs = [((a.float() - b.float()).abs().max().item(), tolerance(b))
+                for a, b in zip((o, q.grad, k.grad, v.grad), ref)]
+        out[causal] = dict(errs=errs, wall_s=wall, comm=comm.STATS.as_dict())
+        del whole, ref
+    return out
+
+
+def phase27_rank(rank, world, init_file, out, job):
+    """A rank of phase 27's launch (spawned, four ranks over gloo): ep 4
+    over all, ep 2 over the pairs [0, 1] and [2, 3], in bf16 and fp32;
+    tp 2 x ep 2 (tensor groups [0, 2] and [1, 3], expert groups [0, 1]
+    and [2, 3]); ring attention at sp 4 and sp 2 (the pairs)."""
+    import torch.distributed as dist
+
+    from apex_tpu_torch.parallel import multiproc
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    multiproc.init_file_group("gloo", rank, world, init_file)
+    pairs = [dist.new_group([0, 1]), dist.new_group([2, 3])]
+    cols = [dist.new_group([0, 2]), dist.new_group([1, 3])]
+    groups = {4: dist.group.WORLD, 2: pairs[rank // 2]}
+    master = ep27_master()
+    res = {}
+    with parallel_state.uninitialized_scope():
+        t0 = time.perf_counter()
+        for ep, group in groups.items():
+            for name, dtype in (("bf16", torch.bfloat16),
+                                ("fp32", torch.float32)):
+                res[("ep", ep, name)] = ep27_rank_leg(group, rank, dtype,
+                                                      master)
+                gc.collect()
+        res["ep_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res["tpep"] = tpep27_run(master, cols[rank % 2], pairs[rank // 2])
+        res["tpep_s"] = time.perf_counter() - t0
+        del master
+        gc.collect()
+        t0 = time.perf_counter()
+        for sp, group in groups.items():
+            res[("ring", "bench", sp)] = ring27_rank(
+                group, RING27_BENCH, 2710 + rank // sp, torch.float32)
+        res[("ring", "gpt", 2)] = ring27_rank(groups[2], RING27_GPT, 2712,
+                                              torch.bfloat16)
+        res["ring_s"] = time.perf_counter() - t0
+    if CARD == "cuda":
+        res["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    torch.save(res, os.path.join(out, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def ep27_check(runs) -> dict:
+    """Each ep leg against its one-device replay, bitwise; aux the same
+    bits on every rank of a group."""
+    master = ep27_master()
+    out = {}
+    for ep in (4, 2):
+        for name, dtype in (("bf16", torch.bfloat16),
+                            ("fp32", torch.float32)):
+            for g0 in range(0, 4, ep):
+                got = [runs[g0 + r][("ep", ep, name)] for r in range(ep)]
+                want = ep27_replay(ep, range(g0, g0 + ep), dtype, master)
+                gc.collect()
+                for r, (a, b) in enumerate(zip(got, want)):
+                    for key in ("out", "dh", "aux", "gate", "experts"):
+                        if a[key] != b[key]:
+                            raise AssertionError(
+                                f"(c) ep {ep} {name}, group rank {r} of "
+                                f"ranks {g0}-{g0 + ep - 1}: {key} is not "
+                                "bitwise the one-device replay's")
+                if len({a["aux"] for a in got}) != 1:
+                    raise AssertionError(f"(c) ep {ep} {name}: aux differs "
+                                         "across the ranks")
+            a0 = runs[0][("ep", ep, name)]
+            out[(ep, name)] = dict(aux=a0["aux"], wall_s=[
+                runs[r][("ep", ep, name)]["wall_s"] for r in range(4)],
+                comm=a0["comm"])
+            log(f"  (c) ep {ep} {name} ({MOE27_EP}, {MOE27_EP_TOKENS} "
+                f"tokens a rank): every rank's outputs, input "
+                f"gradients, gate and expert gradients bitwise the "
+                f"one-device replay, aux {a0['aux']!r} on every rank; rank "
+                f"walls {[round(w, 3) for w in out[(ep, name)]['wall_s']]} s,"
+                f" collectives {a0['comm']['by_op']}")
+    return out
+
+
+def tpep27_check(runs) -> list:
+    """tp 2 x ep 2 held to ep 1 on one device (the same weights and
+    tokens): the expert ids (those that differ, a reading), outputs and
+    loss, and each rank's gradients: its slices of the dense block's and
+    the gate's whole, its experts' by their statistics against ep x the
+    one device's (both expert ranks of a tensor rank carry the same
+    tokens, so every expert sees each token twice)."""
+    master = ep27_master()
+    ref = tpep27_run(master)
+    del master
+    H = MOE27_EP["hidden_size"]
+    el = MOE27_EP["num_experts"] // 2
+    gaps = []
+    for rank, run in enumerate(runs):
+        t, e = rank // 2, rank % 2
+        got = run["tpep"]
+        moved = int((got["expert"] != ref["expert"]).sum())
+        want = {"col_w": ref["grads"]["col_w"].view(H, 2, -1)[:, t],
+                "row_w": ref["grads"]["row_w"].view(2, -1, H)[t],
+                "moe.gate.weight": ref["grads"]["moe.gate.weight"]}
+        stats = pp23_stats((k, 2 * g[e * el:(e + 1) * el])
+                           for k, g in ref["experts"].items())
+        gap = dict(
+            rerouted=moved,
+            out=((got["out"] - ref["out"]).norm() / ref["out"].norm()).item(),
+            loss=abs(got["loss"] - ref["loss"]) / abs(ref["loss"]),
+            grads=max(((got["grads"][k] - v).norm() / v.norm()).item()
+                      for k, v in want.items()),
+            experts=pp23_grad_gap(got["stats"], stats))
+        gaps.append(gap)
+        log(f"  (c) tp 2 x ep 2, rank {rank} (t {t}, e {e}) against ep 1 on "
+            f"one device: {moved} tokens routed elsewhere; relative gaps "
+            f"out {gap['out']:.3e}, loss {gap['loss']:.3e} (tol "
+            f"{MOE27_TPEP_OUT_TOL:.0e}); col_w, row_w, gate gradients "
+            f"{gap['grads']:.3e}, experts' statistics {gap['experts']:.3e} "
+            f"(tol {MOE27_TPEP_GRAD_TOL:.0e})")
+        if max(gap["out"], gap["loss"]) > MOE27_TPEP_OUT_TOL or \
+                max(gap["grads"], gap["experts"]) > MOE27_TPEP_GRAD_TOL:
+            raise AssertionError(f"(c) tp 2 x ep 2 rank {rank}: not ep 1's")
+    return gaps
+
+
+def ring27_check(runs) -> dict:
+    """Each ring leg's tensors within their bars on every rank."""
+    out = {}
+    for key, what in ((("ring", "bench", 4), "bench.py's shape, sp 4"),
+                      (("ring", "bench", 2), "bench.py's shape, sp 2"),
+                      (("ring", "gpt", 2), "a GPT-1.3B rank's [64, 1024, "
+                                           "128] bf16, sp 2")):
+        for causal in (False, True):
+            worst, walls = 0.0, []
+            for rank, run in enumerate(runs):
+                leg = run[key][causal]
+                walls.append(leg["wall_s"])
+                for (err, tol), name in zip(leg["errs"],
+                                            ("o", "dq", "dk", "dv")):
+                    if not (math.isfinite(err) and err <= tol):
+                        raise AssertionError(
+                            f"(c) ring attention {what}, causal {causal}, "
+                            f"rank {rank}: {name} {err:.3e} > {tol:.3e}")
+                    worst = max(worst, err / tol if tol else 0.0)
+            out[(key[1], key[2], causal)] = dict(worst_share_of_bar=worst,
+                                                 wall_s=walls)
+            c = runs[0][key][causal]["comm"]
+            log(f"  (c) ring attention {what}, {'causal' if causal else 'not causal'}"
+                f": o, dq, dk, dv on every rank within their bars against "
+                f"full attention on one device (worst {worst:.1%} of its "
+                f"bar); rank walls {[round(w, 3) for w in walls]} s, "
+                f"{c['calls']} messages ({c['by_op']}) a rank")
+    return out
+
+
+def phase_moe_ring(smi: str) -> dict:
+    """Phase 27 (see the module docstring)."""
+    t_phase = time.perf_counter()
+
+    def lap(what):
+        log(f"  [{time.perf_counter() - t_phase:6.1f} s] {what}")
+
+    record = {"train": moe27_train(smi)}
+    lap("(a) done")
+    log(f"  {GLOO_WHY}")
+    tmp = tempfile.mkdtemp(prefix="moe27_")
+    try:
+        runs, record["toy"] = concurrently(
+            lambda: tp22_spawn(4, {}, tmp, "(c) ep 4 and 2, tp 2 x ep 2, "
+                               "ring attention at sp 4 and 2",
+                               body=phase27_rank),
+            moe27_toy)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    lap("(b) and (c)'s ranks done (side by side)")
+    record["ep"] = ep27_check(runs)
+    torch.cuda.empty_cache()
+    record["tp_ep"] = tpep27_check(runs)
+    torch.cuda.empty_cache()
+    record["ring"] = ring27_check(runs)
+    record["ranks"] = [dict(ep_s=r["ep_s"], tpep_s=r["tpep_s"],
+                            ring_s=r["ring_s"], peak_gib=r.get("peak_gib"))
+                       for r in runs]
+    lap("(c)'s checks done")
+    record["wall_s"] = time.perf_counter() - t_phase
+    log("  phase 27 " + json.dumps(
+        {k: v for k, v in record.items() if k in ("toy", "ranks")},
+        default=str))
+    log(f"  phase 27 took {record['wall_s']:.1f} s")
+    return record
+
+
 PHASE = {"n": 0, "name": "start", "t": None, "t0": None}
 
 
@@ -10389,7 +11152,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     begin(16, "serving state, page integrity and telemetry at full width "
-          "(GPT-1.3B width, 24 layers, bf16; the fp32 toy)")
+          f"(GPT-1.3B width, {SERVE_CUT_LAYERS} layers, bf16; the fp32 toy)")
     state = phase_state(smi)
     torch.cuda.empty_cache()
 
@@ -10459,7 +11222,8 @@ def main() -> int:
     zero = phase_zero(smi)
     torch.cuda.empty_cache()
 
-    begin(25, "the serving fleet (GPT-1.3B width, 24 layers, bf16; replicas "
+    begin(25, f"the serving fleet (GPT-1.3B width, {SERVE_CUT_LAYERS} "
+          "layers, bf16; replicas "
           "sharing this card and one parameter tree): 3 mixed replicas "
           "through a rolling restart, KillReplica / BlackholeReplica / "
           "SlowReplica, DisaggRouter with 2 prefill and 2 decode replicas "
@@ -10476,9 +11240,20 @@ def main() -> int:
           "sharing this card over gloo")
     tps = phase_tp_serving(smi, timings, serving)
     torch.cuda.empty_cache()
+
+    begin(27, "Mixture-of-Experts GPT and ring attention (GPT-1.3B width "
+          f"with 8 Switch experts a layer, {MOE27_LAYERS} layers, bf16, "
+          "remat attn_res; the fp32 toy card vs CPU; ep 4 and 2, tp 2 x ep "
+          "2 and ring attention at sp 4 and 2, the ranks sharing this card "
+          "over gloo)")
+    moe = phase_moe_ring(smi)
+    torch.cuda.empty_cache()
     phase_lap()
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
-    PHASE.update(n=27, name="record")
+    PHASE.update(n=28, name="record")
+    moe_toy = {k: sum(r["launches"].get(k, 0) for r in moe["toy"].values())
+               for k in ("flash_qkv_fwd", "flash_qkv_bwd", "layer_norm_fwd",
+                         "layer_norm_bwd")}
     policies = rest["policies"]
 
     amp_toy_adam16 = {"launches": amp_toy["launches"]["O2 fp16 adam"]}
@@ -10595,9 +11370,13 @@ def main() -> int:
         # they replaced there
         dict(name=name, route="cuda", source=f"apex_tpu_torch/csrc/{src}",
              replaces=where, launches=runs["launches"][name],
-             **(dict(launches_zero_toy=zero["toy"]["launches"][name])
+             **(dict(launches_zero_toy=zero["toy"]["launches"][name],
+                     # phase 27 (b): the fp32 MoE toy, both paths
+                     launches_moe_toy=moe_toy[name])
                 if runs is toy_train else dict(
                  launches_resume=resume["launches"][name],
+                 # phase 27 (a): the MoE GPT step's (its timed steps)
+                 launches_moe=moe["train"]["launches"][name],
                  # phase 19: pretrain_gpt under each remat policy
                  launches_policies={p: r["launches"][name]
                                     for p, r in policies.items()},
@@ -10695,8 +11474,10 @@ def main() -> int:
              replaces=where, launches=runs["launches"][name],
              **(dict(launches_softmax_toy=rest["softmax_gpt"]["toy_mask"][
                  "launches"][name],
-                 launches_zero_toy=zero["toy"]["launches"][name])
+                 launches_zero_toy=zero["toy"]["launches"][name],
+                 launches_moe_toy=moe_toy[name])
                 if runs is toy_train else dict(
+                 launches_moe=moe["train"]["launches"][name],
                  launches_mha=mha["launches"][name],
                  launches_flat=flat["launches"][name],
                  launches_microbench=probes["launches"][name],

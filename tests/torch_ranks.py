@@ -228,8 +228,9 @@ def parallel_models(rank, world, init_file, out, case):
                     device="cpu")
     drop.load_state_dict(rank_state_dict_from_jax(case["gpt_master"], rank))
     with torch.no_grad():
-        h = drop.transformer(drop.embed(_t(case["tokens"])), dropout_seed=11)
-        h0 = drop.transformer(drop.embed(_t(case["tokens"])))
+        h, _ = drop.transformer(drop.embed(_t(case["tokens"])),
+                                dropout_seed=11)
+        h0, _ = drop.transformer(drop.embed(_t(case["tokens"])))
     res["dropout_hidden"] = (h, h0)
     bert = BertModel(BertConfig(**case["bert_cfg"], tp_size=tp), device="cpu")
     bert.load_state_dict(rank_state_dict_from_jax(case["bert_master"], rank))
@@ -1063,4 +1064,158 @@ def serving_tp_checks(rank, world, init_file, out, case):
         if rank == 1:
             # a server that carries on: its peer must not wait on it
             time.sleep(case["timeout_s"] + 0.5)
+    _write(out, rank, res)
+
+
+# -- tests/test_torch_moe.py and tests/test_torch_ring_attention.py ----------
+
+def _collective_names(rank, world):
+    """Each public collective of ``comm`` once over the whole group: the
+    names it adds to ``comm.STATS.by_op`` and whether its calls are all
+    named (sum of ``by_op`` == ``calls``)."""
+    from apex_tpu_torch.parallel import comm
+
+    group = torch.distributed.group.WORLD
+    x = torch.arange(world * 2, dtype=torch.float32) + rank
+    nxt, prv = (rank + 1) % world, (rank - 1) % world
+    calls = {
+        "all_reduce": lambda: comm.all_reduce(x, group),
+        "all_gather": lambda: comm.all_gather(x, group),
+        "all_gather_tiled": lambda: comm.all_gather_tiled(x, group),
+        "reduce_scatter": lambda: comm.reduce_scatter(x, group),
+        "all_to_all": lambda: comm.all_to_all(x, group),
+        "broadcast": lambda: comm.broadcast(x, 0, group),
+        "gather": lambda: comm.gather(x, group),
+        "exchange": lambda: comm.exchange(
+            [(x, nxt, 0)], [comm.Recv(prv, tuple(x.shape), x.dtype,
+                                      x.device, 0)], group),
+        "send_recv": lambda: (comm.send(x, nxt, group) if rank % 2 == 0
+                              else comm.recv(x.shape, x.dtype, "cpu", prv,
+                                             group),
+                              comm.recv(x.shape, x.dtype, "cpu", prv, group)
+                              if rank % 2 == 0 else comm.send(x, nxt, group)),
+    }
+    out = {}
+    for name, fn in calls.items():
+        comm.STATS.reset()
+        fn()
+        st = comm.STATS.as_dict()
+        out[name] = (st["by_op"], st["calls"])
+    return out
+
+
+def _moe_run(case, cf, group, tokens):
+    """One SwitchMLP of ``case``'s master at capacity factor ``cf`` over
+    the expert ``group`` on this rank's ``tokens``: outputs, aux, expert
+    ids, the gradients of sum(out^2) + 0.01 aux."""
+    from apex_tpu_torch.parallel import comm
+    from apex_tpu_torch.transformer import moe as tmoe
+
+    cfg = tmoe.MoEConfig(**case["cfg"], capacity_factor=cf)
+    m = tmoe.SwitchMLP(cfg, group=group, device="cpu")
+    m.load_state_dict(tmoe.shard_master(
+        {k: _t(v) for k, v in case["master"].items()},
+        comm.group_rank(group), comm.group_size(group)))
+    h = _t(tokens, grad=True)
+    out, aux = m(h)
+    (out.pow(2).sum() + 0.01 * aux).backward()
+    return {"out": out.detach(), "aux": aux.detach(), "dh": h.grad,
+            "expert": m.route(h.detach())[0],
+            "grads": {k: p.grad for k, p in m.named_parameters()}}
+
+
+def _tp_ep_run(case, rank, tp_group, ep_group):
+    """bench.py's tp x ep leg: a column/row-sharded dense block feeding a
+    Switch MoE sharded over the expert group (tensor rank t = rank // ep,
+    expert rank e = rank % ep); the loss, and every parameter's gradient
+    of this rank's sum(out^2) and of its 0.01 aux, each alone."""
+    from apex_tpu_torch.parallel import comm
+    from apex_tpu_torch.transformer import moe as tmoe
+
+    tp, ep = comm.group_size(tp_group), comm.group_size(ep_group)
+    t, e = comm.group_rank(tp_group), comm.group_rank(ep_group)
+    H = case["cfg"]["hidden_size"]
+    col = _t(np.array(case["col_w"]).reshape(H, tp, -1)[:, t], grad=True)
+    row = _t(np.array(case["row_w"]).reshape(tp, -1, H)[t], grad=True)
+    cfg = tmoe.MoEConfig(**case["cfg"], capacity_factor=case["cf"])
+    m = tmoe.SwitchMLP(cfg, group=ep_group, device="cpu")
+    m.load_state_dict(tmoe.shard_master(
+        {k: _t(v) for k, v in case["master"].items()}, e, ep))
+    h = _t(case["h"])
+    a = F.gelu(h @ col, approximate="tanh")
+    y = tpl.reduce_from_tensor_model_parallel_region(a @ row, tp_group)
+    out, aux = m(y)
+    params = {"col_w": col, "row_w": row,
+              **{f"moe.{k}": p for k, p in m.named_parameters()}}
+    # the two terms' gradients apart: JAX's psums scale them differently
+    sq = torch.autograd.grad(out.pow(2).sum(), list(params.values()),
+                             retain_graph=True)
+    ax = torch.autograd.grad(0.01 * aux, list(params.values()),
+                             allow_unused=True)
+    return {"out": out.detach(), "aux": aux.detach(),
+            "loss": comm.all_reduce(out.detach().pow(2).sum(),
+                                    torch.distributed.group.WORLD) / tp
+            + 0.01 * aux.detach(),
+            "grads_sq": dict(zip(params, sq)),
+            "grads_aux": {k: torch.zeros_like(p) if g is None else g
+                          for (k, p), g in zip(params.items(), ax)}}
+
+
+def moe_checks(rank, world, init_file, out, case):
+    """Every rank check of tests/test_torch_moe.py over four gloo ranks:
+    the collectives' names, SwitchMLP at ep 4 (the whole group) and ep 2
+    (pairs [0, 1] and [2, 3], each on its ranks' tokens) at each capacity
+    factor, and bench.py's tp 2 x ep 2 leg (tensor groups [0, 2] and [1,
+    3], expert groups [0, 1] and [2, 3])."""
+    init_file_group("gloo", rank, world, init_file)
+    with parallel_state.uninitialized_scope():
+        res = {"collectives": _collective_names(rank, world)}
+        new = torch.distributed.new_group
+        pairs = [new([0, 1]), new([2, 3])]
+        cols = [new([0, 2]), new([1, 3])]
+        n = case["tokens_per_rank"]
+        mine = np.array(case["h"])[rank * n:(rank + 1) * n]
+        for cf in case["cfs"]:
+            res[("ep4", cf)] = _moe_run(case, cf,
+                                        torch.distributed.group.WORLD, mine)
+            res[("ep2", cf)] = _moe_run(case, cf, pairs[rank // 2], mine)
+        res["tp_ep"] = _tp_ep_run(case["tp_ep"], rank, cols[rank % 2],
+                                  pairs[rank // 2])
+    _write(out, rank, res)
+
+
+def ring_checks(rank, world, init_file, out, case):
+    """tests/test_torch_ring_attention.py's rank checks over four gloo
+    ranks: ring attention at sp 4 (the whole group) and sp 2 (pairs [0, 1]
+    and [2, 3], each on its own sequence), causal and not, output and
+    (dq, dk, dv) of sum(o^2); and the bytes its backward saves, counted
+    with ``saved_tensors_hooks``, at sp 4 and sp 2 on one ``s_local``."""
+    from apex_tpu_torch.ops import ring_attention
+
+    init_file_group("gloo", rank, world, init_file)
+    pairs = [torch.distributed.new_group([0, 1]),
+             torch.distributed.new_group([2, 3])]
+    groups = {4: torch.distributed.group.WORLD, 2: pairs[rank // 2]}
+    res = {}
+    for sp, group in groups.items():
+        r = rank % sp
+        for causal in (False, True):
+            qkv = [np.array(case[f"sp{sp}"][rank // sp][i]) for i in range(3)]
+            n = qkv[0].shape[1] // sp
+            q, k, v = (_t(a[:, r * n:(r + 1) * n], grad=True) for a in qkv)
+            o = ring_attention(q, k, v, group, causal=causal)
+            o.pow(2).sum().backward()
+            res[(sp, causal)] = (o.detach(), q.grad, k.grad, v.grad)
+        saved = []
+
+        def pack(t):
+            saved.append(t.numel() * t.element_size())
+            return t
+
+        q, k, v = (torch.randn(2, case["s_local"], 16, requires_grad=True)
+                   for _ in range(3))
+        with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+            o = ring_attention(q, k, v, group, causal=True)
+        o.sum().backward()
+        res[("saved_bytes", sp)] = sum(saved)
     _write(out, rank, res)
