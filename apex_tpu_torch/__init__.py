@@ -31,8 +31,9 @@ families of the ImageNet, DCGAN, RNN and RNN-T workloads:
 * :mod:`apex_tpu_torch.examples.gpt.pretrain_gpt` — GPT pretraining on
   one card;
 * :mod:`apex_tpu_torch.models`, :mod:`apex_tpu_torch.parallel` —
-  ResNet (NHWC, cuDNN convolutions) over SyncBatchNorm's local path;
-  :mod:`apex_tpu_torch.examples.imagenet.main_amp` and
+  ResNet (NHWC, cuDNN convolutions) over SyncBatchNorm, its statistics
+  over a group of ranks; :mod:`apex_tpu_torch.examples.imagenet.main_amp`
+  (data-parallel at ``--n-devices N``) and
   :mod:`apex_tpu_torch.examples.dcgan.main_amp` train them under amp;
 * :mod:`apex_tpu_torch.contrib` ``groupbn``, ``bottleneck``,
   ``transducer`` (the RNN-T joint and loss), ``sparsity`` (ASP),

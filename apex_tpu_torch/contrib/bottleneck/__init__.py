@@ -1,5 +1,5 @@
 """The bottleneck block (the JAX package's ``apex_tpu.contrib.bottleneck``)
-on one card; its spatial parallelism waits for multi-GPU."""
+and its spatial form, H sharded over a group of ranks."""
 
 from apex_tpu_torch.contrib.bottleneck.bottleneck import (
     Bottleneck,

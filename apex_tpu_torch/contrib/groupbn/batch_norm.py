@@ -1,4 +1,4 @@
-"""GroupBN's ``BatchNorm2d_NHWC`` on one card.
+"""GroupBN's ``BatchNorm2d_NHWC``.
 
 PyTorch port of the JAX package's ``apex_tpu/contrib/groupbn/batch_norm.py``
 (reference apex/contrib/groupbn): NHWC batch norm with the statistics of
@@ -9,10 +9,16 @@ JAX module.  The ``minibatch_mean`` / ``minibatch_riv`` buffers hold the
 last training batch's mean and inverse standard deviation, as the
 reference's do.
 
-The occupancy knobs (``max_cta_per_sm``, ``cta_launch_margin``,
-``multi_stream``) are accepted and ignored, as in the JAX package.
-``bn_group > 1`` pools statistics across ranks and waits for multi-GPU
-(``NotImplementedError``, ROADMAP.md queue A, item 2).
+``bn_group > 1`` pools the statistics over ``axis_name``, a group of
+exactly ``bn_group`` ranks (a process group, or a kind name
+:func:`~apex_tpu_torch.parallel.sync_batchnorm.resolve_group` takes;
+:func:`~apex_tpu_torch.parallel.create_syncbn_process_group` makes such
+groups): where the JAX module psums over a mesh sub-axis of that size
+and the reference exchanges peer statistics through CUDA IPC buffers.
+A missing ``axis_name`` or a group of another size raises
+``ValueError``.  The occupancy knobs (``max_cta_per_sm``,
+``cta_launch_margin``, ``multi_stream``) are accepted and ignored, as in
+the JAX package.
 """
 
 from __future__ import annotations
@@ -23,9 +29,9 @@ import torch
 from torch import nn
 
 from apex_tpu_torch._device import resolve_device
-from apex_tpu_torch.parallel.sync_batchnorm import (_MULTI_RANK,
-                                                    BatchStatsNorm, affine,
-                                                    local_group,
+from apex_tpu_torch.parallel import comm
+from apex_tpu_torch.parallel.sync_batchnorm import (BatchStatsNorm, affine,
+                                                    resolve_group,
                                                     update_running_stats)
 
 
@@ -35,8 +41,8 @@ class BatchNorm2d_NHWC(nn.Module):
     ``z`` implies the relu, as in the reference).  Parameters ``weight``
     and ``bias``; fp32 buffers ``running_mean``, ``running_var``,
     ``minibatch_mean`` and ``minibatch_riv``, updated in place by a
-    training forward.  Built on the card unless ``device`` says
-    otherwise."""
+    training forward (with the group's statistics at ``bn_group > 1``).
+    Built on the card unless ``device`` says otherwise."""
 
     def __init__(self, num_features: int, fuse_relu: bool = False,
                  bn_group: int = 1, axis_name: Any = None, eps: float = 1e-5,
@@ -45,13 +51,15 @@ class BatchNorm2d_NHWC(nn.Module):
                  device=None, dtype=torch.float32):
         super().__init__()
         del max_cta_per_sm, cta_launch_margin, multi_stream
-        if bn_group > 1:
-            raise NotImplementedError(f"bn_group={bn_group}: {_MULTI_RANK}")
-        local_group(axis_name)
+        if bn_group > 1 and axis_name is None:
+            raise ValueError("bn_group > 1 requires axis_name (a group of "
+                             "bn_group ranks)")
+        self.bn_group = bn_group
+        self.axis_name = axis_name if bn_group > 1 else None
+        self._group()      # the group's size is checked before anything
         device = resolve_device(device)
         self.num_features = num_features
         self.fuse_relu = fuse_relu
-        self.bn_group = bn_group
         self.eps = eps
         self.momentum = momentum
         c = num_features
@@ -62,11 +70,25 @@ class BatchNorm2d_NHWC(nn.Module):
             self.register_buffer(name, torch.full((c,), fill, device=device,
                                                   dtype=torch.float32))
 
+    def _group(self):
+        """The process group of the statistics (None: this rank alone),
+        of exactly ``bn_group`` ranks."""
+        if self.axis_name is None:
+            return None
+        group = resolve_group(self.axis_name)
+        size = comm.group_size(group)
+        if size != self.bn_group:
+            raise ValueError(f"bn_group={self.bn_group}, but axis_name="
+                             f"{self.axis_name!r} is a group of {size} "
+                             "rank(s)")
+        return group
+
     def forward(self, x: torch.Tensor, z: Optional[torch.Tensor] = None
                 ) -> torch.Tensor:
         if self.training:
             y, mean, var, n = BatchStatsNorm.apply(
-                x, self.weight, self.bias, -1, self.eps, torch.float32)
+                x, self.weight, self.bias, -1, self.eps, torch.float32,
+                self._group())
             with torch.no_grad():
                 rm, rv = update_running_stats(
                     self.running_mean, self.running_var, mean, var, n,

@@ -1,5 +1,6 @@
 #!/usr/bin/env python
-"""ImageNet training on one card — the canonical amp workload.
+"""ImageNet training — the canonical amp workload, on one card or
+data-parallel over ranks.
 
 PyTorch port of the JAX package's ``examples/imagenet/main_amp.py``
 (reference examples/imagenet/main_amp.py): ResNet under an amp opt
@@ -33,14 +34,36 @@ Checkpoints are :class:`~apex_tpu_torch.checkpoint.TrainState` trees
 batch norms' statistics in ``model_state``), saved after each epoch as
 step ``epoch``; ``--resume DIR`` continues after the newest.
 
-``--n-devices`` above 1 raises ``NotImplementedError`` (multi-GPU,
-ROADMAP.md queue A, item 2); with one device ``--sync_bn`` changes
-nothing, as in the JAX example.
+``--n-devices N`` trains data-parallel over N ranks, one process a rank,
+as the JAX example's ``shard_map`` over ``"data"`` does over N devices::
+
+    python -m apex_tpu_torch.parallel.multiproc --nproc 2 \
+        -m apex_tpu_torch.examples.imagenet.main_amp --n-devices 2 \
+        --sync_bn --distributed-backend gloo -b 128 ...
+
+(or the caller joins ``torch.distributed`` first).  N must be the
+world's size and ``-b`` (the global batch) must divide by it
+(``ValueError``).  Every rank draws the whole global batch and keeps its
+contiguous rows, ``P("data")``'s split, so the sample stream is the JAX
+example's.  The gradients are averaged over the ranks
+(:func:`~apex_tpu_torch.parallel.all_reduce_grads`, packed into one
+buffer), the finite flag is their minimum and the reported loss their
+mean.  ``--sync_bn`` pools the batch norms' statistics over the ranks
+(``bn_axis_name="data"``); without it each rank keeps its own running
+statistics, as each JAX device does under ``check_rep=False``, and rank
+0's are the ones evaluated and saved (the JAX example reads and saves
+device 0's).  So a checkpoint taken at one world resumes at any other.
+Rank 0 prints, evaluates (the whole eval batch) and saves.
+``--distributed-backend`` names the transport and is never switched:
+ranks that share a card need ``gloo`` (the JAX example has no such flag;
+its mesh needs no transport named).  With one device ``--sync_bn``
+changes nothing, as in the JAX example.
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 import glob
 import os
 import time
@@ -48,6 +71,7 @@ from typing import Callable, Mapping, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from apex_tpu_torch import amp
 from apex_tpu_torch import checkpoint as ckpt
@@ -57,6 +81,9 @@ from apex_tpu_torch.models import (ResNet, ResNetConfig, resnet18_config,
                                    resnet50_config)
 from apex_tpu_torch.ops.xentropy import softmax_cross_entropy_loss
 from apex_tpu_torch.optimizers import FusedAdam, FusedLAMB, FusedSGD
+from apex_tpu_torch.parallel import all_reduce_grads, comm
+from apex_tpu_torch.parallel.multiproc import initialize_distributed
+from apex_tpu_torch.transformer import parallel_state
 
 ARCHS = {
     "resnet18": resnet18_config,
@@ -96,7 +123,12 @@ def parse_args(argv=None):
     p.add_argument("--sync_bn", action="store_true",
                    help="BN statistics across the data-parallel ranks")
     p.add_argument("--n-devices", type=int, default=1,
-                   help="data-parallel width")
+                   help="data-parallel width: the number of ranks")
+    p.add_argument("--distributed-backend", default="nccl",
+                   choices=["nccl", "gloo"],
+                   help="the collectives' transport at --n-devices above 1: "
+                        "nccl across cards; gloo where ranks share a card "
+                        "(NCCL refuses them)")
     p.add_argument("--steps-per-epoch", type=int, default=100,
                    help="synthetic-data epoch length")
     p.add_argument("--eval-steps", type=int, default=10)
@@ -157,11 +189,15 @@ class Trainer:
     parameters themselves without master weights), the loss-scale state
     on the device, and the step count.  ``state_dict`` replaces the
     seeded initial weights (the JAX tree through
-    :func:`~apex_tpu_torch.models.resnet_state_dict_from_jax`)."""
+    :func:`~apex_tpu_torch.models.resnet_state_dict_from_jax`).  ``group``
+    (a process group) makes the step data-parallel over its ranks, each
+    stepping on its own rows of the global batch."""
 
     def __init__(self, cfg: ResNetConfig, amp_state: amp.AmpState,
                  make_opt: Callable, device, *, seed: int = 0,
-                 state_dict: Optional[Mapping[str, torch.Tensor]] = None):
+                 state_dict: Optional[Mapping[str, torch.Tensor]] = None,
+                 group=None):
+        self.group = group
         self.amp = amp_state
         self.scaler = amp_state.scaler
         self.model = ResNet(cfg, device=device, seed=seed)
@@ -185,11 +221,20 @@ class Trainer:
                                                  self.params, has_aux=True)
 
     def train_step(self, x: torch.Tensor, y: torch.Tensor):
-        """One step; returns (loss, logits, finite), device tensors.
-        Nothing here reads the device on the host."""
+        """One step on this rank's rows; returns (loss, logits, finite),
+        device tensors: over a group the loss is the ranks' mean and
+        ``finite`` holds where every rank's gradients are finite, the
+        logits this rank's.  At one rank nothing here reads the device
+        on the host."""
         self.model.train()
         (loss, logits), grads, finite = self.grad_fn(
             self.scale_state, self.amp.cast_inputs(x), y)
+        world = comm.group_size(self.group)
+        if world > 1:
+            grads = mean_over_ranks(grads, self.group)
+            finite = comm.all_reduce(finite.to(torch.int32), self.group,
+                                     op="min") > 0
+            loss = comm.all_reduce(loss, self.group) / world
         self.opt.step_if_finite(finite, grads)
         del grads
         amp.copy_masters(self.params, self.masters)
@@ -251,20 +296,30 @@ class Trainer:
         self.step = int(tree.step)
 
 
+def mean_over_ranks(grads, group) -> list:
+    """The gradients' mean over ``group``'s ranks (the JAX step's
+    ``pmean``), as one all-reduce of the gradients packed flat (each
+    element's sum is the same as tensor by tensor)."""
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    flat = all_reduce_grads([flat], group)[0]
+    return [t.view_as(g) for t, g in
+            zip(flat.split([g.numel() for g in grads]), grads)]
+
+
 def build(args, device, state_dict=None) -> Trainer:
-    if args.n_devices > 1:
-        raise NotImplementedError(
-            f"--n-devices {args.n_devices}: data parallelism is not ported "
-            "to apex_tpu_torch yet (ROADMAP.md queue A, item 2: multi-GPU)")
+    """The trainer of ``args``, data-parallel over the registered data
+    group (``--sync_bn``: its statistics too)."""
     loss_scale = args.loss_scale
     if isinstance(loss_scale, str) and loss_scale != "dynamic":
         loss_scale = float(loss_scale)
     amp_state = amp.initialize(args.opt_level, loss_scale=loss_scale,
                                keep_batchnorm_fp32=args.keep_batchnorm_fp32)
     # --sync_bn over one device is the local batch norm
-    cfg = ARCHS[args.arch](num_classes=args.num_classes)
+    bn_axis = "data" if (args.sync_bn and args.n_devices > 1) else None
+    cfg = ARCHS[args.arch](num_classes=args.num_classes, bn_axis_name=bn_axis)
     return Trainer(cfg, amp_state, lambda p: make_optimizer(args, p), device,
-                   seed=args.seed, state_dict=state_dict)
+                   seed=args.seed, state_dict=state_dict,
+                   group=parallel_state.get_data_parallel_group())
 
 
 # -- data --------------------------------------------------------------------
@@ -388,16 +443,32 @@ def _sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
+def my_rows(t: torch.Tensor, group) -> torch.Tensor:
+    """This rank's contiguous rows of a global batch (``P("data")``)."""
+    n = comm.group_size(group)
+    if n == 1:
+        return t
+    m = t.shape[0] // n
+    r = comm.group_rank(group)
+    return t[r * m:(r + 1) * m]
+
+
 def train_epoch(epoch, trainer: Trainer, batcher, args):
     batch_time, losses, top1, top5 = (AverageMeter() for _ in range(4))
+    group = trainer.group
+    lead = comm.group_rank(group) == 0
     end = time.time()
     steps_since_print = 0
     for i in range(args.steps_per_epoch):
         x, y = batcher(epoch, i, train=True)
-        loss, logits, _ = trainer.train_step(x, y)
+        loss, logits, _ = trainer.train_step(my_rows(x, group),
+                                             my_rows(y, group))
         steps_since_print += 1
         if i % args.print_freq == 0:
             loss = float(loss)  # the sync point, as the reference's .item()
+            logits = comm.all_gather(logits, group, dim=0)
+            if not lead:
+                continue
             p1, p5 = accuracy(logits, y, topk=(1, 5))
             n = x.shape[0]
             # elapsed covers every step queued since the last print
@@ -434,16 +505,49 @@ def main(argv=None, device=None, *,
          state_dict: Optional[Mapping[str, torch.Tensor]] = None,
          batcher=None) -> ckpt.TrainState:
     """Train (or ``--evaluate``) and return the final
-    :class:`~apex_tpu_torch.checkpoint.TrainState`.  ``device`` defaults
-    to the card; ``state_dict`` replaces the seeded initial weights and
-    ``batcher(epoch, step, train)`` the data (tests hold the port against
-    the JAX example through these)."""
+    :class:`~apex_tpu_torch.checkpoint.TrainState` (on every rank).
+    ``device`` defaults to the card (at ``--n-devices`` above 1 the
+    launcher's ``cuda:LOCAL_RANK``); ``state_dict`` replaces the seeded
+    initial weights and ``batcher(epoch, step, train)`` the data (global
+    batches; tests hold the port against the JAX example through these).
+    The data-parallel group is registered for the run and forgotten at
+    its end, and a process group this call joined is left at its end."""
     args = parse_args(argv)
     if args.batch_size % args.n_devices:
         raise ValueError("batch size must divide across devices")
-    dev = resolve_device(device)
+    owns_group = False
+    if args.n_devices > 1 and not dist.is_initialized():
+        launched = int(os.environ.get("WORLD_SIZE", "1"))
+        if launched != args.n_devices:
+            raise ValueError(
+                f"--n-devices {args.n_devices} needs that many ranks: start "
+                "it with python -m apex_tpu_torch.parallel.multiproc --nproc "
+                f"{args.n_devices} -m apex_tpu_torch.examples.imagenet."
+                f"main_amp ... (WORLD_SIZE is {launched})")
+        card = initialize_distributed(args.distributed_backend)
+        owns_group = True
+        if device is None and card.type == "cuda":
+            device = card
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if args.n_devices != world:
+        raise ValueError(f"--n-devices {args.n_devices} but the process "
+                         f"group has {world} ranks")
+    parallel_state.destroy_model_parallel()
+    parallel_state.initialize_model_parallel(1)
+    try:
+        return _run(args, resolve_device(device), state_dict, batcher)
+    finally:
+        parallel_state.destroy_model_parallel()
+        if owns_group:
+            dist.destroy_process_group()
+
+
+def _run(args, dev, state_dict, batcher) -> ckpt.TrainState:
     trainer = build(args, dev, state_dict)
     batcher = batcher or make_batcher(args, dev)
+    lead = comm.group_rank(trainer.group) == 0
+    say = functools.partial(print, flush=True) if lead else \
+        (lambda *a, **k: None)
 
     start_epoch = args.start_epoch
     if args.resume:
@@ -452,26 +556,31 @@ def main(argv=None, device=None, *,
                 args.resume, target=trainer.state_tree())
             trainer.load_state_tree(tree)
             start_epoch = epoch_saved + 1
-            print(f"=> resumed from '{args.resume}' (epoch {epoch_saved})",
-                  flush=True)
+            say(f"=> resumed from '{args.resume}' (epoch {epoch_saved})")
         else:
-            print(f"=> no checkpoint found at '{args.resume}'", flush=True)
+            say(f"=> no checkpoint found at '{args.resume}'")
 
     try:
         if args.evaluate:
-            validate(trainer, batcher, args)
+            if lead:
+                validate(trainer, batcher, args)
             return trainer.state_tree()
         best_prec1 = 0.0
         for epoch in range(start_epoch, args.epochs):
             train_epoch(epoch, trainer, batcher, args)
+            if not lead:
+                continue
             prec1 = validate(trainer, batcher, args)
             best_prec1 = max(best_prec1, prec1)
             if args.save_dir:
                 ckpt.save_checkpoint(args.save_dir, trainer.state_tree(),
                                      step=epoch, keep=3)
-                print(f"=> saved checkpoint (epoch {epoch})", flush=True)
-        print(f"Best Prec@1: {best_prec1:.3f}", flush=True)
+                say(f"=> saved checkpoint (epoch {epoch})")
+        say(f"Best Prec@1: {best_prec1:.3f}")
         _sync(dev)
+        if comm.group_size(trainer.group) > 1:
+            # every rank leaves with rank 0's checkpoint whole
+            dist.barrier(group=trainer.group)
         return trainer.state_tree()
     finally:
         # the native-record batcher's close() reaps its C++ worker threads

@@ -3,9 +3,10 @@
 PyTorch port of the JAX package's ``apex_tpu/models/resnet.py`` (the
 model behind ``examples/imagenet/main_amp.py`` and the L1 cross-product):
 bottleneck blocks with the stride on the 3x3, batch norm through
-:func:`apex_tpu_torch.parallel.sync_batch_norm` (the JAX arithmetic, on
-this process's batch), a zero-initialised last gamma in every block and
-an fp32 head.
+:func:`apex_tpu_torch.parallel.sync_batch_norm` (the JAX arithmetic; a
+training forward pools the statistics over the group
+``ResNetConfig.bn_axis_name`` names, ``--sync_bn``, and eval uses none),
+a zero-initialised last gamma in every block and an fp32 head.
 
 The input is NHWC, as in the JAX package; ``x.permute(0, 3, 1, 2)`` of a
 contiguous NHWC tensor is an NCHW view in channels-last memory, so the
@@ -28,7 +29,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Mapping, Optional, Sequence
+from typing import Any, Dict, Mapping, Sequence
 
 import numpy as np
 import torch
@@ -36,7 +37,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from apex_tpu_torch._device import resolve_device
-from apex_tpu_torch.parallel.sync_batchnorm import local_group, sync_batch_norm
+from apex_tpu_torch.parallel.sync_batchnorm import (resolve_group,
+                                                    sync_batch_norm)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,7 +46,8 @@ class ResNetConfig:
     block_sizes: Sequence[int] = (3, 4, 6, 3)  # ResNet-50
     width: int = 64
     num_classes: int = 1000
-    bn_axis_name: Optional[str] = None  # statistics across ranks: multi-GPU
+    # "data" (or a process group) => SyncBN over the data-parallel ranks
+    bn_axis_name: Any = None
     bn_momentum: float = 0.1
     bn_eps: float = 1e-5
 
@@ -136,7 +139,7 @@ class ResNet(nn.Module):
     def __init__(self, cfg: ResNetConfig, *, device=None,
                  dtype=torch.float32, seed: int = 0):
         super().__init__()
-        local_group(cfg.bn_axis_name, "bn_axis_name")
+        resolve_group(cfg.bn_axis_name, "bn_axis_name")
         dev = resolve_device(device)
         gen = torch.Generator().manual_seed(seed)
         self.cfg = cfg
@@ -164,37 +167,40 @@ class ResNet(nn.Module):
         return [getattr(self, f"layer{i + 1}")
                 for i in range(len(self.cfg.block_sizes))]
 
-    def _bn(self, bn: _BN, x: torch.Tensor) -> torch.Tensor:
+    def _bn(self, bn: _BN, x: torch.Tensor, group) -> torch.Tensor:
         y, rm, rv = sync_batch_norm(
-            x, bn.weight, bn.bias, bn.mean, bn.var, training=self.training,
-            momentum=self.cfg.bn_momentum, eps=self.cfg.bn_eps,
-            channel_axis=1)
+            x, bn.weight, bn.bias, bn.mean, bn.var, axis_name=group,
+            training=self.training, momentum=self.cfg.bn_momentum,
+            eps=self.cfg.bn_eps, channel_axis=1)
         if self.training:
             with torch.no_grad():
                 bn.mean.copy_(rm)
                 bn.var.copy_(rv)
         return y
 
-    def _block(self, blk: _Block, x: torch.Tensor) -> torch.Tensor:
-        h = torch.relu(self._bn(blk.bn1, conv_same(x, blk.conv1.w)))
+    def _block(self, blk: _Block, x: torch.Tensor, g) -> torch.Tensor:
+        h = torch.relu(self._bn(blk.bn1, conv_same(x, blk.conv1.w), g))
         h = torch.relu(self._bn(blk.bn2, conv_same(h, blk.conv2.w,
-                                                   blk.stride)))
-        h = self._bn(blk.bn3, conv_same(h, blk.conv3.w))
+                                                   blk.stride), g))
+        h = self._bn(blk.bn3, conv_same(h, blk.conv3.w), g)
         if blk.downsample is not None:
             sc = self._bn(blk.bn_ds, conv_same(x, blk.downsample.w,
-                                               blk.stride))
+                                               blk.stride), g)
         else:
             sc = x
         return torch.relu(h + sc)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        # the statistics' group in training; eval reads the running ones
+        g = (resolve_group(self.cfg.bn_axis_name, "bn_axis_name")
+             if self.training else None)
         h = x.permute(0, 3, 1, 2)   # NCHW view of NHWC memory
         h = conv_same(h, self.conv1.w, 2)
-        h = torch.relu(self._bn(self.bn1, h))
+        h = torch.relu(self._bn(self.bn1, h, g))
         h = F.max_pool2d(h, 3, 2, 1)
         for blocks in self.stages():
             for blk in blocks:
-                h = self._block(blk, h)
+                h = self._block(blk, h, g)
         # the JAX mean over (H, W): fp32 sums, one rounding to the dtype
         h = h.float().mean(dim=(2, 3)).to(h.dtype)
         return F.linear(h.float(), self.fc.w.float(), self.fc.b.float())

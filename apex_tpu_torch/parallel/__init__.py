@@ -4,9 +4,8 @@ The port of the JAX package's ``apex_tpu.parallel``: the gradient
 all-reduce with the reference DDP's numerics options
 (:mod:`.distributed`), the launcher and process-group set-up
 (:mod:`.multiproc`), the collectives every model-parallel module runs
-(:mod:`.comm`), SyncBatchNorm's local path and ``LARC``.  Batch-norm
-statistics across ranks wait for a later slice (ROADMAP.md queue A,
-item 2).
+(:mod:`.comm`), SyncBatchNorm with its statistics over a group of ranks
+(:mod:`.sync_batchnorm`) and ``LARC``.
 """
 
 from apex_tpu_torch.optimizers.larc import LARC  # noqa: F401
@@ -22,6 +21,7 @@ from apex_tpu_torch.parallel.sync_batchnorm import (  # noqa: F401
     bn_state_dict_from_jax,
     convert_syncbn_model,
     create_syncbn_process_group,
+    resolve_group,
     sync_batch_norm,
     sync_batch_norm_stats,
     update_running_stats,
@@ -30,5 +30,5 @@ from apex_tpu_torch.parallel.sync_batchnorm import (  # noqa: F401
 __all__ = ["LARC", "DistributedDataParallel", "Reducer", "all_reduce_grads",
            "broadcast_params", "initialize_distributed", "SyncBatchNorm",
            "bn_state_dict_from_jax", "convert_syncbn_model",
-           "create_syncbn_process_group", "sync_batch_norm",
+           "create_syncbn_process_group", "resolve_group", "sync_batch_norm",
            "sync_batch_norm_stats", "update_running_stats"]

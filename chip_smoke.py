@@ -25,8 +25,10 @@ GPT-1.3B flagship train step, its sharded checkpoints and elastic
 recovery (phase 24), and the serving fleet: several GPT-1.3B engines
 behind the router, sharing the card (phase 25), tensor-parallel
 serving, ``ServingEngine(tp=N)`` over ranks sharing the card (phase 26),
-and the Mixture-of-Experts GPT with its expert axis and ring attention
-over a sequence group (phase 27).
+the Mixture-of-Experts GPT with its expert axis and ring attention
+over a sequence group (phase 27), and batch norm across ranks, the
+spatial bottleneck's halo exchange and the ImageNet example's data
+parallelism (phase 28).
 Phases, each of which fails the run (non-zero exit) on error:
 
 1. device — a CUDA card is required; its name and power limit are read
@@ -570,6 +572,36 @@ Phases, each of which fails the run (non-zero exit) on error:
     ep 1 on one device; ring attention at sp 4 and 2 at bench.py's shape
     and at sp 2 at a GPT-1.3B rank's [64, 1024, 128] bf16, causal and
     not, output and gradients held to full attention on one device.
+28. batch norm across ranks, the spatial bottleneck and the ImageNet
+    example's data parallelism — side by side, a launch of four ranks
+    and one of two sharing the card over gloo, the example as users
+    start it and its 1-rank reference in this process.  (a)
+    ``sync_batch_norm`` over the four ranks at ResNet-50's first norm
+    (:data:`SYNC28_X` bf16, 32 rows a rank)
+    against the same batch on one rank: each rank's rows of y and dx,
+    the running statistics, the weight and bias gradients summed over the
+    ranks (``SYNC28_TOL``), the backward's all-reduce dropped as a
+    planted fault that must miss a bar; GroupBN at ``bn_group`` 2 within
+    the pairs of ``create_syncbn_process_group(2, 4)`` against one rank's
+    64 rows; bench.py's syncbn leg (``(n_dev * 4, 8)``, ``|mean(y)| <
+    1e-5``, the ranks' running means equal).  (b) ``SpatialBottleneck``
+    at ResNet-50's layer1 block and layer2.0 (stride 2) on ``[8, 56, 56,
+    256]`` bf16 with H over four and over two ranks against the unsharded
+    block: each rank's rows of the output and input gradient, every
+    parameter gradient summed over the ranks (``SPATIAL28_TOL``); the
+    halo rows swapped as a planted fault.  (c) ``main_amp --arch resnet50
+    --opt-level O2 --optimizer lamb -b 128 --image-size 224 --n-devices 2
+    --sync_bn --distributed-backend gloo`` through ``python -m
+    apex_tpu_torch.parallel.multiproc --nproc 2``, 4 steps on one global
+    batch of records and 2 eval steps: the losses finite and falling and
+    held to the example's trainer at one rank on the same global batch
+    (in this process), the parameters' update over the steps too
+    (``IMAGENET28_*_TOL``); in the other launch the same
+    run twice in-process with cuDNN deterministic, every rank's
+    parameters and statistics bitwise the same, then with the gradient
+    all-reduce dropped, which must miss the parameter bar.  Step ms, the
+    share of each rank's run in collectives and the peak a rank are
+    printed beside ``nvidia-smi``'s line.
 
 The last three lines of standard output are the kernels' JSON record,
 the ``nvidia-smi`` name/power line, and ``{"ok": true, "device": ...}``.
@@ -7000,20 +7032,35 @@ def phase_resnet50_step(smi: str) -> dict:
     return out
 
 
-def imagenet_start(args):
+def imagenet_start(args, launcher=(), threads=None):
     """``python -m apex_tpu_torch.examples.imagenet.main_amp`` as users
-    run it, started in a subprocess: (the process, its start time, the
-    files its standard output and error go to)."""
+    run it, started in a subprocess of its own session (``launcher``: the
+    module and arguments that start it, ``python -m
+    apex_tpu_torch.parallel.multiproc --nproc N -m``; ``threads``: its
+    ``OMP_NUM_THREADS``, as ``torchrun`` sets 1 for several ranks): (the
+    process, its start time, the files its standard output and error go
+    to)."""
     env = dict(os.environ, PYTHONPATH=os.path.dirname(
         os.path.abspath(__file__)))
+    if threads is not None:
+        env["OMP_NUM_THREADS"] = str(threads)
     # its output goes to files, so that no pipe fills while it runs
     out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
     t0 = time.perf_counter()
     proc = subprocess.Popen(
-        [sys.executable, "-m", "apex_tpu_torch.examples.imagenet.main_amp"]
-        + args, stdout=out, stderr=err, text=True, env=env,
+        [sys.executable, "-m", *launcher,
+         "apex_tpu_torch.examples.imagenet.main_amp"] + args, stdout=out,
+        stderr=err, text=True, env=env, start_new_session=True,
         cwd=os.path.dirname(os.path.abspath(__file__)))
     return proc, t0, out, err
+
+
+def imagenet_kill(proc) -> None:
+    """Stop a started run and every process it started (its session)."""
+    if proc.poll() is None:
+        with contextlib.suppress(ProcessLookupError):
+            os.killpg(proc.pid, 9)
+        proc.wait()
 
 
 def imagenet_finish(started, what: str) -> dict:
@@ -7023,9 +7070,7 @@ def imagenet_finish(started, what: str) -> dict:
     try:
         proc.wait(timeout=600)
     finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait()
+        imagenet_kill(proc)
     wall = time.perf_counter() - t0
     with out, err:
         out.seek(0)
@@ -7087,9 +7132,8 @@ def phase_imagenet_example(smi: str) -> dict:
                                  "epoch 1")
         rec = imagenet_finish(records, "train*.rec records")
     finally:
-        if records is not None and records[0].poll() is None:
-            records[0].kill()
-            records[0].wait()
+        if records is not None:
+            imagenet_kill(records[0])
         shutil.rmtree(tmp, ignore_errors=True)
     return {k: {"wall_s": v["wall_s"], "speeds": v["speeds"],
                 "prec": v["prec"]}
@@ -11042,6 +11086,536 @@ def phase_moe_ring(smi: str) -> dict:
     return record
 
 
+# -- phase 28: batch norm across ranks, the spatial bottleneck, ImageNet dp ----
+
+#: ResNet-50's first norm (bench.py's batch after the 7x7/s2 stem): [128,
+#: 112, 112, 64] bf16 NHWC, 32 rows a rank over four
+SYNC28_X = (128, 112, 112, 64)
+#: the cotangent of the norms' checks: unit noise plus a per-channel offset
+#: and a share of x, as a network's gradients carry (zero-mean noise alone
+#: would leave the ranks' sum of dy near zero, and a dropped backward
+#: all-reduce with it)
+SYNC28_DY_OFFSET, SYNC28_DY_OF_X = 0.5, 0.25
+#: bars, x max(1, max|one rank|): the bf16 tensors one bf16 ulp at the
+#: output's scale (BF16_TOL; read 9.9e-4 and 4.1e-3 for y and dx), the fp32
+#: ones about ten times the worst reading (the running statistics 9.2e-8
+#: and 1.8e-7 with GroupBN's minibatch ones, the summed weight and bias
+#: gradients 3.1e-7 and 4.6e-7) on an NVIDIA H100 80GB HBM3 at 700.00 W;
+#: the backward all-reduce dropped read dx 0.48
+SYNC28_TOL = dict(y=BF16_TOL, dx=BF16_TOL, stats=1e-6, dwdb=5e-6)
+GROUPBN28_TOL = dict(y=BF16_TOL, dx=BF16_TOL, stats=2e-6, dwdb=5e-6)
+#: the spatial blocks at ResNet-50's stage-1 activation [N, 56, 56, 256]:
+#: layer1's block (256 -> 64 -> 256) and layer2.0 (256 -> 128 -> 512,
+#: stride 2), bf16, the frozen-BN affines seeded
+SPATIAL28_N, SPATIAL28_HW = 8, 56
+SPATIAL28_BLOCKS = {"layer1 (s 1)": (256, 64, 256, 1),
+                    "layer2.0 (s 2)": (256, 128, 512, 2)}
+#: y and dx one bf16 ulp (read 3.0e-3 and 4.0e-3), the parameter gradients
+#: summed over the ranks against the unsharded block's ten times the worst
+#: reading (5.2e-3); the halo rows swapped read y 0.61, dx 0.86
+SPATIAL28_TOL = dict(y=BF16_TOL, dx=BF16_TOL, grads=5e-2)
+#: (c): the ImageNet example at phase 20's width, 4 steps on one global
+#: batch of records (every step the same 128 images), then 2 eval steps
+IMAGENET28_STEPS, IMAGENET28_BATCH = 4, 128
+IMAGENET28_FLAGS = ["--arch", "resnet50", "--opt-level", "O2", "--optimizer",
+                    "lamb", "-b", str(IMAGENET28_BATCH), "--image-size",
+                    str(RESNET_IMG), "--lr",
+                    "0.001", "--print-freq", "1", "--epochs", "1",
+                    "--steps-per-epoch", str(IMAGENET28_STEPS),
+                    "--eval-steps", "2"]
+IMAGENET28_DP = ["--n-devices", "2", "--sync_bn", "--distributed-backend",
+                 "gloo"]
+#: 2 ranks against 1 at the same global batch: each printed loss (near
+#: 7.0) absolutely, about ten times the reading (1.7e-4 against the 1-rank
+#: reference's unrounded losses, 2.0e-4 against its printed ones); and
+#: ||update at 2 ranks - update at 1|| / ||update at 1|| over every
+#: parameter (the update: the parameters after the steps less the seeded
+#: initial ones; read 0.122: LAMB's first steps divide by sqrt(v), so an
+#: element whose gradient is near zero steps either way with its last
+#: bits).  The gradient all-reduce dropped read 7.5e-2 and 1.06.
+IMAGENET28_LOSS_TOL = 2e-3
+IMAGENET28_UPDATE_TOL = 0.3
+BENCH28_ROWS = 4                # bench.py's syncbn leg: (n_dev * 4, 8)
+LOSS28_RE = re.compile(r"Loss (\S+) \(")
+
+
+def gap28(got: torch.Tensor, ref: torch.Tensor) -> float:
+    """max |got - ref| / max(1, max |ref|), in fp32."""
+    got, ref = got.float(), ref.float()
+    return float((got - ref).abs().max()) / max(1.0, float(ref.abs().max()))
+
+
+def sync28_operands(dev):
+    gen = torch.Generator(device=dev).manual_seed(28)
+    x = (torch.randn(SYNC28_X, generator=gen, device=dev) * 2 + 0.5)
+    dy = (torch.randn(SYNC28_X, generator=gen, device=dev)
+          + SYNC28_DY_OFFSET * torch.rand(SYNC28_X[-1], generator=gen,
+                                          device=dev) + SYNC28_DY_OF_X * x)
+    c = SYNC28_X[-1]
+    w = torch.rand(c, generator=gen, device=dev) + 0.5
+    b = torch.randn(c, generator=gen, device=dev)
+    return x.bfloat16(), dy.bfloat16(), w, b
+
+
+def sync28_bn(x, dy, w, b, group, drop_backward=False) -> dict:
+    """sync_batch_norm over ``group`` (training, running statistics from
+    zeros and ones) and the gradients of sum(dy * y); ``drop_backward``
+    plants a fault: the backward's all-reduce returns its input."""
+    from apex_tpu_torch.parallel import comm, sync_batchnorm as sbn
+
+    xs = x.clone().requires_grad_()
+    ws, bs = w.clone().requires_grad_(), b.clone().requires_grad_()
+    c = w.numel()
+    y, rm, rv = sbn.sync_batch_norm(
+        xs, ws, bs, torch.zeros(c, device=x.device),
+        torch.ones(c, device=x.device), axis_name=group, training=True)
+    with (mock.patch.object(comm, "all_reduce", lambda t, g, op="sum": t)
+          if drop_backward else contextlib.nullcontext()):
+        (y.float() * dy.float()).sum().backward()
+    return dict(y=y.detach(), rm=rm, rv=rv, dx=xs.grad, dw=ws.grad,
+                db=bs.grad)
+
+
+def sync28_gaps(got: dict, ref: dict, rows, group) -> dict:
+    """This rank's rows and statistics against one rank's whole batch;
+    the weight and bias gradients summed over ``group`` against the
+    whole batch's."""
+    from apex_tpu_torch.parallel import comm
+
+    return dict(
+        y=gap28(got["y"], ref["y"][rows]), dx=gap28(got["dx"],
+                                                    ref["dx"][rows]),
+        stats=max(gap28(got["rm"], ref["rm"]), gap28(got["rv"], ref["rv"])),
+        dwdb=max(gap28(comm.all_reduce(got[k], group), ref[k])
+                 for k in ("dw", "db")))
+
+
+def sync28_norms(rank: int, pair, dev) -> dict:
+    """(a) on this rank: SyncBN over all four ("data") at the first norm's
+    shape, with the backward all-reduce dropped as the planted fault;
+    GroupBN at bn_group 2 within ``pair``; bench.py's syncbn leg."""
+    from apex_tpu_torch.contrib.groupbn import BatchNorm2d_NHWC
+    from apex_tpu_torch.parallel import comm, sync_batch_norm
+
+    out = {}
+    x, dy, w, b = sync28_operands(dev)
+    n = SYNC28_X[0] // 4
+    rows = slice(rank * n, (rank + 1) * n)
+    ref = sync28_bn(x, dy, w, b, None)
+    data = parallel_state.get_data_parallel_group()
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    sync()
+    comm.STATS.reset()
+    t0 = time.perf_counter()
+    got = sync28_bn(x[rows], dy[rows], w, b, "data")
+    sync()
+    out["syncbn_ms"] = (time.perf_counter() - t0) * 1e3
+    out["syncbn_comm"] = comm.STATS.as_dict()
+    out["syncbn"] = sync28_gaps(got, ref, rows, data)
+    planted = sync28_bn(x[rows], dy[rows], w, b, "data", drop_backward=True)
+    out["syncbn_dropped_backward"] = sync28_gaps(planted, ref, rows, data)
+    del got, planted
+    # GroupBN: each pair pools its 64 rows
+    p, r = rank // 2, rank % 2
+    prow = slice(p * 2 * n, (p + 1) * 2 * n)
+    mine = slice(p * 2 * n + r * n, p * 2 * n + (r + 1) * n)
+
+    def groupbn(xs, dys, **kw):
+        bn = BatchNorm2d_NHWC(SYNC28_X[-1], device=dev, **kw)
+        with torch.no_grad():
+            bn.weight.copy_(w)
+            bn.bias.copy_(b)
+        xs = xs.clone().requires_grad_()
+        y = bn(xs)
+        (y.float() * dys.float()).sum().backward()
+        return dict(y=y.detach(), dx=xs.grad, dw=bn.weight.grad,
+                    db=bn.bias.grad, rm=bn.running_mean, rv=bn.running_var,
+                    mm=bn.minibatch_mean, riv=bn.minibatch_riv)
+
+    gref = groupbn(x[prow], dy[prow])
+    ggot = groupbn(x[mine], dy[mine], bn_group=2, axis_name=pair)
+    gap = sync28_gaps(ggot, gref, slice(r * n, (r + 1) * n), pair)
+    gap["stats"] = max(gap["stats"], gap28(ggot["mm"], gref["mm"]),
+                       gap28(ggot["riv"], gref["riv"]))
+    out["groupbn"] = gap
+    del x, dy, ref, gref, ggot
+    # bench.py:1392-1413: (n_dev * 4, 8), normalised with the global stats
+    xb = torch.randn((4 * BENCH28_ROWS, 8), generator=torch.Generator(
+        device=dev).manual_seed(0), device=dev)
+    yb, rmb, _ = sync_batch_norm(
+        xb[rank * BENCH28_ROWS:(rank + 1) * BENCH28_ROWS], torch.ones(
+            8, device=dev), torch.zeros(8, device=dev),
+        torch.zeros(8, device=dev), torch.ones(8, device=dev),
+        axis_name="data", training=True)
+    means = comm.all_gather(rmb[None], data, dim=0)
+    out["bench"] = dict(
+        mean_y=float(comm.all_reduce(yb.sum(), data)) / yb.numel() / 4,
+        means_gap=float((means[0] - means[-1]).abs().max()),
+        shape=(4 * BENCH28_ROWS, 8))
+    return out
+
+
+def spatial28_leg(name: str, group, dev, swap: bool = False) -> dict:
+    """(b): the block ``name`` with H over ``group``'s ranks against the
+    unsharded block on this card (the same seeded weights and input): this
+    rank's rows of the output and the input gradient, and each parameter
+    gradient summed over the group; ``swap`` plants a fault (each rank
+    sends its top rows down and its bottom rows up)."""
+    from apex_tpu_torch.contrib.bottleneck import bottleneck as bneck
+    from apex_tpu_torch.parallel import comm, resolve_group
+
+    cin, mid, cout, s = SPATIAL28_BLOCKS[name]
+    group = resolve_group(group)
+    world, r = comm.group_size(group), comm.group_rank(group)
+    kw = dict(stride=s, device=dev, dtype=torch.bfloat16, seed=28)
+    full = bneck.Bottleneck(cin, mid, cout, **kw)
+    shard = bneck.SpatialBottleneck(cin, mid, cout, axis_name=group, **kw)
+    gen = torch.Generator(device=dev).manual_seed(282)
+    with torch.no_grad():
+        for n, p in full.named_parameters():
+            if n.startswith(("scale", "bias")):
+                v = (torch.rand(p.shape, generator=gen, device=dev) + 0.5
+                     if n.startswith("scale") else
+                     0.1 * torch.randn(p.shape, generator=gen, device=dev))
+                p.copy_(v)
+        shard.load_state_dict(full.state_dict())
+    hw = SPATIAL28_HW
+    x = torch.randn((SPATIAL28_N, hw, hw, cin), generator=gen,
+                    device=dev).bfloat16()
+    dy = torch.randn((SPATIAL28_N, hw // s, hw // s, cout), generator=gen,
+                     device=dev).bfloat16()
+    xf = x.clone().requires_grad_()
+    yf = full(xf)
+    (yf.float() * dy.float()).sum().backward()
+    h, ho = hw // world, hw // world // s
+    xs = x[:, r * h:(r + 1) * h].clone().requires_grad_()
+    real = bneck._swap_edges
+
+    def swapped(group, down, up):
+        return real(group, up, down)
+
+    comm.STATS.reset()
+    with (mock.patch.object(bneck, "_swap_edges", swapped) if swap
+          else contextlib.nullcontext()):
+        ys = shard(xs)
+        (ys.float() * dy[:, r * ho:(r + 1) * ho].float()).sum().backward()
+    grads = max(gap28(comm.all_reduce(p.grad.float(), group),
+                      dict(full.named_parameters())[n].grad)
+                for n, p in shard.named_parameters())
+    return dict(y=gap28(ys.detach(), yf.detach()[:, r * ho:(r + 1) * ho]),
+                dx=gap28(xs.grad, xf.grad[:, r * h:(r + 1) * h]),
+                grads=grads, comm=comm.STATS.as_dict())
+
+
+def imagenet28_rank_runs(job: dict, dev) -> dict:
+    """(c) in this rank (the process group joined): the example at
+    --n-devices 2 --sync_bn, each run of ``job["runs"]`` in turn with
+    cuDNN deterministic: "a" and "b" (a rerun is bitwise), "planted" with
+    the gradient all-reduce dropped (rank 0 saves its checkpoint)."""
+    import io
+
+    from apex_tpu_torch.parallel import comm
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    out = {}
+    # no eval: the launch as users start it evaluates
+    for name in job["runs"]:
+        planted = name == "planted"
+        extra = ["--eval-steps", "0"] + (
+            ["--save-dir", job["planted_dir"]] if planted else [])
+        text = io.StringIO()
+        comm.STATS.reset()
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(text), (
+                mock.patch.object(imagenet_main, "mean_over_ranks",
+                                  lambda grads, group: grads)
+                if planted else contextlib.nullcontext()):
+            st = imagenet_main.main(job["argv"] + extra, device=dev)
+        wall = time.perf_counter() - t0
+        out[name] = dict(
+            out=text.getvalue(), wall_s=wall, comm=comm.STATS.as_dict(),
+            peak_gib=(torch.cuda.max_memory_allocated() / 2 ** 30
+                      if dev.type == "cuda" else 0.0),
+            digests=tree_digests({"params": st.params,
+                                  "model_state": st.model_state}))
+        del st
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase28_rank(rank, world, init_file, out, job):
+    """A rank of phase 28 (spawned, gloo on this card): ``job["kind"]``
+    "norms" runs (a) and (b) over four ranks, "imagenet" (c)'s in-process
+    runs over two."""
+    import torch.distributed as dist
+
+    from apex_tpu_torch.parallel import create_syncbn_process_group, multiproc
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = multiproc.init_file_group("gloo", rank, world, init_file)
+    if CARD != "cuda":
+        dev = torch.device(CARD)
+    res = {}
+    if job["kind"] == "imagenet":
+        res = imagenet28_rank_runs(job, dev)
+    else:
+        pair = create_syncbn_process_group(2, world)
+        parallel_state.initialize_model_parallel(1)     # "data": all four
+        try:
+            t0 = time.perf_counter()
+            res["norms"] = sync28_norms(rank, pair, dev)
+            res["norms_s"] = time.perf_counter() - t0
+            gc.collect()
+            t0 = time.perf_counter()
+            for name in SPATIAL28_BLOCKS:
+                for sp, group in ((4, "data"), (2, pair)):
+                    res[(name, sp)] = spatial28_leg(name, group, dev)
+            res[("layer1 (s 1)", "swapped")] = spatial28_leg(
+                "layer1 (s 1)", "data", dev, swap=True)
+            res["spatial_s"] = time.perf_counter() - t0
+        finally:
+            parallel_state.destroy_model_parallel()
+        if dev.type == "cuda":
+            res["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    torch.save(res, os.path.join(out, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def bar28(what: str, gaps: dict, tol: dict, fault: dict = None) -> None:
+    """Every gap within its bar on this rank; a planted fault's gaps must
+    miss at least one bar."""
+    for k, v in gaps.items():
+        if k in tol and not (math.isfinite(v) and v <= tol[k]):
+            raise AssertionError(f"{what}: {k} gap {v:.3e} > {tol[k]:.1e}")
+    if fault is not None and all(fault[k] <= tol[k] for k in tol
+                                 if k in fault):
+        raise AssertionError(f"{what}: the planted fault {fault} missed no "
+                             f"bar {tol}")
+
+
+def check28_norms(runs: list) -> dict:
+    worst = {}
+    for rank, run in enumerate(runs):
+        nr = run["norms"]
+        bar28(f"(a) SyncBN rank {rank}", nr["syncbn"], SYNC28_TOL,
+              nr["syncbn_dropped_backward"])
+        bar28(f"(a) GroupBN bn_group 2 rank {rank}", nr["groupbn"],
+              GROUPBN28_TOL)
+        bench = nr["bench"]
+        if not (abs(bench["mean_y"]) < 1e-5 and bench["means_gap"] <= 1e-6):
+            raise AssertionError(f"(a) bench.py's syncbn leg: {bench}")
+        for leg in ("syncbn", "syncbn_dropped_backward", "groupbn"):
+            for k, v in nr[leg].items():
+                worst.setdefault(leg, {})[k] = max(
+                    worst.get(leg, {}).get(k, 0.0), v)
+    r0 = runs[0]["norms"]
+    log(f"  (a) SyncBN over 4 ranks at {list(SYNC28_X)} bf16 against one "
+        f"rank's batch, worst over the ranks: {worst['syncbn']} (bars "
+        f"{SYNC28_TOL}); the backward all-reduce dropped: "
+        f"{worst['syncbn_dropped_backward']}; a rank's forward + backward "
+        f"{r0['syncbn_ms']:.1f} ms, collectives {r0['syncbn_comm']}")
+    log(f"  (a) GroupBN bn_group 2 within [0, 1] / [2, 3] against one rank's "
+        f"{SYNC28_X[0] // 2} rows: {worst['groupbn']} (bars "
+        f"{GROUPBN28_TOL})")
+    log(f"  (a) bench.py's syncbn leg {r0['bench']['shape']}: |mean(y)| "
+        f"{abs(r0['bench']['mean_y']):.2e} < 1e-5, the ranks' running means "
+        f"within {r0['bench']['means_gap']:.1e}")
+    return worst
+
+
+def check28_spatial(runs: list) -> dict:
+    worst = {}
+    for name in SPATIAL28_BLOCKS:
+        for sp in (4, 2):
+            for rank, run in enumerate(runs):
+                bar28(f"(b) {name} H over {sp}, rank {rank}",
+                      run[(name, sp)], SPATIAL28_TOL)
+            worst[(name, sp)] = {k: max(r[(name, sp)][k] for r in runs)
+                                 for k in SPATIAL28_TOL}
+            c = runs[1][(name, sp)]["comm"]
+            hw = SPATIAL28_HW
+            log(f"  (b) SpatialBottleneck {name} [{SPATIAL28_N}, {hw}, {hw}, "
+                f"{SPATIAL28_BLOCKS[name][0]}] bf16, H over {sp} ranks, "
+                f"against the unsharded block: {worst[(name, sp)]} (bars "
+                f"{SPATIAL28_TOL}); rank 1's messages {c['by_op']}")
+    fault = {k: max(r[("layer1 (s 1)", "swapped")][k] for r in runs)
+             for k in SPATIAL28_TOL}
+    log(f"  (b) the halo rows swapped (layer1, H over 4): {fault}")
+    if all(fault[k] <= SPATIAL28_TOL[k] for k in SPATIAL28_TOL):
+        raise AssertionError("(b) swapped halo rows missed every bar")
+    worst["swapped"] = fault
+    return worst
+
+
+def imagenet28_one_rank(flags: list) -> dict:
+    """(c)'s reference in this process: the example's trainer at world 1
+    on the same flags and records, its losses, the initial fp32 parameters
+    and their update over the steps."""
+    args = imagenet_main.parse_args(flags)
+    dev = torch.device(CARD)
+    with parallel_state.uninitialized_scope():
+        parallel_state.initialize_model_parallel(1)     # world 1: no group
+        tr = imagenet_main.build(args, dev)
+        batcher = imagenet_main.make_batcher(args, dev)
+        init = {n: m.detach().float().cpu().clone()
+                for n, m in zip(tr.names, tr.masters)}
+        t0 = time.perf_counter()
+        losses = []
+        for i in range(args.steps_per_epoch):
+            x, y = batcher(0, i, train=True)
+            losses.append(float(tr.train_step(x, y)[0]))
+        wall = time.perf_counter() - t0
+        update = torch.cat([(m.detach().float().cpu() - init[n]).reshape(-1)
+                            for n, m in zip(tr.names, tr.masters)])
+        batcher.close()
+    return dict(losses=losses, init=init, update=update, steps_s=wall)
+
+
+def imagenet28_losses(text: str, what: str) -> list:
+    losses = [float(v) for v in LOSS28_RE.findall(text)]
+    if len(losses) != IMAGENET28_STEPS or not all(
+            math.isfinite(v) for v in losses):
+        raise AssertionError(f"(c) {what}: losses {losses}")
+    return losses
+
+
+def imagenet28_update(path: str, init: dict) -> torch.Tensor:
+    """The saved parameters less the initial ones, flat, fp32."""
+    tree = ckpt.restore_checkpoint(path)[0]
+    return torch.cat([(tree["params"][k].float() - v).reshape(-1)
+                      for k, v in init.items()])
+
+
+def imagenet28_gap(a: torch.Tensor, b: torch.Tensor) -> float:
+    """||a - b|| / ||b||."""
+    return float((a - b).norm() / b.norm())
+
+
+def check28_imagenet(user, one, ranks, dirs) -> dict:
+    """(c): the user-path launch's losses finite and falling and held to
+    the 1-rank reference's; the parameters' update over the steps held to
+    it; the in-process rerun bitwise; the planted fault past the bar."""
+    dp = imagenet28_losses(user["stdout"], "2 ranks (multiproc)")
+    ref = one["losses"]
+    if not dp[-1] < dp[0] or not all(math.isfinite(v) for v in ref):
+        raise AssertionError(f"(c) 2-rank losses {dp} are not falling, or "
+                             f"1 rank's {ref} not finite")
+    loss_gap = max(abs(a - b) for a, b in zip(dp, ref))
+    param_gap = imagenet28_gap(imagenet28_update(dirs["dp"], one["init"]),
+                               one["update"])
+    planted_gap = imagenet28_gap(imagenet28_update(dirs["planted"],
+                                                   one["init"]),
+                                 one["update"])
+    planted = imagenet28_losses(ranks[0]["planted"]["out"], "planted")
+    a, b = ranks[0]["a"], ranks[0]["b"]
+    la = imagenet28_losses(a["out"], "in-process a")
+    lb = imagenet28_losses(b["out"], "in-process b")
+    rerun = la == lb and all(r["a"]["digests"] == r["b"]["digests"]
+                             for r in ranks)
+    speeds = [float(v) for v in re.findall(r"Speed (\S+) img/s",
+                                           user["stdout"])]
+    steady_ms = [IMAGENET28_BATCH / v * 1e3 for v in speeds[1:]]
+    # the share of run a's steps (their wall from rank 0's Speed lines:
+    # one step a line) in collectives, each rank's host seconds
+    steps_s = sum(IMAGENET28_BATCH / float(v) for v in re.findall(
+        r"Speed (\S+) img/s", a["out"]))
+    comm_share = [r["a"]["comm"]["seconds"] / steps_s for r in ranks]
+    log(f"  (c) main_amp --n-devices 2 --sync_bn (multiproc, gloo): losses "
+        f"{dp}; 1 rank at the same global batch {ref}; gap {loss_gap:.2e} "
+        f"(bar {IMAGENET28_LOSS_TOL}); the parameters' update over "
+        f"{IMAGENET28_STEPS} steps against 1 rank's: relative gap "
+        f"{param_gap:.2e} (bar {IMAGENET28_UPDATE_TOL}); the gradient "
+        f"all-reduce dropped: {planted_gap:.2e} (losses {planted})")
+    log(f"  (c) in-process reruns (cuDNN deterministic): {la} and {lb}, "
+        f"every rank's parameters and BN statistics bitwise equal: {rerun}; "
+        f"step ms (multiproc run, after the first) "
+        + ", ".join(f"{v:.1f}" for v in steady_ms)
+        + f"; collectives {[round(100 * s, 1) for s in comm_share]} % of "
+        f"run a's {IMAGENET28_STEPS} steps, each rank's (calls "
+        f"{a['comm']['calls']}, "
+        f"{a['comm']['bytes'] / 2 ** 20:.1f} MiB); peak "
+        f"{[round(r['a']['peak_gib'], 2) for r in ranks]} GiB a rank; "
+        f"walls: multiproc {user['wall_s']:.1f} s, the 1-rank reference's "
+        f"{IMAGENET28_STEPS} steps {one['steps_s']:.1f} s")
+    if loss_gap > IMAGENET28_LOSS_TOL or param_gap > IMAGENET28_UPDATE_TOL:
+        raise AssertionError("(c) 2 ranks stray from 1 rank past the bars")
+    if planted_gap <= IMAGENET28_UPDATE_TOL:
+        raise AssertionError("(c) the dropped gradient all-reduce missed "
+                             "the bar")
+    if not rerun:
+        raise AssertionError("(c) a rerun from the same weights differs")
+    return dict(losses=dp, one_rank=ref, loss_gap=loss_gap,
+                param_gap=param_gap, planted_gap=planted_gap,
+                step_ms=steady_ms, comm_share=comm_share,
+                peak_gib=[r["a"]["peak_gib"] for r in ranks],
+                wall_s=dict(multiproc=user["wall_s"], one=one["steps_s"]))
+
+
+def phase_syncbn_spatial_dp(smi: str) -> dict:
+    """Phase 28 (see the module docstring)."""
+    t_phase = time.perf_counter()
+
+    def lap(what):
+        log(f"  [{time.perf_counter() - t_phase:6.1f} s] {what}")
+
+    log(f"  {GLOO_WHY}")
+    tmp = tempfile.mkdtemp(prefix="phase28_")
+    started = []
+    try:
+        data = os.path.join(tmp, "records")
+        os.makedirs(data)
+        rng = np.random.default_rng(28)
+        n = IMAGENET28_BATCH
+        imgs = rng.integers(0, 256, (n, RESNET_IMG * RESNET_IMG * 3),
+                            dtype=np.uint8)
+        labels = rng.integers(0, 1000, (n,)).astype(np.int32)
+        write_records(os.path.join(data, "train0.rec"), np.concatenate(
+            [imgs, labels.view(np.uint8).reshape(n, 4)], axis=1))
+        dirs = {k: os.path.join(tmp, k) for k in ("dp", "planted")}
+        flags = IMAGENET28_FLAGS + ["--data", data]
+        # every launch side by side: the example as users start it (a
+        # subprocess), the ranks of (a)/(b), (c)'s in-process ranks and
+        # its 1-rank reference (in this process)
+        started.append(imagenet_start(
+            flags + IMAGENET28_DP + ["--save-dir", dirs["dp"]],
+            launcher=["apex_tpu_torch.parallel.multiproc", "--nproc", "2",
+                      "-m"], threads=1))
+        norms, ranks, one = concurrently(
+            lambda: tp22_spawn(4, dict(kind="norms"), tmp,
+                               "(a) and (b)", body=phase28_rank),
+            lambda: tp22_spawn(2, dict(kind="imagenet",
+                                       runs=("a", "b", "planted"),
+                                       argv=flags + IMAGENET28_DP,
+                                       planted_dir=dirs["planted"]), tmp,
+                               "(c) in-process reruns and the planted fault",
+                               body=phase28_rank),
+            lambda: imagenet28_one_rank(flags))
+        lap("(a), (b), (c)'s in-process ranks and its 1-rank reference done")
+        record = {"norms": check28_norms(norms),
+                  "spatial": check28_spatial(norms)}
+        user = imagenet_finish(started[0], "--n-devices 2 --sync_bn "
+                                           "(multiproc)")
+        lap("(c)'s multiproc launch done")
+        record["imagenet"] = check28_imagenet(user, one, ranks, dirs)
+        record["ranks"] = [dict(norms_s=r["norms_s"],
+                                spatial_s=r["spatial_s"],
+                                peak_gib=r.get("peak_gib")) for r in norms]
+    finally:
+        for proc, *_ in started:
+            imagenet_kill(proc)
+        shutil.rmtree(tmp, ignore_errors=True)
+    record["wall_s"] = time.perf_counter() - t_phase
+    log("  phase 28 " + json.dumps({"ranks": record["ranks"], "smi": smi},
+                                   default=str))
+    log(f"  phase 28 took {record['wall_s']:.1f} s")
+    return record
+
+
 PHASE = {"n": 0, "name": "start", "t": None, "t0": None}
 
 
@@ -11248,9 +11822,19 @@ def main() -> int:
           "over gloo)")
     moe = phase_moe_ring(smi)
     torch.cuda.empty_cache()
+
+    begin(28, "batch norm across ranks, the spatial bottleneck's halo "
+          "exchange and the ImageNet example's data parallelism (SyncBN at "
+          "ResNet-50's first norm over 4 ranks, GroupBN bn_group 2, "
+          "bench.py's syncbn leg; SpatialBottleneck at ResNet-50's stage-1 "
+          "blocks with H over 4 and 2 ranks; main_amp --n-devices 2 "
+          "--sync_bn at phase 20's width against 1 rank), the ranks sharing "
+          "this card over gloo")
+    phase_syncbn_spatial_dp(smi)
+    torch.cuda.empty_cache()
     phase_lap()
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
-    PHASE.update(n=28, name="record")
+    PHASE.update(n=29, name="record")
     moe_toy = {k: sum(r["launches"].get(k, 0) for r in moe["toy"].values())
                for k in ("flash_qkv_fwd", "flash_qkv_bwd", "layer_norm_fwd",
                          "layer_norm_bwd")}

@@ -11,8 +11,9 @@ port's amp step held against ``tests/L1/common/harness.py``'s
 ``run_trajectory`` (O0 Adam and O2 LAMB with a dynamic scale, and O0
 momentum SGD, which shows the step exact), the dynamic-vs-static bitwise contract inside the port, and the
 ImageNet example against the JAX example's ``main`` (train, eval, resume,
-evaluate-only, the bad batch split, the record backend).  Every
-multi-rank argument raises ``NotImplementedError`` naming ROADMAP.md.
+evaluate-only, the bad batch split, the record backend).  The errors of
+the arguments that work across ranks (the ranks themselves run in
+tests/test_torch_syncbn.py and tests/test_torch_imagenet_dp.py).
 
 Tolerances (x max(1, max|ref|) unless said): fp32 forward 1e-5 and
 gradients 1e-4 (sums over the batch in another order, through
@@ -32,6 +33,7 @@ import functools
 import importlib.util
 import os
 import re
+from unittest import mock
 
 import jax
 import jax.numpy as jnp
@@ -285,25 +287,53 @@ def test_resnet_tiny_forward_backward_matches_jax():
 
 
 def test_multi_rank_arguments_raise():
-    for make in (
-            lambda: sync_batch_norm(t(np.ones((2, 3))), None, None,
-                                    axis_name="data"),
-            lambda: SyncBatchNorm(3, process_group="data", device="cpu"),
-            lambda: ResNet(ResNetConfig(**TINY, bn_axis_name="data"),
-                           device="cpu"),
-            lambda: BatchNorm2d_NHWC(4, bn_group=2, axis_name="data_bn",
-                                     device="cpu"),
-            lambda: tbneck.SpatialBottleneck(8, 4, 8, axis_name="spatial",
-                                             device="cpu"),
-            lambda: tbneck.halo_exchange(t(np.ones((1, 2, 2, 1))), "spatial"),
-            lambda: tbneck.spatial_conv2d(t(np.ones((1, 4, 4, 2))),
-                                          t(np.ones((2, 2, 3, 3))),
-                                          axis_name="spatial"),
-            lambda: create_syncbn_process_group(2, 8),
-            lambda: tmain.main(["--arch", "resnet_tiny", "-b", "8",
-                                "--n-devices", "2"], device="cpu")):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            make()
+    """What the arguments that work across ranks refuse (the ranks
+    themselves run in tests/test_torch_syncbn.py and
+    tests/test_torch_imagenet_dp.py): a group name with no registered
+    group above one rank (the world patched to 2 here), a ``bn_group``
+    its group's size does not match, a local H the stride does not
+    divide, ``-b`` that ``--n-devices`` does not divide, and
+    ``--n-devices`` above the ranks started.  At a world of one a name
+    is this rank alone, as JAX's axis of one device."""
+    from apex_tpu_torch.parallel import sync_batchnorm as tsbn
+
+    x = t(np.ones((2, 4, 4, 8)))
+    with mock.patch.object(tsbn, "_world", return_value=2):
+        for make in (
+                lambda: sync_batch_norm(t(np.ones((2, 3))), None, None,
+                                        axis_name="data"),
+                lambda: SyncBatchNorm(3, process_group="data", device="cpu"),
+                lambda: convert_syncbn_model(torch.nn.BatchNorm2d(3), "data"),
+                lambda: ResNet(ResNetConfig(**TINY, bn_axis_name="data"),
+                               device="cpu"),
+                lambda: tbneck.SpatialBottleneck(8, 4, 8, axis_name="spatial",
+                                                 device="cpu"),
+                lambda: tbneck.halo_exchange(x, "spatial")):
+            with pytest.raises(ValueError,
+                               match="names no registered process group"):
+                make()
+    with pytest.raises(TypeError, match="process group"):
+        sync_batch_norm(x, None, None, axis_name=("data_outer", "data_bn"))
+    with pytest.raises(ValueError, match="group of 1 rank"):
+        BatchNorm2d_NHWC(4, bn_group=2, axis_name="data_bn", device="cpu")
+    with pytest.raises(ValueError, match="requires axis_name"):
+        BatchNorm2d_NHWC(4, bn_group=2, device="cpu")
+    with pytest.raises(ValueError, match="divisible by stride"):
+        tbneck.SpatialBottleneck(8, 4, 16, stride=2, axis_name="spatial",
+                                 device="cpu")(t(np.ones((1, 3, 4, 8))))
+    with pytest.raises(ValueError, match="divisible by the stride"):
+        tbneck.spatial_conv2d(t(np.ones((1, 3, 4, 2))),
+                              t(np.ones((2, 2, 3, 3))), stride=2,
+                              axis_name="spatial")
+    with pytest.raises(ValueError, match="divide across devices"):
+        tmain.main(["--arch", "resnet_tiny", "-b", "8", "--n-devices", "3"],
+                   device="cpu")
+    with pytest.raises(ValueError, match="needs that many ranks"):
+        tmain.main(["--arch", "resnet_tiny", "-b", "8", "--n-devices", "2"],
+                   device="cpu")
+    # a world of one: the names are this rank alone
+    ResNet(ResNetConfig(**TINY, bn_axis_name="data"), device="cpu")
+    assert torch.equal(tbneck.halo_exchange(x, "spatial", 1, 2)[:, 1:5], x)
 
 
 def test_entry_points_need_a_card_unless_cpu_is_asked():

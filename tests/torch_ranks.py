@@ -1219,3 +1219,198 @@ def ring_checks(rank, world, init_file, out, case):
         o.sum().backward()
         res[("saved_bytes", sp)] = sum(saved)
     _write(out, rank, res)
+
+
+# -- tests/test_torch_syncbn.py ------------------------------------------------
+
+def _bn_leg(x, dy, case, group, module=False):
+    """One batch norm over ``group`` on this rank's rows ``x``: y, the new
+    running statistics and the gradients of sum(dy * y)."""
+    from apex_tpu_torch.parallel import SyncBatchNorm, sync_batch_norm
+
+    tx = _t(x, grad=True)
+    if module:
+        bn = SyncBatchNorm(x.shape[-1], momentum=0.1, process_group=group,
+                           device="cpu")
+        with torch.no_grad():
+            bn.weight.copy_(_t(case["w"]))
+            bn.bias.copy_(_t(case["b"]))
+            bn.running_mean.copy_(_t(case["rm"]))
+            bn.running_var.copy_(_t(case["rv"]))
+        y = bn(tx)
+        rm, rv, w, b = bn.running_mean, bn.running_var, bn.weight, bn.bias
+    else:
+        w, b = _t(case["w"], grad=True), _t(case["b"], grad=True)
+        y, rm, rv = sync_batch_norm(tx, w, b, _t(case["rm"]), _t(case["rv"]),
+                                    axis_name=group, training=True,
+                                    momentum=0.1)
+    (y * _t(dy)).sum().backward()
+    return {"y": y.detach(), "rm": rm.detach().clone(),
+            "rv": rv.detach().clone(), "dx": tx.grad, "dw": w.grad,
+            "db": b.grad}
+
+
+def _groupbn_leg(case, group, rank, with_z):
+    from apex_tpu_torch.contrib.groupbn import BatchNorm2d_NHWC
+
+    n = case["x"].shape[0] // 2
+    rows = slice(rank * n, (rank + 1) * n)
+    bn = BatchNorm2d_NHWC(case["x"].shape[-1], bn_group=2, axis_name=group,
+                          device="cpu")
+    x, z = _t(case["x"][rows], grad=True), _t(case["z"][rows], grad=True)
+    y = bn(x, z if with_z else None)
+    (y * _t(case["dy"][rows])).sum().backward()
+    return {"y": y.detach(), "dx": x.grad, "dz": z.grad if with_z else None,
+            "dw": bn.weight.grad, "db": bn.bias.grad,
+            "state": {k: getattr(bn, k).clone() for k in (
+                "running_mean", "running_var", "minibatch_mean",
+                "minibatch_riv")}}
+
+
+def _spatial_legs(case, group, rank, world):
+    """The halo rows, spatial_conv2d at each (stride, k) and
+    SpatialBottleneck, this rank's H shard of each input."""
+    from apex_tpu_torch.contrib import bottleneck as bn
+
+    def shard(a):
+        h = a.shape[1] // world
+        return a[:, rank * h:(rank + 1) * h]
+
+    res = {}
+    x = _t(shard(case["rows"]), grad=True)
+    halo = bn.halo_exchange(x, group, 1, 1)
+    weight = _t(case["halo_w"][world][rank])
+    (halo * weight).sum().backward()
+    res["halo"] = (halo.detach(), x.grad)
+    for s, k in case["convs"]:
+        xs = _t(shard(case["conv_x"]), grad=True)
+        w = _t(case["conv_w"][k], grad=True)
+        y = bn.spatial_conv2d(xs, w, stride=s, axis_name=group)
+        h_out = y.shape[1]
+        dy = _t(case["conv_dy"][(s, k)][:, rank * h_out:(rank + 1) * h_out])
+        (y * dy).sum().backward()
+        res[("conv", s, k)] = (y.detach(), xs.grad, w.grad)
+    for name, kw in case["blocks"].items():
+        blk = bn.SpatialBottleneck(**kw, axis_name=group, device="cpu")
+        blk.load_state_dict({k: _t(v).contiguous(
+            memory_format=torch.channels_last) if v.ndim == 4 else _t(v)
+            for k, v in case["block_params"][name].items()})
+        xs = _t(shard(case["block_x"][name]), grad=True)
+        y = blk(xs)
+        h_out = y.shape[1]
+        dy = _t(case["block_dy"][name][:, rank * h_out:(rank + 1) * h_out])
+        (y * dy).sum().backward()
+        res[("block", name)] = (y.detach(), xs.grad,
+                                {k: p.grad for k, p in
+                                 blk.named_parameters()})
+    return res
+
+
+def syncbn_checks(rank, world, init_file, out, case):
+    """tests/test_torch_syncbn.py's rank checks over four gloo ranks:
+    SyncBN over the registered "data" group (all four), over the pairs
+    [0, 1] / [2, 3] of ``create_syncbn_process_group(2, 4)`` as a module,
+    with unequal rows (3 + 5) on the pairs, GroupBN at ``bn_group`` 2 on
+    the pairs, the halo exchange, ``spatial_conv2d`` and
+    ``SpatialBottleneck`` with H over all four and over the pairs."""
+    from apex_tpu_torch.contrib.groupbn import BatchNorm2d_NHWC
+    from apex_tpu_torch.parallel import (create_syncbn_process_group,
+                                         resolve_group)
+
+    init_file_group("gloo", rank, world, init_file)
+    res = {}
+    with parallel_state.uninitialized_scope():
+        res["unregistered"] = _raised(lambda: resolve_group("data"))
+        res["bad_world"] = _raised(
+            lambda: create_syncbn_process_group(2, 8))
+        pair = create_syncbn_process_group(2, world)
+        res["pair_ranks"] = torch.distributed.get_process_group_ranks(pair)
+        res["bn_group_4_on_pair"] = _raised(
+            lambda: BatchNorm2d_NHWC(4, bn_group=4, axis_name=pair,
+                                     device="cpu"))
+        parallel_state.initialize_model_parallel(1)    # "data": all four
+        n4 = case["bn4"]["x"].shape[0] // world
+        rows = slice(rank * n4, (rank + 1) * n4)
+        res["bn4"] = _bn_leg(case["bn4"]["x"][rows], case["bn4"]["dy"][rows],
+                             case["bn4"], "data")
+        p, r = rank // 2, rank % 2
+        two = case["bn2"][p]
+        n2 = two["x"].shape[0] // 2
+        rows = slice(r * n2, (r + 1) * n2)
+        res["bn2"] = _bn_leg(two["x"][rows], two["dy"][rows], two, pair,
+                             module=True)
+        cut = case["unequal"]["cut"]
+        rows = slice(0, cut) if r == 0 else slice(cut, None)
+        res["unequal"] = _bn_leg(case["unequal"]["x"][rows],
+                                 case["unequal"]["dy"][rows],
+                                 case["unequal"], pair)
+        for with_z in (False, True):
+            res[("groupbn", with_z)] = _groupbn_leg(case["groupbn"][p], pair,
+                                                    r, with_z)
+        res["spatial4"] = _spatial_legs(case["spatial"], "data", rank, world)
+        res["spatial2"] = _spatial_legs(case["spatial"], pair, r, 2)
+        parallel_state.destroy_model_parallel()
+    _write(out, rank, res)
+
+
+# -- tests/test_torch_imagenet_dp.py -------------------------------------------
+
+def _dp_trajectory(case, cfg):
+    """``run_trajectory``'s ResNet cell at dp = world: the JAX init and
+    batches, this rank's rows of each, SyncBN over "data", the gradients'
+    mean; the per-step losses (the ranks' mean)."""
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.examples.imagenet import main_amp as tmain
+    from apex_tpu_torch.models import ResNetConfig
+    from apex_tpu_torch.optimizers import FusedAdam, FusedLAMB, FusedSGD
+
+    make = {"adam": lambda p: FusedAdam(p, lr=1e-2, weight_decay=1e-4),
+            "lamb": lambda p: FusedLAMB(p, lr=1e-2, weight_decay=1e-4),
+            "sgd": lambda p: FusedSGD(p, lr=1e-2, momentum=0.9)}
+    group = parallel_state.get_data_parallel_group()
+    tr = tmain.Trainer(
+        ResNetConfig(**case["tiny"], bn_axis_name="data"),
+        amp.initialize(cfg["opt_level"], loss_scale=cfg["loss_scale"]),
+        make[cfg["optimizer"]], torch.device("cpu"),
+        state_dict={k: _t(v) for k, v in case["traj_sd"].items()},
+        group=group)
+    losses = []
+    for x, y in case["traj_batches"]:
+        loss, _, _ = tr.train_step(tmain.my_rows(_t(x), group),
+                                   tmain.my_rows(_t(y).long(), group))
+        losses.append(float(loss))
+    return losses
+
+
+def imagenet_dp_runs(rank, world, init_file, out, case):
+    """tests/test_torch_imagenet_dp.py's ranks (two, gloo): the ImageNet
+    example at --n-devices 2 without and with --sync_bn (saving), resumed
+    at world 2 from a world-1 checkpoint, and run_trajectory's ResNet cell
+    at dp 2 twice per configuration; rank 0's printed lines kept."""
+    import contextlib
+    import io
+
+    from apex_tpu_torch.examples.imagenet import main_amp as tmain
+
+    init_file_group("gloo", rank, world, init_file)
+    batches = case["batches"]
+
+    def batcher(epoch, step, train=True):
+        x, y = batches[(epoch, step, train)]
+        return _t(x), _t(y).long()
+
+    sd = {k: _t(v) for k, v in case["state_dict"].items()}
+    res = {}
+    for name, argv in case["runs"].items():
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            state = tmain.main(argv, device="cpu", state_dict=sd,
+                               batcher=batcher)
+        res[name] = {"out": text.getvalue(), "step": int(state.step),
+                     "model_state": {k: v.clone() for k, v in
+                                     state.model_state.items()}}
+    parallel_state.initialize_model_parallel(1)
+    for name, cfg in case["trajectories"].items():
+        res[("traj", name)] = [_dp_trajectory(case, cfg) for _ in range(2)]
+    parallel_state.destroy_model_parallel()
+    _write(out, rank, res)
